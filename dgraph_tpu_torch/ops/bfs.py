@@ -1,0 +1,389 @@
+"""Batched traversal over lane-packed frontier bitmaps — the throughput path.
+
+Port of the ELL half of `dgraph_tpu/ops/bfs.py`. B concurrent
+depth-bounded `@recurse` queries ride the bit-lanes of one mask
+[n+1, W] (B = 32·W; row n is an all-zero sentinel), and one hop for all
+of them is a pull over in-neighbour lists: next[v] = OR of frontier[u]
+over in-neighbours u.
+
+The host layout (`EllGraph`, `build_ell`, `pack_seed_masks`,
+`unpack_masks`) stays numpy and produces arrays equal to the
+reference's. On the device:
+
+  * lane words are torch.int32 holding the reference's uint32 bits
+    (compare with `.view(np.uint32)`);
+  * every bucket of every hop — the dense degree classes, the heavy
+    tail's tile partials and its second-level combines — is one launch
+    of the CUDA bucket-hop kernel (`ops/bucket_hop.py`) writing straight
+    into its row slice of the next mask;
+  * the depth scan is a Python loop over hops;
+  * the per-lane edge counter is exact: blocked float64 products, exact
+    for any total below 2^53 (the reference's f32 matvec is exact only
+    below 2^24 per lane).
+
+`make_ell_step`, `make_ell_tree` and the COO bitmap kernels are later
+slices (ROADMAP Queue 2).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from dgraph_tpu_torch.ops.bucket_hop import bucket_hop
+from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+__all__ = ["EllGraph", "build_ell", "pack_seed_masks", "unpack_masks",
+           "put_mask", "DeviceEll", "device_ell", "prepare_parts",
+           "make_ell_count", "make_ell_recurse"]
+
+SEG_MIN_DEG = 32      # dense-lane ELL up to this in-degree; heavier → tiles
+SEG_TILE = 8          # segment-CSR tile width (max padding per heavy row)
+
+
+@dataclass
+class EllGraph:
+    """Degree-bucketed in-neighbor blocks over a permuted rank space.
+
+    `parts` lists the dense-lane blocks in permuted row order:
+    ("zero", None, rows) for the indeg-0 class, ("ell", [rows, K] int32,
+    rows) per present degree K ≤ seg_min. `tiles`/`lvl2` hold the heavy
+    tail's segment-CSR (tile matrix + per-tile-count combine indices);
+    heavy rows sit after all dense rows in the permutation."""
+
+    n: int                                  # node count
+    parts: list                             # dense blocks, permuted order
+    tiles: object                           # [M, seg_tile] int32 | None
+    lvl2: list                              # [h_b, K2] int32 tile combines
+    seg_rows: int                           # heavy (tail) row count
+    outdeg: object                          # [n] f32, permuted space
+    perm_order: object                      # new rank -> old rank
+    new_of_old: object                      # old rank -> new rank
+    ks: list = field(default_factory=list)  # dense widths present
+
+    @property
+    def nnz(self) -> int:
+        return int(self.outdeg.sum())
+
+    @property
+    def padded_edges(self) -> int:
+        """Total level-1 gather slots (real edges + padding) — the device
+        edge traffic per hop."""
+        dense = sum(int(e.size) for kind, e, _ in self.parts
+                    if kind == "ell")
+        return dense + (int(self.tiles.size) if self.tiles is not None
+                        else 0)
+
+
+def build_ell(indptr, indices, seg_min: int = SEG_MIN_DEG,
+              seg_tile: int = SEG_TILE) -> EllGraph:
+    """Build the bucketed ELL + segment-CSR blocks from a CSR relation
+    (host numpy, whole-graph vectorized passes; equal to the
+    reference's arrays)."""
+    n = indptr.shape[0] - 1
+    deg_out = np.diff(indptr).astype(np.int64)
+    src = np.repeat(np.arange(n, dtype=np.int32), deg_out)
+    # CSR transpose: in-neighbors grouped by destination, sources
+    # ascending within each group (stable sort keeps src order)
+    order = np.argsort(indices, kind="stable")
+    csrc = src[order]
+    indeg = (np.bincount(indices, minlength=n).astype(np.int64) if n
+             else np.zeros(0, np.int64))
+    cindptr = np.concatenate([[0], np.cumsum(indeg)])
+
+    small = indeg <= seg_min
+    ks = sorted(int(k) for k in np.unique(indeg[small])) if n else [0]
+    bucket = np.full(n, len(ks), np.int64)
+    bucket[small] = np.searchsorted(np.array(ks), indeg[small])
+    heavy = ~small
+    ntiles = np.zeros(n, np.int64)
+    ntiles[heavy] = -(-indeg[heavy] // seg_tile)
+    # permutation: dense degree classes ascending, then the heavy tail by
+    # tile count; first-neighbor secondary order gives consecutive rows
+    # nearby gather targets
+    first_nbr = np.full(n, n, np.int64)
+    nz = indeg > 0
+    first_nbr[nz] = csrc[cindptr[:-1][nz]]
+    sort_key = np.where(heavy, len(ks) + ntiles, bucket)
+    perm_order = np.lexsort((first_nbr, sort_key))
+    new_of_old = np.empty(n, np.int64)
+    new_of_old[perm_order] = np.arange(n)
+    cnew = new_of_old[csrc] if len(csrc) else csrc.astype(np.int64)
+
+    def fill_rows(nodes, K):
+        """[len(nodes), K] in-neighbor block (pad=n), one vector pass."""
+        nb = np.full((len(nodes), K), n, np.int32)
+        deg = indeg[nodes]
+        total = int(deg.sum())
+        if total:
+            cum = np.cumsum(deg)
+            base = np.repeat(cum - deg, deg)
+            ar = np.arange(total)
+            flat = np.repeat(cindptr[nodes], deg) + ar - base
+            nb[np.repeat(np.arange(len(nodes)), deg), ar - base] = \
+                cnew[flat]
+        return nb
+
+    counts = np.bincount(bucket, minlength=len(ks) + 1)
+    parts = []
+    off = 0
+    for i, K in enumerate(ks):
+        nodes = perm_order[off:off + counts[i]]
+        off += counts[i]
+        if K == 0:
+            parts.append(("zero", None, len(nodes)))
+        else:
+            parts.append(("ell", fill_rows(nodes, K), len(nodes)))
+    heavy_nodes = perm_order[off:]
+    seg_rows = len(heavy_nodes)
+    tiles = None
+    lvl2 = []
+    if seg_rows:
+        hdeg = indeg[heavy_nodes]
+        hnt = -(-hdeg // seg_tile)
+        M = int(hnt.sum())
+        tiles = np.full((M, seg_tile), n, np.int32)
+        total = int(hdeg.sum())
+        cum = np.cumsum(hdeg)
+        base = np.repeat(cum - hdeg, hdeg)
+        ar = np.arange(total)
+        within = ar - base
+        tile_start = np.concatenate([[0], np.cumsum(hnt)])[:-1]
+        flat = np.repeat(cindptr[heavy_nodes], hdeg) + within
+        slot = np.repeat(tile_start * seg_tile, hdeg) + within
+        tiles[slot // seg_tile, slot % seg_tile] = cnew[flat]
+        # second level: combine each heavy row's tile partials; rows are
+        # already ntile-sorted, so power-of-two buckets are contiguous
+        k2s = sorted(set(int(1 << max(int(t - 1).bit_length(), 0))
+                         for t in np.unique(hnt)))
+        b2 = np.searchsorted(np.array(k2s), hnt)
+        c2 = np.bincount(b2, minlength=len(k2s))
+        off2 = 0
+        for i, K2 in enumerate(k2s):
+            rows = np.arange(off2, off2 + c2[i])
+            off2 += c2[i]
+            t2 = np.full((len(rows), K2), M, np.int32)  # M = zero partial
+            d2 = hnt[rows]
+            tot2 = int(d2.sum())
+            if tot2:
+                cum2 = np.cumsum(d2)
+                base2 = np.repeat(cum2 - d2, d2)
+                ar2 = np.arange(tot2)
+                t2[np.repeat(np.arange(len(rows)), d2), ar2 - base2] = \
+                    np.repeat(tile_start[rows], d2) + ar2 - base2
+            lvl2.append(t2)
+    return EllGraph(n=n, parts=parts, tiles=tiles, lvl2=lvl2,
+                    seg_rows=seg_rows,
+                    outdeg=deg_out[perm_order].astype(np.float32),
+                    perm_order=perm_order, new_of_old=new_of_old, ks=ks)
+
+
+def pack_seed_masks(g: EllGraph, rank_lists,
+                    word_bits: int = 32) -> np.ndarray:
+    """B seed rank lists (OLD rank space) → [n+1, B/word_bits] packed
+    host mask in the permuted space, sentinel zero row last. B must be a
+    multiple of `word_bits`. The device path takes 32-bit words
+    (`put_mask`)."""
+    B = len(rank_lists)
+    if B % word_bits:
+        raise ValueError("lane count must pack into mask words")
+    dt = np.uint32 if word_bits == 32 else np.uint64
+    m = np.zeros((g.n + 1, B // word_bits), dt)
+    for q, ranks in enumerate(rank_lists):
+        r = g.new_of_old[np.asarray(ranks, np.int64)]
+        m[r, q // word_bits] |= dt(1 << (q % word_bits))
+    return m
+
+
+def put_mask(mask: np.ndarray, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """A host uint32 mask as an int32 tensor on `device` (same bits).
+    Always a copy: the recurse run updates its seed mask in place."""
+    if mask.dtype != np.uint32:
+        raise ValueError(f"device masks hold 32-bit words, got {mask.dtype}")
+    return torch.from_numpy(np.ascontiguousarray(mask).view(np.int32)).to(
+        resolve_device(device), copy=True)
+
+
+def unpack_masks(g: EllGraph, mask, word_bits: int = 32) -> list:
+    """[n+1, W] packed mask (numpy, or an int32 tensor) → list of B
+    sorted OLD-rank arrays."""
+    if isinstance(mask, torch.Tensor):
+        mask = mask.cpu().numpy().view(np.uint32)
+    m = np.asarray(mask)[:g.n]
+    dt = m.dtype.type
+    out = []
+    for q in range(m.shape[1] * word_bits):
+        rows = np.nonzero(
+            (m[:, q // word_bits] >> dt(q % word_bits)) & dt(1))[0]
+        out.append(np.sort(g.perm_order[rows]).astype(np.int32))
+    return out
+
+
+@dataclass
+class DeviceEll:
+    """EllGraph's index arrays resident on one device (int32)."""
+
+    n: int
+    parts: list            # ("zero", None, rows) | ("ell", tensor, rows)
+    tiles: object          # tensor [M, seg_tile] | None
+    lvl2: list             # tensors [h_b, K2]
+    seg_rows: int
+    device: torch.device
+
+
+def _checked(e: np.ndarray, hi: int) -> np.ndarray:
+    """The kernel trusts its indices: check them once, here."""
+    if e.size and (int(e.min()) < 0 or int(e.max()) > hi):
+        raise ValueError(f"ELL index outside [0, {hi}]")
+    return np.ascontiguousarray(e, np.int32)
+
+
+def device_ell(g: EllGraph, device=DEFAULT_DEVICE) -> DeviceEll:
+    dev = resolve_device(device)
+
+    def put(e, hi):
+        return torch.from_numpy(_checked(e, hi)).to(dev)
+
+    M = g.tiles.shape[0] if g.tiles is not None else 0
+    parts = [(kind, put(e, g.n) if e is not None else None, rows)
+             for kind, e, rows in g.parts]
+    return DeviceEll(
+        n=g.n, parts=parts,
+        tiles=put(g.tiles, g.n) if g.tiles is not None else None,
+        lvl2=[put(t, M) for t in g.lvl2], seg_rows=g.seg_rows, device=dev)
+
+
+def prepare_parts(dev: DeviceEll) -> dict:
+    """The hop's launch plan: each block with the first row it writes in
+    the next mask. Dense parts come first in permuted order, then the
+    second-level combines (the heavy rows), then the sentinel row n —
+    the reference's concatenation order."""
+    parts = []
+    row0 = 0
+    for kind, e, rows in dev.parts:
+        parts.append(("zero" if kind == "zero" or rows == 0 else "hop",
+                      e, rows, row0))
+        row0 += rows
+    tiles = None
+    lvl2 = []
+    if dev.tiles is not None and dev.seg_rows:
+        tiles = dev.tiles
+        for t2 in dev.lvl2:
+            lvl2.append((t2, row0))
+            row0 += t2.shape[0]
+    if row0 != dev.n:
+        raise ValueError(f"ELL blocks cover {row0} rows, graph has {dev.n}")
+    return {"parts": parts, "tiles": tiles, "lvl2": lvl2, "n": dev.n,
+            "device": dev.device}
+
+
+def _ell_hop(prepared, frontier: torch.Tensor, hop=bucket_hop):
+    """next[v] = OR of frontier[u] over in-neighbors u, as one `hop`
+    launch per bucket (the dense classes, the tile partials into a
+    [M+1, W] scratch whose row M is zero, then the combines that read
+    it), each writing its own rows of the [n+1, W] result."""
+    n = prepared["n"]
+    W = frontier.shape[1]
+    nxt = torch.empty((n + 1, W), dtype=torch.int32, device=frontier.device)
+    for kind, e, rows, row0 in prepared["parts"]:
+        if kind == "zero":
+            nxt[row0:row0 + rows].zero_()
+        else:
+            hop(e, frontier, nxt, row0)
+    tiles = prepared["tiles"]
+    if tiles is not None:
+        M = tiles.shape[0]
+        partials = torch.empty((M + 1, W), dtype=torch.int32,
+                               device=frontier.device)
+        hop(tiles, frontier, partials, 0)
+        partials[M].zero_()
+        for t2, row0 in prepared["lvl2"]:
+            hop(t2, partials, nxt, row0)
+    nxt[n].zero_()                               # sentinel row
+    return nxt
+
+
+COUNT_BLK = 1 << 15   # edge-counter node-block rows (bounds unpack memory)
+
+
+def _count_mask(mask: torch.Tensor, outdeg: torch.Tensor, n: int):
+    """Per-lane out-degree mass of a packed mask: Σ_v outdeg[v]·bit_q(v),
+    int64. Lane bits unpack to float64 per COUNT_BLK rows and meet the
+    degrees in one product; every partial sum is an integer below 2^53,
+    so the result is exact."""
+    W = mask.shape[1]
+    shifts = torch.arange(32, dtype=torch.int32, device=mask.device)
+    acc = torch.zeros(W * 32, dtype=torch.float64, device=mask.device)
+    for lo in range(0, n, COUNT_BLK):
+        hi = min(n, lo + COUNT_BLK)
+        bits = ((mask[lo:hi, :, None] >> shifts) & 1).reshape(hi - lo,
+                                                               W * 32)
+        acc += outdeg[lo:hi] @ bits.to(torch.float64)
+    return acc.round().to(torch.int64)
+
+
+def _outdeg_tensor(outdeg, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(outdeg, np.float64)).to(device)
+
+
+def make_ell_count(outdeg, n: int, device=DEFAULT_DEVICE):
+    """The exact per-query edge counter over final masks:
+    edges[q] = Σ outdeg[v]·[v ∈ seen \\ last] — every frontier the run
+    expanded is exactly `seen` minus the never-expanded last fresh set.
+    Returns count(last, seen) → int64 [B]."""
+    od = _outdeg_tensor(outdeg, resolve_device(device))
+
+    def count(last: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:
+        return _count_mask(seen & ~last, od, n)
+
+    return count
+
+
+def make_ell_recurse(dev: DeviceEll, outdeg, n: int, W: int,
+                     count_edges: bool = True):
+    """A depth-parameterised loop=false @recurse over a DeviceEll.
+    Returns fn(mask0, depth, keep_hops=False) → (last [n+1, W],
+    seen [n+1, W], edges [32·W] int64[, hops [depth, n+1, W]]).
+
+    The seed mask is DONATED: `mask0` (an int32 tensor on the graph's
+    device) becomes the `seen` carry and is updated in place, so the
+    run holds seed + frontier + seen in two mask buffers, not three.
+    Callers put a fresh mask per launch."""
+    prepared = prepare_parts(dev)
+    od = _outdeg_tensor(outdeg, dev.device) if count_edges else None
+
+    def recurse(mask0: torch.Tensor, depth: int, keep_hops: bool = False):
+        if (not isinstance(mask0, torch.Tensor) or mask0.dtype != torch.int32
+                or tuple(mask0.shape) != (n + 1, W)
+                or mask0.device != dev.device
+                or not mask0.is_contiguous()):
+            raise ValueError(f"mask0 must be a contiguous int32 [{n + 1}, "
+                             f"{W}] tensor on {dev.device}")
+        seen = mask0                       # donated: updated in place
+        frontier = mask0
+        hops = []
+        for _ in range(depth):
+            fresh = _ell_hop(prepared, frontier)
+            fresh &= ~seen
+            seen |= fresh
+            frontier = fresh
+            if keep_hops:
+                # hops[h] = the FRESH mask after hop h+1 (first-visit
+                # sets) — what tree reconstruction needs
+                hops.append(fresh)
+        last = frontier
+        if count_edges:
+            edges = _count_mask(seen & ~last, od, n)
+        else:
+            edges = torch.zeros(W * 32, dtype=torch.int64,
+                                device=dev.device)
+        if keep_hops:
+            stacked = (torch.stack(hops) if hops else
+                       torch.empty((0, n + 1, W), dtype=torch.int32,
+                                   device=dev.device))
+            return last, seen, edges, stacked
+        return last, seen, edges
+
+    return recurse

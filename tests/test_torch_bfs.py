@@ -1,0 +1,250 @@
+"""Port ELL layout, bucket hop and lane-packed @recurse == the JAX package.
+
+Every input is made from a seed with numpy and handed to both packages;
+the port runs with device="cpu" (the kernels' plain versions). All of
+this is integer and bitmask work, so every comparison is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dgraph_tpu.models.synthetic import powerlaw_rel, uniform_rel
+from dgraph_tpu.ops import bfs as ref_bfs
+from dgraph_tpu.ops.pallas_hop import bucket_hop_pallas
+from dgraph_tpu.store.store import _csr_from_pairs, _csr_from_pairs_np
+from dgraph_tpu_torch.models import synthetic as port_synth
+from dgraph_tpu_torch.ops import bfs as port_bfs
+from dgraph_tpu_torch.ops.bucket_hop import bucket_hop, bucket_hop_plain
+from dgraph_tpu_torch.store import store as port_store
+
+CPU = "cpu"
+# one intra-op thread: the suite runs files in parallel workers, and
+# torch's default pool would compete with their timing-sensitive tests
+torch.set_num_threads(1)
+
+
+def _star():
+    n = 600
+    src = np.concatenate([np.arange(1, n), np.zeros(n - 1)])
+    dst = np.concatenate([np.zeros(n - 1), np.arange(1, n)])
+    return _csr_from_pairs(src.astype(np.int32), dst.astype(np.int32), n)
+
+
+def _chain():
+    n = 200
+    return _csr_from_pairs(np.arange(n - 1, dtype=np.int32),
+                           np.arange(1, n, dtype=np.int32), n)
+
+
+def _degree_gap():
+    src = np.arange(10, 50, dtype=np.int32)
+    dst = np.repeat(np.arange(10, dtype=np.int32), 4)
+    return _csr_from_pairs(src, dst, 64)
+
+
+# the tests/test_bfs.py::TestSegmentCsr shapes
+GRAPHS = {
+    "powerlaw": lambda: powerlaw_rel(500, 8.0, seed=4),
+    "star": _star,
+    "chain": _chain,
+    "all_heavy": lambda: uniform_rel(64, 48, seed=3),
+    "degree_gap": _degree_gap,
+}
+
+
+def _seeds(n, B, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, n, rng.integers(1, 4)) for _ in range(B)]
+
+
+def _numpy_bucket_hop(nbr, frontier):
+    out = np.zeros((nbr.shape[0], frontier.shape[1]), np.uint32)
+    for i in range(nbr.shape[0]):
+        for k in range(nbr.shape[1]):
+            out[i] |= frontier[nbr[i, k]]
+    return out
+
+
+def cpu_recurse(indptr, indices, seeds, depth):
+    """bench.py's numpy loop=false walk for ONE query → edges traversed."""
+    frontier = np.unique(seeds).astype(np.int64)
+    seen_mask = np.zeros(indptr.shape[0] - 1, bool)
+    seen_mask[frontier] = True
+    edges = 0
+    for _ in range(depth):
+        if not len(frontier):
+            break
+        starts = indptr[frontier].astype(np.int64)
+        deg = (indptr[frontier + 1] - indptr[frontier]).astype(np.int64)
+        total = int(deg.sum())
+        base = np.repeat(np.cumsum(deg) - deg, deg)
+        pos = np.repeat(starts, deg) + (np.arange(total) - base)
+        nbrs = indices[pos]
+        edges += total
+        nxt = np.unique(nbrs)
+        nxt = nxt[~seen_mask[nxt]]
+        seen_mask[nxt] = True
+        frontier = nxt
+    return edges
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def test_powerlaw_rel_and_csr_equal_reference():
+    for n, deg, seed in ((500, 8.0, 4), (1 << 12, 16.0, 42)):
+        a = powerlaw_rel(n, deg, seed=seed)
+        b = port_synth.powerlaw_rel(n, deg, seed=seed)
+        assert np.array_equal(a.indptr, b.indptr)
+        assert np.array_equal(a.indices, b.indices)
+    rng = np.random.default_rng(1)
+    src = rng.integers(0, 90, 700).astype(np.int32)
+    dst = rng.integers(0, 90, 700).astype(np.int32)
+    a = _csr_from_pairs_np(src, dst, 90)
+    b = port_store._csr_from_pairs(src, dst, 90)
+    assert np.array_equal(a.indptr, b.indptr)
+    assert np.array_equal(a.indices, b.indices)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_build_ell_and_masks_equal_reference(name):
+    rel = GRAPHS[name]()
+    ref = ref_bfs.build_ell(rel.indptr, rel.indices)
+    got = port_bfs.build_ell(rel.indptr, rel.indices)
+    assert got.n == ref.n and got.seg_rows == ref.seg_rows
+    assert got.ks == ref.ks
+    assert len(got.parts) == len(ref.parts)
+    for (k1, e1, r1), (k2, e2, r2) in zip(got.parts, ref.parts):
+        assert (k1, r1) == (k2, r2)
+        assert (e1 is None and e2 is None) or np.array_equal(e1, e2)
+    assert (got.tiles is None) == (ref.tiles is None)
+    if ref.tiles is not None:
+        assert np.array_equal(got.tiles, ref.tiles)
+    assert len(got.lvl2) == len(ref.lvl2)
+    for a, b in zip(got.lvl2, ref.lvl2):
+        assert np.array_equal(a, b)
+    for f in ("outdeg", "perm_order", "new_of_old"):
+        assert np.array_equal(getattr(got, f), getattr(ref, f)), f
+    assert got.padded_edges == ref.padded_edges
+
+    seeds = _seeds(ref.n, 64, seed=3)
+    m_ref = ref_bfs.pack_seed_masks(ref, seeds)
+    m_got = port_bfs.pack_seed_masks(got, seeds)
+    assert m_got.dtype == np.uint32 and np.array_equal(m_got, m_ref)
+    dev_mask = port_bfs.put_mask(m_got, CPU)
+    assert dev_mask.dtype == torch.int32
+    for a, b in zip(port_bfs.unpack_masks(got, dev_mask),
+                    ref_bfs.unpack_masks(ref, m_ref)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("n_b,K,W", [(256, 1, 4), (256, 4, 4),
+                                     (512, 16, 2), (256, 3, 1),
+                                     (256, 8, 4), (256, 1024, 1)])
+def test_bucket_hop_plain_equals_numpy_and_pallas(n_b, K, W):
+    rng = np.random.default_rng(7)
+    n = 1000
+    nbr = rng.integers(0, n + 1, (n_b, K)).astype(np.int32)
+    frontier = rng.integers(0, 2**32, (n + 1, W), dtype=np.uint32)
+    frontier[n] = 0  # sentinel row
+    want = _numpy_bucket_hop(nbr, frontier)
+    pallas = np.asarray(bucket_hop_pallas(jnp.asarray(nbr),
+                                          jnp.asarray(frontier)))
+    assert np.array_equal(pallas, want)
+    fr_t = torch.from_numpy(frontier.view(np.int32))
+    nbr_t = torch.from_numpy(nbr)
+    assert np.array_equal(_u32(bucket_hop_plain(nbr_t, fr_t)), want)
+    # the wrapper takes the plain version for CPU tensors, and writes a
+    # bucket into its row slice of a larger output
+    out = torch.full((n_b + 5, W), -1, dtype=torch.int32)
+    bucket_hop(nbr_t, fr_t, out, row0=3)
+    got = _u32(out)
+    assert np.array_equal(got[3:3 + n_b], want)
+    assert (got[:3] == 0xFFFFFFFF).all() and (got[3 + n_b:] == 0xFFFFFFFF).all()
+
+
+def test_bucket_hop_rejects_bad_inputs():
+    fr = torch.zeros((9, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        bucket_hop(torch.zeros((2, 3), dtype=torch.int64), fr)
+    with pytest.raises(ValueError):
+        bucket_hop(torch.zeros((2, 3), dtype=torch.int32), fr,
+                   torch.zeros((2, 4), dtype=torch.int32), row0=1)
+    with pytest.raises(ValueError):
+        bucket_hop(torch.zeros((2, 3), dtype=torch.int32), fr.t())
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_ell_hop_equals_reference_chain(name):
+    """One full hop (every bucket, tiles and lvl2 included) == the
+    reference's _ell_hop over its XLA gather chains."""
+    rel = GRAPHS[name]()
+    g = port_bfs.build_ell(rel.indptr, rel.indices)
+    rng = np.random.default_rng(11)
+    W = 3
+    fr = rng.integers(0, 2**32, (g.n + 1, W), dtype=np.uint32)
+    fr[g.n] = 0
+    ref_prep = ref_bfs.prepare_parts(ref_bfs.device_ell(g), W)
+    want = np.asarray(ref_bfs._ell_hop(ref_prep, jnp.asarray(fr), W))
+    prep = port_bfs.prepare_parts(port_bfs.device_ell(g, CPU))
+    got = port_bfs._ell_hop(prep, torch.from_numpy(fr.view(np.int32)))
+    assert np.array_equal(_u32(got), want)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_make_ell_recurse_equals_reference(name):
+    rel = GRAPHS[name]()
+    g = port_bfs.build_ell(rel.indptr, rel.indices)
+    seeds = _seeds(g.n, 64, seed=5)
+    mask0 = port_bfs.pack_seed_masks(g, seeds)
+    W = mask0.shape[1]
+    ref_fn = ref_bfs.make_ell_recurse(ref_bfs.device_ell(g), g.outdeg,
+                                      g.n, W)
+    dev = port_bfs.device_ell(g, CPU)
+    fn = port_bfs.make_ell_recurse(dev, g.outdeg, g.n, W)
+    fn_nc = port_bfs.make_ell_recurse(dev, g.outdeg, g.n, W,
+                                      count_edges=False)
+    count = port_bfs.make_ell_count(g.outdeg, g.n, CPU)
+    for depth in (1, 2, 3, 4):
+        r_last, r_seen, r_edges, r_hops = ref_fn(jax.device_put(mask0),
+                                                 depth, True)
+        last, seen, edges, hops = fn(port_bfs.put_mask(mask0, CPU),
+                                     depth, True)
+        assert np.array_equal(_u32(last), np.asarray(r_last))
+        assert np.array_equal(_u32(seen), np.asarray(r_seen))
+        assert np.array_equal(_u32(hops), np.asarray(r_hops))
+        assert edges.dtype == torch.int64
+        assert np.array_equal(edges.numpy(), np.asarray(r_edges))
+        want = [cpu_recurse(rel.indptr, rel.indices, s, depth)
+                for s in seeds]
+        assert edges.numpy().tolist() == want
+        # the bench form: no in-run counter, one post-hoc count
+        last2, seen2, zero = fn_nc(port_bfs.put_mask(mask0, CPU), depth)
+        assert not zero.any()
+        assert count(last2, seen2).numpy().tolist() == want
+        for a, b in zip(port_bfs.unpack_masks(g, seen2),
+                        ref_bfs.unpack_masks(g, np.asarray(r_seen))):
+            assert np.array_equal(a, b)
+
+
+def test_seed_mask_is_donated_and_checked():
+    rel = GRAPHS["powerlaw"]()
+    g = port_bfs.build_ell(rel.indptr, rel.indices)
+    mask0 = port_bfs.pack_seed_masks(g, _seeds(g.n, 32, seed=9))
+    fn = port_bfs.make_ell_recurse(port_bfs.device_ell(g, CPU), g.outdeg,
+                                   g.n, 1)
+    m = port_bfs.put_mask(mask0, CPU)
+    _last, seen, _e = fn(m, 2)
+    assert seen is m, "the seed mask becomes the seen carry"
+    with pytest.raises(ValueError):
+        fn(torch.zeros((g.n, 1), dtype=torch.int32), 2)
+    bad = port_bfs.build_ell(rel.indptr, rel.indices)
+    bad.tiles = bad.tiles.copy()
+    bad.tiles[0, 0] = g.n + 1
+    with pytest.raises(ValueError):
+        port_bfs.device_ell(bad, CPU)

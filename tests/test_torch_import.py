@@ -1,0 +1,87 @@
+"""The port stands alone: no jax, nothing of dgraph_tpu, CUDA by default.
+
+The import pin runs in a subprocess because tests/conftest.py imports
+jax into the pytest process.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "dgraph_tpu_torch")
+
+
+def _port_files():
+    for d, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+
+
+def _modules():
+    for path in _port_files():
+        rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+        yield rel[:-len(".__init__")] if rel.endswith(".__init__") else rel
+
+
+def test_import_loads_no_jax_and_no_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {sorted(_modules())!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'dgraph_tpu' or "
+        "m.startswith('dgraph_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+@pytest.mark.parametrize("path", sorted(_port_files()))
+def test_no_file_imports_jax_or_reference(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "dgraph_tpu"), (path, n)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without a card, an entry point called without device= raises; it
+    never quietly runs on the CPU."""
+    from dgraph_tpu_torch.engine.batch import query_batch
+    from dgraph_tpu_torch.ops import bfs
+    from dgraph_tpu_torch.store.store import StoreBuilder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    indptr = np.array([0, 1, 2, 2], np.int32)
+    indices = np.array([1, 2], np.int32)
+    g = bfs.build_ell(indptr, indices)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bfs.device_ell(g)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bfs.put_mask(bfs.pack_seed_masks(g, [[0]] * 32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bfs.make_ell_count(g.outdeg, g.n)
+    b = StoreBuilder()
+    b.add_edge(1, "f", 2)
+    store = b.finalize()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        query_batch(store, ['{ q(func: uid(1)) @recurse(depth: 1) { f } }'])
+    # and with device="cpu" the same calls run
+    assert bfs.device_ell(g, "cpu").device.type == "cpu"
