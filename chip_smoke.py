@@ -8,9 +8,20 @@ Phases, one printed line each; any failure raises and exits non-zero:
   2. build    — compiles every CUDA kernel of the path from csrc/ (nvcc,
                 all sources at once)
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                bit-exact: random buckets (K in 1,3,8,32,1024; W in 1,2,128;
-                sentinel rows; ragged row counts) and one full ELL hop on the
-                bench graph at 4096 lanes; times kernel vs plain per hop
+                bit-exact:
+                - random buckets: K in 1,3,8,32,1024; W in 1,2,3,8,128,256;
+                  frontier row occupancy 1 %, 20 %, 100 %; exact and
+                  all-ones row flags; plain and fused (first-visit) mode;
+                  out, seen and flags compared, rows outside the bucket's
+                  slice untouched;
+                - the four real hops of the phase-5 run, each from the
+                  frontier and seen of the run up to the hop before: fused
+                  kernel vs plain fused hop and vs the unfused kernel plus
+                  the torch update; per hop its time, row occupancy and
+                  least-bytes bound; per-launch times of hops 1 and 4;
+                - the first kernel's yardstick: one unfused, flag-less hop
+                  of a random ~0.25-density frontier (every row occupied),
+                  beside that kernel's 2.672 ms (PERF.md)
   4. serve    — a 2^20-node / 16.5M-edge store (powerlaw_edges seed 42,
                 `follows` uid edges, `name: string @index(exact)` "p<i>");
                 a batch of eq(name) @recurse queries through
@@ -22,7 +33,10 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 make_ell_recurse(count_edges=False) timed with CUDA events
                 (median of 5, seed mask re-put outside the timed region),
                 then make_ell_count; per-lane counts checked against the
-                numpy walk for 64 lanes
+                numpy walk for 64 lanes and the total against its
+                978,649,539; the profile must show no torch bitwise
+                kernel (the first-visit update runs inside the hop
+                launches); bound_ms is the sum of phase 3's per-hop bounds
   6. the `kernels` JSON line, then the device JSON line last
 
 It imports torch, numpy and dgraph_tpu_torch only.
@@ -46,9 +60,11 @@ SERVE_QUERIES = 32
 SERVE_DEPTH = 3
 LANES = 4096
 DEPTH = 4
-SEEDS_PER_QUERY = 4
 REPS = 5
 CHECK_LANES = 64
+BENCH_TOTAL_EDGES = 978_649_539    # the numpy walk over all 4096 lanes
+# the first CUDA kernel's unfused full hop on this card (PERF.md)
+FIRST_KERNEL_HOP_MS = 2.672
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak (NVIDIA data sheet)
 # no int32 ALU peak is published; the float32 non-tensor peak (67 T/s,
 # same data sheet) stands in for the bitwise-OR rate
@@ -59,12 +75,6 @@ KERNEL_REPLACES = {"bucket_hop": "dgraph_tpu/ops/pallas_hop.py:108"}
 
 def say(phase: str, **kv) -> None:
     print(f"{phase}: " + json.dumps(kv, default=str), flush=True)
-
-
-def make_seeds(n, B, seed=7):
-    """bench.py's seed draw: SEEDS_PER_QUERY random ranks per query."""
-    rng = np.random.default_rng(seed)
-    return [rng.integers(0, n, SEEDS_PER_QUERY) for _ in range(B)]
 
 
 def cpu_recurse(indptr, indices, seeds, depth):
@@ -154,75 +164,273 @@ def phase_build() -> dict:
     return report
 
 
-def phase_kernels(g, device) -> dict:
-    """bucket_hop vs bucket_hop_plain: random buckets, then one full hop
-    of the bench graph at W = 128. Returns the per-hop timing record."""
-    from dgraph_tpu_torch.ops import bfs
+RANDOM_WIDTHS = (1, 2, 3, 8, 128, 256)
+RANDOM_KS = (1, 3, 8, 32, 1024)
+RANDOM_OCCUPANCY = (0.01, 0.2, 1.0)
+
+
+def phase_random_buckets(device) -> dict:
+    """bucket_hop vs bucket_hop_plain on random buckets, bit-exact: every
+    W x K x row count x frontier row occupancy, with exact and all-ones
+    flags, plain and fused mode; out, seen and both flag arrays compared
+    whole, and the rows outside the bucket's slice checked untouched."""
+    from dgraph_tpu_torch.ops.bfs import row_flags
     from dgraph_tpu_torch.ops.bucket_hop import bucket_hop, bucket_hop_plain
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
-    err = 0
     cases = 0
     rows = 100_003
-    for W in (1, 2, 128):
-        fr = random_frontier(rows, W, gen, device)
-        for K in (1, 3, 8, 32, 1024):
-            for n_b in ((1, 37, 3001) if K < 1024 else (1, 517)):
-                nbr = torch.randint(0, rows + 1, (n_b, K), generator=gen,
-                                    dtype=torch.int64,
-                                    device=device).to(torch.int32)
-                nbr[:, -1] = rows            # every row touches the sentinel
-                out = torch.full((n_b + 3, W), -1, dtype=torch.int32,
-                                 device=device)
-                bucket_hop(nbr, fr, out, row0=2)
-                want = bucket_hop_plain(nbr, fr)
-                torch.cuda.synchronize()
-                e = max(max_abs_err(out[2:2 + n_b], want),
-                        int((out[:2] != -1).sum()), int((out[2 + n_b:] != -1).sum()))
-                if e:
-                    raise AssertionError(f"bucket_hop != plain at K={K} "
-                                         f"W={W} n_b={n_b}: err {e}")
-                err = max(err, e)
-                cases += 1
+    for W in RANDOM_WIDTHS:
+        for occ in RANDOM_OCCUPANCY:
+            fr = random_frontier(rows, W, gen, device)
+            fr[torch.rand(rows + 1, generator=gen, device=device) >= occ] = 0
+            fr[rows] = 0
+            exact = row_flags(fr)
+            for flags in (exact, torch.ones_like(exact)):
+                for K in RANDOM_KS:
+                    for n_b in ((1, 37, 3001) if K < 1024 else (1, 517, 1500)):
+                        nbr = torch.randint(0, rows + 1, (n_b, K),
+                                            generator=gen, dtype=torch.int64,
+                                            device=device).to(torch.int32)
+                        nbr[:, -1] = rows      # every row touches the sentinel
+                        seen0 = random_frontier(n_b + 2, W, gen, device,
+                                                density=0.25)
+                        seen0[torch.rand(n_b + 3, generator=gen,
+                                         device=device) < 0.5] = 0
+                        for fused in (False, True):
+                            got, want = [], []
+                            for hop, res in ((bucket_hop, got),
+                                             (bucket_hop_plain, want)):
+                                out = torch.full((n_b + 3, W), -1,
+                                                 dtype=torch.int32,
+                                                 device=device)
+                                of = torch.full((n_b + 3,), 7,
+                                                dtype=torch.uint8,
+                                                device=device)
+                                seen = seen0.clone()
+                                hop(nbr, fr, out, 2, flags=flags,
+                                    out_flags=of,
+                                    seen=seen if fused else None)
+                                res += [out, of, seen]
+                            torch.cuda.synchronize()
+                            out, of, seen = got
+                            ok = (all(torch.equal(a, b)
+                                      for a, b in zip(got, want))
+                                  and bool((out[:2] == -1).all())
+                                  and bool((out[2 + n_b:] == -1).all())
+                                  and bool((of[:2] == 7).all())
+                                  and bool((of[2 + n_b:] == 7).all())
+                                  and torch.equal(seen[:2], seen0[:2])
+                                  and torch.equal(seen[2 + n_b:],
+                                                  seen0[2 + n_b:]))
+                            if not fused:
+                                ok = ok and torch.equal(seen, seen0)
+                            if not ok:
+                                raise AssertionError(
+                                    f"bucket_hop != plain at W={W} K={K} "
+                                    f"n_b={n_b} occupancy={occ} fused={fused} "
+                                    f"exact_flags={flags is exact}: out err "
+                                    f"{max_abs_err(got[0], want[0])}")
+                            cases += 1
     empty = torch.zeros((0, 4), dtype=torch.int32, device=device)
     bucket_hop(empty, random_frontier(10, 4, gen, device))
+    return {"cases": cases, "max_abs_err": 0}
 
-    # one full hop of the bench graph at 4096 lanes, kernel vs plain
-    W = LANES // 32
+
+def hop_bound(g, W: int, occupied_rows: int, nxt_rows: int,
+              fresh_rows: int, occupied_slots: int) -> dict:
+    """The least time one fused hop could take on this run's data: every
+    index once (level 1 and 2), each occupied frontier row once, the
+    frontier's and the result's flags, seen read where the hop's OR has
+    bits, the fresh mask written whole, seen written where fresh has
+    bits — over the HBM rate; the ORs (one per occupied slot and lane
+    word) over the ALU rate. The larger of the two."""
+    row = 4 * W
+    idx_bytes = 4 * (g.padded_edges + sum(int(t.size) for t in g.lvl2))
+    nbytes = (idx_bytes + occupied_rows * row + 2 * (g.n + 1)
+              + nxt_rows * row + (g.n + 1) * row + fresh_rows * row)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = occupied_slots * W / ALU_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes": nbytes,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def per_launch(prep, run, tries: int = 3):
+    """[what, K, rows, kernel, us] per bucket_hop launch of run(), or
+    None when the profiler's trace misses launches `tries` times over
+    (its device events come back asynchronously and can be dropped)."""
+    from dgraph_tpu_torch.tools.hop_profile import device_events, launch_plan
+
+    plan = launch_plan(prep)
+    for _ in range(tries):
+        hops = [(name, us) for name, us in device_events(run)
+                if "bucket_hop" in name]
+        if len(hops) == len(plan):
+            return [[what, K, rows,
+                     next(v for v in ("split", "warp", "narrow")
+                          if v in name), round(us, 3)]
+                    for (what, K, rows), (name, us) in zip(plan, hops)]
+    return None
+
+
+def phase_bench_hops(g, device, mask0: np.ndarray) -> dict:
+    """The four real hops of the bench run (4096 lanes, depth 4), each
+    from the frontier, flags and seen of the run up to the hop before:
+    the fused kernel hop bit-exact against the plain fused hop (fresh,
+    seen, flags) and against the unfused kernel hop; each hop's time,
+    occupancy and least-bytes bound; per-launch times of hops 1 and 4."""
+    from dgraph_tpu_torch.ops import bfs
+    from dgraph_tpu_torch.ops.bucket_hop import bucket_hop_plain
+
     prep = bfs.prepare_parts(bfs.device_ell(g, device))
+    W = mask0.shape[1]
+    n = g.n
+    seen = bfs.put_mask(mask0, device)
+    frontier = seen.clone()
+    flags = bfs.row_flags(frontier)
+    level1 = [e for kind, e, _rows, _r0 in prep["parts"] if kind == "hop"]
+    if prep["tiles"] is not None:
+        level1.append(prep["tiles"])
+    hops = []
+    for h in range(1, DEPTH + 1):
+        res = {}
+        for name, hop in (("kernel", None), ("plain", bucket_hop_plain)):
+            s = seen.clone()
+            fl = torch.empty(n + 1, dtype=torch.uint8, device=device)
+            kw = {} if hop is None else {"hop": hop}
+            res[name] = (bfs._ell_hop(prep, frontier, flags=flags, seen=s,
+                                      out_flags=fl, **kw), s, fl)
+        nxt_flags = torch.empty(n + 1, dtype=torch.uint8, device=device)
+        nxt = bfs._ell_hop(prep, frontier, flags=flags, out_flags=nxt_flags)
+        torch.cuda.synchronize()
+        fresh, s_new, fl_new = res["kernel"]
+        if not all(torch.equal(a, b) for a, b in zip(res["kernel"],
+                                                     res["plain"])):
+            raise AssertionError(f"bench hop {h}: fused kernel != plain, "
+                                 f"err {max_abs_err(fresh, res['plain'][0])}")
+        if (not torch.equal(fresh, nxt & ~seen)
+                or not torch.equal(s_new, seen | fresh)
+                or not torch.equal(nxt_flags, bfs.row_flags(nxt))):
+            raise AssertionError(f"bench hop {h}: fused kernel != unfused "
+                                 f"kernel + torch update")
+        fl_scratch = torch.empty(n + 1, dtype=torch.uint8, device=device)
+        ms = cuda_ms(lambda s: bfs._ell_hop(prep, frontier, flags=flags,
+                                            seen=s, out_flags=fl_scratch),
+                     REPS, setup=seen.clone)
+        plain_ms = cuda_ms(
+            lambda s: bfs._ell_hop(prep, frontier, hop=bucket_hop_plain,
+                                   flags=flags, seen=s,
+                                   out_flags=fl_scratch),
+            1, setup=seen.clone)
+        occupied_rows = int(flags[:n].sum())
+        occupied_slots = sum(int(flags[e.long()].sum()) for e in level1)
+        bound = hop_bound(g, W, occupied_rows, int(nxt_flags.sum()),
+                          int(fl_new.sum()), occupied_slots)
+        rec = {"hop": h, "occupied_rows": occupied_rows,
+               "row_occupancy": occupied_rows / n,
+               "occupied_level1_slots": occupied_slots,
+               "slot_occupancy": occupied_slots / g.padded_edges,
+               "ms": ms, "median_ms": float(np.median(ms)),
+               "plain_ms": plain_ms[0], **bound}
+        if h in (1, DEPTH):
+            s = seen.clone()
+            rec["launches_us"] = per_launch(
+                prep, lambda: bfs._ell_hop(prep, frontier, flags=flags,
+                                           seen=s, out_flags=fl_scratch))
+        hops.append(rec)
+        del res, nxt
+        frontier, flags, seen = fresh, fl_new, s_new
+    return {"hops": hops, "prep": prep}
+
+
+def phase_unfused_hop(g, device, prep) -> dict:
+    """The first kernel's measurement, for comparison: one full hop
+    without the epilogue or flags on a random frontier of ~0.25 bit
+    density (every row occupied), kernel vs plain."""
+    from dgraph_tpu_torch.ops import bfs
+    from dgraph_tpu_torch.ops.bucket_hop import bucket_hop_plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4321)
+    W = LANES // 32
     fr = random_frontier(g.n, W, gen, device, density=0.25)
     got = bfs._ell_hop(prep, fr)
     want = bfs._ell_hop(prep, fr, hop=bucket_hop_plain)
     torch.cuda.synchronize()
-    hop_err = max_abs_err(got, want)
-    if hop_err:
-        raise AssertionError(f"full ELL hop: kernel != plain, err {hop_err}")
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"unfused ELL hop: kernel != plain, err {err}")
     ms = cuda_ms(lambda _: bfs._ell_hop(prep, fr), REPS)
     plain_ms = cuda_ms(lambda _: bfs._ell_hop(prep, fr,
                                               hop=bucket_hop_plain), 3)
-    idx_bytes = 4 * (g.padded_edges + sum(int(t.size) for t in g.lvl2))
-    mask_bytes = 4 * (g.n + 1) * W
-    # least bytes one hop must move: every index once, the frontier once,
-    # the next mask once (tile partials are internal); one OR per slot
-    # and lane word
-    bytes_ms = (idx_bytes + 2 * mask_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = idx_bytes // 4 * W / ALU_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    # the gather model (bench.py): one mask row per level-1 slot
-    gather_ms = g.padded_edges * (4 + 4 * W) / HBM_BYTES_PER_S * 1e3
-    rec = {"ms": float(np.median(ms)), "plain_ms": float(np.median(plain_ms)),
-           "bound_ms": bound_ms,
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "max_abs_err": max(err, hop_err)}
-    say("phase 3 kernels", cases=cases, random_max_abs_err=err,
-        hop_max_abs_err=hop_err, hop_lanes=LANES, hop_ms=ms,
-        hop_plain_ms=plain_ms, hop_bound_ms=bound_ms,
-        hop_bytes_ms=bytes_ms, hop_ops_ms=ops_ms,
-        hop_gather_model_ms=gather_ms,
-        launches_per_hop=sum(1 for p in prep["parts"] if p[0] == "hop")
-        + (1 + len(prep["lvl2"]) if prep["tiles"] is not None else 0))
-    return rec
+    return {"ms": ms, "median_ms": float(np.median(ms)),
+            "plain_ms": plain_ms, "first_kernel_ms": FIRST_KERNEL_HOP_MS}
+
+
+def host_us_per_launch(device, calls: int = 2000) -> float:
+    """Host microseconds per fused bucket_hop call on a one-row bucket at
+    W = 128: the wrapper's checks, the ctypes call and the launch, which
+    a hop pays 41 times on the bench graph."""
+    from dgraph_tpu_torch.ops.bfs import row_flags
+    from dgraph_tpu_torch.ops.bucket_hop import bucket_hop
+
+    fr = torch.zeros((1001, 128), dtype=torch.int32, device=device)
+    out, seen = torch.zeros_like(fr), torch.zeros_like(fr)
+    nbr = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    flags = row_flags(fr)
+    out_flags = torch.zeros(1001, dtype=torch.uint8, device=device)
+
+    def call():
+        bucket_hop(nbr, fr, out, 0, flags=flags, out_flags=out_flags,
+                   seen=seen)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def device_ratio(a, b):
+    """Device time of launch list a over that of b (None: not measured)."""
+    if a is None or b is None:
+        return None
+    return sum(r[4] for r in a) / sum(r[4] for r in b)
+
+
+def phase_kernels(g, device, mask0: np.ndarray) -> dict:
+    """Every kernel against its plain version on the card: random
+    buckets, the four bench hops, the unfused full hop. Returns the
+    kernel record for the `kernels` line."""
+    from dgraph_tpu_torch.tools.hop_profile import launch_plan
+
+    rnd = phase_random_buckets(device)
+    bench = phase_bench_hops(g, device, mask0)
+    hops = bench["hops"]
+    unfused = phase_unfused_hop(g, device, bench["prep"])
+    ms = sum(r["median_ms"] for r in hops)
+    bytes_ms = sum(r["bytes_ms"] for r in hops)
+    ops_ms = sum(r["ops_ms"] for r in hops)
+    say("phase 3 kernels", random_cases=rnd["cases"], random_max_abs_err=0,
+        bench_hops=[{k: v for k, v in r.items() if k != "launches_us"}
+                    for r in hops],
+        hop1_over_hop4=hops[0]["median_ms"] / hops[-1]["median_ms"],
+        hop1_over_hop4_device=device_ratio(hops[0]["launches_us"],
+                                           hops[-1]["launches_us"]),
+        launches_per_hop=len(launch_plan(bench["prep"])),
+        hop1_launches_us=hops[0]["launches_us"],
+        hop4_launches_us=hops[-1]["launches_us"],
+        unfused_random_hop=unfused,
+        host_us_per_launch=host_us_per_launch(device))
+    return {"ms": ms, "plain_ms": sum(r["plain_ms"] for r in hops),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": 0}
 
 
 def build_store(n_nodes: int):
@@ -283,10 +491,13 @@ def phase_serve(store, device, n_nodes: int, nq: int, depth: int) -> dict:
 
 
 def phase_bench(store, device, n_nodes: int, lanes: int, depth: int,
-                check_lanes: int) -> dict:
+                check_lanes: int, bound_ms: float) -> dict:
+    """The bench run; `bound_ms` is the sum of phase 3's per-hop bounds
+    of these same four hops."""
     from dgraph_tpu_torch.engine.batch import _dev_for
     from dgraph_tpu_torch.ops import bfs
     from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+    from dgraph_tpu_torch.tools.hop_profile import make_seeds
 
     g, dev = _dev_for(store, "follows", False, device)
     rel = store.rel("follows")
@@ -315,16 +526,17 @@ def phase_bench(store, device, n_nodes: int, lanes: int, depth: int,
     run_ms = float(np.median(ms))
     if share is not None:
         share["share_of_median_run"] = share["bucket_hop_us"] / 1e3 / run_ms
+        if share["mask_update_us"]:
+            raise AssertionError("the run launched torch bitwise kernels "
+                                 "for the first-visit update")
     total = int(edges.sum())
-    row_bytes = 4 * W
-    bytes_per_run = depth * (g.padded_edges * (4 + row_bytes)
-                             + 4 * (g.n + 1) * row_bytes)
+    if lanes == LANES and depth == DEPTH and total != BENCH_TOTAL_EDGES:
+        raise AssertionError(f"{total} edges, the numpy walk counts "
+                             f"{BENCH_TOTAL_EDGES}")
     say("phase 5 bench", lanes=lanes, depth=depth, run_ms=ms,
         median_ms=run_ms, total_edges=total,
-        edges_per_s=total / (run_ms / 1e3),
-        bound_ms=bytes_per_run / HBM_BYTES_PER_S * 1e3,
-        model_bytes_per_run=bytes_per_run,
-        model_gb_per_s=bytes_per_run / (run_ms / 1e3) / 1e9,
+        edges_per_s=total / (run_ms / 1e3), bound_ms=bound_ms,
+        bound_share=bound_ms / run_ms,
         padded_edges=g.padded_edges, launches_per_run=launches,
         kernel_share=share, checked_lanes=len(check))
     del out
@@ -333,7 +545,8 @@ def phase_bench(store, device, n_nodes: int, lanes: int, depth: int,
 
 def kernel_share(run):
     """Device time of one run by kernel, from torch.profiler: the
-    bucket_hop kernels' microseconds, all kernels' microseconds, and the
+    bucket_hop kernels' microseconds, torch's bitwise kernels'
+    microseconds, all kernels' microseconds, and the
     run's wall microseconds under the profiler (device busy share =
     device_us / wall_us). None when the profiler records no device
     events."""
@@ -355,8 +568,12 @@ def kernel_share(run):
     if total <= 0:
         return None
     hop = sum(us for name, us in by_name.items() if "bucket_hop" in name)
+    # torch's bitwise &, |, ~ kernels: the unfused first-visit update
+    update = sum(us for name, us in by_name.items()
+                 if "itwise" in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"bucket_hop_us": hop, "device_us": total, "wall_us": wall_us,
+    return {"bucket_hop_us": hop, "mask_update_us": update,
+            "device_us": total, "wall_us": wall_us,
             "device_busy_share": total / wall_us,
             "share_of_device_time": hop / total,
             "top_kernels_us": {name[:80]: us for name, us in top}}
@@ -378,10 +595,14 @@ def main() -> None:
         tile_rows=0 if g.tiles is None else int(g.tiles.shape[0]),
         lvl2_buckets=[int(t.shape[1]) for t in g.lvl2],
         seconds=time.perf_counter() - t0)
-    hop = phase_kernels(g, device)
+    from dgraph_tpu_torch.ops.bfs import pack_seed_masks
+    from dgraph_tpu_torch.tools.hop_profile import make_seeds
+    hop = phase_kernels(g, device,
+                        pack_seed_masks(g, make_seeds(N_NODES, LANES)))
     launches = phase_serve(store, device, N_NODES, SERVE_QUERIES,
                            SERVE_DEPTH)
-    phase_bench(store, device, N_NODES, LANES, DEPTH, CHECK_LANES)
+    phase_bench(store, device, N_NODES, LANES, DEPTH, CHECK_LANES,
+                hop["bound_ms"])
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": KERNEL_REPLACES[name],
                 "launches": launches[name],

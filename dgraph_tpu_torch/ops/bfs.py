@@ -15,8 +15,10 @@ reference's. On the device:
   * every bucket of every hop — the dense degree classes, the heavy
     tail's tile partials and its second-level combines — is one launch
     of the CUDA bucket-hop kernel (`ops/bucket_hop.py`) writing straight
-    into its row slice of the next mask;
-  * the depth scan is a Python loop over hops;
+    into its row slice of the next mask, with its row-occupancy flags;
+  * the depth scan is a Python loop over hops whose launches also run
+    the first-visit update (fresh = next & ~seen; seen |= fresh) and
+    skip the frontier rows flagged empty;
   * the per-lane edge counter is exact: blocked float64 products, exact
     for any total below 2^53 (the reference's f32 matvec is exact only
     below 2^24 per lane).
@@ -279,30 +281,56 @@ def prepare_parts(dev: DeviceEll) -> dict:
             "device": dev.device}
 
 
-def _ell_hop(prepared, frontier: torch.Tensor, hop=bucket_hop):
+def _ell_hop(prepared, frontier: torch.Tensor, hop=bucket_hop, *,
+             flags: torch.Tensor | None = None,
+             seen: torch.Tensor | None = None,
+             out_flags: torch.Tensor | None = None) -> torch.Tensor:
     """next[v] = OR of frontier[u] over in-neighbors u, as one `hop`
     launch per bucket (the dense classes, the tile partials into a
     [M+1, W] scratch whose row M is zero, then the combines that read
-    it), each writing its own rows of the [n+1, W] result."""
+    it), each writing its own rows of the [n+1, W] result.
+
+    `flags` [n+1] uint8 marks the frontier rows that may hold a bit (the
+    launches skip the others); `out_flags` [n+1] uint8, when given,
+    receives the result's row flags. With `seen` [n+1, W] the result is
+    the first-visit set fresh = next & ~seen, and seen |= fresh in place;
+    rows no launch computes (the in-degree-0 class, the sentinel) are
+    zero and leave seen as it was. The tile partials always carry flags,
+    so the combines skip empty partials."""
     n = prepared["n"]
     W = frontier.shape[1]
     nxt = torch.empty((n + 1, W), dtype=torch.int32, device=frontier.device)
     for kind, e, rows, row0 in prepared["parts"]:
         if kind == "zero":
             nxt[row0:row0 + rows].zero_()
+            if out_flags is not None:
+                out_flags[row0:row0 + rows].zero_()
         else:
-            hop(e, frontier, nxt, row0)
+            hop(e, frontier, nxt, row0, flags=flags, out_flags=out_flags,
+                seen=seen)
     tiles = prepared["tiles"]
     if tiles is not None:
         M = tiles.shape[0]
         partials = torch.empty((M + 1, W), dtype=torch.int32,
                                device=frontier.device)
-        hop(tiles, frontier, partials, 0)
+        p_flags = torch.empty(M + 1, dtype=torch.uint8,
+                              device=frontier.device)
+        hop(tiles, frontier, partials, 0, flags=flags, out_flags=p_flags)
         partials[M].zero_()
+        p_flags[M:].zero_()
         for t2, row0 in prepared["lvl2"]:
-            hop(t2, partials, nxt, row0)
+            hop(t2, partials, nxt, row0, flags=p_flags, out_flags=out_flags,
+                seen=seen)
     nxt[n].zero_()                               # sentinel row
+    if out_flags is not None:
+        out_flags[n:].zero_()
     return nxt
+
+
+def row_flags(mask: torch.Tensor) -> torch.Tensor:
+    """uint8 [rows]: 1 where a mask row has any bit set (the hop's
+    occupancy flags; one device pass)."""
+    return mask.any(1).view(torch.uint8)
 
 
 COUNT_BLK = 1 << 15   # edge-counter node-block rows (bounds unpack memory)
@@ -347,10 +375,15 @@ def make_ell_recurse(dev: DeviceEll, outdeg, n: int, W: int,
     Returns fn(mask0, depth, keep_hops=False) → (last [n+1, W],
     seen [n+1, W], edges [32·W] int64[, hops [depth, n+1, W]]).
 
+    Each hop is `_ell_hop` with the first-visit epilogue fused into its
+    launches (fresh = next & ~seen; seen |= fresh) and occupancy flags
+    carried from hop to hop, so on the card the update runs no pass of
+    its own and a hop reads only the frontier rows that hold bits.
+
     The seed mask is DONATED: `mask0` (an int32 tensor on the graph's
-    device) becomes the `seen` carry and is updated in place, so the
-    run holds seed + frontier + seen in two mask buffers, not three.
-    Callers put a fresh mask per launch."""
+    device) becomes the `seen` carry and is updated in place. Hop 1
+    gathers from a copy of it (a launch may not read the rows another
+    launch's epilogue writes). Callers put a fresh mask per launch."""
     prepared = prepare_parts(dev)
     od = _outdeg_tensor(outdeg, dev.device) if count_edges else None
 
@@ -363,12 +396,18 @@ def make_ell_recurse(dev: DeviceEll, outdeg, n: int, W: int,
                              f"{W}] tensor on {dev.device}")
         seen = mask0                       # donated: updated in place
         frontier = mask0
+        flags = row_flags(mask0)
         hops = []
         for _ in range(depth):
-            fresh = _ell_hop(prepared, frontier)
-            fresh &= ~seen
-            seen |= fresh
-            frontier = fresh
+            if frontier is seen:
+                # hop 1 gathers from the seed mask while its epilogue
+                # updates seen in place: it reads a copy
+                frontier = mask0.clone()
+            fresh_flags = torch.empty(n + 1, dtype=torch.uint8,
+                                      device=dev.device)
+            fresh = _ell_hop(prepared, frontier, flags=flags, seen=seen,
+                             out_flags=fresh_flags)
+            frontier, flags = fresh, fresh_flags
             if keep_hops:
                 # hops[h] = the FRESH mask after hop h+1 (first-visit
                 # sets) — what tree reconstruction needs

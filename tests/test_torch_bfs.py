@@ -248,3 +248,113 @@ def test_seed_mask_is_donated_and_checked():
     bad.tiles[0, 0] = g.n + 1
     with pytest.raises(ValueError):
         port_bfs.device_ell(bad, CPU)
+
+
+def _sparse_rows(rng, rows: int, W: int, occupied: float) -> np.ndarray:
+    """[rows, W] uint32 words with ~`occupied` of the rows non-empty."""
+    m = rng.integers(0, 2**32, (rows, W), dtype=np.uint32)
+    m[rng.random(rows) >= occupied] = 0
+    return m
+
+
+@pytest.mark.parametrize("W", [1, 3, 4])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_fused_ell_hop_equals_reference_then_first_visit(name, W):
+    """The fused hop (plain versions on the CPU) == the reference's
+    _ell_hop followed by fresh = nxt & ~seen, seen | fresh; its flags are
+    exactly fresh's non-empty rows."""
+    rel = GRAPHS[name]()
+    g = port_bfs.build_ell(rel.indptr, rel.indices)
+    rng = np.random.default_rng(13 + W)
+    fr = _sparse_rows(rng, g.n + 1, W, 0.5)
+    fr[g.n] = 0
+    seen = _sparse_rows(rng, g.n + 1, W, 0.7)
+    seen &= rng.integers(0, 2**32, seen.shape, dtype=np.uint32)
+    seen[g.n] = 0
+    ref_prep = ref_bfs.prepare_parts(ref_bfs.device_ell(g), W)
+    nxt = np.asarray(ref_bfs._ell_hop(ref_prep, jnp.asarray(fr), W))
+    want_fresh = nxt & ~seen
+    want_seen = seen | want_fresh
+
+    prep = port_bfs.prepare_parts(port_bfs.device_ell(g, CPU))
+    fr_t = torch.from_numpy(fr.view(np.int32).copy())
+    seen_t = torch.from_numpy(seen.view(np.int32).copy())
+    flags = port_bfs.row_flags(fr_t)
+    assert np.array_equal(flags.numpy(), (fr != 0).any(1))
+    out_flags = torch.full((g.n + 1,), 7, dtype=torch.uint8)
+    fresh = port_bfs._ell_hop(prep, fr_t, flags=flags, seen=seen_t,
+                              out_flags=out_flags)
+    assert np.array_equal(_u32(fresh), want_fresh)
+    assert np.array_equal(_u32(seen_t), want_seen)
+    assert torch.equal(out_flags, fresh.ne(0).any(1).to(torch.uint8))
+    assert np.array_equal(_u32(fr_t), fr), "the frontier is only read"
+    # without the epilogue the same launches give the reference's nxt
+    plain_flags = torch.empty(g.n + 1, dtype=torch.uint8)
+    got = port_bfs._ell_hop(prep, fr_t, flags=flags, out_flags=plain_flags)
+    assert np.array_equal(_u32(got), nxt)
+    assert np.array_equal(plain_flags.numpy(), (nxt != 0).any(1))
+
+
+@pytest.mark.parametrize("n_b,K,W", [(256, 1, 4), (256, 3, 1), (512, 16, 2),
+                                     (256, 8, 3), (256, 1024, 1)])
+def test_bucket_hop_plain_flags_contract(n_b, K, W):
+    """Exact flags, all-ones flags and no flags give the same hop; a 0
+    flag on a non-empty row makes that row count as empty (the contract:
+    a 1 on an empty row is allowed, a 0 on a non-empty row is a bug)."""
+    rng = np.random.default_rng(17)
+    n = 1000
+    nbr = rng.integers(0, n + 1, (n_b, K)).astype(np.int32)
+    frontier = _sparse_rows(rng, n + 1, W, 0.2)
+    r = int(nbr[0, 0]) % n
+    nbr[0] = r                         # row 0 reads only frontier row r
+    frontier[r] = 0xFFFFFFFF
+    frontier[n] = 0
+    want = _numpy_bucket_hop(nbr, frontier)
+    pallas = np.asarray(bucket_hop_pallas(jnp.asarray(nbr),
+                                          jnp.asarray(frontier)))
+    assert np.array_equal(pallas, want)
+    fr_t = torch.from_numpy(frontier.view(np.int32))
+    nbr_t = torch.from_numpy(nbr)
+    exact = port_bfs.row_flags(fr_t)
+    for flags in (None, exact, torch.ones(n + 1, dtype=torch.uint8)):
+        out_flags = torch.empty(n_b + 2, dtype=torch.uint8)
+        out = torch.zeros((n_b + 2, W), dtype=torch.int32)
+        bucket_hop(nbr_t, fr_t, out, row0=1, flags=flags,
+                   out_flags=out_flags)
+        assert np.array_equal(_u32(out)[1:1 + n_b], want)
+        assert np.array_equal(out_flags[1:1 + n_b].numpy(),
+                              (want != 0).any(1))
+    wrong = exact.clone()
+    wrong[r] = 0
+    got = _u32(bucket_hop_plain(nbr_t, fr_t, flags=wrong))
+    fr_r = frontier.copy()
+    fr_r[r] = 0
+    assert np.array_equal(got, _numpy_bucket_hop(nbr, fr_r))
+    assert not got[0].any() and want[0].all()
+
+
+@pytest.mark.parametrize("case", ["out_is_frontier", "out_overlaps_frontier",
+                                  "seen_is_frontier", "seen_is_out",
+                                  "out_flags_is_flags"])
+def test_bucket_hop_rejects_aliased_buffers(case):
+    """Other blocks gather from the frontier while a launch writes out,
+    seen and out_flags: the wrapper refuses shared memory, on the CPU
+    as on the card."""
+    fr = torch.arange(36, dtype=torch.int32).reshape(9, 4)
+    nbr = torch.tensor([[0, 1], [2, 8], [3, 3]], dtype=torch.int32)
+    flags = port_bfs.row_flags(fr)
+    out = torch.zeros((9, 4), dtype=torch.int32)
+    seen = torch.zeros((9, 4), dtype=torch.int32)
+    kw = {"out": out, "seen": seen, "flags": flags,
+          "out_flags": torch.zeros(9, dtype=torch.uint8)}
+    kw.update({"out_is_frontier": {"out": fr, "seen": None},
+               "out_overlaps_frontier": {"out": fr[3:], "seen": None,
+                                         "out_flags": None},
+               "seen_is_frontier": {"seen": fr},
+               "seen_is_out": {"seen": out},
+               "out_flags_is_flags": {"out_flags": flags}}[case])
+    with pytest.raises(ValueError, match="share memory"):
+        bucket_hop(nbr, fr, kw.pop("out"), **kw)
+    # separate buffers are fine
+    bucket_hop(nbr, fr, out, seen=seen, flags=flags,
+               out_flags=torch.zeros(9, dtype=torch.uint8))
