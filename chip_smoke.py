@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's batched @recurse path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -37,7 +37,27 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 978,649,539; the profile must show no torch bitwise
                 kernel (the first-visit update runs inside the hop
                 launches); bound_ms is the sum of phase 3's per-hop bounds
-  6. the `kernels` JSON line, then the device JSON line last
+  6. ldbc     — per-query serving (engine.Engine) over LDBC SNB SF1
+                (models/ldbc.generate(sf=1.0, seed=9) + load_into the port's
+                StoreBuilder; generation and build seconds printed): the 14
+                IC templates and the config-3 query through
+                Engine(device="cuda") at device_threshold 512 and at 0
+                (every non-empty frontier on the card), each response
+                byte-equal to Engine(device="cpu", device_threshold=10**9),
+                the pure numpy route; the card route must serve at least one
+                expansion of config 3 and of the IC mix at 512. Prints the
+                per-route counts, the warm p50 of each template (5 reps) on
+                all three routes and the IC mix's p50 over all its
+                requests, config 3's p50 and edges/s, and a
+                torch.profiler breakdown of one mix pass at 512: device and
+                wall time, top kernels, per template its wall and device
+                time, and per engine layer (parse, execute, render) and op
+                (gather_edges, expand_level, to_device, to_host) its calls,
+                device launches, host and device time, with each compute
+                op's least-bytes bound; and gather_edges' edge→row map
+                timed two ways at real `knows` frontiers (the reference's
+                scatter + cummax, the port's search), equal maps asserted
+  7. the `kernels` JSON line, then the device JSON line last
 
 It imports torch, numpy and dgraph_tpu_torch only.
 """
@@ -69,6 +89,16 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak (NVIDIA data sheet)
 # no int32 ALU peak is published; the float32 non-tensor peak (67 T/s,
 # same data sheet) stands in for the bitwise-OR rate
 ALU_OPS_PER_S = 67e12
+LDBC_SF = 1.0
+LDBC_SEED = 9
+LDBC_REPS = 5
+LDBC_THRESHOLD = 512
+HOST_ONLY = 10**9                  # device_threshold of the pure numpy route
+# the executor's profiler ranges, one per device op of the per-query path
+LDBC_OPS = ("hop.gather_edges", "level.expand_level", "engine.to_device",
+            "engine.to_host")
+# the engine's host layers, one profiler range each
+LDBC_LAYERS = ("engine.parse", "engine.execute", "engine.render")
 KERNEL_SOURCES = {"bucket_hop": "dgraph_tpu_torch/csrc/bucket_hop.cu"}
 KERNEL_REPLACES = {"bucket_hop": "dgraph_tpu/ops/pallas_hop.py:108"}
 
@@ -579,6 +609,233 @@ def kernel_share(run):
             "top_kernels_us": {name[:80]: us for name, us in top}}
 
 
+def config3_edges(body: bytes) -> int:
+    """Edges of a config-3 response, counted as bench_baseline.py counts
+    them: every `knows` child below every root, recursively."""
+    def count(node):
+        kids = node.get("knows", [])
+        return len(kids) + sum(count(k) for k in kids)
+    return sum(count(r) for r in json.loads(body)["q"])
+
+
+def lat_ms(fn, reps: int) -> list:
+    """Host milliseconds of each of reps warm runs of fn() (each ends
+    with its response bytes on the host)."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def device_launches(ev) -> int:
+    """Device kernels and copies launched under one profiler event."""
+    return len(ev.kernels) + sum(device_launches(c) for c in ev.cpu_children)
+
+
+def ldbc_profile(engine, queries: dict) -> dict | None:
+    """One pass of the mix under torch.profiler, each query in a range
+    of its own: device and wall time, the top kernels, per template its
+    wall and device time, and per template and range (the engine's
+    layers, the executor's ops) the calls, device launches, host and
+    device microseconds. None when the profiler records no device
+    events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for name, q in queries.items():
+            with record_function("ldbc." + name):
+                engine.query_bytes(q)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    kernels: dict = {}
+    for ev in events:
+        if (ev.device_type == DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
+            kernels[ev.name] = (kernels.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us())
+    device_us = sum(kernels.values())
+    if device_us <= 0:
+        return None
+    per: dict = {}
+    for ev in events:
+        if ev.device_type != DeviceType.CPU:
+            continue
+        if ev.name.startswith("ldbc."):
+            rec = per.setdefault(ev.name[5:], {})
+            rec["wall_us"] = ev.cpu_time_total
+            rec["device_us"] = ev.device_time_total
+            continue
+        if ev.name not in LDBC_OPS + LDBC_LAYERS:
+            continue
+        parent = ev.cpu_parent
+        while parent is not None and not parent.name.startswith("ldbc."):
+            parent = parent.cpu_parent
+        tmpl = parent.name[5:] if parent is not None else "?"
+        rec = per.setdefault(tmpl, {}).setdefault(
+            ev.name, {"calls": 0, "launches": 0, "host_us": 0.0,
+                      "device_us": 0.0})
+        rec["calls"] += 1
+        rec["launches"] += device_launches(ev)
+        rec["host_us"] += ev.cpu_time_total
+        rec["device_us"] += ev.device_time_total
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_us": device_us, "wall_us": wall_us,
+            "device_busy_share": device_us / wall_us,
+            "top_kernels_us": {k[:80]: v for k, v in top},
+            "per_template": per}
+
+
+def seg_map_ab(store, frontiers: dict, device, reps: int = 20) -> dict:
+    """The edge→row map of `gather_edges` two ways on the card, at real
+    `knows` frontiers: the reference's scatter-max of row starts plus
+    `torch.cummax`, and the port's search of the rows' inclusive ends.
+    Both must give the same map; the device microseconds of each
+    (CUDA events, median of `reps`)."""
+    from dgraph_tpu_torch.engine.execute import _bucket
+    from dgraph_tpu_torch.ops.hop import frontier_degrees
+    from dgraph_tpu_torch.ops.uidalgebra import pad_to
+
+    indptr, _indices = store.device_rel("knows", False, device)
+    out = {}
+    for name, ranks in frontiers.items():
+        fr = pad_to(ranks, _bucket(len(ranks)), device)
+        deg = frontier_degrees(indptr, fr)
+        ends = torch.cumsum(deg, 0, dtype=torch.int32)
+        total = deg.sum(dtype=torch.int32)
+        cap = _bucket(max(int(total), 1))
+        j = torch.arange(cap, dtype=torch.int32, device=fr.device)
+        rows = torch.arange(fr.shape[0], dtype=torch.int32, device=fr.device)
+
+        def by_cummax(_):
+            starts = torch.where(deg > 0, ends - deg, cap).long()
+            marks = torch.zeros(cap + 1, dtype=torch.int32, device=fr.device)
+            marks.scatter_reduce_(0, starts.clamp_(max=cap), rows, "amax")
+            return torch.cummax(marks[:cap], 0).values
+
+        def by_search(_):
+            seg = torch.searchsorted(ends, j, right=True)
+            last = torch.searchsorted(
+                ends, (total - 1).clamp(min=0).reshape(1), right=True)
+            return torch.minimum(seg, torch.where(total > 0, last, 0))
+
+        if not torch.equal(by_cummax(None), by_search(None).to(torch.int32)):
+            raise AssertionError(f"edge→row maps differ at {name}")
+        out[name] = {"rows": len(ranks), "edges": int(total), "slots": cap,
+                     "cummax_us": 1e3 * float(np.median(cuda_ms(by_cummax,
+                                                                reps))),
+                     "search_us": 1e3 * float(np.median(cuda_ms(by_search,
+                                                                reps)))}
+    return out
+
+
+def phase_ldbc(device, sf: float = LDBC_SF, reps: int = LDBC_REPS) -> dict:
+    """Per-query serving of the LDBC IC mix and config 3 (phase 6)."""
+    from dgraph_tpu_torch.engine import Engine
+    from dgraph_tpu_torch.models import ldbc
+    from dgraph_tpu_torch.store.store import StoreBuilder
+
+    t0 = time.perf_counter()
+    g = ldbc.generate(sf=sf, seed=LDBC_SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = StoreBuilder()
+    ldbc.load_into(b, g)
+    store = b.finalize()
+    build_s = time.perf_counter() - t0
+    queries = dict(ldbc.ic_templates(g))
+    queries["config3"] = ldbc.config3_query(g)
+
+    host = Engine(store, device="cpu", device_threshold=HOST_ONLY)
+    want = {k: host.query_bytes(q) for k, q in queries.items()}
+    routes, p50 = {}, {}
+    engines = {"host": host}
+    for thr in (LDBC_THRESHOLD, 0):
+        eng = engines[f"card{thr}"] = Engine(store, device=device,
+                                             device_threshold=thr)
+        per_q = {}
+        for k, q in queries.items():
+            before = dict(eng.routes.expansions)
+            got = eng.query_bytes(q)
+            if got != want[k]:
+                raise AssertionError(f"{k} at device_threshold {thr}: the "
+                                     f"card's response differs from the "
+                                     f"numpy route")
+            per_q[k] = {r: n - before[r]
+                        for r, n in eng.routes.expansions.items()
+                        if n - before[r]}
+        routes[f"card{thr}"] = {"per_query": per_q,
+                                "expansions": dict(eng.routes.expansions),
+                                "edges": dict(eng.routes.edges),
+                                "least_bytes": dict(eng.routes.least_bytes)}
+    on_card = routes[f"card{LDBC_THRESHOLD}"]["per_query"]
+
+    def device_served(q):
+        return on_card[q].get("device", 0) + on_card[q].get("fused", 0)
+    if not device_served("config3"):
+        raise AssertionError("config 3 took no device expansion at "
+                             f"device_threshold {LDBC_THRESHOLD}")
+    if not sum(device_served(k) for k in queries if k != "config3"):
+        raise AssertionError("the IC mix took no device expansion at "
+                             f"device_threshold {LDBC_THRESHOLD}")
+    mix_p50 = {}
+    for route, eng in engines.items():
+        lat = {k: lat_ms(lambda q=q: eng.query_bytes(q), reps)
+               for k, q in queries.items()}
+        p50[route] = {k: float(np.median(v)) for k, v in lat.items()}
+        # the IC mix's p50: the median over every request of the 14
+        # templates, each template weighted equally
+        mix_p50[route] = float(np.median(
+            [x for k, v in lat.items() if k != "config3" for x in v]))
+    edges3 = config3_edges(want["config3"])
+    seg_ab = None
+    if torch.device(device).type == "cuda":
+        city = host.query(
+            '{ q(func: eq(city, "%s")) { uid } }' % g.city[0])["q"]
+        seg_ab = seg_map_ab(store, {
+            "config3_hop1": store.rank_of([int(o["uid"], 16) for o in city]),
+            "all_persons": store.rank_of(g.person_uids)}, device)
+    card = p50[f"card{LDBC_THRESHOLD}"]
+    prof = (ldbc_profile(engines[f"card{LDBC_THRESHOLD}"], queries)
+            if torch.device(device).type == "cuda" else None)
+    ops = None
+    if prof is not None:
+        ops = {}
+        for per in prof["per_template"].values():
+            for op, rec in per.items():
+                if not isinstance(rec, dict):
+                    continue
+                o = ops.setdefault(op, {"calls": 0, "launches": 0,
+                                        "host_us": 0.0, "device_us": 0.0})
+                for k in o:
+                    o[k] += rec[k]
+        lb = routes[f"card{LDBC_THRESHOLD}"]["least_bytes"]
+        # least-bytes bound of the two compute ops over this mix pass
+        for op, route in (("hop.gather_edges", "device"),
+                          ("level.expand_level", "fused")):
+            if op in ops:
+                ops[op]["bound_us"] = lb[route] / HBM_BYTES_PER_S * 1e6
+    out = {"sf": sf, "seed": LDBC_SEED, "nodes": store.n_nodes,
+           "edges": sum(store.rel(p).nnz for p in store.preds),
+           "generator_edges": int(g.n_edges),
+           "persons": int(g.n_persons), "generate_s": gen_s,
+           "build_s": build_s, "byte_equal": True, "routes": routes,
+           "p50_ms": p50, "ic_mix_p50_ms": mix_p50,
+           "ic_mix_p50_ms_sum": {r: sum(v[k] for k in queries
+                                        if k != "config3")
+                                 for r, v in p50.items()},
+           "config3_p50_ms": card["config3"], "config3_edges": edges3,
+           "config3_edges_per_s": edges3 / (card["config3"] / 1e3),
+           "profile": prof, "ops": ops, "seg_map_ab": seg_ab}
+    return out
+
+
 def main() -> None:
     phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -603,6 +860,16 @@ def main() -> None:
                            SERVE_DEPTH)
     phase_bench(store, device, N_NODES, LANES, DEPTH, CHECK_LANES,
                 hop["bound_ms"])
+    del store, g
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    ldbc = phase_ldbc(device)
+    # the per-query path runs torch ops only: no hand kernel of the repo
+    # is on it, and these counts show none launched
+    say("phase 6 ldbc", seconds=time.perf_counter() - t0,
+        hand_kernel_launches=dict(LAUNCHES), **ldbc)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": KERNEL_REPLACES[name],
                 "launches": launches[name],

@@ -2,8 +2,11 @@
 
 The package mirrors `dgraph_tpu/`'s module layout so each module's
 counterpart is easy to find. It imports torch and numpy only, never jax
-and nothing of `dgraph_tpu`. The batched `@recurse` serving path runs
-end to end: `engine.batch.query_batch` takes DQL text and returns JSON,
-with every ELL bucket of every hop computed by the hand-written CUDA
-kernel in `csrc/bucket_hop.cu` (wrapper: `ops/bucket_hop.py`).
+and nothing of `dgraph_tpu`. Two serving paths run end to end, DQL text
+in and JSON out: `engine.Engine` serves one query at a time, expanding
+large frontiers on the card through torch ops (`ops/hop.py`,
+`ops/level.py`, `ops/uidalgebra.py`); `engine.batch.query_batch` packs
+compatible `@recurse` queries into lane masks, with every ELL bucket of
+every hop computed by the hand-written CUDA kernel in
+`csrc/bucket_hop.cu` (wrapper: `ops/bucket_hop.py`).
 """

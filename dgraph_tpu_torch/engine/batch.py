@@ -8,11 +8,13 @@ of one frontier mask and answered by one multi-hop run of
 bucket-hop kernel), then rebuilt into per-query trees and rendered to
 JSON by the standard renderer.
 
-Two deliberate differences from the reference: there is no per-query
-fallback — a query that no recurse group takes raises
-NotImplementedError until the per-query engine is ported (ROADMAP
-Queue 1 items 3-4) — and a failing kernel group is not caught. Level
-trees, filtered recurse and shortest-path groups are later slices
+Queries that no recurse group takes (ineligible, in a group below
+MIN_BATCH, unparsable, or over a predicate with no edges in the group's
+direction) are served one by one by the per-query `Engine` on the same
+device, as the reference's `Alpha.query_batch` falls back; a query that
+fails there yields an error object in its slot. One deliberate
+difference from the reference: a failing kernel group is not caught.
+Level trees, filtered recurse and shortest-path groups are later slices
 (ROADMAP Queue 1 item 5).
 """
 
@@ -34,9 +36,6 @@ MIN_BATCH = 4            # below this the per-query engine is cheaper
 # (whose host loop exits when the frontier empties) instead of letting
 # a client-controlled depth size device buffers.
 MAX_KERNEL_DEPTH = 64
-
-_PER_QUERY_LATER = ("the per-query engine is not ported yet (ROADMAP "
-                    "Queue 1 items 3-4)")
 
 
 class _BatchPlan:
@@ -158,41 +157,48 @@ def plan_batch_groups_cached(store, dqls: list):
     return out
 
 
-def query_batch(store, dqls: list, device=DEFAULT_DEVICE) -> list:
+def query_batch(store, dqls: list, device=DEFAULT_DEVICE,
+                device_threshold: int = 512) -> list:
     """Serve many queries at once: each compatible @recurse group is ONE
-    lane-packed kernel run on `device`. Returns one JSON dict per query,
-    in order."""
-    from dgraph_tpu_torch.dql.parser import parse
+    lane-packed kernel run on `device`; the rest go through the
+    per-query Engine on the same device, whose failures become
+    `{"errors": [{"message": ...}]}` in their slot. Returns one JSON
+    dict per query, in order."""
+    from dgraph_tpu_torch.engine import Engine
 
     dev = resolve_device(device)
     plans, leftover = plan_batch_groups_cached(store, dqls)
-    if leftover:
-        for i in leftover:
-            parse(dqls[i])           # a malformed query raises its ParseError
-        raise NotImplementedError(
-            f"queries {list(leftover)} fit no @recurse kernel group and "
-            f"{_PER_QUERY_LATER}")
+    leftover = list(leftover)        # the cached list is never mutated
     results: list = [None] * len(dqls)
     for plan, idxs in plans:
-        for i, o in zip(idxs, run_batch(store, plan, dev)):
+        out = run_batch(store, plan, dev)
+        if out is None:
+            leftover.extend(idxs)
+            continue
+        for i, o in zip(idxs, out):
             results[i] = o
+    eng = Engine(store, device=dev, device_threshold=device_threshold)
+    for i in sorted(leftover):
+        try:
+            results[i] = eng.query(dqls[i])
+        except (ValueError, NotImplementedError) as e:
+            results[i] = {"errors": [{"message": str(e)}]}
     return results
 
 
 def run_batch(store, plan: _BatchPlan, device=DEFAULT_DEVICE) -> list:
     """Execute one recurse group as one lane-kernel run and render each
-    query with the standard renderer."""
+    query with the standard renderer; None when the predicate has no
+    edges in the group's direction (the per-query engine serves it)."""
     dev = resolve_device(device)
     g = _ell_for(store, plan.attr, plan.reverse)
     if g is None:
-        raise NotImplementedError(
-            f"{plan.attr!r} has no edges in this direction and "
-            f"{_PER_QUERY_LATER}")
+        return None
     from dgraph_tpu_torch.ops.bfs import pack_seed_masks, put_mask
 
     # root seed ranks per query (host index lookups). Lane words round
     # UP to a power of two: padding lanes are zero-seeded and free
-    ex0 = Executor(store)
+    ex0 = Executor(store, device=dev)
     seeds = [ex0.root_ranks(sg) for sg in plan.blocks]
     B = _lane_count(len(seeds))
     seed_lists = seeds + [np.zeros(0, np.int32)] * (B - len(seeds))
@@ -209,7 +215,7 @@ def run_batch(store, plan: _BatchPlan, device=DEFAULT_DEVICE) -> list:
                                    root_nodes)
     out = []
     for q, sg in enumerate(plan.blocks):
-        ex = Executor(store)
+        ex = Executor(store, device=dev)
         node = LevelNode(sg=sg, nodes=root_nodes[q],
                          display=root_nodes[q])
         _bind_recurse_vars(ex, node, datas[q], sg)

@@ -1,11 +1,26 @@
-"""SubGraph execution pieces the batched `@recurse` slice uses.
+"""SubGraph execution: one root block at a time, level by level.
 
-Port of part of `dgraph_tpu/engine/execute.py`: `LevelNode`, the host
-CSR row gather `csr_rows`, the expansion rule `expands`, and the
-`Executor` members that root evaluation, var binding and the JSON
-renderer call (`root_ranks`, `_leaf_set`, `_record_leaf_vars`,
-`_expands`). Per-query block execution — the device hop, filters,
-ordering, pagination, facets — is ROADMAP Queue 1 items 3-4.
+Port of `dgraph_tpu/engine/execute.py` without the mesh, remote-task and
+memory-governor branches. Each level's expansion is ONE batched CSR
+gather over the whole frontier: frontiers of at least
+`device_threshold` rows expand on the device through torch ops
+(`ops/hop.py:gather_edges`, or the fused `ops/level.py:expand_level`
+where no ordering, facet filter or `after` cursor needs per-edge host
+logic); smaller ones take the host numpy walk `csr_rows`. Every route
+produces the same (neighbors, seg, edge_pos) triple. A device failure or
+out-of-memory raises: there is no fallback to the host walk.
+
+A level's result is a `LevelNode`:
+  nodes        sorted unique ranks at this level (the next frontier)
+  matrix_seg   edge → position in parent.nodes
+  matrix_child edge → child rank (row-ordered: order/pagination applied)
+  matrix_pos   edge → forward/reverse CSR position (facets)
+
+Each expansion adds to the executor's `RouteCounts` (expansions, edges
+and the device ops' least bytes per route); `chip_smoke.py` reads them to
+show which route served. The device work sits in `torch.profiler`
+ranges (`hop.gather_edges`, `level.expand_level`, `engine.to_device`,
+`engine.to_host`) so a profile attributes device time per op.
 """
 
 from __future__ import annotations
@@ -13,23 +28,68 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
+from torch.profiler import record_function
 
-from dgraph_tpu_torch.engine.funcs import EMPTY, eval_func
-from dgraph_tpu_torch.engine.ir import FuncNode, SubGraph
+from dgraph_tpu_torch.engine.funcs import (EMPTY, eval_func,
+                                           eval_func_universe)
+from dgraph_tpu_torch.engine.ir import FilterNode, FuncNode, Order, SubGraph
+from dgraph_tpu_torch.ops.hop import gather_edges
+from dgraph_tpu_torch.ops.level import NO_LIMIT, expand_level
+from dgraph_tpu_torch.ops.uidalgebra import pad_to
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import Kind
+from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 EMPTY64 = np.zeros(0, np.int64)
+
+ROUTES = ("device", "fused", "numpy", "empty")
+
+_LATER = "ROADMAP Queue 1 item 4"
 
 
 @dataclass
 class LevelNode:
     sg: SubGraph
     nodes: np.ndarray                      # sorted unique int32 ranks
+    matrix_seg: np.ndarray = field(default_factory=lambda: EMPTY)
+    matrix_child: np.ndarray = field(default_factory=lambda: EMPTY)
+    matrix_pos: np.ndarray = field(default_factory=lambda: EMPTY64)
     display: np.ndarray | None = None      # root blocks: ordered rank list
     children: list["LevelNode"] = field(default_factory=list)
     leaf_sgs: list[SubGraph] = field(default_factory=list)
     recurse_data: object | None = None     # engine.recurse.RecurseData
+    path_data: object | None = None        # engine.shortest.PathData
+
+
+@dataclass
+class RouteCounts:
+    """Expansions and edges per execution route: `device` (gather_edges
+    on the device), `fused` (expand_level on the device), `numpy` (the
+    host walk) and `empty` (nothing to expand). `least_bytes` sums, per
+    device route, the bytes its op must move: each input read once (the
+    frontier, its rows' indptr pairs, the edges' indices, the allowed
+    set) and each output written once (the padded output columns)."""
+
+    expansions: dict = field(default_factory=lambda: dict.fromkeys(ROUTES, 0))
+    edges: dict = field(default_factory=lambda: dict.fromkeys(ROUTES, 0))
+    least_bytes: dict = field(default_factory=lambda: dict.fromkeys(ROUTES, 0))
+
+    def add(self, route: str, n_edges: int, least_bytes: int = 0) -> None:
+        self.expansions[route] += 1
+        self.edges[route] += int(n_edges)
+        self.least_bytes[route] += int(least_bytes)
+
+    def on_device(self) -> int:
+        """Expansions the device served."""
+        return self.expansions["device"] + self.expansions["fused"]
+
+
+def _bucket(n: int, lo: int = 64) -> int:
+    b = lo
+    while b < n:
+        b <<= 1
+    return b
 
 
 def csr_rows(rel, frontier: np.ndarray):
@@ -46,14 +106,120 @@ def csr_rows(rel, frontier: np.ndarray):
     return rel.indices[pos], seg, pos
 
 
-class Executor:
-    """Root evaluation and variable environments over a Store snapshot."""
+def _to_host(*cols: torch.Tensor) -> list[np.ndarray]:
+    """Equal-length int32 device columns → host arrays, one copy."""
+    if not cols[0].shape[0]:
+        return [EMPTY] * len(cols)
+    with record_function("engine.to_host"):
+        return list(torch.stack(cols).cpu().numpy())
 
-    def __init__(self, store: Store):
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A sorted rank set, sentinel-padded to its bucket, on `device`."""
+    with record_function("engine.to_device"):
+        return pad_to(a, _bucket(max(len(a), 1)), device)
+
+
+def _gather_bytes(n_front: int, f_cap: int, total: int) -> int:
+    """Least bytes of one frontier gather: the padded frontier, the
+    indptr pair of each real row and each edge's index, read once."""
+    return 4 * f_cap + 8 * n_front + 4 * total
+
+
+class Executor:
+    """Executes SubGraph trees against a Store snapshot.
+
+    `device_threshold`: frontiers at least this large expand on `device`;
+    smaller ones take the host walk. 0 sends every non-empty frontier to
+    the device; 10**9 keeps all work on the host."""
+
+    def __init__(self, store: Store, device=DEFAULT_DEVICE,
+                 device_threshold: int = 512,
+                 routes: RouteCounts | None = None):
         self.store = store
+        self.device = resolve_device(device)
+        self.device_threshold = device_threshold
+        self.routes = routes if routes is not None else RouteCounts()
         # variable environments (reference: query var propagation)
         self.uid_vars: dict[str, np.ndarray] = {}
         self.val_vars: dict[str, dict[int, object]] = {}
+
+    # -- frontier expansion (the hot op) ------------------------------------
+    def expand(self, pred: str, reverse: bool, frontier: np.ndarray):
+        """Whole-frontier CSR expansion → (neighbors, seg, edge_pos) host
+        arrays. `edge_pos` indexes the CSR of the expansion direction;
+        facet consumers map reverse positions through facet_positions()."""
+        rel = self.store.rel(pred, reverse)
+        if len(frontier) == 0 or rel.nnz == 0:
+            self.routes.add("empty", 0)
+            return EMPTY, EMPTY, EMPTY64
+        if len(frontier) >= self.device_threshold:
+            return self._expand_device(pred, reverse, frontier)
+        out = csr_rows(rel, frontier)
+        self.routes.add("numpy", len(out[0]))
+        return out
+
+    def _expand_device(self, pred: str, reverse: bool, frontier: np.ndarray):
+        indptr, indices = self.store.device_rel(pred, reverse, self.device)
+        fr = _to_device(frontier, self.device)
+        total = int(self.store.rel(pred, reverse).degree(frontier).sum())
+        ecap = _bucket(max(total, 1))
+        with record_function("hop.gather_edges"):
+            nbrs, seg, pos, _valid, _total = gather_edges(
+                indptr, indices, fr, ecap)
+        # the valid slots are exactly the first `total` (known on the host
+        # from the same CSR): one device-to-host copy of the three columns
+        nbrs, seg, pos = _to_host(nbrs[:total], seg[:total], pos[:total])
+        # outputs: neighbors, seg, edge_pos int32 and valid bool per slot
+        self.routes.add("device", total, _gather_bytes(
+            len(frontier), fr.shape[0], total) + 13 * ecap)
+        return nbrs, seg, pos.astype(np.int64)
+
+    def facet_positions(self, sg: SubGraph, pos: np.ndarray) -> np.ndarray:
+        """Edge positions in the forward-CSR space facet columns key on."""
+        if sg.is_reverse:
+            return self.store.rev_to_fwd_pos(sg.attr, pos)
+        return pos
+
+    # -- filters ------------------------------------------------------------
+    def apply_filter(self, tree: FilterNode | None, universe: np.ndarray) -> np.ndarray:
+        """Evaluate a filter tree restricted to `universe` (sorted ranks).
+        Comparison/has leaves evaluate AGAINST the universe; other funcs
+        materialize their set and intersect."""
+        if tree is None:
+            return universe
+        if tree.op == "leaf":
+            f = tree.func
+            if f.name != "uid" and not f.is_val_var and not f.is_count:
+                sub = eval_func_universe(self.store, f, universe)
+                if sub is not None:
+                    return sub
+            return np.intersect1d(universe, self._leaf_set(tree.func, universe))
+        if tree.op == "not":
+            return np.setdiff1d(universe, self.apply_filter(tree.children[0], universe))
+        parts = [self.apply_filter(c, universe) for c in tree.children]
+        out = parts[0]
+        for p in parts[1:]:
+            out = np.intersect1d(out, p) if tree.op == "and" else np.union1d(out, p)
+        return out.astype(np.int32)
+
+    def filter_set(self, tree: FilterNode | None) -> np.ndarray | None:
+        """A filter tree's allowed set WITHOUT a universe (index lookups
+        only); None when the tree needs a complement (`not`)."""
+        if tree is None:
+            return None
+        if tree.op == "leaf":
+            return self._leaf_set(tree.func, EMPTY).astype(np.int32)
+        if tree.op == "not":
+            return None
+        parts = [self.filter_set(c) for c in tree.children]
+        if any(p is None for p in parts):
+            return None
+        out = parts[0]
+        for p in parts[1:]:
+            out = (np.intersect1d(out, p) if tree.op == "and"
+                   else np.union1d(out, p))
+        return out.astype(np.int32)
 
     def _var_ranks(self, name: str) -> np.ndarray:
         """uid(x): a uid var's ranks, or a val var's uid domain."""
@@ -62,6 +228,84 @@ class Executor:
         if name in self.val_vars:
             return np.array(sorted(self.val_vars[name]), np.int32)
         raise ValueError(f"variable {name!r} is used but not defined")
+
+    def filter_edges(self, filters: FilterNode | None, nbrs: np.ndarray,
+                     seg: np.ndarray, pos: np.ndarray | None = None):
+        """Apply a filter tree to a flattened edge list, re-masking rows.
+        Shared by plain expansion, @recurse, and shortest-path hops."""
+        if pos is None:
+            pos = EMPTY64
+        if filters is None or not len(nbrs):
+            return nbrs, seg, pos
+        allowed = self.apply_filter(filters, np.unique(nbrs).astype(np.int32))
+        keep = np.isin(nbrs, allowed)
+        return nbrs[keep], seg[keep], (pos[keep] if len(pos) else pos)
+
+    def _bind_facet_vars(self, sg: SubGraph, nbrs, pos) -> None:
+        """@facets(v as key): value var keyed by CHILD rank; a child
+        reached over several edges sums numeric facet values."""
+        cols = self.store.edge_facets(
+            sg.attr, self.facet_positions(sg, pos),
+            [k for _, k in sg.facet_vars])
+        for var, key in sg.facet_vars:
+            vals = cols.get(key)
+            m: dict = {}
+            if vals is not None:
+                for c, v in zip(nbrs.tolist(), vals):
+                    if v is None:
+                        continue
+                    prev = m.get(c)
+                    if (prev is not None and not isinstance(v, bool)
+                            and isinstance(v, (int, float))
+                            and isinstance(prev, (int, float))):
+                        m[int(c)] = prev + v
+                    else:
+                        m[int(c)] = v
+            self.val_vars[var] = m
+
+    def facet_filter_edges(self, sg: SubGraph, pred: str,
+                           nbrs: np.ndarray, seg: np.ndarray,
+                           pos: np.ndarray):
+        """@facets(eq(k, v) ...): drop edges whose facets fail the tree."""
+        if sg.facet_filter is None or not len(nbrs):
+            return nbrs, seg, pos
+        keep = self._eval_facet_tree(sg.facet_filter, pred,
+                                     self.facet_positions(sg, pos))
+        return nbrs[keep], seg[keep], pos[keep]
+
+    def _eval_facet_tree(self, tree: FilterNode, pred: str,
+                         pos: np.ndarray) -> np.ndarray:
+        if tree.op == "leaf":
+            f = tree.func
+            fvals = self.store.edge_facets(pred, pos, [f.attr]).get(
+                f.attr, [None] * len(pos))
+            want0 = f.args[0] if f.args else None
+            out = np.zeros(len(pos), bool)
+            for i, v in enumerate(fvals):
+                if v is None:
+                    continue
+                want = _coerce_to(want0, v)
+                try:
+                    if f.name == "eq":
+                        out[i] = v == want or str(v) == str(want)
+                    elif f.name == "le":
+                        out[i] = v <= want
+                    elif f.name == "lt":
+                        out[i] = v < want
+                    elif f.name == "ge":
+                        out[i] = v >= want
+                    elif f.name == "gt":
+                        out[i] = v > want
+                except TypeError:
+                    pass
+            return out
+        if tree.op == "not":
+            return ~self._eval_facet_tree(tree.children[0], pred, pos)
+        parts = [self._eval_facet_tree(c, pred, pos) for c in tree.children]
+        out = parts[0]
+        for p in parts[1:]:
+            out = (out & p) if tree.op == "and" else (out | p)
+        return out
 
     def _leaf_set(self, f: FuncNode, universe: np.ndarray) -> np.ndarray:
         if f.name == "uid" and (f.args or not f.uids):
@@ -74,11 +318,268 @@ class Executor:
                     if parts else EMPTY)
         return eval_func(self.store, f, self.val_vars)
 
+    # -- root evaluation ----------------------------------------------------
     def root_ranks(self, sg: SubGraph) -> np.ndarray:
         f = sg.func
         if f is None:
             return EMPTY
         return self._leaf_set(f, EMPTY)
+
+    # -- ordering / pagination ----------------------------------------------
+    def _value_keys(self, ranks: np.ndarray, order: Order):
+        """Sort keys for ranks by a value predicate or val-var. Missing
+        values get a placeholder key (they sort last via the has-key)."""
+        if order.is_val_var:
+            var = self.val_vars.get(order.attr, {})
+            vals = [var.get(int(r)) for r in ranks]
+        elif not order.lang and (col := self.store.value_col(order.attr)) is not None:
+            # vectorised first-value lookup on the sorted columnar pair
+            ranks_arr = np.asarray(ranks, np.int32)
+            idx = np.searchsorted(col.subj, ranks_arr)
+            idx_c = np.minimum(idx, max(len(col.subj) - 1, 0))
+            hit = (len(col.subj) > 0) & (col.subj[idx_c] == ranks_arr)
+            vals = [col.vals[i] if h else None
+                    for i, h in zip(idx_c.tolist(), np.atleast_1d(hit).tolist())]
+        else:
+            vals = []
+            for r in ranks:
+                vs = self.store.values_for(order.attr, int(r), order.lang)
+                vals.append(vs[0] if vs else None)
+        has = np.array([v is not None for v in vals], bool)
+        present = [_orderable(v) for v in vals if v is not None]
+        placeholder = present[0] if present else 0
+        keys = np.array([_orderable(v) if v is not None else placeholder
+                         for v in vals])
+        return keys, has
+
+    def order_ranks(self, ranks: np.ndarray, orders: list[Order],
+                    seg: np.ndarray | None = None):
+        """Stable multi-key ordering, optionally within segments (rows).
+        lexsort priority: seg (row) > first order > ... > uid tiebreak."""
+        if not orders:
+            return np.arange(len(ranks))
+        keys = [np.asarray(ranks)]  # lowest priority: uid tiebreak
+        for o in reversed(orders):
+            k, has = self._value_keys(ranks, o)
+            if o.desc:
+                k = _negate_key(k)
+            keys.append(k)
+            keys.append(~has)  # missing values last, asc or desc
+        if seg is not None:
+            keys.append(seg)
+        return np.lexsort(tuple(keys))
+
+    def _facet_order(self, sg: SubGraph, nbrs: np.ndarray, seg: np.ndarray,
+                     pos: np.ndarray) -> np.ndarray:
+        """Row-internal ordering by facet values (@facets(orderasc: k));
+        edges without the facet sort last."""
+        keys = [np.asarray(nbrs)]
+        fpos = self.facet_positions(sg, pos)
+        for o in reversed(sg.facet_orders):
+            fvals = self.store.edge_facets(sg.attr, fpos, [o.attr]).get(
+                o.attr, [None] * len(pos))
+            has = np.array([v is not None for v in fvals], bool)
+            present = [_orderable(v) for v in fvals if v is not None]
+            placeholder = present[0] if present else 0
+            k = np.array([_orderable(v) if v is not None else placeholder
+                          for v in fvals])
+            if o.desc:
+                k = _negate_key(k)
+            keys.append(k)
+            keys.append(~has)
+        keys.append(seg)
+        return np.lexsort(tuple(keys))
+
+    def paginate(self, arr_len: int, sg: SubGraph, ranks: np.ndarray) -> np.ndarray:
+        """Row slice per first/offset/after → index array into the row."""
+        idx = np.arange(arr_len)
+        if sg.after:
+            after_rank = self.store.rank_of(np.array([sg.after], np.int64))[0]
+            idx = idx[ranks > after_rank] if after_rank >= 0 else idx
+        if sg.offset:
+            idx = idx[sg.offset:]
+        if sg.first > 0:
+            idx = idx[:sg.first]
+        elif sg.first < 0:
+            idx = idx[sg.first:]
+        return idx
+
+    # -- block execution ----------------------------------------------------
+    def run_block(self, sg: SubGraph) -> LevelNode:
+        """Execute one root block (the reference's staged route; its
+        whole-query fusion is ROADMAP Queue 1 item 6)."""
+        if sg.shortest is not None:
+            from dgraph_tpu_torch.engine.shortest import shortest_path
+            data = shortest_path(self, sg)
+            node = LevelNode(sg=sg, nodes=data.nodes, path_data=data)
+            if sg.var_name:
+                self.uid_vars[sg.var_name] = data.nodes
+            return node
+        if _uses_msgpass(sg):
+            raise NotImplementedError(
+                "@msgpass is not ported yet (ROADMAP Queue 1 item 7: "
+                "engine/feat.py)")
+        display = self.root_display(sg)
+        nodes = np.unique(display).astype(np.int32)
+        node = LevelNode(sg=sg, nodes=nodes, display=display.astype(np.int32))
+        if sg.var_name:
+            self.uid_vars[sg.var_name] = nodes
+        if sg.groupby:
+            raise NotImplementedError(f"@groupby ({_LATER}: engine/groupby.py)")
+        self._descend(node)
+        return node
+
+    def root_display(self, sg: SubGraph) -> np.ndarray:
+        """Root evaluation through ordering + pagination → the block's
+        ordered display list."""
+        ranks = self.root_ranks(sg)
+        ranks = self.apply_filter(sg.filters, ranks)
+        order_idx = (self.order_ranks(ranks, sg.orders)
+                     if sg.orders else np.arange(len(ranks)))
+        display = ranks[order_idx]
+        page = self.paginate(len(display), sg, display)
+        return display[page].astype(np.int32)
+
+    def _descend(self, parent: LevelNode) -> None:
+        from dgraph_tpu_torch.engine.recurse import expand_recurse
+        if parent.sg.recurse is not None:
+            expand_recurse(self, parent)
+            return
+        for child_sg in self._concrete_children(parent):
+            if self._expands(child_sg):
+                parent.children.append(self.run_child(child_sg, parent.nodes))
+            else:
+                parent.leaf_sgs.append(child_sg)
+                self._record_leaf_vars(child_sg, parent)
+
+    def run_child(self, sg: SubGraph, frontier: np.ndarray) -> LevelNode:
+        """Expand one uid-predicate child level below `frontier`."""
+        nbrs, seg, pos, processed = self._level_edges(sg, frontier)
+        return self._finish_child(sg, nbrs, seg, pos, processed)
+
+    def _level_edges(self, sg: SubGraph, frontier: np.ndarray):
+        """One child level's filtered edge list → (nbrs, seg, pos,
+        processed); `processed` means pagination was already applied
+        (the fused device route)."""
+        fused = self._fused_level(sg, frontier)
+        if fused is not None:
+            return (*fused, True)
+        nbrs, seg, pos = self.expand(sg.attr, sg.is_reverse, frontier)
+        nbrs, seg, pos = self.filter_edges(sg.filters, nbrs, seg, pos)
+        nbrs, seg, pos = self.facet_filter_edges(sg, sg.attr, nbrs,
+                                                 seg, pos)
+        return nbrs, seg, pos, False
+
+    def _finish_child(self, sg: SubGraph, nbrs, seg, pos,
+                      processed: bool) -> LevelNode:
+        """Ordering, per-row pagination, node building, var binding and
+        descent below one expanded level."""
+        if not processed:
+            # row-internal ordering (default: uid order from the CSR)
+            if sg.orders or sg.facet_orders:
+                if sg.facet_orders:
+                    order_idx = self._facet_order(sg, nbrs, seg, pos)
+                else:
+                    order_idx = self.order_ranks(nbrs, sg.orders, seg=seg)
+                nbrs, seg = nbrs[order_idx], seg[order_idx]
+                pos = pos[order_idx] if len(pos) else pos
+            # per-row pagination (seg is nondecreasing: CSR construction
+            # order, preserved by masking; lexsort keys on seg first)
+            if sg.first or sg.offset or sg.after:
+                rows = np.unique(seg)
+                starts = np.searchsorted(seg, rows)
+                ends = np.searchsorted(seg, rows, "right")
+                keep_idx = []
+                for s, e in zip(starts.tolist(), ends.tolist()):
+                    row_idx = np.arange(s, e)
+                    keep_idx.append(
+                        row_idx[self.paginate(e - s, sg, nbrs[row_idx])])
+                if keep_idx:
+                    keep_idx = np.sort(np.concatenate(keep_idx))
+                    nbrs, seg = nbrs[keep_idx], seg[keep_idx]
+                    pos = pos[keep_idx] if len(pos) else pos
+        nodes = np.unique(nbrs).astype(np.int32)
+        node = LevelNode(sg=sg, nodes=nodes,
+                         matrix_seg=seg.astype(np.int32),
+                         matrix_child=nbrs.astype(np.int32),
+                         matrix_pos=pos)
+        if sg.var_name:
+            self.uid_vars[sg.var_name] = nodes
+        if sg.facet_vars:
+            self._bind_facet_vars(sg, nbrs, pos)
+        if sg.groupby:
+            raise NotImplementedError(f"@groupby ({_LATER}: engine/groupby.py)")
+        self._descend(node)
+        return node
+
+    def _fused_level(self, sg: SubGraph, frontier: np.ndarray):
+        """Large-frontier route: expand → filter → paginate → dedupe in
+        one device pass (ops.level.expand_level); the only host work is
+        evaluating the filter tree to a sorted allowed set. Returns
+        (nbrs, seg, pos) or None when ineligible (ordering, facet filters
+        and `after` cursors need per-edge host logic)."""
+        if (len(frontier) < self.device_threshold
+                or sg.orders or sg.facet_orders or sg.after
+                or sg.facet_filter is not None):
+            return None
+        rel = self.store.rel(sg.attr, sg.is_reverse)
+        if len(frontier) == 0 or rel.nnz == 0:
+            if rel.nnz:
+                return None
+            self.routes.add("empty", 0)
+            return EMPTY, EMPTY, EMPTY64
+        use_allowed = sg.filters is not None
+        if use_allowed:
+            # universe-free allowed set: index lookups only; complement-
+            # shaped trees (`not`) take the gathered-neighbor route
+            allowed = self.filter_set(sg.filters)
+            if allowed is None:
+                return None
+            allowed_d = _to_device(allowed, self.device)
+        else:
+            allowed_d = pad_to(EMPTY, 1, self.device)
+        first = sg.first if sg.first else NO_LIMIT
+        fr = _to_device(frontier, self.device)
+        total = int(rel.degree(frontier).sum())
+        ecap = _bucket(max(total, 1))
+        indptr, indices = self.store.device_rel(sg.attr, sg.is_reverse,
+                                                self.device)
+        with record_function("level.expand_level"):
+            c_nbrs, c_seg, c_pos, n_kept, _nxt, _nu, _total = expand_level(
+                indptr, indices, fr, allowed_d, sg.offset, first,
+                edge_cap=ecap, out_cap=ecap, use_allowed=use_allowed)
+            n = int(n_kept)
+        nbrs, seg, pos = _to_host(c_nbrs[:n], c_seg[:n], c_pos[:n])
+        # inputs as a gather plus the allowed set (when used); outputs:
+        # kept nbrs, seg, pos and the deduped next frontier per slot
+        a_bytes = 4 * allowed_d.shape[0] if use_allowed else 0
+        self.routes.add("fused", n, _gather_bytes(
+            len(frontier), fr.shape[0], total) + a_bytes + 16 * ecap)
+        return nbrs, seg, pos.astype(np.int64)
+
+    # -- leaves, vars, expand(_all_) ----------------------------------------
+    def _concrete_children(self, parent: LevelNode) -> list[SubGraph]:
+        """Resolve expand(_all_)/expand(Type) into concrete child blocks."""
+        out: list[SubGraph] = []
+        for c in parent.sg.children:
+            if not c.is_expand_all:
+                out.append(c)
+                continue
+            if c.expand_arg and c.expand_arg != "_all_":
+                preds = self.store.predicates_of_types([c.expand_arg])
+            else:
+                type_names: set[str] = set()
+                for r in parent.nodes:
+                    type_names.update(
+                        self.store.values_for("dgraph.type", int(r)))
+                preds = self.store.predicates_of_types(sorted(type_names))
+            for p in preds:
+                ps = self.store.schema.peek(p)
+                if ps and ps.kind == Kind.UID:
+                    out.append(SubGraph(attr=p, children=list(c.children)))
+                else:
+                    out.append(SubGraph(attr=p))
+        return out
 
     def _expands(self, sg: SubGraph) -> bool:
         return expands(self.store.schema, sg)
@@ -88,6 +589,7 @@ class Executor:
         if not sg.var_name:
             return
         if sg.is_uid_leaf and not sg.is_count:
+            # `v as uid` binds the enclosing block's uid set
             self.uid_vars[sg.var_name] = parent.nodes
             return
         if sg.is_count:
@@ -95,10 +597,13 @@ class Executor:
             deg = rel.degree(parent.nodes)
             self.val_vars[sg.var_name] = {
                 int(r): int(d) for r, d in zip(parent.nodes, deg)}
-        elif sg.math_expr is not None or sg.is_val_leaf:
+        elif sg.math_expr is not None:
             raise NotImplementedError(
-                "math()/val() variables are not ported yet (ROADMAP "
-                "Queue 1 item 4: engine/mathexpr.py, engine/execute.py)")
+                f"math() variables ({_LATER}: engine/mathexpr.py)")
+        elif sg.is_val_leaf:
+            src = self.val_vars.get(sg.attr, {})
+            self.val_vars[sg.var_name] = {
+                int(r): src[int(r)] for r in parent.nodes if int(r) in src}
         else:
             env: dict[int, object] = {}
             for r in parent.nodes:
@@ -106,6 +611,17 @@ class Executor:
                 if vs:
                     env[int(r)] = vs[0]
             self.val_vars[sg.var_name] = env
+
+
+def _uses_msgpass(sg: SubGraph) -> bool:
+    return sg.msgpass is not None or any(_uses_msgpass(c)
+                                         for c in sg.children)
+
+
+def _needs_facets(sg) -> bool:
+    """Whether a block consumes edge positions (facet render/filter/order)."""
+    return (sg.facet_keys is not None or sg.facet_filter is not None
+            or sg.facet_vars is not None or bool(sg.facet_orders))
 
 
 def expands(schema, sg: SubGraph) -> bool:
@@ -118,3 +634,35 @@ def expands(schema, sg: SubGraph) -> bool:
         return True
     ps = schema.peek(sg.attr)
     return bool(ps and ps.kind == Kind.UID)
+
+
+def _coerce_to(want, v):
+    """Coerce a parsed (string) comparison arg to the facet value's type."""
+    if not isinstance(want, str):
+        return want
+    try:
+        if isinstance(v, (bool, np.bool_)):
+            return want.strip().lower() in ("true", "1")
+        if isinstance(v, (int, np.integer)):
+            return int(want)
+        if isinstance(v, (float, np.floating)):
+            return float(want)
+    except ValueError:
+        pass
+    return want
+
+
+def _orderable(v):
+    if isinstance(v, np.datetime64):
+        return v.astype("datetime64[us]").astype("int64")
+    if isinstance(v, (bool, np.bool_)):
+        return int(v)
+    return v
+
+
+def _negate_key(k: np.ndarray) -> np.ndarray:
+    if k.dtype.kind in "if":
+        return -k
+    # strings: lexsort can't negate; invert via rank mapping
+    uniq, inv = np.unique(k, return_inverse=True)
+    return (len(uniq) - 1 - inv).astype(np.int64)

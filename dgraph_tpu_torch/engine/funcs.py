@@ -1,10 +1,12 @@
-"""Root function evaluation against the Store.
+"""Root/filter function evaluation against the Store.
 
-Port of `dgraph_tpu/engine/funcs.py` for the root functions the batched
-`@recurse` slice serves: `uid(...)` and `eq(...)` (index lookup on an
-`exact`/`hash` predicate, column scan otherwise). The other functions
-raise until the per-query engine is ported (ROADMAP Queue 1 item 4).
-Host-side numpy, producing sorted int32 rank sets.
+Port of `dgraph_tpu/engine/funcs.py`: `uid`, `has`, `type`, `uid_in`,
+`eq`, `le`/`lt`/`ge`/`gt`/`between` (value, count and val-var
+comparisons), `anyofterms`/`allofterms`, and `eval_func_universe`, the
+frontier-restricted form child-level filters use. Host-side numpy over
+columnar value arrays and inverted indexes, producing sorted int32 rank
+sets. `regexp`, `match`, the fulltext and geo functions and `similar_to`
+raise until they are ported (ROADMAP Queue 1 items 4 and 7).
 """
 
 from __future__ import annotations
@@ -12,25 +14,53 @@ from __future__ import annotations
 import numpy as np
 
 from dgraph_tpu_torch.engine.ir import FuncNode
-from dgraph_tpu_torch.store.store import Store
+from dgraph_tpu_torch.store.store import TYPE_PRED, Store
+from dgraph_tpu_torch.store.tok import term_tokens
 from dgraph_tpu_torch.store.types import Kind, convert
 
 EMPTY = np.zeros(0, np.int32)
+
+_LATER = {
+    "anyoftext": "ROADMAP Queue 1 item 4: fulltext tokenizer",
+    "alloftext": "ROADMAP Queue 1 item 4: fulltext tokenizer",
+    "regexp": "ROADMAP Queue 1 item 4: engine/funcs.py",
+    "match": "ROADMAP Queue 1 item 4: engine/funcs.py",
+    "near": "ROADMAP Queue 1 item 4: store/geo.py",
+    "within": "ROADMAP Queue 1 item 4: store/geo.py",
+    "contains": "ROADMAP Queue 1 item 4: store/geo.py",
+    "similar_to": "ROADMAP Queue 1 item 7: store/vec.py",
+}
 
 
 def eval_func(store: Store, f: FuncNode, val_env: dict | None = None) -> np.ndarray:
     """Evaluate a function → sorted unique int32 rank array."""
     name = f.name.lower()
-    if not (f.is_count or f.is_val_var):
-        if name == "uid":
-            ranks = store.rank_of(np.array(f.uids or [0], np.int64))
-            return np.unique(ranks[ranks >= 0]).astype(np.int32)
-        if name == "eq":
-            return _eq(store, f)
-    raise NotImplementedError(
-        f"root function {f.name!r} is not ported yet (ROADMAP Queue 1 "
-        f"item 4: engine/funcs.py)")
+    if f.is_count:
+        return _count_compare(store, f, name)
+    if f.is_val_var:
+        return _val_var_compare(f, name, val_env or {})
+    if name == "uid":
+        ranks = store.rank_of(np.array(f.uids or [0], np.int64))
+        return np.unique(ranks[ranks >= 0]).astype(np.int32)
+    if name == "has":
+        return store.has_ranks(f.attr)
+    if name == "type":
+        return store.index_lookup(TYPE_PRED, "exact", str(f.args[0]))
+    if name == "uid_in":
+        return _uid_in(store, f)
+    if name == "eq":
+        return _eq(store, f)
+    if name in ("le", "lt", "ge", "gt", "between"):
+        return _compare(store, f, name)
+    if name in ("anyofterms", "allofterms"):
+        return _terms(store, f, any_=(name == "anyofterms"))
+    if name in _LATER:
+        raise NotImplementedError(
+            f"function {f.name!r} is not ported yet ({_LATER[name]})")
+    raise ValueError(f"unknown function {f.name!r}")
 
+
+# -- helpers ----------------------------------------------------------------
 
 def _schema_kind(store: Store, attr: str) -> Kind:
     ps = store.schema.peek(attr)
@@ -57,6 +87,81 @@ def _scan(store: Store, f: FuncNode, predicate_fn) -> np.ndarray:
     return np.unique(np.concatenate(hits)).astype(np.int32)
 
 
+def _scan_universe(store: Store, f: FuncNode, predicate_fn,
+                   universe: np.ndarray) -> np.ndarray:
+    """_scan restricted to a sorted candidate rank set: each column's
+    candidate rows are selected by searchsorted (columns are
+    subject-sorted) BEFORE the predicate runs, so a child-level filter's
+    cost tracks the frontier, not the whole predicate."""
+    hits = []
+    for col in _columns(store, f):
+        if not len(col.subj) or not len(universe):
+            continue
+        lo = np.searchsorted(col.subj, universe, "left")
+        hi = np.searchsorted(col.subj, universe, "right")
+        counts = (hi - lo).astype(np.int64)
+        total = int(counts.sum())
+        if not total:
+            continue
+        base = np.repeat(np.cumsum(counts) - counts, counts)
+        rows = (np.repeat(lo.astype(np.int64), counts)
+                + np.arange(total) - base)
+        mask = predicate_fn(col.vals[rows])
+        if mask.any():
+            hits.append(col.subj[rows[np.asarray(mask, bool)]])
+    if not hits:
+        return EMPTY
+    return np.unique(np.concatenate(hits)).astype(np.int32)
+
+
+def eval_func_universe(store: Store, f: FuncNode,
+                       universe: np.ndarray) -> np.ndarray | None:
+    """Evaluate a filter function AGAINST a sorted candidate set where
+    that is cheaper than materializing the full match set: comparisons,
+    non-indexed eq, and has(). Returns the matching subset of `universe`
+    (sorted), or None → the caller intersects the full set. Indexed eq
+    stays on the full path: its index lookup is already O(tokens)."""
+    name = f.name.lower()
+    if f.is_count or f.is_val_var:
+        return None
+    if name in ("le", "lt", "ge", "gt", "between"):
+        return _scan_universe(store, f, _cmp_pred(store, f, name),
+                              universe)
+    if name == "eq":
+        kind = _schema_kind(store, f.attr)
+        ps = store.schema.peek(f.attr)
+        toks = ps.index_tokenizers if ps else ()
+        if not f.lang and kind in (Kind.STRING, Kind.DEFAULT) and \
+                ("exact" in toks or "hash" in toks):
+            return None  # indexed eq: _eq's O(lookup) wins
+        targets = [convert(a, kind) for a in f.args]
+        if kind == Kind.DATETIME:
+            targets = np.array(targets, "datetime64[us]")
+        tgt = np.array(targets)
+        return _scan_universe(
+            store, f,
+            lambda vals: np.isin(_cmp_arrays(vals, kind), tgt),
+            universe)
+    if name == "has" and not f.args:
+        # degree / value-presence test per candidate — O(|universe|)
+        reverse = f.attr.startswith("~")
+        p = store.preds.get(f.attr.lstrip("~"))
+        if p is None:
+            return EMPTY
+        keep = np.zeros(len(universe), bool)
+        rel = p.rev if reverse else p.fwd
+        if rel is not None:
+            keep |= (rel.indptr[universe + 1]
+                     - rel.indptr[universe]) > 0
+        if not reverse:
+            for col in p.vals.values():
+                lo = np.searchsorted(col.subj, universe, "left")
+                hi = np.searchsorted(col.subj, universe, "right")
+                keep |= hi > lo
+        return universe[keep].astype(np.int32)
+    return None
+
+
 def _cmp_arrays(vals: np.ndarray, kind: Kind):
     if kind in (Kind.STRING, Kind.DEFAULT, Kind.PASSWORD):
         return vals.astype(str)
@@ -79,3 +184,124 @@ def _eq(store: Store, f: FuncNode) -> np.ndarray:
         targets = np.array(targets, "datetime64[us]")
     return _scan(store, f, lambda vals: np.isin(_cmp_arrays(vals, kind),
                                                 np.array(targets)))
+
+
+def _cmp_pred(store: Store, f: FuncNode, op: str):
+    """The le/lt/ge/gt/between predicate closure, shared by the
+    full-column scan and the universe-restricted path."""
+    kind = _schema_kind(store, f.attr)
+    args = [convert(a, kind) for a in f.args]
+
+    def pred(vals):
+        v = _cmp_arrays(vals, kind)
+        a0 = args[0]
+        if op == "le":
+            return v <= a0
+        if op == "lt":
+            return v < a0
+        if op == "ge":
+            return v >= a0
+        if op == "gt":
+            return v > a0
+        return (v >= a0) & (v <= args[1])  # between
+
+    return pred
+
+
+def _compare(store: Store, f: FuncNode, op: str) -> np.ndarray:
+    return _scan(store, f, _cmp_pred(store, f, op))
+
+
+def _count_compare(store: Store, f: FuncNode, op: str) -> np.ndarray:
+    """eq/le/lt/ge/gt/between(count(pred), N) over the CSR degrees."""
+    rel = store.rel(f.attr.lstrip("~"), reverse=f.attr.startswith("~"))
+    deg = (rel.indptr[1:] - rel.indptr[:-1]).astype(np.int64)
+    n = int(f.args[0])
+    if op == "eq":
+        mask = deg == n
+    elif op == "le":
+        mask = deg <= n
+    elif op == "lt":
+        mask = deg < n
+    elif op == "ge":
+        mask = deg >= n
+    elif op == "gt":
+        mask = deg > n
+    elif op == "between":
+        mask = (deg >= n) & (deg <= int(f.args[1]))
+    else:
+        raise ValueError(f"bad count comparison {op}")
+    return np.nonzero(mask)[0].astype(np.int32)
+
+
+def _val_var_compare(f: FuncNode, op: str, val_env: dict) -> np.ndarray:
+    """eq/le/../gt(val(x), N) over a value-variable map (rank → value)."""
+    var = val_env.get(f.attr)
+    if not var:
+        return EMPTY
+    ranks = np.fromiter(var.keys(), np.int32, len(var))
+    vals = np.array(list(var.values()))
+    a0 = vals.dtype.type(f.args[0])
+    if op == "eq":
+        mask = np.isin(vals, np.array([vals.dtype.type(a) for a in f.args]))
+    elif op == "le":
+        mask = vals <= a0
+    elif op == "lt":
+        mask = vals < a0
+    elif op == "ge":
+        mask = vals >= a0
+    elif op == "gt":
+        mask = vals > a0
+    elif op == "between":
+        mask = (vals >= a0) & (vals <= vals.dtype.type(f.args[1]))
+    else:
+        raise ValueError(f"bad val comparison {op}")
+    return np.unique(ranks[mask]).astype(np.int32)
+
+
+def _uid_in(store: Store, f: FuncNode) -> np.ndarray:
+    """uid_in(pred, uid): subjects with an edge pred → uid."""
+    targets = store.rank_of(np.array(f.uids, np.int64))
+    targets = targets[targets >= 0]
+    if not len(targets):
+        return EMPTY
+    attr = f.attr.lstrip("~")
+    reverse = f.attr.startswith("~")
+    ps = store.schema.peek(attr)
+    if ps and ps.reverse and not reverse:
+        rows = [store.rel(attr, reverse=True).row(int(t)) for t in targets]
+        return np.unique(np.concatenate(rows)).astype(np.int32)
+    # no reverse index: scan the forward CSR (vectorised membership)
+    rel = store.rel(attr, reverse=reverse)
+    hit_edges = np.isin(rel.indices, targets)
+    srcs = np.searchsorted(rel.indptr, np.nonzero(hit_edges)[0], side="right") - 1
+    return np.unique(srcs).astype(np.int32)
+
+
+def _require_index(store: Store, attr: str, tokenizer: str, func: str) -> None:
+    """Tokenizer-backed funcs error without the matching @index."""
+    ps = store.schema.peek(attr)
+    if ps is None or tokenizer not in ps.index_tokenizers:
+        raise ValueError(
+            f"attribute {attr!r} is not indexed with tokenizer "
+            f"{tokenizer!r} (required by {func})")
+
+
+def _terms(store: Store, f: FuncNode, any_: bool) -> np.ndarray:
+    _require_index(store, f.attr, "term",
+                   "anyofterms" if any_ else "allofterms")
+    toks = term_tokens(" ".join(str(a) for a in f.args))
+    return _token_combine(store, f.attr, "term", toks, any_)
+
+
+def _token_combine(store: Store, attr: str, tokenizer: str, toks,
+                   any_: bool) -> np.ndarray:
+    if not toks:
+        return EMPTY
+    lists = [store.index_lookup(attr, tokenizer, t) for t in toks]
+    if any_:
+        return np.unique(np.concatenate(lists)).astype(np.int32)
+    out = lists[0]
+    for l in lists[1:]:
+        out = np.intersect1d(out, l)
+    return out.astype(np.int32)

@@ -1,11 +1,14 @@
-"""JSON result assembly for batched `@recurse` results.
+"""JSON result assembly from executed LevelNode trees.
 
-Port of `dgraph_tpu/engine/outputnode.py` for the paths the slice
-renders: root blocks, scalar/uid/count leaves and `loop: false` recurse
-rows, with the reference's JSON conventions ("0x%x" uids, RFC3339
-datetimes, empty lists omitted). Aggregates, val()/math() leaves,
-checkpwd, `@*` language maps, facets, nested level trees, @normalize,
-@groupby and shortest paths are ROADMAP Queue 1 item 4.
+Port of `dgraph_tpu/engine/outputnode.py`: root blocks in their ordered
+and paginated display order, nested levels (the matrices (seg, child)
+ARE the tree; rows group per parent with one stable argsort per level),
+scalar/uid/count/val() leaves, `@*` language maps, facets on edges and
+value postings, `@recurse` rows (loop false and true) and shortest
+paths. JSON conventions match the reference: "0x%x" uids, RFC3339
+datetimes, empty lists omitted, count(uid) as a standalone entry.
+Aggregates, math() leaves, checkpwd, @normalize, @groupby and @cascade
+raise until they are ported (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ def to_json(ex, roots: list[LevelNode]) -> dict:
             continue
         name = node.sg.alias or node.sg.attr or "q"
         if node.sg.shortest is not None:
-            raise NotImplementedError(f"shortest-path rendering ({_LATER})")
+            out.setdefault("_path_", []).extend(r.render_paths(node))
+            continue
         out[name] = r.render_block(node)
     return out
 
@@ -35,6 +39,7 @@ class _Renderer:
     def __init__(self, ex):
         self.ex = ex
         self.store = ex.store
+        self._row_maps: dict[int, dict[int, tuple]] = {}
         # per-(leaf, rank-domain) batched lookups: one vectorized fetch
         # per level/predicate instead of a size-1 searchsorted per node
         # (each entry pins its domain array so id() keys stay unique)
@@ -42,8 +47,11 @@ class _Renderer:
         self._uid_strs: dict = {}
         self._degrees: dict = {}
         self._is_list: dict = {}
+        self._obj_memo: dict = {}
         self._rec_maps: dict = {}
         self._rec_obj_memo: dict = {}
+        self._facet_keys: dict = {}
+        self._star_langs: dict = {}
 
     def _rec_rows(self, parents: np.ndarray, children: np.ndarray,
                   rank: int) -> np.ndarray:
@@ -107,12 +115,20 @@ class _Renderer:
         return int(d) if d is not None else \
             int(rel.degree(np.array([rank]))[0])
 
+    def _leaf_info(self, leaf) -> tuple[bool, bool]:
+        """(is_list, is_password) from the schema, once per leaf."""
+        info = self._is_list.get(id(leaf))
+        if info is None:
+            ps = self.store.schema.peek(leaf.attr)
+            info = self._is_list[id(leaf)] = (
+                bool(ps and ps.is_list),
+                bool(ps and ps.kind == Kind.PASSWORD))
+        return info
+
     # -- blocks -------------------------------------------------------------
     def render_block(self, node: LevelNode) -> list:
-        sg = node.sg
-        if sg.normalize or sg.groupby or sg.cascade:
-            raise NotImplementedError(
-                f"@normalize/@groupby/@cascade rendering ({_LATER})")
+        if node.sg.normalize:
+            raise NotImplementedError(f"@normalize rendering ({_LATER})")
         objs = []
         display = node.display if node.display is not None else node.nodes
         for rank in display.tolist():
@@ -134,14 +150,17 @@ class _Renderer:
 
     # -- nodes --------------------------------------------------------------
     def node_obj(self, level: LevelNode, rank: int) -> dict:
-        if level.children:
-            raise NotImplementedError(f"nested level rendering ({_LATER})")
+        if level.sg.cascade:
+            raise NotImplementedError(f"@cascade rendering ({_LATER})")
         obj: dict = {}
         domain = level.display if level.display is not None else level.nodes
         for leaf in level.leaf_sgs:
             self._render_leaf(leaf, rank, obj, domain)
         if level.recurse_data is not None:
-            self._render_recurse_children(level.recurse_data, rank, obj)
+            self._render_recurse_children(level.recurse_data, rank, obj,
+                                          depth=0)
+        for child in level.children:
+            self._render_edge(child, level, rank, obj)
         return obj
 
     def _render_leaf(self, leaf, rank: int, obj: dict, domain=None) -> None:
@@ -154,20 +173,37 @@ class _Renderer:
             name = leaf.alias or f"count({'~' if leaf.is_reverse else ''}{leaf.attr})"
             obj[name] = self._count_for(leaf, rank, domain)
             return
-        if (leaf.is_val_leaf or leaf.math_expr is not None
-                or leaf.checkpwd_val is not None or leaf.lang == "*"
-                or leaf.facet_keys is not None):
+        if leaf.is_val_leaf:
+            var = self.ex.val_vars.get(leaf.attr, {})
+            if rank in var:
+                obj[leaf.alias or f"val({leaf.attr})"] = _json_val(var[rank])
+            return
+        if leaf.math_expr is not None or leaf.checkpwd_val is not None:
             raise NotImplementedError(
-                f"val()/math()/checkpwd/@*/facet leaf rendering ({_LATER})")
-        # plain value predicate — (is_list, is_password) resolve from the
-        # schema ONCE per leaf, not per rendered node
-        info = self._is_list.get(id(leaf))
-        if info is None:
-            ps = self.store.schema.peek(leaf.attr)
-            info = self._is_list[id(leaf)] = (
-                bool(ps and ps.is_list),
-                bool(ps and ps.kind == Kind.PASSWORD))
-        is_list, is_password = info
+                f"math()/checkpwd leaf rendering ({_LATER})")
+        if leaf.lang == "*":
+            # name@*: every language version, keyed per tag (untagged
+            # renders under the bare name); passwords never render
+            is_list, is_password = self._leaf_info(leaf)
+            if is_password:
+                return
+            pd = self.store.preds.get(leaf.attr)
+            langs = self._star_langs.get(id(leaf))
+            if langs is None:
+                langs = self._star_langs[id(leaf)] = (
+                    sorted(pd.vals) if pd else ())
+            base = leaf.alias or leaf.attr
+            for lang in langs:
+                vs = pd.vals[lang].get(rank)
+                if not vs:
+                    continue
+                key = base if not lang else f"{base}@{lang}"
+                obj[key] = (_json_val(vs[0])
+                            if len(vs) == 1 and not is_list
+                            else [_json_val(v) for v in vs])
+            return
+        # plain value predicate
+        is_list, is_password = self._leaf_info(leaf)
         if is_password:
             return  # password hashes never render (reference semantics)
         vs = self._leaf_vals_for(leaf, rank, domain)
@@ -178,41 +214,148 @@ class _Renderer:
             obj[name] = [_json_val(v) for v in vs]
         else:
             obj[name] = _json_val(vs[0])
+        if leaf.facet_keys is not None:
+            # facets on VALUE postings render as "name|key" siblings
+            fk = self._facet_keys.get(id(leaf))
+            if fk is None:
+                fk = self._facet_keys[id(leaf)] = (
+                    [k for _, k in leaf.facet_keys] or None,
+                    {k: a for a, k in leaf.facet_keys if a})
+            keys, aliases = fk
+            for k, v in self.store.value_facets(leaf.attr, rank,
+                                                keys).items():
+                obj[aliases.get(k) or f"{name}|{k}"] = _json_val(v)
+
+    def _render_edge(self, child: LevelNode, parent: LevelNode, rank: int,
+                     obj: dict) -> None:
+        rows, row_idx = self._rows(child, parent, rank)
+        name = child.sg.alias or (
+            f"~{child.sg.attr}" if child.sg.is_reverse else child.sg.attr)
+        facet_cols = None
+        if child.sg.facet_keys is not None and len(child.matrix_pos):
+            keys = [k for _, k in child.sg.facet_keys] or None
+            aliases = {k: a for a, k in (child.sg.facet_keys or []) if a}
+            facet_cols = (self.store.edge_facets(
+                child.sg.attr,
+                self.ex.facet_positions(child.sg, child.matrix_pos),
+                keys), aliases)
+        # memoize per (level, rank): a popular child appears in MANY
+        # parents' rows; its subtree renders once
+        memo = self._obj_memo.setdefault(id(child), {})
+        lst = []
+        for j, cr in enumerate(rows.tolist()):
+            cr = int(cr)
+            o = memo.get(cr)
+            if o is None:
+                o = memo[cr] = self.node_obj(child, cr)
+            if facet_cols is not None:
+                cols, aliases = facet_cols
+                o = dict(o)  # copy: facet annotations are per-row
+                mi = int(row_idx[j])  # position into matrix arrays
+                for k, vals in cols.items():
+                    if vals[mi] is not None:
+                        fname = aliases.get(k) or f"{name}|{k}"
+                        o[fname] = _json_val(vals[mi])
+            if o:
+                lst.append(o)
+        lst.extend(self._row_level_entries(child, rows))
+        if lst:
+            obj[name] = lst
+
+    def _row_level_entries(self, child: LevelNode, rows: np.ndarray) -> list:
+        """Nested count(uid): evaluated over THIS parent's row members."""
+        entries = []
+        for leaf in child.leaf_sgs:
+            if leaf.is_agg:
+                raise NotImplementedError(f"aggregate rendering ({_LATER})")
+            if leaf.is_count and leaf.is_uid_leaf:
+                entries.append({leaf.alias or "count": int(len(np.unique(rows)))})
+        return entries
+
+    _EMPTY_ROW = (np.zeros(0, np.int32), np.zeros(0, np.int64))
+
+    def _rows(self, child: LevelNode, parent: LevelNode, rank: int):
+        """Matrix row of `rank`: (child ranks in row order, their indices
+        into the matrix arrays — matrix_pos/facet columns align to these).
+        The map is keyed by parent RANK."""
+        m = self._row_maps.get(id(child))
+        if m is None:
+            m = {}
+            seg = child.matrix_seg
+            order = np.argsort(seg, kind="stable")
+            sseg = seg[order]
+            starts = np.searchsorted(sseg, np.arange(len(parent.nodes)))
+            ends = np.searchsorted(sseg, np.arange(len(parent.nodes)), "right")
+            pranks = parent.nodes.tolist()
+            for pos in range(len(parent.nodes)):
+                if ends[pos] > starts[pos]:
+                    idx = order[starts[pos]:ends[pos]]
+                    m[int(pranks[pos])] = (child.matrix_child[idx], idx)
+            self._row_maps[id(child)] = m
+        return m.get(rank, self._EMPTY_ROW)
 
     # -- recurse ------------------------------------------------------------
-    def _render_recurse_children(self, data, rank: int, obj: dict) -> None:
-        if data.loop:
-            raise NotImplementedError(
-                f"@recurse(loop: true) rendering ({_LATER})")
+    def _render_recurse_children(self, data, rank: int, obj: dict,
+                                 depth: int) -> None:
         for leaf in data.leaf_sgs:
             self._render_leaf(leaf, rank, obj, domain=data.all_nodes)
+        if data.loop:
+            if depth >= len(data.by_depth):
+                return
+            level = data.by_depth[depth]
+        else:
+            level = data.edges
         for i, esg in enumerate(data.edge_sgs):
-            if i not in data.edges:
+            if i not in level:
                 continue
-            parents, children = data.edges[i]
+            parents, children = level[i]
             rows = self._rec_rows(parents, children, rank)
-            self._emit_recurse_rows(data, esg, rows, obj)
+            self._emit_recurse_rows(data, esg, rows, obj, depth + 1)
 
-    def _emit_recurse_rows(self, data, esg, rows, obj: dict) -> None:
+    def _emit_recurse_rows(self, data, esg, rows, obj: dict, depth: int) -> None:
         if not len(rows):
             return
         name = esg.alias or (f"~{esg.attr}" if esg.is_reverse else esg.attr)
         # loop=false: a rank's subtree is depth-independent (its children
         # always come from the global first-visit matrix), so a node
         # reached by many parents renders once
-        memo = self._rec_obj_memo.setdefault(id(data), {})
+        memo = (self._rec_obj_memo.setdefault(id(data), {})
+                if not data.loop else None)
         lst = []
         for cr in rows.tolist():
             cr = int(cr)
-            o = memo.get(cr)
+            o = memo.get(cr) if memo is not None else None
             if o is None:
                 o = {}
-                self._render_recurse_children(data, cr, o)
-                memo[cr] = o
+                self._render_recurse_children(data, cr, o, depth)
+                if memo is not None:
+                    memo[cr] = o
             if o:
                 lst.append(o)
         if lst:
             obj[name] = lst
+
+    # -- shortest -----------------------------------------------------------
+    def render_paths(self, node: LevelNode) -> list:
+        data = node.path_data
+        if data is None or not data.paths:
+            return []
+        out = []
+        for pi_, path in enumerate(data.paths):
+            cur: dict | None = None
+            for rank, pred_i in reversed(path):
+                o = {"uid": _uid_str(self.store.uid_of(rank))}
+                if cur is not None:
+                    esg = data.edge_sgs[next_pred_i]
+                    name = esg.alias or (
+                        f"~{esg.attr}" if esg.is_reverse else esg.attr)
+                    o[name] = cur
+                cur = o
+                next_pred_i = pred_i
+            if data.weights:
+                cur["_weight_"] = data.weights[pi_]
+            out.append(cur)
+        return out
 
 
 # -- helpers ----------------------------------------------------------------

@@ -1,20 +1,20 @@
 """The posting store: uid vocabulary + per-predicate CSR blocks.
 
-Port of `dgraph_tpu/store/store.py` for the batched `@recurse` slice:
-`EdgeRel`, `ValueColumn`, `PredicateData`, `Store`, `StoreBuilder`,
-`build_indexes` and the CSR builder, over the same dense int32 rank
-space:
+Port of `dgraph_tpu/store/store.py`: `EdgeRel`, `ValueColumn`,
+`FacetCol`, `PredicateData`, `Store`, `StoreBuilder`, `build_indexes`
+and the CSR builder, over the same dense int32 rank space:
 
     uids[int64, N]            sorted global uid vocabulary (rank = position)
     indptr[int32, N+1]        per-predicate row offsets
     indices[int32, nnz]       object ranks, sorted within each row
 
 The host arrays are numpy and equal to the reference's for the same
-input; the serving path places what it needs on the device itself
-(`ops/bfs.py:device_ell`). CSR construction always takes the numpy
-path, which the reference documents as bit-identical to its native
-builder. Facets, per-predicate device CSR, vector tablets and the mesh
-placements belong to later slices (ROADMAP Queue 1 items 3-4, 7, 10).
+input. The per-query engine reads each CSR on the device through
+`Store.device_rel` (cached per predicate, direction and device); the
+batched path places its ELL layout itself (`ops/bfs.py:device_ell`).
+CSR construction always takes the numpy path, which the reference
+documents as bit-identical to its native builder. Vector tablets and the
+mesh placements belong to later slices (ROADMAP Queue 1 items 7, 10).
 
 `store_from_arrays` builds a port Store from a reference Store's numpy
 state (or plain arrays), so both packages can be handed the same data.
@@ -25,15 +25,14 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from dgraph_tpu_torch.store.schema import PredicateSchema, Schema, parse_schema
 from dgraph_tpu_torch.store.tok import tokens_for
 from dgraph_tpu_torch.store.types import NUMPY_DTYPE, Kind, convert
+from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 TYPE_PRED = "dgraph.type"
-
-_FACETS_LATER = ("facets are not ported yet (ROADMAP Queue 1 item 4: "
-                 "store/store.py facet columns)")
 
 
 @dataclass
@@ -87,6 +86,48 @@ class ValueColumn:
             out[int(r)] = list(self.vals[l:h])
         return out
 
+    def has(self) -> np.ndarray:
+        """Sorted unique ranks that have a value."""
+        return np.unique(self.subj)
+
+
+@dataclass
+class FacetCol:
+    """Edge facets for one key, columnar by forward edge position (the
+    positions the hop's `edge_pos` output gathers from)."""
+
+    pos: np.ndarray   # sorted int64 positions into fwd.indices
+    vals: np.ndarray  # object array of facet values
+
+    def _locate(self, positions: np.ndarray):
+        """(clamped indexes, hit mask) for edge positions."""
+        idx = np.searchsorted(self.pos, positions)
+        idx_c = np.minimum(idx, max(len(self.pos) - 1, 0))
+        hit = (len(self.pos) > 0) & (self.pos[idx_c] == positions)
+        return np.atleast_1d(idx_c), np.atleast_1d(hit)
+
+    def get(self, positions: np.ndarray) -> list:
+        """Facet values at edge positions; None where absent."""
+        idx_c, hit = self._locate(positions)
+        return [self.vals[i] if h else None
+                for i, h in zip(idx_c.tolist(), hit.tolist())]
+
+    def numeric_at(self, positions: np.ndarray):
+        """(values float64, hit mask) at edge positions, or None unless
+        EVERY value is genuinely numeric (numeric strings do not parse:
+        the per-value path weighs them 1, and the two must agree)."""
+        if not hasattr(self, "_num"):
+            if all(isinstance(v, (bool, int, float, np.integer,
+                                  np.floating, np.bool_))
+                   for v in self.vals):
+                self._num = self.vals.astype(np.float64)
+            else:
+                self._num = None
+        if self._num is None or not len(self.pos):
+            return None
+        idx_c, hit = self._locate(positions)
+        return self._num[idx_c], hit
+
 
 @dataclass
 class PredicateData:
@@ -97,6 +138,31 @@ class PredicateData:
     vals: dict[str, ValueColumn] = field(default_factory=dict)
     # tokenizer → token → sorted int32 rank array
     index: dict[str, dict[str, np.ndarray]] = field(default_factory=dict)
+    # facet key → edge-position column (forward direction)
+    efacets: dict[str, FacetCol] = field(default_factory=dict)
+    # facet key → {subject rank: value} for value postings
+    vfacets: dict[str, dict[int, object]] = field(default_factory=dict)
+    # reverse-CSR position → forward-CSR position: facets live on the
+    # forward posting but also render on ~pred expansions
+    rev_pos: np.ndarray | None = None
+
+    def build_rev_pos(self, n: int) -> None:
+        if self.rev is None or self.fwd is None or not self.rev.nnz:
+            return
+        o_arr = np.repeat(np.arange(n, dtype=np.int64),
+                          np.diff(self.rev.indptr).astype(np.int64))
+        s_arr = self.rev.indices.astype(np.int64)
+        # both CSRs are sorted by (subject, object), so the flattened
+        # (s * n + o) keys of the forward edges are ascending
+        self.rev_pos = np.searchsorted(_edge_keys(self.fwd, n),
+                                       s_arr * n + o_arr)
+
+
+def _edge_keys(rel: EdgeRel, n: int) -> np.ndarray:
+    """Ascending (subject * n + object) key of every edge of a CSR."""
+    src = np.repeat(np.arange(n, dtype=np.int64),
+                    np.diff(rel.indptr).astype(np.int64))
+    return src * n + rel.indices.astype(np.int64)
 
 
 class Store:
@@ -109,8 +175,20 @@ class Store:
         self.uids = uids
         self.schema = schema
         self.preds = preds
+        # (pred, direction, device) → (indptr, indices) int32 tensors
+        self._device: dict = {}
         self._empty_rel = EdgeRel(np.zeros(self.n_nodes + 1, np.int32),
                                   np.zeros(0, np.int32))
+
+    def rev_to_fwd_pos(self, pred: str, pos: np.ndarray) -> np.ndarray:
+        """Map reverse-CSR edge positions to their forward positions (the
+        space facet columns key on). Built lazily per predicate."""
+        pd = self.preds.get(pred)
+        if pd is None or not len(pos):
+            return pos
+        if pd.rev_pos is None:
+            pd.build_rev_pos(self.n_nodes)
+        return pd.rev_pos[pos] if pd.rev_pos is not None else pos
 
     # -- uid ↔ rank ---------------------------------------------------------
     @property
@@ -134,6 +212,20 @@ class Store:
         p = self.preds.get(pred)
         r = (p.rev if reverse else p.fwd) if p else None
         return r if r is not None else self._empty_rel
+
+    def device_rel(self, pred: str, reverse: bool = False,
+                   device=DEFAULT_DEVICE):
+        """(indptr, indices) of one CSR as int32 tensors on `device`,
+        placed once per (predicate, direction, device)."""
+        dev = resolve_device(device)
+        key = (pred, "rev" if reverse else "fwd", str(dev))
+        out = self._device.get(key)
+        if out is None:
+            r = self.rel(pred, reverse)
+            out = self._device[key] = (
+                torch.from_numpy(r.indptr).to(dev),
+                torch.from_numpy(r.indices).to(dev))
+        return out
 
     # -- values -------------------------------------------------------------
     def value_col(self, pred: str, lang: str = "") -> ValueColumn | None:
@@ -196,12 +288,70 @@ class Store:
                     remaining = remaining[keep]
         return out
 
+    def has_ranks(self, pred: str) -> np.ndarray:
+        """Sorted ranks of subjects that have `pred` (edges or values);
+        `~pred` counts incoming edges."""
+        reverse = pred.startswith("~")
+        p = self.preds.get(pred.lstrip("~"))
+        if not p:
+            return np.zeros(0, np.int32)
+        if reverse:
+            rel = p.rev
+            if rel is None:
+                return np.zeros(0, np.int32)
+            deg = rel.indptr[1:] - rel.indptr[:-1]
+            return np.nonzero(deg > 0)[0].astype(np.int32)
+        parts = []
+        if p.fwd is not None:
+            deg = p.fwd.indptr[1:] - p.fwd.indptr[:-1]
+            parts.append(np.nonzero(deg > 0)[0].astype(np.int32))
+        for col in p.vals.values():
+            parts.append(col.has().astype(np.int32))
+        if not parts:
+            return np.zeros(0, np.int32)
+        return np.unique(np.concatenate(parts))
+
+    # -- facets -------------------------------------------------------------
+    def edge_facets(self, pred: str, positions: np.ndarray,
+                    keys=None) -> dict[str, list]:
+        """Facet values per requested key at forward edge positions;
+        `keys=None` → every key present."""
+        p = self.preds.get(pred)
+        if not p or not p.efacets:
+            return {}
+        use = p.efacets.keys() if keys is None else \
+            [k for k in keys if k in p.efacets]
+        return {k: p.efacets[k].get(np.asarray(positions, np.int64))
+                for k in use}
+
+    def value_facets(self, pred: str, rank: int, keys=None) -> dict:
+        """Facets on a value posting."""
+        p = self.preds.get(pred)
+        if not p or not p.vfacets:
+            return {}
+        use = p.vfacets.keys() if keys is None else \
+            [k for k in keys if k in p.vfacets]
+        out = {}
+        for k in use:
+            if rank in p.vfacets[k]:
+                out[k] = p.vfacets[k][rank]
+        return out
+
     def index_lookup(self, pred: str, tokenizer: str, token: str) -> np.ndarray:
         """token → sorted rank posting list."""
         p = self.preds.get(pred)
         if not p:
             return np.zeros(0, np.int32)
         return p.index.get(tokenizer, {}).get(token, np.zeros(0, np.int32))
+
+    def predicates_of_types(self, type_names) -> list[str]:
+        fields: list[str] = []
+        for t in type_names:
+            td = self.schema.types.get(t)
+            if td:
+                fields.extend(td.fields)
+        seen = set()
+        return [f for f in fields if not (f in seen or seen.add(f))]
 
 
 class StoreBuilder:
@@ -218,7 +368,13 @@ class StoreBuilder:
         # per predicate: list of (subj, obj) uid column pairs
         self._edges: dict[str, list[tuple[np.ndarray, np.ndarray]]] = {}
         self._values: dict[tuple[str, str], list[tuple[int, object]]] = {}
+        # uid columns from bulk adds, single uids from per-triple adds
         self._known_uids: list[np.ndarray] = []
+        self._known_one: list[int] = []
+        # facets keyed by the (subject, object) uid pair / subject uid;
+        # a later add replaces the pair's whole facet map
+        self._efacets: dict[str, dict[tuple[int, int], dict]] = {}
+        self._vfacets: dict[str, dict[int, dict]] = {}
 
     def _uid_pred(self, pred: str) -> None:
         ps = self.schema.get(pred)
@@ -231,9 +387,10 @@ class StoreBuilder:
 
     def add_edge(self, subj: int, pred: str, obj: int,
                  facets: dict | None = None) -> None:
-        if facets:
-            raise NotImplementedError(_FACETS_LATER)
         self.add_edges(pred, [subj], [obj])
+        if facets:
+            self._efacets.setdefault(pred, {})[(int(subj), int(obj))] = \
+                dict(facets)
 
     def add_edges(self, pred: str, subjs, objs) -> None:
         """Vectorised bulk form of add_edge (no facets)."""
@@ -243,10 +400,15 @@ class StoreBuilder:
         self._edges.setdefault(pred, []).append((subjs, objs))
         self._known_uids.extend((subjs, objs))
 
+    def touch(self, uid: int) -> None:
+        """Register a uid in the vocabulary without any posting."""
+        self._known_one.append(int(uid))
+
+    def touch_many(self, uids) -> None:
+        self._known_uids.append(np.asarray(uids, np.int64).reshape(-1))
+
     def add_value(self, subj: int, pred: str, value, lang: str = "",
                   facets: dict | None = None) -> None:
-        if facets:
-            raise NotImplementedError(_FACETS_LATER)
         ps = self.schema.get(pred)
         if ps.kind == Kind.UID or pred in self._edges:
             raise ValueError(f"predicate {pred!r} is a uid predicate")
@@ -259,11 +421,16 @@ class StoreBuilder:
             elif isinstance(value, float):
                 ps.kind = Kind.FLOAT
         self._values.setdefault((pred, lang), []).append((subj, value))
-        self._known_uids.append(np.array([subj], np.int64))
+        if facets:
+            self._vfacets.setdefault(pred, {})[subj] = dict(facets)
+        self._known_one.append(int(subj))
+
+    def add_type(self, subj: int, type_name: str) -> None:
+        self.add_value(subj, TYPE_PRED, type_name)
 
     def finalize(self) -> Store:
-        uids = (np.unique(np.concatenate(self._known_uids))
-                if self._known_uids else np.zeros(0, np.int64))
+        parts = self._known_uids + [np.array(self._known_one, np.int64)]
+        uids = np.unique(np.concatenate(parts))
         n = len(uids)
 
         def rank(u):
@@ -278,6 +445,9 @@ class StoreBuilder:
             pd.fwd = _csr_from_pairs(s, o, n)
             if ps.reverse:
                 pd.rev = _csr_from_pairs(o, s, n)
+            fmap = self._efacets.get(pred)
+            if fmap:
+                pd.efacets = _facet_cols(pd.fwd, fmap, rank, n)
 
         for (pred, lang), pairs in self._values.items():
             ps = self.schema.get(pred)
@@ -306,8 +476,39 @@ class StoreBuilder:
                 vals[i] = dpairs[j][1]
             pd.vals[lang] = ValueColumn(subj=subj, vals=vals)
 
+        for pred, vmap in self._vfacets.items():
+            pd = preds.get(pred)
+            if pd is None:
+                continue
+            for s, fd in vmap.items():
+                for k, v in fd.items():
+                    pd.vfacets.setdefault(k, {})[int(rank(s))] = v
+
         build_indexes(preds)
         return Store(uids=uids, schema=self.schema, preds=preds)
+
+
+def _facet_cols(fwd: EdgeRel, fmap: dict, rank, n: int) -> dict:
+    """Edge facets aligned to final forward CSR positions, one column
+    per key, sorted by position."""
+    pairs = np.array(list(fmap), np.int64).reshape(-1, 2)
+    keys = rank(pairs[:, 0]).astype(np.int64) * n + rank(pairs[:, 1])
+    fwd_keys = _edge_keys(fwd, n)
+    pos = np.searchsorted(fwd_keys, keys)
+    hit = pos < len(fwd_keys)
+    hit[hit] = fwd_keys[pos[hit]] == keys[hit]
+    by_key: dict[str, list[tuple[int, object]]] = {}
+    for p, ok, fd in zip(pos.tolist(), hit.tolist(), fmap.values()):
+        if not ok:
+            continue  # edge was not retained
+        for k, v in fd.items():
+            by_key.setdefault(k, []).append((p, v))
+    out = {}
+    for k, pv in by_key.items():
+        pv.sort(key=lambda t: t[0])
+        out[k] = FacetCol(pos=np.array([p for p, _ in pv], np.int64),
+                          vals=np.array([v for _, v in pv], object))
+    return out
 
 
 def build_indexes(preds: dict[str, PredicateData]) -> None:
@@ -359,17 +560,21 @@ def store_from_arrays(uids, schema_text: str = "",
 
     Either pass a reference-shaped object as `uids` (anything with
     `.uids`, `.schema.to_text()` and `.preds[name].{fwd, rev, vals,
-    index}` — e.g. a `dgraph_tpu` Store, read by duck typing so this
-    package never imports it), or plain data:
+    index, efacets, vfacets, rev_pos}` — e.g. a `dgraph_tpu` Store, read
+    by duck typing so this package never imports it), or plain data:
 
         uids         sorted int64 uid vocabulary
         schema_text  schema-language text
         preds        {name: {"fwd": (indptr, indices) | None,
                              "rev": (indptr, indices) | None,
                              "vals": {lang: (subj, vals)},
-                             "index": {tokenizer: {token: ranks}}}}
+                             "index": {tokenizer: {token: ranks}},
+                             "efacets": {key: (positions, values)},
+                             "vfacets": {key: {rank: value}},
+                             "rev_pos": positions | None}}
 
-    Every array is copied, so the port never aliases the source."""
+    Every array is copied, so the port never aliases the source; facet
+    values are copied as they are (float64 weights stay float64)."""
     if hasattr(uids, "preds") and hasattr(uids, "uids"):
         src = uids
         uids = src.uids
@@ -377,7 +582,11 @@ def store_from_arrays(uids, schema_text: str = "",
         preds = {name: {"fwd": pd.fwd, "rev": pd.rev,
                         "vals": {lang: (c.subj, c.vals)
                                  for lang, c in pd.vals.items()},
-                        "index": pd.index}
+                        "index": pd.index,
+                        "efacets": {k: (c.pos, c.vals)
+                                    for k, c in pd.efacets.items()},
+                        "vfacets": pd.vfacets,
+                        "rev_pos": pd.rev_pos}
                  for name, pd in src.preds.items()}
     schema = parse_schema(schema_text)
     out: dict[str, PredicateData] = {}
@@ -388,5 +597,12 @@ def store_from_arrays(uids, schema_text: str = "",
             vals={lang: ValueColumn(np.array(s, np.int32), np.array(v))
                   for lang, (s, v) in spec.get("vals", {}).items()},
             index={tk: {t: np.array(r, np.int32) for t, r in inv.items()}
-                   for tk, inv in spec.get("index", {}).items()})
+                   for tk, inv in spec.get("index", {}).items()},
+            efacets={k: FacetCol(np.array(p, np.int64),
+                                 np.array(list(v), object))
+                     for k, (p, v) in spec.get("efacets", {}).items()},
+            vfacets={k: {int(r): v for r, v in m.items()}
+                     for k, m in spec.get("vfacets", {}).items()},
+            rev_pos=(None if spec.get("rev_pos") is None
+                     else np.array(spec["rev_pos"], np.int64)))
     return Store(uids=np.array(uids, np.int64), schema=schema, preds=out)

@@ -1,7 +1,7 @@
-"""Index tokenizers behind `eq`.
+"""Index tokenizers behind `eq` and the term functions.
 
 Port of `dgraph_tpu/store/tok.py` as far as `eq` on an `@index(exact)`,
-`hash` or `term` predicate needs it. Every tokenizer name the reference
+`hash` or `term` predicate and `anyofterms`/`allofterms` need it. Every tokenizer name the reference
 accepts stays registered, so schema validation accepts the same text;
 `fulltext`, `trigram` and `geo` raise until the functions that use them
 are ported (ROADMAP Queue 1 item 4).

@@ -1,7 +1,7 @@
 """Scalar value types and the conversion matrix.
 
-Port of `dgraph_tpu/store/types.py`: `Kind`, `NUMPY_DTYPE` and
-`convert`, with the same host representation (numpy-columnar int64,
+Port of `dgraph_tpu/store/types.py`: `Kind`, `NUMPY_DTYPE`, `convert`
+and `sort_key`, with the same host representation (numpy-columnar int64,
 float64, object strings, bool_, datetime64[us]). Geo values and the
 password hash helpers (ROADMAP Queue 1 item 4) and float32vector values
 (item 7) belong to later slices.
@@ -112,3 +112,10 @@ def convert(value, kind: Kind):
             "float32vector values are not ported yet (ROADMAP Queue 1 "
             "item 7: store/vec.py)")
     raise ValueError(f"cannot convert to {kind}")
+
+
+def sort_key(value, kind: Kind):
+    """Total-order key used by order-by on values (reference: types.Sort)."""
+    if kind == Kind.DATETIME:
+        return np.datetime64(value, "us").astype("int64")
+    return value

@@ -37,7 +37,7 @@ follows: [uid] @reverse .
 
 
 @pytest.fixture(scope="module")
-def stores():
+def alpha():
     rng = np.random.default_rng(5)
     a = Alpha(device_threshold=10**9)
     a.alter(SCHEMA)
@@ -49,7 +49,12 @@ def stores():
             if i != j:
                 lines.append(f"_:p{i} <follows> _:p{j} .")
     a.mutate(set_nquads="\n".join(lines))
-    ref = a.mvcc.read_view(a.oracle.read_only_ts())
+    return a
+
+
+@pytest.fixture(scope="module")
+def stores(alpha):
+    ref = alpha.mvcc.read_view(alpha.oracle.read_only_ts())
     return ref, store_from_arrays(ref)
 
 
@@ -85,16 +90,22 @@ def test_query_batch_mixed_groups_and_leaves(stores):
     assert json.dumps(got) == json.dumps([eng.query(q) for q in qs])
 
 
-def test_ineligible_query_raises(stores):
+def test_ineligible_query_raises(alpha, stores):
+    """Queries no recurse group takes (ineligible, below MIN_BATCH,
+    unparsable) no longer raise: the per-query Engine serves them, and
+    the batch equals the reference Alpha.query_batch, error objects
+    included."""
     _ref, port = stores
-    qs = _queries(6, 2) + ['{ q(func: eq(name, "p3")) { name score } }']
-    with pytest.raises(NotImplementedError):
-        port_batch.query_batch(port, qs, device=CPU)
-    with pytest.raises(NotImplementedError):      # below MIN_BATCH
-        port_batch.query_batch(port, _queries(2, 2), device=CPU)
-    with pytest.raises(ValueError, match="expected"):   # a ParseError
-        port_batch.query_batch(port, _queries(6, 2) + ["{ q(func: }"],
-                               device=CPU)
+    for qs in (_queries(6, 2) + ['{ q(func: eq(name, "p3")) '
+                                 '{ name score follows { name } } }'],
+               _queries(2, 2),                       # below MIN_BATCH
+               _queries(6, 2) + ["{ q(func: }"]):    # a ParseError
+        want = alpha.query_batch(qs)
+        for threshold in (0, 10**9):
+            got = port_batch.query_batch(port, qs, device=CPU,
+                                         device_threshold=threshold)
+            assert json.dumps(got) == json.dumps(want)
+    assert "errors" in want[-1]
 
 
 SHAPES = [

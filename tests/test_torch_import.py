@@ -64,8 +64,10 @@ def test_no_file_imports_jax_or_reference(path):
 def test_entry_points_default_to_cuda(monkeypatch):
     """Without a card, an entry point called without device= raises; it
     never quietly runs on the CPU."""
+    from dgraph_tpu_torch.engine import Engine
     from dgraph_tpu_torch.engine.batch import query_batch
     from dgraph_tpu_torch.ops import bfs
+    from dgraph_tpu_torch.ops.uidalgebra import pad_to
     from dgraph_tpu_torch.store.store import StoreBuilder
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -83,5 +85,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
     store = b.finalize()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         query_batch(store, ['{ q(func: uid(1)) @recurse(depth: 1) { f } }'])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(store)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pad_to(np.arange(3), 4)
+    assert Engine(store, device="cpu").query_bytes(
+        '{ q(func: uid(1)) { f { uid } } }') == \
+        b'{"q":[{"f":[{"uid":"0x2"}]}]}'
     # and with device="cpu" the same calls run
     assert bfs.device_ell(g, "cpu").device.type == "cpu"
