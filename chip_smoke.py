@@ -46,7 +46,7 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 byte-equal to Engine(device="cpu", device_threshold=10**9),
                 the pure numpy route; the card route must serve at least one
                 expansion of config 3 and of the IC mix at 512. Prints the
-                per-route counts, the warm p50 of each template (5 reps) on
+                per-route counts, the warm p50 of each template (3 reps) on
                 all three routes and the IC mix's p50 over all its
                 requests, config 3's p50 and edges/s, and a
                 torch.profiler breakdown of one mix pass at 512: device and
@@ -57,7 +57,27 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 op's least-bytes bound; and gather_edges' edge→row map
                 timed two ways at real `knows` frontiers (the reference's
                 scatter + cummax, the port's search), equal maps asserted
-  7. the `kernels` JSON line, then the device JSON line last
+  7. ic batch — lane-kernel serving of the LDBC IC mix on the SF1 store of
+                phase 6: 32 instances of each of IC1-IC13 and config 3 and
+                4 of IC14 (models/ldbc.ic_batch, a distinct start person
+                per instance) in one engine.batch.query_batch call on the
+                card. (a) every group formed as planned (IC1-IC12 and
+                config 3 level trees, IC13 a shortest group, IC14 left to
+                the per-query engine), the bucket_hop launches under the
+                call (counts zeroed just before, read just after), each
+                response equal (sort_keys JSON) to Engine(device="cuda")
+                on the same query, cold and warm batch wall time against
+                the per-query engine's over the same queries, a profile
+                of the warm batch by range (tree / step / recurse runs
+                against their host rebuild and render), and every tree
+                and step program of the batch held against the same
+                program on bucket_hop_plain, mask for mask; (b) at 1024
+                lanes (W = 32): the tree programs of IC3, IC12 and config
+                3 and one 8-hop make_ell_step stage, first-visit and
+                level-DAG, each against its plain-hop run, with its
+                launches, CUDA-event time (median of 5), plain time and
+                least-bytes bound
+  8. the `kernels` JSON line, then the device JSON line last
 
 It imports torch, numpy and dgraph_tpu_torch only.
 """
@@ -91,7 +111,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12
 LDBC_SF = 1.0
 LDBC_SEED = 9
-LDBC_REPS = 5
+LDBC_REPS = 3
 LDBC_THRESHOLD = 512
 HOST_ONLY = 10**9                  # device_threshold of the pure numpy route
 # the executor's profiler ranges, one per device op of the per-query path
@@ -99,6 +119,17 @@ LDBC_OPS = ("hop.gather_edges", "level.expand_level", "engine.to_device",
             "engine.to_host")
 # the engine's host layers, one profiler range each
 LDBC_LAYERS = ("engine.parse", "engine.execute", "engine.render")
+# phase 7: the mixed IC batch and the 1024-lane kernel-only programs
+IC_BATCH_COPIES = 32
+IC14_COPIES = 4
+IC_BATCH_SEED = 5
+KERNEL_LANES = 1024
+KERNEL_TEMPLATES = ("IC3", "IC12", "config3")
+STEP_HOPS = 8
+# the lane serving path's profiler ranges (engine/batch.py, treebatch.py)
+BATCH_RANGES = ("batch.tree_run", "batch.tree_rebuild", "batch.step_run",
+                "batch.shortest_rebuild", "batch.recurse_run",
+                "batch.recurse_rebuild")
 KERNEL_SOURCES = {"bucket_hop": "dgraph_tpu_torch/csrc/bucket_hop.cu"}
 KERNEL_REPLACES = {"bucket_hop": "dgraph_tpu/ops/pallas_hop.py:108"}
 
@@ -735,9 +766,9 @@ def seg_map_ab(store, frontiers: dict, device, reps: int = 20) -> dict:
     return out
 
 
-def phase_ldbc(device, sf: float = LDBC_SF, reps: int = LDBC_REPS) -> dict:
-    """Per-query serving of the LDBC IC mix and config 3 (phase 6)."""
-    from dgraph_tpu_torch.engine import Engine
+def build_ldbc(sf: float = LDBC_SF) -> dict:
+    """The LDBC SNB store of phases 6 and 7: the generated graph, the
+    port's store, and the seconds each took."""
     from dgraph_tpu_torch.models import ldbc
     from dgraph_tpu_torch.store.store import StoreBuilder
 
@@ -747,8 +778,20 @@ def phase_ldbc(device, sf: float = LDBC_SF, reps: int = LDBC_REPS) -> dict:
     t0 = time.perf_counter()
     b = StoreBuilder()
     ldbc.load_into(b, g)
-    store = b.finalize()
-    build_s = time.perf_counter() - t0
+    return {"sf": sf, "g": g, "store": b.finalize(), "generate_s": gen_s,
+            "build_s": time.perf_counter() - t0}
+
+
+def phase_ldbc(device, sf: float = LDBC_SF, reps: int = LDBC_REPS,
+               built: dict | None = None) -> dict:
+    """Per-query serving of the LDBC IC mix and config 3 (phase 6)."""
+    from dgraph_tpu_torch.engine import Engine
+    from dgraph_tpu_torch.models import ldbc
+
+    built = built or build_ldbc(sf)
+    g, store = built["g"], built["store"]
+    sf = built["sf"]
+    gen_s, build_s = built["generate_s"], built["build_s"]
     queries = dict(ldbc.ic_templates(g))
     queries["config3"] = ldbc.config3_query(g)
 
@@ -836,6 +879,270 @@ def phase_ldbc(device, sf: float = LDBC_SF, reps: int = LDBC_REPS) -> dict:
     return out
 
 
+def batch_profile(run) -> dict | None:
+    """One run under torch.profiler: device and wall time, the top
+    kernels, and per lane-serving range (BATCH_RANGES) its calls, device
+    launches, host and device microseconds. None when the profiler
+    records no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    kernels: dict = {}
+    for ev in events:
+        if (ev.device_type == DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
+            kernels[ev.name] = (kernels.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us())
+    device_us = sum(kernels.values())
+    if device_us <= 0:
+        return None
+    ranges: dict = {}
+    for ev in events:
+        if ev.device_type != DeviceType.CPU or ev.name not in BATCH_RANGES:
+            continue
+        rec = ranges.setdefault(ev.name, {"calls": 0, "launches": 0,
+                                          "host_us": 0.0, "device_us": 0.0})
+        rec["calls"] += 1
+        rec["launches"] += device_launches(ev)
+        rec["host_us"] += ev.cpu_time_total
+        rec["device_us"] += ev.device_time_total
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_us": device_us, "wall_us": wall_us,
+            "device_busy_share": device_us / wall_us,
+            "bucket_hop_us": sum(us for k, us in kernels.items()
+                                 if "bucket_hop" in k),
+            "top_kernels_us": {k[:80]: v for k, v in top},
+            "ranges": ranges}
+
+
+def flat(out) -> list:
+    """A program's outputs (tensors, tuples of tensors) as one list."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in flat(o)]
+
+
+def same_masks(got, want) -> bool:
+    a, b = flat(got), flat(want)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def tree_program(store, plan, device) -> dict:
+    """One tree group's run on the kernel and on bucket_hop_plain, from
+    the inputs serving would give it (engine/treebatch.py)."""
+    from dgraph_tpu_torch.engine import treebatch
+    from dgraph_tpu_torch.ops.bfs import make_ell_tree
+    from dgraph_tpu_torch.ops.bucket_hop import bucket_hop_plain
+
+    inputs = treebatch._tree_inputs(store, plan, device, LDBC_THRESHOLD)
+    if inputs is None:
+        raise AssertionError("a tree group has no kernel inputs")
+    rels, seed_lists, filt_lists, _sidx, _disp = inputs
+    n, lanes = store.n_nodes, treebatch._lanes(plan)
+    W = lanes // 32
+    fn, descs = treebatch._tree_kernel_for(store, plan, rels, n, W, device)
+    seeds, filts = treebatch._tree_masks(n, lanes, seed_lists, filt_lists,
+                                         device)
+    row = 4 * W
+    # least bytes: every seed and filter mask and each graph's index
+    # blocks and two permutation vectors read once; every stage output
+    # (a recurse stage's per-hop masks too) written once
+    nbytes = ((len(seeds) + len(filts)) * (n + 1) * row
+              + sum(4 * (g.padded_edges + sum(int(t.size) for t in g.lvl2))
+                    + 16 * (n + 1) for g in rels.values())
+              + sum((n + 1) * row * (1 + (s.depth if s.keep_hops else 0))
+                    for s in plan.stages))
+    return {"run": lambda: fn(seeds, filts),
+            "plain": lambda: make_ell_tree(descs, n, W,
+                                           hop=bucket_hop_plain)(seeds,
+                                                                 filts),
+            "W": W, "stages": [s.kind for s in plan.stages],
+            "bytes": nbytes}
+
+
+def step_program(store, device, seeds_uids, first_visit: bool,
+                 hops: int) -> dict:
+    """One make_ell_step stage over `knows` from one person per lane, on
+    the kernel and on bucket_hop_plain, with fresh carries per call."""
+    from dgraph_tpu_torch.engine.batch import _dev_for, _lane_count
+    from dgraph_tpu_torch.ops.bfs import (make_ell_step, pack_seed_masks,
+                                          put_mask)
+    from dgraph_tpu_torch.ops.bucket_hop import bucket_hop_plain
+
+    g, dev = _dev_for(store, "knows", False, device)
+    ranks = store.rank_of(np.asarray(seeds_uids, np.int64))
+    lanes = _lane_count(len(ranks))
+    lists = [[r] for r in ranks] + [[]] * (lanes - len(ranks))
+    mask0 = pack_seed_masks(g, lists)
+    W = mask0.shape[1]
+    step = make_ell_step(dev, g.n, W, first_visit=first_visit)
+    plain = make_ell_step(dev, g.n, W, first_visit=first_visit,
+                          hop=bucket_hop_plain)
+
+    def carries():
+        return put_mask(mask0, device), put_mask(mask0, device)
+
+    row = 4 * W
+    # least bytes: frontier and seen read once, the index blocks once,
+    # the per-hop masks written once (and seen, when first-visit)
+    nbytes = (2 * (g.n + 1) * row
+              + 4 * (g.padded_edges + sum(int(t.size) for t in g.lvl2))
+              + hops * (g.n + 1) * row
+              + ((g.n + 1) * row if first_visit else 0))
+    return {"run": lambda fs: step(*fs, hops),
+            "plain": lambda fs: plain(*fs, hops), "carries": carries,
+            "W": W, "bytes": nbytes}
+
+
+def held(name: str, prog, reps: int, with_carries: bool = False) -> dict:
+    """Run a program once on the kernel (its launches counted) and once
+    on the plain hop, equal mask for mask; then its CUDA-event time
+    (median of reps), the plain run's time and the least-bytes bound."""
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+
+    def arg():
+        return prog["carries"]() if with_carries else None
+
+    def call(which, a):
+        return prog[which](a) if with_carries else prog[which]()
+
+    setup = arg if with_carries else None
+    before = LAUNCHES["bucket_hop"]
+    got = call("run", arg())
+    torch.cuda.synchronize()
+    launches = LAUNCHES["bucket_hop"] - before
+    box = {}
+    plain_ms = cuda_ms(lambda a: box.__setitem__("out", call("plain", a)),
+                       1, setup=setup)
+    if not same_masks(got, box.pop("out")):
+        raise AssertionError(f"{name}: kernel run != plain-hop run")
+    del got
+    ms = cuda_ms(lambda a: call("run", a), reps, setup=setup)
+    bound_ms = prog["bytes"] / HBM_BYTES_PER_S * 1e3
+    return {"W": prog["W"], "launches": launches, "ms": ms,
+            "median_ms": float(np.median(ms)), "plain_ms": plain_ms[0],
+            "bytes": prog["bytes"], "bound_ms": bound_ms,
+            "bound_by": "bytes", "equal_to_plain": True}
+
+
+def phase_ic_batch(device, built: dict, copies: int = IC_BATCH_COPIES,
+                   ic14: int = IC14_COPIES,
+                   kernel_lanes: int = KERNEL_LANES,
+                   reps: int = REPS) -> dict:
+    """Lane-kernel serving of the LDBC IC mix (phase 7)."""
+    from dgraph_tpu_torch.engine import Engine, batch
+    from dgraph_tpu_torch.models import ldbc
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+
+    g, store = built["g"], built["store"]
+    pairs = ldbc.ic_batch(g, copies=copies, seed=IC_BATCH_SEED,
+                          ic14_copies=ic14)
+    names = [nm for nm, _q in pairs]
+    qs = [q for _nm, q in pairs]
+    plans, leftover = batch.plan_batch_groups_cached(store, qs)
+    family = {"TreePlan": "tree", "_ShortestPlan": "shortest",
+              "_BatchPlan": "recurse"}
+    groups = [{"family": family[type(p).__name__],
+               "templates": sorted({names[i] for i in idxs}),
+               "queries": len(idxs), "lanes": batch._lane_count(len(idxs))}
+              for p, idxs in plans]
+    want_family = {**{f"IC{i}": "tree" for i in range(1, 13)},
+                   "IC13": "shortest", "config3": "tree"}
+    got_family = {gr["templates"][0]: gr["family"] for gr in groups
+                  if len(gr["templates"]) == 1 and gr["queries"] == copies}
+    if got_family != want_family or len(groups) != len(want_family):
+        raise AssertionError(f"IC batch groups {groups} != {want_family}")
+    if sorted({names[i] for i in leftover}) != ["IC14"]:
+        raise AssertionError(f"left to the per-query engine: {leftover}")
+
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    got = batch.query_batch(store, qs, device=device)
+    cold_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    again = batch.query_batch(store, qs, device=device)
+    warm_s = time.perf_counter() - t0
+    # on the card; a CPU rehearsal runs the plain hop, which counts none
+    if torch.device(device).type == "cuda" and launches["bucket_hop"] < 1:
+        raise AssertionError("the IC batch launched no bucket_hop")
+    t0 = time.perf_counter()
+    prof = (batch_profile(lambda: batch.query_batch(store, qs,
+                                                    device=device))
+            if torch.device(device).type == "cuda" else None)
+    profile_s = time.perf_counter() - t0
+    eng = Engine(store, device=device, device_threshold=LDBC_THRESHOLD)
+    t0 = time.perf_counter()
+    want = [eng.query(q) for q in qs]
+    per_query_s = time.perf_counter() - t0
+    bad = sorted({names[i] for i in range(len(qs))
+                  if json.dumps(got[i], sort_keys=True)
+                  != json.dumps(want[i], sort_keys=True)
+                  or json.dumps(again[i], sort_keys=True)
+                  != json.dumps(want[i], sort_keys=True)})
+    if bad:
+        raise AssertionError(f"batch responses differ from the per-query "
+                             f"engine for {bad}")
+    if any("errors" in r for r in got):
+        raise AssertionError("a batch response is an error object")
+
+    # every program of the batch against its plain-hop run, mask for mask
+    t0 = time.perf_counter()
+    serving = {}
+    for (plan, idxs), gr in zip(plans, groups):
+        tname = gr["templates"][0]
+        if gr["family"] == "tree":
+            serving[tname] = held(tname, tree_program(store, plan, device),
+                                  1)
+        elif gr["family"] == "shortest":
+            serving[tname] = held(
+                tname, step_program(store, device, plan.src_uids,
+                                    plan.first_visit, STEP_HOPS), 1, True)
+
+    serving_s = time.perf_counter() - t0
+
+    # kernel-only at kernel_lanes
+    t0 = time.perf_counter()
+    big = ldbc.ic_batch(g, copies=kernel_lanes, seed=IC_BATCH_SEED + 1,
+                        ic14_copies=0)
+    kernel_only = {}
+    for tname in KERNEL_TEMPLATES:
+        tq = [q for nm, q in big if nm == tname]
+        (plan, _idxs), = batch.plan_batch_groups_cached(store, tq)[0]
+        kernel_only[tname] = held(tname, tree_program(store, plan, device),
+                                  reps)
+    starts = [int(q.split("from: ")[1].split(",")[0], 16)
+              for nm, q in big if nm == "IC13"]
+    for fv in (True, False):
+        kernel_only[f"step_first_visit_{fv}"] = held(
+            f"step first_visit={fv}",
+            step_program(store, device, starts, fv, STEP_HOPS), reps, True)
+
+    kernel_only_s = time.perf_counter() - t0
+    ranges = prof["ranges"] if prof else {}
+    return {"queries": len(qs), "groups": groups,
+            "leftover": len(leftover), "bucket_hop_launches": launches,
+            "equal_to_per_query_engine": True, "cold_s": cold_s,
+            "warm_s": warm_s, "per_query_engine_s": per_query_s,
+            "warm_over_per_query": warm_s / per_query_s,
+            "profile": prof, "profile_s": profile_s,
+            "tree_run_device_ms": ranges.get("batch.tree_run", {}).get(
+                "device_us", 0.0) / 1e3,
+            "step_run_device_ms": ranges.get("batch.step_run", {}).get(
+                "device_us", 0.0) / 1e3,
+            "serving_programs": serving, "serving_programs_s": serving_s,
+            "kernel_only": kernel_only, "kernel_only_s": kernel_only_s}
+
+
 def main() -> None:
     phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -862,17 +1169,27 @@ def main() -> None:
                 hop["bound_ms"])
     del store, g
     from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+    t0 = time.perf_counter()
+    built = build_ldbc(LDBC_SF)
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    t0 = time.perf_counter()
-    ldbc = phase_ldbc(device)
+    ldbc = phase_ldbc(device, built=built)
     # the per-query path runs torch ops only: no hand kernel of the repo
     # is on it, and these counts show none launched
     say("phase 6 ldbc", seconds=time.perf_counter() - t0,
         hand_kernel_launches=dict(LAUNCHES), **ldbc)
+    t0 = time.perf_counter()
+    ic = phase_ic_batch(device, built)
+    say("phase 7 ic batch", seconds=time.perf_counter() - t0, **ic)
+    # the launches of each main path, counted from zero around its run
+    paths = {name: {"query_batch @recurse (phase 4)": launches[name],
+                    "query_batch IC mix (phase 7)":
+                        ic["bucket_hop_launches"][name]}
+             for name in KERNEL_SOURCES}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": KERNEL_REPLACES[name],
-                "launches": launches[name],
+                "launches": sum(paths[name].values()),
+                "launches_by_path": paths[name],
                 "max_abs_err": hop["max_abs_err"], "ms": hop["ms"],
                 "plain_ms": hop["plain_ms"], "bound_ms": hop["bound_ms"],
                 "bound_by": hop["bound_by"], "library_ms": None}

@@ -299,6 +299,48 @@ def ic_templates(g: SNBGraph) -> dict[str, str]:
     }
 
 
+def ic_batch(g: SNBGraph, copies: int = 32, seed: int = 0,
+             ic14_copies: int | None = None) -> list[tuple[str, str]]:
+    """A mixed serving batch: `copies` instances of each of IC1-IC13 and
+    config 3, and `ic14_copies` (default `copies`) of IC14, interleaved
+    template by template, as (template name, DQL) pairs.
+
+    Instance c of a template takes a distinct start person drawn with
+    numpy from `seed` in place of `ic_params`' person (IC13/IC14 also a
+    distinct target person, never the start); IC6, which starts from a
+    tag, takes a distinct tag, and config 3 a city in turn."""
+    import re
+
+    rng = np.random.default_rng(seed)
+    pr = ic_params(g)
+    templates = ic_templates(g)
+    templates["config3"] = config3_query(g)
+    persons = rng.choice(g.person_uids, size=copies, replace=False)
+    targets = rng.choice(g.person_uids, size=copies, replace=False)
+    targets = np.where(targets == persons, np.roll(targets, 1), targets)
+    tags = rng.choice(len(TAG_NAMES), size=copies,
+                      replace=copies > len(TAG_NAMES))
+    n14 = copies if ic14_copies is None else ic14_copies
+
+    out = []
+    for c in range(copies):
+        uids = {hex(pr["p"]): hex(int(persons[c])),
+                hex(pr["p2"]): hex(int(targets[c]))}
+        for name, q in templates.items():
+            if name == "IC14" and c >= n14:
+                continue
+            if name == "IC6":
+                q = q.replace('"tag_1"', '"%s"' % TAG_NAMES[tags[c]])
+            elif name == "config3":
+                q = q.replace('"%s"' % g.city[0],
+                              '"%s"' % CITIES[c % len(CITIES)])
+            else:
+                q = re.sub(r"\b0x[0-9a-f]+\b",
+                           lambda m: uids.get(m.group(0), m.group(0)), q)
+            out.append((name, q))
+    return out
+
+
 def config3_query(g: SNBGraph) -> str:
     """The 3-hop filtered `@recurse` from every person of one city
     (the repo's LDBC config 3)."""

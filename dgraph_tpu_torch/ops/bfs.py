@@ -23,8 +23,12 @@ reference's. On the device:
     for any total below 2^53 (the reference's f32 matvec is exact only
     below 2^24 per lane).
 
-`make_ell_step`, `make_ell_tree` and the COO bitmap kernels are later
-slices (ROADMAP Queue 2).
+Two more programs ride the same hop: `make_ell_step`, a resumable block
+of hops whose carries the caller hands forward (the shortest-path lane
+groups), and `make_ell_tree`, the level-tree pipeline over masks in the
+store's global rank space (the level-tree lane groups). Their row
+gathers and ANDs are torch ops; every gather-OR is the bucket hop. The
+COO bitmap kernels are a later slice (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["EllGraph", "build_ell", "pack_seed_masks", "unpack_masks",
            "put_mask", "DeviceEll", "device_ell", "prepare_parts",
-           "make_ell_count", "make_ell_recurse"]
+           "make_ell_count", "make_ell_recurse", "make_ell_step",
+           "make_ell_tree"]
 
 SEG_MIN_DEG = 32      # dense-lane ELL up to this in-degree; heavier → tiles
 SEG_TILE = 8          # segment-CSR tile width (max padding per heavy row)
@@ -284,7 +289,8 @@ def prepare_parts(dev: DeviceEll) -> dict:
 def _ell_hop(prepared, frontier: torch.Tensor, hop=bucket_hop, *,
              flags: torch.Tensor | None = None,
              seen: torch.Tensor | None = None,
-             out_flags: torch.Tensor | None = None) -> torch.Tensor:
+             out_flags: torch.Tensor | None = None,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """next[v] = OR of frontier[u] over in-neighbors u, as one `hop`
     launch per bucket (the dense classes, the tile partials into a
     [M+1, W] scratch whose row M is zero, then the combines that read
@@ -296,10 +302,12 @@ def _ell_hop(prepared, frontier: torch.Tensor, hop=bucket_hop, *,
     the first-visit set fresh = next & ~seen, and seen |= fresh in place;
     rows no launch computes (the in-degree-0 class, the sentinel) are
     zero and leave seen as it was. The tile partials always carry flags,
-    so the combines skip empty partials."""
+    so the combines skip empty partials. `out`, a contiguous [n+1, W]
+    int32 tensor, receives the result instead of a new one."""
     n = prepared["n"]
     W = frontier.shape[1]
-    nxt = torch.empty((n + 1, W), dtype=torch.int32, device=frontier.device)
+    nxt = out if out is not None else torch.empty(
+        (n + 1, W), dtype=torch.int32, device=frontier.device)
     for kind, e, rows, row0 in prepared["parts"]:
         if kind == "zero":
             nxt[row0:row0 + rows].zero_()
@@ -369,6 +377,14 @@ def make_ell_count(outdeg, n: int, device=DEFAULT_DEVICE):
     return count
 
 
+def _check_mask(name: str, t, n: int, W: int, device) -> None:
+    if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32
+            or tuple(t.shape) != (n + 1, W) or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous int32 [{n + 1}, {W}] "
+                         f"tensor on {device}")
+
+
 def make_ell_recurse(dev: DeviceEll, outdeg, n: int, W: int,
                      count_edges: bool = True):
     """A depth-parameterised loop=false @recurse over a DeviceEll.
@@ -388,12 +404,7 @@ def make_ell_recurse(dev: DeviceEll, outdeg, n: int, W: int,
     od = _outdeg_tensor(outdeg, dev.device) if count_edges else None
 
     def recurse(mask0: torch.Tensor, depth: int, keep_hops: bool = False):
-        if (not isinstance(mask0, torch.Tensor) or mask0.dtype != torch.int32
-                or tuple(mask0.shape) != (n + 1, W)
-                or mask0.device != dev.device
-                or not mask0.is_contiguous()):
-            raise ValueError(f"mask0 must be a contiguous int32 [{n + 1}, "
-                             f"{W}] tensor on {dev.device}")
+        _check_mask("mask0", mask0, n, W, dev.device)
         seen = mask0                       # donated: updated in place
         frontier = mask0
         flags = row_flags(mask0)
@@ -426,3 +437,120 @@ def make_ell_recurse(dev: DeviceEll, outdeg, n: int, W: int,
         return last, seen, edges
 
     return recurse
+
+
+def make_ell_step(dev: DeviceEll, n: int, W: int, first_visit: bool = True,
+                  hop=bucket_hop):
+    """A RESUMABLE hop block: fn(frontier, seen, depth) → (frontier',
+    seen', hops [depth, n+1, W]) in the graph's permuted space. Successive
+    blocks of a staged traversal (the shortest-path lane groups of
+    engine/batch.py) hand both carries forward.
+
+    With `first_visit` each hop is `_ell_hop` with its fused epilogue:
+    hops[h] is the first-visit set fresh = next & ~seen, and `seen` — a
+    tensor apart from `frontier` (the kernel refuses shared memory) — is
+    updated in place. With `first_visit=False` there is no `seen`
+    operand: hops[h] is the FULL set reachable in exactly h+1 hops (the
+    level DAG the k-shortest enumeration reads) and `seen` passes through
+    untouched. Occupancy flags are carried from hop to hop; `frontier'`
+    is hops[-1] (the input frontier when depth is 0). `hop` is the
+    bucket launch (the plain version to compare against)."""
+    prepared = prepare_parts(dev)
+
+    def step(frontier: torch.Tensor, seen: torch.Tensor, depth: int):
+        _check_mask("frontier", frontier, n, W, dev.device)
+        _check_mask("seen", seen, n, W, dev.device)
+        hops = torch.empty((depth, n + 1, W), dtype=torch.int32,
+                           device=dev.device)
+        flags = row_flags(frontier)
+        for h in range(depth):
+            out_flags = torch.empty(n + 1, dtype=torch.uint8,
+                                    device=dev.device)
+            frontier = _ell_hop(prepared, frontier, hop, flags=flags,
+                                seen=seen if first_visit else None,
+                                out_flags=out_flags, out=hops[h])
+            flags = out_flags
+        return frontier, seen, hops
+
+    return step
+
+
+def make_ell_tree(stages, n: int, W: int, hop=bucket_hop):
+    """A level-TREE pipeline over lane-packed masks: the batched form of
+    a whole nested query (engine/treebatch.py), 32·W queries per run.
+
+    Every mask lives in the STORE's global rank space, [n+1, W] int32
+    (row n the zero sentinel). Each stage's EllGraph has its own degree
+    permutation, so a stage gathers its parent mask into its permuted
+    space (`perm_in`), hops, and gathers back (`out_idx`); a hop stage
+    then ANDs its filter mask.
+
+    `stages` is a list of dicts:
+      kind      "hop" | "recurse"
+      prepared  prepare_parts output for the stage's graph
+      perm_in   [n+1] int64 on the device: permuted row r ← global perm_in[r]
+      out_idx   [n+1] int64 on the device: global row v ← permuted out_idx[v]
+      parent    ("seed", slot) | ("stage", idx earlier in the list)
+      filt      filter-mask slot | None (global space)
+      depth     recurse only: hop count
+      keep_hops recurse only: also return the per-hop first-visit masks
+
+    A recurse stage scans in permuted space with the first-visit epilogue
+    in the hop launches. Its filter keeps only allowed nodes fresh
+    (fresh = next & ~seen & filt) without a filter operand in the kernel:
+    the scan starts from seen' = seeds | ~filt, so the kernel's
+    next & ~seen' is exactly that set, and seen = (seen' & filt) | seeds
+    at the end keeps every fresh set (all inside filt) and the seeds
+    (even where the filter excludes them). Two torch passes per stage,
+    none per hop.
+
+    Returns fn(seeds: tuple, filts: tuple) → a tuple with one entry per
+    stage: hop → mask [n+1, W]; recurse → seen [n+1, W] (reachable set
+    incl. seeds), or (seen, hops [depth, n+1, W]) with keep_hops. Seeds
+    and filters are only read. `hop` is the bucket launch."""
+
+    def run(seeds, filts):
+        outs: list = []
+        results: list = []
+        for s in stages:
+            par = s["parent"]
+            parent = seeds[par[1]] if par[0] == "seed" else outs[par[1]]
+            filt = filts[s["filt"]] if s["filt"] is not None else None
+            device = parent.device
+            pm = parent.index_select(0, s["perm_in"])    # global → permuted
+            flags = row_flags(pm)
+            if s["kind"] == "hop":
+                out = _ell_hop(s["prepared"], pm, hop,
+                               flags=flags).index_select(0, s["out_idx"])
+                if filt is not None:
+                    out &= filt
+                outs.append(out)
+                results.append(out)
+                continue
+            depth = s["depth"]
+            hops_p = (torch.empty((depth, n + 1, W), dtype=torch.int32,
+                                  device=device) if s["keep_hops"] else None)
+            if filt is None:
+                seen = pm.clone()
+            else:
+                filt_p = filt.index_select(0, s["perm_in"])
+                seen = pm | ~filt_p
+            frontier = pm
+            for h in range(depth):
+                fresh_flags = torch.empty(n + 1, dtype=torch.uint8,
+                                          device=device)
+                frontier = _ell_hop(
+                    s["prepared"], frontier, hop, flags=flags, seen=seen,
+                    out_flags=fresh_flags,
+                    out=hops_p[h] if hops_p is not None else None)
+                flags = fresh_flags
+            if filt is not None:
+                seen &= filt_p
+                seen |= pm
+            seen = seen.index_select(0, s["out_idx"])
+            outs.append(seen)
+            results.append(seen if hops_p is None else
+                           (seen, hops_p.index_select(1, s["out_idx"])))
+        return tuple(results)
+
+    return run

@@ -31,6 +31,8 @@ from dgraph_tpu_torch.utils import kbuild
 # kernel launches by this wrapper (one per non-empty bucket on a CUDA
 # tensor); chip_smoke.py zeroes it before the main path and reads it after
 LAUNCHES = {"bucket_hop": 0}
+# rows the plain version gathers at once, as [rows, K, W] int32 words
+PLAIN_GATHER_BYTES = 64 << 20
 
 _fn = None
 
@@ -112,19 +114,28 @@ def bucket_hop_plain(nbr: torch.Tensor, frontier: torch.Tensor,
     """The plain PyTorch version: gather frontier[nbr] (rows flagged 0 as
     zero) and OR-fold over K, then the first-visit epilogue when `seen`
     is given, then the flags of the stored rows. Same contract as
-    `bucket_hop`."""
+    `bucket_hop`. The gather takes up to PLAIN_GATHER_BYTES of rows at a
+    time, as [rows, K, W], and folds K by halving (log2 K ORs)."""
     out = _out_for(nbr, frontier, out)
     _check(nbr, frontier, out, row0, flags, out_flags, seen)
     n_b, K = nbr.shape
+    W = frontier.shape[1]
     idx = nbr.long()
     live = flags.bool() if flags is not None else None
-    acc = torch.zeros((n_b, frontier.shape[1]), dtype=torch.int32,
-                      device=frontier.device)
-    for k in range(K):
-        rows = frontier[idx[:, k]]
+    acc = torch.empty((n_b, W), dtype=torch.int32, device=frontier.device)
+    step = max(1, PLAIN_GATHER_BYTES // (4 * K * W))
+    for r0 in range(0, n_b, step):
+        sel = idx[r0:r0 + step]
+        rows = frontier[sel]                               # [r, K, W]
         if live is not None:
-            rows.masked_fill_(~live[idx[:, k], None], 0)
-        acc |= rows
+            rows.masked_fill_(~live[sel][:, :, None], 0)
+        while rows.shape[1] > 1:
+            half = rows.shape[1] // 2
+            folded = rows[:, :half] | rows[:, half:2 * half]
+            if rows.shape[1] % 2:
+                folded[:, 0] |= rows[:, -1]
+            rows = folded
+        acc[r0:r0 + step] = rows[:, 0]
     if seen is not None:
         acc &= ~seen[row0:row0 + n_b]
         seen[row0:row0 + n_b] |= acc

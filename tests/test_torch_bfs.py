@@ -358,3 +358,122 @@ def test_bucket_hop_rejects_aliased_buffers(case):
     # separate buffers are fine
     bucket_hop(nbr, fr, out, seen=seen, flags=flags,
                out_flags=torch.zeros(9, dtype=torch.uint8))
+
+
+def _random_masks(rng, rows: int, W: int, count: int, occupied: float):
+    """`count` [rows + 1, W] uint32 masks, ~`occupied` of the rows
+    non-empty, zero sentinel row last."""
+    out = []
+    for _ in range(count):
+        m = _sparse_rows(rng, rows + 1, W, occupied)
+        m[rows] = 0
+        out.append(m)
+    return out
+
+
+@pytest.mark.parametrize("first_visit", [True, False])
+@pytest.mark.parametrize("W", [1, 2])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_make_ell_step_equals_reference(name, W, first_visit):
+    """Two resumed stages (3 hops, then 2 from the carries): frontier,
+    seen and the per-hop masks bit-equal to the reference's step — the
+    first-visit sets, or the full level DAG with seen untouched."""
+    rel = GRAPHS[name]()
+    g = port_bfs.build_ell(rel.indptr, rel.indices)
+    rng = np.random.default_rng(19 + W)
+    (m0,) = _random_masks(rng, g.n, W, 1, 0.02)
+    ref_step = ref_bfs.make_ell_step(ref_bfs.device_ell(g), g.n, W,
+                                     first_visit=first_visit)
+    step = port_bfs.make_ell_step(port_bfs.device_ell(g, CPU), g.n, W,
+                                  first_visit=first_visit)
+    r_f, r_s = jax.device_put(m0), jax.device_put(m0)
+    f, s = port_bfs.put_mask(m0, CPU), port_bfs.put_mask(m0, CPU)
+    seen_in = s
+    for depth in (3, 2):
+        r_f, r_s, r_hops = ref_step(r_f, r_s, depth)
+        f, s, hops = step(f, s, depth)
+        assert hops.shape == (depth, g.n + 1, W)
+        assert np.array_equal(_u32(hops), np.asarray(r_hops))
+        assert np.array_equal(_u32(f), np.asarray(r_f))
+        assert np.array_equal(_u32(s), np.asarray(r_s))
+        assert s is seen_in, "seen is the carry, updated in place"
+    if not first_visit:
+        assert np.array_equal(_u32(s), m0)
+
+
+def test_make_ell_step_refuses_aliased_carries():
+    rel = GRAPHS["powerlaw"]()
+    g = port_bfs.build_ell(rel.indptr, rel.indices)
+    step = port_bfs.make_ell_step(port_bfs.device_ell(g, CPU), g.n, 1)
+    m = port_bfs.put_mask(port_bfs.pack_seed_masks(
+        g, _seeds(g.n, 32, seed=2)), CPU)
+    with pytest.raises(ValueError, match="share memory"):
+        step(m, m, 1)
+    with pytest.raises(ValueError):
+        step(m, torch.zeros((g.n, 1), dtype=torch.int32), 1)
+
+
+def _tree_stages(graphs, W, port: bool):
+    """The stage list of test_make_ell_tree in either package's form:
+    graph 0 and graph 1 share n but not their permutations."""
+    specs = [  # kind, graph, parent, filt, depth, keep_hops
+        ("hop", 0, ("seed", 0), None, 0, False),
+        ("hop", 1, ("stage", 0), 0, 0, False),        # filtered hop
+        ("recurse", 0, ("seed", 1), None, 3, True),   # unfiltered recurse
+        ("recurse", 1, ("seed", 2), 1, 2, True),      # filtered recurse
+        ("hop", 0, ("stage", 2), None, 0, False),     # var-chained stage
+        ("recurse", 0, ("stage", 1), 1, 2, False),    # filtered, seen only
+    ]
+    descs = []
+    for kind, gi, parent, filt, depth, keep in specs:
+        g = graphs[gi]
+        perm_in = np.concatenate([g.perm_order, [g.n]])
+        out_idx = np.concatenate([g.new_of_old, [g.n]])
+        if port:
+            prepared = port_bfs.prepare_parts(port_bfs.device_ell(g, CPU))
+            perm_in = torch.from_numpy(perm_in.astype(np.int64))
+            out_idx = torch.from_numpy(out_idx.astype(np.int64))
+        else:
+            prepared = ref_bfs.prepare_parts(ref_bfs.device_ell(g), W)
+            perm_in = jnp.asarray(perm_in, jnp.int32)
+            out_idx = jnp.asarray(out_idx, jnp.int32)
+        descs.append({"kind": kind, "prepared": prepared,
+                      "perm_in": perm_in, "out_idx": out_idx,
+                      "parent": parent, "filt": filt, "depth": depth,
+                      "keep_hops": keep})
+    return descs
+
+
+@pytest.mark.parametrize("W", [1, 2])
+def test_make_ell_tree_equals_reference(W):
+    """A hop, a filtered hop, an unfiltered recurse, a filtered recurse
+    whose seeds fall outside its filter, a stage chained off a recurse
+    stage's reachable set and a seen-only filtered recurse: every output
+    bit-equal to the reference's make_ell_tree on two powerlaw graphs."""
+    graphs = [port_bfs.build_ell(r.indptr, r.indices)
+              for r in (powerlaw_rel(500, 8.0, seed=4),
+                        powerlaw_rel(500, 4.0, seed=6))]
+    n = graphs[0].n
+    rng = np.random.default_rng(23 + W)
+    seeds = _random_masks(rng, n, W, 3, 0.03)
+    filts = _random_masks(rng, n, W, 2, 0.6)
+    outside = seeds[2] & ~filts[1]
+    assert outside[:n].any(), "some seeds must lie outside the filter"
+    want = ref_bfs.make_ell_tree(_tree_stages(graphs, W, False), n, W)(
+        tuple(jnp.asarray(m) for m in seeds),
+        tuple(jnp.asarray(m) for m in filts))
+    fn = port_bfs.make_ell_tree(_tree_stages(graphs, W, True), n, W)
+    seeds_t = tuple(port_bfs.put_mask(m, CPU) for m in seeds)
+    filts_t = tuple(port_bfs.put_mask(m, CPU) for m in filts)
+    got = fn(seeds_t, filts_t)
+    assert len(got) == len(want) == 6
+    for i, (a, b) in enumerate(zip(got, want)):
+        if isinstance(b, tuple):
+            assert np.array_equal(_u32(a[0]), np.asarray(b[0])), i
+            assert np.array_equal(_u32(a[1]), np.asarray(b[1])), i
+        else:
+            assert np.array_equal(_u32(a), np.asarray(b)), i
+    # the seeds the filter excludes stay in the filtered recurse's set
+    assert np.array_equal(_u32(got[3][0]) & outside, outside)
+    for m, t in zip(seeds + filts, seeds_t + filts_t):
+        assert np.array_equal(_u32(t), m), "seeds and filters are only read"
