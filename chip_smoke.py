@@ -77,13 +77,35 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 level-DAG, each against its plain-hop run, with its
                 launches, CUDA-event time (median of 5), plain time and
                 least-bytes bound
-  8. the `kernels` JSON line, then the device JSON line last
+  8. dql features — the DQL-feature mix (tools/feature_mix.py) on a second
+                store built from phase 6's SF1 graph (phase 7's store freed
+                first): models/ldbc.SCHEMA plus first_name with trigram and
+                fulltext indexes, one geo point per person and 16 password
+                hashes. (a) the 13 templates (aggregates, math, @groupby at
+                the root and per parent, @cascade, @normalize, regexp,
+                match, anyoftext, near, within, checkpwd) through
+                Engine(device="cuda") at device_threshold 512, each
+                byte-equal to Engine(device="cpu", device_threshold=10**9);
+                per template its cold time, the p50 of 3 warm requests, its
+                route counts and its device time from one profiled pass;
+                (b) one query_batch of 8 instances of each (104 queries, a
+                distinct start person per uid template) on the card: the
+                families formed (agg_minmax and math must be tree groups),
+                the bucket_hop launches under the call (counts zeroed just
+                before, read just after, at least one), cold and warm
+                wall, and every response equal (sort_keys JSON) to
+                Engine(device="cuda") on the same query; then one profiled
+                warm batch: host and device time of the tree groups' run
+                and rebuild and of the left-over queries, each beside the
+                per-query engine's time for the same queries
+  9. the `kernels` JSON line, then the device JSON line last
 
 It imports torch, numpy and dgraph_tpu_torch only.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -129,7 +151,10 @@ STEP_HOPS = 8
 # the lane serving path's profiler ranges (engine/batch.py, treebatch.py)
 BATCH_RANGES = ("batch.tree_run", "batch.tree_rebuild", "batch.step_run",
                 "batch.shortest_rebuild", "batch.recurse_run",
-                "batch.recurse_rebuild")
+                "batch.recurse_rebuild", "batch.leftover")
+# phase 8: the DQL-feature mix
+FEATURE_COPIES = 8
+FEATURE_REPS = 3
 KERNEL_SOURCES = {"bucket_hop": "dgraph_tpu_torch/csrc/bucket_hop.cu"}
 KERNEL_REPLACES = {"bucket_hop": "dgraph_tpu/ops/pallas_hop.py:108"}
 
@@ -1143,7 +1168,129 @@ def phase_ic_batch(device, built: dict, copies: int = IC_BATCH_COPIES,
             "kernel_only": kernel_only, "kernel_only_s": kernel_only_s}
 
 
+def phase_features(device, g) -> dict:
+    """Per-query and batched serving of the DQL-feature mix (phase 8)."""
+    from dgraph_tpu_torch.engine import Engine, batch
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+    from dgraph_tpu_torch.tools import feature_mix
+
+    t0 = time.perf_counter()
+    store = feature_mix.build_store(g)
+    build_s = time.perf_counter() - t0
+    queries = feature_mix.templates(g)
+    host = Engine(store, device="cpu", device_threshold=HOST_ONLY)
+    t0 = time.perf_counter()
+    want = {k: host.query_bytes(q) for k, q in queries.items()}
+    host_pass_s = time.perf_counter() - t0
+    eng = Engine(store, device=device, device_threshold=LDBC_THRESHOLD)
+    per = {}
+    for k, q in queries.items():
+        before = dict(eng.routes.expansions)
+        t0 = time.perf_counter()
+        got = eng.query_bytes(q)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        if got != want[k]:
+            raise AssertionError(f"{k}: the card's response differs from "
+                                 f"the numpy route")
+        warm = lat_ms(lambda q=q: eng.query_bytes(q), FEATURE_REPS)
+        per[k] = {"cold_ms": cold_ms, "p50_ms": float(np.median(warm)),
+                  "response_bytes": len(got),
+                  "expansions": {r: n - before[r]
+                                 for r, n in eng.routes.expansions.items()
+                                 if n - before[r]}}
+    prof = (ldbc_profile(eng, queries)
+            if torch.device(device).type == "cuda" else None)
+    if prof is not None:
+        for k, rec in prof["per_template"].items():
+            if k in per:
+                per[k]["profiled_wall_us"] = rec.get("wall_us")
+                per[k]["device_us"] = rec.get("device_us")
+        prof = {k: v for k, v in prof.items() if k != "per_template"}
+
+    pairs = feature_mix.batch(g, copies=FEATURE_COPIES)
+    names = [nm for nm, _q in pairs]
+    qs = [q for _nm, q in pairs]
+    plans, leftover = batch.plan_batch_groups_cached(store, qs)
+    family = {"TreePlan": "tree", "_ShortestPlan": "shortest",
+              "_BatchPlan": "recurse"}
+    families: dict = {"tree": [], "recurse": [], "shortest": [],
+                      "left over": sorted({names[i] for i in leftover})}
+    for p, idxs in plans:
+        families[family[type(p).__name__]].append(
+            sorted({names[i] for i in idxs}))
+    in_tree = {nm for grp in families["tree"] for nm in grp}
+    if not {"agg_minmax", "math"} <= in_tree:
+        raise AssertionError(f"agg_minmax and math must run as tree "
+                             f"groups: {families}")
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    got = batch.query_batch(store, qs, device=device)
+    cold_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    again = batch.query_batch(store, qs, device=device)
+    warm_s = time.perf_counter() - t0
+    if torch.device(device).type == "cuda" and launches["bucket_hop"] < 1:
+        raise AssertionError("the feature batch launched no bucket_hop")
+    card = Engine(store, device=device, device_threshold=LDBC_THRESHOLD)
+    per_query, per_query_ms = [], []
+    for q in qs:
+        t0 = time.perf_counter()
+        per_query.append(card.query(q))
+        per_query_ms.append((time.perf_counter() - t0) * 1e3)
+    per_query_s = sum(per_query_ms) / 1e3
+    bad = sorted({names[i] for i in range(len(qs))
+                  if json.dumps(got[i], sort_keys=True)
+                  != json.dumps(per_query[i], sort_keys=True)
+                  or json.dumps(again[i], sort_keys=True)
+                  != json.dumps(per_query[i], sort_keys=True)})
+    if bad:
+        raise AssertionError(f"feature batch responses differ from the "
+                             f"per-query engine for {bad}")
+    if any("errors" in r for r in got):
+        raise AssertionError("a feature batch response is an error object")
+    # a third, profiled warm batch: the tree groups' run and rebuild and
+    # the left-over queries, each beside the per-query engine's time for
+    # the same queries
+    t0 = time.perf_counter()
+    batch_prof = (batch_profile(lambda: batch.query_batch(store, qs,
+                                                          device=device))
+                  if torch.device(device).type == "cuda" else None)
+    batch_profile_s = time.perf_counter() - t0
+    in_groups = {i for _p, idxs in plans for i in idxs}
+    split = {"tree groups": {"per_query_engine_ms": sum(
+                 ms for i, ms in enumerate(per_query_ms) if i in in_groups)},
+             "left over": {"per_query_engine_ms": sum(
+                 ms for i, ms in enumerate(per_query_ms)
+                 if i not in in_groups)}}
+    if batch_prof is not None:
+        rng = batch_prof["ranges"]
+        for part, keys in (("tree groups", ("batch.tree_run",
+                                            "batch.tree_rebuild")),
+                           ("left over", ("batch.leftover",))):
+            for key in keys:
+                rec = rng.get(key, {})
+                split[part][key] = {"host_ms": rec.get("host_us", 0.0) / 1e3,
+                                    "device_ms":
+                                        rec.get("device_us", 0.0) / 1e3}
+    return {"nodes": store.n_nodes, "build_s": build_s,
+            "host_pass_s": host_pass_s, "byte_equal": True,
+            "templates": per,
+            "p50_ms_median": float(np.median([r["p50_ms"]
+                                              for r in per.values()])),
+            "profile": prof, "batch_queries": len(qs),
+            "batch_families": families, "bucket_hop_launches": launches,
+            "batch_equal_to_per_query_engine": True,
+            "batch_cold_s": cold_s, "batch_warm_s": warm_s,
+            "per_query_engine_s": per_query_s,
+            "warm_over_per_query": warm_s / per_query_s,
+            "batch_profile": batch_prof, "batch_profile_s": batch_profile_s,
+            "batch_split": split}
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     device = "cuda"
@@ -1181,11 +1328,23 @@ def main() -> None:
     t0 = time.perf_counter()
     ic = phase_ic_batch(device, built)
     say("phase 7 ic batch", seconds=time.perf_counter() - t0, **ic)
+    # phase 7's store (its placed graphs and programs) goes before the
+    # feature store is built from the same graph
+    g = built["g"]
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    feat = phase_features(device, g)
+    say("phase 8 dql features", seconds=time.perf_counter() - t0, **feat)
     # the launches of each main path, counted from zero around its run
     paths = {name: {"query_batch @recurse (phase 4)": launches[name],
                     "query_batch IC mix (phase 7)":
-                        ic["bucket_hop_launches"][name]}
+                        ic["bucket_hop_launches"][name],
+                    "query_batch DQL features (phase 8)":
+                        feat["bucket_hop_launches"][name]}
              for name in KERNEL_SOURCES}
+    say("script", seconds=time.perf_counter() - t_start)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": KERNEL_REPLACES[name],
                 "launches": sum(paths[name].values()),

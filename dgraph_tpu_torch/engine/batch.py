@@ -286,11 +286,12 @@ def query_batch(store, dqls: list, device=DEFAULT_DEVICE,
         for i, o in zip(idxs, out):
             results[i] = o
     eng = Engine(store, device=dev, device_threshold=device_threshold)
-    for i in sorted(leftover):
-        try:
-            results[i] = eng.query(dqls[i])
-        except (ValueError, NotImplementedError) as e:
-            results[i] = {"errors": [{"message": str(e)}]}
+    with record_function("batch.leftover"):
+        for i in sorted(leftover):
+            try:
+                results[i] = eng.query(dqls[i])
+            except (ValueError, NotImplementedError) as e:
+                results[i] = {"errors": [{"message": str(e)}]}
     return results
 
 

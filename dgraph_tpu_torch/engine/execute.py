@@ -33,7 +33,10 @@ from torch.profiler import record_function
 
 from dgraph_tpu_torch.engine.funcs import (EMPTY, eval_func,
                                            eval_func_universe)
+from dgraph_tpu_torch.engine.groupby import (process_groupby,
+                                             process_groupby_rows)
 from dgraph_tpu_torch.engine.ir import FilterNode, FuncNode, Order, SubGraph
+from dgraph_tpu_torch.engine.mathexpr import eval_math
 from dgraph_tpu_torch.ops.hop import gather_edges
 from dgraph_tpu_torch.ops.level import NO_LIMIT, expand_level
 from dgraph_tpu_torch.ops.uidalgebra import pad_to
@@ -44,8 +47,6 @@ from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 EMPTY64 = np.zeros(0, np.int64)
 
 ROUTES = ("device", "fused", "numpy", "empty")
-
-_LATER = "ROADMAP Queue 1 item 4"
 
 
 @dataclass
@@ -60,6 +61,7 @@ class LevelNode:
     leaf_sgs: list[SubGraph] = field(default_factory=list)
     recurse_data: object | None = None     # engine.recurse.RecurseData
     path_data: object | None = None        # engine.shortest.PathData
+    groups: object | None = None           # engine.groupby.GroupResult
 
 
 @dataclass
@@ -425,7 +427,8 @@ class Executor:
         if sg.var_name:
             self.uid_vars[sg.var_name] = nodes
         if sg.groupby:
-            raise NotImplementedError(f"@groupby ({_LATER}: engine/groupby.py)")
+            node.groups = process_groupby(self, node)
+            return node
         self._descend(node)
         return node
 
@@ -508,7 +511,8 @@ class Executor:
         if sg.facet_vars:
             self._bind_facet_vars(sg, nbrs, pos)
         if sg.groupby:
-            raise NotImplementedError(f"@groupby ({_LATER}: engine/groupby.py)")
+            node.groups = process_groupby_rows(self, node)
+            return node
         self._descend(node)
         return node
 
@@ -598,8 +602,8 @@ class Executor:
             self.val_vars[sg.var_name] = {
                 int(r): int(d) for r, d in zip(parent.nodes, deg)}
         elif sg.math_expr is not None:
-            raise NotImplementedError(
-                f"math() variables ({_LATER}: engine/mathexpr.py)")
+            self.val_vars[sg.var_name] = eval_math(
+                sg.math_expr, parent.nodes, self.val_vars)
         elif sg.is_val_leaf:
             src = self.val_vars.get(sg.attr, {})
             self.val_vars[sg.var_name] = {

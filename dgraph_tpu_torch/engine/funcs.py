@@ -2,34 +2,27 @@
 
 Port of `dgraph_tpu/engine/funcs.py`: `uid`, `has`, `type`, `uid_in`,
 `eq`, `le`/`lt`/`ge`/`gt`/`between` (value, count and val-var
-comparisons), `anyofterms`/`allofterms`, and `eval_func_universe`, the
-frontier-restricted form child-level filters use. Host-side numpy over
-columnar value arrays and inverted indexes, producing sorted int32 rank
-sets. `regexp`, `match`, the fulltext and geo functions and `similar_to`
-raise until they are ported (ROADMAP Queue 1 items 4 and 7).
+comparisons), `anyofterms`/`allofterms`, `anyoftext`/`alloftext`,
+`regexp`, `match`, the geo functions `near`/`within`/`contains`, and
+`eval_func_universe`, the frontier-restricted form child-level filters
+use. Host-side numpy over columnar value arrays and inverted indexes,
+producing sorted int32 rank sets. `similar_to` raises until vector
+tablets are ported (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 
 from dgraph_tpu_torch.engine.ir import FuncNode
+from dgraph_tpu_torch.store import geo as G
 from dgraph_tpu_torch.store.store import TYPE_PRED, Store
-from dgraph_tpu_torch.store.tok import term_tokens
+from dgraph_tpu_torch.store.tok import fulltext_tokens, term_tokens
 from dgraph_tpu_torch.store.types import Kind, convert
 
 EMPTY = np.zeros(0, np.int32)
-
-_LATER = {
-    "anyoftext": "ROADMAP Queue 1 item 4: fulltext tokenizer",
-    "alloftext": "ROADMAP Queue 1 item 4: fulltext tokenizer",
-    "regexp": "ROADMAP Queue 1 item 4: engine/funcs.py",
-    "match": "ROADMAP Queue 1 item 4: engine/funcs.py",
-    "near": "ROADMAP Queue 1 item 4: store/geo.py",
-    "within": "ROADMAP Queue 1 item 4: store/geo.py",
-    "contains": "ROADMAP Queue 1 item 4: store/geo.py",
-    "similar_to": "ROADMAP Queue 1 item 7: store/vec.py",
-}
 
 
 def eval_func(store: Store, f: FuncNode, val_env: dict | None = None) -> np.ndarray:
@@ -54,13 +47,140 @@ def eval_func(store: Store, f: FuncNode, val_env: dict | None = None) -> np.ndar
         return _compare(store, f, name)
     if name in ("anyofterms", "allofterms"):
         return _terms(store, f, any_=(name == "anyofterms"))
-    if name in _LATER:
+    if name in ("anyoftext", "alloftext"):
+        return _text(store, f, any_=(name == "anyoftext"))
+    if name == "regexp":
+        return _regexp(store, f)
+    if name == "match":
+        return _match(store, f)
+    if name in ("near", "within", "contains"):
+        return _geo_func(store, f, name)
+    if name == "similar_to":
         raise NotImplementedError(
-            f"function {f.name!r} is not ported yet ({_LATER[name]})")
+            "function 'similar_to' is not ported yet (ROADMAP Queue 1 "
+            "item 7: store/vec.py)")
     raise ValueError(f"unknown function {f.name!r}")
 
 
+def _geo_func(store: Store, f: FuncNode, name: str) -> np.ndarray:
+    """Geo queries: cell-cover candidates from the geo index (when
+    present), exact haversine / point-in-polygon verification after —
+    the reference's two-phase shape.
+    Without an index the whole value column is verified."""
+    pd = store.preds.get(f.attr)
+    if pd is None:
+        return np.zeros(0, np.int32)
+
+    def candidates(tokens) -> np.ndarray:
+        idx = pd.index.get("geo")
+        if idx is None or tokens is None:  # no index / cover too big
+            parts = [col.has() for col in pd.vals.values()]
+            return (np.unique(np.concatenate(parts)).astype(np.int32)
+                    if parts else np.zeros(0, np.int32))
+        hits = [idx[t] for t in tokens if t in idx]
+        if not hits:
+            return np.zeros(0, np.int32)
+        return np.unique(np.concatenate(hits)).astype(np.int32)
+
+    def geo_vals(rank: int):
+        for col in pd.vals.values():
+            for v in col.get(rank):
+                if isinstance(v, G.GeoVal):
+                    yield v
+
+    def _coord(arg, ctx):
+        if (not isinstance(arg, (list, tuple)) or len(arg) < 2
+                or not all(isinstance(x, (int, float)) for x in arg[:2])):
+            raise ValueError(f"{ctx} needs [longitude, latitude]")
+        return float(arg[0]), float(arg[1])
+
+    if name == "near":
+        lon, lat = _coord(f.args[0], "near()")
+        if not isinstance(f.args[1], (int, float)):
+            raise ValueError("near() needs a numeric distance in meters")
+        meters = float(f.args[1])
+        out = []
+        for r in candidates(G.cover_near(lon, lat, meters)).tolist():
+            for v in geo_vals(r):
+                pt = v.point()
+                if pt is not None and \
+                        G.haversine_m(lon, lat, *pt) <= meters:
+                    out.append(r)
+                    break
+                rings = v.rings()
+                if rings and G.dist_to_polygon_m(lon, lat,
+                                                 rings) <= meters:
+                    out.append(r)
+                    break
+        return np.array(sorted(out), np.int32)
+
+    if name == "within":
+        arg = f.args[0]
+        if not isinstance(arg, (list, tuple)) or not arg:
+            raise ValueError("within() needs polygon coordinates "
+                             "[[[lon, lat], ...]]")
+        try:
+            rings = [[_coord(pt, "within() ring position")
+                      for pt in ring] for ring in arg]
+        except (TypeError, ValueError) as e:
+            raise ValueError(f"within() polygon is malformed: {e}")
+        if not rings[0] or len(rings[0]) < 4:
+            raise ValueError("within() outer ring needs >= 4 positions")
+        xs = [x for x, _ in rings[0]]
+        ys = [y for _, y in rings[0]]
+        # cover_bbox returns None for antimeridian-crossing query rings
+        # (naive bbox would cover the wrong side) — candidates() then
+        # scans and the exact verify below decides
+        toks = G.cover_bbox(min(xs), min(ys), max(xs), max(ys))
+        out = []
+        for r in candidates(toks).tolist():
+            for v in geo_vals(r):
+                pt = v.point()
+                if pt is not None and G.point_in_polygon(*pt, rings):
+                    out.append(r)
+                    break
+                vrings = v.rings()
+                # a stored polygon is within the query area when its
+                # whole boundary is: vertices AND edge midpoints are
+                # tested, so a concave query edge cutting between two
+                # contained vertices is caught (segment-granularity
+                # approximation of exact S2 containment)
+                if vrings and all(
+                        G.point_in_polygon(x, y, rings)
+                        for x, y in _ring_probes(vrings[0])):
+                    out.append(r)
+                    break
+        return np.array(sorted(out), np.int32)
+
+    # contains(loc, [lon, lat]): stored POLYGONS containing the point
+    lon, lat = _coord(f.args[0], "contains()")
+    toks = set(G.point_tokens(lon, lat, prefix="py"))
+    out = []
+    for r in candidates(toks).tolist():
+        for v in geo_vals(r):
+            rings = v.rings()
+            if rings and G.point_in_polygon(lon, lat, rings):
+                out.append(r)
+                break
+    return np.array(sorted(out), np.int32)
+
+
 # -- helpers ----------------------------------------------------------------
+
+def _ring_probes(ring):
+    """Vertices plus edge midpoints of a polygon ring — the containment
+    probe set within() tests against the query area. Midpoints follow
+    each edge's SHORTER longitudinal arc (store.geo per-edge rule), so
+    an antimeridian-crossing edge probes near ±180, not near 0."""
+    xs = G.unwrap_lons([x for x, _ in ring])
+    n = len(ring)
+    for i in range(n):
+        x1, y1 = xs[i], ring[i][1]
+        yield ring[i][0], y1
+        x2, y2 = xs[(i + 1) % n], ring[(i + 1) % n][1]
+        mx = (x1 + x2) / 2.0
+        yield ((mx + 180.0) % 360.0) - 180.0, (y1 + y2) / 2.0
+
 
 def _schema_kind(store: Store, attr: str) -> Kind:
     ps = store.schema.peek(attr)
@@ -294,6 +414,13 @@ def _terms(store: Store, f: FuncNode, any_: bool) -> np.ndarray:
     return _token_combine(store, f.attr, "term", toks, any_)
 
 
+def _text(store: Store, f: FuncNode, any_: bool) -> np.ndarray:
+    _require_index(store, f.attr, "fulltext",
+                   "anyoftext" if any_ else "alloftext")
+    toks = fulltext_tokens(" ".join(str(a) for a in f.args))
+    return _token_combine(store, f.attr, "fulltext", toks, any_)
+
+
 def _token_combine(store: Store, attr: str, tokenizer: str, toks,
                    any_: bool) -> np.ndarray:
     if not toks:
@@ -305,3 +432,37 @@ def _token_combine(store: Store, attr: str, tokenizer: str, toks,
     for l in lists[1:]:
         out = np.intersect1d(out, l)
     return out.astype(np.int32)
+
+
+def _regexp(store: Store, f: FuncNode) -> np.ndarray:
+    pat = str(f.args[0])
+    flags = 0
+    if len(f.args) > 1 and "i" in str(f.args[1]):
+        flags |= re.IGNORECASE
+    rx = re.compile(pat, flags)
+    return _scan(store, f, lambda vals: np.array(
+        [bool(rx.search(str(v))) for v in vals], bool))
+
+
+def _match(store: Store, f: FuncNode) -> np.ndarray:
+    """match(attr, term, maxdistance): fuzzy match via Levenshtein bound."""
+    term = str(f.args[0]).lower()
+    maxd = int(f.args[1]) if len(f.args) > 1 else 2
+
+    def lev_ok(s: str) -> bool:
+        s = s.lower()
+        if abs(len(s) - len(term)) > maxd:
+            return False
+        prev = list(range(len(term) + 1))
+        for i, c in enumerate(s, 1):
+            cur = [i]
+            for j, t in enumerate(term, 1):
+                cur.append(min(prev[j] + 1, cur[j - 1] + 1,
+                               prev[j - 1] + (c != t)))
+            if min(cur) > maxd:
+                return False
+            prev = cur
+        return prev[-1] <= maxd
+
+    return _scan(store, f, lambda vals: np.array(
+        [any(lev_ok(w) for w in str(v).split()) for v in vals], bool))

@@ -1,9 +1,9 @@
-"""math() expression trees: the part the parser builds.
+"""math() expression trees over value variables.
 
-Port of `dgraph_tpu/engine/mathexpr.py` as far as `dql/parser.py` needs
-it (the operator tables and `MathTree`). Evaluating a tree over value
-variables (`eval_math`) belongs to the per-query engine, ROADMAP Queue 1
-item 4.
+Port of `dgraph_tpu/engine/mathexpr.py`: the operator tables and
+`MathTree` the parser builds, and `eval_math`, which evaluates a tree per
+rank over the value-variable maps (a rank missing any referenced
+variable is left out, as in the reference).
 """
 
 from __future__ import annotations
@@ -51,3 +51,40 @@ class MathTree:
     const: object = None
     var: str = ""
     children: list["MathTree"] = field(default_factory=list)
+
+
+def eval_math(tree: MathTree, ranks, val_vars: dict) -> dict[int, object]:
+    """Evaluate per rank; ranks missing any referenced var are skipped
+    (reference behavior: missing values drop the uid from the result)."""
+    out: dict[int, object] = {}
+    for r in ranks:
+        r = int(r)
+        try:
+            v = _eval_one(tree, r, val_vars)
+        except _Missing:
+            continue
+        out[r] = v
+    return out
+
+
+class _Missing(Exception):
+    pass
+
+
+def _eval_one(t: MathTree, rank: int, env: dict):
+    if t.op == "const":
+        return t.const
+    if t.op == "var":
+        var = env.get(t.var)
+        if var is None or rank not in var:
+            raise _Missing()
+        return var[rank]
+    if t.op == "cond":
+        c, a, b = t.children
+        return _eval_one(a if _eval_one(c, rank, env) else b, rank, env)
+    if t.op in UNOPS:
+        return UNOPS[t.op](_eval_one(t.children[0], rank, env))
+    if t.op in BINOPS:
+        return BINOPS[t.op](_eval_one(t.children[0], rank, env),
+                            _eval_one(t.children[1], rank, env))
+    raise ValueError(f"unknown math op {t.op!r}")

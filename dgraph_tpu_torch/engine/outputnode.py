@@ -5,10 +5,16 @@ and paginated display order, nested levels (the matrices (seg, child)
 ARE the tree; rows group per parent with one stable argsort per level),
 scalar/uid/count/val() leaves, `@*` language maps, facets on edges and
 value postings, `@recurse` rows (loop false and true) and shortest
-paths. JSON conventions match the reference: "0x%x" uids, RFC3339
-datetimes, empty lists omitted, count(uid) as a standalone entry.
-Aggregates, math() leaves, checkpwd, @normalize, @groupby and @cascade
-raise until they are ported (ROADMAP Queue 1 item 4).
+paths, aggregates, math() and checkpwd leaves, @groupby, @normalize and
+@cascade. JSON conventions match the reference:
+  uids           "0x%x" strings
+  datetimes      RFC3339 (UTC, "Z")
+  geo values     GeoJSON objects
+  uid edges      lists of objects; empty lists omitted
+  @normalize     flat objects, cartesian product across nested lists
+  aggregates     separate objects appended to the block list
+  shortest       "_path_" block of nested path objects
+  @groupby       {"@groupby": [...]} wrapper objects
 """
 
 from __future__ import annotations
@@ -16,9 +22,10 @@ from __future__ import annotations
 import numpy as np
 
 from dgraph_tpu_torch.engine.execute import LevelNode
-from dgraph_tpu_torch.store.types import Kind
-
-_LATER = "ROADMAP Queue 1 item 4: engine/outputnode.py"
+from dgraph_tpu_torch.engine.groupby import _aggregate
+from dgraph_tpu_torch.engine.mathexpr import eval_math
+from dgraph_tpu_torch.store.geo import GeoVal
+from dgraph_tpu_torch.store.types import Kind, check_password
 
 
 def to_json(ex, roots: list[LevelNode]) -> dict:
@@ -127,45 +134,70 @@ class _Renderer:
 
     # -- blocks -------------------------------------------------------------
     def render_block(self, node: LevelNode) -> list:
-        if node.sg.normalize:
-            raise NotImplementedError(f"@normalize rendering ({_LATER})")
+        if node.groups is not None:
+            return [{"@groupby": self._groups_list(node.groups)}]
         objs = []
         display = node.display if node.display is not None else node.nodes
         for rank in display.tolist():
-            obj = self.node_obj(node, int(rank))
+            obj = self.node_obj(node, int(rank),
+                                aliased_only=node.sg.normalize)
             if obj:
                 objs.append(obj)
         objs.extend(self.block_level_entries(node))
+        if node.sg.normalize:
+            flat = []
+            for o in objs:
+                flat.extend(_normalize(o))
+            return flat
         return objs
 
     def block_level_entries(self, node: LevelNode) -> list:
-        """count(uid) renders as a standalone list entry."""
+        """Aggregates and count(uid) render as standalone list entries."""
         entries = []
         for leaf in node.leaf_sgs:
             if leaf.is_agg:
-                raise NotImplementedError(f"aggregate rendering ({_LATER})")
-            if leaf.is_count and leaf.is_uid_leaf:
+                var = self.ex.val_vars.get(leaf.attr, {})
+                if node.sg.func is None:
+                    # func-less aggregation block (`s() { min(val(a)) }`):
+                    # the domain is the var's whole binding
+                    vals = list(var.values())
+                else:
+                    vals = [var[int(r)] for r in node.nodes.tolist()
+                            if int(r) in var]
+                self._agg_entry(leaf, vals, entries)
+            elif leaf.is_count and leaf.is_uid_leaf:
                 entries.append({leaf.alias or "count": int(len(node.nodes))})
         return entries
 
+    def _agg_entry(self, leaf, vals: list, entries: list) -> None:
+        v = _aggregate(leaf.agg_func, vals)
+        if v is not None:  # min/max over no values: omitted
+            name = leaf.alias or f"{leaf.agg_func}(val({leaf.attr}))"
+            entries.append({name: _json_val(v)})
+
     # -- nodes --------------------------------------------------------------
-    def node_obj(self, level: LevelNode, rank: int) -> dict:
-        if level.sg.cascade:
-            raise NotImplementedError(f"@cascade rendering ({_LATER})")
+    def node_obj(self, level: LevelNode, rank: int,
+                 aliased_only: bool = False) -> dict | None:
+        """One node's object, or None when @cascade drops it."""
         obj: dict = {}
         domain = level.display if level.display is not None else level.nodes
         for leaf in level.leaf_sgs:
-            self._render_leaf(leaf, rank, obj, domain)
+            self._render_leaf(leaf, rank, obj, aliased_only, domain)
         if level.recurse_data is not None:
             self._render_recurse_children(level.recurse_data, rank, obj,
                                           depth=0)
         for child in level.children:
-            self._render_edge(child, level, rank, obj)
+            self._render_edge(child, level, rank, obj, aliased_only)
+        if level.sg.cascade and not _cascade_ok(level, obj):
+            return None
         return obj
 
-    def _render_leaf(self, leaf, rank: int, obj: dict, domain=None) -> None:
+    def _render_leaf(self, leaf, rank: int, obj: dict,
+                     aliased_only: bool = False, domain=None) -> None:
         if leaf.is_agg or (leaf.is_count and leaf.is_uid_leaf):
             return  # block-level entries
+        if aliased_only and not leaf.alias and not leaf.is_uid_leaf:
+            return  # @normalize: only aliased predicates survive
         if leaf.is_uid_leaf:
             obj[leaf.alias or "uid"] = self._uid_for(rank, domain)
             return
@@ -178,9 +210,24 @@ class _Renderer:
             if rank in var:
                 obj[leaf.alias or f"val({leaf.attr})"] = _json_val(var[rank])
             return
-        if leaf.math_expr is not None or leaf.checkpwd_val is not None:
-            raise NotImplementedError(
-                f"math()/checkpwd leaf rendering ({_LATER})")
+        if leaf.math_expr is not None:
+            var = self.ex.val_vars.get(leaf.var_name or leaf.alias or "", {})
+            if rank in var:
+                if leaf.alias:
+                    obj[leaf.alias] = _json_val(var[rank])
+            elif leaf.alias:
+                v = eval_math(leaf.math_expr, [rank], self.ex.val_vars)
+                if rank in v:
+                    obj[leaf.alias] = _json_val(v[rank])
+            return
+        if leaf.checkpwd_val is not None:
+            # checkpwd(pred, "pw"): verify against the stored hash; the
+            # hash itself never renders
+            vs = self._leaf_vals_for(leaf, rank, domain)
+            ok = any(check_password(leaf.checkpwd_val, str(v))
+                     for v in vs)
+            obj[leaf.alias or f"checkpwd({leaf.attr})"] = ok
+            return
         if leaf.lang == "*":
             # name@*: every language version, keyed per tag (untagged
             # renders under the bare name); passwords never render
@@ -227,10 +274,15 @@ class _Renderer:
                 obj[aliases.get(k) or f"{name}|{k}"] = _json_val(v)
 
     def _render_edge(self, child: LevelNode, parent: LevelNode, rank: int,
-                     obj: dict) -> None:
-        rows, row_idx = self._rows(child, parent, rank)
+                     obj: dict, aliased_only: bool = False) -> None:
         name = child.sg.alias or (
             f"~{child.sg.attr}" if child.sg.is_reverse else child.sg.attr)
+        if child.groups is not None:
+            g = child.groups.get(int(np.searchsorted(parent.nodes, rank)))
+            if g is not None and g.groups:
+                obj[name] = [{"@groupby": self._groups_list(g)}]
+            return
+        rows, row_idx = self._rows(child, parent, rank)
         facet_cols = None
         if child.sg.facet_keys is not None and len(child.matrix_pos):
             keys = [k for _, k in child.sg.facet_keys] or None
@@ -241,13 +293,15 @@ class _Renderer:
                 keys), aliases)
         # memoize per (level, rank): a popular child appears in MANY
         # parents' rows; its subtree renders once
-        memo = self._obj_memo.setdefault(id(child), {})
+        memo = self._obj_memo.setdefault((id(child), aliased_only), {})
         lst = []
         for j, cr in enumerate(rows.tolist()):
             cr = int(cr)
-            o = memo.get(cr)
+            o = memo.get(cr, _MISS)
+            if o is _MISS:
+                o = memo[cr] = self.node_obj(child, cr, aliased_only)
             if o is None:
-                o = memo[cr] = self.node_obj(child, cr)
+                continue  # dropped by @cascade
             if facet_cols is not None:
                 cols, aliases = facet_cols
                 o = dict(o)  # copy: facet annotations are per-row
@@ -263,12 +317,15 @@ class _Renderer:
             obj[name] = lst
 
     def _row_level_entries(self, child: LevelNode, rows: np.ndarray) -> list:
-        """Nested count(uid): evaluated over THIS parent's row members."""
+        """Nested aggregates and count(uid): evaluated over THIS parent's
+        row members."""
         entries = []
         for leaf in child.leaf_sgs:
             if leaf.is_agg:
-                raise NotImplementedError(f"aggregate rendering ({_LATER})")
-            if leaf.is_count and leaf.is_uid_leaf:
+                var = self.ex.val_vars.get(leaf.attr, {})
+                vals = [var[r] for r in np.unique(rows).tolist() if r in var]
+                self._agg_entry(leaf, vals, entries)
+            elif leaf.is_count and leaf.is_uid_leaf:
                 entries.append({leaf.alias or "count": int(len(np.unique(rows)))})
         return entries
 
@@ -335,6 +392,15 @@ class _Renderer:
         if lst:
             obj[name] = lst
 
+    # -- groupby ------------------------------------------------------------
+    def _groups_list(self, gr) -> list:
+        out = []
+        for key, aggs, _members in gr.groups:
+            g = {a: _json_val(v) for a, v in key.items()}
+            g.update({k: _json_val(v) for k, v in aggs.items()})
+            out.append(g)
+        return out
+
     # -- shortest -----------------------------------------------------------
     def render_paths(self, node: LevelNode) -> list:
         data = node.path_data
@@ -361,6 +427,7 @@ class _Renderer:
 # -- helpers ----------------------------------------------------------------
 
 _EMPTY_I32 = np.zeros(0, np.int32)
+_MISS = object()  # memo sentinel (None is a real "cascade dropped" result)
 
 
 def _uid_str(uid) -> str:
@@ -368,6 +435,8 @@ def _uid_str(uid) -> str:
 
 
 def _json_val(v):
+    if isinstance(v, GeoVal):
+        return v.obj  # geo scalars render as GeoJSON objects
     if isinstance(v, np.datetime64):
         s = np.datetime_as_string(v, unit="us")
         if s.endswith(".000000"):
@@ -380,3 +449,47 @@ def _json_val(v):
     if isinstance(v, (np.floating, float)):
         return float(v)
     return str(v)
+
+
+def _cascade_ok(level: LevelNode, obj: dict) -> bool:
+    """@cascade: require the listed fields (or every queried field)."""
+    fields = level.sg.cascade
+    if fields and fields != ["__all__"]:
+        required = fields
+    else:
+        required = []
+        for leaf in level.leaf_sgs:
+            if leaf.is_uid_leaf or leaf.is_agg:
+                continue
+            required.append(leaf.alias or (
+                f"count({leaf.attr})" if leaf.is_count else
+                (f"val({leaf.attr})" if leaf.is_val_leaf else
+                 (f"{leaf.attr}@{leaf.lang}" if leaf.lang else leaf.attr))))
+        for child in level.children:
+            required.append(child.sg.alias or (
+                f"~{child.sg.attr}" if child.sg.is_reverse else child.sg.attr))
+    return all(f in obj for f in required)
+
+
+def _normalize(obj: dict) -> list[dict]:
+    """Cartesian flatten for @normalize (aliased scalars only survive —
+    matching the reference's 'only aliased predicates are returned')."""
+    base: dict = {}
+    list_parts: list[list[dict]] = []
+    for k, v in obj.items():
+        if isinstance(v, list) and v and isinstance(v[0], dict):
+            flats: list[dict] = []
+            for o in v:
+                flats.extend(_normalize(o))
+            if flats:
+                list_parts.append(flats)
+        elif isinstance(v, dict):
+            flats = _normalize(v)
+            if flats:
+                list_parts.append(flats)
+        else:
+            base[k] = v
+    results = [base]
+    for part in list_parts:
+        results = [dict(r, **p) for r in results for p in part]
+    return results

@@ -13,7 +13,10 @@ input. The per-query engine reads each CSR on the device through
 `Store.device_rel` (cached per predicate, direction and device); the
 batched path places its ELL layout itself (`ops/bfs.py:device_ell`).
 CSR construction always takes the numpy path, which the reference
-documents as bit-identical to its native builder. Vector tablets and the
+documents as bit-identical to its native builder. Value columns hold
+every scalar kind but float32vector (geo values as `GeoVal`, passwords as
+their hashes), and `build_indexes` keys exact, hash, term, fulltext,
+trigram and geo tokens. Vector tablets and the
 mesh placements belong to later slices (ROADMAP Queue 1 items 7, 10).
 
 `store_from_arrays` builds a port Store from a reference Store's numpy
@@ -27,6 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from dgraph_tpu_torch.store.geo import parse_geo
 from dgraph_tpu_torch.store.schema import PredicateSchema, Schema, parse_schema
 from dgraph_tpu_torch.store.tok import tokens_for
 from dgraph_tpu_torch.store.types import NUMPY_DTYPE, Kind, convert
@@ -62,8 +66,11 @@ class ValueColumn:
     vals: np.ndarray  # typed per schema kind
 
     def get(self, rank: int) -> list:
-        lo = np.searchsorted(self.subj, rank, side="left")
-        hi = np.searchsorted(self.subj, rank, side="right")
+        # the key in the column's dtype: a Python int would make numpy
+        # cast the whole column to int64 on every call
+        r = self.subj.dtype.type(rank)
+        lo = np.searchsorted(self.subj, r, side="left")
+        hi = np.searchsorted(self.subj, r, side="right")
         return list(self.vals[lo:hi])
 
     def get_many(self, ranks: np.ndarray) -> dict[int, list]:
@@ -553,6 +560,17 @@ def _rel_of(r) -> EdgeRel | None:
     return EdgeRel(np.array(indptr, np.int32), np.array(indices, np.int32))
 
 
+def _copy_vals(vals, kind: Kind) -> np.ndarray:
+    """A value column's copy; geo values are re-read as this package's
+    `GeoVal` from their GeoJSON text."""
+    if kind != Kind.GEO:
+        return np.array(vals)
+    out = np.empty(len(vals), object)
+    for i, v in enumerate(vals):
+        out[i] = parse_geo(str(v))
+    return out
+
+
 def store_from_arrays(uids, schema_text: str = "",
                       preds: dict | None = None) -> Store:
     """A port Store from numpy state: the analogue of carrying a model's
@@ -561,7 +579,8 @@ def store_from_arrays(uids, schema_text: str = "",
     Either pass a reference-shaped object as `uids` (anything with
     `.uids`, `.schema.to_text()` and `.preds[name].{fwd, rev, vals,
     index, efacets, vfacets, rev_pos}` — e.g. a `dgraph_tpu` Store, read
-    by duck typing so this package never imports it), or plain data:
+    by duck typing so this package never imports it; its geo values are
+    re-read from their GeoJSON text), or plain data:
 
         uids         sorted int64 uid vocabulary
         schema_text  schema-language text
@@ -594,7 +613,8 @@ def store_from_arrays(uids, schema_text: str = "",
         out[name] = PredicateData(
             schema=schema.get(name),
             fwd=_rel_of(spec.get("fwd")), rev=_rel_of(spec.get("rev")),
-            vals={lang: ValueColumn(np.array(s, np.int32), np.array(v))
+            vals={lang: ValueColumn(np.array(s, np.int32),
+                                    _copy_vals(v, schema.get(name).kind))
                   for lang, (s, v) in spec.get("vals", {}).items()},
             index={tk: {t: np.array(r, np.int32) for t, r in inv.items()}
                    for tk, inv in spec.get("index", {}).items()},

@@ -1,18 +1,25 @@
 """Scalar value types and the conversion matrix.
 
 Port of `dgraph_tpu/store/types.py`: `Kind`, `NUMPY_DTYPE`, `convert`
-and `sort_key`, with the same host representation (numpy-columnar int64,
-float64, object strings, bool_, datetime64[us]). Geo values and the
-password hash helpers (ROADMAP Queue 1 item 4) and float32vector values
-(item 7) belong to later slices.
+(geo values included), `sort_key` and the password hash helpers, with
+the same host representation (numpy-columnar int64, float64, object
+strings, bool_, datetime64[us], `GeoVal` objects) and the same
+`salt$key` scrypt encoding, so a hash written by either package verifies
+in the other. float32vector values are ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
 
+import base64
 import datetime as _dt
+import hashlib
+import hmac
+import os
 from enum import Enum
 
 import numpy as np
+
+from dgraph_tpu_torch.store.geo import parse_geo
 
 
 class Kind(str, Enum):
@@ -39,6 +46,27 @@ NUMPY_DTYPE = {
     Kind.VECTOR: object,  # object column of 1-D float32 rows
     Kind.DEFAULT: object,
 }
+
+
+def hash_password(password: str) -> str:
+    """Salted scrypt hash, encoded "salt$key" (password values store
+    hashes, never plaintext)."""
+    salt = os.urandom(16)
+    dk = hashlib.scrypt(password.encode(), salt=salt, n=2**14, r=8, p=1)
+    return base64.b64encode(salt).decode() + "$" + \
+        base64.b64encode(dk).decode()
+
+
+def check_password(password: str, stored: str) -> bool:
+    """Constant-time verification against a hash_password() value."""
+    try:
+        salt_b64, dk_b64 = stored.split("$", 1)
+        salt = base64.b64decode(salt_b64)
+        dk = hashlib.scrypt(password.encode(), salt=salt,
+                            n=2**14, r=8, p=1)
+        return hmac.compare_digest(dk, base64.b64decode(dk_b64))
+    except Exception:  # noqa: BLE001 — malformed hash = no access
+        return False
 
 
 def parse_datetime(s: str) -> np.datetime64:
@@ -104,9 +132,7 @@ def convert(value, kind: Kind):
             return np.datetime64(value, "us")
         return parse_datetime(str(value))
     if kind == Kind.GEO:
-        raise NotImplementedError(
-            "geo values are not ported yet (ROADMAP Queue 1 item 4: "
-            "store/geo.py)")
+        return parse_geo(value)
     if kind == Kind.VECTOR:
         raise NotImplementedError(
             "float32vector values are not ported yet (ROADMAP Queue 1 "

@@ -161,6 +161,22 @@ def queries(ref):
         "shortest_weighted": '{ shortest(from: %s, to: %s, numpaths: 2) '
                              '{ friend @facets(weight) } }' % (u0, u7),
         "schema": 'schema { type index }',
+        "regexp": '{ q(func: regexp(name, /per/)) @filter(eq(city, "Oslo"))'
+                  ' { uid name } }',
+        "math": '{ q(func: has(age), first: 10) { a as age '
+                'm: math(a * 2 + 1) friend { n as count(friend) '
+                's: math(n + a) } } }',
+        "normalize": '{ q(func: has(age), first: 10) @normalize { a: age '
+                     'friend { n: name c: city } } }',
+        "cascade": '{ q(func: has(name), first: 20) @cascade { name age '
+                   'friend @filter(ge(age, 40)) { name } } }',
+        "groupby": '{ q(func: has(friend), first: 12) { city friend '
+                   '@groupby(city) { count(uid) } } '
+                   'g(func: has(age)) @groupby(city) { count(uid) } }',
+        "aggregates": '{ var(func: has(age)) { a as age } '
+                      'q(func: has(friend), first: 8) { friend '
+                      '{ lo: min(val(a)) hi: max(val(a)) s: sum(val(a)) } } '
+                      'r() { mean: avg(val(a)) } }',
     }
 
 
@@ -173,7 +189,8 @@ NAMES = [
     "recurse_filter", "facets_all", "facets_alias", "facets_filter",
     "facets_order", "facets_reverse", "facet_var", "value_facets",
     "has_uid_in", "terms", "lang", "count_uid", "shortest", "shortest_k",
-    "shortest_weighted", "schema"]
+    "shortest_weighted", "schema", "regexp", "math", "normalize", "cascade",
+    "groupby", "aggregates"]
 
 
 @pytest.mark.parametrize("threshold", [0, 10**9])
@@ -212,9 +229,10 @@ def test_engine_without_card_raises(stores, monkeypatch):
 
 
 @pytest.mark.parametrize("q,exc", [
-    ('{ q(func: regexp(name, /per/)) { uid } }', NotImplementedError),
-    ('{ q(func: has(age)) { m: math(age + 1) } }', NotImplementedError),
-    ('{ q(func: has(age)) @normalize { a: age } }', NotImplementedError),
+    ('{ q(func: similar_to(name, 2, "[1, 1]")) { uid } }',
+     NotImplementedError),
+    ('{ q(func: has(age)) @msgpass(pred: age) { uid friend } }',
+     NotImplementedError),
     ('{ q(func: has(age)) { uid } }', None),
 ])
 def test_unported_features_raise(stores, q, exc):

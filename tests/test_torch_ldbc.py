@@ -25,6 +25,7 @@ from dgraph_tpu.server.api import Alpha
 from dgraph_tpu_torch.engine import Engine
 from dgraph_tpu_torch.models import ldbc
 from dgraph_tpu_torch.store.store import StoreBuilder, store_from_arrays
+from dgraph_tpu_torch.tools import feature_mix
 
 CPU = "cpu"
 SF = 0.02
@@ -123,3 +124,79 @@ def test_ic_template_equals_reference(snb, name, threshold):
     if threshold == 0:
         assert eng.routes.expansions["numpy"] == 0
         assert eng.routes.on_device() > 0
+
+
+# -- the DQL-feature mix (tools/feature_mix.py) ---------------------------------
+
+def _ref_feature_store(g, ext):
+    """The reference store of the feature mix, built through the
+    reference StoreBuilder from the same graph and extension values."""
+    from dgraph_tpu.store.schema import parse_schema as ref_parse_schema
+    from dgraph_tpu.store.store import StoreBuilder as RefBuilder
+
+    b = RefBuilder(ref_parse_schema(ref_ldbc.SCHEMA))
+    b.schema.update(ref_parse_schema(feature_mix.SCHEMA_EXT))
+    for (s, o), w in zip(g.knows.tolist(), g.knows_weight.tolist()):
+        b.add_edge(s, "knows", o, facets={"weight": float(w)})
+    for pred in ("has_creator", "reply_of", "has_tag", "has_member",
+                 "container_of", "likes", "works_at"):
+        pairs = getattr(g, pred)
+        b.add_edges(pred, pairs[:, 0], pairs[:, 1])
+    for i, u in enumerate(g.person_uids.tolist()):
+        b.add_value(u, "first_name", g.first_name[i])
+        b.add_value(u, "last_name", g.last_name[i])
+        b.add_value(u, "city", g.city[i])
+        b.add_value(u, "birthday_year", int(g.birthday_year[i]))
+    msgs = np.concatenate([g.post_uids, g.comment_uids])
+    for u, ts in zip(msgs.tolist(), g.creation_ts.tolist()):
+        b.add_value(u, "creation_ts", int(ts))
+    for i, u in enumerate(g.tag_uids.tolist()):
+        b.add_value(u, "tag_name", ref_ldbc.TAG_NAMES[i])
+    for i, u in enumerate(g.forum_uids.tolist()):
+        b.add_value(u, "forum_title", f"forum_{i}")
+    for i, u in enumerate(g.org_uids.tolist()):
+        b.add_value(u, "org_name", f"org_{i}")
+    for u, pred, v in ext:
+        b.add_value(u, pred, v)
+    return b.finalize()
+
+
+@pytest.fixture(scope="module")
+def features():
+    from dgraph_tpu.engine import Engine as RefEngine
+
+    pg = ldbc.generate(sf=SF)
+    ext = feature_mix.extension_values(pg)
+    ref = _ref_feature_store(ref_ldbc.generate(sf=SF), ext)
+    store = feature_mix.build_store(pg, ext)
+    return pg, RefEngine, ref, store
+
+
+@pytest.mark.parametrize("threshold", [0, 10**9])
+@pytest.mark.parametrize("name", feature_mix.NAMES)
+def test_feature_template_equals_reference(features, name, threshold):
+    pg, RefEngine, ref, store = features
+    q = feature_mix.templates(pg)[name]
+    want = RefEngine(ref, device_threshold=threshold).query(q)
+    eng = Engine(store, device=CPU, device_threshold=threshold)
+    assert eng.query_bytes(q) == json.dumps(
+        want, separators=(",", ":")).encode()
+    assert next(iter(want.values()))       # a non-empty answer
+
+
+def test_feature_batch_equals_reference(features):
+    from dgraph_tpu_torch.engine import batch
+    from dgraph_tpu_torch.engine.treebatch import TreePlan
+
+    pg, RefEngine, ref, store = features
+    pairs = feature_mix.batch(pg, copies=4)
+    qs = [q for _n, q in pairs]
+    plans, _left = batch.plan_batch_groups_cached(store, qs)
+    tree = {pairs[i][0] for p, idxs in plans if isinstance(p, TreePlan)
+            for i in idxs}
+    assert {"agg_minmax", "math"} <= tree
+    got = batch.query_batch(store, qs, device=CPU)
+    eng = RefEngine(ref, device_threshold=10**9)
+    for (name, q), r in zip(pairs, got):
+        assert json.dumps(r, sort_keys=True) == json.dumps(
+            eng.query(q), sort_keys=True), name

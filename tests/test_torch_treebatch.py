@@ -305,21 +305,42 @@ def test_kernel_failure_raises_out_of_query_batch(stores, monkeypatch,
 
 
 def test_query_error_in_host_rebuild_goes_per_query(alpha, stores):
-    """A tree group whose host rebuild raises the query's own error (an
-    aggregate, not ported yet) is served per query, which gives each of
-    its queries its error object; the other groups still run."""
-    _ref, port = stores
-    agg = ['{ q(func: eq(name, "p%d")) { follows { s as score } '
-           'm: min(val(s)) } }' % i for i in range(4)]
+    """A tree group whose host rebuild raises the query's own error (a
+    host-only block reading a variable no block defines, which the
+    reference refuses too) is served per query, which gives each of its
+    queries its error object; the other groups still run."""
+    ref, port = stores
+    bad = ['{ q(func: eq(name, "p%d")) { follows { name } } '
+           'r(func: uid(nope)) { name } }' % i for i in range(4)]
     tree = ['{ q(func: eq(name, "p%d")) { follows { follows { name } } } }'
             % i for i in range(4)]
     plans, _left = port_batch.plan_batch_groups(
-        port, [port_parse(q) for q in agg + tree])
+        port, [port_parse(q) for q in bad + tree])
     assert len(plans) == 2
     assert port_batch.run_batch(port, plans[0][0], CPU) is None
     eng = Engine(port, device=CPU)
-    with pytest.raises(NotImplementedError) as err:
-        eng.query(agg[0])
-    got = port_batch.query_batch(port, agg + tree, device=CPU)
+    with pytest.raises(ValueError, match="not defined") as err:
+        eng.query(bad[0])
+    with pytest.raises(ValueError) as ref_err:
+        RefEngine(ref, device_threshold=HOST).query(bad[0])
+    assert str(err.value) == str(ref_err.value)
+    got = port_batch.query_batch(port, bad + tree, device=CPU)
     assert got[:4] == [{"errors": [{"message": str(err.value)}]}] * 4
     assert json.dumps(got[4:]) == json.dumps(alpha.query_batch(tree))
+
+
+def test_aggregate_and_math_queries_run_as_tree_groups(alpha, stores):
+    """Aggregates, value variables and math() leave a query eligible for
+    a tree group: its hops run on the lane run and its host rebuild
+    renders them, equal to the reference."""
+    _ref, port = stores
+    qs = ['{ q(func: eq(name, "p%d")) { follows { s as score '
+          'n as count(follows) m: math(s * 2 + n) follows { name } } '
+          'lo: min(val(s)) hi: max(val(s)) } }' % i for i in range(6)]
+    plans, left = port_batch.plan_batch_groups(
+        port, [port_parse(q) for q in qs])
+    assert left == [] and len(plans) == 1
+    assert isinstance(plans[0][0], port_tree.TreePlan)
+    got = port_batch.query_batch(port, qs, device=CPU)
+    assert "errors" not in json.dumps(got)
+    assert json.dumps(got) == json.dumps(alpha.query_batch(qs))
