@@ -6,7 +6,8 @@ Phases, one printed line each; any failure raises and exits non-zero:
 
   1. device   — needs torch.cuda; prints `nvidia-smi` name and power limit
   2. build    — compiles every CUDA kernel of the path from csrc/ (nvcc,
-                all sources at once)
+                all sources at once), then the native host library
+                (native/*.cpp, g++)
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 bit-exact:
                 - random buckets: K in 1,3,8,32,1024; W in 1,2,3,8,128,256;
@@ -44,8 +45,9 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 Engine(device="cuda") at device_threshold 512 and at 0
                 (every non-empty frontier on the card), each response
                 byte-equal to Engine(device="cpu", device_threshold=10**9),
-                the pure numpy route; the card route must serve at least one
-                expansion of config 3 and of the IC mix at 512. Prints the
+                the pure numpy route (whole-block programs off); the card
+                route (programs on) must serve at least one expansion of
+                config 3 and of the IC mix at 512. Prints the
                 per-route counts, the warm p50 of each template (3 reps) on
                 all three routes and the IC mix's p50 over all its
                 requests, config 3's p50 and edges/s, and a
@@ -98,13 +100,38 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 warm batch: host and device time of the tree groups' run
                 and rebuild and of the left-over queries, each beside the
                 per-query engine's time for the same queries
-  9. the `kernels` JSON line, then the device JSON line last
+  9. fused    — whole-block programs (engine/fused.py) and the native
+                emitter on phase 6's SF1 store, run after phase 7 while
+                that store lives: the 14 IC templates and config 3
+                through Engine(device="cuda") at 512, each byte-equal to
+                the numpy route; per template the fused blocks and their
+                stage kinds, caps, captures and capture ms, cold ms, p50
+                with programs on and off (requests interleaved), the
+                render alone with the native emitter and the dict
+                renderer, and for every captured program one replay
+                bit-equal to an eager run of its plain function, its
+                replay ms and the eager run's (CUDA events, median of 5)
+                beside its least-bytes bound and its launches per replay
+                (the plain function's, profiled), with profiled launches
+                per template on and off, and ops/recurse.masked_hop alone
+                at config 3's first hop. Fails on any fallback, a fused
+                count below the eligible blocks, graphs holding more than
+                fused.PROGRAM_BYTES or the phase leaving more than that
+                reserved on the card, or an emitter that did not build or
+                serve. Then the SF1 store built again with
+                the numpy CSR builder (equal CSR, both build times) and
+                the CSR builders alone on the store's shuffled pairs
+  10. the `kernels` JSON line, then the device JSON line last
+
+Phases 6 to 9 fail if any block falls back from its whole-block program to
+the staged route.
 
 It imports torch, numpy and dgraph_tpu_torch only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -155,12 +182,49 @@ BATCH_RANGES = ("batch.tree_run", "batch.tree_rebuild", "batch.step_run",
 # phase 8: the DQL-feature mix
 FEATURE_COPIES = 8
 FEATURE_REPS = 3
+# phase 9: whole-block programs and the native emitter
+FUSED_REPS = 3        # interleaved fused-on / fused-off requests per template
+REPLAY_REPS = 5       # CUDA-event replays per captured program
+CSR_SEED = 3          # shuffle of the SF1 edge pairs fed to the CSR builders
 KERNEL_SOURCES = {"bucket_hop": "dgraph_tpu_torch/csrc/bucket_hop.cu"}
 KERNEL_REPLACES = {"bucket_hop": "dgraph_tpu/ops/pallas_hop.py:108"}
 
 
 def say(phase: str, **kv) -> None:
     print(f"{phase}: " + json.dumps(kv, default=str), flush=True)
+
+
+@contextlib.contextmanager
+def fusion(on: bool):
+    """Whole-block programs (engine/fused.py) on or off inside the block:
+    the DGRAPH_TPU_FUSED switch, read per query."""
+    was = os.environ.get("DGRAPH_TPU_FUSED")
+    os.environ["DGRAPH_TPU_FUSED"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if was is None:
+            del os.environ["DGRAPH_TPU_FUSED"]
+        else:
+            os.environ["DGRAPH_TPU_FUSED"] = was
+
+
+@contextlib.contextmanager
+def no_fused_fallback(phase: str):
+    """Fail `phase` if a block fell back from its whole-block program to
+    the staged route inside it (on the card a failing program raises, so
+    this holds the route to that)."""
+    from dgraph_tpu_torch.engine import fused
+
+    def seen():
+        st = fused.status()
+        return st["fallbacks"], st["routes"]["fallback"], len(st["disabled"])
+
+    before = seen()
+    yield
+    if seen() != before:
+        raise AssertionError(f"{phase}: whole-block program fallbacks "
+                             f"{before} -> {seen()}")
 
 
 def cpu_recurse(indptr, indices, seeds, depth):
@@ -244,9 +308,15 @@ def phase_build() -> dict:
     from dgraph_tpu_torch.utils import kbuild
     t0 = time.perf_counter()
     report = kbuild.build_all()
-    say("phase 2 build", seconds=round(time.perf_counter() - t0, 3),
+    cuda_s = time.perf_counter() - t0
+    from dgraph_tpu_torch import native
+    t0 = time.perf_counter()
+    native.load()
+    say("phase 2 build", seconds=round(cuda_s, 3),
         built={k: {"seconds": round(v["seconds"], 3), "ptxas": v["ptxas"]}
-               for k, v in report.items()})
+               for k, v in report.items()},
+        native={"library": os.path.relpath(native.lib_path()),
+                "seconds": round(time.perf_counter() - t0, 3)})
     return report
 
 
@@ -821,7 +891,8 @@ def phase_ldbc(device, sf: float = LDBC_SF, reps: int = LDBC_REPS,
     queries["config3"] = ldbc.config3_query(g)
 
     host = Engine(store, device="cpu", device_threshold=HOST_ONLY)
-    want = {k: host.query_bytes(q) for k, q in queries.items()}
+    with fusion(False):     # the pure numpy route
+        want = {k: host.query_bytes(q) for k, q in queries.items()}
     routes, p50 = {}, {}
     engines = {"host": host}
     for thr in (LDBC_THRESHOLD, 0):
@@ -845,7 +916,8 @@ def phase_ldbc(device, sf: float = LDBC_SF, reps: int = LDBC_REPS,
     on_card = routes[f"card{LDBC_THRESHOLD}"]["per_query"]
 
     def device_served(q):
-        return on_card[q].get("device", 0) + on_card[q].get("fused", 0)
+        return sum(on_card[q].get(r, 0) for r in ("device", "fused",
+                                                  "program"))
     if not device_served("config3"):
         raise AssertionError("config 3 took no device expansion at "
                              f"device_threshold {LDBC_THRESHOLD}")
@@ -854,8 +926,9 @@ def phase_ldbc(device, sf: float = LDBC_SF, reps: int = LDBC_REPS,
                              f"device_threshold {LDBC_THRESHOLD}")
     mix_p50 = {}
     for route, eng in engines.items():
-        lat = {k: lat_ms(lambda q=q: eng.query_bytes(q), reps)
-               for k, q in queries.items()}
+        with fusion(route != "host"):
+            lat = {k: lat_ms(lambda q=q: eng.query_bytes(q), reps)
+                   for k, q in queries.items()}
         p50[route] = {k: float(np.median(v)) for k, v in lat.items()}
         # the IC mix's p50: the median over every request of the 14
         # templates, each template weighted equally
@@ -864,8 +937,9 @@ def phase_ldbc(device, sf: float = LDBC_SF, reps: int = LDBC_REPS,
     edges3 = config3_edges(want["config3"])
     seg_ab = None
     if torch.device(device).type == "cuda":
-        city = host.query(
-            '{ q(func: eq(city, "%s")) { uid } }' % g.city[0])["q"]
+        with fusion(False):
+            city = host.query(
+                '{ q(func: eq(city, "%s")) { uid } }' % g.city[0])["q"]
         seg_ab = seg_map_ab(store, {
             "config3_hop1": store.rank_of([int(o["uid"], 16) for o in city]),
             "all_persons": store.rank_of(g.person_uids)}, device)
@@ -1180,7 +1254,8 @@ def phase_features(device, g) -> dict:
     queries = feature_mix.templates(g)
     host = Engine(store, device="cpu", device_threshold=HOST_ONLY)
     t0 = time.perf_counter()
-    want = {k: host.query_bytes(q) for k, q in queries.items()}
+    with fusion(False):     # the pure numpy route
+        want = {k: host.query_bytes(q) for k, q in queries.items()}
     host_pass_s = time.perf_counter() - t0
     eng = Engine(store, device=device, device_threshold=LDBC_THRESHOLD)
     per = {}
@@ -1289,6 +1364,372 @@ def phase_features(device, g) -> dict:
             "batch_split": split}
 
 
+def template_launches(eng, queries: dict, on: bool) -> dict | None:
+    """One pass of the templates under torch.profiler with whole-block
+    programs on or off: per template the device launches (kernels and
+    copies) and device microseconds the profiler attributes to it. The
+    profiler sees no kernel inside a graph replay, so with programs on
+    these are the launches outside the graphs. None when the profiler
+    records no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with fusion(on), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+        for name, q in queries.items():
+            with record_function("ldbc." + name):
+                eng.query_bytes(q)
+        torch.cuda.synchronize()
+    events = prof.events()
+    if not any(ev.device_type == DeviceType.CUDA for ev in events):
+        return None
+    return {ev.name[5:]: {"launches": device_launches(ev),
+                          "device_us": ev.device_time_total}
+            for ev in events
+            if ev.device_type == DeviceType.CPU
+            and ev.name.startswith("ldbc.")}
+
+
+def eager_launches(fn) -> int:
+    """Device launches (kernels, copies, fills) of one eager fn() under
+    torch.profiler: for a captured program's plain function, the nodes
+    its graph replays. One profiled run of config 3's masked hop once
+    counted 19 launches against 106-109 in every other run, so it takes
+    the larger count of two runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for ev in prof.events()
+                          if ev.device_type == DeviceType.CUDA
+                          and not getattr(ev, "is_user_annotation", False)))
+    return max(counts)
+
+
+def csr_ab(store, seed: int = CSR_SEED) -> dict:
+    """The CSR builder two ways on every uid predicate of the store, both
+    directions, from its edge pairs in a seeded shuffled order: the
+    native builder (native/csr.cpp) and the numpy one. Equal arrays
+    asserted; host seconds of each, summed."""
+    from dgraph_tpu_torch.store.store import (_csr_from_pairs,
+                                              _csr_from_pairs_np)
+
+    rng = np.random.default_rng(seed)
+    n = store.n_nodes
+    native_s = numpy_s = 0.0
+    pairs = 0
+    for pred, pd in store.preds.items():
+        if pd.fwd is None:
+            continue
+        deg = np.diff(pd.fwd.indptr)
+        src = np.repeat(np.arange(n, dtype=np.int32), deg)
+        dst = pd.fwd.indices
+        perm = rng.permutation(len(src))
+        for s, o in ((src[perm], dst[perm]), (dst[perm], src[perm])):
+            t0 = time.perf_counter()
+            a = _csr_from_pairs(s, o, n)
+            native_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            b = _csr_from_pairs_np(s, o, n)
+            numpy_s += time.perf_counter() - t0
+            if not (np.array_equal(a.indptr, b.indptr)
+                    and np.array_equal(a.indices, b.indices)):
+                raise AssertionError(f"native CSR of {pred} != numpy CSR")
+            pairs += len(s)
+    return {"pairs": pairs, "native_s": native_s, "numpy_s": numpy_s,
+            "equal": True}
+
+
+def program_least_bytes(p, n_nodes: int) -> int:
+    """Least bytes of a whole-block program's last call: each stage's
+    input frontier, its rows' indptr pairs, the edges' indices and its
+    allowed set read once; every output slot written once (and a recurse
+    stage's seen bitmap cleared once)."""
+    split, n_roots = p.last
+    f_cap, a_caps = p.layout
+    total = 4 * (f_cap + sum(a_caps))         # the packed input
+    fcap = {-1: f_cap}
+    nfront = {-1: n_roots}
+    for i, (st, sz) in enumerate(zip(p.stages, split)):
+        a = 4 * a_caps[i] if st.has_filter else 0
+        if st.kind == "hop":
+            ecap = p.caps[i][0]
+            _n_kept, n_unique, edges = (int(v) for v in sz)
+            total += (4 * fcap[st.parent] + 8 * nfront[st.parent]
+                      + 4 * edges + a + 16 * ecap + 12)
+            fcap[i], nfront[i] = ecap, n_unique
+        elif st.kind == "recurse":
+            ecap, ocap = p.caps[i]
+            _kept_h, uniq_h, tot_h = sz
+            fronts = [n_roots] + [int(u) for u in uniq_h[:-1]]
+            total += n_nodes + 1
+            for h in range(st.depth):
+                total += (4 * ocap + 8 * fronts[h] + 4 * int(tot_h[h]) + a
+                          + 8 * ecap + 4 * ocap + 12)
+        else:
+            total += (4 * fcap[st.parent] + 8 * nfront[st.parent]
+                      + 4 * fcap[st.parent])
+    return total
+
+
+def masked_hop_row(store, q: str, device) -> dict:
+    """ops/recurse.masked_hop alone at config 3's first hop (its roots,
+    its filter's allowed set, the caps its program settled on): launches,
+    device ms (CUDA events, median of REPLAY_REPS) and the least-bytes
+    bound (frontier, the rows' indptr pairs, the edges' indices, the
+    allowed set and the seen bitmap read once; kept edges, rows and the
+    next frontier written once)."""
+    from dgraph_tpu_torch.dql.parser import parse
+    from dgraph_tpu_torch.engine import fused
+    from dgraph_tpu_torch.engine.execute import Executor, _bucket
+    from dgraph_tpu_torch.ops.recurse import masked_hop, seen_bitmap
+    from dgraph_tpu_torch.ops.uidalgebra import pad_to
+
+    sg = parse(q)[0]
+    plan = fused.plan_block(store, sg)
+    st, esg = plan.stages[0], plan.stage_sgs[0]
+    ex = Executor(store, device=device)
+    roots = np.unique(ex.root_display(sg)).astype(np.int32)
+    allowed = ex.filter_set(esg.filters)
+    rel = store.rel(st.attr, st.reverse)
+    caps = fused._estimate_caps(plan, [rel], roots)[0]
+    ecap = max(caps[0], _bucket(int(rel.degree(roots).sum())))
+    ocap = caps[1]
+    indptr, indices = store.device_rel(st.attr, st.reverse, device)
+    fr = pad_to(roots, ocap, device)
+    a_d = pad_to(allowed, _bucket(max(len(allowed), 1)), device)
+    seen = seen_bitmap(store.n_nodes, fr)
+
+    def run(_a=None):
+        # each run marks more of `seen`; every op keeps its fixed shape
+        return masked_hop(indptr, indices, fr, a_d, seen, ecap, ocap, True)
+
+    total = int(run()[6])
+    ms = cuda_ms(run, REPLAY_REPS)
+    nbytes = (4 * ocap + 8 * len(roots) + 4 * total + 4 * a_d.shape[0]
+              + (store.n_nodes + 1) + 8 * ecap + 4 * ocap)
+    return {"roots": len(roots), "edges": total, "edge_cap": ecap,
+            "out_cap": ocap, "launches": eager_launches(run),
+            "ms": float(np.median(ms)), "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def replay_rows(programs: dict, per: dict, n_nodes: int) -> int:
+    """Each captured program of each template: one replay held bit for
+    bit against an eager run of its plain function on the same inputs,
+    then replay and eager ms (CUDA events), launches per replay and the
+    least-bytes bound, into per[template]["programs"]. Returns the
+    number checked."""
+    checked = 0
+    for k, progs in programs.items():
+        rows = []
+        for p in progs:
+            with p.lock:
+                p.graph.replay()
+                got = [t.clone() for t in flat(p.static_out)]
+                ref = flat(p.fn(p.rels, p.static_in))
+                if len(got) != len(ref) or not all(
+                        torch.equal(a, b) for a, b in zip(got, ref)):
+                    raise AssertionError(f"{k}: a graph replay differs "
+                                         f"from its eager run")
+                ms = cuda_ms(lambda _a, p=p: p.graph.replay(), REPLAY_REPS)
+                eager = cuda_ms(lambda _a, p=p: p.fn(p.rels, p.static_in),
+                                REPLAY_REPS)
+                launches = eager_launches(
+                    lambda p=p: p.fn(p.rels, p.static_in))
+            checked += 1
+            nbytes = program_least_bytes(p, n_nodes)
+            rows.append({"replay_ms": float(np.median(ms)),
+                         "eager_ms": float(np.median(eager)),
+                         "launches_per_replay": launches,
+                         "graph_bytes": p.graph_bytes,
+                         "least_bytes": nbytes,
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                         "bound_by": "bytes", "equal_to_eager": True})
+        per[k]["programs"] = rows
+    return checked
+
+
+def phase_fused(device, built: dict) -> dict:
+    """Whole-block programs and the native emitter on the SF1 store of
+    phase 6 (phase 9)."""
+    from dgraph_tpu_torch import native
+    from dgraph_tpu_torch.dql.parser import parse
+    from dgraph_tpu_torch.engine import Engine, emit, fused
+    from dgraph_tpu_torch.models import ldbc
+    from dgraph_tpu_torch.store.store import StoreBuilder
+
+    on_card = torch.device(device).type == "cuda"
+    g, store = built["g"], built["store"]
+    queries = dict(ldbc.ic_templates(g))
+    queries["config3"] = ldbc.config3_query(g)
+    host = Engine(store, device="cpu", device_threshold=HOST_ONLY)
+    with fusion(False):
+        want = {k: host.query_bytes(q) for k, q in queries.items()}
+
+    fused.reset()
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved() if on_card else 0
+    emitted = dict(emit.COUNTS)
+    eng = Engine(store, device=device, device_threshold=LDBC_THRESHOLD)
+    per, programs = {}, {}
+    eligible_total = 0
+    for k, q in queries.items():
+        plans = [fused.plan_block(store, sg) for sg in parse(q)]
+        eligible = sum(p is not None for p in plans)
+        eligible_total += eligible
+        before, had = fused.status(), set(map(id, fused.captured()))
+        t0 = time.perf_counter()
+        with fusion(True):
+            got = eng.query_bytes(q)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        after = fused.status()
+        if got != want[k]:
+            raise AssertionError(f"{k}: fused response differs from the "
+                                 f"numpy route")
+        served = after["routes"]["fused"] - before["routes"]["fused"]
+        if served < eligible:
+            raise AssertionError(f"{k}: {served} blocks fused of "
+                                 f"{eligible} eligible")
+        programs[k] = [p for p in fused.captured() if id(p) not in had]
+        per[k] = {"blocks": [[s.kind for s in p.stages] if p else None
+                             for p in plans],
+                  "fused_blocks": served,
+                  "caps": [list(fused._caps_memo.get(p.sig, ()))
+                           for p in plans if p is not None],
+                  "captures": after["captures"] - before["captures"],
+                  "capture_ms": after["capture_ms"] - before["capture_ms"],
+                  "cold_ms": cold_ms}
+    # p50 with whole-block programs on and off, requests interleaved
+    lat = {k: {"on": [], "off": []} for k in queries}
+    for _ in range(FUSED_REPS):
+        for k, q in queries.items():
+            for arm in ("on", "off"):
+                with fusion(arm == "on"):
+                    t0 = time.perf_counter()
+                    got = eng.query_bytes(q)
+                    lat[k][arm].append((time.perf_counter() - t0) * 1e3)
+                if got != want[k]:
+                    raise AssertionError(f"{k}: fused {arm} differs from "
+                                         f"the numpy route")
+    for k in queries:
+        per[k]["p50_ms_on"] = float(np.median(lat[k]["on"]))
+        per[k]["p50_ms_off"] = float(np.median(lat[k]["off"]))
+    # render alone: the native emitter against the dict renderer on the
+    # same executed tree, equal bytes
+    for k, q in queries.items():
+        roots, ex = eng._run(q)
+        for arm in ("native", "dict"):
+            native.HAVE_EMIT = arm == "native"
+            try:
+                ms = []
+                for _ in range(FUSED_REPS):
+                    t0 = time.perf_counter()
+                    got = emit.to_json_bytes(ex, roots)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                native.HAVE_EMIT = True
+            if got != want[k]:
+                raise AssertionError(f"{k}: {arm} render differs")
+            per[k][f"render_ms_{arm}"] = float(np.median(ms))
+    mix = [k for k in queries if k != "config3"]
+    status = fused.status()
+    if status["fallbacks"] or status["routes"]["fallback"] \
+            or status["disabled"]:
+        raise AssertionError(f"fused fallbacks: {status}")
+    if status["routes"]["fused"] < eligible_total * (1 + FUSED_REPS):
+        raise AssertionError(f"fused route served {status['routes']} of "
+                             f"{eligible_total} eligible blocks per pass")
+
+    # every captured program: one replay against an eager run of its
+    # plain function on the same inputs, bit for bit; its replay time
+    checked = 0
+    if on_card:
+        checked = replay_rows(programs, per, store.n_nodes)
+        programs.clear()      # reset() below may then free the graphs
+        if checked != status["captures"] or not checked:
+            raise AssertionError(f"{checked} captured programs checked of "
+                                 f"{status['captures']} captures")
+        for arm in ("on", "off"):
+            prof = template_launches(eng, queries, arm == "on")
+            for k, rec in (prof or {}).items():
+                per[k][f"launches_{arm}"] = rec["launches"]
+                per[k][f"device_us_{arm}"] = rec["device_us"]
+    hop_row = masked_hop_row(store, queries["config3"], device) \
+        if on_card else None
+    n_native = emit.COUNTS["native"] - emitted["native"]
+    if not (native.HAVE_EMIT and native.built()) or n_native < 1:
+        raise AssertionError(f"the native emitter served {n_native} blocks "
+                             f"(HAVE_EMIT {native.HAVE_EMIT}, built "
+                             f"{native.built()})")
+    # device memory the phase leaves behind: the graphs' pools (within
+    # PROGRAM_BYTES) and nothing else; after reset() the pools go back
+    memory = {"reserved_before": reserved0, "limit": fused.PROGRAM_BYTES,
+              "program_bytes": status["program_bytes"],
+              "programs": status["programs"],
+              "evictions": status["evictions"]}
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        memory["reserved_after"] = torch.cuda.memory_reserved()
+        grown = memory["reserved_after"] - reserved0
+        if grown > fused.PROGRAM_BYTES or \
+                status["program_bytes"] > fused.PROGRAM_BYTES:
+            raise AssertionError(f"phase 9 left {grown} bytes reserved on "
+                                 f"the card: {memory}")
+    fused.reset()
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        memory["reserved_after_reset"] = torch.cuda.memory_reserved()
+    # the store build: native CSR (phase 6's) against the numpy builder
+    t0 = time.perf_counter()
+    native.HAVE_NATIVE = False
+    try:
+        b = StoreBuilder()
+        ldbc.load_into(b, g)
+        numpy_store = b.finalize()
+    finally:
+        native.HAVE_NATIVE = True
+    numpy_build_s = time.perf_counter() - t0
+    for pred, pd in store.preds.items():
+        for d in ("fwd", "rev"):
+            a, b2 = getattr(pd, d), getattr(numpy_store.preds[pred], d)
+            if (a is None) != (b2 is None) or (a is not None and not (
+                    np.array_equal(a.indptr, b2.indptr)
+                    and np.array_equal(a.indices, b2.indices))):
+                raise AssertionError(f"{pred} {d}: native and numpy "
+                                     f"builders differ")
+    del numpy_store
+    return {"byte_equal": True, "eligible_blocks_per_pass": eligible_total,
+            "status": status,
+            "programs_checked": checked, "templates": per,
+            "mix_p50_ms_on": float(np.median(
+                [x for k in mix for x in lat[k]["on"]])),
+            "mix_p50_ms_off": float(np.median(
+                [x for k in mix for x in lat[k]["off"]])),
+            "render_ms_sum": {arm: sum(r[f"render_ms_{arm}"]
+                                       for r in per.values())
+                              for arm in ("native", "dict")},
+            "memory": memory,
+            "masked_hop_config3_hop1": hop_row,
+            "native": {"have_emit": native.HAVE_EMIT,
+                       "built": native.built(),
+                       "blocks_emitted": n_native,
+                       "blocks_dict": emit.COUNTS["dict"] - emitted["dict"],
+                       "store_build_s_native": built["build_s"],
+                       "store_build_s_numpy": numpy_build_s,
+                       "csr": csr_ab(store)}}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -1320,14 +1761,19 @@ def main() -> None:
     built = build_ldbc(LDBC_SF)
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    ldbc = phase_ldbc(device, built=built)
+    with no_fused_fallback("phase 6"):
+        ldbc = phase_ldbc(device, built=built)
     # the per-query path runs torch ops only: no hand kernel of the repo
     # is on it, and these counts show none launched
     say("phase 6 ldbc", seconds=time.perf_counter() - t0,
         hand_kernel_launches=dict(LAUNCHES), **ldbc)
     t0 = time.perf_counter()
-    ic = phase_ic_batch(device, built)
+    with no_fused_fallback("phase 7"):
+        ic = phase_ic_batch(device, built)
     say("phase 7 ic batch", seconds=time.perf_counter() - t0, **ic)
+    t0 = time.perf_counter()
+    fz = phase_fused(device, built)
+    say("phase 9 fused", seconds=time.perf_counter() - t0, **fz)
     # phase 7's store (its placed graphs and programs) goes before the
     # feature store is built from the same graph
     g = built["g"]
@@ -1335,7 +1781,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    feat = phase_features(device, g)
+    with no_fused_fallback("phase 8"):
+        feat = phase_features(device, g)
     say("phase 8 dql features", seconds=time.perf_counter() - t0, **feat)
     # the launches of each main path, counted from zero around its run
     paths = {name: {"query_batch @recurse (phase 4)": launches[name],

@@ -21,6 +21,7 @@ from dgraph_tpu_torch.engine.execute import Executor, LevelNode, RouteCounts
 from dgraph_tpu_torch.engine.ir import (
     FilterNode, FuncNode, Order, RecurseArgs, ShortestArgs, SubGraph,
 )
+from dgraph_tpu_torch.engine.emit import to_json_bytes
 from dgraph_tpu_torch.engine.outputnode import to_json
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -79,12 +80,14 @@ class Engine:
             return to_json(ex, res), ex
 
     def query_bytes(self, q: str, variables: dict | None = None) -> bytes:
-        """Serialized response bytes: compact JSON of the rendered dict
-        (the reference's route when its native emitter is absent)."""
+        """Serialized response bytes: the native emitter
+        (`engine/emit.py`) where the block shape allows, the dict
+        renderer's compact JSON elsewhere."""
         res, ex = self._run(q, variables)
         with record_function("engine.render"):
-            out = res if ex is None else to_json(ex, res)
-            return json.dumps(out, separators=(",", ":")).encode()
+            if ex is None:
+                return json.dumps(res, separators=(",", ":")).encode()
+            return to_json_bytes(ex, res)
 
     def _run(self, q: str, variables: dict | None = None):
         """Parse + execute: (LevelNode roots, executor), or for schema{}
@@ -143,5 +146,5 @@ class Engine:
 __all__ = [
     "Engine", "Executor", "LevelNode", "RouteCounts", "SubGraph",
     "FuncNode", "FilterNode", "Order", "RecurseArgs", "ShortestArgs",
-    "to_json", "shape_of",
+    "to_json", "to_json_bytes", "shape_of",
 ]

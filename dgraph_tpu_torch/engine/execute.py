@@ -1,7 +1,10 @@
 """SubGraph execution: one root block at a time, level by level.
 
 Port of `dgraph_tpu/engine/execute.py` without the mesh, remote-task and
-memory-governor branches. Each level's expansion is ONE batched CSR
+memory-governor branches. An eligible root block runs first as one
+whole-block program (`engine/fused.py`, which ignores
+`device_threshold`, as the reference's does); the rest is the staged
+route below. Each level's expansion is ONE batched CSR
 gather over the whole frontier: frontiers of at least
 `device_threshold` rows expand on the device through torch ops
 (`ops/hop.py:gather_edges`, or the fused `ops/level.py:expand_level`
@@ -37,6 +40,7 @@ from dgraph_tpu_torch.engine.groupby import (process_groupby,
                                              process_groupby_rows)
 from dgraph_tpu_torch.engine.ir import FilterNode, FuncNode, Order, SubGraph
 from dgraph_tpu_torch.engine.mathexpr import eval_math
+from dgraph_tpu_torch.engine.varorder import _filter_uses
 from dgraph_tpu_torch.ops.hop import gather_edges
 from dgraph_tpu_torch.ops.level import NO_LIMIT, expand_level
 from dgraph_tpu_torch.ops.uidalgebra import pad_to
@@ -46,7 +50,7 @@ from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 EMPTY64 = np.zeros(0, np.int64)
 
-ROUTES = ("device", "fused", "numpy", "empty")
+ROUTES = ("device", "fused", "program", "numpy", "empty")
 
 
 @dataclass
@@ -67,11 +71,13 @@ class LevelNode:
 @dataclass
 class RouteCounts:
     """Expansions and edges per execution route: `device` (gather_edges
-    on the device), `fused` (expand_level on the device), `numpy` (the
-    host walk) and `empty` (nothing to expand). `least_bytes` sums, per
-    device route, the bytes its op must move: each input read once (the
-    frontier, its rows' indptr pairs, the edges' indices, the allowed
-    set) and each output written once (the padded output columns)."""
+    on the device), `fused` (expand_level on the device), `program` (a
+    hop or recurse stage of a whole-block program, `engine/fused.py`),
+    `numpy` (the host walk) and `empty` (nothing to expand).
+    `least_bytes` sums, per device route, the bytes its op must move:
+    each input read once (the frontier, its rows' indptr pairs, the
+    edges' indices, the allowed set) and each output written once (the
+    padded output columns)."""
 
     expansions: dict = field(default_factory=lambda: dict.fromkeys(ROUTES, 0))
     edges: dict = field(default_factory=lambda: dict.fromkeys(ROUTES, 0))
@@ -84,7 +90,8 @@ class RouteCounts:
 
     def on_device(self) -> int:
         """Expansions the device served."""
-        return self.expansions["device"] + self.expansions["fused"]
+        return (self.expansions["device"] + self.expansions["fused"]
+                + self.expansions["program"])
 
 
 def _bucket(n: int, lo: int = 64) -> int:
@@ -207,14 +214,23 @@ class Executor:
 
     def filter_set(self, tree: FilterNode | None) -> np.ndarray | None:
         """A filter tree's allowed set WITHOUT a universe (index lookups
-        only); None when the tree needs a complement (`not`)."""
+        only); None when the tree needs a complement (`not`). A tree that
+        reads no variable is evaluated once per store
+        (`Store.filter_set_memo`): a whole-store set such as `has(pred)`
+        or a wide range costs tens of ms to build."""
         if tree is None:
             return None
+        if _filter_uses(tree):
+            return self._filter_set(tree)
+        return self.store.filter_set_memo(
+            repr(tree), lambda: self._filter_set(tree))
+
+    def _filter_set(self, tree: FilterNode) -> np.ndarray | None:
         if tree.op == "leaf":
             return self._leaf_set(tree.func, EMPTY).astype(np.int32)
         if tree.op == "not":
             return None
-        parts = [self.filter_set(c) for c in tree.children]
+        parts = [self._filter_set(c) for c in tree.children]
         if any(p is None for p in parts):
             return None
         out = parts[0]
@@ -408,8 +424,9 @@ class Executor:
 
     # -- block execution ----------------------------------------------------
     def run_block(self, sg: SubGraph) -> LevelNode:
-        """Execute one root block (the reference's staged route; its
-        whole-query fusion is ROADMAP Queue 1 item 6)."""
+        """Execute one root block: as one whole-block program where
+        `engine/fused.py` plans one, else level by level (the staged
+        route)."""
         if sg.shortest is not None:
             from dgraph_tpu_torch.engine.shortest import shortest_path
             data = shortest_path(self, sg)
@@ -421,6 +438,9 @@ class Executor:
             raise NotImplementedError(
                 "@msgpass is not ported yet (ROADMAP Queue 1 item 7: "
                 "engine/feat.py)")
+        fused_node = self._run_fused(sg)
+        if fused_node is not None:
+            return fused_node
         display = self.root_display(sg)
         nodes = np.unique(display).astype(np.int32)
         node = LevelNode(sg=sg, nodes=nodes, display=display.astype(np.int32))
@@ -431,6 +451,12 @@ class Executor:
             return node
         self._descend(node)
         return node
+
+    def _run_fused(self, sg: SubGraph) -> LevelNode | None:
+        """The block as one whole-block program, or None for the staged
+        route."""
+        from dgraph_tpu_torch.engine.fused import try_fused
+        return try_fused(self, sg)
 
     def root_display(self, sg: SubGraph) -> np.ndarray:
         """Root evaluation through ordering + pagination → the block's

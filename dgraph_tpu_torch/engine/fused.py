@@ -1,0 +1,755 @@
+"""Whole-query fusion: one device program per eligible root block.
+
+Port of `dgraph_tpu/engine/fused.py`, with its hop, recurse and count
+stage kinds (knn and featprop follow ROADMAP Queue 1 item 7: `similar_to`
+and `@msgpass` blocks stay on the staged route, which raises for them).
+
+`plan_block` walks a parsed root block into a `FusedPlan` of stages in
+DFS pre-order: hop levels (the segment-CSR gather of `ops/hop.py` and
+the filter + paginate body of `ops/level.py`, each consuming the
+previous stage's deduped frontier), a visit-once `@recurse` as `depth`
+masked hops (`ops/recurse.masked_hop`, per-hop edge matrices kept for
+rendering), and terminal `count(pred)` degree reductions. Filter trees
+evaluate on the host to sorted allowed sets up front.
+
+`_build_program` closes over the static plan and returns a plain
+function that runs the stages eagerly on torch tensors: the program's
+plain version, which is what `device="cpu"` runs. On the card the first
+call for a key whose caps hold (no overflow in an eager warm-up on a
+side stream) captures that function once into a `torch.cuda.CUDAGraph`;
+later calls copy the packed inputs (root frontier, allowed sets, page
+windows: one int32 buffer, one host-to-device copy) into the graph's
+static buffer and call `replay()`. The key is (store, plan signature,
+caps, root-frontier bucket, allowed-set buckets, device). The graph's
+outputs are overwritten by its next replay, so a call copies what it
+needs to the host under the program's lock: first the packed sizes (one
+small copy, the overflow check), then the kept rows.
+
+Caps follow the ops' overflow contract: estimated from root degrees and
+average degrees, checked against the true sizes the program reports,
+regrown geometrically on overflow (`_MAX_ATTEMPTS`), and memoized per
+plan signature; each new set of caps is a new program and capture. The
+program memo is an LRU of at most `PROGRAM_CAPACITY` programs whose
+graphs reserve at most `PROGRAM_BYTES` of device memory in all (each
+capture's growth of `torch.cuda.memory_reserved`). A program holds its
+store's CSR tensors; the programs of a store that was collected are
+dropped at the next call.
+
+On the card a failing program raises, as a failing kernel does on the
+staged route: nothing moves work off the card quietly. On the CPU a
+block whose program fails is served by the staged route from then on
+(sticky per query shape, until `reset()`); every such fallback is
+logged with its traceback and counted in `status()`, beside the routes
+taken, program hits and misses, captures, capture milliseconds and the
+bytes the graphs hold. `DGRAPH_TPU_FUSED=0` pins every block to the
+staged route. The host shell runs in the `engine.fused` profiler range.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+import weakref
+from collections import OrderedDict
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from dgraph_tpu_torch.engine.execute import EMPTY, LevelNode, _bucket, expands
+from dgraph_tpu_torch.engine.recurse import (RecurseData, _bind_recurse_vars,
+                                             split_children)
+from dgraph_tpu_torch.ops.hop import frontier_degrees, gather_edges
+from dgraph_tpu_torch.ops.level import NO_LIMIT, filter_paginate
+from dgraph_tpu_torch.ops.recurse import masked_hop, seen_bitmap
+from dgraph_tpu_torch.ops.uidalgebra import sentinel, sort_unique_count
+
+__all__ = ["STAGE_KINDS", "FusedPlan", "enabled", "plan_block",
+           "try_fused", "status", "reset", "captured"]
+
+STAGE_KINDS: dict[str, str] = {
+    "hop": ("one child level: segment-CSR gather + fused filter mask "
+            "+ on-device pagination + dedupe into the next frontier"),
+    "recurse": ("depth-bounded visit-once @recurse as `depth` masked "
+                "hops over an int8 seen bitmap, per-hop edge matrices "
+                "kept"),
+    "count": ("terminal count(pred) aggregation: per-parent-node "
+              "degree bound to the leaf's value var"),
+}
+
+MAX_FUSED_DEPTH = 64     # depth bound for the recurse stage
+_MAX_ATTEMPTS = 16       # geometric cap growth, bounded
+PROGRAM_CAPACITY = 128   # programs (and their graphs) kept, LRU
+PROGRAM_BYTES = 2 << 30  # device memory the kept graphs may reserve
+
+_log = logging.getLogger("dgraph_tpu_torch.engine.fused")
+
+
+def enabled() -> bool:
+    """Default-on: DGRAPH_TPU_FUSED=0 pins every block to the staged
+    route. Read per call, so a run can switch it between queries."""
+    return os.environ.get("DGRAPH_TPU_FUSED", "1") != "0"
+
+
+@dataclass(frozen=True)
+class _Stage:
+    kind: str            # STAGE_KINDS key
+    attr: str
+    reverse: bool
+    parent: int          # producing stage index; -1 = the root frontier
+    has_filter: bool = False
+    depth: int = 0       # recurse only
+
+    def sig(self) -> tuple:
+        return (self.kind, self.attr, self.reverse, self.parent,
+                self.has_filter, self.depth)
+
+
+@dataclass
+class FusedPlan:
+    """Stages in DFS pre-order (parents before children: the order
+    `Executor._descend` runs them)."""
+
+    stages: list[_Stage] = field(default_factory=list)
+    stage_sgs: list = field(default_factory=list)   # SubGraph per stage
+    children_of: dict[int, list[int]] = field(default_factory=dict)
+    # parent stage idx → {id(leaf sg): count stage idx}
+    counts_of: dict[int, dict[int, int]] = field(default_factory=dict)
+    recurse: bool = False
+
+    @property
+    def sig(self) -> tuple:
+        return tuple(st.sig() for st in self.stages)
+
+
+class _Ineligible(Exception):
+    pass
+
+
+def _filter_fusable(tree) -> bool:
+    """Whether a filter tree evaluates to a host allowed set that can
+    fuse into the gather mask: no complement (`not` needs a universe),
+    and no leaves reading variables that could be bound inside this
+    block (the staged route evaluates them mid-descent; the program
+    takes every allowed set up front)."""
+    if tree is None:
+        return True
+    if tree.op == "not":
+        return False
+    if tree.op == "leaf":
+        f = tree.func
+        if f.is_val_var:
+            return False
+        if f.name == "uid" and f.args:
+            return False
+        return True
+    return all(_filter_fusable(c) for c in tree.children)
+
+
+def _stage_ok(c) -> bool:
+    """Per-child eligibility for a hop stage: everything needing
+    per-edge host logic mid-descent stays staged."""
+    return not (c.recurse is not None or c.shortest is not None
+                or c.msgpass is not None
+                or c.groupby or c.is_expand_all
+                or c.orders or c.facet_orders or c.after
+                or c.facet_vars is not None or c.facet_filter is not None
+                or not _filter_fusable(c.filters))
+
+
+def plan_block(store, sg) -> FusedPlan | None:
+    """Walk one parsed root block into a FusedPlan, or None when any
+    part needs the staged route."""
+    if (sg.shortest is not None or sg.groupby or sg.msgpass is not None
+            or (sg.func is not None and sg.func.name == "similar_to")):
+        return None
+
+    if sg.recurse is not None:
+        a = sg.recurse
+        if a.loop or not a.depth or a.depth > MAX_FUSED_DEPTH:
+            return None
+        edge = [c for c in sg.children if expands(store.schema, c)]
+        if len(edge) != 1:
+            return None
+        e = edge[0]
+        if (e.is_expand_all or e.facet_filter is not None
+                or e.msgpass is not None
+                or not _filter_fusable(e.filters)):
+            return None
+        plan = FusedPlan(recurse=True)
+        plan.stages.append(_Stage("recurse", e.attr, e.is_reverse, -1,
+                                  e.filters is not None, a.depth))
+        plan.stage_sgs.append(e)
+        return plan
+
+    plan = FusedPlan()
+
+    def walk(node_sg, parent: int) -> None:
+        for c in node_sg.children:
+            if expands(store.schema, c):
+                if not _stage_ok(c):
+                    raise _Ineligible
+                i = len(plan.stages)
+                plan.stages.append(_Stage("hop", c.attr, c.is_reverse,
+                                          parent, c.filters is not None))
+                plan.stage_sgs.append(c)
+                plan.children_of.setdefault(parent, []).append(i)
+                walk(c, i)
+            elif (c.is_count and not c.is_uid_leaf and c.var_name
+                  and c.attr):
+                i = len(plan.stages)
+                plan.stages.append(_Stage("count", c.attr,
+                                          c.is_reverse, parent))
+                plan.stage_sgs.append(c)
+                plan.counts_of.setdefault(parent, {})[id(c)] = i
+            # other leaves (values, vars, aggregates) bind on the host
+
+    try:
+        walk(sg, -1)
+    except _Ineligible:
+        return None
+    if not any(st.kind == "hop" for st in plan.stages):
+        return None    # nothing device-bound to fuse
+    return plan
+
+
+# -- the program ----------------------------------------------------------------
+# one emitter per STAGE_KINDS entry. Each returns (outputs, sizes,
+# next_frontier): `outputs` slot for slot the reference program's, and
+# `sizes` the int32 counts the host reads back first (overflow checks,
+# slice lengths).
+
+def _emit_hop(st: _Stage, caps: tuple, rel, allowed, page, frontier):
+    (indptr, indices), (offset, first) = rel, page
+    (edge_cap,) = caps
+    nbrs, seg, pos, valid, total = gather_edges(
+        indptr, indices, frontier, edge_cap)
+    c_nbrs, c_seg, c_pos, n_kept, m_nbrs = filter_paginate(
+        nbrs, seg, pos, valid, allowed, offset, first,
+        frontier.shape[0], st.has_filter)
+    # the next frontier dedupes the kept edges (post filter + page): the
+    # set the staged route's np.unique(nbrs) gives; it cannot overflow
+    # edge_cap, so out_cap == edge_cap
+    nxt, n_unique = sort_unique_count(m_nbrs, edge_cap)
+    return ((c_nbrs, c_seg, c_pos, n_kept, nxt, n_unique, total),
+            torch.stack([n_kept, n_unique, total]), nxt)
+
+
+def _emit_recurse(st: _Stage, caps: tuple, rel, allowed, page, frontier):
+    """`depth` masked hops with the seen bitmap on the device, per-hop
+    edge matrices and input frontiers kept for host rendering."""
+    indptr, indices = rel
+    edge_cap, out_cap = caps
+    seen = seen_bitmap(indptr.shape[0] - 1, frontier)
+    hops = []
+    fr = frontier
+    for _ in range(st.depth):
+        c_nbrs, c_seg, n_kept, nxt, n_unique, seen, total = masked_hop(
+            indptr, indices, fr, allowed, seen, edge_cap, out_cap,
+            st.has_filter)
+        hops.append((c_nbrs, c_seg, n_kept, fr, n_unique, total))
+        fr = nxt
+    nbrs_h, seg_h, kept_h, fr_h, uniq_h, tot_h = (
+        torch.stack(col) for col in zip(*hops))
+    # tot_h/uniq_h are the per-hop true sizes: their maxima are the
+    # overflow contract's needs, their sum the edges traversed
+    return ((nbrs_h, seg_h, kept_h, fr_h, tot_h, uniq_h),
+            torch.cat([kept_h, uniq_h, tot_h]), None)
+
+
+def _emit_count(st: _Stage, caps: tuple, rel, allowed, page, frontier):
+    """Per-parent-node degree of the counted predicate, aligned to the
+    parent's padded node array."""
+    return (frontier_degrees(rel[0], frontier),), None, None
+
+
+_STAGE_EMITTERS = {
+    "hop": _emit_hop,
+    "recurse": _emit_recurse,
+    "count": _emit_count,
+}
+
+
+def _build_program(stages: tuple, caps: tuple, layout: tuple):
+    """Close over the static plan and return the whole-block program as
+    a plain function `program(rels, flat) -> (outputs, sizes)`: `rels`
+    holds each stage's (indptr, indices); `flat` is the packed int32
+    input (`_pack`: root frontier, each stage's allowed set, each
+    stage's (offset, first)), cut by the static `layout`."""
+    f_cap, a_caps = layout
+    a_offs = np.concatenate([[f_cap], f_cap + np.cumsum(a_caps)]).tolist()
+    p0 = a_offs[-1]
+
+    def program(rels, flat):
+        outs, sizes = [], []
+        stage_frontier = [None] * len(stages)
+        for i, st in enumerate(stages):
+            fr = flat[:f_cap] if st.parent < 0 else stage_frontier[st.parent]
+            allowed = flat[a_offs[i]:a_offs[i + 1]]
+            page = (flat[p0 + 2 * i], flat[p0 + 2 * i + 1])
+            out, size, nxt = _STAGE_EMITTERS[st.kind](
+                st, caps[i], rels[i], allowed, page, fr)
+            outs.append(out)
+            if size is not None:
+                sizes.append(size)
+            stage_frontier[i] = nxt
+        return tuple(outs), torch.cat(sizes)
+
+    return program
+
+
+def _pack(nodes: np.ndarray, f_cap: int, alloweds, pages):
+    """The packed int32 input of one call and its layout: the root
+    frontier and each allowed set sentinel-padded to their buckets, then
+    each stage's (offset, first)."""
+    snt = sentinel(torch.int32)
+    a_caps = tuple(_bucket(max(len(a), 1)) for a in alloweds)
+    flat = np.full(f_cap + sum(a_caps) + 2 * len(pages), snt, np.int32)
+    flat[:len(nodes)] = nodes
+    off = f_cap
+    for a, cap in zip(alloweds, a_caps):
+        flat[off:off + len(a)] = a
+        off += cap
+    flat[off:] = np.asarray(pages, np.int32).ravel()
+    return flat, (f_cap, a_caps)
+
+
+class _Program:
+    """One program: its plain function and, on the card, the graph
+    captured from it with the static input buffer and outputs the graph
+    reads and writes. `lock` is held from a call's input copy until its
+    outputs are on the host. `stages`, `caps`, `layout` and `last`
+    (the last call's per-stage sizes and root count) let a caller
+    account for the work of a call."""
+
+    def __init__(self, fn, rels, device: torch.device, stages: tuple,
+                 caps: tuple, layout: tuple):
+        self.fn = fn
+        self.rels = rels            # the CSR tensors the graph reads
+        self.device = device
+        self.stages, self.caps, self.layout = stages, caps, layout
+        self.lock = threading.Lock()
+        self.graph = None
+        self.static_in = None
+        self.static_out = None
+        self.graph_bytes = 0        # memory_reserved growth of the capture
+        self.held = True            # in the memo (False once dropped)
+        self.last = None            # (split sizes, roots) of the last call
+
+    def run(self, flat: np.ndarray, fits):
+        """(sizes on the host, outputs on the device) of one call.
+        `fits(sizes)` says whether these caps held; caps that overflow in
+        the warm-up are never captured."""
+        x = torch.from_numpy(flat)
+        if self.device.type != "cuda":
+            outs, sizes = self.fn(self.rels, x)
+            return sizes.numpy(), outs
+        if self.graph is None:
+            sizes, outs = self._warm_up(x)
+            if not fits(sizes):
+                return sizes, outs
+            self._capture()
+        self.static_in.copy_(x)
+        self.graph.replay()
+        outs, sizes = self.static_out
+        return sizes.cpu().numpy(), outs
+
+    def _warm_up(self, x: torch.Tensor):
+        """One eager run on a side stream (lazy initialisation and the
+        allocator's first blocks happen outside capture)."""
+        self.static_in = x.to(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            outs, sizes = self.fn(self.rels, self.static_in)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        return sizes.cpu().numpy(), outs
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            # read after the context's own empty_cache(), which would
+            # otherwise hide the pool's growth
+            before = torch.cuda.memory_reserved(self.device)
+            self.static_out = self.fn(self.rels, self.static_in)
+        self.graph = graph
+        self.graph_bytes = max(
+            torch.cuda.memory_reserved(self.device) - before, 0)
+        with _lock:
+            _stats["captures"] += 1
+            _stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
+            if self.held:
+                _stats["program_bytes"] += self.graph_bytes
+                _evict()
+
+
+# -- program and caps memos, counters --------------------------------------------
+
+_lock = threading.Lock()
+_programs: OrderedDict = OrderedDict()   # key → _Program (LRU, under _lock)
+_caps_memo: dict = {}     # plan sig → last good caps (under _lock)
+_disabled: set = set()    # query shapes pinned to the staged route
+_stores: dict = {}        # id(store) → its finalizer, while it lives
+_collected: list = []     # ids of collected stores (appended by GC)
+
+
+def _fresh_stats() -> dict:
+    return {"routes": {"fused": 0, "staged": 0, "fallback": 0},
+            "fallbacks": 0, "hits": 0, "misses": 0, "captures": 0,
+            "capture_ms": 0.0, "program_bytes": 0, "evictions": 0}
+
+
+_stats = _fresh_stats()
+
+
+def _route(route: str) -> None:
+    with _lock:
+        _stats["routes"][route] += 1
+
+
+def _store_key(store) -> int:
+    """The store's part of a program key. The programs of a store hold
+    its CSR tensors; once the store is collected, the next call drops
+    them (a finalizer only records the id: it may run inside a locked
+    section)."""
+    sid = id(store)
+    with _lock:
+        _evict()     # first: a collected store's id may be reused
+        if sid not in _stores:
+            _stores[sid] = weakref.finalize(store, _collected.append, sid)
+    return sid
+
+
+def _evict() -> None:
+    """Drop the programs of collected stores, then the least recently
+    used until the memo holds `PROGRAM_CAPACITY` programs and
+    `PROGRAM_BYTES` of graph memory (the newest program stays). Under
+    `_lock`."""
+    while _collected:
+        sid = _collected.pop()
+        _stores.pop(sid, None)
+        for key in [k for k in _programs if k[0] == sid]:
+            _drop(key)
+    while len(_programs) > 1 and (len(_programs) > PROGRAM_CAPACITY
+                                  or _stats["program_bytes"] > PROGRAM_BYTES):
+        _drop(next(iter(_programs)))
+
+
+def _drop(key) -> None:
+    prog = _programs.pop(key)
+    prog.held = False
+    _stats["program_bytes"] -= prog.graph_bytes
+    _stats["evictions"] += 1
+
+
+def _program_for(plan: FusedPlan, caps: tuple, layout: tuple, rels: tuple,
+                 ex) -> _Program:
+    key = (_store_key(ex.store), plan.sig, caps, layout, ex.device)
+    with _lock:
+        prog = _programs.get(key)
+        if prog is not None:
+            _programs.move_to_end(key)
+            _stats["hits"] += 1
+            return prog
+        _stats["misses"] += 1
+        prog = _programs[key] = _Program(
+            _build_program(tuple(plan.stages), caps, layout), rels,
+            ex.device, tuple(plan.stages), caps, layout)
+        _evict()
+        return prog
+
+
+def status() -> dict:
+    """Counters since the last `reset()`: routes taken per block
+    (fused, staged, fallback), fallbacks (failed programs), program
+    hits and misses, captures and their milliseconds, the programs held
+    and evicted, the device memory their graphs reserve, and the query
+    shapes pinned to the staged route."""
+    with _lock:
+        out = {k: (dict(v) if isinstance(v, dict) else v)
+               for k, v in _stats.items()}
+        out["disabled"] = sorted(_disabled)
+        out["programs"] = len(_programs)
+    out["enabled"] = enabled()
+    return out
+
+
+def captured() -> list:
+    """The programs that hold a captured graph, oldest first."""
+    with _lock:
+        return [p for p in _programs.values() if p.graph is not None]
+
+
+def reset() -> None:
+    """Forget programs (and their graphs), caps, counters and sticky
+    fallbacks."""
+    global _stats
+    with _lock:
+        for prog in _programs.values():
+            prog.held = False
+        _programs.clear()
+        _caps_memo.clear()
+        _disabled.clear()
+        _stats = _fresh_stats()
+
+
+# -- runtime --------------------------------------------------------------------
+
+def try_fused(ex, sg):
+    """The engine hook (`Executor._run_block`): serve one root block as
+    one program, or return None for the staged route. Counts the route
+    either way. On the card a failing program (capture, launch, out of
+    memory) raises. On the CPU it is logged, its shape goes to the
+    staged route for good, and the staged route serves."""
+    if not enabled():
+        return None
+    from dgraph_tpu_torch.engine import shape_of
+    shape = shape_of([sg])
+    with _lock:
+        disabled = shape in _disabled
+    if disabled:
+        _route("fallback")
+        return None
+    try:
+        plan = plan_block(ex.store, sg)
+        if plan is not None:
+            with record_function("engine.fused"):
+                node = _run_plan(ex, sg, plan)
+            if node is not None:
+                _route("fused")
+                return node
+    except Exception:  # noqa: BLE001 — the staged route serves instead
+        if ex.device.type == "cuda":
+            raise
+        with _lock:
+            _disabled.add(shape)
+            _stats["fallbacks"] += 1
+        _log.warning("fused program for shape %s failed; the staged route "
+                     "serves this shape from now on", shape, exc_info=True)
+        _route("fallback")
+        return None
+    _route("staged")
+    return None
+
+
+def _run_plan(ex, sg, plan: FusedPlan):
+    """The host shell around one program call: allowed sets and the
+    root, caps (overflow contract), the call, the copy back, unpacking.
+    Returns the root LevelNode, or None when the data needs the staged
+    route (an empty relation, a complement-shaped filter)."""
+    store = ex.store
+    rels, devs, alloweds, pages = [], [], [], []
+    for st, ssg in zip(plan.stages, plan.stage_sgs):
+        rel = store.rel(st.attr, st.reverse)
+        if rel.nnz == 0:
+            return None           # the staged route short-circuits empties
+        allowed = EMPTY
+        if st.has_filter:
+            allowed = ex.filter_set(ssg.filters)
+            if allowed is None:
+                return None       # complement-shaped at run time
+        rels.append(rel)
+        devs.append(store.device_rel(st.attr, st.reverse, ex.device))
+        alloweds.append(allowed)
+        first = ssg.first if (st.kind == "hop" and ssg.first) else NO_LIMIT
+        offset = ssg.offset if st.kind == "hop" else 0
+        pages.append((offset, first))
+
+    display = ex.root_display(sg)
+    nodes = np.unique(display).astype(np.int32)
+    with _lock:
+        caps = _caps_memo.get(plan.sig)
+    if caps is None:
+        caps = _estimate_caps(plan, rels, nodes)
+    if plan.recurse:
+        # memoized caps may come from a smaller root set: the scan's
+        # frontier buffer must hold this query's roots
+        floor = _bucket(max(len(nodes), 1))
+        if caps[0][1] < floor:
+            caps = ((caps[0][0], floor),) + caps[1:]
+
+    for _attempt in range(_MAX_ATTEMPTS):
+        f_cap = caps[0][1] if plan.recurse else _bucket(max(len(nodes), 1))
+        flat, layout = _pack(nodes, f_cap, alloweds, pages)
+        prog = _program_for(plan, caps, layout, tuple(devs), ex)
+        with prog.lock:
+            sizes, outs = prog.run(flat, lambda s, c=caps: not _grow_caps(
+                plan, c, _split_sizes(plan, s), nodes)[1])
+            split = _split_sizes(plan, sizes)
+            new_caps, overflowed = _grow_caps(plan, caps, split, nodes)
+            if not overflowed:
+                host = _fetch(plan, outs, split, len(nodes))
+                prog.last = (split, len(nodes))
+        if not overflowed:
+            break
+        caps = new_caps
+    else:
+        raise RuntimeError("fused caps failed to converge")
+    with _lock:
+        _caps_memo[plan.sig] = caps
+    for st, sz in zip(plan.stages, split):    # one expansion per stage
+        if st.kind != "count":
+            edges = int(sz[2]) if st.kind == "hop" else int(sz[2].sum())
+            ex.routes.add("program", edges)
+    return _unpack(ex, sg, plan, host, display, nodes)
+
+
+def _split_sizes(plan: FusedPlan, sizes: np.ndarray) -> list:
+    """The packed sizes per stage: a hop's (n_kept, n_unique, total), a
+    recurse stage's [3, depth] rows (kept, unique, total per hop), None
+    for a count."""
+    out, off = [], 0
+    for st in plan.stages:
+        if st.kind == "hop":
+            out.append(sizes[off:off + 3])
+            off += 3
+        elif st.kind == "recurse":
+            out.append(sizes[off:off + 3 * st.depth].reshape(3, st.depth))
+            off += 3 * st.depth
+        else:
+            out.append(None)
+    return out
+
+
+def _estimate_caps(plan: FusedPlan, rels, nodes) -> tuple:
+    """First-call cap guesses: root-fed stages are exact (their frontier
+    is known); deeper stages bound by parent estimate × average degree
+    with headroom. The overflow contract corrects any miss."""
+    caps = []
+    est_nodes = {-1: max(len(nodes), 1)}
+    for i, (st, rel) in enumerate(zip(plan.stages, rels)):
+        if st.kind == "count":
+            caps.append(())     # reduces over the parent's frontier
+            continue
+        n_rows = max(int(len(rel.indptr)) - 1, 1)
+        if st.parent == -1 and len(nodes):
+            est = int(rel.degree(nodes).sum())
+        else:
+            avg = rel.nnz / n_rows
+            est = int(est_nodes[st.parent] * (avg + 1.0) * 2.0)
+        ecap = _bucket(max(est, 1))
+        if st.kind == "recurse":
+            caps.append((ecap, _bucket(max(len(nodes), 1))))
+        else:
+            caps.append((ecap,))
+        est_nodes[i] = max(1, min(est, n_rows))
+    return tuple(caps)
+
+
+def _grow_caps(plan: FusedPlan, caps: tuple, split: list, nodes):
+    """Check the program's true sizes against the static caps and regrow
+    geometrically where they overflowed (a truncated parent makes deeper
+    totals lower bounds; the loop converges because caps only grow)."""
+    new_caps = list(caps)
+    overflowed = False
+    for i, (st, sz) in enumerate(zip(plan.stages, split)):
+        if st.kind == "hop":
+            total = int(sz[2])
+            if total > caps[i][0]:
+                new_caps[i] = (_bucket(max(total, 2 * caps[i][0])),)
+                overflowed = True
+        elif st.kind == "recurse":
+            need_edge, need_out = int(sz[2].max()), int(sz[1].max())
+            ecap, ocap = caps[i]
+            if need_edge > ecap or need_out > ocap:
+                new_caps[i] = (
+                    _bucket(max(need_edge, ecap)),
+                    _bucket(max(need_out, ocap, len(nodes), 1)))
+                overflowed = True
+    return tuple(new_caps), overflowed
+
+
+def _fetch(plan: FusedPlan, outs, split: list, n_roots: int) -> list:
+    """The outputs the host needs, copied to numpy and cut to their true
+    lengths, in the reference program's per-stage layout."""
+    host = []
+    for st, out, sz in zip(plan.stages, outs, split):
+        if st.kind == "hop":
+            c_nbrs, c_seg, c_pos, _k, nxt, _u, _t = out
+            n_kept, n_unique, total = (int(v) for v in sz)
+            cols = torch.stack([c_nbrs[:n_kept], c_seg[:n_kept],
+                                c_pos[:n_kept]]).cpu().numpy()
+            host.append((cols[0], cols[1], cols[2], n_kept,
+                         nxt[:n_unique].cpu().numpy(), n_unique, total))
+        elif st.kind == "recurse":
+            nbrs_h, seg_h, _k, fr_h, _t, _u = out
+            kept_h, uniq_h, tot_h = sz
+            m = int(kept_h.max())
+            host.append((nbrs_h[:, :m].cpu().numpy(),
+                         seg_h[:, :m].cpu().numpy(), kept_h,
+                         fr_h.cpu().numpy(), tot_h, uniq_h))
+        else:
+            n_parent = (n_roots if st.parent < 0
+                        else int(split[st.parent][1]))
+            host.append((out[0][:n_parent].cpu().numpy(),))
+    return host
+
+
+def _unpack(ex, sg, plan: FusedPlan, host, display, nodes):
+    """Rebuild the LevelNode tree from the program's outputs, binding
+    variables in the order `Executor._descend` would (child order within
+    each level, whole subtrees before later siblings)."""
+    root = LevelNode(sg=sg, nodes=nodes, display=display.astype(np.int32))
+    if sg.var_name:
+        ex.uid_vars[sg.var_name] = nodes
+    if plan.recurse:
+        _unpack_recurse(ex, root, host)
+    else:
+        _attach(ex, plan, host, -1, root)
+    return root
+
+
+def _attach(ex, plan: FusedPlan, host, parent_idx: int, parent_node):
+    hop_iter = iter(plan.children_of.get(parent_idx, ()))
+    counts = plan.counts_of.get(parent_idx, {})
+    for c in parent_node.sg.children:
+        if expands(ex.store.schema, c):
+            si = next(hop_iter)
+            c_nbrs, c_seg, c_pos, _n, nxt, _u, _t = host[si]
+            node = LevelNode(
+                sg=c, nodes=nxt.astype(np.int32),
+                matrix_seg=c_seg.astype(np.int32),
+                matrix_child=c_nbrs.astype(np.int32),
+                matrix_pos=c_pos.astype(np.int64))
+            if c.var_name:
+                ex.uid_vars[c.var_name] = node.nodes
+            parent_node.children.append(node)
+            _attach(ex, plan, host, si, node)
+        else:
+            parent_node.leaf_sgs.append(c)
+            si = counts.get(id(c))
+            if si is not None:
+                # the program's degrees, aligned to the parent's nodes:
+                # the values the staged _record_leaf_vars takes from
+                # rel.degree
+                (deg,) = host[si]
+                ex.val_vars[c.var_name] = {
+                    int(r): int(d) for r, d in zip(parent_node.nodes, deg)}
+            else:
+                ex._record_leaf_vars(c, parent_node)
+
+
+def _unpack_recurse(ex, root, host) -> None:
+    """RecurseData from the recurse stage's per-hop matrices: the host
+    loop's visit-once first-visit-tree semantics, hop order kept."""
+    nbrs_h, seg_h, kept_h, fr_h, _tot, _uniq = host[0]
+    data = split_children(ex, root.sg, RecurseData(loop=False))
+    parts_p, parts_c = [], []
+    for h in range(len(kept_h)):
+        k = int(kept_h[h])
+        if not k:
+            continue
+        parts_p.append(fr_h[h][seg_h[h][:k]].astype(np.int32))
+        parts_c.append(nbrs_h[h][:k].astype(np.int32))
+    if parts_p:
+        data.edges[0] = (np.concatenate(parts_p), np.concatenate(parts_c))
+        data.all_nodes = np.union1d(
+            root.nodes, np.concatenate(parts_c)).astype(np.int32)
+    else:
+        data.all_nodes = root.nodes.copy()
+    _bind_recurse_vars(ex, root, data, root.sg)
+    root.recurse_data = data

@@ -498,6 +498,11 @@ class _MaskedExecutor(Executor):
                 return cached
         return super().root_display(sg)
 
+    def _run_fused(self, sg: SubGraph):
+        # the rebuild reads the run's lane masks; a whole-block program
+        # would redo the run's work (the reference re-runs it there)
+        return None
+
     def _member(self, stage_idx: int, ranks: np.ndarray) -> np.ndarray:
         m = self._masks[stage_idx][0]
         return (m[ranks, self._lane_word] & self._lane_bit) != 0

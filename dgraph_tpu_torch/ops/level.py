@@ -6,6 +6,9 @@ within-row rank among survivors is a segment-local exclusive cumsum;
 first/offset become rank-window comparisons, including the negative
 `first` (last k) form via per-row survivor totals. The kept edges are
 compacted to the front in CSR row order by a stable argsort of slot keys.
+Nothing here reads a value back to the host, so the body can be captured
+into a CUDA graph (`engine/fused.py`) when `offset` and `first` are 0-d
+int32 tensors on the device.
 """
 
 from __future__ import annotations
@@ -48,8 +51,8 @@ def filter_paginate(nbrs, seg, edge_pos, valid, allowed, offset, first,
     safe_seg = torch.clamp(seg, 0, n_rows - 1).long()
     rank = excl - base_at_row[safe_seg]           # within-row survivor rank
     lo = offset
-    k = torch.where(first == NO_LIMIT, torch.tensor(NO_LIMIT, **i32), first)
-    hi = torch.where(k >= 0, lo + k, torch.tensor(NO_LIMIT, **i32))
+    k = torch.where(first == NO_LIMIT, NO_LIMIT, first)
+    hi = torch.where(k >= 0, lo + k, NO_LIMIT)
     paged = keep & (rank >= lo) & (rank < hi)
     # negative first: last |k| of the post-offset window
     tail_lo = torch.maximum(row_total[safe_seg] + k, lo)

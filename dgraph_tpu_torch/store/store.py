@@ -12,8 +12,9 @@ The host arrays are numpy and equal to the reference's for the same
 input. The per-query engine reads each CSR on the device through
 `Store.device_rel` (cached per predicate, direction and device); the
 batched path places its ELL layout itself (`ops/bfs.py:device_ell`).
-CSR construction always takes the numpy path, which the reference
-documents as bit-identical to its native builder. Value columns hold
+CSR construction takes the native builder (`native/csr.cpp`), which
+gives the numpy builder's arrays bit for bit. A store also memoizes the
+filter sets that depend on it alone (`Store.filter_set_memo`). Value columns hold
 every scalar kind but float32vector (geo values as `GeoVal`, passwords as
 their hashes), and `build_indexes` keys exact, hash, term, fulltext,
 trigram and geo tokens. Vector tablets and the
@@ -25,11 +26,14 @@ state (or plain arrays), so both packages can be handed the same data.
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from dgraph_tpu_torch import native
 from dgraph_tpu_torch.store.geo import parse_geo
 from dgraph_tpu_torch.store.schema import PredicateSchema, Schema, parse_schema
 from dgraph_tpu_torch.store.tok import tokens_for
@@ -37,6 +41,7 @@ from dgraph_tpu_torch.store.types import NUMPY_DTYPE, Kind, convert
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 TYPE_PRED = "dgraph.type"
+FILTER_SET_CAPACITY = 64   # memoized filter sets per store, LRU
 
 
 @dataclass
@@ -186,6 +191,27 @@ class Store:
         self._device: dict = {}
         self._empty_rel = EdgeRel(np.zeros(self.n_nodes + 1, np.int32),
                                   np.zeros(0, np.int32))
+        self._filter_sets: OrderedDict = OrderedDict()
+        self._filter_lock = threading.Lock()
+
+    def filter_set_memo(self, key, compute):
+        """The allowed set `compute()` gives for a filter tree that reads
+        no variable, memoized under `key` (the tree's repr): its answer
+        is fixed for this snapshot. Callers share the array and only read
+        it. LRU of `FILTER_SET_CAPACITY`; a None answer is not kept."""
+        with self._filter_lock:
+            out = self._filter_sets.get(key)
+            if out is not None:
+                self._filter_sets.move_to_end(key)
+                return out
+        out = compute()
+        if out is None:
+            return None
+        with self._filter_lock:
+            self._filter_sets[key] = out
+            while len(self._filter_sets) > FILTER_SET_CAPACITY:
+                self._filter_sets.popitem(last=False)
+        return out
 
     def rev_to_fwd_pos(self, pred: str, pos: np.ndarray) -> np.ndarray:
         """Map reverse-CSR edge positions to their forward positions (the
@@ -539,8 +565,17 @@ def build_indexes(preds: dict[str, PredicateData]) -> None:
 
 
 def _csr_from_pairs(src: np.ndarray, dst: np.ndarray, n: int) -> EdgeRel:
-    """Sorted-by-(src, dst), deduped CSR from edge pairs — the
-    reference's numpy builder (`_csr_from_pairs_np`)."""
+    """Sorted-by-(src, dst), deduped CSR from edge pairs: the native
+    builder (`native/csr.cpp`) unless `native.HAVE_NATIVE` is switched
+    off; both give the same arrays."""
+    if len(src) and n < 2**31 and native.HAVE_NATIVE:
+        indptr, indices = native.build_csr(src, dst, n)
+        return EdgeRel(indptr=indptr, indices=indices)
+    return _csr_from_pairs_np(src, dst, n)
+
+
+def _csr_from_pairs_np(src: np.ndarray, dst: np.ndarray, n: int) -> EdgeRel:
+    """The numpy builder (the reference's `_csr_from_pairs_np`)."""
     order = np.lexsort((dst, src))
     src, dst = src[order], dst[order]
     if len(src):

@@ -208,9 +208,15 @@ def test_query_equals_reference(stores, name, threshold):
         assert eng.routes.expansions["numpy"] == 0
 
 
-def test_routes_take_the_device_at_threshold_zero(stores):
+def test_routes_take_the_device_at_threshold_zero(stores, monkeypatch):
     ref, port = stores
     eng = Engine(port, device=CPU, device_threshold=0)
+    eng.query(queries(ref)["child_filters"])
+    # the block is one whole-block program (engine/fused.py) ...
+    assert eng.routes.expansions["program"] >= 1
+    assert eng.routes.expansions["fused"] == 0
+    # ... and with whole-block programs off, its level is expand_level
+    monkeypatch.setenv("DGRAPH_TPU_FUSED", "0")
     eng.query(queries(ref)["child_filters"])
     assert eng.routes.expansions["fused"] >= 1
     eng.query(queries(ref)["order_child"])

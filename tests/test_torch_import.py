@@ -46,6 +46,12 @@ def test_import_loads_no_jax_and_no_reference():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
+def test_scan_covers_whole_block_programs_and_native():
+    scanned = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"engine/fused.py", "engine/emit.py", "ops/recurse.py",
+            "native/__init__.py"} <= scanned
+
+
 @pytest.mark.parametrize("path", sorted(_port_files()))
 def test_no_file_imports_jax_or_reference(path):
     tree = ast.parse(open(path).read(), path)

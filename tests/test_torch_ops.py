@@ -262,3 +262,38 @@ def test_filter_paginate(first):
         torch.from_numpy(nbrs), torch.from_numpy(seg), torch.from_numpy(pos),
         torch.from_numpy(valid), pa, 1, first, 12, True)
     same(r, p)
+
+
+# -- recurse -----------------------------------------------------------------
+
+@pytest.mark.parametrize("use_allowed", [False, True])
+@pytest.mark.parametrize("n_front,n_seen,edge_cap,out_cap", [
+    (0, 0, 64, 64),          # empty frontier
+    (20, 0, 512, 512),
+    (20, 120, 512, 512),     # most neighbours already visited
+    (50, 30, 64, 512),       # total > edge_cap: the overflow is signalled
+    (50, 30, 512, 16)])      # n_unique > out_cap
+def test_masked_hop(use_allowed, n_front, n_seen, edge_cap, out_cap):
+    from dgraph_tpu.ops import recurse as ref_rec
+    from dgraph_tpu_torch.ops import recurse as port_rec
+
+    indptr, indices = graph(seed=12)
+    (ri, rx), (pi, px) = csr_both(indptr, indices)
+    n = len(indptr) - 1
+    rng = np.random.default_rng(n_front * 7 + n_seen + edge_cap + out_cap)
+    fr = sorted_set(rng, n_front, n)
+    rf, pf = both(fr, 64)
+    allowed = sorted_set(rng, 120, n) if use_allowed else np.zeros(0)
+    ra, pa = both(allowed, 128 if use_allowed else 1)
+    seen = np.zeros(n, np.int8)
+    seen[rng.choice(n, n_seen, replace=False)] = 1
+    seen[fr] = 1
+    r = ref_rec.masked_hop(ri, rx, rf, ra, jnp.asarray(seen), edge_cap,
+                           out_cap, use_allowed)
+    p_seen = torch.from_numpy(np.concatenate([seen, [0]]).astype(np.int8))
+    p = port_rec.masked_hop(pi, px, pf, pa, p_seen, edge_cap, out_cap,
+                            use_allowed)
+    # the port's bitmap has one spare slot past the ranks
+    same(r[:5] + r[6:], p[:5] + p[6:])
+    same(r[5], p[5][:n])
+
