@@ -121,10 +121,36 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 serve. Then the SF1 store built again with
                 the numpy CSR builder (equal CSR, both build times) and
                 the CSR builders alone on the store's shuffled pairs
-  10. the `kernels` JSON line, then the device JSON line last
+  10. graphrag — GraphRAG retrieval and @msgpass (tools/graphrag_mix.py)
+                on ONE SF1 store shared with phase 8 (built after phase 9:
+                feature_mix's extension plus a 384-d `emb` per person and
+                message, 1,009,892 rows, small integers from a seed).
+                (a) segment_combine against segment_combine_plain on the
+                card (integer features) and against numpy's host_combine
+                (N(0,1) features, and a second kernel run), bit for bit:
+                d in 1, 3, 8, 128, 384, each agg, sorted and unsorted
+                seg, duplicates, non-participating neighbours, empty
+                segments, a sentinel-padded tail, and 120,000-edge hubs;
+                (b) the nine templates through Engine(device="cuda") at
+                512, each byte-equal to the numpy route, planned as
+                expected (knn → hop, knn → recurse, recurse → featprop,
+                knn → recurse → featprop, staged @msgpass), with route
+                counts, cold ms and the p50 of 3 warm requests, and every
+                captured program held against an eager run of its plain
+                function; (c) one query_batch of 32 knn_hop, 32
+                knn_recurse and 8 of each featprop template: knn_recurse
+                a recurse group, knn_hop a tree group, @msgpass per
+                query, every response equal to Engine(device="cuda"); the
+                bucket_hop and segment_combine launches of (b) and (c),
+                counted from zero; (d) the device top-k and
+                segment_combine alone at msgpass_hub's and featprop_mean's
+                shapes (CUDA events, median of 5) beside their least-bytes
+                bounds, plain versions and, for segment_combine,
+                `index_add_` of the gathered rows
+  11. the `kernels` JSON line, then the device JSON line last
 
-Phases 6 to 9 fail if any block falls back from its whole-block program to
-the staged route.
+Phases 6 to 10 fail if any block falls back from its whole-block program
+to the staged route.
 
 It imports torch, numpy and dgraph_tpu_torch only.
 """
@@ -186,8 +212,18 @@ FEATURE_REPS = 3
 FUSED_REPS = 3        # interleaved fused-on / fused-off requests per template
 REPLAY_REPS = 5       # CUDA-event replays per captured program
 CSR_SEED = 3          # shuffle of the SF1 edge pairs fed to the CSR builders
-KERNEL_SOURCES = {"bucket_hop": "dgraph_tpu_torch/csrc/bucket_hop.cu"}
-KERNEL_REPLACES = {"bucket_hop": "dgraph_tpu/ops/pallas_hop.py:108"}
+KERNEL_SOURCES = {"bucket_hop": "dgraph_tpu_torch/csrc/bucket_hop.cu",
+                  "segment_combine":
+                      "dgraph_tpu_torch/csrc/segment_combine.cu"}
+KERNEL_REPLACES = {"bucket_hop": "dgraph_tpu/ops/pallas_hop.py:108",
+                   "segment_combine": "dgraph_tpu/ops/feat.py:41"}
+GRAPHRAG_REPS = 3       # warm requests per GraphRAG template
+GRAPHRAG_KNN_COPIES = 32
+GRAPHRAG_FEAT_COPIES = 8
+COMBINE_SEED = 13       # the random segment_combine cases
+COMBINE_DIMS = (1, 3, 8, 128, 384)
+COMBINE_EDGES = 8000
+HUB_EDGES = 120_000
 
 
 def say(phase: str, **kv) -> None:
@@ -1242,15 +1278,14 @@ def phase_ic_batch(device, built: dict, copies: int = IC_BATCH_COPIES,
             "kernel_only": kernel_only, "kernel_only_s": kernel_only_s}
 
 
-def phase_features(device, g) -> dict:
-    """Per-query and batched serving of the DQL-feature mix (phase 8)."""
+def phase_features(device, g, store) -> dict:
+    """Per-query and batched serving of the DQL-feature mix (phase 8) on
+    `store`, a store of `g` holding at least feature_mix's schema and
+    values (main passes build_graphrag_store's, timed there)."""
     from dgraph_tpu_torch.engine import Engine, batch
     from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
     from dgraph_tpu_torch.tools import feature_mix
 
-    t0 = time.perf_counter()
-    store = feature_mix.build_store(g)
-    build_s = time.perf_counter() - t0
     queries = feature_mix.templates(g)
     host = Engine(store, device="cpu", device_threshold=HOST_ONLY)
     t0 = time.perf_counter()
@@ -1349,7 +1384,7 @@ def phase_features(device, g) -> dict:
                 split[part][key] = {"host_ms": rec.get("host_us", 0.0) / 1e3,
                                     "device_ms":
                                         rec.get("device_us", 0.0) / 1e3}
-    return {"nodes": store.n_nodes, "build_s": build_s,
+    return {"nodes": store.n_nodes,
             "host_pass_s": host_pass_s, "byte_equal": True,
             "templates": per,
             "p50_ms_median": float(np.median([r["p50_ms"]
@@ -1467,11 +1502,28 @@ def program_least_bytes(p, n_nodes: int) -> int:
         elif st.kind == "recurse":
             ecap, ocap = p.caps[i]
             _kept_h, uniq_h, tot_h = sz
-            fronts = [n_roots] + [int(u) for u in uniq_h[:-1]]
+            fronts = [nfront[st.parent]] + [int(u) for u in uniq_h[:-1]]
             total += n_nodes + 1
             for h in range(st.depth):
                 total += (4 * ocap + 8 * fronts[h] + 4 * int(tot_h[h]) + a
                           + 8 * ecap + 4 * ocap + 12)
+        elif st.kind == "knn":
+            # the tablet, its ranks and the query read once, the seeds
+            # written once
+            subj, vecs = p.rels[i]
+            k = min(st.k, int(subj.shape[0]))
+            total += 4 * vecs.numel() + 4 * subj.numel() + 4 * p.caps[i][0]
+            fcap[i], nfront[i] = p.caps[i][0], k
+        elif st.kind == "featprop":
+            # per hop: its kept edges' (nbr, seg), each fresh node's row
+            # (every kept edge ends in the hop's fresh set) and the
+            # outputs; a lower bound when a neighbour has no row
+            d = int(p.rels[i][1].shape[1])
+            kept_h, uniq_h, _tot_h = split[st.parent]
+            ocap = p.caps[st.parent][1]
+            for h in range(len(kept_h)):
+                total += (8 * int(kept_h[h]) + 4 * d * int(uniq_h[h])
+                          + (4 * d + 8) * ocap)
         else:
             total += (4 * fcap[st.parent] + 8 * nfront[st.parent]
                       + 4 * fcap[st.parent])
@@ -1730,6 +1782,402 @@ def phase_fused(device, built: dict) -> dict:
                        "csr": csr_ab(store)}}
 
 
+# -- phase 10: GraphRAG retrieval and @msgpass -----------------------------------
+
+def combine_case(rng, d: int, n_seg: int, n_edges: int, sort: bool,
+                 integer: bool, hub: bool = False):
+    """One random segment_combine input on the host: a tablet of 3000
+    rows over a 12000-rank space (a quarter of the neighbours have a
+    row), duplicate edges, a quarter of the segments empty, one segment
+    whose neighbours all lack a row, a sentinel-padded tail of 37 dead
+    slots; `hub` puts ~97 % of the edges in segment 0."""
+    rows, space = 3000, 12000
+    subj = np.sort(rng.choice(space, rows, replace=False)).astype(np.int32)
+    vecs = (rng.integers(-3, 4, (rows, d)) if integer
+            else rng.standard_normal((rows, d))).astype(np.float32)
+    # half the neighbours from the tablet, half from the whole space
+    nbrs = np.where(rng.random(n_edges) < 0.5,
+                    rng.choice(subj, n_edges),
+                    rng.integers(0, space, n_edges)).astype(np.int32)
+    tenth = n_edges // 10
+    nbrs[:tenth] = nbrs[tenth:2 * tenth]          # duplicate edges
+    live = rng.choice(n_seg, max(n_seg * 3 // 4, 1), replace=False)
+    seg = live[rng.integers(0, len(live), n_edges)].astype(np.int32)
+    if hub:
+        seg = np.where(rng.random(n_edges) < 0.97, 0, seg).astype(np.int32)
+    nbrs[seg == live[-1]] = space + 1             # no row for these
+    if sort:
+        order = np.argsort(seg, kind="stable")
+        nbrs, seg = nbrs[order], seg[order]
+    snt = np.iinfo(np.int32).max
+    nbrs = np.concatenate([nbrs, np.full(37, snt, np.int32)])
+    seg = np.concatenate([seg, np.zeros(37, np.int32)])
+    return subj, vecs, nbrs, seg, n_edges, n_seg
+
+
+def bits_equal(a, b) -> bool:
+    a = torch.as_tensor(a).contiguous().view(torch.int32).cpu()
+    b = torch.as_tensor(b).contiguous().view(torch.int32).cpu()
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_combine_cases(device) -> dict:
+    """segment_combine against its plain version and host_combine on the
+    card (phase 10 a). Integer-valued features: bit-exact against
+    segment_combine_plain (order-free sums). N(0,1) features: bit-exact
+    against engine/feat.host_combine (numpy, edge order) and against a
+    second run of the kernel. Sorted seg runs with seg_sorted=True."""
+    from dgraph_tpu_torch.engine.feat import host_combine
+    from dgraph_tpu_torch.ops.feat import (AGGS, segment_combine,
+                                           segment_combine_plain)
+
+    rng = np.random.default_rng(COMBINE_SEED)
+    cases = [(d, agg, sort, integer, False, COMBINE_EDGES, 300)
+             for d in COMBINE_DIMS for agg in AGGS
+             for sort in (False, True) for integer in (True, False)]
+    cases += [(384, agg, sort, True, True, HUB_EDGES, 4)
+              for agg in AGGS for sort in (False, True)]
+    cases += [(384, agg, False, False, True, HUB_EDGES, 4)
+              for agg in ("sum", "mean")]
+    checked = 0
+    for d, agg, sort, integer, hub, n_edges, n_seg in cases:
+        subj, vecs, nbrs, seg, n, k = combine_case(
+            rng, d, n_seg, n_edges, sort, integer, hub)
+        t = [torch.from_numpy(a).to(device) for a in (subj, vecs, nbrs, seg)]
+        live = torch.tensor(n, dtype=torch.int32, device=device)
+        got = segment_combine(*t, live, k, agg, seg_sorted=sort)
+        if integer:
+            want = segment_combine_plain(*t, n, k, agg)
+        else:
+            want = host_combine(subj, vecs, nbrs[:n], seg[:n], k, agg)
+            again = segment_combine(*t, n, k, agg, seg_sorted=sort)
+            if not all(bits_equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"segment_combine d={d} {agg}: two "
+                                     f"runs differ")
+        if not all(bits_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(
+                f"segment_combine d={d} {agg} sorted={sort} "
+                f"integer={integer} hub={hub}: differs from "
+                f"{'the plain version' if integer else 'host_combine'}")
+        if not torch.isfinite(got[0]).all():
+            raise AssertionError(f"segment_combine d={d} {agg}: non-finite")
+        checked += 1
+    torch.cuda.synchronize()
+    return {"cases": checked, "dims": list(COMBINE_DIMS),
+            "hub_edges": HUB_EDGES, "max_abs_err": 0.0}
+
+
+def build_graphrag_store(g):
+    """Phase 8's feature store with tools/graphrag_mix.py's `emb`
+    predicate: one SF1 build serves phases 8 and 10."""
+    from dgraph_tpu_torch.store.store import StoreBuilder
+    from dgraph_tpu_torch.tools import feature_mix, graphrag_mix
+
+    t0 = time.perf_counter()
+    b = StoreBuilder()
+    feature_mix.load_into(b, g)
+    graphrag_mix.load_into(b, g)
+    store = b.finalize()
+    t = store.vec_tablet("emb")
+    return store, {"build_s": time.perf_counter() - t0, "rows": t.rows,
+                   "dim": t.dim, "tablet_bytes": int(t.vecs.nbytes)}
+
+
+def combine_row(fn, plain, library, nbytes: int) -> dict:
+    """CUDA-event ms (median of REPLAY_REPS) of the kernel, its plain
+    version and the library yardstick, beside the least-bytes bound."""
+    fn(None), plain(None), library(None)
+    return {"ms": float(np.median(cuda_ms(fn, REPLAY_REPS))),
+            "plain_ms": float(np.median(cuda_ms(plain, REPLAY_REPS))),
+            "library_ms": float(np.median(cuda_ms(library, REPLAY_REPS))),
+            "least_bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def combine_timing(store, device, nbrs, seg, n_seg: int, agg: str,
+                   seg_sorted: bool = False) -> dict:
+    """segment_combine alone at one real shape (host arrays of the live
+    edges): kernel, plain version, and `index_add_` of the already
+    gathered participating rows (the sum alone, a yardstick). Least
+    bytes: each edge's (nbr, seg) and each distinct participating row
+    read once, the outputs written once."""
+    from dgraph_tpu_torch.ops.feat import segment_combine, segment_combine_plain
+
+    subj_d, vecs_d = store.vec_device("emb", device)
+    t = store.vec_tablet("emb")
+    d = t.dim
+    nb = torch.from_numpy(np.ascontiguousarray(nbrs, np.int32)).to(device)
+    sg = torch.from_numpy(np.ascontiguousarray(seg, np.int32)).to(device)
+    n = len(nbrs)
+    idx = np.minimum(np.searchsorted(t.subj, nbrs), t.rows - 1)
+    has = t.subj[idx] == nbrs
+    rows = vecs_d[torch.from_numpy(idx[has]).to(device).long()]
+    tgt = torch.from_numpy(seg[has].astype(np.int64)).to(device)
+    acc = torch.zeros((n_seg, d), dtype=torch.float32, device=device)
+    nbytes = 8 * n + 4 * d * len(np.unique(nbrs[has])) + (4 * d + 8) * n_seg
+
+    def fn(_a):
+        return segment_combine(subj_d, vecs_d, nb, sg, n, n_seg, agg,
+                               seg_sorted=seg_sorted)
+
+    def plain(_a):
+        return segment_combine_plain(subj_d, vecs_d, nb, sg, n, n_seg, agg)
+
+    # small-integer features: exact sums, so bit for bit in any order
+    got, want = fn(None), plain(None)
+    if not all(bits_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"segment_combine {agg} at {n} edges into "
+                             f"{n_seg} segments differs from its plain "
+                             f"version")
+    row = combine_row(fn, plain, lambda _a: acc.index_add_(0, tgt, rows),
+                      nbytes)
+    row.update({"max_abs_err": float((got[0] - want[0]).abs().max())
+                if got[0].numel() else 0.0, "edges": n, "participating": int(has.sum()),
+                "segments": n_seg, "largest_segment": int(
+                    np.bincount(seg, minlength=1).max()) if n else 0,
+                "dim": d, "agg": agg})
+    return row
+
+
+def knn_timing(store, device, q: np.ndarray, k: int) -> dict:
+    """The device top-k alone on the whole tablet: torch.mv + keyed
+    torch.topk (store/vec.device_topk) beside its plain version (the
+    reference's shape: the same keys fully sorted, the first k taken)
+    and the least-bytes bound (the tablet and its ranks read once)."""
+    from dgraph_tpu_torch.store.vec import device_topk, topk_keys
+
+    subj_d, vecs_d = store.vec_device("emb", device)
+    q_d = torch.from_numpy(q).to(device)
+
+    def plain(_a):
+        keys = topk_keys(torch.mv(vecs_d, q_d), subj_d)
+        return torch.sort(subj_d[torch.sort(keys).indices[:k]]).values
+
+    got = device_topk(subj_d, vecs_d, q_d, k)
+    if not torch.equal(got, plain(None)):
+        raise AssertionError("device top-k differs from its plain version")
+    nbytes = int(vecs_d.numel() * 4 + subj_d.numel() * 4 + q_d.numel() * 4
+                 + 4 * min(k, subj_d.numel()))
+    return {"ms": float(np.median(cuda_ms(
+                lambda _a: device_topk(subj_d, vecs_d, q_d, k), REPLAY_REPS))),
+            "plain_ms": float(np.median(cuda_ms(plain, REPLAY_REPS))),
+            "least_bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "rows": int(subj_d.numel()), "k": k,
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def phase_graphrag(device, g, store) -> dict:
+    """Per-query and batched serving of the GraphRAG mix (phase 10 b-d)."""
+    from dgraph_tpu_torch.dql.parser import parse
+    from dgraph_tpu_torch.engine import Engine, batch, fused
+    from dgraph_tpu_torch.engine import feat as efeat
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES as HOP
+    from dgraph_tpu_torch.ops.feat import LAUNCHES as COMBINE
+    from dgraph_tpu_torch.store import vec
+    from dgraph_tpu_torch.tools import graphrag_mix
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on: the knn scores must be "
+                             "full float32")
+    queries = graphrag_mix.templates(g)
+    host = Engine(store, device="cpu", device_threshold=HOST_ONLY)
+    t0 = time.perf_counter()
+    with fusion(False):     # the pure numpy route
+        want = {k: host.query_bytes(q) for k, q in queries.items()}
+    host_pass_s = time.perf_counter() - t0
+    fused.reset()
+    vec.reset()
+    efeat.reset()
+    for d in (HOP, COMBINE):
+        for k in d:
+            d[k] = 0
+    eng = Engine(store, device=device, device_threshold=LDBC_THRESHOLD)
+    per, programs = {}, {}
+    expect = {"knn_hop": ["knn", "hop"], "knn_uid": ["knn", "hop"],
+              "knn_recurse": ["knn", "recurse"],
+              "featprop_sum": ["recurse", "featprop"],
+              "featprop_mean": ["recurse", "featprop"],
+              "featprop_max": ["recurse", "featprop"],
+              "knn_featprop": ["knn", "recurse", "featprop"],
+              "msgpass_author": None, "msgpass_hub": None}
+    for k, q in queries.items():
+        kinds = [[st.kind for st in p.stages] if p else None
+                 for p in (fused.plan_block(store, sg) for sg in parse(q))]
+        if kinds != [expect[k]]:
+            raise AssertionError(f"{k}: planned {kinds}, want "
+                                 f"{[expect[k]]}")
+        before = (fused.status(), vec.status()["routes"],
+                  efeat.status()["routes"], dict(eng.routes.expansions),
+                  COMBINE["segment_combine"])
+        had = set(map(id, fused.captured()))
+        t0 = time.perf_counter()
+        got = eng.query_bytes(q)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        if got != want[k]:
+            raise AssertionError(f"{k}: the card's response differs from "
+                                 f"the numpy route")
+        warm = lat_ms(lambda q=q: eng.query_bytes(q), GRAPHRAG_REPS)
+        after = fused.status()
+        programs[k] = [p for p in fused.captured() if id(p) not in had]
+        fused_blocks = after["routes"]["fused"] - before[0]["routes"]["fused"]
+        per[k] = {"stages": kinds[0],
+                  "fused_blocks": after["routes"]["fused"]
+                  - before[0]["routes"]["fused"],
+                  "captures": after["captures"] - before[0]["captures"],
+                  "knn_routes": {r: n - before[1][r] for r, n in
+                                 vec.status()["routes"].items()
+                                 if n - before[1][r]},
+                  "feat_routes": {r: n - before[2][r] for r, n in
+                                  efeat.status()["routes"].items()
+                                  if n - before[2][r]},
+                  "expansions": {r: n - before[3][r] for r, n in
+                                 eng.routes.expansions.items()
+                                 if n - before[3][r]},
+                  "segment_combine_launches":
+                      COMBINE["segment_combine"] - before[4],
+                  "segment_combine_per_replay":
+                      [p.combines for p in programs[k]],
+                  "cold_ms": cold_ms, "p50_ms": float(np.median(warm)),
+                  "response_bytes": len(got)}
+        if on_card and expect[k] is not None and not per[k]["fused_blocks"]:
+            raise AssertionError(f"{k}: no block fused")
+        if on_card and "featprop" in (expect[k] or ()):
+            # one captured program serves every request of the
+            # template: each fused block is one replay of its `combines`
+            # launches; the rest are whole eager warm-up runs (one per
+            # caps tried)
+            p, = programs[k]
+            replay = p.combines * fused_blocks
+            eager = per[k]["segment_combine_launches"] - replay
+            per[k]["segment_combine_replay_launches"] = replay
+            if not p.combines or eager < p.combines or eager % p.combines:
+                raise AssertionError(
+                    f"{k}: {per[k]['segment_combine_launches']} "
+                    f"segment_combine launches for {fused_blocks} replays "
+                    f"of {p.combines} and whole warm-up runs")
+    # the main path's launches in (b), read before the checks and
+    # timings below launch the kernel themselves
+    staged = sum(per[k]["segment_combine_launches"]
+                 for k in ("msgpass_author", "msgpass_hub"))
+    replayed = sum(r.get("segment_combine_replay_launches", 0)
+                   for r in per.values())
+    combine_b = COMBINE["segment_combine"]
+    checked = 0
+    if on_card:
+        checked = replay_rows(programs, per, store.n_nodes)
+        want_checked = sum(1 for k in programs for p in programs[k]
+                           if any(st.kind in ("knn", "featprop")
+                                  for st in p.stages))
+        if not want_checked or checked < want_checked:
+            raise AssertionError(f"{checked} captured programs checked, "
+                                 f"{want_checked} with knn or featprop")
+    fp_prog = (programs.get("featprop_mean") or [None])[0]
+    if on_card and fp_prog is None:
+        raise AssertionError("featprop_mean captured no program")
+    programs.clear()
+
+    # (c) one query_batch of knn_hop, knn_recurse and featprop_* queries
+    pairs = graphrag_mix.batch(g, GRAPHRAG_KNN_COPIES, GRAPHRAG_FEAT_COPIES)
+    names = [nm for nm, _q in pairs]
+    qs = [q for _nm, q in pairs]
+    plans, leftover = batch.plan_batch_groups_cached(store, qs)
+    family = {"TreePlan": "tree", "_ShortestPlan": "shortest",
+              "_BatchPlan": "recurse"}
+    families: dict = {"tree": [], "recurse": [], "shortest": [],
+                      "left over": sorted({names[i] for i in leftover})}
+    for p, idxs in plans:
+        families[family[type(p).__name__]].append(
+            sorted({names[i] for i in idxs}))
+    if (families["recurse"] != [["knn_recurse"]]
+            or families["tree"] != [["knn_hop"]]
+            or families["left over"] != ["featprop_max", "featprop_mean",
+                                         "featprop_sum"]):
+        raise AssertionError(f"GraphRAG batch planned {families}")
+    for d in (HOP, COMBINE):
+        for k in d:
+            d[k] = 0
+    t0 = time.perf_counter()
+    got = batch.query_batch(store, qs, device=device)
+    cold_s = time.perf_counter() - t0
+    batch_hops = HOP["bucket_hop"]
+    combine_c = COMBINE["segment_combine"]
+    t0 = time.perf_counter()
+    again = batch.query_batch(store, qs, device=device)
+    warm_s = time.perf_counter() - t0
+    if on_card and batch_hops < 1:
+        raise AssertionError("the GraphRAG batch launched no bucket_hop")
+    card = Engine(store, device=device, device_threshold=LDBC_THRESHOLD)
+    t0 = time.perf_counter()
+    per_query = [card.query(q) for q in qs]
+    per_query_s = time.perf_counter() - t0
+    bad = sorted({names[i] for i in range(len(qs))
+                  if json.dumps(got[i], sort_keys=True)
+                  != json.dumps(per_query[i], sort_keys=True)
+                  or json.dumps(again[i], sort_keys=True)
+                  != json.dumps(per_query[i], sort_keys=True)})
+    if bad or any("errors" in r for r in got):
+        raise AssertionError(f"GraphRAG batch responses differ from the "
+                             f"per-query engine for {bad}")
+    by_path = {"staged @msgpass (phase 10 b)": staged,
+               "featprop program replays (phase 10 b)": replayed,
+               "featprop program warm-ups (phase 10 b)":
+                   combine_b - staged - replayed,
+               "query_batch @msgpass, per query (phase 10 c)": combine_c}
+    if on_card and not (batch_hops and staged and replayed and combine_c):
+        raise AssertionError(f"phase 10 launched a kernel no time on a "
+                             f"path: bucket_hop {batch_hops}, "
+                             f"segment_combine {by_path}")
+    status = fused.status()
+    if status["fallbacks"] or status["routes"]["fallback"]:
+        raise AssertionError(f"fused fallbacks: {status}")
+
+    # (d) the device top-k and segment_combine alone at real shapes
+    timing = {}
+    if on_card:
+        sg = parse(queries["knn_hop"])[0]
+        timing["device_topk"] = knn_timing(
+            store, device, vec.resolve_query(store, sg.func)[2],
+            int(sg.func.args[0]))
+        roots, _ex = eng._run(queries["msgpass_hub"])
+        node = roots[0]
+        timing["segment_combine_msgpass_hub"] = combine_timing(
+            store, device,
+            np.concatenate([c.matrix_child for c in node.children]),
+            np.concatenate([c.matrix_seg for c in node.children]),
+            len(node.nodes), "sum")
+        # the template's own program, its inputs set by one more request
+        prog = fp_prog
+        eng.query_bytes(queries["featprop_mean"])
+        with prog.lock:
+            outs, _sz = prog.fn(prog.rels, prog.static_in)
+        nbrs_h, seg_h, kept_h, fr_h, _t, _u = (t.cpu().numpy()
+                                               for t in outs[0])
+        hops = [combine_timing(store, device, nbrs_h[h][:kept_h[h]],
+                               seg_h[h][:kept_h[h]], fr_h.shape[1], "mean",
+                               seg_sorted=True)
+                for h in range(len(kept_h))]
+        timing["segment_combine_featprop_mean"] = {
+            "per_hop": hops,
+            **{key: sum(h[key] for h in hops)
+               for key in ("ms", "plain_ms", "library_ms", "least_bytes",
+                           "bound_ms")}, "bound_by": "bytes",
+            "max_abs_err": max(h["max_abs_err"] for h in hops)}
+    return {"store": {"nodes": store.n_nodes}, "host_pass_s": host_pass_s,
+            "byte_equal": True, "templates": per,
+            "p50_ms": {k: r["p50_ms"] for k, r in per.items()},
+            "programs_checked": checked, "status": status,
+            "knn": vec.status(), "feat": efeat.status(),
+            "batch_queries": len(qs), "batch_families": families,
+            "batch_bucket_hop_launches": batch_hops,
+            "batch_cold_s": cold_s, "batch_warm_s": warm_s,
+            "per_query_engine_s": per_query_s,
+            "batch_equal_to_per_query_engine": True,
+            "segment_combine_launches_by_path": by_path,
+            "timing": timing}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -1775,30 +2223,55 @@ def main() -> None:
     fz = phase_fused(device, built)
     say("phase 9 fused", seconds=time.perf_counter() - t0, **fz)
     # phase 7's store (its placed graphs and programs) goes before the
-    # feature store is built from the same graph
+    # feature and GraphRAG store is built from the same graph
     g = built["g"]
     del built
     gc.collect()
     torch.cuda.empty_cache()
+    # one SF1 store with the feature mix's extension and the GraphRAG
+    # embeddings serves phases 8 and 10
+    t0 = time.perf_counter()
+    store, emb = build_graphrag_store(g)
+    say("setup graphrag store", seconds=time.perf_counter() - t0,
+        nodes=store.n_nodes, **emb)
     t0 = time.perf_counter()
     with no_fused_fallback("phase 8"):
-        feat = phase_features(device, g)
+        feat = phase_features(device, g, store)
     say("phase 8 dql features", seconds=time.perf_counter() - t0, **feat)
+    t0 = time.perf_counter()
+    cases = phase_combine_cases(device)
+    say("phase 10 graphrag kernel", seconds=time.perf_counter() - t0,
+        **cases)
+    t0 = time.perf_counter()
+    with no_fused_fallback("phase 10"):
+        rag = phase_graphrag(device, g, store)
+    say("phase 10 graphrag", seconds=time.perf_counter() - t0, **rag)
     # the launches of each main path, counted from zero around its run
-    paths = {name: {"query_batch @recurse (phase 4)": launches[name],
-                    "query_batch IC mix (phase 7)":
-                        ic["bucket_hop_launches"][name],
-                    "query_batch DQL features (phase 8)":
-                        feat["bucket_hop_launches"][name]}
-             for name in KERNEL_SOURCES}
+    paths = {"bucket_hop": {
+                 "query_batch @recurse (phase 4)": launches["bucket_hop"],
+                 "query_batch IC mix (phase 7)":
+                     ic["bucket_hop_launches"]["bucket_hop"],
+                 "query_batch DQL features (phase 8)":
+                     feat["bucket_hop_launches"]["bucket_hop"],
+                 "query_batch GraphRAG (phase 10)":
+                     rag["batch_bucket_hop_launches"]},
+             "segment_combine": rag["segment_combine_launches_by_path"]}
+    hub = rag["timing"]["segment_combine_msgpass_hub"]
+    errs = [cases["max_abs_err"], hub["max_abs_err"],
+            rag["timing"]["segment_combine_featprop_mean"]["max_abs_err"]]
+    measured = {"bucket_hop": hop,
+                "segment_combine": {**hub, "max_abs_err": max(errs)}}
     say("script", seconds=time.perf_counter() - t_start)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": KERNEL_REPLACES[name],
                 "launches": sum(paths[name].values()),
                 "launches_by_path": paths[name],
-                "max_abs_err": hop["max_abs_err"], "ms": hop["ms"],
-                "plain_ms": hop["plain_ms"], "bound_ms": hop["bound_ms"],
-                "bound_by": hop["bound_by"], "library_ms": None}
+                "max_abs_err": measured[name]["max_abs_err"],
+                "ms": measured[name]["ms"],
+                "plain_ms": measured[name]["plain_ms"],
+                "bound_ms": measured[name]["bound_ms"],
+                "bound_by": measured[name]["bound_by"],
+                "library_ms": measured[name].get("library_ms")}
                for name, src in KERNEL_SOURCES.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

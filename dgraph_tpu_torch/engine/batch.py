@@ -29,7 +29,9 @@ Deliberate differences from the reference: a kernel build or launch
 failure, or an out-of-memory, raises out of `query_batch` — the
 reference's group-failure catch in `Alpha.query_batch` and its OOM
 degrade to the per-query path are not ported, so no failure of the card
-is hidden. The cost-prior launch gate and ordering (`_kernel_worth`,
+is hidden. `@msgpass` queries join no group (the lane rebuild binds
+no features; the reference groups them and drops their bindings). The
+cost-prior launch gate and ordering (`_kernel_worth`,
 `order_plans_by_cost`) wait for `utils/costprior` (ROADMAP Queue 1 item
 9); groups launch in plan order under the count rule MIN_BATCH.
 """
@@ -92,6 +94,11 @@ def _eligible(store, blocks):
     if len(blocks) != 1:
         return None
     sg = blocks[0]
+    if sg.msgpass is not None:
+        # the lane run rebuilds no @msgpass binding: such queries are
+        # served per query (the reference groups them and drops their
+        # bindings, ROADMAP Queue 3)
+        return None
     r = sg.recurse
     if r is not None and r.depth and r.depth > MAX_KERNEL_DEPTH:
         return None
@@ -290,7 +297,7 @@ def query_batch(store, dqls: list, device=DEFAULT_DEVICE,
         for i in sorted(leftover):
             try:
                 results[i] = eng.query(dqls[i])
-            except (ValueError, NotImplementedError) as e:
+            except ValueError as e:
                 results[i] = {"errors": [{"message": str(e)}]}
     return results
 
@@ -500,7 +507,7 @@ def _run_shortest_batch(store, plan: _ShortestPlan, device,
                         results[bi] = ex.run_block(sg)
                 out.append(to_json(ex, [results[i]
                                         for i in range(len(blocks))]))
-            except (ValueError, NotImplementedError):
+            except ValueError:
                 # the query's own error in a host block: the per-query
                 # engine gives it its error object
                 return None

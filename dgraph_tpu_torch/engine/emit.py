@@ -69,6 +69,10 @@ def to_json_bytes(ex, roots: list[LevelNode]) -> bytes:
 
 def _eligible(node: LevelNode) -> bool:
     sg = node.sg
+    if sg.msgpass is not None:
+        # @msgpass bindings (vector-valued entries) stay on the dict
+        # renderer: the native emitter has no float-list row kind
+        return False
     if node.recurse_data is not None:
         return _recurse_eligible(node)
     if (node.groups is not None

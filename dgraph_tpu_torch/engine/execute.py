@@ -11,7 +11,10 @@ gather over the whole frontier: frontiers of at least
 where no ordering, facet filter or `after` cursor needs per-edge host
 logic); smaller ones take the host numpy walk `csr_rows`. Every route
 produces the same (neighbors, seg, edge_pos) triple. A device failure or
-out-of-memory raises: there is no fallback to the host walk.
+out-of-memory raises: there is no fallback to the host walk. A
+`similar_to` root takes the routed top-k of `store/vec.py`, and blocks
+with `@msgpass` bind their aggregates after the descent
+(`engine/feat.py:annotate_tree`).
 
 A level's result is a `LevelNode`:
   nodes        sorted unique ranks at this level (the next frontier)
@@ -38,6 +41,7 @@ from dgraph_tpu_torch.engine.funcs import (EMPTY, eval_func,
                                            eval_func_universe)
 from dgraph_tpu_torch.engine.groupby import (process_groupby,
                                              process_groupby_rows)
+from dgraph_tpu_torch.engine.feat import annotate_tree, needs_msgpass
 from dgraph_tpu_torch.engine.ir import FilterNode, FuncNode, Order, SubGraph
 from dgraph_tpu_torch.engine.mathexpr import eval_math
 from dgraph_tpu_torch.engine.varorder import _filter_uses
@@ -46,6 +50,7 @@ from dgraph_tpu_torch.ops.level import NO_LIMIT, expand_level
 from dgraph_tpu_torch.ops.uidalgebra import pad_to
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import Kind
+from dgraph_tpu_torch.store.vec import similar_ranks
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 EMPTY64 = np.zeros(0, np.int64)
@@ -66,6 +71,10 @@ class LevelNode:
     recurse_data: object | None = None     # engine.recurse.RecurseData
     path_data: object | None = None        # engine.shortest.PathData
     groups: object | None = None           # engine.groupby.GroupResult
+    # @msgpass binding (engine/feat.py): rank → f32[d] aggregate; None
+    # means the level carries no binding (key "" likewise)
+    feat_vals: dict | None = None
+    feat_key: str = ""
 
 
 @dataclass
@@ -334,6 +343,10 @@ class Executor:
                 parts.append(r[r >= 0].astype(np.int32))
             return (np.unique(np.concatenate(parts)).astype(np.int32)
                     if parts else EMPTY)
+        if f.name == "similar_to":
+            # the routed k-NN seed (device top-k on a large tablet)
+            return similar_ranks(self.store, f, self.device,
+                                 self.device_threshold)
         return eval_func(self.store, f, self.val_vars)
 
     # -- root evaluation ----------------------------------------------------
@@ -434,12 +447,12 @@ class Executor:
             if sg.var_name:
                 self.uid_vars[sg.var_name] = data.nodes
             return node
-        if _uses_msgpass(sg):
-            raise NotImplementedError(
-                "@msgpass is not ported yet (ROADMAP Queue 1 item 7: "
-                "engine/feat.py)")
         fused_node = self._run_fused(sg)
         if fused_node is not None:
+            if needs_msgpass(sg):
+                # the fused featprop stage binds its recurse level; any
+                # other @msgpass level aggregates here
+                annotate_tree(self, fused_node)
             return fused_node
         display = self.root_display(sg)
         nodes = np.unique(display).astype(np.int32)
@@ -450,6 +463,8 @@ class Executor:
             node.groups = process_groupby(self, node)
             return node
         self._descend(node)
+        if needs_msgpass(sg):
+            annotate_tree(self, node)
         return node
 
     def _run_fused(self, sg: SubGraph) -> LevelNode | None:
@@ -641,11 +656,6 @@ class Executor:
                 if vs:
                     env[int(r)] = vs[0]
             self.val_vars[sg.var_name] = env
-
-
-def _uses_msgpass(sg: SubGraph) -> bool:
-    return sg.msgpass is not None or any(_uses_msgpass(c)
-                                         for c in sg.children)
 
 
 def _needs_facets(sg) -> bool:

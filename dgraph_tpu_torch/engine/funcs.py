@@ -6,8 +6,8 @@ comparisons), `anyofterms`/`allofterms`, `anyoftext`/`alloftext`,
 `regexp`, `match`, the geo functions `near`/`within`/`contains`, and
 `eval_func_universe`, the frontier-restricted form child-level filters
 use. Host-side numpy over columnar value arrays and inverted indexes,
-producing sorted int32 rank sets. `similar_to` raises until vector
-tablets are ported (ROADMAP Queue 1 item 7).
+producing sorted int32 rank sets. `similar_to` takes the host top-k of
+`store/vec.py` here; the executor routes it to the device first.
 """
 
 from __future__ import annotations
@@ -56,9 +56,10 @@ def eval_func(store: Store, f: FuncNode, val_env: dict | None = None) -> np.ndar
     if name in ("near", "within", "contains"):
         return _geo_func(store, f, name)
     if name == "similar_to":
-        raise NotImplementedError(
-            "function 'similar_to' is not ported yet (ROADMAP Queue 1 "
-            "item 7: store/vec.py)")
+        # host route; the executor intercepts this name earlier for the
+        # routed (device) top-k
+        from dgraph_tpu_torch.store.vec import host_similar
+        return host_similar(store, f)
     raise ValueError(f"unknown function {f.name!r}")
 
 

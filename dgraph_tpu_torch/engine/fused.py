@@ -1,16 +1,20 @@
 """Whole-query fusion: one device program per eligible root block.
 
-Port of `dgraph_tpu/engine/fused.py`, with its hop, recurse and count
-stage kinds (knn and featprop follow ROADMAP Queue 1 item 7: `similar_to`
-and `@msgpass` blocks stay on the staged route, which raises for them).
+Port of `dgraph_tpu/engine/fused.py`, with all five of its stage kinds:
+hop, recurse, count, knn and featprop.
 
 `plan_block` walks a parsed root block into a `FusedPlan` of stages in
 DFS pre-order: hop levels (the segment-CSR gather of `ops/hop.py` and
 the filter + paginate body of `ops/level.py`, each consuming the
 previous stage's deduped frontier), a visit-once `@recurse` as `depth`
 masked hops (`ops/recurse.masked_hop`, per-hop edge matrices kept for
-rendering), and terminal `count(pred)` degree reductions. Filter trees
-evaluate on the host to sorted allowed sets up front.
+rendering), terminal `count(pred)` degree reductions, a `similar_to`
+seed stage (`store/vec.device_topk` on the tablet's tensors, emitting the
+root frontier inside the program) and an `@msgpass` featprop stage over a
+recurse stage's per-hop edge matrices (one `ops/feat.segment_combine`
+kernel launch per hop). Filter trees evaluate on the host to sorted
+allowed sets up front; a knn stage's query vector rides the packed input
+as float32 bits.
 
 `_build_program` closes over the static plan and returns a plain
 function that runs the stages eagerly on torch tensors: the program's
@@ -60,12 +64,17 @@ import torch
 from torch.profiler import record_function
 
 from dgraph_tpu_torch.engine.execute import EMPTY, LevelNode, _bucket, expands
+from dgraph_tpu_torch.engine.feat import AGGS, count_route, feat_key
 from dgraph_tpu_torch.engine.recurse import (RecurseData, _bind_recurse_vars,
                                              split_children)
+from dgraph_tpu_torch.ops import feat as feat_ops
 from dgraph_tpu_torch.ops.hop import frontier_degrees, gather_edges
 from dgraph_tpu_torch.ops.level import NO_LIMIT, filter_paginate
 from dgraph_tpu_torch.ops.recurse import masked_hop, seen_bitmap
 from dgraph_tpu_torch.ops.uidalgebra import sentinel, sort_unique_count
+from dgraph_tpu_torch.store import vec
+from dgraph_tpu_torch.store.types import Kind
+from dgraph_tpu_torch.store.vec import device_topk
 
 __all__ = ["STAGE_KINDS", "FusedPlan", "enabled", "plan_block",
            "try_fused", "status", "reset", "captured"]
@@ -78,6 +87,12 @@ STAGE_KINDS: dict[str, str] = {
                 "kept"),
     "count": ("terminal count(pred) aggregation: per-parent-node "
               "degree bound to the leaf's value var"),
+    "knn": ("similar_to seed selection: scored GEMV over the vector "
+            "tablet + exact top-k (tie-break by rank) emitting the root "
+            "frontier inside the program"),
+    "featprop": ("@msgpass feature propagation over a recurse stage: "
+                 "per-hop segment combine (sum/mean/max) of the kept "
+                 "edges' neighbour feature rows against the tablet"),
 }
 
 MAX_FUSED_DEPTH = 64     # depth bound for the recurse stage
@@ -102,10 +117,12 @@ class _Stage:
     parent: int          # producing stage index; -1 = the root frontier
     has_filter: bool = False
     depth: int = 0       # recurse only
+    k: int = 0           # knn only: requested seed count
+    agg: str = ""        # featprop only: sum | mean | max
 
     def sig(self) -> tuple:
         return (self.kind, self.attr, self.reverse, self.parent,
-                self.has_filter, self.depth)
+                self.has_filter, self.depth, self.k, self.agg)
 
 
 @dataclass
@@ -119,6 +136,8 @@ class FusedPlan:
     # parent stage idx → {id(leaf sg): count stage idx}
     counts_of: dict[int, dict[int, int]] = field(default_factory=dict)
     recurse: bool = False
+    knn: bool = False       # stage 0 is a knn seed stage
+    featprop: bool = False  # an @msgpass stage follows the recurse stage
 
     @property
     def sig(self) -> tuple:
@@ -163,9 +182,10 @@ def _stage_ok(c) -> bool:
 def plan_block(store, sg) -> FusedPlan | None:
     """Walk one parsed root block into a FusedPlan, or None when any
     part needs the staged route."""
-    if (sg.shortest is not None or sg.groupby or sg.msgpass is not None
-            or (sg.func is not None and sg.func.name == "similar_to")):
+    if sg.shortest is not None or sg.groupby:
         return None
+
+    knn_stage = _plan_knn(store, sg)
 
     if sg.recurse is not None:
         a = sg.recurse
@@ -179,13 +199,34 @@ def plan_block(store, sg) -> FusedPlan | None:
                 or e.msgpass is not None
                 or not _filter_fusable(e.filters)):
             return None
-        plan = FusedPlan(recurse=True)
-        plan.stages.append(_Stage("recurse", e.attr, e.is_reverse, -1,
+        plan = FusedPlan(recurse=True, knn=knn_stage is not None)
+        if knn_stage is not None:
+            plan.stages.append(knn_stage)
+            plan.stage_sgs.append(sg)
+        plan.stages.append(_Stage("recurse", e.attr, e.is_reverse,
+                                  0 if plan.knn else -1,
                                   e.filters is not None, a.depth))
         plan.stage_sgs.append(e)
+        if sg.msgpass is not None:
+            fp = _plan_featprop(store, sg.msgpass, len(plan.stages) - 1)
+            if fp is None:
+                return None   # the staged route serves (and raises)
+            plan.stages.append(fp)
+            plan.stage_sgs.append(sg)
+            plan.featprop = True
         return plan
 
-    plan = FusedPlan()
+    if sg.msgpass is not None:
+        # plain-level @msgpass aggregates on the host after the staged
+        # descent
+        return None
+
+    plan = FusedPlan(knn=knn_stage is not None)
+    root_parent = -1
+    if knn_stage is not None:
+        plan.stages.append(knn_stage)
+        plan.stage_sgs.append(sg)
+        root_parent = 0
 
     def walk(node_sg, parent: int) -> None:
         for c in node_sg.children:
@@ -208,21 +249,61 @@ def plan_block(store, sg) -> FusedPlan | None:
             # other leaves (values, vars, aggregates) bind on the host
 
     try:
-        walk(sg, -1)
+        walk(sg, root_parent)
     except _Ineligible:
         return None
-    if not any(st.kind == "hop" for st in plan.stages):
+    if not plan.knn and not any(st.kind == "hop" for st in plan.stages):
         return None    # nothing device-bound to fuse
     return plan
 
 
-# -- the program ----------------------------------------------------------------
-# one emitter per STAGE_KINDS entry. Each returns (outputs, sizes,
-# next_frontier): `outputs` slot for slot the reference program's, and
-# `sizes` the int32 counts the host reads back first (overflow checks,
-# slice lengths).
+def _plan_knn(store, sg) -> _Stage | None:
+    """A similar_to root becomes a knn seed stage when the root level is
+    plain: root filters, ordering and pagination reorder or trim the seed
+    set on the host, so those shapes keep the staged seed. k must be a
+    positive int at plan time; the query vector resolves at run time."""
+    f = sg.func
+    if f is None or f.name != "similar_to":
+        return None
+    if (sg.filters is not None or sg.orders or sg.first or sg.offset
+            or sg.after):
+        return None
+    ps = store.schema.peek(f.attr)
+    if ps is None or ps.kind != Kind.VECTOR:
+        return None
+    try:
+        k = int(f.args[0])
+    except (IndexError, TypeError, ValueError):
+        return None    # malformed: the staged route raises the error
+    if k <= 0 or len(f.args) != 2:
+        return None
+    return _Stage("knn", f.attr, False, -1, False, 0, k)
 
-def _emit_hop(st: _Stage, caps: tuple, rel, allowed, page, frontier):
+
+def _plan_featprop(store, mp, recurse_idx: int) -> _Stage | None:
+    """@msgpass on a fused recurse block becomes a featprop stage when
+    the feature predicate is a vector and the agg one the kernel
+    computes; anything else keeps the staged route, which raises the
+    user-facing errors."""
+    if mp.agg not in AGGS:
+        return None
+    ps = store.schema.peek(mp.pred)
+    if ps is None or ps.kind != Kind.VECTOR:
+        return None
+    return _Stage("featprop", mp.pred, False, recurse_idx, False, 0, 0,
+                  mp.agg)
+
+
+# -- the program ----------------------------------------------------------------
+# one emitter per STAGE_KINDS entry, called with the stage, its caps, its
+# tensors (a CSR pair or a tablet's (subj, vecs)), its allowed set (a knn
+# stage's query-vector bits), its page, its input frontier and its parent
+# stage's outputs. Each returns (outputs, sizes, next_frontier): `outputs`
+# slot for slot the reference program's, and `sizes` the int32 counts the
+# host reads back first (overflow checks, slice lengths).
+
+def _emit_hop(st: _Stage, caps: tuple, rel, allowed, page, frontier,
+              parent_out):
     (indptr, indices), (offset, first) = rel, page
     (edge_cap,) = caps
     nbrs, seg, pos, valid, total = gather_edges(
@@ -238,11 +319,18 @@ def _emit_hop(st: _Stage, caps: tuple, rel, allowed, page, frontier):
             torch.stack([n_kept, n_unique, total]), nxt)
 
 
-def _emit_recurse(st: _Stage, caps: tuple, rel, allowed, page, frontier):
+def _emit_recurse(st: _Stage, caps: tuple, rel, allowed, page, frontier,
+                  parent_out):
     """`depth` masked hops with the seen bitmap on the device, per-hop
     edge matrices and input frontiers kept for host rendering."""
     indptr, indices = rel
     edge_cap, out_cap = caps
+    if frontier.shape[0] < out_cap:
+        # knn-fed: the seed stage's cap is narrower than the hop's frontier
+        # buffer; sentinel padding keeps a sorted set sorted
+        frontier = torch.cat([frontier, torch.full(
+            (out_cap - frontier.shape[0],), sentinel(frontier.dtype),
+            dtype=frontier.dtype, device=frontier.device)])
     seen = seen_bitmap(indptr.shape[0] - 1, frontier)
     hops = []
     fr = frontier
@@ -260,16 +348,50 @@ def _emit_recurse(st: _Stage, caps: tuple, rel, allowed, page, frontier):
             torch.cat([kept_h, uniq_h, tot_h]), None)
 
 
-def _emit_count(st: _Stage, caps: tuple, rel, allowed, page, frontier):
+def _emit_count(st: _Stage, caps: tuple, rel, allowed, page, frontier,
+                parent_out):
     """Per-parent-node degree of the counted predicate, aligned to the
     parent's padded node array."""
     return (frontier_degrees(rel[0], frontier),), None, None
+
+
+def _emit_knn(st: _Stage, caps: tuple, rel, allowed, page, frontier,
+              parent_out):
+    """The similar_to seed stage: the k best rows of the tablet, as a
+    sorted sentinel-padded rank set the next stage takes as its frontier.
+    The query vector is the allowed slot's first d words, as float32."""
+    subj, vecs = rel
+    (out_cap,) = caps
+    q = allowed[:vecs.shape[1]].view(torch.float32)
+    nxt = device_topk(subj, vecs, q, st.k, out_cap)
+    return (nxt,), None, nxt
+
+
+def _emit_featprop(st: _Stage, caps: tuple, rel, allowed, page, frontier,
+                   parent_out):
+    """The @msgpass stage: one segment combine per hop of the recurse
+    stage's kept-edge matrices, segments the hop's input-frontier
+    positions. A hop's kept edges come in frontier order (seg is
+    non-decreasing), so no grouping sort runs. Visit-once expansion puts
+    each parent's whole edge set in exactly one hop, so the per-hop
+    combine equals the staged route's global one."""
+    subj, vecs = rel
+    nbrs_h, seg_h, kept_h, fr_h, _tot, _uniq = parent_out
+    out_cap = fr_h.shape[1]
+    per_hop = [feat_ops.segment_combine(subj, vecs, nbrs_h[h], seg_h[h],
+                                        kept_h[h], out_cap, st.agg,
+                                        seg_sorted=True)
+               for h in range(nbrs_h.shape[0])]
+    feats, cnt, ecnt = (torch.stack(col) for col in zip(*per_hop))
+    return (feats, cnt, ecnt), None, None
 
 
 _STAGE_EMITTERS = {
     "hop": _emit_hop,
     "recurse": _emit_recurse,
     "count": _emit_count,
+    "knn": _emit_knn,
+    "featprop": _emit_featprop,
 }
 
 
@@ -291,11 +413,14 @@ def _build_program(stages: tuple, caps: tuple, layout: tuple):
             allowed = flat[a_offs[i]:a_offs[i + 1]]
             page = (flat[p0 + 2 * i], flat[p0 + 2 * i + 1])
             out, size, nxt = _STAGE_EMITTERS[st.kind](
-                st, caps[i], rels[i], allowed, page, fr)
+                st, caps[i], rels[i], allowed, page, fr,
+                outs[st.parent] if st.parent >= 0 else None)
             outs.append(out)
             if size is not None:
                 sizes.append(size)
             stage_frontier[i] = nxt
+        if not sizes:    # knn and count stages only
+            sizes.append(flat[:0])
         return tuple(outs), torch.cat(sizes)
 
     return program
@@ -323,7 +448,8 @@ class _Program:
     reads and writes. `lock` is held from a call's input copy until its
     outputs are on the host. `stages`, `caps`, `layout` and `last`
     (the last call's per-stage sizes and root count) let a caller
-    account for the work of a call."""
+    account for the work of a call; `combines` is the number of
+    segment_combine launches in one replay, counted on each."""
 
     def __init__(self, fn, rels, device: torch.device, stages: tuple,
                  caps: tuple, layout: tuple):
@@ -338,6 +464,7 @@ class _Program:
         self.graph_bytes = 0        # memory_reserved growth of the capture
         self.held = True            # in the memo (False once dropped)
         self.last = None            # (split sizes, roots) of the last call
+        self.combines = 0           # segment_combine calls the graph holds
 
     def run(self, flat: np.ndarray, fits):
         """(sizes on the host, outputs on the device) of one call.
@@ -354,6 +481,8 @@ class _Program:
             self._capture()
         self.static_in.copy_(x)
         self.graph.replay()
+        if self.combines:
+            feat_ops.count_replay(self.combines)
         outs, sizes = self.static_out
         return sizes.cpu().numpy(), outs
 
@@ -371,12 +500,14 @@ class _Program:
     def _capture(self) -> None:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        recorded = feat_ops.RECORDED["segment_combine"]
         with torch.cuda.graph(graph):
             # read after the context's own empty_cache(), which would
             # otherwise hide the pool's growth
             before = torch.cuda.memory_reserved(self.device)
             self.static_out = self.fn(self.rels, self.static_in)
         self.graph = graph
+        self.combines = feat_ops.RECORDED["segment_combine"] - recorded
         self.graph_bytes = max(
             torch.cuda.memory_reserved(self.device) - before, 0)
         with _lock:
@@ -544,6 +675,24 @@ def _run_plan(ex, sg, plan: FusedPlan):
     store = ex.store
     rels, devs, alloweds, pages = [], [], [], []
     for st, ssg in zip(plan.stages, plan.stage_sgs):
+        if st.kind in ("knn", "featprop"):
+            t = store.vec_tablet(st.attr)
+            if t is None or not t.rows:
+                return None   # the staged route serves the empty tablet
+            q = EMPTY
+            if st.kind == "knn":
+                try:
+                    resolved = vec.resolve_query(store, sg.func)
+                except ValueError:
+                    return None   # malformed: the staged route raises it
+                if resolved is None:
+                    return None   # unknown uid, or a uid without a row
+                q = resolved[2].view(np.int32)
+            rels.append(t)
+            devs.append(store.vec_device(st.attr, ex.device))
+            alloweds.append(q)
+            pages.append((0, NO_LIMIT))
+            continue
         rel = store.rel(st.attr, st.reverse)
         if rel.nnz == 0:
             return None           # the staged route short-circuits empties
@@ -559,21 +708,40 @@ def _run_plan(ex, sg, plan: FusedPlan):
         offset = ssg.offset if st.kind == "hop" else 0
         pages.append((offset, first))
 
-    display = ex.root_display(sg)
-    nodes = np.unique(display).astype(np.int32)
+    if plan.knn:
+        # the seed set is computed inside the program; the root binds
+        # from its knn output after the call
+        display = nodes = EMPTY
+    else:
+        display = ex.root_display(sg)
+        nodes = np.unique(display).astype(np.int32)
     with _lock:
         caps = _caps_memo.get(plan.sig)
     if caps is None:
         caps = _estimate_caps(plan, rels, nodes)
+    caps = list(caps)
+    if plan.knn:
+        # memoized caps may predate the tablet: the seed buffer must hold
+        # this snapshot's min(k, rows)
+        caps[0] = (max(caps[0][0],
+                       _bucket(max(min(plan.stages[0].k, rels[0].rows), 1))),)
+    ri = 1 if plan.knn else 0
     if plan.recurse:
-        # memoized caps may come from a smaller root set: the scan's
-        # frontier buffer must hold this query's roots
-        floor = _bucket(max(len(nodes), 1))
-        if caps[0][1] < floor:
-            caps = ((caps[0][0], floor),) + caps[1:]
+        # memoized caps may come from a smaller root set: the recurse
+        # stage's frontier buffer must hold this query's roots (for a knn
+        # seed, the seed stage's cap)
+        floor = max(_bucket(max(len(nodes), 1)),
+                    caps[0][0] if plan.knn else 0)
+        if caps[ri][1] < floor:
+            caps[ri] = (caps[ri][0], floor)
+    caps = tuple(caps)
+    # the first stage's input count: a knn plan's seeds
+    n_roots = (min(plan.stages[0].k, rels[0].rows) if plan.knn
+               else len(nodes))
 
     for _attempt in range(_MAX_ATTEMPTS):
-        f_cap = caps[0][1] if plan.recurse else _bucket(max(len(nodes), 1))
+        f_cap = (caps[0][1] if plan.recurse and not plan.knn
+                 else _bucket(max(len(nodes), 1)))
         flat, layout = _pack(nodes, f_cap, alloweds, pages)
         prog = _program_for(plan, caps, layout, tuple(devs), ex)
         with prog.lock:
@@ -582,8 +750,8 @@ def _run_plan(ex, sg, plan: FusedPlan):
             split = _split_sizes(plan, sizes)
             new_caps, overflowed = _grow_caps(plan, caps, split, nodes)
             if not overflowed:
-                host = _fetch(plan, outs, split, len(nodes))
-                prog.last = (split, len(nodes))
+                host = _fetch(plan, outs, split, n_roots)
+                prog.last = (split, n_roots)
         if not overflowed:
             break
         caps = new_caps
@@ -592,16 +760,23 @@ def _run_plan(ex, sg, plan: FusedPlan):
     with _lock:
         _caps_memo[plan.sig] = caps
     for st, sz in zip(plan.stages, split):    # one expansion per stage
-        if st.kind != "count":
+        if st.kind in ("hop", "recurse"):
             edges = int(sz[2]) if st.kind == "hop" else int(sz[2].sum())
             ex.routes.add("program", edges)
+    if plan.knn:
+        vec.count_fused()
+        # the root set is the program's own seed output: sorted, the
+        # first min(k, rows) entries real
+        display = nodes = host[0][0]
+    if plan.featprop:
+        count_route("fused", int(host[-1][1].sum()), rels[-1].dim)
     return _unpack(ex, sg, plan, host, display, nodes)
 
 
 def _split_sizes(plan: FusedPlan, sizes: np.ndarray) -> list:
     """The packed sizes per stage: a hop's (n_kept, n_unique, total), a
     recurse stage's [3, depth] rows (kept, unique, total per hop), None
-    for a count."""
+    for the capless kinds (count, knn, featprop)."""
     out, off = [], 0
     for st in plan.stages:
         if st.kind == "hop":
@@ -622,8 +797,17 @@ def _estimate_caps(plan: FusedPlan, rels, nodes) -> tuple:
     caps = []
     est_nodes = {-1: max(len(nodes), 1)}
     for i, (st, rel) in enumerate(zip(plan.stages, rels)):
-        if st.kind == "count":
-            caps.append(())     # reduces over the parent's frontier
+        if st.kind in ("count", "featprop"):
+            # count reduces over the parent's frontier, featprop over the
+            # recurse stage's own matrices
+            caps.append(())
+            continue
+        if st.kind == "knn":
+            # exact: the seed stage emits min(k, rows) ranks (rel is the
+            # VecTablet here) and cannot overflow
+            seeds = max(min(st.k, rel.rows), 1)
+            caps.append((_bucket(seeds),))
+            est_nodes[i] = seeds
             continue
         n_rows = max(int(len(rel.indptr)) - 1, 1)
         if st.parent == -1 and len(nodes):
@@ -633,7 +817,10 @@ def _estimate_caps(plan: FusedPlan, rels, nodes) -> tuple:
             est = int(est_nodes[st.parent] * (avg + 1.0) * 2.0)
         ecap = _bucket(max(est, 1))
         if st.kind == "recurse":
-            caps.append((ecap, _bucket(max(len(nodes), 1))))
+            out_floor = max(len(nodes), 1)
+            if st.parent >= 0:   # knn-fed: the buffer must hold the seeds
+                out_floor = max(out_floor, caps[st.parent][0])
+            caps.append((ecap, _bucket(out_floor)))
         else:
             caps.append((ecap,))
         est_nodes[i] = max(1, min(est, n_rows))
@@ -665,9 +852,22 @@ def _grow_caps(plan: FusedPlan, caps: tuple, split: list, nodes):
 
 def _fetch(plan: FusedPlan, outs, split: list, n_roots: int) -> list:
     """The outputs the host needs, copied to numpy and cut to their true
-    lengths, in the reference program's per-stage layout."""
+    lengths, in the reference program's per-stage layout. `n_roots` is
+    the first stage's input count (a knn plan's seeds)."""
     host = []
     for st, out, sz in zip(plan.stages, outs, split):
+        if st.kind == "knn":
+            host.append((out[0][:n_roots].cpu().numpy(),))
+            continue
+        if st.kind == "featprop":
+            # a hop's segments are its input frontier's positions: at most
+            # the roots (hop 0) or the previous hop's unique count
+            uniq_h = split[st.parent][1]
+            m = max([n_roots] + [int(u) for u in uniq_h[:-1]] + [1])
+            feats, cnt, ecnt = out
+            host.append((feats[:, :m].cpu().numpy(), cnt.cpu().numpy(),
+                         ecnt[:, :m].cpu().numpy()))
+            continue
         if st.kind == "hop":
             c_nbrs, c_seg, c_pos, _k, nxt, _u, _t = out
             n_kept, n_unique, total = (int(v) for v in sz)
@@ -683,8 +883,9 @@ def _fetch(plan: FusedPlan, outs, split: list, n_roots: int) -> list:
                          seg_h[:, :m].cpu().numpy(), kept_h,
                          fr_h.cpu().numpy(), tot_h, uniq_h))
         else:
-            n_parent = (n_roots if st.parent < 0
-                        else int(split[st.parent][1]))
+            # a count below the root or below a knn seed stage
+            root_fed = st.parent < 0 or (plan.knn and st.parent == 0)
+            n_parent = n_roots if root_fed else int(split[st.parent][1])
             host.append((out[0][:n_parent].cpu().numpy(),))
     return host
 
@@ -697,9 +898,9 @@ def _unpack(ex, sg, plan: FusedPlan, host, display, nodes):
     if sg.var_name:
         ex.uid_vars[sg.var_name] = nodes
     if plan.recurse:
-        _unpack_recurse(ex, root, host)
+        _unpack_recurse(ex, root, plan, host)
     else:
-        _attach(ex, plan, host, -1, root)
+        _attach(ex, plan, host, 0 if plan.knn else -1, root)
     return root
 
 
@@ -733,10 +934,11 @@ def _attach(ex, plan: FusedPlan, host, parent_idx: int, parent_node):
                 ex._record_leaf_vars(c, parent_node)
 
 
-def _unpack_recurse(ex, root, host) -> None:
+def _unpack_recurse(ex, root, plan: FusedPlan, host) -> None:
     """RecurseData from the recurse stage's per-hop matrices: the host
     loop's visit-once first-visit-tree semantics, hop order kept."""
-    nbrs_h, seg_h, kept_h, fr_h, _tot, _uniq = host[0]
+    ri = 1 if plan.knn else 0
+    nbrs_h, seg_h, kept_h, fr_h, _tot, _uniq = host[ri]
     data = split_children(ex, root.sg, RecurseData(loop=False))
     parts_p, parts_c = [], []
     for h in range(len(kept_h)):
@@ -751,5 +953,17 @@ def _unpack_recurse(ex, root, host) -> None:
             root.nodes, np.concatenate(parts_c)).astype(np.int32)
     else:
         data.all_nodes = root.nodes.copy()
+    if plan.featprop:
+        # per hop, every input-frontier position with a kept edge carries
+        # its [d] combine, keyed by rank: the staged post-pass's entries
+        feats, _cnt, ecnt = host[ri + 1]
+        fv: dict = {}
+        for h in range(len(kept_h)):
+            if not int(kept_h[h]):
+                continue
+            for p in np.nonzero(ecnt[h] > 0)[0].tolist():
+                fv[int(fr_h[h][p])] = feats[h][p]
+        data.feat_vals = fv
+        data.feat_key = feat_key(root.sg.msgpass)
     _bind_recurse_vars(ex, root, data, root.sg)
     root.recurse_data = data

@@ -10,6 +10,7 @@ paths, aggregates, math() and checkpwd leaves, @groupby, @normalize and
   uids           "0x%x" strings
   datetimes      RFC3339 (UTC, "Z")
   geo values     GeoJSON objects
+  vectors        float32vector values and @msgpass bindings as lists
   uid edges      lists of objects; empty lists omitted
   @normalize     flat objects, cartesian product across nested lists
   aggregates     separate objects appended to the block list
@@ -183,6 +184,8 @@ class _Renderer:
         domain = level.display if level.display is not None else level.nodes
         for leaf in level.leaf_sgs:
             self._render_leaf(leaf, rank, obj, aliased_only, domain)
+        if level.feat_vals is not None and rank in level.feat_vals:
+            obj[level.feat_key] = _json_val(level.feat_vals[rank])
         if level.recurse_data is not None:
             self._render_recurse_children(level.recurse_data, rank, obj,
                                           depth=0)
@@ -356,6 +359,8 @@ class _Renderer:
                                  depth: int) -> None:
         for leaf in data.leaf_sgs:
             self._render_leaf(leaf, rank, obj, domain=data.all_nodes)
+        if data.feat_vals is not None and rank in data.feat_vals:
+            obj[data.feat_key] = _json_val(data.feat_vals[rank])
         if data.loop:
             if depth >= len(data.by_depth):
                 return
@@ -448,6 +453,8 @@ def _json_val(v):
         return int(v)
     if isinstance(v, (np.floating, float)):
         return float(v)
+    if isinstance(v, np.ndarray):  # float32vector: render as a list
+        return [float(x) for x in v.tolist()]
     return str(v)
 
 

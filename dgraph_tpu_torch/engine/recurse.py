@@ -37,6 +37,11 @@ class RecurseData:
     by_depth: list[dict[int, tuple[np.ndarray, np.ndarray]]] = field(default_factory=list)
     loop: bool = False
     all_nodes: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int32))
+    # @msgpass binding (engine/feat.py): rank → f32[d] aggregate over
+    # the visit-once edge set; None = unbound (the fused featprop stage
+    # binds it inside the program, the staged post-pass on the host)
+    feat_vals: dict | None = None
+    feat_key: str = ""
 
 
 def split_children(ex, sg: SubGraph, data: RecurseData) -> RecurseData:

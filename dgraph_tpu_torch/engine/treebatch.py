@@ -132,8 +132,10 @@ def _pure_chain_root(sg: SubGraph):
 
 
 def _bad_directives(sg: SubGraph) -> bool:
+    # @msgpass blocks are served per query (engine/batch.py:_eligible)
     return bool(sg.groupby or sg.cascade or sg.normalize
-                or sg.is_expand_all or sg.shortest is not None)
+                or sg.is_expand_all or sg.shortest is not None
+                or sg.msgpass is not None)
 
 
 class _Ineligible(Exception):
@@ -332,10 +334,10 @@ def run_tree_batch(store, plan: TreePlan, device, device_threshold: int):
                     results[bi] = ex.run_block(blocks[bi])
                 roots = [results[bi] for bi in range(len(blocks))]
                 out_json.append(to_json(ex, roots))
-            except (ValueError, NotImplementedError):
-                # the query's own error (an unported directive, an
-                # undefined var) in its host half, after the run: the
-                # per-query engine gives it its error object
+            except ValueError:
+                # the query's own error (an undefined var) in its host
+                # half, after the run: the per-query engine gives it its
+                # error object
                 return None
     return out_json
 
@@ -378,7 +380,7 @@ def _tree_inputs(store, plan: TreePlan, device, device_threshold: int):
         for slot, bi in enumerate(plan.seed_blocks):
             try:
                 display = ex.root_display(blocks[bi])
-            except (ValueError, NotImplementedError):
+            except ValueError:
                 return None
             displays[bi] = display
             seed_lists[slot].append(np.unique(display).astype(np.int32))

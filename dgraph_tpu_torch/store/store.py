@@ -15,10 +15,12 @@ batched path places its ELL layout itself (`ops/bfs.py:device_ell`).
 CSR construction takes the native builder (`native/csr.cpp`), which
 gives the numpy builder's arrays bit for bit. A store also memoizes the
 filter sets that depend on it alone (`Store.filter_set_memo`). Value columns hold
-every scalar kind but float32vector (geo values as `GeoVal`, passwords as
-their hashes), and `build_indexes` keys exact, hash, term, fulltext,
-trigram and geo tokens. Vector tablets and the
-mesh placements belong to later slices (ROADMAP Queue 1 items 7, 10).
+every scalar kind (geo values as `GeoVal`, passwords as their hashes,
+float32vector values as 1-D float32 rows of an object column), and
+`build_indexes` keys exact, hash, term, fulltext, trigram and geo tokens.
+A float32vector predicate's rows stack into a `store/vec.VecTablet`
+(`Store.vec_tablet`), placed on a device once (`Store.vec_device`). The
+mesh placements belong to a later slice (ROADMAP Queue 1 item 10).
 
 `store_from_arrays` builds a port Store from a reference Store's numpy
 state (or plain arrays), so both packages can be handed the same data.
@@ -193,6 +195,10 @@ class Store:
                                   np.zeros(0, np.int32))
         self._filter_sets: OrderedDict = OrderedDict()
         self._filter_lock = threading.Lock()
+        # float32vector tablets: host stacks built from the value column,
+        # and their (subj, vecs) tensors per (predicate, device)
+        self._vec_tab: dict = {}
+        self._vec_dev: dict = {}
 
     def filter_set_memo(self, key, compute):
         """The allowed set `compute()` gives for a filter tree that reads
@@ -258,6 +264,34 @@ class Store:
             out = self._device[key] = (
                 torch.from_numpy(r.indptr).to(dev),
                 torch.from_numpy(r.indices).to(dev))
+        return out
+
+    # -- vector tablets -----------------------------------------------------
+    def vec_tablet(self, pred: str):
+        """Host `[n, d]` embedding stack of a float32vector predicate,
+        built from the value column at first use and kept on this
+        snapshot. None for other predicates."""
+        t = self._vec_tab.get(pred)
+        if t is None:
+            ps = self.schema.peek(pred)
+            if ps is None or ps.kind != Kind.VECTOR:
+                return None
+            from dgraph_tpu_torch.store import vec as _vec
+            t = self._vec_tab[pred] = _vec.build_tablet(
+                self.value_col(pred), ps.vector_dim)
+        return t
+
+    def vec_device(self, pred: str, device=DEFAULT_DEVICE):
+        """(subj int32, vecs float32) tensors of a float32vector
+        predicate's tablet on `device`, placed once per (predicate,
+        device)."""
+        dev = resolve_device(device)
+        key = (pred, str(dev))
+        out = self._vec_dev.get(key)
+        if out is None:
+            t = self.vec_tablet(pred)
+            out = self._vec_dev[key] = (torch.from_numpy(t.subj).to(dev),
+                                        torch.from_numpy(t.vecs).to(dev))
         return out
 
     # -- values -------------------------------------------------------------
@@ -453,6 +487,17 @@ class StoreBuilder:
                 ps.kind = Kind.INT
             elif isinstance(value, float):
                 ps.kind = Kind.FLOAT
+        if ps.kind == Kind.VECTOR:
+            # converted now, so a width mismatch is refused at load time,
+            # not found mid-query; the first vector fixes the width when
+            # the schema has no @dim
+            value = convert(value, Kind.VECTOR)
+            if ps.vector_dim == 0:
+                ps.vector_dim = int(len(value))
+            elif len(value) != ps.vector_dim:
+                raise ValueError(
+                    f"predicate {pred!r}: vector of dim {len(value)} "
+                    f"does not match schema dim {ps.vector_dim}")
         self._values.setdefault((pred, lang), []).append((subj, value))
         if facets:
             self._vfacets.setdefault(pred, {})[subj] = dict(facets)
@@ -495,6 +540,8 @@ class StoreBuilder:
                 cv = convert(v, kind)
                 if isinstance(cv, np.datetime64):
                     key = (r, cv.astype("int64").item())
+                elif isinstance(cv, np.ndarray):    # vectors: hash bytes
+                    key = (r, cv.tobytes())
                 else:
                     key = (r, cv)
                 if key in seen:
@@ -597,12 +644,14 @@ def _rel_of(r) -> EdgeRel | None:
 
 def _copy_vals(vals, kind: Kind) -> np.ndarray:
     """A value column's copy; geo values are re-read as this package's
-    `GeoVal` from their GeoJSON text."""
-    if kind != Kind.GEO:
+    `GeoVal` from their GeoJSON text, and float32vector values copied as
+    an object column of 1-D float32 rows."""
+    if kind not in (Kind.GEO, Kind.VECTOR):
         return np.array(vals)
     out = np.empty(len(vals), object)
     for i, v in enumerate(vals):
-        out[i] = parse_geo(str(v))
+        out[i] = (parse_geo(str(v)) if kind == Kind.GEO
+                  else np.array(v, np.float32))
     return out
 
 

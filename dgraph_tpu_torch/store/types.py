@@ -134,10 +134,31 @@ def convert(value, kind: Kind):
     if kind == Kind.GEO:
         return parse_geo(value)
     if kind == Kind.VECTOR:
-        raise NotImplementedError(
-            "float32vector values are not ported yet (ROADMAP Queue 1 "
-            "item 7: store/vec.py)")
+        return parse_vector(value)
     raise ValueError(f"cannot convert to {kind}")
+
+
+def parse_vector(value) -> np.ndarray:
+    """Raw value → 1-D float32 vector. Accepts ndarray, list/tuple of
+    numbers, or the loader's string literal form `"[0.1, 0.2, ...]"`
+    (the `^^<float32vector>` RDF object / JSON string encoding)."""
+    if isinstance(value, np.ndarray):
+        v = value
+    elif isinstance(value, (list, tuple)):
+        v = np.asarray(value)
+    elif isinstance(value, str):
+        s = value.strip()
+        if not (s.startswith("[") and s.endswith("]")):
+            raise ValueError(f"cannot convert {value!r} to float32vector")
+        body = s[1:-1].strip()
+        v = np.array([float(p) for p in body.split(",") if p.strip()])
+    else:
+        raise ValueError(f"cannot convert {value!r} to float32vector")
+    v = np.asarray(v, np.float32)
+    if v.ndim != 1:
+        raise ValueError(
+            f"float32vector must be 1-D, got shape {v.shape}")
+    return v
 
 
 def sort_key(value, kind: Kind):

@@ -235,17 +235,22 @@ def test_engine_without_card_raises(stores, monkeypatch):
 
 
 @pytest.mark.parametrize("q,exc", [
-    ('{ q(func: similar_to(name, 2, "[1, 1]")) { uid } }',
-     NotImplementedError),
+    ('{ q(func: similar_to(name, 2, "[1, 1]")) { uid } }', None),
     ('{ q(func: has(age)) @msgpass(pred: age) { uid friend } }',
-     NotImplementedError),
+     "not a float32vector predicate"),
     ('{ q(func: has(age)) { uid } }', None),
 ])
 def test_unported_features_raise(stores, q, exc):
-    _ref, port = stores
+    """similar_to and @msgpass answer as the reference does on the same
+    query: similar_to on a string predicate serves the empty set, and
+    @msgpass over an int predicate is refused."""
+    ref, port = stores
     eng = Engine(port, device=CPU, device_threshold=0)
+    ref_eng = RefEngine(ref, device_threshold=0)
     if exc is None:
-        eng.query(q)
+        assert eng.query(q) == ref_eng.query(q)
     else:
-        with pytest.raises(exc, match="ROADMAP"):
+        with pytest.raises(ValueError, match=exc):
+            ref_eng.query(q)
+        with pytest.raises(ValueError, match=exc):
             eng.query(q)

@@ -15,8 +15,13 @@ function a CUDA graph captures on the card):
     card a failing program raises), cap regrowth, the memoized filter
     sets, the program memo's bounds and its drop of a collected store's
     programs, and tree-batch rebuilds (which read their lane masks and
-    launch no whole-block program).
-Tolerance: exact everywhere (integer outputs and JSON bytes).
+    launch no whole-block program);
+  * the GraphRAG shapes (knn and featprop stages, over tests/test_feat.py's
+    4-d small-integer friend graph): the same blocks fused as the
+    reference's plan_block, bytes fused ≡ staged ≡ reference, and the
+    knn / featprop programs slot for slot against the reference's.
+Tolerance: exact everywhere (integer outputs, small-integer f32 sums and
+JSON bytes).
 """
 
 import jax.numpy as jnp
@@ -430,3 +435,109 @@ def test_captured_replay_equals_eager_run(stores):
         got = [t.clone() for out in p.static_out[0] for t in out]
         want = [t for out in p.fn(p.rels, p.static_in)[0] for t in out]
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# -- GraphRAG shapes: knn and featprop stages ----------------------------------
+
+# similar_to seeds and @msgpass over tests/test_feat.py's 4-d
+# small-integer friend graph: knn → hop, knn → recurse, recurse →
+# featprop for each agg, knn → recurse → featprop, and the shapes that
+# stay staged (a filtered similar_to root, plain-level @msgpass)
+VEC_TEMPLATES = [
+    '{ q(func: similar_to(emb, 4, "[1, 1, 2, 0]")) '
+    '{ uid name friend { uid } } }',
+    '{ q(func: similar_to(emb, 3, 5)) { friend { c as count(friend) } } }',
+    '{ q(func: similar_to(emb, 5, "[2, 0, 1, 3]")) '
+    '@recurse(depth: 3) { uid friend } }',
+    '{ q(func: uid(2, 9)) @recurse(depth: 3) '
+    '@msgpass(pred: emb, agg: sum) { uid friend } }',
+    '{ q(func: uid(2)) @recurse(depth: 2) '
+    '@msgpass(pred: emb, agg: mean) { uid ~friend } }',
+    '{ q(func: uid(4)) @recurse(depth: 3) '
+    '@msgpass(pred: emb, agg: max) { uid friend } }',
+    '{ q(func: similar_to(emb, 6, "[0, 2, 1, 1]")) @recurse(depth: 2) '
+    '@msgpass(pred: emb, agg: mean) { uid friend } }',
+    '{ q(func: similar_to(emb, 4, "[1, 1, 2, 0]")) '
+    '@filter(eq(name, "p3")) { uid friend { uid } } }',
+    '{ q(func: uid(1, 2, 3)) @msgpass(pred: emb, agg: sum) '
+    '{ uid friend { uid } } }',
+]
+
+
+@pytest.fixture(scope="module")
+def vec_stores():
+    from test_feat import _feat_store
+
+    ref = _feat_store(n=64, seed=9)
+    return ref, store_from_arrays(ref)
+
+
+@pytest.mark.parametrize("threshold", THRESHOLDS)
+@pytest.mark.parametrize("i", range(len(VEC_TEMPLATES)))
+def test_graphrag_shapes_fused_equal_staged_and_reference(
+        vec_stores, monkeypatch, threshold, i):
+    ref, port = vec_stores
+    q = VEC_TEMPLATES[i]
+    n = _three_way(monkeypatch, RefEngine(ref, device_threshold=threshold),
+                   Engine(port, device=CPU, device_threshold=threshold), q)
+    kinds = [[s.kind for s in p.stages] if p else None
+             for p in (fused.plan_block(port, sg) for sg in parse(q))]
+    ref_kinds = [[s.kind for s in p.stages] if p else None
+                 for p in (ref_fused.plan_block(ref, sg)
+                           for sg in ref_parse(q))]
+    assert kinds == ref_kinds
+    assert n == sum(k is not None for k in kinds)
+
+
+@pytest.mark.parametrize("i", [0, 1, 2, 6])
+def test_vec_program_equals_reference_slot_for_slot(vec_stores, i):
+    """knn → hop, knn → hop → count, knn → recurse and knn → recurse →
+    featprop programs against the reference's jitted program at the same
+    caps: the seed set, every hop and recurse slot, and the featprop
+    aggregates bit for bit."""
+    from dgraph_tpu_torch.store import vec as port_vec
+
+    ref, port = vec_stores
+    q = VEC_TEMPLATES[i]
+    sg, rsg = parse(q)[0], ref_parse(q)[0]
+    plan, rplan = fused.plan_block(port, sg), ref_fused.plan_block(ref, rsg)
+    assert [s.kind for s in plan.stages] == [s.kind for s in rplan.stages]
+    qv = port_vec.resolve_query(port, sg.func)[2]
+    ex = Executor(port, device=CPU)
+    rels, devs, rdevs, alloweds, ralloweds, pages = [], [], [], [], [], []
+    for st, ssg in zip(plan.stages, plan.stage_sgs):
+        if st.kind in ("knn", "featprop"):
+            t = port.vec_tablet(st.attr)
+            rels.append(t)
+            devs.append(port.vec_device(st.attr, CPU))
+            rdevs.append((jnp.asarray(t.subj), jnp.asarray(t.vecs)))
+            a = qv if st.kind == "knn" else np.zeros(0, np.int32)
+            alloweds.append(a.view(np.int32))
+            ralloweds.append(a if st.kind == "knn"
+                             else ref_ua.pad_to(a, _bucket(1)))
+        else:
+            r = port.rel(st.attr, st.reverse)
+            rels.append(r)
+            devs.append((torch.from_numpy(r.indptr),
+                         torch.from_numpy(r.indices)))
+            rdevs.append((jnp.asarray(r.indptr), jnp.asarray(r.indices)))
+            a = (ex.filter_set(ssg.filters) if st.has_filter
+                 else np.zeros(0, np.int32))
+            alloweds.append(a)
+            ralloweds.append(ref_ua.pad_to(a, _bucket(max(len(a), 1))))
+        pages.append((0, fused.NO_LIMIT))
+    nodes = np.zeros(0, np.int32)
+    caps = fused._estimate_caps(plan, rels, nodes)
+    flat, layout = fused._pack(nodes, _bucket(1), alloweds, pages)
+    outs, _sizes = fused._build_program(tuple(plan.stages), caps, layout)(
+        tuple(devs), torch.from_numpy(flat))
+    want = ref_fused._build_program(tuple(rplan.stages), caps)(
+        tuple(rdevs), ref_ua.pad_to(nodes, 1), tuple(ralloweds),
+        tuple((np.int32(o), np.int32(f)) for o, f in pages))
+    for st, w, g in zip(plan.stages, want, outs):
+        if st.kind == "knn":
+            # the reference also returns k as a second slot
+            _same(w[0], g[0])
+            assert int(w[1]) == min(st.k, rels[0].rows)
+        else:
+            _same(tuple(w), g)
