@@ -127,10 +127,18 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 message, 1,009,892 rows, small integers from a seed).
                 (a) segment_combine against segment_combine_plain on the
                 card (integer features) and against numpy's host_combine
-                (N(0,1) features, and a second kernel run), bit for bit:
-                d in 1, 3, 8, 128, 384, each agg, sorted and unsorted
-                seg, duplicates, non-participating neighbours, empty
-                segments, a sentinel-padded tail, and 120,000-edge hubs;
+                (N(0,1) features; the live count as a 0-d device tensor
+                and as an int), bit for bit: d in 1, 3, 8, 128, 384, each
+                agg, sorted and unsorted seg, duplicates,
+                non-participating neighbours, empty segments, a
+                sentinel-padded tail, and 120,000-edge hubs of each agg;
+                segments of exactly LONG_MIN - 1, LONG_MIN and LONG_MIN +
+                1 edges, several hubs in one call, out-of-range slots,
+                ragged column tiles (d 100, 1000), the scalar path (d 99,
+                and d 384 with vecs misaligned), max over rows of +0, -0,
+                NaN and +-inf; and one hub call and one featprop-shaped
+                call captured in CUDA graphs, each replay bit-equal to
+                the eager call;
                 (b) the nine templates through Engine(device="cuda") at
                 512, each byte-equal to the numpy route, planned as
                 expected (knn → hop, knn → recurse, recurse → featprop,
@@ -145,8 +153,10 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 counted from zero; (d) the device top-k and
                 segment_combine alone at msgpass_hub's and featprop_mean's
                 shapes (CUDA events, median of 5) beside their least-bytes
-                bounds, plain versions and, for segment_combine,
-                `index_add_` of the gathered rows
+                bounds and plain versions; for segment_combine the whole
+                call and its kernels alone, `index_add_` of the gathered
+                rows, the FADD-chain floor of its longest segment at the
+                SM's maximum clock, and its device launches per call
   11. the `kernels` JSON line, then the device JSON line last
 
 Phases 6 to 10 fail if any block falls back from its whole-block program
@@ -1821,14 +1831,90 @@ def bits_equal(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
+def sized_case(rng, d: int, lens, sort: bool, values: str = "normal"):
+    """A segment_combine input with segments of exactly `lens` live edges
+    (rows from a 3000-row tablet over a 12000-rank space: half the
+    neighbours have a row), out-of-range seg slots among them (-1 and
+    n_seg + 2: dropped), unsorted edges shuffled, and a sentinel-padded
+    tail of 37 dead slots. `values`: "normal" N(0,1), or "signed" +0,
+    -0, NaN, +-1 and +-inf (for max)."""
+    rows, space = 3000, 12000
+    n_seg = len(lens)
+    subj = np.sort(rng.choice(space, rows, replace=False)).astype(np.int32)
+    if values == "normal":
+        vecs = rng.standard_normal((rows, d)).astype(np.float32)
+    else:
+        vecs = rng.choice(np.array([0.0, -0.0, np.nan, 1.0, -1.0, np.inf,
+                                    -np.inf], np.float32), (rows, d))
+    seg = np.repeat(np.arange(n_seg), lens)
+    drop = rng.choice(np.array([-1, n_seg + 2]), 41)
+    if sort:
+        seg = np.concatenate([drop[drop < 0], seg, drop[drop >= 0]])
+    else:
+        seg = np.concatenate([seg, drop])[rng.permutation(len(seg) + 41)]
+    seg = seg.astype(np.int32)
+    n_edges = len(seg)
+    nbrs = np.where(rng.random(n_edges) < 0.5, rng.choice(subj, n_edges),
+                    rng.integers(0, space, n_edges)).astype(np.int32)
+    snt = np.iinfo(np.int32).max
+    nbrs = np.concatenate([nbrs, np.full(37, snt, np.int32)])
+    seg = np.concatenate([seg, np.zeros(37, np.int32)])
+    return subj, vecs, nbrs, seg, n_edges, n_seg
+
+
+def host_want(subj, vecs, nbrs, seg, n: int, k: int, agg: str):
+    """host_combine over the live slots whose seg lies in [0, k) (the
+    dropped ones have no segment to go to)."""
+    from dgraph_tpu_torch.engine.feat import host_combine
+
+    nb, sg = nbrs[:n], seg[:n]
+    ok = (sg >= 0) & (sg < k)
+    return host_combine(subj, vecs, nb[ok], sg[ok], k, agg)
+
+
+def device_case(subj, vecs, nbrs, seg, device, misalign: bool = False):
+    """The case's tensors on the card; `misalign` puts vecs 4 bytes past a
+    16-byte boundary (the scalar path at any d)."""
+    t = [torch.from_numpy(a).to(device) for a in (subj, vecs, nbrs, seg)]
+    if misalign:
+        buf = torch.empty(vecs.size + 1, dtype=torch.float32, device=device)
+        t[1] = buf[1:].view(vecs.shape)
+        t[1].copy_(torch.from_numpy(vecs))
+    return t
+
+
+def graph_replays_equal(fn, replays: int = 2) -> bool:
+    """Capture fn() in a CUDA graph (after a side-stream warm-up) and hold
+    each replay's outputs bit-equal to an eager run."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    eager = fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    ok = True
+    for _ in range(replays):
+        for o in outs:
+            o.fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        ok &= all(bits_equal(a, b) for a, b in zip(outs, eager))
+    del graph
+    return ok
+
+
 def phase_combine_cases(device) -> dict:
     """segment_combine against its plain version and host_combine on the
     card (phase 10 a). Integer-valued features: bit-exact against
     segment_combine_plain (order-free sums). N(0,1) features: bit-exact
     against engine/feat.host_combine (numpy, edge order) and against a
-    second run of the kernel. Sorted seg runs with seg_sorted=True."""
-    from dgraph_tpu_torch.engine.feat import host_combine
-    from dgraph_tpu_torch.ops.feat import (AGGS, segment_combine,
+    second run of the kernel. Sorted seg runs with seg_sorted=True; the
+    live count is a 0-d device tensor in the first run and an int in the
+    second."""
+    from dgraph_tpu_torch.ops.feat import (AGGS, LONG_MIN, segment_combine,
                                            segment_combine_plain)
 
     rng = np.random.default_rng(COMBINE_SEED)
@@ -1837,34 +1923,80 @@ def phase_combine_cases(device) -> dict:
              for sort in (False, True) for integer in (True, False)]
     cases += [(384, agg, sort, True, True, HUB_EDGES, 4)
               for agg in AGGS for sort in (False, True)]
-    cases += [(384, agg, False, False, True, HUB_EDGES, 4)
-              for agg in ("sum", "mean")]
+    cases += [(384, agg, False, False, True, HUB_EDGES, 4) for agg in AGGS]
+    # exact-length segments around the long path's threshold, several
+    # hubs beside short segments, ragged column tiles (d 100, 1000), the
+    # scalar path (d 99; d 384 with vecs misaligned), and max over rows
+    # of +0, -0, NaN and +-inf
+    L = LONG_MIN
+    sized = [(384, agg, sort, [L - 1, L, L + 1, 3, 0, L], "normal", False)
+             for agg in AGGS for sort in (False, True)]
+    sized += [(384, agg, sort, [30_000, 2, 0, 20_000, 517, 7, 12_000, 1],
+               "normal", False) for agg in AGGS for sort in (False, True)]
+    sized += [(d, agg, sort, [L + 1, 5, 3 * L, 0, 40], "normal", mis)
+              for d, mis in ((100, False), (1000, False), (99, False),
+                             (384, True))
+              for agg in AGGS for sort in (False, True)]
+    sized += [(d, "max", sort, [L + 3, 9, 2 * L, 1], "signed", False)
+              for d in (8, 384) for sort in (False, True)]
     checked = 0
+
+    def check(t, n, k, agg, sort, want, what):
+        live = torch.tensor(n, dtype=torch.int32, device=device)
+        got = segment_combine(*t, live, k, agg, seg_sorted=sort)
+        again = segment_combine(*t, n, k, agg, seg_sorted=sort)
+        if not all(bits_equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"segment_combine {what}: the runs with a "
+                                 f"device and a host live count differ")
+        if not all(bits_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"segment_combine {what}: differs from "
+                                 f"its reference")
+        return got
+
     for d, agg, sort, integer, hub, n_edges, n_seg in cases:
         subj, vecs, nbrs, seg, n, k = combine_case(
             rng, d, n_seg, n_edges, sort, integer, hub)
-        t = [torch.from_numpy(a).to(device) for a in (subj, vecs, nbrs, seg)]
-        live = torch.tensor(n, dtype=torch.int32, device=device)
-        got = segment_combine(*t, live, k, agg, seg_sorted=sort)
-        if integer:
-            want = segment_combine_plain(*t, n, k, agg)
-        else:
-            want = host_combine(subj, vecs, nbrs[:n], seg[:n], k, agg)
-            again = segment_combine(*t, n, k, agg, seg_sorted=sort)
-            if not all(bits_equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"segment_combine d={d} {agg}: two "
-                                     f"runs differ")
-        if not all(bits_equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError(
-                f"segment_combine d={d} {agg} sorted={sort} "
-                f"integer={integer} hub={hub}: differs from "
-                f"{'the plain version' if integer else 'host_combine'}")
+        t = device_case(subj, vecs, nbrs, seg, device)
+        want = (segment_combine_plain(*t, n, k, agg) if integer
+                else host_want(subj, vecs, nbrs, seg, n, k, agg))
+        got = check(t, n, k, agg, sort, want,
+                    f"d={d} {agg} sorted={sort} integer={integer} hub={hub}")
         if not torch.isfinite(got[0]).all():
             raise AssertionError(f"segment_combine d={d} {agg}: non-finite")
         checked += 1
+    for d, agg, sort, lens, values, mis in sized:
+        subj, vecs, nbrs, seg, n, k = sized_case(rng, d, lens, sort, values)
+        t = device_case(subj, vecs, nbrs, seg, device, mis)
+        check(t, n, k, agg, sort, host_want(subj, vecs, nbrs, seg, n, k, agg),
+              f"d={d} {agg} sorted={sort} lens={lens} {values} "
+              f"misaligned={mis}")
+        checked += 1
+    # one hub call and one featprop-shaped call captured in CUDA graphs
+    graphs = 0
+    for d, agg, lens, e_cap in ((384, "sum", [HUB_EDGES], HUB_EDGES + 2048),
+                                (384, "mean", list(rng.integers(0, 4, 1024)),
+                                 4096)):
+        subj, vecs, nbrs, seg, n, k = sized_case(rng, d, lens, True)
+        pad = e_cap - len(nbrs)
+        nbrs = np.concatenate([nbrs, np.full(pad, nbrs[-1], np.int32)])
+        seg = np.concatenate([seg, np.zeros(pad, np.int32)])
+        t = device_case(subj, vecs, nbrs, seg, device)
+        live = torch.tensor(n, dtype=torch.int32, device=device)
+        want = host_want(subj, vecs, nbrs, seg, n, k, agg)
+        if not all(bits_equal(a, b) for a, b in zip(
+                segment_combine(*t, live, k, agg, seg_sorted=True), want)):
+            raise AssertionError(f"segment_combine graph case {lens[:3]}: "
+                                 f"differs from host_combine")
+        if not graph_replays_equal(lambda: segment_combine(
+                *t, live, k, agg, seg_sorted=True)):
+            raise AssertionError(f"segment_combine graph case {lens[:3]}: a "
+                                 f"replay differs from the eager run")
+        graphs += 1
     torch.cuda.synchronize()
-    return {"cases": checked, "dims": list(COMBINE_DIMS),
-            "hub_edges": HUB_EDGES, "max_abs_err": 0.0}
+    return {"cases": checked, "graph_cases": graphs,
+            "dims": sorted({c[0] for c in cases} | {c[0] for c in sized}),
+            "hub_edges": HUB_EDGES, "long_min": LONG_MIN,
+            "max_abs_err": 0.0}
 
 
 def build_graphrag_store(g):
@@ -1883,25 +2015,66 @@ def build_graphrag_store(g):
                    "dim": t.dim, "tablet_bytes": int(t.vecs.nbytes)}
 
 
-def combine_row(fn, plain, library, nbytes: int) -> dict:
-    """CUDA-event ms (median of REPLAY_REPS) of the kernel, its plain
-    version and the library yardstick, beside the least-bytes bound."""
-    fn(None), plain(None), library(None)
-    return {"ms": float(np.median(cuda_ms(fn, REPLAY_REPS))),
-            "plain_ms": float(np.median(cuda_ms(plain, REPLAY_REPS))),
-            "library_ms": float(np.median(cuda_ms(library, REPLAY_REPS))),
-            "least_bytes": nbytes,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+def sm_clocks_mhz() -> dict:
+    """The SM clock now and its maximum, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.splitlines()[0]
+    now, top = (float(x) for x in out.split(","))
+    return {"sm_mhz": now, "max_sm_mhz": top}
+
+
+def call_profile(fn, calls: int = 32, tries: int = 3) -> dict:
+    """One call's device launches (kernels, copies, fills) and their
+    device µs by kernel, from phase 3's profiler helper, and the host µs
+    of one call enqueued without a synchronise (mean of `calls`). On the
+    card machine the profiler can drop a session's ctypes launches (all
+    of them when the session holds nothing else), so the call runs
+    between two torch fills (the anchors, whose events are dropped), and
+    a profile that still shows none of the call's launches is taken
+    again, `tries` times at most."""
+    from dgraph_tpu_torch.tools.hop_profile import device_events
+
+    def anchor():
+        torch.zeros(1, device="cuda")
+
+    skip = len(device_events(anchor))
+    evs = []
+    for _ in range(tries):
+        evs = device_events(lambda: (anchor(), fn(None), anchor()))
+        evs = evs[skip:len(evs) - skip]
+        if evs:
+            break
+    device_us: dict = {}
+    for name, us in evs:
+        short = name.replace("(anonymous namespace)::", "")
+        short = short.split("(")[0].split("<")[0].split("::")[-1][-48:]
+        device_us[short] = device_us.get(short, 0.0) + us
+    fn(None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(None)
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return {"device_launches_per_call": len(evs), "device_us": device_us,
+            "host_us_per_call": host_us}
 
 
 def combine_timing(store, device, nbrs, seg, n_seg: int, agg: str,
                    seg_sorted: bool = False) -> dict:
     """segment_combine alone at one real shape (host arrays of the live
-    edges): kernel, plain version, and `index_add_` of the already
-    gathered participating rows (the sum alone, a yardstick). Least
-    bytes: each edge's (nbr, seg) and each distinct participating row
-    read once, the outputs written once."""
-    from dgraph_tpu_torch.ops.feat import segment_combine, segment_combine_plain
+    edges), CUDA events, median of REPLAY_REPS: the whole call, the
+    kernels alone (grouping sort, allocations and plan set up outside the
+    events: ops/feat.Prepared), the plain version, and `index_add_` of the
+    already gathered participating rows (the sum alone, a yardstick).
+    Least bytes: each edge's (nbr, seg) and each distinct participating
+    row read once, the outputs written once. Chain floor: the longest
+    segment's participating edges x 4 cycles (one dependent FADD each) at
+    the SM's maximum clock."""
+    from dgraph_tpu_torch.ops.feat import (Prepared, segment_combine,
+                                           segment_combine_plain)
 
     subj_d, vecs_d = store.vec_device("emb", device)
     t = store.vec_tablet("emb")
@@ -1915,6 +2088,8 @@ def combine_timing(store, device, nbrs, seg, n_seg: int, agg: str,
     tgt = torch.from_numpy(seg[has].astype(np.int64)).to(device)
     acc = torch.zeros((n_seg, d), dtype=torch.float32, device=device)
     nbytes = 8 * n + 4 * d * len(np.unique(nbrs[has])) + (4 * d + 8) * n_seg
+    longest = int(np.bincount(seg[has], minlength=1).max()) if n else 0
+    clocks = sm_clocks_mhz()
 
     def fn(_a):
         return segment_combine(subj_d, vecs_d, nb, sg, n, n_seg, agg,
@@ -1923,20 +2098,38 @@ def combine_timing(store, device, nbrs, seg, n_seg: int, agg: str,
     def plain(_a):
         return segment_combine_plain(subj_d, vecs_d, nb, sg, n, n_seg, agg)
 
+    call = Prepared(subj_d, vecs_d, nb, sg, n, n_seg, agg, seg_sorted)
+
+    def kernels(_a):
+        call.launch()
+
     # small-integer features: exact sums, so bit for bit in any order
     got, want = fn(None), plain(None)
-    if not all(bits_equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError(f"segment_combine {agg} at {n} edges into "
-                             f"{n_seg} segments differs from its plain "
-                             f"version")
-    row = combine_row(fn, plain, lambda _a: acc.index_add_(0, tgt, rows),
-                      nbytes)
-    row.update({"max_abs_err": float((got[0] - want[0]).abs().max())
-                if got[0].numel() else 0.0, "edges": n, "participating": int(has.sum()),
-                "segments": n_seg, "largest_segment": int(
-                    np.bincount(seg, minlength=1).max()) if n else 0,
-                "dim": d, "agg": agg})
-    return row
+    kernels(None)
+    for name, out in (("call", got), ("kernels alone", call.outputs)):
+        if not all(bits_equal(a, b) for a, b in zip(out, want)):
+            raise AssertionError(f"segment_combine {agg} ({name}) at {n} "
+                                 f"edges into {n_seg} segments differs from "
+                                 f"its plain version")
+
+    def library(_a):
+        return acc.index_add_(0, tgt, rows)
+
+    library(None)
+    timed = {k: float(np.median(cuda_ms(f, REPLAY_REPS))) for k, f in
+             (("ms", fn), ("kernels_ms", kernels), ("plain_ms", plain),
+              ("library_ms", library))}
+    return {**timed, "least_bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "chain_floor_ms": longest * 4 / (clocks["max_sm_mhz"] * 1e3),
+            **clocks,
+            **call_profile(fn),
+            "max_abs_err": float((got[0] - want[0]).abs().max())
+            if got[0].numel() else 0.0, "edges": n,
+            "participating": int(has.sum()), "segments": n_seg,
+            "largest_segment": int(np.bincount(seg, minlength=1).max())
+            if n else 0, "longest_participating": longest,
+            "dim": d, "agg": agg}
 
 
 def knn_timing(store, device, q: np.ndarray, k: int) -> dict:
@@ -2161,8 +2354,10 @@ def phase_graphrag(device, g, store) -> dict:
         timing["segment_combine_featprop_mean"] = {
             "per_hop": hops,
             **{key: sum(h[key] for h in hops)
-               for key in ("ms", "plain_ms", "library_ms", "least_bytes",
-                           "bound_ms")}, "bound_by": "bytes",
+               for key in ("ms", "kernels_ms", "plain_ms", "library_ms",
+                           "least_bytes", "bound_ms", "chain_floor_ms",
+                           "device_launches_per_call", "host_us_per_call")},
+            "bound_by": "bytes",
             "max_abs_err": max(h["max_abs_err"] for h in hops)}
     return {"store": {"nodes": store.n_nodes}, "host_pass_s": host_pass_s,
             "byte_equal": True, "templates": per,
@@ -2271,7 +2466,9 @@ def main() -> None:
                 "plain_ms": measured[name]["plain_ms"],
                 "bound_ms": measured[name]["bound_ms"],
                 "bound_by": measured[name]["bound_by"],
-                "library_ms": measured[name].get("library_ms")}
+                "library_ms": measured[name].get("library_ms"),
+                "kernels_ms": measured[name].get("kernels_ms"),
+                "chain_floor_ms": measured[name].get("chain_floor_ms")}
                for name, src in KERNEL_SOURCES.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

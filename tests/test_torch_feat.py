@@ -91,6 +91,25 @@ def test_segment_combine_plain_equals_reference(name, agg):
     assert got[0].numpy().tobytes() == w_out.tobytes()
 
 
+def _compare_with_reference(subj, vecs, nbrs, seg, n, n_seg, agg, sort):
+    """segment_combine (the plain route) on the padded slots with the live
+    prefix as a 0-d tensor, against the reference's jitted combine_edges
+    and, on the live slots whose seg is in range, host_combine: bit for
+    bit (integer features)."""
+    want = ref_ofeat.combine_edges(subj, vecs, nbrs, seg, np.int32(n),
+                                   n_seg, agg)
+    got = ofeat.segment_combine(*_t(subj, vecs, nbrs, seg),
+                                torch.tensor(n, dtype=torch.int32), n_seg,
+                                agg, seg_sorted=sort)
+    for g, w in zip(got, want):
+        assert g.numpy().tobytes() == np.asarray(w).tobytes()
+    ok = seg[:n] < n_seg
+    host = efeat.host_combine(subj, vecs, nbrs[:n][ok], seg[:n][ok], n_seg,
+                              agg)
+    for g, h in zip(got, host):
+        assert g.numpy().tobytes() == h.tobytes()
+
+
 @pytest.mark.parametrize("sort", [False, True])
 @pytest.mark.parametrize("agg", AGGS)
 @pytest.mark.parametrize("d", [1, 3, 8])
@@ -109,16 +128,87 @@ def test_segment_combine_plain_equals_reference_random(d, agg, sort):
     pad = np.iinfo(np.int32).max
     nb_p = np.concatenate([nbrs, np.full(20, pad, np.int32)])
     sg_p = np.concatenate([seg, np.zeros(20, np.int32)])
-    want = ref_ofeat.combine_edges(subj, vecs, nb_p, sg_p, np.int32(n),
-                                   n_seg, agg)
-    got = ofeat.segment_combine(*_t(subj, vecs, nb_p, sg_p),
-                                torch.tensor(n, dtype=torch.int32), n_seg,
-                                agg, seg_sorted=sort)
-    for g, w in zip(got, want):
-        assert g.numpy().tobytes() == np.asarray(w).tobytes()
-    host = efeat.host_combine(subj, vecs, nbrs, seg, n_seg, agg)
-    for g, h in zip(got, host):
-        assert g.numpy().tobytes() == h.tobytes()
+    _compare_with_reference(subj, vecs, nb_p, sg_p, n, n_seg, agg, sort)
+
+
+L = ofeat.LONG_MIN
+# (d, live edges per segment): around and above the card kernel's long-path
+# threshold; column widths that are not a multiple of its 32-column tile
+SIZED = [(384, (L + 1, 3, 0, 2 * L)),
+         (100, (L - 1, L, L + 1, 5)),
+         (1000, (L - 1, L, L + 1, 5)),
+         (16, (L, 1, 2 * L + 3, 0, 7, L + 9))]
+
+
+def _sized_edges(rng, lens, sort):
+    """Edges in segments of exactly `lens` live slots over a 300-row
+    tablet in a 600-rank space (about half the neighbours have a row),
+    with 13 slots of seg n_seg + 2 among them (out of range: dropped) and
+    20 dead padded slots."""
+    subj = np.sort(rng.choice(600, 300, replace=False)).astype(np.int32)
+    n_seg = len(lens)
+    seg = np.concatenate([np.repeat(np.arange(n_seg), lens),
+                          np.full(13, n_seg + 2)]).astype(np.int32)
+    if not sort:
+        seg = seg[rng.permutation(len(seg))]
+    n = len(seg)
+    nbrs = rng.integers(0, 600, n).astype(np.int32)
+    pad = np.iinfo(np.int32).max
+    return (subj, np.concatenate([nbrs, np.full(20, pad, np.int32)]),
+            np.concatenate([seg, np.zeros(20, np.int32)]), n, n_seg)
+
+
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("agg", AGGS)
+@pytest.mark.parametrize("d,lens", SIZED,
+                         ids=[f"d{d}-{'-'.join(map(str, l))}"
+                              for d, l in SIZED])
+def test_segment_combine_plain_equals_reference_sized(d, lens, agg, sort):
+    """Long segments (one at d = 384, several beside short ones), ragged
+    column widths (d 100 and 1000) and out-of-range slots."""
+    rng = np.random.default_rng(d + len(lens) + AGGS.index(agg))
+    subj, nbrs, seg, n, n_seg = _sized_edges(rng, lens, sort)
+    vecs = rng.integers(-3, 4, (len(subj), d)).astype(np.float32)
+    _compare_with_reference(subj, vecs, nbrs, seg, n, n_seg, agg, sort)
+
+
+def test_segment_combine_drops_negative_segments():
+    """The port drops a slot whose seg is negative, as it drops one past
+    n_seg. (The reference's scatter wraps a negative index into the last
+    segments; no caller of either package passes one.)"""
+    subj = np.array([1, 2, 3], np.int32)
+    vecs = np.eye(3, dtype=np.float32)
+    nbrs = np.array([1, 2, 3, 1], np.int32)
+    seg = np.array([0, -1, 5, 2], np.int32)
+    out, cnt, ecnt = (t.numpy() for t in ofeat.segment_combine(
+        *_t(subj, vecs, nbrs, seg), 4, 3, "sum"))
+    assert cnt.tolist() == [1, 0, 1] and ecnt.tolist() == [1, 0, 1]
+    assert out.tolist() == [[1, 0, 0], [0, 0, 0], [1, 0, 0]]
+
+
+@pytest.mark.parametrize("d,n_live,n_seg", [(1, 0, 1), (3, 300, 40),
+                                            (384, 206_321, 1),
+                                            (384, 4096, 1024),
+                                            (1000, 10**6, 5000)])
+def test_launch_plan(d, n_live, n_seg):
+    """The CUDA call's host-side plan: one column tile per TILE_COLS
+    columns, one slot per LONG_MIN live edges, scratch for rows, offsets
+    and slots, grids within their caps, and a shared-memory ring that
+    fits two combine blocks on one SM."""
+    plan = ofeat.launch_plan(d, n_live, n_seg)
+    assert plan["tiles"] * ofeat.TILE_COLS >= d
+    assert (plan["tiles"] - 1) * ofeat.TILE_COLS < d
+    assert plan["slots"] * L >= n_live > (plan["slots"] - 1) * L or \
+        plan["slots"] == n_live == 0
+    assert plan["scratch"] == n_live + n_seg + 1 + plan["slots"]
+    assert 1 <= plan["group_grid"] <= ofeat.GROUP_GRID_CAP
+    assert plan["group_grid"] * ofeat.THREADS >= min(
+        max(n_live, n_seg + 1), ofeat.GROUP_GRID_CAP * ofeat.THREADS)
+    assert 1 <= plan["combine_grid"] <= ofeat.COMBINE_GRID_CAP
+    assert plan["smem_bytes"] == ofeat.SMEM_BYTES <= ofeat.SMEM_LIMIT
+    assert 2 * (ofeat.SMEM_BYTES + 1024) <= 228 * 1024
+    assert ofeat.STAGE_ROWS * ofeat.TILE_COLS * 4 * ofeat.STAGES \
+        == ofeat.SMEM_BYTES
 
 
 @pytest.mark.parametrize("agg", AGGS)
