@@ -69,9 +69,11 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 call (counts zeroed just before, read just after), each
                 response equal (sort_keys JSON) to Engine(device="cuda")
                 on the same query, cold and warm batch wall time against
-                the per-query engine's over the same queries, a profile
-                of the warm batch by range (tree / step / recurse runs
-                against their host rebuild and render), and every tree
+                the per-query engine's over the same queries (the warm
+                run is the profiled one: its wall includes the
+                profiler's cost), its profile by range (tree / step /
+                recurse runs against their host rebuild and render),
+                and every tree
                 and step program of the batch held against the same
                 program on bucket_hop_plain, mask for mask; (b) at 1024
                 lanes (W = 32): the tree programs of IC3, IC12 and config
@@ -157,9 +159,44 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 call and its kernels alone, `index_add_` of the gathered
                 rows, the FADD-chain floor of its longest segment at the
                 SM's maximum clock, and its device launches per call
-  11. the `kernels` JSON line, then the device JSON line last
+  11. alpha  — a single-node Alpha (server/api.py) on phase 6's SF1 graph,
+                run after phase 9 in a temporary directory on local disk
+                that it removes: (a) the port's checkpoint of phase 6's
+                store at base_ts 1 (seconds, bytes), Alpha.open on the
+                card, the opened base equal to phase 6's store tablet for
+                tablet; (b) 1,000 update transactions of
+                tools/write_mix.py (LDBC SNB Interactive IU1-IU8 shapes
+                and two delete kinds in the tool's own proportions, a
+                synthetic stream) through Alpha.mutate with the WAL's
+                fsync on, commit p50/p99 and commits/s, then two
+                transactions opened together on one person's first_name:
+                the second raises TxnAborted; (c) the 14 IC templates and
+                config 3 through query_raw at 512, byte-equal to phase 6
+                at the ts before the writes and to the numpy route over
+                the same view at the newest ts, three read-your-writes
+                checks, ic_batch(copies=8) through Alpha.query_batch
+                (bucket_hop launches counted from zero, each response
+                equal to Alpha.query, a repeated query asked once), the
+                fold and first-read times and
+                the warm IC-mix p50; (d) a child process (started during
+                (c), waiting for its go) commits a second stream of 200
+                with a marker each and is SIGKILLed after 100 acks: the
+                reopened Alpha holds every acked marker (records
+                replayed, replay seconds, tail bytes dropped), and a torn
+                half record appended to wal.log is dropped with the state
+                unchanged; (e) after a small ELL batch and four `likes`
+                commits, Alpha.checkpoint_to truncates the WAL, hands the
+                fold the view's ELL blocks and device tensors of every
+                predicate the later commits left untouched (no build_ell),
+                and rebuilds only `likes`; the reopened checkpoint equals
+                the fold tablet for tablet and answers the IC mix in the
+                same bytes; (f) Alpha.open out of core under a quarter of
+                the tablet bytes: the same bytes, faults, evictions and a
+                peak resident below the budget plus the largest tablet.
+                Graph memory stays within fused.PROGRAM_BYTES
+  12. the `kernels` JSON line, then the device JSON line last
 
-Phases 6 to 10 fail if any block falls back from its whole-block program
+Phases 6 to 11 fail if any block falls back from its whole-block program
 to the staged route.
 
 It imports torch, numpy and dgraph_tpu_torch only.
@@ -234,6 +271,14 @@ COMBINE_SEED = 13       # the random segment_combine cases
 COMBINE_DIMS = (1, 3, 8, 128, 384)
 COMBINE_EDGES = 8000
 HUB_EDGES = 120_000
+# phase 11: the Alpha write path (tools/write_mix.py)
+ALPHA_TXNS = 1000          # update transactions of the main stream
+ALPHA_CRASH_TXNS = 200     # the killed writer's stream
+ALPHA_KILL_AFTER = 100     # acknowledgements before SIGKILL
+ALPHA_BATCH_COPIES = 8     # ic_batch copies read after the writes
+ALPHA_REPS = 3             # warm IC-mix passes
+ALPHA_SUFFIX_TXNS = 4      # likes committed between the ELL view and the fold
+ALPHA_ELL_TEMPLATES = ("IC2", "IC7", "config3")   # knows, ~has_creator, ~likes
 
 
 def say(phase: str, **kv) -> None:
@@ -939,6 +984,7 @@ def phase_ldbc(device, sf: float = LDBC_SF, reps: int = LDBC_REPS,
     host = Engine(store, device="cpu", device_threshold=HOST_ONLY)
     with fusion(False):     # the pure numpy route
         want = {k: host.query_bytes(q) for k, q in queries.items()}
+    built["ldbc_bytes"] = want       # phase 11 reads the store again
     routes, p50 = {}, {}
     engines = {"host": host}
     for thr in (LDBC_THRESHOLD, 0):
@@ -1214,17 +1260,20 @@ def phase_ic_batch(device, built: dict, copies: int = IC_BATCH_COPIES,
     got = batch.query_batch(store, qs, device=device)
     cold_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    t0 = time.perf_counter()
-    again = batch.query_batch(store, qs, device=device)
-    warm_s = time.perf_counter() - t0
     # on the card; a CPU rehearsal runs the plain hop, which counts none
     if torch.device(device).type == "cuda" and launches["bucket_hop"] < 1:
         raise AssertionError("the IC batch launched no bucket_hop")
+    # one warm run, profiled on the card (one repetition serves both)
+    held_out: dict = {}
+
+    def warm():
+        held_out["again"] = batch.query_batch(store, qs, device=device)
+
     t0 = time.perf_counter()
-    prof = (batch_profile(lambda: batch.query_batch(store, qs,
-                                                    device=device))
-            if torch.device(device).type == "cuda" else None)
-    profile_s = time.perf_counter() - t0
+    prof = (batch_profile(warm) if torch.device(device).type == "cuda"
+            else warm())
+    warm_s = time.perf_counter() - t0
+    again = held_out["again"]
     eng = Engine(store, device=device, device_threshold=LDBC_THRESHOLD)
     t0 = time.perf_counter()
     want = [eng.query(q) for q in qs]
@@ -1279,7 +1328,7 @@ def phase_ic_batch(device, built: dict, copies: int = IC_BATCH_COPIES,
             "equal_to_per_query_engine": True, "cold_s": cold_s,
             "warm_s": warm_s, "per_query_engine_s": per_query_s,
             "warm_over_per_query": warm_s / per_query_s,
-            "profile": prof, "profile_s": profile_s,
+            "profile": prof,
             "tree_run_device_ms": ranges.get("batch.tree_run", {}).get(
                 "device_us", 0.0) / 1e3,
             "step_run_device_ms": ranges.get("batch.step_run", {}).get(
@@ -1790,6 +1839,443 @@ def phase_fused(device, built: dict) -> dict:
                        "store_build_s_native": built["build_s"],
                        "store_build_s_numpy": numpy_build_s,
                        "csr": csr_ab(store)}}
+
+
+# -- phase 11: a single-node Alpha on the card ---------------------------------
+
+ALPHA_CHILD = r"""
+import json, sys
+from dgraph_tpu_torch.server.api import Alpha
+p_dir, stream = sys.argv[1], sys.argv[2]
+sys.stdin.readline()        # the parent's go: its writer has closed
+with open(stream) as f:
+    txns = json.load(f)
+a = Alpha.open(p_dir, device="cpu")
+print("ready", flush=True)
+for i, tx in enumerate(txns):
+    r = a.mutate(**tx)
+    print("ack", r["txn"]["commit_ts"], i, flush=True)
+"""
+
+
+def same_tablets(got, want, what: str) -> None:
+    """Fail unless two stores hold the same uids and, tablet for tablet,
+    the same CSR arrays, value columns, facets and token indexes."""
+    from dgraph_tpu_torch.store.store import store_diff
+    diff = store_diff(got, want)
+    if diff is not None:
+        raise AssertionError(f"phase 11 {what}: {diff}")
+
+
+def mount_type(path: str) -> str:
+    """The file system type of the mount holding `path` (/proc/mounts)."""
+    best, kind = "", "unknown"
+    path = os.path.realpath(path)
+    with open("/proc/mounts") as f:
+        for line in f:
+            fields = line.split()
+            if len(fields) > 2 and (path == fields[1] or path.startswith(
+                    fields[1].rstrip("/") + "/")) and len(fields[1]) > len(best):
+                best, kind = fields[1], fields[2]
+    return kind
+
+
+def ic_mix_bytes(alpha, queries: dict, read_ts=None) -> dict:
+    return {k: alpha.query_raw(q, read_ts=read_ts)
+            for k, q in queries.items()}
+
+
+def phase_alpha(device, built: dict, txns: int = ALPHA_TXNS,
+                crash_txns: int = ALPHA_CRASH_TXNS,
+                kill_after: int = ALPHA_KILL_AFTER,
+                copies: int = ALPHA_BATCH_COPIES) -> dict:
+    """A single-node Alpha on phase 6's SF1 graph (phase 11): boot from
+    a checkpoint, commit an update stream through the WAL, read on the
+    card at two timestamps, crash a writer, fold and checkpoint, and
+    reopen out of core. Works in a temporary directory it removes."""
+    import shutil
+    import signal
+    import subprocess
+    import tempfile
+
+    from dgraph_tpu_torch.engine import Engine, fused
+    from dgraph_tpu_torch.models import ldbc
+    from dgraph_tpu_torch.ops import bfs
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+    from dgraph_tpu_torch.server.api import Alpha, TxnAborted
+    from dgraph_tpu_torch.store import checkpoint
+    from dgraph_tpu_torch.store import wal as walmod
+    from dgraph_tpu_torch.store.outofcore import _pd_nbytes
+    from dgraph_tpu_torch.tools import write_mix
+
+    on_card = torch.device(device).type == "cuda"
+    g, store = built["g"], built["store"]
+    queries = dict(ldbc.ic_templates(g))
+    queries["config3"] = ldbc.config3_query(g)
+    out: dict = {}
+    prog_bytes = [0]
+
+    def graphs():
+        prog_bytes[0] = max(prog_bytes[0], fused.status()["program_bytes"])
+
+    def open_alpha(**kw):
+        return Alpha.open(p_dir, device=device,
+                          device_threshold=LDBC_THRESHOLD, **kw)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_alpha_")
+    out["tmp_fs"] = mount_type(tmp)
+    p_dir = os.path.join(tmp, "p")
+    wal_path = os.path.join(p_dir, "wal.log")
+    alphas = []
+    child = None
+    parts = out["parts_s"] = {}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    try:
+        # (a) boot: the port's checkpoint of phase 6's store, reopened
+        t0 = time.perf_counter()
+        checkpoint.save_versioned(store, p_dir, base_ts=1)
+        out["save_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _dirs, files in os.walk(p_dir) for f in files)
+        t0 = time.perf_counter()
+        a = open_alpha()
+        alphas.append(a)
+        out["open_s"] = time.perf_counter() - t0
+        same_tablets(a.mvcc.base, store, "(a) opened base")
+        part("a_boot")
+
+        # (b) the update stream, every commit fsync'd before it returns
+        if not a.wal.sync:
+            raise AssertionError("phase 11: the WAL does not fsync")
+        mix = write_mix.make_mix(g, n=txns)
+        ts_before = a.oracle.read_only_ts()
+        lat = []
+        t0 = time.perf_counter()
+        for tx in mix.txns:
+            t1 = time.perf_counter()
+            a.mutate(**tx.kwargs())
+            lat.append(time.perf_counter() - t1)
+        wall = time.perf_counter() - t0
+        out["commits"] = {"txns": len(lat), "kinds": mix.counts(),
+                          "p50_ms": 1e3 * float(np.median(lat)),
+                          "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+                          "per_s": len(lat) / wall}
+        person = int(g.person_uids[1])
+        t1, t2 = a.new_txn(), a.new_txn()
+        t1.mutate(set_nquads=f'<{person:#x}> <first_name> "Won" .')
+        t2.mutate(set_nquads=f'<{person:#x}> <first_name> "Lost" .')
+        t1.commit()
+        try:
+            t2.commit()
+            raise AssertionError("phase 11: the second of two conflicting "
+                                 "transactions committed")
+        except TxnAborted:
+            out["conflict_aborted"] = True
+        part("b_writes")
+
+        # the second writer of (d) starts now and waits for its go, so
+        # its interpreter and imports load while (c) reads
+        stream = write_mix.make_mix(g, n=crash_txns,
+                                    seed=write_mix.WRITE_SEED + 1, tag="c")
+        docs = []
+        for i, tx in enumerate(stream.txns):
+            kw = tx.kwargs()
+            kw["set_nquads"] = (kw.get("set_nquads", "") +
+                                f'\n_:mk <forum_title> "marker_{i}" .')
+            docs.append(kw)
+        stream_path = os.path.join(tmp, "stream.json")
+        with open(stream_path, "w") as f:
+            json.dump(docs, f)
+        child = subprocess.Popen(
+            [sys.executable, "-c", ALPHA_CHILD, p_dir, stream_path],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+        # (c) reads on the card: snapshot isolation below the stream,
+        # the fold above it held to the numpy route over the same view
+        with fusion(True):
+            got = ic_mix_bytes(a, queries, read_ts=ts_before)
+        bad = [k for k in queries if got[k] != built["ldbc_bytes"][k]]
+        if bad:
+            raise AssertionError(f"phase 11 (c): {bad} at the ts before "
+                                 f"the writes differ from phase 6")
+        graphs()
+        part("c_snapshot")
+        ts_new = a.oracle.read_only_ts()
+        t0 = time.perf_counter()
+        view = a.mvcc.read_view(ts_new)
+        out["fold_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        first = a.query_raw(queries["IC1"], read_ts=ts_new)
+        out["first_read_ms"] = 1e3 * (time.perf_counter() - t0)
+        after = ic_mix_bytes(a, queries, read_ts=ts_new)
+        host = Engine(view, device="cpu", device_threshold=HOST_ONLY)
+        with fusion(False):
+            want = {k: host.query_bytes(q) for k, q in queries.items()}
+        bad = [k for k in queries if after[k] != want[k]]
+        if bad or first != want["IC1"]:
+            raise AssertionError(f"phase 11 (c): {bad} at the newest ts "
+                                 f"differ from the numpy route")
+        graphs()
+        part("c_newest")
+        p, q = mix.checks["friends"][0]
+        got = a.query('{ q(func: uid(%#x)) { knows { uid } } }' % p,
+                      read_ts=ts_new)
+        if f"{q:#x}" not in json.dumps(got):
+            raise AssertionError("phase 11 (c): an IU8 friend is missing")
+        p, m = mix.checks["unliked"][0]
+        lq = '{ q(func: uid(%#x)) { likes { uid } } }' % p
+        if f"{m:#x}" not in json.dumps(a.query(lq, read_ts=ts_before)) or \
+                f"{m:#x}" in json.dumps(a.query(lq, read_ts=ts_new)):
+            raise AssertionError("phase 11 (c): a deleted like is visible")
+        name = mix.checks["names"][0]
+        got = a.query('{ q(func: eq(first_name, "%s")) { first_name } }'
+                      % name, read_ts=ts_new)
+        if got != {"q": [{"first_name": name}]}:
+            raise AssertionError(f"phase 11 (c): IU1 person {name} not "
+                                 f"found: {got}")
+        batch = [qq for _n, qq in ldbc.ic_batch(g, copies=copies)]
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        results = a.query_batch(batch, read_ts=ts_new)
+        out["batch_s"] = time.perf_counter() - t0
+        out["bucket_hop_launches"] = LAUNCHES["bucket_hop"]
+        if on_card and out["bucket_hop_launches"] < 1:
+            raise AssertionError("phase 11 (c): query_batch launched no "
+                                 "bucket_hop")
+        part("c_batch")
+        per_query: dict = {}          # a repeated query is asked once
+        for qq, r in zip(batch, results):
+            if qq not in per_query:
+                per_query[qq] = a.query(qq, read_ts=ts_new)
+            if r != per_query[qq]:
+                raise AssertionError(f"phase 11 (c): query_batch differs "
+                                     f"from query on {qq}")
+        out["batch_queries"] = len(batch)
+        out["batch_distinct"] = len(per_query)
+        part("c_recheck")
+        mix_lat = []
+        for _ in range(ALPHA_REPS):
+            for k, qq in queries.items():
+                if k != "config3":
+                    t0 = time.perf_counter()
+                    a.query_raw(qq, read_ts=ts_new)
+                    mix_lat.append(time.perf_counter() - t0)
+        out["ic_mix_p50_ms"] = 1e3 * float(np.median(mix_lat))
+        graphs()
+        del view, host, per_query
+        part("c_warm")
+
+        # (d) a second writer, killed after `kill_after` acknowledgements
+        a.wal.close()
+        t0 = time.perf_counter()
+        child.stdin.write("go\n")
+        child.stdin.flush()
+        acked = []
+        try:
+            for line in child.stdout:
+                fields = line.split()
+                if fields[:1] == ["ack"]:
+                    acked.append((int(fields[1]), int(fields[2])))
+                    if len(acked) >= kill_after:
+                        break
+        finally:
+            child.send_signal(signal.SIGKILL)
+            child.wait()
+        out["child_s"] = time.perf_counter() - t0
+        if len(acked) < kill_after:
+            raise AssertionError(f"phase 11 (d): the child acked "
+                                 f"{len(acked)} commits")
+        size = os.path.getsize(wal_path)
+        records = sum(1 for _ in walmod.replay(wal_path))
+        del a
+        alphas.clear()
+        gc.collect()
+        t0 = time.perf_counter()
+        a2 = open_alpha()
+        alphas.append(a2)
+        out["replay"] = {"records": records,
+                         "seconds": time.perf_counter() - t0,
+                         "tail_bytes_dropped":
+                             size - os.path.getsize(wal_path)}
+        layers = {l.commit_ts for l in a2.mvcc.layers}
+        lost = [ts for ts, _i in acked if ts not in layers]
+        blocks = " ".join('m%d(func: eq(forum_title, "marker_%d")) '
+                          '{ uid }' % (i, i) for _ts, i in acked)
+        seen = a2.query("{ " + blocks + " }")
+        lost += [i for _ts, i in acked if not seen.get(f"m{i}")]
+        if lost:
+            raise AssertionError(f"phase 11 (d): acknowledged commits lost "
+                                 f"after SIGKILL: {lost[:10]}")
+        out["acked"] = len(acked)
+        docs_before = [(l.commit_ts, walmod._mut_doc(l.mut))
+                       for l in a2.mvcc.layers]
+        a2.wal.close()
+        frame = walmod.WAL._frame({"ts": 10**12, "m": {
+            "es": [], "ed": [], "vs": [], "vd": []}}, records)
+        half = frame[:len(frame) // 2]
+        with open(wal_path, "ab") as f:
+            f.write(half)
+        size = os.path.getsize(wal_path)
+        del a2
+        alphas.clear()
+        gc.collect()
+        a3 = open_alpha()
+        alphas.append(a3)
+        dropped = size - os.path.getsize(wal_path)
+        if dropped != len(half) or docs_before != [
+                (l.commit_ts, walmod._mut_doc(l.mut))
+                for l in a3.mvcc.layers]:
+            raise AssertionError(f"phase 11 (d): replay past a torn half "
+                                 f"record ({dropped} of {len(half)} bytes "
+                                 f"dropped) changed the state")
+        out["torn_bytes_dropped"] = dropped
+        part("d_crash")
+
+        # (e) fold and checkpoint; untouched predicates keep their ELL
+        # a batch whose groups lay out ELL blocks of several predicates
+        small = [qq for n_, qq in ldbc.ic_batch(g, copies=4, ic14_copies=0)
+                 if n_ in ALPHA_ELL_TEMPLATES]
+        ts_e = a3.oracle.read_only_ts()
+        a3.query_batch(small, read_ts=ts_e)
+        view = a3.mvcc.read_view(ts_e)
+        ell = dict(view.__dict__.get("_ell_cache", {}))
+        devs = dict(view.__dict__.get("_ell_devs", {}))
+        suffix = [tx for tx in write_mix.make_mix(
+            g, n=100, seed=write_mix.WRITE_SEED + 2, tag="e").txns
+            if tx.kind in ("IU2", "IU3")][:ALPHA_SUFFIX_TXNS]
+        for tx in suffix:
+            a3.mutate(**tx.kwargs())
+        touched = {"likes"}
+        built_ell = []
+        real_build = bfs.build_ell
+
+        def counted(*args, **kw):
+            built_ell.append(1)
+            return real_build(*args, **kw)
+
+        bfs.build_ell = counted
+        try:
+            t0 = time.perf_counter()
+            ts_ck = a3.checkpoint_to(p_dir)
+            out["checkpoint_s"] = time.perf_counter() - t0
+            builds_in_checkpoint = len(built_ell)
+            new = a3.mvcc.base
+            carried, checked = 0, 0
+            for key, gval in ell.items():
+                if gval is None:
+                    continue
+                checked += 1
+                got = new.__dict__.get("_ell_cache", {}).get(key)
+                if key[0] in touched:
+                    if got is gval:
+                        raise AssertionError(f"phase 11 (e): {key} was "
+                                             f"carried though touched")
+                    continue
+                if got is not gval:
+                    raise AssertionError(f"phase 11 (e): {key} not carried")
+                for dkey, dev in devs.items():
+                    if dkey[:2] != key:
+                        continue
+                    ndev = new.__dict__["_ell_devs"].get(dkey)
+                    if ndev is not dev:
+                        raise AssertionError(f"phase 11 (e): device blocks "
+                                             f"of {key} not carried")
+                    for ta, tb in zip(tensors_of(ndev), tensors_of(dev)):
+                        if ta.data_ptr() != tb.data_ptr():
+                            raise AssertionError(
+                                f"phase 11 (e): {key} tensors moved")
+                carried += 1
+            if builds_in_checkpoint or not carried:
+                raise AssertionError(f"phase 11 (e): {builds_in_checkpoint} "
+                                     f"build_ell calls in the checkpoint, "
+                                     f"{carried} entries carried")
+            a3.query_batch(small)
+            rebuilt = len(built_ell)
+        finally:
+            bfs.build_ell = real_build
+        relaid = sorted(k for k in new.__dict__.get("_ell_cache", {})
+                        if k not in ell or k[0] in touched)
+        if not rebuilt or any(k[0] not in touched for k in relaid):
+            raise AssertionError(f"phase 11 (e): after the checkpoint "
+                                 f"{rebuilt} ELL builds, for {relaid}")
+        out["ell"] = {"entries": checked, "carried": carried,
+                      "rebuilt": rebuilt, "rebuilt_keys": relaid}
+        if list(walmod.replay(wal_path)):
+            raise AssertionError("phase 11 (e): the WAL was not truncated")
+        e_bytes = ic_mix_bytes(a3, queries)
+        graphs()
+        del view
+        fold = a3.mvcc.base
+        a3.wal.close()
+        t0 = time.perf_counter()
+        a4 = open_alpha()
+        alphas.append(a4)
+        out["reopen_s"] = time.perf_counter() - t0
+        same_tablets(a4.mvcc.base, fold, "(e) reopened checkpoint")
+        if a4.mvcc.base_ts != ts_ck or ic_mix_bytes(a4, queries) != e_bytes:
+            raise AssertionError("phase 11 (e): the reopened checkpoint "
+                                 "answers differently")
+        largest = max(_pd_nbytes(pd) for pd in fold.preds.values())
+        part("e_checkpoint")
+        del a3, fold, new, ell, devs
+        a4.wal.close()
+        alphas.clear()
+        del a4
+        gc.collect()
+
+        # (f) out of core under a quarter of the tablet bytes
+        manifest, _d = checkpoint.read_manifest(p_dir)
+        tablet_bytes = sum(m["nbytes"]
+                           for m in manifest["predicates"].values())
+        budget = tablet_bytes // 4
+        a5 = open_alpha(memory_budget=budget)
+        alphas.append(a5)
+        if ic_mix_bytes(a5, queries) != e_bytes:
+            raise AssertionError("phase 11 (f): out-of-core answers differ")
+        st = a5.mvcc.base.preds.stats()
+        if st["peak_resident_bytes"] > budget + largest:
+            raise AssertionError(f"phase 11 (f): peak resident "
+                                 f"{st['peak_resident_bytes']} above budget "
+                                 f"{budget} + largest tablet {largest}")
+        out["out_of_core"] = {"budget_bytes": budget,
+                              "tablet_bytes": tablet_bytes,
+                              "largest_tablet_bytes": largest, **st}
+        graphs()
+        a5.wal.close()
+        part("f_out_of_core")
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        for al in alphas:
+            if al.wal is not None:
+                al.wal.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["program_bytes_peak"] = prog_bytes[0]
+    if prog_bytes[0] > fused.PROGRAM_BYTES:
+        raise AssertionError(f"phase 11: graphs held {prog_bytes[0]} bytes, "
+                             f"above {fused.PROGRAM_BYTES}")
+    return out
+
+
+def tensors_of(obj) -> list:
+    """The tensors a DeviceEll holds, in attribute order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (list, tuple)):
+        return [t for x in obj for t in tensors_of(x)]
+    if hasattr(obj, "__dict__") and not isinstance(obj, torch.device):
+        return [t for v in vars(obj).values() for t in tensors_of(v)]
+    return []
 
 
 # -- phase 10: GraphRAG retrieval and @msgpass -----------------------------------
@@ -2417,6 +2903,10 @@ def main() -> None:
     t0 = time.perf_counter()
     fz = phase_fused(device, built)
     say("phase 9 fused", seconds=time.perf_counter() - t0, **fz)
+    t0 = time.perf_counter()
+    with no_fused_fallback("phase 11"):
+        alpha = phase_alpha(device, built)
+    say("phase 11 alpha", seconds=time.perf_counter() - t0, **alpha)
     # phase 7's store (its placed graphs and programs) goes before the
     # feature and GraphRAG store is built from the same graph
     g = built["g"]
@@ -2449,7 +2939,9 @@ def main() -> None:
                  "query_batch DQL features (phase 8)":
                      feat["bucket_hop_launches"]["bucket_hop"],
                  "query_batch GraphRAG (phase 10)":
-                     rag["batch_bucket_hop_launches"]},
+                     rag["batch_bucket_hop_launches"],
+                 "Alpha.query_batch after writes (phase 11)":
+                     alpha["bucket_hop_launches"]},
              "segment_combine": rag["segment_combine_launches_by_path"]}
     hub = rag["timing"]["segment_combine_msgpass_hub"]
     errs = [cases["max_abs_err"], hub["max_abs_err"],

@@ -654,3 +654,48 @@ def _step_for(store, attr: str, reverse: bool, W: int, first_visit: bool,
         if key not in fns:
             fns[key] = make_ell_step(dev, g.n, W, first_visit=first_visit)
         return fns[key]
+
+
+def carry_kernel_caches(old_store, new_store, touched) -> int:
+    """Hand a folded snapshot the kernel caches of the predicates the
+    folded layers left untouched (reference `engine/batch.py:1002`): over
+    the same vocabulary such a predicate folds to identical CSR arrays, so
+    the old snapshot's ELL blocks (`_ell_cache`), their device copies
+    (`_ell_devs`, the same tensors) and the runners built over them
+    (`_ell_fns`) stay valid. Nothing is copied and nothing is built. The
+    whole-block programs and the per-predicate CSR tensors are not
+    carried: they start empty on the new snapshot, as in the reference.
+    Returns how many (predicate, direction) entries carried."""
+    if old_store is new_store or old_store is None or new_store is None:
+        return 0
+    if getattr(old_store, "n_nodes", -1) != \
+            getattr(new_store, "n_nodes", -2):
+        return 0
+    if not np.array_equal(old_store.uids, new_store.uids):
+        return 0
+    carried = 0
+    with _cache_lock:
+        src_cache = old_store.__dict__.get("_ell_cache")
+        if not src_cache:
+            return 0
+        dst_cache = new_store.__dict__.setdefault("_ell_cache", {})
+        src_devs = old_store.__dict__.get("_ell_devs", {})
+        src_fns = old_store.__dict__.get("_ell_fns", {})
+        dst_devs = new_store.__dict__.setdefault("_ell_devs", {})
+        dst_fns = new_store.__dict__.setdefault("_ell_fns", {})
+        for key, g in src_cache.items():
+            attr, reverse = key
+            if attr in touched or key in dst_cache:
+                continue
+            dst_cache[key] = g
+            for dkey, dev in src_devs.items():
+                if dkey[:2] == key:
+                    dst_devs.setdefault(dkey, dev)
+            for fkey, fn in src_fns.items():
+                # recurse runners key (attr, reverse, W, device), step
+                # runners ("step", attr, reverse, W, first_visit, device)
+                at = fkey[1:3] if fkey[0] == "step" else fkey[:2]
+                if at == key:
+                    dst_fns.setdefault(fkey, fn)
+            carried += 1
+    return carried

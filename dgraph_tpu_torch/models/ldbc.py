@@ -2,8 +2,9 @@
 
 The port's own copy of `dgraph_tpu/models/ldbc.py`: `SNBGraph`,
 `generate`, `SCHEMA`, `ic_params` and `ic_templates` are the same code
-(the same seed gives the same arrays), and `load_into` fills the port's
-`StoreBuilder` instead of a mutation-path Alpha.
+(the same seed gives the same arrays). `load_into` fills the port's
+`StoreBuilder`; `load_into_alpha` is the reference's `load_into`, which
+commits the graph through an `Alpha`'s mutation path.
 
 The repo's headline LDBC configs run over Social Network Benchmark data —
 persons linked by `knows`, authoring posts/comments in forums, tagged with
@@ -375,3 +376,61 @@ def load_into(builder, g: SNBGraph) -> None:
         builder.add_value(u, "forum_title", f"forum_{i}")
     for i, u in enumerate(g.org_uids.tolist()):
         builder.add_value(u, "org_name", f"org_{i}")
+
+
+def load_into_alpha(alpha, g: SNBGraph, batch: int = 200_000) -> None:
+    """Install the graph through an `Alpha`'s mutation path in committed
+    batches (the reference's `load_into(alpha, g)`): the schema by
+    Alter, then each edge predicate, the person values, the message
+    timestamps and the names of tags, forums and organisations."""
+    def commit_edges(pred, pairs):
+        for i in range(0, len(pairs), batch):
+            txn = alpha.new_txn()
+            for s, o in pairs[i:i + batch]:
+                txn.mutation.edge_sets.append((int(s), pred, int(o), ()))
+            txn.commit()
+
+    def commit_weighted(pred, pairs, weights):
+        for i in range(0, len(pairs), batch):
+            txn = alpha.new_txn()
+            for (s, o), w in zip(pairs[i:i + batch],
+                                 weights[i:i + batch]):
+                txn.mutation.edge_sets.append(
+                    (int(s), pred, int(o), {"weight": float(w)}))
+            txn.commit()
+
+    alpha.alter(SCHEMA)
+    commit_weighted("knows", g.knows, g.knows_weight)
+    for pred in ("has_creator", "reply_of", "has_tag", "has_member",
+                 "container_of", "likes", "works_at"):
+        commit_edges(pred, getattr(g, pred))
+    txn = alpha.new_txn()
+    for i, uid in enumerate(g.person_uids):
+        u = int(uid)
+        txn.mutation.val_sets.append((u, "first_name", g.first_name[i],
+                                      "", ()))
+        txn.mutation.val_sets.append((u, "last_name", g.last_name[i],
+                                      "", ()))
+        txn.mutation.val_sets.append((u, "city", g.city[i], "", ()))
+        txn.mutation.val_sets.append((u, "birthday_year",
+                                      int(g.birthday_year[i]), "", ()))
+    txn.commit()
+    msg_uids = np.concatenate([g.post_uids, g.comment_uids])
+    for i in range(0, len(msg_uids), batch):
+        txn = alpha.new_txn()
+        for j in range(i, min(i + batch, len(msg_uids))):
+            txn.mutation.val_sets.append(
+                (int(msg_uids[j]), "creation_ts", int(g.creation_ts[j]),
+                 "", ()))
+        txn.commit()
+    txn = alpha.new_txn()
+    for i, uid in enumerate(g.tag_uids):
+        txn.mutation.val_sets.append((int(uid), "tag_name", TAG_NAMES[i],
+                                      "", ()))
+    for i, uid in enumerate(g.forum_uids):
+        txn.mutation.val_sets.append((int(uid), "forum_title",
+                                      f"forum_{i}", "", ()))
+    for i, uid in enumerate(g.org_uids):
+        txn.mutation.val_sets.append((int(uid), "org_name",
+                                      f"org_{i}", "", ()))
+    txn.commit()

@@ -602,13 +602,27 @@ def build_indexes(preds: dict[str, PredicateData]) -> None:
             if tk not in ("exact", "hash", "term", "fulltext", "trigram",
                           "geo"):
                 continue  # numeric/datetime ranges use sorted columns
-            inv: dict[str, list[int]] = {}
+            ids: dict[str, int] = {}       # token → id, first seen first
+            tid, subj = [], []
             for lang, col in pd.vals.items():
-                for s, v in zip(col.subj, col.vals):
+                for s, v in zip(col.subj.tolist(), col.vals):
                     for t in tokens_for(tk, v):
-                        inv.setdefault(t, []).append(int(s))
-            pd.index[tk] = {t: np.unique(np.array(s_list, np.int32))
-                            for t, s_list in inv.items()}
+                        tid.append(ids.setdefault(t, len(ids)))
+                        subj.append(s)
+            pd.index[tk] = _group_postings(list(ids), tid, subj)
+
+
+def _group_postings(tokens: list, tid: list, subj: list) -> dict:
+    """{token: sorted unique int32 ranks} from parallel (token id, rank)
+    lists, with one sort for all tokens instead of one per token."""
+    if not tokens:
+        return {}
+    span = max(subj) + 1
+    keys = np.unique(np.array(tid, np.int64) * span
+                     + np.array(subj, np.int64))
+    ranks = (keys % span).astype(np.int32)
+    cuts = np.searchsorted(keys // span, np.arange(1, len(tokens)))
+    return dict(zip(tokens, np.split(ranks, cuts)))
 
 
 def _csr_from_pairs(src: np.ndarray, dst: np.ndarray, n: int) -> EdgeRel:
@@ -710,3 +724,67 @@ def store_from_arrays(uids, schema_text: str = "",
             rev_pos=(None if spec.get("rev_pos") is None
                      else np.array(spec["rev_pos"], np.int64)))
     return Store(uids=np.array(uids, np.int64), schema=schema, preds=out)
+
+
+def store_diff(got: Store, want: Store) -> str | None:
+    """The first difference between two stores, tablet for tablet, or
+    None: uids, predicate set, forward and reverse CSR, value columns,
+    edge and value facets, and token indexes (postings compared as one
+    concatenation per tokenizer, so a million tokens cost one pass)."""
+    if not np.array_equal(got.uids, want.uids):
+        return "uids differ"
+    if sorted(got.preds.keys()) != sorted(want.preds.keys()):
+        return "predicates differ"
+    for p in want.preds.keys():
+        a, b = got.preds[p], want.preds[p]
+        for side in ("fwd", "rev"):
+            ra, rb = getattr(a, side), getattr(b, side)
+            if (ra is None) != (rb is None) or (rb is not None and not (
+                    np.array_equal(ra.indptr, rb.indptr)
+                    and np.array_equal(ra.indices, rb.indices))):
+                return f"{p} {side} CSR differs"
+        if list(a.vals) != list(b.vals):
+            return f"{p} value languages differ"
+        for lang, cb in b.vals.items():
+            ca = a.vals[lang]
+            if not (np.array_equal(ca.subj, cb.subj)
+                    and ca.vals.dtype == cb.vals.dtype
+                    and _same_items(ca.vals, cb.vals)):
+                return f"{p}@{lang} value column differs"
+        if list(a.efacets) != list(b.efacets):
+            return f"{p} edge facet keys differ"
+        for k, fb in b.efacets.items():
+            fa = a.efacets[k]
+            if not (np.array_equal(fa.pos, fb.pos)
+                    and _same_items(fa.vals, fb.vals)):
+                return f"{p} edge facet {k} differs"
+        if list(a.vfacets) != list(b.vfacets) or not all(
+                list(a.vfacets[k]) == list(m)
+                and _same_items(list(a.vfacets[k].values()), list(m.values()))
+                for k, m in b.vfacets.items()):
+            return f"{p} value facets differ"
+        if list(a.index) != list(b.index):
+            return f"{p} tokenizers differ"
+        for tk, ib in b.index.items():
+            ia = a.index[tk]
+            if ia.keys() != ib.keys():
+                return f"{p} {tk} tokens differ"
+            pa = [ia[t] for t in ib]
+            pb = list(ib.values())
+            if pb and not (np.array_equal(np.fromiter(map(len, pa), np.int64),
+                                          np.fromiter(map(len, pb), np.int64))
+                           and np.array_equal(np.concatenate(pa),
+                                              np.concatenate(pb))):
+                return f"{p} {tk} postings differ"
+    return None
+
+
+def _same_items(x, y) -> bool:
+    """Element-wise equality of two value sequences, vector rows
+    (arrays) included."""
+    if len(x) != len(y):
+        return False
+    try:
+        return list(x) == list(y)
+    except ValueError:          # rows are arrays: == gives an array
+        return all(np.array_equal(u, v) for u, v in zip(x, y))

@@ -1,0 +1,266 @@
+"""The port's single-node Alpha against the reference's.
+
+`tests/test_txn.py`'s and `tests/test_mvcc_retention.py`'s single-node
+cases, the mutation-path cases of `tests/test_geo.py` and
+`tests/test_password.py`, run as written with the port's `Alpha` in
+place of the reference's (on the CPU) — and again with the reference's,
+every query answer and mutation result of the two runs compared in
+order: the reference is the oracle. The reference's `load_into(alpha,
+g)` and the port's `load_into_alpha` give equal stores and equal IC-mix
+bytes at sf 0.02, and the write stream of `tools/write_mix.py` is read
+back through `query`, `query_raw` and `query_batch`. Tolerance: exact.
+"""
+
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import dgraph_tpu.server.api as ref_api
+import dgraph_tpu.store.mvcc as ref_mvcc_mod
+import test_geo
+import test_mvcc_retention
+import test_password
+import test_txn
+from dgraph_tpu.models import ldbc as ref_ldbc
+from dgraph_tpu_torch.engine import Engine
+from dgraph_tpu_torch.models import ldbc
+from dgraph_tpu_torch.server.api import Alpha, TxnAborted
+from dgraph_tpu_torch.store.mvcc import Mutation
+from dgraph_tpu_torch.tools import write_mix
+from test_torch_mvcc import assert_stores_equal
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class CpuAlpha(Alpha):
+    """The port's Alpha with reads on the CPU (the cases name no device)."""
+
+    def __init__(self, *a, device="cpu", **kw):
+        super().__init__(*a, device=device, **kw)
+
+    @classmethod
+    def open(cls, p_dir, device="cpu", **kw):
+        return super().open(p_dir, device=device, **kw)
+
+
+def _recording(cls, log):
+    """`cls` with every query answer and mutation result appended to
+    `log` (the transcript two runs of a case are compared by)."""
+    class Rec(cls):
+        def query(self, *a, **kw):
+            out = super().query(*a, **kw)
+            log.append(("query", json.dumps(out, sort_keys=True)))
+            return out
+
+        def mutate(self, *a, **kw):
+            out = super().mutate(*a, **kw)
+            log.append(("mutate", json.dumps(out, sort_keys=True)))
+            return out
+    return Rec
+
+
+def _run_case(module, name, alpha_cls, mutation_cls, aborted, tmp,
+              monkeypatch):
+    """Run `module.name` with `Alpha` (the module's, and
+    `dgraph_tpu.server.api.Alpha`, which some cases import inside),
+    `Mutation` and `TxnAborted` bound to one package's."""
+    with monkeypatch.context() as m:
+        m.setattr(module, "Alpha", alpha_cls)
+        m.setattr(ref_api, "Alpha", alpha_cls)
+        m.setattr(ref_mvcc_mod, "Mutation", mutation_cls)
+        m.setattr(module, "TxnAborted", aborted, raising=False)
+        fn = getattr(module, name)
+        params = inspect.signature(fn).parameters
+        kw = {}
+        if "tmp_path" in params:
+            os.makedirs(tmp, exist_ok=True)
+            kw["tmp_path"] = tmp
+        if "monkeypatch" in params:
+            kw["monkeypatch"] = m
+        fn(**kw)
+
+
+def _cases(module, skip=()):
+    """The module's test functions that drive an Alpha."""
+    out = []
+    for name, fn in inspect.getmembers(module, inspect.isfunction):
+        if not name.startswith("test_") or name in skip:
+            continue
+        src = inspect.getsource(fn)
+        if "Alpha" in src or "_alpha(" in src or "make_alpha(" in src:
+            out.append(name)
+    return out
+
+
+# cluster, transport or backup cases wait for ROADMAP Queue 1 item 9
+# (a replica's DropAttr at a broadcast ts among them); the cross-process
+# fingerprint case runs below on the port's modules
+TXN_SKIP = {"test_serve_task_read_leaves_no_pending_txn",
+            "test_drop_attr_in_backup_chain",
+            "test_drop_attr_with_out_of_order_later_commit",
+            "test_conflict_keys_deterministic_across_processes"}
+RETENTION_SKIP = {"test_grpc_txn_continuation", "test_http_commit_endpoint"}
+# threads interleave differently in each run: only the case's own
+# assertions hold, not a transcript
+NONDETERMINISTIC = {"test_bank_transfer_invariant"}
+
+CASES = ([(test_txn, n) for n in _cases(test_txn, TXN_SKIP)]
+         + [(test_mvcc_retention, n)
+            for n in _cases(test_mvcc_retention, RETENTION_SKIP)]
+         + [(test_geo, n) for n in _cases(test_geo)]
+         + [(test_password, n) for n in _cases(test_password)])
+
+
+@pytest.mark.parametrize("module,name", CASES,
+                         ids=[f"{m.__name__}::{n}" for m, n in CASES])
+def test_reference_case_on_port(module, name, tmp_path, monkeypatch):
+    port_log, ref_log = [], []
+    _run_case(module, name, _recording(CpuAlpha, port_log), Mutation,
+              TxnAborted, tmp_path / "port", monkeypatch)
+    if name in NONDETERMINISTIC:
+        return
+    _run_case(module, name, _recording(ref_api.Alpha, ref_log),
+              ref_mvcc_mod.Mutation, ref_api.TxnAborted, tmp_path / "ref",
+              monkeypatch)
+    assert port_log == ref_log
+
+
+def test_case_lists_cover_the_waiting_cases():
+    names = {n for _m, n in CASES}
+    assert {"test_geo_renders_as_geojson_and_roundtrips",
+            "test_invalid_geojson_rejected",
+            "test_password_survives_wal_replay",
+            "test_password_hashes_at_rest_and_checkpwd",
+            "test_password_missing_is_false",
+            "test_password_update_replaces",
+            "test_snapshot_isolation", "test_bank_transfer_invariant",
+            "test_commit_now_false_continuation",
+            "test_gc_respects_open_txn"} <= names
+
+
+def test_conflict_keys_deterministic_across_processes():
+    prog = (
+        "from dgraph_tpu_torch.store.mvcc import Mutation\n"
+        "from dgraph_tpu_torch.cluster.oracle import fingerprint\n"
+        "m = Mutation(edge_sets=[(1, 'friend', 2, None)],\n"
+        "             val_sets=[(3, 'name', 'alice', '', None)])\n"
+        "print(sorted(fingerprint(k) for k in m.conflict_keys()))\n")
+    outs = set()
+    for _ in range(2):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONHASHSEED"] = "random"
+        r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                           capture_output=True, text=True, env=env)
+        assert r.returncode == 0, r.stderr
+        outs.add(r.stdout.strip())
+    from dgraph_tpu.cluster.oracle import fingerprint as ref_fp
+    from dgraph_tpu.store.mvcc import Mutation as RefMutation
+    m = RefMutation(edge_sets=[(1, "friend", 2, None)],
+                    val_sets=[(3, "name", "alice", "", None)])
+    assert outs == {str(sorted(ref_fp(k) for k in m.conflict_keys()))}
+
+
+def test_parse_json_does_not_mutate_input():
+    from dgraph_tpu_torch.loader.chunker import parse_json
+    obj = {"name": "a", "friend": [{"name": "b"}]}
+    parse_json(obj)
+    assert "uid" not in obj and "uid" not in obj["friend"][0]
+
+
+def test_alpha_defaults_to_cuda(monkeypatch, tmp_path):
+    """Without a card, Alpha(...) and Alpha.open(...) called without
+    device= raise (before anything is written); with device="cpu" they
+    run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Alpha()
+    p = str(tmp_path / "p")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Alpha.open(p)
+    assert not os.path.exists(p)
+    a = Alpha.open(p, device="cpu")
+    a.mutate(set_nquads='_:a <name> "x" .')
+    assert a.query('{ q(func: has(name)) { name } }') == \
+        {"q": [{"name": "x"}]}
+
+
+# -- LDBC through the mutation path --------------------------------------------
+
+@pytest.fixture(scope="module")
+def ldbc_alphas():
+    g = ldbc.generate(sf=0.02, seed=9)
+    port = Alpha(device="cpu", device_threshold=10**9)
+    ldbc.load_into_alpha(port, g, batch=20_000)
+    ref = ref_api.Alpha(device_threshold=10**9)
+    ref_ldbc.load_into(ref, g, batch=20_000)
+    return g, port, ref
+
+
+def test_mutation_path_loaders_give_equal_stores(ldbc_alphas):
+    g, port, ref = ldbc_alphas
+    pv = port.mvcc.read_view(port.oracle.read_only_ts())
+    rv = ref.mvcc.read_view(ref.oracle.read_only_ts())
+    assert_stores_equal(pv, rv)
+    assert [l.commit_ts for l in port.mvcc.layers] == \
+        [l.commit_ts for l in ref.mvcc.layers]
+    queries = dict(ldbc.ic_templates(g))
+    queries["config3"] = ldbc.config3_query(g)
+    for name, q in queries.items():
+        assert port.query_raw(q) == ref.query_raw(q), name
+
+
+def test_write_mix_reads_back(ldbc_alphas):
+    """The update stream at sf 0.02 on both Alphas: the same answers,
+    snapshot isolation at the ts before it, read-your-writes after it,
+    and query_batch equal to query, query for query."""
+    g, port, ref = ldbc_alphas
+    queries = dict(ldbc.ic_templates(g))
+    queries["config3"] = ldbc.config3_query(g)
+    ts0 = port.oracle.read_only_ts()
+    assert ref.oracle.read_only_ts() == ts0
+    before = {k: port.query_raw(q, read_ts=ts0) for k, q in queries.items()}
+    mix = write_mix.make_mix(g, n=300, seed=3)
+    assert set(mix.counts()) == {"IU1", "IU2", "IU3", "IU4", "IU5", "IU6",
+                                 "IU7", "IU8", "DL", "DK"}
+    for tx in mix.txns:
+        got = port.mutate(**tx.kwargs())
+        want = ref.mutate(**tx.kwargs())
+        assert got == want
+    for k, q in queries.items():
+        assert port.query_raw(q, read_ts=ts0) == before[k], k
+        now = port.query_raw(q)
+        assert now == ref.query_raw(q), k
+        view = port.mvcc.read_view(port.oracle.read_only_ts())
+        assert now == Engine(view, device="cpu",
+                             device_threshold=10**9).query_bytes(q), k
+    assert_stores_equal(port.mvcc.read_view(port.oracle.read_only_ts()),
+                        ref.mvcc.read_view(ref.oracle.read_only_ts()))
+    a, b = mix.checks["friends"][0]
+    out = port.query('{ q(func: uid(%#x)) { knows { uid } } }' % a)
+    assert f"{b:#x}" in [r["uid"] for r in out["q"][0]["knows"]]
+    p, m = mix.checks["unliked"][0]
+    q = '{ q(func: uid(%#x)) { likes { uid } } }' % p
+    assert f"{m:#x}" in json.dumps(port.query(q, read_ts=ts0))
+    assert f"{m:#x}" not in json.dumps(port.query(q))
+    name = mix.checks["names"][0]
+    out = port.query('{ q(func: eq(first_name, "%s")) { first_name } }'
+                     % name)
+    assert out == {"q": [{"first_name": name}]}
+    batch = [q for _n, q in ldbc.ic_batch(g, copies=4, ic14_copies=1)]
+    got = port.query_batch(batch)
+    for q, r in zip(batch, got):
+        assert r == port.query(q), q
+    # two transactions opened together write one person's first_name:
+    # the first to commit wins, the second aborts
+    t1, t2 = port.new_txn(), port.new_txn()
+    person = int(g.person_uids[3])
+    t1.mutate(set_nquads=f'<{person:#x}> <first_name> "First" .')
+    t2.mutate(set_nquads=f'<{person:#x}> <first_name> "Second" .')
+    t1.commit()
+    with pytest.raises(TxnAborted):
+        t2.commit()
