@@ -174,7 +174,8 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 config 3 through query_raw at 512, byte-equal to phase 6
                 at the ts before the writes and to the numpy route over
                 the same view at the newest ts, three read-your-writes
-                checks, ic_batch(copies=8) through Alpha.query_batch
+                checks, ic_batch(copies=4; 8 before PR 11) through
+                Alpha.query_batch
                 (bucket_hop launches counted from zero, each response
                 equal to Alpha.query, a repeated query asked once), the
                 fold and first-read times and
@@ -193,10 +194,51 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 same bytes; (f) Alpha.open out of core under a quarter of
                 the tablet bytes: the same bytes, faults, evictions and a
                 peak resident below the budget plus the largest tablet.
-                Graph memory stays within fused.PROGRAM_BYTES
-  12. the `kernels` JSON line, then the device JSON line last
+                Graph memory stays within fused.PROGRAM_BYTES. Its
+                directory (the checkpoint of (e)) goes on to phase 12
+  12. lifecycle — the request lifecycle and the operator's durability
+                paths on phase 11's SF1 checkpoint, reopened on the card,
+                in phase 11's directory, which it removes: a full
+                backup_alpha first; (a) IC14 through Alpha.query with a
+                20 ms budget raises DeadlineExceeded (its stage and
+                seconds beside the uncancelled run), ic_batch(copies=8)
+                through query_batch(deadline_ms=1) raises at a kernel or
+                bfs checkpoint, a batch cancelled from another thread
+                raises Cancelled, and after each the IC mix answers in
+                phase 11's bytes with no read registered and no context
+                left; (b) 200 get-or-create tag upserts
+                (tools/write_mix.tag_upserts, half on existing tags),
+                each read back, p50/p99; (c) an incremental backup of
+                the upserts, verify_chain clean, restore into a new
+                directory, Alpha.open on the card: the base equal to the
+                source's fold tablet for tablet, the 14 IC templates and
+                config 3 in the same bytes, ic_batch(copies=4) equal to
+                the source's with bucket_hop launches counted from zero
+                and the kernel groups counted in the registry equal to
+                the planned ones; a restore in a child process
+                SIGKILLed after 6 tablets, resumed, bit-identical to the
+                clean restore's files; (d) attach_maintenance (rollup
+                after 4 layers, checkpoint every 1 s) while a reader
+                thread serves IC2, IC8 and IC11 on the card, each read
+                byte-equal to the numpy route at its ts, and a writer
+                commits: rollup and checkpoint jobs finish ok, a job
+                requested while paused waits, resume runs it, shutdown
+                drains; (e) profile_start/profile_stop around the restored
+                batch write a Chrome trace holding a bucket_hop kernel,
+                the maintenance.job (rollup, checkpoint, restore) and
+                maintenance.tablet spans seen, the fused routes of an IC
+                pass equal its root blocks, METRICS.render() parses
+                strictly, and the IC-mix p50 with tracing and metrics on
+                and off (interleaved, printed); (f) at sf 0.1 (the cut):
+                RDF and JSON export, run_bulk with worker processes and
+                run_live into new Alphas, both answering the IC mix in
+                the exported store's bytes (IC14, which reads edge
+                facets that the export format omits, equal between the
+                two reloads)
+  13. `route counters` (the run's totals and each phase's deltas), the
+                `kernels` JSON line, then the device JSON line last
 
-Phases 6 to 11 fail if any block falls back from its whole-block program
+Phases 6 to 12 fail if any block falls back from its whole-block program
 to the staged route.
 
 It imports torch, numpy and dgraph_tpu_torch only.
@@ -275,10 +317,26 @@ HUB_EDGES = 120_000
 ALPHA_TXNS = 1000          # update transactions of the main stream
 ALPHA_CRASH_TXNS = 200     # the killed writer's stream
 ALPHA_KILL_AFTER = 100     # acknowledgements before SIGKILL
-ALPHA_BATCH_COPIES = 8     # ic_batch copies read after the writes
+ALPHA_BATCH_COPIES = 4     # ic_batch copies read after the writes (8 before PR 11)
 ALPHA_REPS = 3             # warm IC-mix passes
 ALPHA_SUFFIX_TXNS = 4      # likes committed between the ELL view and the fold
 ALPHA_ELL_TEMPLATES = ("IC2", "IC7", "config3")   # knows, ~has_creator, ~likes
+LIFECYCLE_UPSERTS = 200         # (b) get-or-create tag upserts
+LIFECYCLE_BATCH_COPIES = 8      # (a) the batch under a 1 ms budget
+LIFECYCLE_RESTORED_COPIES = 4   # (c) the restored batch (MIN_BATCH)
+LIFECYCLE_DEADLINE_MS = 20      # (a) IC14's budget
+LIFECYCLE_CANCEL_AFTER_S = 0.05  # (a) the other thread's cancel
+LIFECYCLE_KILL_AFTER = 6        # (c) tablets the killed restore writes
+LIFECYCLE_SF = 0.1              # (f) export and loaders: the cut scale
+MAINT_ROLLUP_AFTER = 4          # (d) rollup when this many layers pend
+MAINT_CHECKPOINT_S = 1.0        # (d) periodic checkpoint
+MAINT_WRITES = 80               # (d) the writer's commits at most
+MAINT_WRITE_GAP_S = 0.02
+MAINT_MAX_S = 60.0
+MAINT_READ_TEMPLATES = ("IC2", "IC8", "IC11")
+OBS_REPS = 4                    # (e) interleaved on/off IC-mix passes
+LIVE_BATCH = 10_000             # (f) N-Quads per live-loader commit
+FACET_TEMPLATES = ("IC14",)     # read edge facets, which exports omit
 
 
 def say(phase: str, **kv) -> None:
@@ -1888,11 +1946,15 @@ def ic_mix_bytes(alpha, queries: dict, read_ts=None) -> dict:
 def phase_alpha(device, built: dict, txns: int = ALPHA_TXNS,
                 crash_txns: int = ALPHA_CRASH_TXNS,
                 kill_after: int = ALPHA_KILL_AFTER,
-                copies: int = ALPHA_BATCH_COPIES) -> dict:
+                copies: int = ALPHA_BATCH_COPIES,
+                handoff: dict | None = None) -> dict:
     """A single-node Alpha on phase 6's SF1 graph (phase 11): boot from
     a checkpoint, commit an update stream through the WAL, read on the
     card at two timestamps, crash a writer, fold and checkpoint, and
-    reopen out of core. Works in a temporary directory it removes."""
+    reopen out of core. Works in a temporary directory, which it removes
+    unless `handoff` is given: then it fills `handoff` (the directory,
+    the checkpoint's dir and its IC-mix bytes) for phase 12, which
+    removes it."""
     import shutil
     import signal
     import subprocess
@@ -2252,6 +2314,8 @@ def phase_alpha(device, built: dict, txns: int = ALPHA_TXNS,
         graphs()
         a5.wal.close()
         part("f_out_of_core")
+        if handoff is not None:
+            handoff.update(tmp=tmp, p_dir=p_dir, ic_bytes=e_bytes)
     finally:
         if child is not None and child.poll() is None:
             child.kill()
@@ -2259,11 +2323,556 @@ def phase_alpha(device, built: dict, txns: int = ALPHA_TXNS,
         for al in alphas:
             if al.wal is not None:
                 al.wal.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if handoff is None or "tmp" not in handoff:
+            shutil.rmtree(tmp, ignore_errors=True)
     out["program_bytes_peak"] = prog_bytes[0]
     if prog_bytes[0] > fused.PROGRAM_BYTES:
         raise AssertionError(f"phase 11: graphs held {prog_bytes[0]} bytes, "
                              f"above {fused.PROGRAM_BYTES}")
+    return out
+
+
+RESTORE_CHILD = r"""
+import sys
+from dgraph_tpu_torch.server.backup import restore
+dest, p_dir = sys.argv[1], sys.argv[2]
+
+
+def pace():
+    print("tablet", flush=True)
+
+
+restore(dest, p_dir, pace=pace)
+print("done", flush=True)
+"""
+
+_PROM_LINE = (r'^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?P<labels>.*)\})? '
+              r'(?P<value>[0-9.eE+-]+|\+Inf)$')
+_PROM_LABEL = r'(?P<k>[a-zA-Z_][a-zA-Z0-9_]*)="(?P<v>(?:\\.|[^"\\])*)"'
+
+
+def check_prometheus(text: str) -> dict:
+    """Strict parse of the Prometheus text format: every sample line
+    well formed, under a TYPE line; every histogram with ascending `le`
+    buckets, non-decreasing cumulative counts, +Inf equal to _count, and
+    a _sum. Returns {kind: series count}; raises on any fault."""
+    import re
+    types: dict = {}
+    hists: dict = {}
+    kinds: dict = {}
+    line_re, label_re = re.compile(_PROM_LINE), re.compile(_PROM_LABEL)
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            _h, _t, name, kind = line.split(" ")
+            if name in types or kind not in ("counter", "gauge",
+                                             "histogram"):
+                raise AssertionError(f"bad TYPE line {line!r}")
+            types[name] = kind
+            continue
+        m = line_re.match(line)
+        if m is None:
+            raise AssertionError(f"malformed sample {line!r}")
+        raw = m.group("labels") or ""
+        labels = {x.group("k"): x.group("v")
+                  for x in label_re.finditer(raw)}
+        if raw and ",".join(f'{k}="{v}"' for k, v in labels.items()) != raw:
+            raise AssertionError(f"malformed labels {line!r}")
+        name = m.group("name")
+        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        kind = types.get(name) or types.get(base)
+        if kind is None:
+            raise AssertionError(f"no TYPE for {name}")
+        kinds[kind] = kinds.get(kind, 0) + 1
+        if kind == "histogram" and base in types:
+            key = (base, tuple(sorted((k, v) for k, v in labels.items()
+                                      if k != "le")))
+            h = hists.setdefault(key, {"b": [], "sum": None, "n": None})
+            value = float(m.group("value"))
+            if name.endswith("_bucket"):
+                le = labels["le"]
+                h["b"].append((float("inf") if le == "+Inf" else float(le),
+                               value))
+            elif name.endswith("_sum"):
+                h["sum"] = value
+            else:
+                h["n"] = value
+    for key, h in hists.items():
+        les = [le for le, _c in h["b"]]
+        counts = [c for _le, c in h["b"]]
+        if (h["sum"] is None or h["n"] is None or les != sorted(les)
+                or not les or les[-1] != float("inf")
+                or counts != sorted(counts) or counts[-1] != h["n"]):
+            raise AssertionError(f"inconsistent histogram {key}")
+    return kinds
+
+
+def counter_totals(prefixes) -> dict:
+    """The registry's counters whose names start with `prefixes`."""
+    from dgraph_tpu_torch.utils.metrics import METRICS
+    return {k: v for k, v in METRICS.snapshot()["counters"].items()
+            if k.startswith(prefixes)}
+
+
+ROUTE_COUNTERS = ("fused_route_total", "knn_route_total", "feat_route_total",
+                  "edges_traversed_total", "kernel_group_launches_total")
+
+
+def counter_delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in after.items()
+            if v != before.get(k, 0.0)}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _dirs, files in os.walk(path) for f in files)
+
+
+def dir_files(path: str) -> dict:
+    return {f: open(os.path.join(path, f), "rb").read()
+            for f in sorted(os.listdir(path))}
+
+
+def phase_lifecycle(device, built: dict, handoff: dict,
+                    upserts: int = LIFECYCLE_UPSERTS,
+                    copies: int = LIFECYCLE_BATCH_COPIES,
+                    restored_copies: int = LIFECYCLE_RESTORED_COPIES,
+                    kill_after: int = LIFECYCLE_KILL_AFTER,
+                    sf: float = LIFECYCLE_SF,
+                    deadline_ms: float = LIFECYCLE_DEADLINE_MS) -> dict:
+    """Phase 12: the request lifecycle and the operator's durability
+    paths on phase 11's SF1 Alpha and directory, which it removes."""
+    import glob
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from dgraph_tpu_torch.dql.parser import parse
+    from dgraph_tpu_torch.engine import Engine
+    from dgraph_tpu_torch.engine.batch import plan_batch_groups_cached
+    from dgraph_tpu_torch.loader.bulk import run_bulk
+    from dgraph_tpu_torch.loader.live import run_live
+    from dgraph_tpu_torch.models import ldbc
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+    from dgraph_tpu_torch.server.api import Alpha
+    from dgraph_tpu_torch.server.backup import (backup_alpha, restore,
+                                                verify_chain)
+    from dgraph_tpu_torch.store import checkpoint
+    from dgraph_tpu_torch.store.store import StoreBuilder
+    from dgraph_tpu_torch.store.schema import parse_schema
+    from dgraph_tpu_torch.tools import write_mix
+    from dgraph_tpu_torch.utils import deadline as dl
+    from dgraph_tpu_torch.utils import tracing
+    from dgraph_tpu_torch.utils.metrics import METRICS
+
+    on_card = torch.device(device).type == "cuda"
+    g = built["g"]
+    queries = dict(ldbc.ic_templates(g))
+    queries["config3"] = ldbc.config3_query(g)
+    tmp, p_dir = handoff["tmp"], handoff["p_dir"]
+    want_mix = handoff["ic_bytes"]
+    out: dict = {}
+    alphas: list = []
+    parts = out["parts_s"] = {}
+    t_part = [time.perf_counter()]
+    spans: dict = {}
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    def sink(s):
+        if s.name.startswith("maintenance."):
+            key = f"{s.name}:{s.attrs.get('job', '')}"
+            spans[key] = spans.get(key, 0) + 1
+
+    def open_alpha(path, **kw):
+        a = Alpha.open(path, device=device,
+                       device_threshold=LDBC_THRESHOLD, **kw)
+        alphas.append(a)
+        return a
+
+    def settled(a, what):
+        if a._active_reads or dl.current() is not None:
+            raise AssertionError(f"phase 12 {what}: reads "
+                                 f"{a._active_reads} or a request context "
+                                 f"left registered")
+        if ic_mix_bytes(a, queries) != want_mix:
+            raise AssertionError(f"phase 12 {what}: the next IC-mix pass "
+                                 f"differs from phase 11's checkpoint")
+
+    tracing.add_sink(sink)
+    child = None
+    try:
+        t0 = time.perf_counter()
+        src = open_alpha(p_dir)
+        out["open_s"] = time.perf_counter() - t0
+        if ic_mix_bytes(src, queries) != want_mix:
+            raise AssertionError("phase 12: the reopened Alpha answers the "
+                                 "IC mix differently from phase 11")
+        dest = os.path.join(tmp, "backups")
+        t0 = time.perf_counter()
+        m_full = backup_alpha(src, p_dir, dest)
+        out["backup_full"] = {"seconds": time.perf_counter() - t0,
+                              "bytes": dir_bytes(dest), **m_full}
+        part("c_full_backup")
+
+        # (a) deadlines: a pathological query, a batch, a cancel
+        ic14 = queries["IC14"]
+        t0 = time.perf_counter()
+        full = src.query(ic14)
+        uncancelled_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            src.query(ic14, deadline_ms=deadline_ms)
+            raise AssertionError("phase 12 (a): IC14 beat its budget")
+        except dl.DeadlineExceeded as e:
+            out["ic14_deadline"] = {
+                "stage": e.stage, "budget_ms": deadline_ms,
+                "seconds": time.perf_counter() - t0,
+                "uncancelled_s": uncancelled_s,
+                "paths": len(full.get("_path_", []))}
+        settled(src, "(a) IC14")
+        batch = [qq for _n, qq in ldbc.ic_batch(g, copies=copies)]
+        t0 = time.perf_counter()
+        try:
+            src.query_batch(batch, deadline_ms=1)
+            raise AssertionError("phase 12 (a): the batch beat 1 ms")
+        except dl.DeadlineExceeded as e:
+            if e.stage not in ("kernel", "bfs"):
+                raise AssertionError(f"phase 12 (a): the batch stopped at "
+                                     f"{e.stage!r}, not a kernel or bfs "
+                                     f"checkpoint") from e
+            out["batch_deadline"] = {"stage": e.stage, "budget_ms": 1,
+                                     "queries": len(batch),
+                                     "seconds": time.perf_counter() - t0}
+        settled(src, "(a) batch")
+        ctx = dl.RequestContext()
+        caught: list = []
+
+        def cancelled_batch():
+            try:
+                with dl.activate(ctx):
+                    src.query_batch(batch)
+                caught.append(None)
+            except dl.Cancelled as e:
+                caught.append(e)
+
+        t0 = time.perf_counter()
+        th = threading.Thread(target=cancelled_batch)
+        th.start()
+        time.sleep(LIFECYCLE_CANCEL_AFTER_S)
+        ctx.cancel()
+        th.join(120)
+        if th.is_alive() or not caught or caught[0] is None:
+            raise AssertionError("phase 12 (a): the cancelled batch ran "
+                                 "to its end")
+        out["cancel"] = {"stage": caught[0].stage,
+                         "after_s": LIFECYCLE_CANCEL_AFTER_S,
+                         "seconds": time.perf_counter() - t0}
+        settled(src, "(a) cancel")
+        part("a_deadlines")
+
+        # (b) get-or-create tag upserts, each read back
+        ops = write_mix.tag_upserts(g, upserts)
+        lat = []
+        for op in ops:
+            t0 = time.perf_counter()
+            r = src.upsert(op.src)
+            lat.append(time.perf_counter() - t0)
+            if r["applied"] != 1 or bool(r["uids"]) != op.creates:
+                raise AssertionError(f"phase 12 (b): upsert of {op.tag} "
+                                     f"gave {r}")
+        lost = [op.tag for op in ops
+                if not write_mix.upsert_took(src.query(op.check), op)]
+        if lost:
+            raise AssertionError(f"phase 12 (b): upserts not read back: "
+                                 f"{lost[:5]}")
+        out["upserts"] = {"n": len(ops),
+                          "creates": sum(op.creates for op in ops),
+                          "p50_ms": 1e3 * float(np.median(lat)),
+                          "p99_ms": 1e3 * float(np.percentile(lat, 99))}
+        part("b_upserts")
+
+        # (c) incremental backup, verify, restore, reopen on the card
+        t0 = time.perf_counter()
+        m_incr = backup_alpha(src, p_dir, dest)
+        out["backup_incr"] = {"seconds": time.perf_counter() - t0,
+                              **m_incr}
+        if m_incr["type"] != "incr" or m_incr["records"] < len(ops):
+            raise AssertionError(f"phase 12 (c): not an incremental of "
+                                 f"the upserts: {m_incr}")
+        t0 = time.perf_counter()
+        report = verify_chain(dest)
+        out["verify_s"] = time.perf_counter() - t0
+        if not report["ok"]:
+            raise AssertionError(f"phase 12 (c): verify_chain: "
+                                 f"{report['errors'][:3]}")
+        r_dir = os.path.join(tmp, "restored")
+        t0 = time.perf_counter()
+        r_ts = restore(dest, r_dir)
+        out["restore"] = {"seconds": time.perf_counter() - t0,
+                          "bytes": dir_bytes(r_dir), "ts": r_ts}
+        t0 = time.perf_counter()
+        rst = open_alpha(r_dir)
+        out["restored_open_s"] = time.perf_counter() - t0
+        same_tablets(rst.mvcc.base, src.mvcc.rollup(),
+                     "(c) restored base")
+        src_mix = ic_mix_bytes(src, queries)
+        if ic_mix_bytes(rst, queries) != src_mix:
+            raise AssertionError("phase 12 (c): the restored Alpha answers "
+                                 "the IC mix differently")
+        small = [qq for _n, qq in ldbc.ic_batch(g, copies=restored_copies)]
+        view = rst.mvcc.read_view(rst.oracle.read_only_ts())
+        plans, _left = plan_batch_groups_cached(view, small)
+        k0 = counter_totals(("kernel_group_launches_total",))
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        got = rst.query_batch(small)
+        out["restored_batch_s"] = time.perf_counter() - t0
+        out["bucket_hop_launches"] = LAUNCHES["bucket_hop"]
+        groups = sum(counter_delta(
+            k0, counter_totals(("kernel_group_launches_total",))).values())
+        if groups != len(plans):
+            raise AssertionError(f"phase 12 (c): {groups} kernel groups "
+                                 f"counted, {len(plans)} planned")
+        if on_card and out["bucket_hop_launches"] < 1:
+            raise AssertionError("phase 12 (c): the restored batch "
+                                 "launched no bucket_hop")
+        if got != src.query_batch(small):
+            raise AssertionError("phase 12 (c): the restored batch differs "
+                                 "from the source's")
+        out["restored_batch"] = {"queries": len(small), "groups": groups}
+        del view
+        part("c_restore")
+
+        # a restore in a child, SIGKILLed after `kill_after` tablets,
+        # then resumed here: the same files as the clean restore
+        k_dir = os.path.join(tmp, "killed")
+        child = subprocess.Popen(
+            [sys.executable, "-c", RESTORE_CHILD, dest, k_dir],
+            stdout=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        written = 0
+        try:
+            for line in child.stdout:
+                if line.startswith("tablet"):
+                    written += 1
+                    if written >= kill_after:
+                        break
+        finally:
+            child.send_signal(signal.SIGKILL)
+            child.wait()
+        child = None
+        if written < kill_after or not os.path.exists(
+                os.path.join(k_dir, "restore.journal")):
+            raise AssertionError(f"phase 12 (c): the killed restore wrote "
+                                 f"{written} tablets and no journal")
+        r0 = METRICS.get("restore_resumed_total")
+        t0 = time.perf_counter()
+        restore(dest, k_dir)
+        out["resumed_restore"] = {
+            "killed_after_tablets": written,
+            "seconds": time.perf_counter() - t0,
+            "resumed": METRICS.get("restore_resumed_total") - r0}
+        if out["resumed_restore"]["resumed"] != 1 or dir_files(
+                checkpoint.resolve(k_dir)) != dir_files(
+                checkpoint.resolve(r_dir)):
+            raise AssertionError("phase 12 (c): the resumed restore is not "
+                                 "bit-identical to the clean one")
+        part("c_killed_restore")
+
+        # (d) maintenance under a reader on the card and a writer
+        ok0 = {j: METRICS.get("maintenance_jobs_total", job=j, outcome="ok")
+               for j in ("rollup", "checkpoint")}
+        sched = src.attach_maintenance(p_dir, rollup_after=MAINT_ROLLUP_AFTER,
+                                       checkpoint_every_s=MAINT_CHECKPOINT_S)
+        stop = threading.Event()
+        reads, errors = [], []
+        read_qs = [queries[k] for k in MAINT_READ_TEMPLATES]
+
+        def reader():
+            i = 0
+            while not stop.is_set():
+                q = read_qs[i % len(read_qs)]
+                i += 1
+                try:
+                    ts = src.oracle.read_only_ts()
+                    with src._reading(ts):
+                        card = src.query_raw(q, read_ts=ts)
+                        host = Engine(src.mvcc.read_view(ts), device="cpu",
+                                      device_threshold=HOST_ONLY)
+                        with fusion(False):
+                            want = host.query_bytes(q)
+                    reads.append(ts)
+                    if card != want:
+                        errors.append((ts, q[:60]))
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+
+        rd = threading.Thread(target=reader)
+        rd.start()
+        stream = write_mix.make_mix(g, n=MAINT_WRITES,
+                                    seed=write_mix.WRITE_SEED + 3, tag="m")
+        t0 = time.perf_counter()
+        done_jobs = {}
+        for tx in stream.txns:
+            src.mutate(**tx.kwargs())
+            done_jobs = {j: METRICS.get("maintenance_jobs_total", job=j,
+                                        outcome="ok") - ok0[j] for j in ok0}
+            if all(done_jobs.values()) and len(reads) >= 2:
+                break
+            time.sleep(MAINT_WRITE_GAP_S)
+        while not (all(done_jobs.values()) and len(reads) >= 2) and \
+                time.perf_counter() - t0 < MAINT_MAX_S:
+            time.sleep(0.05)
+            done_jobs = {j: METRICS.get("maintenance_jobs_total", job=j,
+                                        outcome="ok") - ok0[j] for j in ok0}
+        stop.set()
+        rd.join(120)
+        if errors or not all(done_jobs.values()) or len(reads) < 2:
+            raise AssertionError(f"phase 12 (d): jobs {done_jobs}, "
+                                 f"{len(reads)} reads, errors {errors[:3]}")
+        sched.pause()
+        job = sched.request_checkpoint()
+        try:
+            job.wait(timeout=0.3)
+            raise AssertionError("phase 12 (d): a job ran while paused")
+        except TimeoutError:
+            pass
+        paused_status = sched.status()
+        sched.resume()
+        job.wait(timeout=120)
+        t1 = time.perf_counter()
+        src.shutdown()
+        out["maintenance"] = {
+            "jobs_ok": done_jobs, "reads": len(reads),
+            "writes": sum(1 for _ in stream.txns), "seconds": t1 - t0,
+            "paused_queue": len(paused_status["queued"]),
+            "drain_s": time.perf_counter() - t1,
+            "jobs_done": sched.status()["jobs_done"]}
+        if sched._thread.is_alive():
+            raise AssertionError("phase 12 (d): shutdown did not drain")
+        part("d_maintenance")
+
+        # (e) observability: a device profile, spans, the exposition
+        prof_dir = os.path.join(tmp, "profile")
+        tracing.profile_start(prof_dir)
+        try:
+            rst.query_batch(small)
+        finally:
+            tracing.profile_stop()
+        files = glob.glob(os.path.join(prof_dir, "trace-*.json"))
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        hop_events = [e for e in events if e.get("cat") == "kernel"
+                      and "bucket_hop" in e.get("name", "")]
+        if on_card and not hop_events:
+            raise AssertionError("phase 12 (e): the device trace holds no "
+                                 "bucket_hop kernel")
+        need = ("maintenance.job:rollup", "maintenance.job:checkpoint",
+                "maintenance.job:restore", "maintenance.tablet:restore")
+        if any(not spans.get(k) for k in need):
+            raise AssertionError(f"phase 12 (e): spans {spans}")
+        blocks = sum(1 for q in queries.values() for sg in parse(q)
+                     if sg.shortest is None)
+        f0 = counter_totals(("fused_route_total",))
+        ic_mix_bytes(rst, queries)
+        routed = sum(counter_delta(
+            f0, counter_totals(("fused_route_total",))).values())
+        if routed != blocks:
+            raise AssertionError(f"phase 12 (e): {routed} blocks routed, "
+                                 f"the IC mix has {blocks}")
+        kinds = check_prometheus(METRICS.render())
+        lat = {True: [], False: []}
+        try:
+            for rep in range(OBS_REPS):
+                for flag in ((True, False) if rep % 2 else (False, True)):
+                    tracing.set_enabled(flag)
+                    METRICS.set_enabled(flag)
+                    for k, qq in queries.items():
+                        if k not in ("IC14", "config3"):
+                            t1 = time.perf_counter()
+                            rst.query_raw(qq)
+                            lat[flag].append(time.perf_counter() - t1)
+        finally:
+            tracing.set_enabled(True)
+            METRICS.set_enabled(True)
+        out["observability"] = {
+            "trace_file_bytes": os.path.getsize(files[0]),
+            "trace_events": len(events),
+            "bucket_hop_events": len(hop_events),
+            "spans": spans, "fused_routed_blocks": routed,
+            "exposition_series": kinds,
+            "ic_mix_p50_ms_on": 1e3 * float(np.median(lat[True])),
+            "ic_mix_p50_ms_off": 1e3 * float(np.median(lat[False]))}
+        part("e_observability")
+        for a in alphas:
+            if a.wal is not None:
+                a.wal.close()
+        del src, rst
+        alphas.clear()
+        gc.collect()
+
+        # (f) export and the loaders, at a cut scale
+        g2 = ldbc.generate(sf=sf, seed=LDBC_SEED)
+        b = StoreBuilder(parse_schema(ldbc.SCHEMA))
+        ldbc.load_into(b, g2)
+        exp = Alpha(base=b.finalize(), device=device,
+                    device_threshold=LDBC_THRESHOLD)
+        q2 = dict(ldbc.ic_templates(g2))
+        q2["config3"] = ldbc.config3_query(g2)
+        want2 = {k: exp.query_raw(q) for k, q in q2.items()}
+        rdf_path = os.path.join(tmp, "export.rdf")
+        t0 = time.perf_counter()
+        n_rdf = exp.export_to(rdf_path)
+        rdf_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_json = exp.export_to(os.path.join(tmp, "export.json"),
+                               format="json")
+        json_s = time.perf_counter() - t0
+        with open(rdf_path) as f:
+            rdf = f.read()
+        t0 = time.perf_counter()
+        bst = run_bulk(rdf, os.path.join(tmp, "bulk"),
+                       schema_text=ldbc.SCHEMA, n_mappers=4)
+        bulk_s = time.perf_counter() - t0
+        bulked = open_alpha(os.path.join(tmp, "bulk"))
+        live = Alpha(device=device, device_threshold=LDBC_THRESHOLD)
+        live.alter(ldbc.SCHEMA)
+        t0 = time.perf_counter()
+        lst = run_live(live, rdf, batch_size=LIVE_BATCH, concurrency=1)
+        live_s = time.perf_counter() - t0
+        bad = []
+        for k, q in q2.items():
+            gb, gl = bulked.query_raw(q), live.query_raw(q)
+            # the export carries no facets (the reference's format): a
+            # facet-reading template is held between the two reloads
+            if gb != gl or (k not in FACET_TEMPLATES and gb != want2[k]):
+                bad.append(k)
+        if bad or bst.nquads != n_rdf or lst.nquads != n_rdf:
+            raise AssertionError(f"phase 12 (f): reloads differ on {bad} "
+                                 f"({bst.nquads}/{lst.nquads} of {n_rdf})")
+        out["export"] = {"sf": sf, "nodes": g2.n_nodes,
+            "rdf_statements": n_rdf,
+            "rdf_bytes": len(rdf), "rdf_s": rdf_s, "json_nodes": n_json,
+            "json_s": json_s, "bulk_s": bulk_s, "bulk_nodes": bst.nodes,
+            "live_s": live_s, "live_txns": lst.txns,
+            "facet_templates": sorted(FACET_TEMPLATES)}
+        part("f_export_loaders")
+    finally:
+        tracing.remove_sink(sink)
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        for a in alphas:
+            if a.wal is not None:
+                a.wal.close()
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -2646,11 +3255,17 @@ def knn_timing(store, device, q: np.ndarray, k: int) -> dict:
             "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
 
 
+def route_counts(name: str) -> dict:
+    """A route counter of the metrics registry, per route label."""
+    from dgraph_tpu_torch.utils.metrics import METRICS
+    return {r: METRICS.get(name, route=r)
+            for r in ("host", "device", "fused")}
+
+
 def phase_graphrag(device, g, store) -> dict:
     """Per-query and batched serving of the GraphRAG mix (phase 10 b-d)."""
     from dgraph_tpu_torch.dql.parser import parse
     from dgraph_tpu_torch.engine import Engine, batch, fused
-    from dgraph_tpu_torch.engine import feat as efeat
     from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES as HOP
     from dgraph_tpu_torch.ops.feat import LAUNCHES as COMBINE
     from dgraph_tpu_torch.store import vec
@@ -2667,8 +3282,8 @@ def phase_graphrag(device, g, store) -> dict:
         want = {k: host.query_bytes(q) for k, q in queries.items()}
     host_pass_s = time.perf_counter() - t0
     fused.reset()
-    vec.reset()
-    efeat.reset()
+    knn0, feat0 = route_counts("knn_route_total"), \
+        route_counts("feat_route_total")
     for d in (HOP, COMBINE):
         for k in d:
             d[k] = 0
@@ -2687,9 +3302,9 @@ def phase_graphrag(device, g, store) -> dict:
         if kinds != [expect[k]]:
             raise AssertionError(f"{k}: planned {kinds}, want "
                                  f"{[expect[k]]}")
-        before = (fused.status(), vec.status()["routes"],
-                  efeat.status()["routes"], dict(eng.routes.expansions),
-                  COMBINE["segment_combine"])
+        before = (fused.status(), route_counts("knn_route_total"),
+                  route_counts("feat_route_total"),
+                  dict(eng.routes.expansions), COMBINE["segment_combine"])
         had = set(map(id, fused.captured()))
         t0 = time.perf_counter()
         got = eng.query_bytes(q)
@@ -2706,10 +3321,10 @@ def phase_graphrag(device, g, store) -> dict:
                   - before[0]["routes"]["fused"],
                   "captures": after["captures"] - before[0]["captures"],
                   "knn_routes": {r: n - before[1][r] for r, n in
-                                 vec.status()["routes"].items()
+                                 route_counts("knn_route_total").items()
                                  if n - before[1][r]},
                   "feat_routes": {r: n - before[2][r] for r, n in
-                                  efeat.status()["routes"].items()
+                                  route_counts("feat_route_total").items()
                                   if n - before[2][r]},
                   "expansions": {r: n - before[3][r] for r, n in
                                  eng.routes.expansions.items()
@@ -2849,7 +3464,10 @@ def phase_graphrag(device, g, store) -> dict:
             "byte_equal": True, "templates": per,
             "p50_ms": {k: r["p50_ms"] for k, r in per.items()},
             "programs_checked": checked, "status": status,
-            "knn": vec.status(), "feat": efeat.status(),
+            "knn": {r: n - knn0[r] for r, n in
+                    route_counts("knn_route_total").items()},
+            "feat": {r: n - feat0[r] for r, n in
+                     route_counts("feat_route_total").items()},
             "batch_queries": len(qs), "batch_families": families,
             "batch_bucket_hop_launches": batch_hops,
             "batch_cold_s": cold_s, "batch_warm_s": warm_s,
@@ -2861,9 +3479,19 @@ def phase_graphrag(device, g, store) -> dict:
 
 def main() -> None:
     t_start = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     device = "cuda"
+    run_start = counter_totals(ROUTE_COUNTERS)
+    tape: dict = {}
+
+    def counted(name, fn):
+        """Run one phase; keep its route counters' deltas."""
+        before = counter_totals(ROUTE_COUNTERS)
+        out = fn()
+        tape[name] = counter_delta(before, counter_totals(ROUTE_COUNTERS))
+        return out
+
     phase_build()
     from dgraph_tpu_torch.engine.batch import _ell_for
 
@@ -2880,8 +3508,8 @@ def main() -> None:
     from dgraph_tpu_torch.tools.hop_profile import make_seeds
     hop = phase_kernels(g, device,
                         pack_seed_masks(g, make_seeds(N_NODES, LANES)))
-    launches = phase_serve(store, device, N_NODES, SERVE_QUERIES,
-                           SERVE_DEPTH)
+    launches = counted("phase 4", lambda: phase_serve(
+        store, device, N_NODES, SERVE_QUERIES, SERVE_DEPTH))
     phase_bench(store, device, N_NODES, LANES, DEPTH, CHECK_LANES,
                 hop["bound_ms"])
     del store, g
@@ -2891,22 +3519,29 @@ def main() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     with no_fused_fallback("phase 6"):
-        ldbc = phase_ldbc(device, built=built)
+        ldbc = counted("phase 6", lambda: phase_ldbc(device, built=built))
     # the per-query path runs torch ops only: no hand kernel of the repo
     # is on it, and these counts show none launched
     say("phase 6 ldbc", seconds=time.perf_counter() - t0,
         hand_kernel_launches=dict(LAUNCHES), **ldbc)
     t0 = time.perf_counter()
     with no_fused_fallback("phase 7"):
-        ic = phase_ic_batch(device, built)
+        ic = counted("phase 7", lambda: phase_ic_batch(device, built))
     say("phase 7 ic batch", seconds=time.perf_counter() - t0, **ic)
     t0 = time.perf_counter()
-    fz = phase_fused(device, built)
+    fz = counted("phase 9", lambda: phase_fused(device, built))
     say("phase 9 fused", seconds=time.perf_counter() - t0, **fz)
     t0 = time.perf_counter()
+    handoff: dict = {}
     with no_fused_fallback("phase 11"):
-        alpha = phase_alpha(device, built)
+        alpha = counted("phase 11", lambda: phase_alpha(
+            device, built, handoff=handoff))
     say("phase 11 alpha", seconds=time.perf_counter() - t0, **alpha)
+    t0 = time.perf_counter()
+    with no_fused_fallback("phase 12"):
+        life = counted("phase 12", lambda: phase_lifecycle(
+            device, built, handoff))
+    say("phase 12 lifecycle", seconds=time.perf_counter() - t0, **life)
     # phase 7's store (its placed graphs and programs) goes before the
     # feature and GraphRAG store is built from the same graph
     g = built["g"]
@@ -2921,7 +3556,7 @@ def main() -> None:
         nodes=store.n_nodes, **emb)
     t0 = time.perf_counter()
     with no_fused_fallback("phase 8"):
-        feat = phase_features(device, g, store)
+        feat = counted("phase 8", lambda: phase_features(device, g, store))
     say("phase 8 dql features", seconds=time.perf_counter() - t0, **feat)
     t0 = time.perf_counter()
     cases = phase_combine_cases(device)
@@ -2929,7 +3564,7 @@ def main() -> None:
         **cases)
     t0 = time.perf_counter()
     with no_fused_fallback("phase 10"):
-        rag = phase_graphrag(device, g, store)
+        rag = counted("phase 10", lambda: phase_graphrag(device, g, store))
     say("phase 10 graphrag", seconds=time.perf_counter() - t0, **rag)
     # the launches of each main path, counted from zero around its run
     paths = {"bucket_hop": {
@@ -2941,14 +3576,25 @@ def main() -> None:
                  "query_batch GraphRAG (phase 10)":
                      rag["batch_bucket_hop_launches"],
                  "Alpha.query_batch after writes (phase 11)":
-                     alpha["bucket_hop_launches"]},
+                     alpha["bucket_hop_launches"],
+                 "restored Alpha.query_batch (phase 12)":
+                     life["bucket_hop_launches"]},
              "segment_combine": rag["segment_combine_launches_by_path"]}
     hub = rag["timing"]["segment_combine_msgpass_hub"]
     errs = [cases["max_abs_err"], hub["max_abs_err"],
             rag["timing"]["segment_combine_featprop_mean"]["max_abs_err"]]
     measured = {"bucket_hop": hop,
                 "segment_combine": {**hub, "max_abs_err": max(errs)}}
-    say("script", seconds=time.perf_counter() - t_start)
+    totals = counter_delta(run_start, counter_totals(ROUTE_COUNTERS))
+    outside = {k: v - sum(d.get(k, 0.0) for d in tape.values())
+               for k, v in totals.items()}
+    if any(v < 0 for v in outside.values()) or any(
+            k not in totals for d in tape.values() for k in d):
+        raise AssertionError(f"route counters: the phases' deltas do not "
+                             f"add up to the run's totals: {outside}")
+    say("route counters", totals=totals, by_phase=tape,
+        outside_phases=outside)
+    say("script", seconds=time.perf_counter() - t_start, nvidia_smi=smi)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": KERNEL_REPLACES[name],
                 "launches": sum(paths[name].values()),

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import json
 
-from torch.profiler import record_function
 
 from dgraph_tpu_torch.engine.execute import Executor, LevelNode, RouteCounts
 from dgraph_tpu_torch.engine.ir import (
@@ -23,6 +22,7 @@ from dgraph_tpu_torch.engine.ir import (
 )
 from dgraph_tpu_torch.engine.emit import to_json_bytes
 from dgraph_tpu_torch.engine.outputnode import to_json
+from dgraph_tpu_torch.utils import tracing
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -76,7 +76,7 @@ class Engine:
         res, ex = self._run(q, variables)
         if ex is None:
             return res, None
-        with record_function("engine.render"):
+        with tracing.span("engine.render"):
             return to_json(ex, res), ex
 
     def query_bytes(self, q: str, variables: dict | None = None) -> bytes:
@@ -84,7 +84,7 @@ class Engine:
         (`engine/emit.py`) where the block shape allows, the dict
         renderer's compact JSON elsewhere."""
         res, ex = self._run(q, variables)
-        with record_function("engine.render"):
+        with tracing.span("engine.render"):
             if ex is None:
                 return json.dumps(res, separators=(",", ":")).encode()
             return to_json_bytes(ex, res)
@@ -95,7 +95,7 @@ class Engine:
         from dgraph_tpu_torch.dql.parser import parse, parse_schema_query
         from dgraph_tpu_torch.engine.varorder import execution_order
 
-        with record_function("engine.parse"):
+        with tracing.span("engine.parse"):
             sq = parse_schema_query(q)
             if sq is not None:
                 return self._schema_query(*sq), None
@@ -105,7 +105,7 @@ class Engine:
                       device_threshold=self.device_threshold,
                       routes=self.routes)
         results: dict[int, LevelNode] = {}
-        with record_function("engine.execute"):
+        with tracing.span("engine.execute", blocks=len(blocks)):
             for i in order:
                 results[i] = ex.run_block(blocks[i])
         roots = [results[i] for i in range(len(blocks))]  # textual order out

@@ -33,7 +33,14 @@ is hidden. `@msgpass` queries join no group (the lane rebuild binds
 no features; the reference groups them and drops their bindings). The
 cost-prior launch gate and ordering (`_kernel_worth`,
 `order_plans_by_cost`) wait for `utils/costprior` (ROADMAP Queue 1 item
-9); groups launch in plan order under the count rule MIN_BATCH.
+9c); groups launch in plan order under the count rule MIN_BATCH.
+
+Request lifecycle: a deadline checkpoint (utils/deadline.py) runs before
+each group's run is issued ("kernel"), before each staged shortest
+block ("kernel") and per walked-back level ("bfs"); groups count in
+`kernel_group_launches_total`, `kernel_group_queries_total` and
+`kernel_padded_lanes_total{family=}`, the plan memo in
+`plan_cache_{hits,misses}_total{cache="batch"}`.
 """
 
 from __future__ import annotations
@@ -41,14 +48,15 @@ from __future__ import annotations
 import threading
 
 import numpy as np
-from torch.profiler import record_function
 
 from dgraph_tpu_torch.engine.execute import Executor, LevelNode, csr_rows
 from dgraph_tpu_torch.engine.execute import expands as _expands_schema
 from dgraph_tpu_torch.engine.ir import SubGraph
 from dgraph_tpu_torch.engine.outputnode import to_json
 from dgraph_tpu_torch.engine.recurse import RecurseData, _bind_recurse_vars
+from dgraph_tpu_torch.utils import deadline, tracing
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 MIN_BATCH = 4            # below this the per-query engine is cheaper
 # Depths past any real graph's diameter go to the per-query engine
@@ -250,15 +258,19 @@ def plan_batch_groups_cached(store, dqls: list):
     with _cache_lock:
         cached = _plan_cache.get(key)
     if cached is not None:
+        METRICS.inc("plan_cache_hits_total", cache="batch")
         return cached
-    parsed = {}
-    for i, q in enumerate(dqls):
-        try:
-            parsed[i] = parse(q)
-        except ValueError:
-            pass
-    order = sorted(parsed)
-    plans, group_left = plan_batch_groups(store, [parsed[i] for i in order])
+    METRICS.inc("plan_cache_misses_total", cache="batch")
+    with tracing.span("batch.plan", queries=len(dqls)):
+        parsed = {}
+        for i, q in enumerate(dqls):
+            try:
+                parsed[i] = parse(q)
+            except ValueError:
+                pass
+        order = sorted(parsed)
+        plans, group_left = plan_batch_groups(
+            store, [parsed[i] for i in order])
     plans = [(p, [order[j] for j in idxs]) for p, idxs in plans]
     leftover = sorted([order[j] for j in group_left]
                       + [i for i in range(len(dqls)) if i not in parsed])
@@ -293,7 +305,7 @@ def query_batch(store, dqls: list, device=DEFAULT_DEVICE,
         for i, o in zip(idxs, out):
             results[i] = o
     eng = Engine(store, device=dev, device_threshold=device_threshold)
-    with record_function("batch.leftover"):
+    with tracing.span("batch.leftover", queries=len(leftover)):
         for i in sorted(leftover):
             try:
                 results[i] = eng.query(dqls[i])
@@ -329,7 +341,17 @@ def run_batch(store, plan, device=DEFAULT_DEVICE,
     B = _lane_count(len(seeds))
     seed_lists = seeds + [np.zeros(0, np.int32)] * (B - len(seeds))
     mask0 = pack_seed_masks(g, seed_lists)
-    with record_function("batch.recurse_run"):
+    # launch gate: past here the depth-hop run is queued on the device;
+    # the budget is checked before, not inside it
+    deadline.checkpoint("kernel")
+    METRICS.inc("kernel_group_launches_total", family="recurse")
+    METRICS.inc("kernel_group_queries_total", float(len(plan.blocks)),
+                family="recurse")
+    METRICS.inc("kernel_padded_lanes_total", float(B - len(seeds)),
+                family="recurse")
+    with tracing.span("batch.recurse_run", attr=plan.attr,
+                      depth=plan.depth, queries=len(plan.blocks),
+                      lanes=B):
         fn = _recurse_for(store, plan.attr, plan.reverse, mask0.shape[1],
                           dev)
         # the seed mask is donated to the run (ops/bfs.py): a fresh
@@ -339,7 +361,7 @@ def run_batch(store, plan, device=DEFAULT_DEVICE,
         hops = hops.cpu().numpy().view(np.uint32)     # [depth, n+1, W]
     rel = store.rel(plan.attr, plan.reverse)
 
-    with record_function("batch.recurse_rebuild"):
+    with tracing.span("batch.recurse_rebuild"):
         root_nodes = [np.unique(s).astype(np.int32) for s in seeds]
         datas = _rebuild_recurse_batch(store, g, rel, hops, plan.blocks,
                                        root_nodes)
@@ -457,6 +479,12 @@ def _run_shortest_batch(store, plan: _ShortestPlan, device,
         for q in active:
             r = g.new_of_old[int(src[q])]
             mask0[r, q // 32] |= np.uint32(1 << (q % 32))
+        deadline.checkpoint("kernel")
+        METRICS.inc("kernel_group_launches_total", family="shortest")
+        METRICS.inc("kernel_group_queries_total", float(B),
+                    family="shortest")
+        METRICS.inc("kernel_padded_lanes_total", float(32 * W - B),
+                    family="shortest")
         step = _step_for(store, plan.attr, plan.reverse, W,
                          plan.first_visit, device)
         unresolved = set(active)
@@ -465,8 +493,12 @@ def _run_shortest_batch(store, plan: _ShortestPlan, device,
         seen = put_mask(mask0, device)
         done = 0
         while done < plan.depth and unresolved:
+            # budget gate per stage: each block of SHORTEST_STAGE hops
+            # is queued on the device as a whole
+            deadline.checkpoint("kernel")
             chunk = min(SHORTEST_STAGE, plan.depth - done)
-            with record_function("batch.step_run"):
+            with tracing.span("batch.step_run", attr=plan.attr,
+                              hops=chunk, lanes=32 * W):
                 frontier, seen, hops = step(frontier, seen, chunk)
                 hops_np = hops.cpu().numpy().view(np.uint32)
             for h in range(chunk):
@@ -486,7 +518,7 @@ def _run_shortest_batch(store, plan: _ShortestPlan, device,
     except ValueError:
         return None
     out = []
-    with record_function("batch.shortest_rebuild"):
+    with tracing.span("batch.shortest_rebuild"):
         for q in range(B):
             blocks = plan.queries[q]
             data = _shortest_path_data(store, plan, g, rrel, levels,
@@ -578,6 +610,7 @@ def _shortest_path_data(store, plan, g, rrel, levels, src: int,
                         yield prefix + [(rank, 0)]
 
         for lvl in range(len(levels)):
+            deadline.checkpoint("bfs")
             hops_count = lvl + 1
             if not (plan.minw <= hops_count <= plan.maxw):
                 continue
@@ -665,7 +698,8 @@ def carry_kernel_caches(old_store, new_store, touched) -> int:
     (`_ell_fns`) stay valid. Nothing is copied and nothing is built. The
     whole-block programs and the per-predicate CSR tensors are not
     carried: they start empty on the new snapshot, as in the reference.
-    Returns how many (predicate, direction) entries carried."""
+    Returns how many (predicate, direction) entries carried, and counts
+    them in `ell_cache_carried_total`."""
     if old_store is new_store or old_store is None or new_store is None:
         return 0
     if getattr(old_store, "n_nodes", -1) != \
@@ -698,4 +732,6 @@ def carry_kernel_caches(old_store, new_store, touched) -> int:
                 if at == key:
                     dst_fns.setdefault(fkey, fn)
             carried += 1
+    if carried:
+        METRICS.inc("ell_cache_carried_total", float(carried))
     return carried

@@ -9,8 +9,10 @@ per-object Python dict or list is built while serving. Other blocks
 (@normalize, @cascade, @groupby, facets, aggregates, math, shortest
 paths) render through the dict renderer, one block at a time.
 
-`COUNTS` adds up, per process, the blocks each route rendered
-("native", "dict"), so a run can show that the emitter served.
+A recurse block's depth assignment checkpoints the request's deadline
+once per level ("emit"). `COUNTS` adds up, per process, the blocks
+each route rendered ("native", "dict"), so a run can show that the
+emitter served.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from dgraph_tpu_torch import native
 from dgraph_tpu_torch.engine.execute import LevelNode
 from dgraph_tpu_torch.engine.outputnode import _json_val, _Renderer, to_json
 from dgraph_tpu_torch.store.types import Kind
+from dgraph_tpu_torch.utils import deadline
 
 _SEP = (",", ":")
 
@@ -174,6 +177,7 @@ def _lower_recurse(ex, node: LevelNode, keep: list, levels: list):
     seen: set[int] = {int(r) for r in node.nodes}
     level_doms = [np.asarray(node.nodes, np.int32)]
     while True:
+        deadline.checkpoint("emit")
         parts = [_edges_for(ps, cs, level_doms[-1])[1]
                  for ps, cs in grouped.values()]
         parts = [p for p in parts if len(p)]

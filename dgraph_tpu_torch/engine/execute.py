@@ -23,10 +23,13 @@ A level's result is a `LevelNode`:
   matrix_pos   edge → forward/reverse CSR position (facets)
 
 Each expansion adds to the executor's `RouteCounts` (expansions, edges
-and the device ops' least bytes per route); `chip_smoke.py` reads them to
-show which route served. The device work sits in `torch.profiler`
-ranges (`hop.gather_edges`, `level.expand_level`, `engine.to_device`,
-`engine.to_host`) so a profile attributes device time per op.
+and the device ops' least bytes per route) and to
+`edges_traversed_total{path=}`; `chip_smoke.py` reads them to show which
+route served. Each root block and each level is a deadline checkpoint
+and a span (`engine.block`, `engine.level`, utils/tracing.py). The
+device work sits in `torch.profiler` ranges (`hop.gather_edges`,
+`level.expand_level`, `engine.to_device`, `engine.to_host`) so a profile
+attributes device time per op.
 """
 
 from __future__ import annotations
@@ -51,7 +54,10 @@ from dgraph_tpu_torch.ops.uidalgebra import pad_to
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import Kind
 from dgraph_tpu_torch.store.vec import similar_ranks
+from dgraph_tpu_torch.utils import deadline as dl
+from dgraph_tpu_torch.utils import tracing
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 EMPTY64 = np.zeros(0, np.int64)
 
@@ -77,6 +83,9 @@ class LevelNode:
     feat_key: str = ""
 
 
+_EDGE_PATH = {"program": "fused"}
+
+
 @dataclass
 class RouteCounts:
     """Expansions and edges per execution route: `device` (gather_edges
@@ -96,6 +105,11 @@ class RouteCounts:
         self.expansions[route] += 1
         self.edges[route] += int(n_edges)
         self.least_bytes[route] += int(least_bytes)
+        if n_edges:
+            # the north-star counter under the reference's path labels
+            # (a whole-block program's stage is its "fused" path)
+            METRICS.inc("edges_traversed_total", float(n_edges),
+                        path=_EDGE_PATH.get(route, route))
 
     def on_device(self) -> int:
         """Expansions the device served."""
@@ -439,7 +453,12 @@ class Executor:
     def run_block(self, sg: SubGraph) -> LevelNode:
         """Execute one root block: as one whole-block program where
         `engine/fused.py` plans one, else level by level (the staged
-        route)."""
+        route). A deadline checkpoint ("block") runs first."""
+        dl.checkpoint("block")
+        with tracing.span("engine.block", block=sg.attr):
+            return self._run_block(sg)
+
+    def _run_block(self, sg: SubGraph) -> LevelNode:
         if sg.shortest is not None:
             from dgraph_tpu_torch.engine.shortest import shortest_path
             data = shortest_path(self, sg)
@@ -504,15 +523,19 @@ class Executor:
     def _level_edges(self, sg: SubGraph, frontier: np.ndarray):
         """One child level's filtered edge list → (nbrs, seg, pos,
         processed); `processed` means pagination was already applied
-        (the fused device route)."""
-        fused = self._fused_level(sg, frontier)
-        if fused is not None:
-            return (*fused, True)
-        nbrs, seg, pos = self.expand(sg.attr, sg.is_reverse, frontier)
-        nbrs, seg, pos = self.filter_edges(sg.filters, nbrs, seg, pos)
-        nbrs, seg, pos = self.facet_filter_edges(sg, sg.attr, nbrs,
-                                                 seg, pos)
-        return nbrs, seg, pos, False
+        (the fused device route). Each level is a deadline checkpoint
+        ("level"): a deep tree stops within one level of its budget."""
+        dl.checkpoint("level")
+        with tracing.span("engine.level", pred=sg.attr,
+                          frontier=int(len(frontier))):
+            fused = self._fused_level(sg, frontier)
+            if fused is not None:
+                return (*fused, True)
+            nbrs, seg, pos = self.expand(sg.attr, sg.is_reverse, frontier)
+            nbrs, seg, pos = self.filter_edges(sg.filters, nbrs, seg, pos)
+            nbrs, seg, pos = self.facet_filter_edges(sg, sg.attr, nbrs,
+                                                     seg, pos)
+            return nbrs, seg, pos, False
 
     def _finish_child(self, sg: SubGraph, nbrs, seg, pos,
                       processed: bool) -> LevelNode:

@@ -1,8 +1,8 @@
 """Feature-bearing traversal: `@msgpass` neighbour aggregation.
 
 Port of `dgraph_tpu/engine/feat.py` without its mesh route (ROADMAP
-Queue 1 item 10) and its memory-governor wrapper, cost-prior promotion
-and metrics (item 9). `@msgpass(pred: emb, agg: mean)` on a block binds,
+Queue 1 item 10) and its memory-governor wrapper and cost-prior
+promotion (item 9c). `@msgpass(pred: emb, agg: mean)` on a block binds,
 for each node the level expands, the sum / mean / max of its traversal
 children's feature rows (a `store/vec.py` VecTablet), rendered under the
 key `mean(emb)`. Composed with `@recurse(loop: false)` each parent
@@ -16,55 +16,42 @@ aggregates over its first-visit edges. Two routes, one contract (the same
   host route bit for bit for any float input.
 
 `aggregate` takes the device route when the edges or the tablet rows
-reach `device_threshold`, and counts each route in `status()`; the whole-
-block program's featprop stage (`engine/fused.py`) counts as `fused`.
+reach `device_threshold`, and counts each route in the metrics registry
+(`feat_route_total{route=}`, `feat_bytes_total`, the
+`featprop_latency_us` histogram); the whole-block program's featprop
+stage (`engine/fused.py`) counts as `fused`.
 Aggregation is per EDGE over each level's kept-edge lists (duplicates
 count), the lists the renderer emits.
 """
 
 from __future__ import annotations
 
-import threading
+import time
 
 import numpy as np
 import torch
 
 from dgraph_tpu_torch.ops.feat import AGGS, segment_combine
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["AGGS", "host_combine", "aggregate", "annotate_tree",
-           "needs_msgpass", "feat_key", "status", "reset"]
+           "needs_msgpass", "feat_key"]
 
 EMPTY = np.zeros(0, np.int32)
-
-_lock = threading.Lock()
-_stats = {"routes": {"host": 0, "device": 0, "fused": 0}, "feature_bytes": 0}
-
 
 def feat_key(args) -> str:
     """JSON key of the bound value: `mean(emb)`, as `count(friend)`."""
     return f"{args.agg}({args.pred})"
 
 
-def count_route(route: str, participating: int, dim: int) -> None:
+def count_route(route: str, participating: int, dim: int,
+                us: float) -> None:
     """One aggregation served on `route`, reading `participating` rows of
-    `dim` floats."""
-    with _lock:
-        _stats["routes"][route] += 1
-        _stats["feature_bytes"] += int(participating) * dim * 4
-
-
-def status() -> dict:
-    """Aggregations per route and feature bytes read, since `reset()`."""
-    with _lock:
-        return {"routes": dict(_stats["routes"]),
-                "feature_bytes": _stats["feature_bytes"]}
-
-
-def reset() -> None:
-    with _lock:
-        for r in _stats["routes"]:
-            _stats["routes"][r] = 0
-        _stats["feature_bytes"] = 0
+    `dim` floats, in `us` microseconds of host time."""
+    METRICS.inc("feat_route_total", route=route)
+    if participating:
+        METRICS.inc("feat_bytes_total", float(int(participating) * dim * 4))
+    METRICS.observe("featprop_latency_us", us)
 
 
 # -- host route: the reference -------------------------------------------------
@@ -123,6 +110,7 @@ def aggregate(store, pred: str, agg: str, nbrs, seg, n_seg: int, device,
     if t is None:
         raise ValueError(
             f"@msgpass(pred: {pred}): not a float32vector predicate")
+    t0 = time.perf_counter()
     big = len(nbrs) >= device_threshold or t.rows >= device_threshold
     if t.rows and big:
         route = "device"
@@ -130,7 +118,8 @@ def aggregate(store, pred: str, agg: str, nbrs, seg, n_seg: int, device,
     else:
         route = "host"
         out = host_combine(t.subj, t.vecs, nbrs, seg, n_seg, agg)
-    count_route(route, int(out[1].sum()), t.dim)
+    count_route(route, int(out[1].sum()), t.dim,
+                (time.perf_counter() - t0) * 1e6)
     return out
 
 

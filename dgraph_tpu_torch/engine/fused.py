@@ -45,8 +45,13 @@ block whose program fails is served by the staged route from then on
 (sticky per query shape, until `reset()`); every such fallback is
 logged with its traceback and counted in `status()`, beside the routes
 taken, program hits and misses, captures, capture milliseconds and the
-bytes the graphs hold. `DGRAPH_TPU_FUSED=0` pins every block to the
-staged route. The host shell runs in the `engine.fused` profiler range.
+bytes the graphs hold. Routes, fallbacks, hits and misses also count in
+the metrics registry under the reference's names (`fused_route_total`,
+`fused_fallback_total`, `fused_program_{hits,misses}_total`).
+`DGRAPH_TPU_FUSED=0` pins every block to the staged route. The host
+shell runs in the `engine.fused` span, and checks the request's deadline
+("kernel") before each call of a program: between replays, never inside
+a capture.
 """
 
 from __future__ import annotations
@@ -61,7 +66,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from dgraph_tpu_torch.engine.execute import EMPTY, LevelNode, _bucket, expands
 from dgraph_tpu_torch.engine.feat import AGGS, count_route, feat_key
@@ -75,6 +79,9 @@ from dgraph_tpu_torch.ops.uidalgebra import sentinel, sort_unique_count
 from dgraph_tpu_torch.store import vec
 from dgraph_tpu_torch.store.types import Kind
 from dgraph_tpu_torch.store.vec import device_topk
+from dgraph_tpu_torch.utils import deadline as dl
+from dgraph_tpu_torch.utils import tracing
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["STAGE_KINDS", "FusedPlan", "enabled", "plan_block",
            "try_fused", "status", "reset", "captured"]
@@ -540,6 +547,7 @@ _stats = _fresh_stats()
 def _route(route: str) -> None:
     with _lock:
         _stats["routes"][route] += 1
+    METRICS.inc("fused_route_total", route=route)
 
 
 def _store_key(store) -> int:
@@ -582,16 +590,19 @@ def _program_for(plan: FusedPlan, caps: tuple, layout: tuple, rels: tuple,
     key = (_store_key(ex.store), plan.sig, caps, layout, ex.device)
     with _lock:
         prog = _programs.get(key)
-        if prog is not None:
+        hit = prog is not None
+        if hit:
             _programs.move_to_end(key)
             _stats["hits"] += 1
-            return prog
-        _stats["misses"] += 1
-        prog = _programs[key] = _Program(
-            _build_program(tuple(plan.stages), caps, layout), rels,
-            ex.device, tuple(plan.stages), caps, layout)
-        _evict()
-        return prog
+        else:
+            _stats["misses"] += 1
+            prog = _programs[key] = _Program(
+                _build_program(tuple(plan.stages), caps, layout), rels,
+                ex.device, tuple(plan.stages), caps, layout)
+            _evict()
+    METRICS.inc("fused_program_hits_total" if hit
+                else "fused_program_misses_total")
+    return prog
 
 
 def status() -> dict:
@@ -648,17 +659,21 @@ def try_fused(ex, sg):
     try:
         plan = plan_block(ex.store, sg)
         if plan is not None:
-            with record_function("engine.fused"):
+            with tracing.span("engine.fused", shape=shape,
+                              stages=len(plan.stages)):
                 node = _run_plan(ex, sg, plan)
             if node is not None:
                 _route("fused")
                 return node
+    except (dl.DeadlineExceeded, dl.Cancelled):
+        raise    # the request's budget died: not the program's failure
     except Exception:  # noqa: BLE001 — the staged route serves instead
         if ex.device.type == "cuda":
             raise
         with _lock:
             _disabled.add(shape)
             _stats["fallbacks"] += 1
+        METRICS.inc("fused_fallback_total")
         _log.warning("fused program for shape %s failed; the staged route "
                      "serves this shape from now on", shape, exc_info=True)
         _route("fallback")
@@ -739,7 +754,10 @@ def _run_plan(ex, sg, plan: FusedPlan):
     n_roots = (min(plan.stages[0].k, rels[0].rows) if plan.knn
                else len(nodes))
 
+    t_exec = time.perf_counter()
     for _attempt in range(_MAX_ATTEMPTS):
+        # budget gate before the device is committed to a program call
+        dl.checkpoint("kernel")
         f_cap = (caps[0][1] if plan.recurse and not plan.knn
                  else _bucket(max(len(nodes), 1)))
         flat, layout = _pack(nodes, f_cap, alloweds, pages)
@@ -769,7 +787,8 @@ def _run_plan(ex, sg, plan: FusedPlan):
         # first min(k, rows) entries real
         display = nodes = host[0][0]
     if plan.featprop:
-        count_route("fused", int(host[-1][1].sum()), rels[-1].dim)
+        count_route("fused", int(host[-1][1].sum()), rels[-1].dim,
+                    (time.perf_counter() - t_exec) * 1e6)
     return _unpack(ex, sg, plan, host, display, nodes)
 
 

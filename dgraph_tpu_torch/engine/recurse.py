@@ -6,7 +6,8 @@ expansion per followed predicate over the union frontier, so a large
 frontier's hop runs on the device through `Executor.expand`) and
 `_bind_recurse_vars`. With `loop: false` a node is expanded at most once
 (its first visit); with `loop: true` expansion repeats up to `depth`
-regardless of revisits. The mesh routes are ROADMAP Queue 1 item 10.
+regardless of revisits. Each depth is a deadline checkpoint
+("recurse"). The mesh routes are ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from dgraph_tpu_torch.engine.ir import SubGraph
+from dgraph_tpu_torch.utils import deadline
 
 MAX_RECURSE_DEPTH = 64  # guard when depth: 0 (fixpoint mode)
 
@@ -66,6 +68,9 @@ def expand_recurse(ex, root) -> None:
     for _d in range(depth):
         if len(frontier) == 0:
             break
+        # per-hop cancellation point: a pathological @recurse stops
+        # within one hop of its budget (utils/deadline.py)
+        deadline.checkpoint("recurse")
         level: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         new_parts = []
         for i, esg in enumerate(data.edge_sgs):

@@ -10,6 +10,8 @@ toward numpaths; unweighted edges weigh 1 for these bounds.
 Every hop is the executor's batched CSR expansion (`Executor.expand`),
 so a frontier of at least `device_threshold` rows expands on the
 device; parent pointers and path reconstruction stay on the host.
+Each BFS iteration, relaxation round ("bfs") and Yen iteration ("yen")
+is a deadline checkpoint (utils/deadline.py).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import heapq
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from dgraph_tpu_torch.utils import deadline, tracing
 
 MAX_PATH_DEPTH = 32
 # Yen's outer loop extracts one path per iteration; bound the total
@@ -40,6 +44,16 @@ def shortest_path(ex, sg) -> PathData:
     """BFS from sg.shortest.from_uid to to_uid over the block's edge
     preds. When an edge block names a facet (`friend @facets(weight)`),
     edges relax by that facet's value instead of uniform cost."""
+    a = sg.shortest
+    with tracing.span("engine.shortest", numpaths=a.numpaths,
+                      depth=a.depth) as sp:
+        data = _shortest_path(ex, sg)
+        sp.attrs["paths"] = len(data.paths)
+        sp.attrs["nodes"] = int(len(data.nodes))
+        return data
+
+
+def _shortest_path(ex, sg) -> PathData:
     args = sg.shortest
     store = ex.store
     src = store.rank_of(np.array([args.from_uid], np.int64))[0]
@@ -62,6 +76,9 @@ def shortest_path(ex, sg) -> PathData:
         for _ in range(max_depth):
             if found or not len(frontier):
                 break
+            # per-BFS-iteration cancellation point (the acceptance
+            # granularity for shortest-path budgets)
+            deadline.checkpoint("bfs")
             level_new: dict[int, list[tuple[int, int]]] = {}
             for i, esg in enumerate(data.edge_sgs):
                 nbrs, seg, pos = ex.expand(esg.attr, esg.is_reverse,
@@ -133,6 +150,7 @@ def _k_shortest(ex, data: PathData, src: int, dst: int, max_depth: int,
     for level in range(max_depth):
         if not len(frontier):
             break
+        deadline.checkpoint("bfs")
         level_new: dict[int, list[tuple[int, int]]] = {}
         for i, esg in enumerate(data.edge_sgs):
             nbrs, seg, pos = ex.expand(esg.attr, esg.is_reverse, frontier)
@@ -224,6 +242,7 @@ def _weighted_one(ex, data: PathData, src: int, dst: int, wkeys,
     for _round in range(max(n, 1)):
         if not len(frontier):
             break
+        deadline.checkpoint("bfs")  # per relaxation round
         nbr_parts, nd_parts = [], []
         for i, esg in enumerate(data.edge_sgs):
             nbrs, seg, ws = relax_edges(frontier, i, esg)
@@ -311,6 +330,7 @@ def _weighted_shortest(ex, sg, data: PathData, src: int,
     kept = sum(1 for c, _p, _pc in A if in_range(c))
     iters = 0
     while kept < k and iters < MAX_YEN_ITERS:
+        deadline.checkpoint("yen")
         iters += 1
         _pc, prev, prev_costs = A[-1]
         for i in range(len(prev) - 1):

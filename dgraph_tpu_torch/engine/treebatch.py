@@ -31,13 +31,14 @@ import threading
 from dataclasses import dataclass, field
 
 import numpy as np
-from torch.profiler import record_function
 
 from dgraph_tpu_torch.engine.execute import (EMPTY64, Executor, LevelNode,
                                              csr_rows, expands)
 from dgraph_tpu_torch.engine.ir import FilterNode, SubGraph
 from dgraph_tpu_torch.engine.varorder import (_filter_uses, _func_uses,
                                               execution_order)
+from dgraph_tpu_torch.utils import deadline, tracing
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 EMPTY = np.zeros(0, np.int32)
 
@@ -304,7 +305,15 @@ def run_tree_batch(store, plan: TreePlan, device, device_threshold: int):
     rels, seed_lists, filt_lists, idx_per_query, root_displays = inputs
     n = store.n_nodes
     lanes = _lanes(plan)
-    with record_function("batch.tree_run"):
+    B = len(plan.queries)
+    # budget gate before the device is committed to the tree run
+    deadline.checkpoint("kernel")
+    METRICS.inc("kernel_group_launches_total", family="tree")
+    METRICS.inc("kernel_group_queries_total", float(B), family="tree")
+    METRICS.inc("kernel_padded_lanes_total", float(lanes - B),
+                family="tree")
+    with tracing.span("batch.tree_run", stages=len(plan.stages),
+                      queries=B, lanes=lanes, padded_lanes=lanes - B):
         fn, _descs = _tree_kernel_for(store, plan, rels, n, lanes // 32,
                                       device)
         outs = fn(*_tree_masks(n, lanes, seed_lists, filt_lists, device))
@@ -322,7 +331,7 @@ def run_tree_batch(store, plan: TreePlan, device, device_threshold: int):
                 masks.append((host(o), None))
 
     out_json = []
-    with record_function("batch.tree_rebuild"):
+    with tracing.span("batch.tree_rebuild"):
         for q, blocks in enumerate(plan.queries):
             ex = _MaskedExecutor(store, q, idx_per_query[q], masks,
                                  root_displays[q], device=device,

@@ -10,19 +10,32 @@ tablets (`store/outofcore.py`). Reads run on `device` (default the
 card): `query`/`query_raw` through `engine.Engine`, `query_batch`
 through `engine.batch.query_batch`.
 
+Every public entry point runs inside the request shell `_request`: a
+budget (`deadline_ms`, else `default_deadline_ms`) installed as the
+thread's ambient `utils/deadline.RequestContext`, which the engine's hot
+loops checkpoint against (a retryable `DeadlineExceeded` or `Cancelled`,
+raised through `with`/`finally` blocks that release every read
+registration); a failed serve counts in `query_errors_total{lane=}`.
+The checkpoints read the host clock, so a budget bounds the host loop;
+device work already queued when it expires runs to its end. Upserts
+(`upsert`, `upsert_json`, `dql/upsert.py`) run their query through the
+engine on `device` at the txn's snapshot; `export_to`,
+`maintenance_rollup` and `attach_maintenance` (`store/maintenance.py`)
+are the operator's paths, `server/backup.py` its backups.
+
 Transactions follow the reference's client model: `txn =
 alpha.new_txn()`, any number of `txn.query` / `txn.mutate` calls, then
 `txn.commit()` (raises `TxnAborted` on conflict) or `txn.discard()`.
 `commit_now=True` mutations are single-shot transactions; with
 `commit_now=False` the server keeps the txn open, continued by start_ts.
 
-Left to ROADMAP Queue 1 item 9 with the rest of the server: the
-cluster (groups, replication, read gates, tablet routing), ACL,
-admission and deadlines, cost profiles and priors, the memory governor,
-maintenance scheduling, upserts, backup and export. Deliberate
-differences: locks are plain `threading` locks, and `query_batch` raises
-when a kernel group fails instead of serving its queries one by one
-(`engine/batch.py`).
+Left to ROADMAP Queue 1: the memory governor and the cost profile and
+prior, which the reference's request shell also records (item 9c);
+admission, ACL and the HTTP/gRPC front end (9d); the cluster (groups,
+replication, read gates, tablet routing; 9e); the flight recorder and
+the lock-order sanitizer (9f). Deliberate differences: locks are plain
+`threading` locks, and `query_batch` raises when a kernel group fails
+instead of serving its queries one by one (`engine/batch.py`).
 """
 
 from __future__ import annotations
@@ -39,7 +52,9 @@ from dgraph_tpu_torch.store.mvcc import MVCCStore, Mutation
 from dgraph_tpu_torch.store.schema import parse_schema
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import Kind, hash_password
+from dgraph_tpu_torch.utils import deadline as dl
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["Alpha", "Txn", "TxnAborted"]
 
@@ -62,6 +77,11 @@ class Alpha:
         self.xidmap = XidMap(self.oracle)
         self.device_threshold = device_threshold
         self.wal = None  # store.wal.WAL once attached: fsync'd commit log
+        # store/maintenance.MaintenanceScheduler | None: background
+        # rollup/checkpoint/backup/export jobs (attach_maintenance)
+        self.maintenance = None
+        # budget of requests that bring none of their own (0 = unbounded)
+        self.default_deadline_ms = 0.0
         self._apply_lock = threading.Lock()
         self._state_lock = threading.Lock()
         self._open_txns: dict[int, Txn] = {}
@@ -154,18 +174,19 @@ class Alpha:
         self.wal = WAL(wal_path, sync=sync)
         return max_ts, max_uid
 
-    def checkpoint_to(self, p_dir: str) -> int:
+    def checkpoint_to(self, p_dir: str, pace=None) -> int:
         """Fold all committed state into an on-disk checkpoint and drop
         the WAL records it absorbed. Returns the checkpoint base_ts.
 
         On an out-of-core base the fold streams tablet-at-a-time
-        (store/stream.py) outside the apply lock; only the WAL truncate
-        serializes with commits."""
+        (store/stream.py) outside the apply lock, calling `pace` between
+        tablets; only the WAL truncate serializes with commits."""
         from dgraph_tpu_torch.store import checkpoint, stream
         lazy = stream.lazy_preds(self.mvcc.base)
         if lazy is not None:
             ts = stream.checkpoint_streaming(
-                self.mvcc, p_dir, lazy.budget_bytes)
+                self.mvcc, p_dir, lazy.budget_bytes, pace=pace,
+                job="checkpoint")
             with self._apply_lock:
                 if self.wal is not None:
                     self.wal.truncate(ts)
@@ -180,8 +201,80 @@ class Alpha:
                 self.wal.truncate(ts)
         return ts
 
+    def maintenance_rollup(self, p_dir: str | None = None,
+                           pace=None) -> int:
+        """Fold pending delta layers into a new fold point — the
+        background rollup job. In-core: the in-memory fold. Out-of-core:
+        the fold is STREAMED to a new ckpt dir under `p_dir` (default:
+        the dir the base was opened from) and reopened lazily, so the
+        budget holds. Returns the new fold ts."""
+        from dgraph_tpu_torch.store import stream
+        lazy = stream.lazy_preds(self.mvcc.base)
+        if lazy is None:
+            self.mvcc.rollup()
+            return self.mvcc.base_ts
+        root = p_dir if p_dir is not None else lazy.root_dir
+        return stream.checkpoint_streaming(
+            self.mvcc, root, lazy.budget_bytes, pace=pace, job="rollup")
+
+    def export_to(self, out_path: str, format: str = "rdf",
+                  pace=None) -> int:
+        """Dump committed state as RDF N-Quads or JSON
+        (server/export.py). Pending delta layers are folded first;
+        an out-of-core base streams tablet-at-a-time. Returns the
+        statement (RDF) or node (JSON) count."""
+        from dgraph_tpu_torch.server.export import export_json, export_rdf
+        if self.mvcc.layers:
+            self.maintenance_rollup(pace=pace)
+        store = self.mvcc.base
+        with open(out_path, "w") as f:
+            n = (export_json if format == "json" else export_rdf)(
+                store, f, pace=pace)
+        return n
+
+    def attach_maintenance(self, p_dir: str, *, rollup_after: int = 0,
+                           checkpoint_every_s: float = 0.0,
+                           pacing_ms: float = 0.0):
+        """Start the background maintenance scheduler on this Alpha
+        (store/maintenance.py): rollup-when-deep, periodic checkpoint,
+        requested backup/export — paced and pausable."""
+        from dgraph_tpu_torch.store.maintenance import MaintenanceScheduler
+        self.maintenance = MaintenanceScheduler(
+            self, p_dir, rollup_after=rollup_after,
+            checkpoint_every_s=checkpoint_every_s,
+            pacing_ms=pacing_ms).start()
+        return self.maintenance
+
+    @contextlib.contextmanager
+    def _request(self, lane: str, deadline_ms: float | None):
+        """Request-lifecycle shell every public entry point runs inside:
+        the budget (explicit `deadline_ms`, else `default_deadline_ms`)
+        as the thread's ambient context (utils/deadline.py), which the
+        engine's hot loops checkpoint against. A nested call (a txn read
+        inside a request) reuses the enclosing context: the OUTER budget
+        governs. Every failed serve but a client's cancel counts in
+        `query_errors_total{lane=}`."""
+        outer = dl.current()
+        if outer is not None:
+            yield outer
+            return
+        if deadline_ms is None and self.default_deadline_ms:
+            deadline_ms = self.default_deadline_ms
+        ctx = dl.RequestContext(deadline_ms)
+        with dl.activate(ctx):
+            try:
+                yield ctx
+            except dl.Cancelled:
+                raise   # the client's, not an error-budget burn
+            except Exception:
+                METRICS.inc("query_errors_total", lane=lane)
+                raise
+
     def shutdown(self, p_dir: str | None = None) -> None:
-        """The clean-exit path: a final checkpoint into `p_dir`."""
+        """The clean-exit path: drain maintenance (finish the in-flight
+        and requested jobs), then a final checkpoint into `p_dir`."""
+        if self.maintenance is not None:
+            self.maintenance.stop(drain=True)
         if p_dir is not None:
             self.checkpoint_to(p_dir)
 
@@ -237,31 +330,42 @@ class Alpha:
                       device_threshold=self.device_threshold)
 
     def query(self, dql: str, variables: dict | None = None,
-              read_ts: int | None = None) -> dict:
-        """Read-only query at a snapshot (reference: Server.Query)."""
-        with self._reading(read_ts) as ts:
-            out = self._engine(self._query_view(ts)).query(dql, variables)
+              read_ts: int | None = None,
+              deadline_ms: float | None = None) -> dict:
+        """Read-only query at a snapshot (reference: Server.Query).
+        `deadline_ms` bounds the request: the engine's loops checkpoint
+        against it and raise a retryable `DeadlineExceeded` within one
+        level / BFS iteration of the budget."""
+        with self._request("read", deadline_ms):
+            with self._reading(read_ts) as ts:
+                out = self._engine(self._query_view(ts)).query(
+                    dql, variables)
         self._maybe_gc()
         return out
 
     def query_raw(self, dql: str, variables: dict | None = None,
-                  read_ts: int | None = None) -> bytes:
+                  read_ts: int | None = None,
+                  deadline_ms: float | None = None) -> bytes:
         """Serving-path query: response BYTES (engine/emit.py)."""
-        with self._reading(read_ts) as ts:
-            raw = self._engine(self._query_view(ts)).query_bytes(
-                dql, variables)
+        with self._request("read", deadline_ms):
+            with self._reading(read_ts) as ts:
+                raw = self._engine(self._query_view(ts)).query_bytes(
+                    dql, variables)
         self._maybe_gc()
         return raw
 
-    def query_batch(self, dqls: list, read_ts: int | None = None) -> list:
+    def query_batch(self, dqls: list, read_ts: int | None = None,
+                    deadline_ms: float | None = None) -> list:
         """Serve many queries at one snapshot: compatible groups run as
         lane-packed kernel runs, the rest per query (engine/batch.py).
-        Returns one JSON dict per query, in order."""
+        Returns one JSON dict per query, in order. A dead budget fails
+        the whole batch."""
         from dgraph_tpu_torch.engine.batch import query_batch
-        with self._reading(read_ts) as ts:
-            out = query_batch(self._query_view(ts), dqls,
-                              device=self.device,
-                              device_threshold=self.device_threshold)
+        with self._request("read", deadline_ms):
+            with self._reading(read_ts) as ts:
+                out = query_batch(self._query_view(ts), dqls,
+                                  device=self.device,
+                                  device_threshold=self.device_threshold)
         self._maybe_gc()
         return out
 
@@ -269,9 +373,20 @@ class Alpha:
                del_nquads: str | None = None,
                set_json=None, del_json=None,
                commit_now: bool = True,
-               start_ts: int | None = None) -> dict:
+               start_ts: int | None = None,
+               deadline_ms: float | None = None) -> dict:
         """Mutation RPC. With start_ts: continue that open txn. With
-        commit_now=False: leave the txn open and return its start_ts."""
+        commit_now=False: leave the txn open and return its start_ts.
+        The deadline stops the request only BEFORE the commit's WAL
+        append (`_commit`), never between the append and the apply."""
+        with self._request("mutate", deadline_ms):
+            return self._mutate(set_nquads=set_nquads,
+                                del_nquads=del_nquads, set_json=set_json,
+                                del_json=del_json, commit_now=commit_now,
+                                start_ts=start_ts)
+
+    def _mutate(self, *, set_nquads=None, del_nquads=None, set_json=None,
+                del_json=None, commit_now=True, start_ts=None) -> dict:
         created = not start_ts
         txn = self.txn(start_ts) if start_ts else self.new_txn()
         try:
@@ -292,13 +407,130 @@ class Alpha:
                 txn.discard()
             raise
 
-    def commit_or_abort(self, start_ts: int, abort: bool = False) -> int:
+    # -- upserts (edgraph doQueryInUpsert analog) -----------------------------
+    def _bind_upsert_vars(self, txn: "Txn", query_src: str):
+        """Run the upsert's query on `device` at the txn's read snapshot
+        and convert the executor's rank-space var bindings to uid
+        space."""
+        import numpy as np
+
+        from dgraph_tpu_torch.dql.parser import parse_schema_query
+        if parse_schema_query(query_src) is not None:
+            raise ValueError("schema{} queries cannot drive an upsert")
+        with self._reading(txn.start_ts) as ts:
+            store = self.mvcc.read_view(ts)
+            out, ex = self._engine(store).query_with_vars(query_src)
+        uid_vars = {
+            name: store.uid_of(np.asarray(ranks, np.int32)).tolist()
+            for name, ranks in ex.uid_vars.items()}
+        val_vars = {}
+        for name, env in ex.val_vars.items():
+            ranks = np.fromiter(env.keys(), np.int32, len(env))
+            uids = store.uid_of(ranks)
+            val_vars[name] = dict(zip(uids.tolist(), env.values()))
+        counts = {n: len(u) for n, u in uid_vars.items()}
+        for n, env in val_vars.items():
+            counts.setdefault(n, len(env))
+        return out, uid_vars, val_vars, counts
+
+    def _run_upsert(self, commit_now: bool, start_ts: int | None,
+                    run, deadline_ms: float | None = None) -> dict:
+        """Txn bookkeeping shared by the RDF and JSON upsert forms;
+        `run(txn)` performs query + substitution + buffered mutates and
+        returns (queries_json, uids, applied)."""
+        with self._request("mutate", deadline_ms):
+            created = not start_ts
+            txn = self.txn(start_ts) if start_ts else self.new_txn()
+            try:
+                out, uids, applied = run(txn)
+                if commit_now:
+                    txn.commit()
+                return {"uids": uids, "queries": out, "applied": applied,
+                        "txn": {"start_ts": txn.start_ts,
+                                "commit_ts": txn.commit_ts}}
+            except TxnAborted:
+                txn.discard()
+                raise
+            except Exception:
+                if commit_now or created:
+                    txn.discard()
+                raise
+
+    def upsert(self, src: str, commit_now: bool = True,
+               start_ts: int | None = None,
+               deadline_ms: float | None = None) -> dict:
+        """Upsert block: run the query at the txn's read_ts, bind vars,
+        evaluate @if conditions, substitute uid(v)/val(v) into the
+        mutations, commit through the normal conflict path (reference:
+        edgraph upsert semantics)."""
+        from dgraph_tpu_torch.dql.upsert import (eval_cond, parse_upsert,
+                                                 substitute)
+
+        req = parse_upsert(src)
+
+        def run(txn):
+            out, uid_vars, val_vars, counts = self._bind_upsert_vars(
+                txn, req.query_src)
+            uids: dict[str, str] = {}
+            applied = 0
+            for m in req.mutations:
+                if not eval_cond(m.cond, counts):
+                    continue
+                set_rdf = substitute(m.set_rdf, uid_vars, val_vars)
+                del_rdf = substitute(m.del_rdf, uid_vars, val_vars)
+                if set_rdf or del_rdf:
+                    uids.update(txn.mutate(set_nquads=set_rdf or None,
+                                           del_nquads=del_rdf or None))
+                    applied += 1
+            return out, uids, applied
+
+        return self._run_upsert(commit_now, start_ts, run,
+                                deadline_ms=deadline_ms)
+
+    def upsert_json(self, query: str, cond: str = "",
+                    set_json=None, del_json=None, commit_now: bool = True,
+                    start_ts: int | None = None,
+                    deadline_ms: float | None = None) -> dict:
+        """The JSON upsert form: {"query", "cond", "set"/"delete" as JSON
+        mutation lists with uid(v)/val(v) references}."""
+        from dgraph_tpu_torch.dql.upsert import (_parse_cond, eval_cond,
+                                                 substitute_json)
+
+        cond_tree = None
+        if cond:
+            inner = cond.strip()
+            if inner.startswith("@if"):
+                inner = inner[3:].strip()
+            cond_tree = _parse_cond(inner)
+
+        def run(txn):
+            out, uid_vars, val_vars, counts = self._bind_upsert_vars(
+                txn, query)
+            uids: dict[str, str] = {}
+            applied = 0
+            if eval_cond(cond_tree, counts):
+                set_sub = (substitute_json(set_json, uid_vars, val_vars)
+                           if set_json else None)
+                del_sub = (substitute_json(del_json, uid_vars, val_vars)
+                           if del_json else None)
+                if set_sub or del_sub:
+                    uids.update(txn.mutate(set_json=set_sub or None,
+                                           del_json=del_sub or None))
+                    applied += 1
+            return out, uids, applied
+
+        return self._run_upsert(commit_now, start_ts, run,
+                                deadline_ms=deadline_ms)
+
+    def commit_or_abort(self, start_ts: int, abort: bool = False,
+                        deadline_ms: float | None = None) -> int:
         """reference: Server.CommitOrAbort. Returns commit_ts (0 on abort)."""
-        txn = self.txn(start_ts)
-        if abort:
-            txn.discard()
-            return 0
-        return txn.commit()
+        with self._request("mutate", deadline_ms):
+            txn = self.txn(start_ts)
+            if abort:
+                txn.discard()
+                return 0
+            return txn.commit()
 
     def alter(self, schema_text: str) -> None:
         """Schema mutation + index rebuild (reference: Server.Alter). The
@@ -462,6 +694,13 @@ class Txn:
     def commit(self) -> int:
         if self._done:
             raise TxnAborted("txn finished")
+        # LAST cancellation point on the write path: past here the WAL
+        # append and the in-memory apply run to completion together. It
+        # runs while the txn is still open, so the caller's discard
+        # aborts its start_ts in the oracle (the reference checks in
+        # `_commit`, after the txn is marked done, and its start_ts then
+        # stays pending and pins the gc watermark)
+        dl.checkpoint("commit")
         self._done = True
         self.alpha._txn_done(self)
         if self.mutation.is_empty():

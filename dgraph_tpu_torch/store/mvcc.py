@@ -43,6 +43,7 @@ from dgraph_tpu_torch.store.store import (
     TYPE_PRED, EdgeRel, FacetCol, PredicateData, Store, StoreBuilder,
     ValueColumn, _csr_from_pairs, build_indexes)
 from dgraph_tpu_torch.store.types import NUMPY_DTYPE, Kind, convert
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 _VIEW_CACHE = 8  # non-fold-point views retained (newest win)
 
@@ -231,6 +232,7 @@ class _LazyFoldPreds:
                               vocab=self._vocab)
         if lazy is not None and not was_resident:
             lazy.release(pred)
+        METRICS.inc("read_view_lazy_tablets_total")
         return folded.preds.get(pred)
 
     def __getitem__(self, pred):
@@ -472,6 +474,14 @@ class MVCCStore:
     def history_stores(self) -> list[tuple[int, Store]]:
         with self._lock:
             return list(self._history)
+
+    def pending_layer_count(self) -> int:
+        """Delta layers ABOVE the newest fold point — what a rollup
+        would absorb (`layers` also holds folded layers retained for open
+        readers until gc; a policy on that would spin forever)."""
+        with self._lock:
+            floor = self._history[-1][0]
+            return sum(1 for l in self.layers if l.commit_ts > floor)
 
     def drop_predicate(self, pred: str, drop_ts: int) -> None:
         """Remove a predicate's data and schema at drop_ts (reference:

@@ -1,10 +1,12 @@
 """Out-of-core store: fault predicate tablets in on first touch, evict LRU.
 
 Port of `dgraph_tpu/store/outofcore.py`: `LazyPreds`, `open_out_of_core`
-and `_pd_nbytes`, with plain `threading` locks. The reference also
-registers each residency with the process memory governor, heals a
-corrupt tablet from a group replica and counts heals in its metrics
-registry; all three go with ROADMAP Queue 1 item 9.
+and `_pd_nbytes`, with plain `threading` locks. Besides its `faults`
+and `evictions` attributes (the reference's), each fault and LRU
+eviction counts in `outofcore_faults_total` / `outofcore_evictions_total`.
+The reference also registers each residency with the process memory
+governor (ROADMAP Queue 1 item 9c) and heals a corrupt tablet from a
+group replica (item 9e).
 
 Reference parity: Badger is an LSM — the reference's data set is NEVER
 required to fit in RAM; posting lists page in from disk through the block
@@ -43,6 +45,7 @@ import numpy as np
 from dgraph_tpu_torch.store import checkpoint
 from dgraph_tpu_torch.store.schema import parse_schema
 from dgraph_tpu_torch.store.store import PredicateData, Store, build_indexes
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 
 def _pd_nbytes(pd: PredicateData) -> int:
@@ -206,6 +209,7 @@ class LazyPreds:
                                            self._schema)
             build_indexes({pred: pd})
             size = _pd_nbytes(pd)
+            evicted = 0
             with self._lock:
                 self.faults += 1
                 prev = self._sizes.pop(pred, None)
@@ -234,6 +238,10 @@ class LazyPreds:
                         del self._resident[victim]
                         self.resident_bytes -= self._sizes.pop(victim)
                         self.evictions += 1
+                        evicted += 1
+            METRICS.inc("outofcore_faults_total")
+            if evicted:
+                METRICS.inc("outofcore_evictions_total", float(evicted))
             return pd
         finally:
             with self._lock:

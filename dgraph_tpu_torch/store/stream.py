@@ -2,8 +2,8 @@
 
 Port of `dgraph_tpu/store/stream.py`: `iter_tablets`, `save_streaming`,
 `write_fold`, `checkpoint_streaming` and `gc_superseded`, the same
-passes without the reference's `maintenance.tablet` spans and metrics
-gauges (tracing and the metrics registry are ROADMAP Queue 1 item 9).
+passes. The replica heal hook a clustered reference Alpha carries onto
+each new fold point comes with the cluster (ROADMAP Queue 1 item 9e).
 
 Reference parity: Badger's Stream framework + the background jobs the
 reference runs over it — posting-list rollups, raft snapshots, and
@@ -24,6 +24,13 @@ the fold writer routes each tablet through the SAME
 mvcc._materialize code path (restricted to one predicate, vocabulary
 pinned to the full-fold union) — outputs are bit-identical to the
 in-core rollup, just never all resident at once.
+
+Observability: each pass emits `maintenance.tablet` spans and keeps the
+`maintenance_resident_bytes` gauge + `maintenance_evictions_total`
+counter fresh. The `pace` hook runs between tablets — the maintenance
+scheduler (store/maintenance.py) uses it to sleep its pacing and to park
+at its pause gate, which bounds how long a commit or a read contends
+with a maintenance job: one tablet's work.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from dgraph_tpu_torch.store import checkpoint
 from dgraph_tpu_torch.store.mvcc import (MVCCStore, _materialize, fold_preds,
                                          fold_vocab)
 from dgraph_tpu_torch.store.store import Store
+from dgraph_tpu_torch.utils import tracing
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 
 def lazy_preds(store: Store):
@@ -43,26 +52,49 @@ def lazy_preds(store: Store):
     return preds if isinstance(preds, LazyPreds) else None
 
 
-def iter_tablets(store: Store, release: bool = True):
+def _evicted(lazy) -> int:
+    st = lazy.stats()  # locked accessor: serving threads fault/evict
+    return st["evictions"] + st["releases"]
+
+
+def _account(lazy, evicted_before: int) -> None:
+    st = lazy.stats()
+    METRICS.set_gauge("maintenance_resident_bytes",
+                      st["resident_bytes"])
+    delta = (st["evictions"] + st["releases"]) - evicted_before
+    if delta > 0:
+        METRICS.inc("maintenance_evictions_total", float(delta))
+
+
+def iter_tablets(store: Store, release: bool = True, pace=None,
+                 job: str = ""):
     """Yield (pred, PredicateData) in stable sorted order, one tablet
     resident at a time on an out-of-core store.
 
     Tablets that were already resident when the pass reached them (the
     serving path's hot set) are NOT released — only tablets this pass
-    itself faulted in."""
+    itself faulted in. Consumer work per tablet runs inside a
+    `maintenance.tablet` span; `pace` runs between tablets."""
     lazy = lazy_preds(store)
     for pred in sorted(store.preds.keys()):
         was_resident = lazy.is_resident(pred) if lazy is not None else True
-        pd = store.preds.get(pred)
-        if pd is not None:
-            yield pred, pd
+        evicted0 = _evicted(lazy) if lazy else 0
+        with tracing.span("maintenance.tablet", pred=pred, job=job):
+            pd = store.preds.get(pred)
+            if pd is not None:
+                yield pred, pd
         del pd
-        if lazy is not None and release and not was_resident:
-            lazy.release(pred)
+        if lazy is not None:
+            if release and not was_resident:
+                lazy.release(pred)
+            _account(lazy, evicted0)
+        if pace is not None:
+            pace()
 
 
 def save_streaming(store: Store, dirname: str, base_ts: int = 0,
-                   compress: bool | None = None) -> None:
+                   compress: bool | None = None, pace=None,
+                   job: str = "checkpoint") -> None:
     """checkpoint.save(), one tablet resident at a time: same segment
     files, same manifest fields — an out-of-core store is saved without
     ever holding more than budget + one tablet resident."""
@@ -72,28 +104,36 @@ def save_streaming(store: Store, dirname: str, base_ts: int = 0,
     os.makedirs(dirname, exist_ok=True)
     uids_crc = checkpoint.save_uids(store.uids, dirname, compress)
     preds_meta = {}
-    for pred, pd in iter_tablets(store):
+    for pred, pd in iter_tablets(store, pace=pace, job=job):
         preds_meta[pred] = checkpoint.save_predicate(dirname, pred, pd)
     checkpoint.write_manifest(dirname, checkpoint.manifest_doc(
         store.n_nodes, store.schema.to_text(), preds_meta, base_ts,
         compress, uids_crc=uids_crc))
 
 
+
+
 def write_fold(mvcc: MVCCStore, dirname: str, plan=None,
-               compress: bool | None = None) -> tuple[int, tuple]:
+               compress: bool | None = None, pace=None,
+               job: str = "rollup",
+               manifest_ts: int | None = None) -> tuple[int, tuple]:
     """Fold (newest fold point + pending delta layers) into a plain
     snapshot dir, ONE TABLET AT A TIME. Returns (new_ts, guard) for
     MVCCStore.install_fold. With no pending layers this degrades to a
     streaming save of the base (the builder round-trip is skipped so
-    segments stay byte-identical to the base's own)."""
+    segments stay byte-identical to the base's own). `manifest_ts`
+    overrides the base_ts recorded in the manifest (a full backup
+    stamps its read watermark, which may sit above the newest commit)."""
     from dgraph_tpu_torch import native
     if compress is None:
         compress = native.HAVE_NATIVE
     if plan is None:
         plan = mvcc.fold_plan()
     _fold_ts, base, pending, new_ts, guard = plan
+    stamp = new_ts if manifest_ts is None else manifest_ts
     if not pending:
-        save_streaming(base, dirname, base_ts=new_ts, compress=compress)
+        save_streaming(base, dirname, base_ts=stamp, compress=compress,
+                       pace=pace, job=job)
         return new_ts, guard
 
     vocab = fold_vocab(base, pending)
@@ -104,19 +144,26 @@ def write_fold(mvcc: MVCCStore, dirname: str, plan=None,
     preds_meta = {}
     for pred in fold_preds(base, pending):
         was_resident = lazy.is_resident(pred) if lazy is not None else True
-        # the same fold code path the in-core rollup runs, restricted to
-        # one predicate with the vocabulary pinned — per-tablet output
-        # is bit-identical to the full materialize's slice
-        folded = _materialize(base, pending, schema=schema,
-                              only={pred}, vocab=vocab)
-        pd = folded.preds.get(pred)
-        if pd is not None:
-            preds_meta[pred] = checkpoint.save_predicate(dirname, pred, pd)
+        evicted0 = _evicted(lazy) if lazy else 0
+        with tracing.span("maintenance.tablet", pred=pred, job=job):
+            # the same fold code path the in-core rollup runs, restricted
+            # to one predicate with the vocabulary pinned — per-tablet
+            # output is bit-identical to the full materialize's slice
+            folded = _materialize(base, pending, schema=schema,
+                                  only={pred}, vocab=vocab)
+            pd = folded.preds.get(pred)
+            if pd is not None:
+                preds_meta[pred] = checkpoint.save_predicate(
+                    dirname, pred, pd)
         del folded, pd
-        if lazy is not None and not was_resident:
-            lazy.release(pred)
+        if lazy is not None:
+            if not was_resident:
+                lazy.release(pred)
+            _account(lazy, evicted0)
+        if pace is not None:
+            pace()
     checkpoint.write_manifest(dirname, checkpoint.manifest_doc(
-        int(len(vocab)), schema.to_text(), preds_meta, new_ts, compress,
+        int(len(vocab)), schema.to_text(), preds_meta, stamp, compress,
         uids_crc=uids_crc))
     return new_ts, guard
 
@@ -134,7 +181,8 @@ def _kept_dirs(root_dir: str, mvcc: MVCCStore) -> set:
 
 
 def checkpoint_streaming(mvcc: MVCCStore, root_dir: str,
-                         budget_bytes: int) -> int:
+                         budget_bytes: int, pace=None,
+                         job: str = "checkpoint") -> int:
     """Crash-safe streaming checkpoint of an out-of-core MVCC store:
     fold into a fresh `ckpt-<ts>` subdir tablet-at-a-time, reopen it
     OUT-OF-CORE, install it as the newest fold point, then flip the
@@ -144,9 +192,10 @@ def checkpoint_streaming(mvcc: MVCCStore, root_dir: str,
     against stragglers) BEFORE the CURRENT flip — a crash in between
     recovers from the old snapshot + an untruncated WAL; an install
     refusal (FoldRaced) deletes the orphan subdir and leaves everything
-    as it was, for the caller's retry. Superseded ckpt dirs survive the
-    flip while an older fold point in MVCC history still faults tablets
-    from them (gc drops the fold; gc_superseded sweeps the dir)."""
+    as it was, for the scheduler's retry. Superseded ckpt dirs survive
+    the flip while an older fold point in MVCC history still faults
+    tablets from them (gc drops the fold; gc_superseded sweeps the
+    dir)."""
     import shutil
 
     from dgraph_tpu_torch.store.outofcore import open_out_of_core
@@ -158,7 +207,7 @@ def checkpoint_streaming(mvcc: MVCCStore, root_dir: str,
         return new_ts  # CURRENT already names this exact fold
     subdir = os.path.join(root_dir, sub)
     try:
-        write_fold(mvcc, subdir, plan=plan)
+        write_fold(mvcc, subdir, plan=plan, pace=pace, job=job)
         new_base, _ts = open_out_of_core(subdir, budget_bytes)
         new_base.preds.root_dir = root_dir  # next fold writes beside it
         mvcc.install_fold(new_ts, new_base, plan[4])
@@ -170,12 +219,17 @@ def checkpoint_streaming(mvcc: MVCCStore, root_dir: str,
     return new_ts
 
 
+_GC_RECLAIMED = 0  # cumulative bytes reclaimed (gauge backing store)
+
+
 def gc_superseded(root_dir: str, mvcc: MVCCStore) -> int:
     """Remove superseded `ckpt-*` subdirs no retained MVCC fold point
     faults tablets from anymore; runs from the watermark gc path
     (Alpha._maybe_gc) once `mvcc.gc` dropped the fold that held one.
-    Returns bytes reclaimed."""
+    Returns bytes reclaimed;
+    cumulative total in the `checkpoint_gc_reclaimed_bytes` gauge."""
     import shutil
+    global _GC_RECLAIMED
 
     cur = os.path.join(root_dir, "CURRENT")
     if not os.path.exists(cur):
@@ -193,4 +247,7 @@ def gc_superseded(root_dir: str, mvcc: MVCCStore) -> int:
                    for f in os.listdir(d))
         shutil.rmtree(d, ignore_errors=True)
         reclaimed += size
+    if reclaimed:
+        _GC_RECLAIMED += reclaimed
+        METRICS.set_gauge("checkpoint_gc_reclaimed_bytes", _GC_RECLAIMED)
     return reclaimed

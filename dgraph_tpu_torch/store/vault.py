@@ -4,9 +4,10 @@ Port of `dgraph_tpu/store/vault.py`: the same formats (a file or record
 sealed by either package opens in the other), crc checks, typed
 `StorageCorruption`, the IO fault hook, and AES-GCM through the
 `cryptography` package imported only when a key is set. A key set
-without that package raises; nothing falls back to plaintext. The
-reference's corruption counter and flight-recorder event go with the
-metrics registry (ROADMAP Queue 1 item 9).
+without that package raises; nothing falls back to plaintext. Every
+detected corruption counts in `storage_corruption_total{file_kind=}`;
+the reference's flight-recorder event waits for the flight recorder
+(ROADMAP Queue 1 item 9f).
 
 Reference parity: the enterprise encryption-at-rest feature (SURVEY §2.5
 `ee/`) — the reference encrypts Badger SSTs and value-log blocks with an
@@ -83,6 +84,8 @@ class StorageCorruption(Exception):
 def corruption(path: str, kind: str, detail: str = "") -> StorageCorruption:
     """Build a StorageCorruption — the single construction site every
     detection path (checkpoint load, replay, sidecars) goes through."""
+    from dgraph_tpu_torch.utils.metrics import METRICS
+    METRICS.inc("storage_corruption_total", file_kind=kind)
     return StorageCorruption(path, kind=kind, detail=detail)
 
 

@@ -25,12 +25,12 @@ reference, the routes give the same set whenever the scores are equal,
 which holds exactly for small-integer-valued vectors (the fixtures').
 
 `similar_ranks` picks the route by `device_threshold` alone (tablet rows)
-and counts each route in `status()`.
+and counts each route in `knn_route_total{route=}` (host, device, and
+fused for a knn stage of a whole-block program).
 """
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,15 +38,14 @@ import torch
 
 from dgraph_tpu_torch.store.types import parse_vector
 from dgraph_tpu_torch.ops.uidalgebra import sentinel
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["VecQueryError", "VecTablet", "build_tablet", "host_topk",
            "host_similar", "resolve_query", "topk_keys", "device_topk",
-           "similar_ranks", "status", "reset"]
+           "similar_ranks"]
 
 EMPTY = np.zeros(0, np.int32)
 
-_lock = threading.Lock()
-_routes = {"host": 0, "device": 0, "fused": 0}
 
 
 class VecQueryError(ValueError):
@@ -195,8 +194,7 @@ def device_topk(subj: torch.Tensor, vecs: torch.Tensor, q: torch.Tensor,
 # -- the routed entry point (Executor._leaf_set) ---------------------------------
 
 def _count(route: str) -> None:
-    with _lock:
-        _routes[route] += 1
+    METRICS.inc("knn_route_total", route=route)
 
 
 def similar_ranks(store, f, device, device_threshold: int = 512
@@ -222,15 +220,3 @@ def similar_ranks(store, f, device, device_threshold: int = 512
 def count_fused() -> None:
     """A knn stage served inside a whole-block program."""
     _count("fused")
-
-
-def status() -> dict:
-    """similar_to seeds served per route since the last `reset()`."""
-    with _lock:
-        return {"routes": dict(_routes)}
-
-
-def reset() -> None:
-    with _lock:
-        for r in _routes:
-            _routes[r] = 0

@@ -32,6 +32,17 @@ reads after the stream can check each kind (`Mix.checks`).
     mix = make_mix(g, n=1000, seed=WRITE_SEED)
     for tx in mix.txns:
         alpha.mutate(**tx.kwargs())
+
+`tag_upserts` makes the canonical Dgraph upsert over the same graph:
+"tag a message with tag X, creating X if absent" — one `Alpha.upsert`
+block with a query for the tag and two conditional mutations,
+`@if(eq(len(t), 0))` creating the tag and `@if(gt(len(t), 0))` reusing
+it. Half the blocks name an existing tag, half a new one (each new name
+once), shuffled; each carries the query that reads it back
+(`upsert_took`).
+
+    for op in tag_upserts(g, n=200, seed=WRITE_SEED):
+        alpha.upsert(op.src)
 """
 
 from __future__ import annotations
@@ -66,6 +77,61 @@ class Txn:
         if self.del_nquads:
             out["del_nquads"] = self.del_nquads
         return out
+
+
+@dataclass
+class Upsert:
+    """One get-or-create tag upsert and the query that reads it back."""
+
+    src: str
+    check: str
+    tag: str
+    msg: int
+    creates: bool
+
+
+UPSERT = """upsert {{
+  query {{ q(func: eq(tag_name, "{tag}")) {{ t as uid }} }}
+  mutation @if(eq(len(t), 0)) {{
+    set {{
+      _:t <tag_name> "{tag}" .
+      <{msg:#x}> <has_tag> _:t .
+    }}
+  }}
+  mutation @if(gt(len(t), 0)) {{
+    set {{ <{msg:#x}> <has_tag> uid(t) . }}
+  }}
+}}"""
+
+CHECK = ('{{ q(func: eq(tag_name, "{tag}")) {{ uid '
+         '~has_tag @filter(uid({msg:#x})) {{ uid }} }} }}')
+
+
+def tag_upserts(g: ldbc.SNBGraph, n: int = 200, seed: int = WRITE_SEED,
+                tag: str = "") -> list:
+    """`n` get-or-create tag upserts over `g`, half on existing tags
+    (see the module docstring); `tag` keeps new tag names apart between
+    two streams over one graph."""
+    rng = np.random.default_rng(seed)
+    msgs = np.concatenate([g.post_uids, g.comment_uids])
+    creates = rng.permutation([True] * (n // 2) + [False] * (n - n // 2))
+    out = []
+    for i, new in enumerate(creates):
+        name = (f"new_tag{tag}_{i}" if new else
+                ldbc.TAG_NAMES[int(rng.integers(g.n_tags))])
+        m = int(rng.choice(msgs))
+        out.append(Upsert(UPSERT.format(tag=name, msg=m),
+                          CHECK.format(tag=name, msg=m), name, m,
+                          bool(new)))
+    return out
+
+
+def upsert_took(answer: dict, op: Upsert) -> bool:
+    """Whether a read-back of `op.check` shows the upsert: exactly one
+    tag of that name, and the message tagged with it."""
+    q = answer.get("q", [])
+    return (len(q) == 1 and
+            q[0].get("~has_tag", []) == [{"uid": f"{op.msg:#x}"}])
 
 
 @dataclass

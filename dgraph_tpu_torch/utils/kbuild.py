@@ -5,7 +5,8 @@ for sm_90a into `dgraph_tpu_torch/build/lib<name>-<hash>.so` at first use
 (the hash is of the source and flags, so an edited source rebuilds), then
 loaded with ctypes. The build directory is listed in `.gitignore`.
 `build_all` starts one `nvcc` per source at once and waits for all of
-them; nothing here runs at import time.
+them, and counts each build in `kernel_builds_total{kernel=,outcome=}`;
+nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -74,9 +77,11 @@ def build_all(names=SOURCES) -> dict:
             p.kill()
             log, _ = p.communicate()
         if p.returncode != 0:
+            METRICS.inc("kernel_builds_total", kernel=name, outcome="error")
             failed.append(f"{name}: nvcc exited {p.returncode}\n{log}")
             continue
         os.replace(tmp, out)
+        METRICS.inc("kernel_builds_total", kernel=name, outcome="ok")
         report[name] = {"seconds": time.perf_counter() - t0,
                         "ptxas": "\n".join(l for l in log.splitlines()
                                            if "ptxas" in l)}

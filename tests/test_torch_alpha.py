@@ -17,12 +17,14 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 import dgraph_tpu.server.api as ref_api
 import dgraph_tpu.store.mvcc as ref_mvcc_mod
 import test_geo
+import test_loaders
 import test_mvcc_retention
 import test_password
 import test_txn
@@ -32,6 +34,7 @@ from dgraph_tpu_torch.models import ldbc
 from dgraph_tpu_torch.server.api import Alpha, TxnAborted
 from dgraph_tpu_torch.store.mvcc import Mutation
 from dgraph_tpu_torch.tools import write_mix
+from test_torch_lifecycle import compare_case
 from test_torch_mvcc import assert_stores_equal
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -264,3 +267,187 @@ def test_write_mix_reads_back(ldbc_alphas):
     t1.commit()
     with pytest.raises(TxnAborted):
         t2.commit()
+
+
+# -- reference cases that also need the port's modules bound ---------------------
+
+# cases that drive the Alpha together with the checkpoint, the chunker
+# or store/geo.py: the harness of test_torch_lifecycle.py binds every
+# reference name they use to the port's
+MODULE_CASES = ([(test_loaders, n) for n in (
+    "test_checkpoint_roundtrip", "test_checkpoint_persists_facets",
+    "test_json_mutation_facets_roundtrip", "test_json_facets_parse_shapes",
+    "test_json_list_facet_index_maps")]
+    + [(test_geo, n) for n in (
+        "test_antimeridian_bbox_forces_scan_and_split_tokens",
+        "test_geohash_properties", "test_non_finite_coordinates_rejected")])
+
+
+@pytest.mark.parametrize("module,name", MODULE_CASES,
+                         ids=[f"{m.__name__}::{n}" for m, n in MODULE_CASES])
+def test_reference_case_with_port_modules(module, name, tmp_path,
+                                          monkeypatch):
+    compare_case(module, name, tmp_path, monkeypatch)
+
+
+# -- a seeded differential of the Alpha ------------------------------------------
+
+DIFF_SCHEMA = ("name: string @index(exact, term) .\nage: int @index(int) .\n"
+               "friend: [uid] @reverse .\nnick: string @lang .\n"
+               "score: float .\ndgraph.type: [string] @index(exact) .")
+DIFF_QUERIES = [
+    '{ q(func: has(name), orderasc: name) { uid name age } }',
+    '{ q(func: eq(name, "n3")) { uid name friend @facets { name } } }',
+    '{ q(func: anyofterms(name, "n1 n2 n5")) { name nick@en nick@fr } }',
+    '{ q(func: ge(age, 30), orderasc: age, first: 4) { name age } }',
+    '{ q(func: uid(0x1)) @recurse(depth: 3) { uid friend } }',
+    '{ var(func: has(age)) { a as age } q() { s: sum(val(a)) '
+    'm: max(val(a)) } }',
+    '{ q(func: has(friend)) { uid ~friend { uid } } }',
+    '{ q(func: type(Person)) { uid name } }',
+    '{ q(func: has(score)) @filter(lt(age, 40)) { name score } }',
+    '{ q(func: has(knows)) { uid knows { uid } } }',
+]
+
+
+def _diff_steps(seed: int, n: int = 40) -> list:
+    """`n` random steps (pure data, so both packages get the same)."""
+    rng = np.random.default_rng(seed)
+
+    def subj():
+        return (f"<{int(rng.integers(1, 24)):#x}>" if rng.random() < 0.7
+                else f"_:b{int(rng.integers(0, 4))}")
+
+    def nq():
+        s, k = subj(), int(rng.integers(0, 7))
+        if k == 0:
+            return f'{s} <name> "n{int(rng.integers(0, 8))}" .'
+        if k == 1:
+            return f'{s} <age> "{int(rng.integers(18, 60))}"^^<xs:int> .'
+        if k == 2:
+            o = f"<{int(rng.integers(1, 24)):#x}>"
+            if rng.random() < 0.5:
+                return f"{s} <friend> {o} (w={int(rng.integers(1, 9))}) ."
+            return f"{s} <friend> {o} ."
+        if k == 3:
+            lang = ("en", "fr")[int(rng.integers(0, 2))]
+            return f'{s} <nick> "k{int(rng.integers(0, 5))}"@{lang} .'
+        if k == 4:
+            return f'{s} <score> "{rng.integers(0, 100) / 4}"^^<xs:float> .'
+        if k == 5:
+            return f'{s} <dgraph.type> "Person" .'
+        return f"{s} <knows> <{int(rng.integers(1, 24)):#x}> ."
+
+    steps = []
+    for _ in range(n):
+        r = rng.random()
+        if r < 0.30:
+            steps.append(("set", "\n".join(nq() for _ in
+                                          range(int(rng.integers(1, 5))))))
+        elif r < 0.38:
+            u = int(rng.integers(1, 24))
+            steps.append(("json", [{"uid": f"{u:#x}",
+                                    "name": f"n{int(rng.integers(0, 8))}",
+                                    "friend": [{"uid": "_:j",
+                                                "name": "jn"}]}]))
+        elif r < 0.48:
+            u = int(rng.integers(1, 24))
+            p = ("name", "age", "friend", "nick", "score")[
+                int(rng.integers(0, 5))]
+            obj = ("*" if rng.random() < 0.5 or p != "friend"
+                   else f"<{int(rng.integers(1, 24)):#x}>")
+            steps.append(("del", f"<{u:#x}> <{p}> {obj} ."))
+        elif r < 0.53:
+            steps.append(("alter", (
+                "age: int .", "age: int @index(int) .",
+                "knows: [uid] @reverse .", "score: float @index(float) .",
+                "name: string @index(exact, term, trigram) .")[
+                    int(rng.integers(0, 5))]))
+        elif r < 0.56:
+            steps.append(("drop_attr", ("nick", "score", "knows")[
+                int(rng.integers(0, 3))]))
+        elif r < 0.64:
+            steps.append(("open", nq()))
+        elif r < 0.70:
+            steps.append(("commit", None))
+        elif r < 0.74:
+            steps.append(("checkpoint", None))
+        elif r < 0.77:
+            steps.append(("reopen", None))
+        else:
+            steps.append(("query", int(rng.integers(0, len(DIFF_QUERIES)))))
+    steps.append(("commit", None))
+    steps += [("query", i) for i in range(len(DIFF_QUERIES))]
+    return steps
+
+
+def _diff_run(open_alpha, p_dir, steps) -> list:
+    """Drive one package's Alpha through `steps`; the transcript."""
+    a = open_alpha(p_dir)
+    a.alter(DIFF_SCHEMA)
+    log, pending = [], []
+
+    def call(kind, fn):
+        try:
+            log.append((kind, json.dumps(fn(), sort_keys=True)))
+        except Exception as e:  # noqa: BLE001 — errors are transcript
+            log.append((kind, type(e).__name__, str(e)))
+
+    for kind, arg in steps:
+        if kind == "set":
+            call(kind, lambda: a.mutate(set_nquads=arg))
+        elif kind == "json":
+            call(kind, lambda: a.mutate(set_json=arg))
+        elif kind == "del":
+            call(kind, lambda: a.mutate(del_nquads=arg))
+        elif kind == "alter":
+            call(kind, lambda: a.alter(arg))
+        elif kind == "drop_attr":
+            call(kind, lambda: a.drop_attr(arg))
+        elif kind == "open":
+            txn = a.new_txn()
+            call(kind, lambda: txn.mutate(set_nquads=arg))
+            pending.append(txn)
+        elif kind == "commit":
+            while pending:
+                txn = pending.pop(0)
+                call(kind, txn.commit)
+        elif kind in ("checkpoint", "reopen"):
+            for txn in pending:
+                txn.discard()
+            pending.clear()
+            if kind == "checkpoint":
+                call(kind, lambda: a.checkpoint_to(p_dir))
+            a.wal.close()
+            a = open_alpha(p_dir)
+        else:
+            q = DIFF_QUERIES[arg]
+            call(kind, lambda: a.query(q))
+    a.wal.close()
+    return log
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("budget", [None, 1500],
+                         ids=["in_core", "out_of_core"])
+def test_seeded_alpha_differential(seed, budget, tmp_path):
+    """40 random steps — RDF and JSON sets and deletes with facets,
+    language tags, typed literals and star deletes; Alters that add or
+    drop an index, add @reverse or type a predicate; drop_attr;
+    transactions left open and committed later (some conflict);
+    checkpoints and reopens (WAL replay) — then every query: both
+    packages' transcripts (answers, assigned uids, error types and
+    messages) are equal. Out of core the budget takes effect from the
+    first checkpoint on."""
+    steps = _diff_steps(seed)
+    port = _diff_run(
+        lambda d: Alpha.open(d, sync=False, memory_budget=budget,
+                             device="cpu",
+                             device_threshold=(0, 10**9)[seed % 2]),
+        str(tmp_path / "port"), steps)
+    ref = _diff_run(
+        lambda d: ref_api.Alpha.open(d, sync=False, memory_budget=budget,
+                                     device_threshold=(0, 10**9)[seed % 2]),
+        str(tmp_path / "ref"), steps)
+    assert port == ref
+    assert sum(1 for e in port if e[0] == "query") >= len(DIFF_QUERIES)

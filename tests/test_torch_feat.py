@@ -33,6 +33,7 @@ from dgraph_tpu_torch.engine import feat as efeat
 from dgraph_tpu_torch.ops import feat as ofeat
 from dgraph_tpu_torch.store import vec
 from dgraph_tpu_torch.store.store import store_from_arrays
+from dgraph_tpu_torch.utils.metrics import METRICS as PORT_METRICS
 from test_feat import _graphs, _oracle
 
 CPU = "cpu"
@@ -41,12 +42,33 @@ AGGS = ("sum", "mean", "max")
 torch.set_num_threads(1)
 
 
+_ROUTES = ("host", "device", "fused")
+_BASE: dict = {}
+
+
+def _feat_counts(registry) -> dict:
+    out = {r: registry.get("feat_route_total", route=r) for r in _ROUTES}
+    out["bytes"] = registry.get("feat_bytes_total")
+    return out
+
+
+def feat_routes() -> dict:
+    """The port's `feat_route_total{route=}` since this test started."""
+    now = _feat_counts(PORT_METRICS)
+    return {r: now[r] - _BASE[r] for r in _ROUTES}
+
+
+def feat_bytes() -> float:
+    return PORT_METRICS.get("feat_bytes_total") - _BASE["bytes"]
+
+
 @pytest.fixture(autouse=True)
 def _fresh(monkeypatch):
     monkeypatch.setenv("DGRAPH_TPU_FUSED", "1")
     fused.reset()
     ref_fused.reset()
-    efeat.reset()
+    _BASE.clear()
+    _BASE.update(_feat_counts(PORT_METRICS))
     yield
     fused.reset()
     ref_fused.reset()
@@ -319,13 +341,19 @@ def test_staged_device_route_equals_host_and_reference(monkeypatch):
     host = Engine(port, device=CPU, device_threshold=10**9)
     dev = Engine(port, device=CPU, device_threshold=0)
     r = RefEngine(ref, device_threshold=10**9)
+    ref0 = _feat_counts(METRICS)
     for q in QUERIES:
         want = json.dumps(r.query(q))
         assert json.dumps(host.query(q)) == want, q
         assert json.dumps(dev.query(q)) == want, q
-    st = efeat.status()
-    assert st["routes"]["host"] >= 3 and st["routes"]["device"] >= 3
-    assert st["feature_bytes"] > 0
+    st = feat_routes()
+    assert st["host"] >= 3 and st["device"] >= 3
+    assert feat_bytes() > 0
+    # the reference's host route counts the same aggregations and bytes
+    # under the same names
+    ref1 = _feat_counts(METRICS)
+    assert ref1["host"] - ref0["host"] == st["host"] == st["device"]
+    assert 2 * (ref1["bytes"] - ref0["bytes"]) == feat_bytes()
 
 
 def test_msgpass_renders_count_leaf_style_keys(monkeypatch):
@@ -382,7 +410,7 @@ def test_fused_featprop_equals_staged_and_reference(monkeypatch, agg,
         monkeypatch.setenv("DGRAPH_TPU_FUSED", "1")
         assert got == want == staged, q
         assert port_blocks == ref_blocks, q
-    assert efeat.status()["routes"]["fused"] == 2
+    assert feat_routes()["fused"] == 2
     st = fused.status()
     assert st["fallbacks"] == 0 and not st["disabled"]
 
@@ -492,7 +520,7 @@ def test_fused_flag_read_per_query(monkeypatch):
     eng = Engine(port, device=CPU)
     monkeypatch.setenv("DGRAPH_TPU_FUSED", "0")
     eng.query(QUERIES[1])
-    assert efeat.status()["routes"]["fused"] == 0
+    assert feat_routes()["fused"] == 0
     monkeypatch.setenv("DGRAPH_TPU_FUSED", "1")
     eng.query(QUERIES[1])
-    assert efeat.status()["routes"]["fused"] == 1
+    assert feat_routes()["fused"] == 1

@@ -67,6 +67,14 @@ def test_no_file_imports_jax_or_reference(path):
             assert top not in ("jax", "jaxlib", "dgraph_tpu"), (path, n)
 
 
+def test_scan_covers_the_lifecycle_modules():
+    scanned = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"utils/metrics.py", "utils/logging.py", "utils/tracing.py",
+            "utils/deadline.py", "server/export.py", "server/backup.py",
+            "store/maintenance.py", "dql/upsert.py", "loader/bulk.py",
+            "loader/live.py"} <= scanned
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     """Without a card, an entry point called without device= raises; it
     never quietly runs on the CPU."""

@@ -29,6 +29,7 @@ from dgraph_tpu_torch.engine import Engine, fused
 from dgraph_tpu_torch.store import vec
 from dgraph_tpu_torch.store.schema import parse_schema
 from dgraph_tpu_torch.store.store import StoreBuilder, store_from_arrays
+from dgraph_tpu_torch.utils.metrics import METRICS as PORT_METRICS
 
 CPU = "cpu"
 DIM = 4
@@ -38,12 +39,27 @@ SCHEMA = ("emb: float32vector @dim(%d) .\n"
           "name: string @index(exact) ." % DIM)
 
 
+_ROUTES = ("host", "device", "fused")
+_BASE: dict = {}
+
+
+def _knn_counts(registry) -> dict:
+    return {r: registry.get("knn_route_total", route=r) for r in _ROUTES}
+
+
+def knn_routes() -> dict:
+    """The port's `knn_route_total{route=}` since this test started."""
+    now = _knn_counts(PORT_METRICS)
+    return {r: now[r] - _BASE[r] for r in _ROUTES}
+
+
 @pytest.fixture(autouse=True)
 def _fresh(monkeypatch):
     monkeypatch.setenv("DGRAPH_TPU_FUSED", "1")
     fused.reset()
     ref_fused.reset()
-    vec.reset()
+    _BASE.clear()
+    _BASE.update(_knn_counts(PORT_METRICS))
     yield
     fused.reset()
     ref_fused.reset()
@@ -222,12 +238,17 @@ def test_device_route_equals_host_and_reference():
     got = vec.similar_ranks(port, _func(7, q.tolist()), CPU,
                             device_threshold=0)
     assert got.tolist() == want.tolist()
+    ref0 = _knn_counts(METRICS)
     assert got.tolist() == ref_vec.similar_ranks(
         ref, _func(7, q.tolist()), device_threshold=0).tolist()
     host = vec.similar_ranks(port, _func(7, q.tolist()), CPU,
                              device_threshold=10**9)
     assert host.tolist() == want.tolist()
-    assert vec.status()["routes"] == {"host": 1, "device": 1, "fused": 0}
+    assert knn_routes() == {"host": 1, "device": 1, "fused": 0}
+    # the reference counts its device call under the same name and label
+    ref1 = _knn_counts(METRICS)
+    assert {r: ref1[r] - ref0[r] for r in _ROUTES} == \
+        {"host": 0, "device": 1, "fused": 0}
 
 
 def test_uid_form_uses_stored_vector_as_query():
@@ -282,7 +303,7 @@ def test_fused_knn_equals_staged_and_reference(monkeypatch, threshold, i):
     assert staged == want
     assert st["routes"]["fused"] == ref_blocks >= 1
     assert st["fallbacks"] == 0 and not st["disabled"]
-    assert vec.status()["routes"]["fused"] == 1
+    assert knn_routes()["fused"] == 1
 
 
 def test_query_json_renders_vector_values():
