@@ -206,8 +206,9 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 bfs checkpoint, a batch cancelled from another thread
                 raises Cancelled, and after each the IC mix answers in
                 phase 11's bytes with no read registered and no context
-                left; (b) 200 get-or-create tag upserts
-                (tools/write_mix.tag_upserts, half on existing tags),
+                left; (b) 100 get-or-create tag upserts (200 before
+                phase 13 came: the cut that pays for it;
+                tools/write_mix.tag_upserts, half on existing tags),
                 each read back, p50/p99; (c) an incremental backup of
                 the upserts, verify_chain clean, restore into a new
                 directory, Alpha.open on the card: the base equal to the
@@ -234,12 +235,57 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 run_live into new Alphas, both answering the IC mix in
                 the exported store's bytes (IC14, which reads edge
                 facets that the export format omits, equal between the
-                two reloads)
-  13. `route counters` (the run's totals and each phase's deltas), the
+                two reloads). Its directory goes on to phase 13
+  13. memory and cost — the memory governor (utils/memgov.py) and the
+                cost model (utils/costprofile.py, costprior.py) on phase
+                12's SF1 Alpha, reopened on the card from its directory
+                (removed at the end), and on phase 10's GraphRAG store,
+                kept alive for it (its placed tablets evicted first).
+                (a) the IC mix four times and one batch
+                (ic_batch(copies=4) plus 8 `knows` @recurse(depth: 2)
+                queries) cold, then eight times more with the priors
+                on (each group teaches its launch shape's prior), then
+                as two interleaved pairs with priors on and off (walls
+                printed), every answer equal to the numpy route;
+                the cost profile (merged with the history phases 11-12
+                saved) names the recurse, tree and shortest shapes, and
+                the bucket_hop launches it credits per family add up to
+                the counter's delta (counted from zero); refit,
+                checkpoint_to, a reopen with fresh process state: every
+                group predicted by its own prior, above 0 µs, the one
+                saved, and the launch order (printed with the µs and
+                the pack imbalance both ways) not the plan's; (b) a
+                device budget of half the warmed caches' bytes: the
+                batch and the mix again, equal, resident bytes at or
+                below the high watermark and the allocator's allocated
+                bytes at or below their warm value after every request,
+                evictions per cache and re-placements counted; (c) a
+                real torch.cuda.OutOfMemoryError under
+                set_per_process_memory_fraction, on an 8-deep `knows`
+                recurse group: 1. the cap 1 MiB above the reserved bytes
+                while the governed caches hold memory, one failure
+                absorbed by the evict-and-retry (no degrade); 2. every
+                cache evicted first: the retry fails too, the error
+                raises out of query_batch with one warning, and no query
+                is served from the host; 3. the cap lifted, the card
+                route serves again at once (bucket_hop launches), as
+                nothing stays degraded; 4. the one degraded route, a
+                fused.program whose attempts both fail (injected): the
+                staged torch ops serve it on the card, equal, with one
+                warning, the next request goes straight to them, and
+                after the governor's reset the program serves again; 5.
+                one injected AllocFault at each of the six governed
+                sites (bfs.ell_recurse, bfs.ell_step, fused.program,
+                hop.gather_edges on the Alpha; vec.topk, feat.agg on the
+                GraphRAG store), each one event, no degrade, the same
+                answer. Each part's seconds printed
+  14. `route counters` (the run's totals and each phase's deltas), the
                 `kernels` JSON line, then the device JSON line last
 
 Phases 6 to 12 fail if any block falls back from its whole-block program
-to the staged route.
+to the staged route, and phases 2 to 12 and phase 13 (a) and (b) fail if
+an allocation failure was counted or a shape degraded (no degraded route
+may stand in for a kernel's result).
 
 It imports torch, numpy and dgraph_tpu_torch only.
 """
@@ -249,6 +295,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -321,7 +368,7 @@ ALPHA_BATCH_COPIES = 4     # ic_batch copies read after the writes (8 before PR 
 ALPHA_REPS = 3             # warm IC-mix passes
 ALPHA_SUFFIX_TXNS = 4      # likes committed between the ELL view and the fold
 ALPHA_ELL_TEMPLATES = ("IC2", "IC7", "config3")   # knows, ~has_creator, ~likes
-LIFECYCLE_UPSERTS = 200         # (b) get-or-create tag upserts
+LIFECYCLE_UPSERTS = 100         # (b) tag upserts; 200 before phase 13
 LIFECYCLE_BATCH_COPIES = 8      # (a) the batch under a 1 ms budget
 LIFECYCLE_RESTORED_COPIES = 4   # (c) the restored batch (MIN_BATCH)
 LIFECYCLE_DEADLINE_MS = 20      # (a) IC14's budget
@@ -337,6 +384,18 @@ MAINT_READ_TEMPLATES = ("IC2", "IC8", "IC11")
 OBS_REPS = 4                    # (e) interleaved on/off IC-mix passes
 LIVE_BATCH = 10_000             # (f) N-Quads per live-loader commit
 FACET_TEMPLATES = ("IC14",)     # read edge facets, which exports omit
+# phase 13: the memory governor and the cost model
+MEMCOST_BATCH_COPIES = 4        # ic_batch copies of the phase's batch
+MEMCOST_RECURSE = 8             # the `knows` @recurse group's queries
+MEMCOST_RECURSE_DEPTH = 2       # (a) its depth
+# (c): a depth whose hop masks ([depth, n+1, 1] int32, 33 MB at SF1) no
+# cached block of the allocator can hold once it is emptied, so the run
+# needs a new segment under the cap
+MEMCOST_OOM_DEPTH = 8
+MEMCOST_MIX_PASSES = 4          # (a) IC-mix passes: digests with n >= 4
+MEMCOST_TEACH_PASSES = 7        # (a) batches after the cold one, priors on:
+                                # 8 runs per group, costprior.SAMPLE_FLOOR
+MEMCOST_CAP_MARGIN = 1 << 20    # (c) the cap above the reserved bytes
 
 
 def say(phase: str, **kv) -> None:
@@ -2440,9 +2499,12 @@ def phase_lifecycle(device, built: dict, handoff: dict,
                     restored_copies: int = LIFECYCLE_RESTORED_COPIES,
                     kill_after: int = LIFECYCLE_KILL_AFTER,
                     sf: float = LIFECYCLE_SF,
-                    deadline_ms: float = LIFECYCLE_DEADLINE_MS) -> dict:
+                    deadline_ms: float = LIFECYCLE_DEADLINE_MS,
+                    keep: dict | None = None) -> dict:
     """Phase 12: the request lifecycle and the operator's durability
-    paths on phase 11's SF1 Alpha and directory, which it removes."""
+    paths on phase 11's SF1 Alpha and directory, which it removes unless
+    `keep` is given: then it fills `keep` (the directory and the Alpha's
+    p_dir) for phase 13, which removes it."""
     import glob
     import shutil
     import signal
@@ -2864,6 +2926,8 @@ def phase_lifecycle(device, built: dict, handoff: dict,
             "live_s": live_s, "live_txns": lst.txns,
             "facet_templates": sorted(FACET_TEMPLATES)}
         part("f_export_loaders")
+        if keep is not None:
+            keep.update(tmp=tmp, p_dir=p_dir)
     finally:
         tracing.remove_sink(sink)
         if child is not None and child.poll() is None:
@@ -2872,7 +2936,8 @@ def phase_lifecycle(device, built: dict, handoff: dict,
         for a in alphas:
             if a.wal is not None:
                 a.wal.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -3477,6 +3542,516 @@ def phase_graphrag(device, g, store) -> dict:
             "timing": timing}
 
 
+# -- phase 13: the memory governor and the cost model --------------------------
+
+def no_oom(phase: str) -> None:
+    """Fail `phase` if the run so far counted an allocation failure or
+    degraded a shape: outside phase 13's own pressure, no degraded route
+    may stand in for a kernel's result."""
+    from dgraph_tpu_torch.utils import memgov
+    from dgraph_tpu_torch.utils.metrics import METRICS
+    events = sum(counter_totals(("oom_events_total",)).values())
+    degraded = METRICS.snapshot()["gauges"].get("oom_degraded", 0.0)
+    st = memgov.GOVERNOR.oom_stats()
+    if events or degraded or st["events"] or st["degraded"]:
+        raise AssertionError(f"{phase}: allocation failures {events} "
+                             f"counted, {degraded} shapes degraded "
+                             f"({st})")
+
+
+class _Records(logging.Handler):
+    """Keeps the messages of the records it is handed."""
+
+    def __init__(self, level):
+        super().__init__(level)
+        self.messages: list = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def family_launches(run):
+    """(run(), bucket_hop launches per kernel family, all launches): each
+    family's cost-profile record (`costprofile.add_kernel`, called once
+    per group after its run) is credited the launches since the record
+    before it."""
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+    from dgraph_tpu_torch.utils import costprofile
+
+    real = costprofile.add_kernel
+    start = last = LAUNCHES["bucket_hop"]
+    per: dict = {}
+
+    def probe(family, compile_us=0.0, execute_us=0.0):
+        nonlocal last
+        now = LAUNCHES["bucket_hop"]
+        per[family] = per.get(family, 0) + now - last
+        last = now
+        real(family, compile_us=compile_us, execute_us=execute_us)
+
+    costprofile.add_kernel = probe
+    try:
+        out = run()
+    finally:
+        costprofile.add_kernel = real
+    return out, per, LAUNCHES["bucket_hop"] - start
+
+
+def prior_source(plan) -> str:
+    """Where `plan_cost_us` takes a group's prediction from."""
+    from dgraph_tpu_torch.engine import batch
+    from dgraph_tpu_torch.engine.treebatch import TreePlan
+    from dgraph_tpu_torch.utils import costprior
+    if costprior.PRIORS.predict_shape(batch._plan_shape(plan)) is not None:
+        return "prior"
+    n = batch._plan_queries(plan)
+    depth = (len(plan.stages) if isinstance(plan, TreePlan)
+             else plan.depth)
+    feats = {"lanes": batch._lane_count(n), "depth": depth, "queries": n}
+    if costprior.PRIORS.predict_features(feats) is not None:
+        return "fit"
+    return "count"
+
+
+def phase_memory_cost(device, g, handoff: dict, rag) -> dict:
+    """Phase 13: the memory governor and the cost model on phase 12's
+    SF1 Alpha (its directory, which this phase removes) and on phase
+    10's GraphRAG store."""
+    import shutil
+
+    from dgraph_tpu_torch.engine import Engine, batch
+    from dgraph_tpu_torch.models import ldbc
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+    from dgraph_tpu_torch.server.api import Alpha
+    from dgraph_tpu_torch.tools import graphrag_mix
+    from dgraph_tpu_torch.utils import costprior, costprofile, memgov
+    from dgraph_tpu_torch.utils.metrics import METRICS
+
+    on_card = torch.device(device).type == "cuda"
+    GOV = memgov.GOVERNOR
+    tmp, p_dir = handoff["tmp"], handoff["p_dir"]
+    out: dict = {}
+    parts = out["parts_s"] = {}
+    t_part = [time.perf_counter()]
+    alphas: list = []
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    def open_alpha():
+        a = Alpha.open(p_dir, device=device, device_threshold=LDBC_THRESHOLD)
+        alphas.append(a)
+        return a
+
+    def oom():
+        return {**GOV.oom_stats(),
+                "events_total": sum(counter_totals(
+                    ("oom_events_total",)).values()),
+                "degraded_gauge": METRICS.snapshot()["gauges"].get(
+                    "oom_degraded", 0.0)}
+
+    def canon(results) -> list:
+        return [json.dumps(r, sort_keys=True) for r in results]
+
+    queries = dict(ldbc.ic_templates(g))
+    queries["config3"] = ldbc.config3_query(g)
+    rng = np.random.default_rng(LDBC_SEED)
+    persons = rng.choice(g.person_uids, MEMCOST_RECURSE, replace=False)
+
+    def recurse_group(depth):
+        return ["{ q(func: uid(%s)) @recurse(depth: %d) { uid knows } }"
+                % (hex(int(p)), depth) for p in persons]
+
+    ic = [q for _n, q in ldbc.ic_batch(g, copies=MEMCOST_BATCH_COPIES)]
+    work = ic + recurse_group(MEMCOST_RECURSE_DEPTH)
+    deep = recurse_group(MEMCOST_OOM_DEPTH)
+    shortest = [q for n, q in ldbc.ic_batch(g, copies=MEMCOST_BATCH_COPIES)
+                if n == "IC13"]
+    try:
+        # phase 10's placed tablets go first: the budget below is over
+        # this Alpha's caches
+        GOV.set_budgets(device_bytes=1)
+        GOV.evict_to_low("device")
+        GOV.reset()
+        costprofile.reset()
+        costprior.reset()
+        torch.cuda.empty_cache()
+        a = open_alpha()
+        ts = a.oracle.read_only_ts()
+        host = Engine(a.mvcc.read_view(ts), device="cpu",
+                      device_threshold=HOST_ONLY)
+        with fusion(False):
+            want_mix = {k: host.query_bytes(q) for k, q in queries.items()}
+            want_work = canon(host.query(q) for q in work)
+            want_deep = canon(host.query(q) for q in deep)
+        part("reference_answers")
+
+        # (a) the cost model: the mix 4 times; the batch cold, then with
+        # the priors on until every group's launch shape has its prior,
+        # then as two interleaved pairs with priors on and off
+        for _ in range(MEMCOST_MIX_PASSES):
+            if ic_mix_bytes(a, queries) != want_mix:
+                raise AssertionError("phase 13 (a): the IC mix differs "
+                                     "from the numpy route")
+        walls = {True: [], False: []}
+        fam_total: dict = {}
+        hop_total = 0
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        # a cold run (ELL builds, program captures), the teaching runs,
+        # then the two pairs
+        for on in ((None,) + ("teach",) * MEMCOST_TEACH_PASSES
+                   + (True, False, False, True)):
+            costprior.set_enabled(on is not False)
+            t0 = time.perf_counter()
+            got, per, hops = family_launches(lambda: a.query_batch(work))
+            walls.setdefault(on, []).append(time.perf_counter() - t0)
+            if canon(got) != want_work:
+                raise AssertionError(f"phase 13 (a): the batch (priors "
+                                     f"{on}) differs from the numpy route")
+            for k, v in per.items():
+                fam_total[k] = fam_total.get(k, 0) + v
+            hop_total += hops
+        out["bucket_hop_launches"] = LAUNCHES["bucket_hop"]
+        costprior.set_enabled(True)
+        summ = costprofile.summary(top_n=5)
+        comps = {c.split(":")[0] for sh in summ["shapes"]
+                 for c in sh.split("+")}
+        lanes = {"recurse", "tree", "shortest"}
+        if not lanes <= comps:
+            raise AssertionError(f"phase 13 (a): the cost profile names "
+                                 f"{sorted(comps)}, not every lane family")
+        if sum(fam_total.values()) != hop_total or (on_card and any(
+                fam_total.get(f, 0) < 1 for f in lanes)):
+            raise AssertionError(f"phase 13 (a): launches per family "
+                                 f"{fam_total} against bucket_hop's "
+                                 f"{hop_total}")
+        out["a_cost"] = {
+            "records": summ["records_total"], "shapes": len(summ["shapes"]),
+            "top": summ["top"][:3], "launches_by_family": fam_total,
+            "bucket_hop_launches": hop_total,
+            "batch_queries": len(work), "batch_cold_s": walls[None][0],
+            "batch_wall_s_teaching": walls["teach"],
+            "batch_wall_s_priors_on": walls[True],
+            "batch_wall_s_priors_off": walls[False]}
+        part("a_serve")
+
+        fit = costprior.refit()
+        view = a.mvcc.read_view(a.oracle.read_only_ts())
+        plans, _left = batch.plan_batch_groups_cached(view, work)
+        saved = {batch._plan_shape(p): batch.plan_cost_us(p)
+                 for p, _i in plans}
+        a.checkpoint_to(p_dir)
+        for x in alphas:
+            if x.wal is not None:
+                x.wal.close()
+        del a, view, host
+        alphas.clear()
+        gc.collect()
+        costprofile.reset()
+        costprior.reset()
+        t0 = time.perf_counter()
+        b = open_alpha()
+        out["reopen_s"] = time.perf_counter() - t0
+        view = b.mvcc.read_view(b.oracle.read_only_ts())
+        plans, _left = batch.plan_batch_groups_cached(view, work)
+        ordered = batch.order_plans_by_cost(plans)
+        gauges = METRICS.snapshot()["gauges"]
+        preds = [{"group": batch._plan_shape(p),
+                  "queries": batch._plan_queries(p),
+                  "predicted_us": batch.plan_cost_us(p),
+                  "source": prior_source(p)} for p, _i in ordered]
+        if any(e["predicted_us"] != saved[e["group"]] or
+               e["predicted_us"] <= 0 or e["source"] != "prior"
+               for e in preds) or \
+                [p for p, _i in ordered] == [p for p, _i in plans]:
+            raise AssertionError(f"phase 13 (a): the reopened Alpha "
+                                 f"predicts {preds} (saved {saved}), in "
+                                 f"plan order: {ordered == plans}")
+        out["a_priors"] = {
+            "refit": {k: v for k, v in fit.items() if k != "fit"},
+            "fit_r2": (fit["fit"] or {}).get("r2"),
+            "launch_order": preds,
+            "pack_imbalance": {
+                st: gauges.get(f'plan_pack_imbalance{{stage="{st}"}}')
+                for st in ("count", "predicted")}}
+        del view
+        no_oom("phase 13 (a)")
+        part("a_reopen")
+
+        # (b) a device budget of half the warmed caches: every device
+        # cache emptied first, so what the budget governs is this
+        # Alpha's working set
+        GOV.set_budgets(device_bytes=1)
+        GOV.evict_to_low("device")
+        GOV.reset()
+        if canon(b.query_batch(work)) != want_work or \
+                ic_mix_bytes(b, queries) != want_mix:
+            raise AssertionError("phase 13 (b): the reopened Alpha's "
+                                 "warm-up differs")
+        warm = GOV.cache_bytes("device")
+        budget = sum(warm.values()) // 2
+        high = int(budget * memgov.HIGH_WATERMARK)
+        r0 = counter_totals(("cache_replacements_total",
+                             "vec_replacements_total",
+                             "cache_evictions_total"))
+        # what the allocator holds for live tensors, warm: the governed
+        # bytes must really be freed, not only struck from the count
+        gc.collect()
+        alloc_warm = torch.cuda.memory_allocated() if on_card else 0
+        GOV.set_budgets(device_bytes=budget)
+        # a budget takes effect at the next fill; one pass now brings the
+        # warm caches under it before the first request
+        GOV.maybe_evict("device")
+        peaks, allocs = [], []
+
+        def bounded(what):
+            peaks.append(GOV.resident_bytes("device"))
+            allocs.append(torch.cuda.memory_allocated() if on_card else 0)
+            if allocs[-1] > alloc_warm:
+                # tensors only a reference cycle still holds
+                gc.collect()
+                allocs[-1] = torch.cuda.memory_allocated()
+            if peaks[-1] > high or allocs[-1] > alloc_warm:
+                raise AssertionError(f"phase 13 (b): {what} left "
+                                     f"{peaks[-1]} device bytes resident "
+                                     f"(high watermark {high}) and "
+                                     f"{allocs[-1]} allocated (warm "
+                                     f"{alloc_warm}): "
+                                     f"{GOV.cache_bytes('device')}")
+
+        if canon(b.query_batch(work)) != want_work:
+            raise AssertionError("phase 13 (b): the batch under the budget "
+                                 "differs")
+        bounded("the batch")
+        for k, q in queries.items():
+            if b.query_raw(q) != want_mix[k]:
+                raise AssertionError(f"phase 13 (b): {k} under the budget "
+                                     f"differs")
+            bounded(k)
+        moved = counter_delta(r0, counter_totals(
+            ("cache_replacements_total", "vec_replacements_total",
+             "cache_evictions_total")))
+        evicted = GOV.evictions()
+        replaced = sum(v for k, v in moved.items()
+                       if "replacements" in k)
+        if not sum(evicted.values()) or not replaced:
+            raise AssertionError(f"phase 13 (b): evictions {evicted}, "
+                                 f"re-placements {moved}")
+        out["b_budget"] = {"warm_bytes": warm, "budget": budget,
+                           "registrants": {
+                               k: v["registrants"] for k, v in
+                               GOV.status()["caches"].items()},
+                           "high": high, "max_resident": max(peaks),
+                           "allocated_warm": alloc_warm,
+                           "max_allocated": max(allocs),
+                           "evictions": evicted, "counters": moved,
+                           "status": {k: v["bytes"] for k, v in
+                                      b.status()["caches"].items()}}
+        GOV.set_budgets()
+        no_oom("phase 13 (b)")
+        part("b_budget")
+
+        # (c) a real allocation failure under a cap on the allocator
+        steps = out["c_oom"] = {}
+        if on_card:
+            total = torch.cuda.get_device_properties(0).total_memory
+
+            caps = []
+
+            def capped(run):
+                torch.cuda.empty_cache()
+                caps.append(torch.cuda.memory_reserved() + MEMCOST_CAP_MARGIN)
+                torch.cuda.set_per_process_memory_fraction(caps[-1] / total)
+                try:
+                    return run()
+                finally:
+                    torch.cuda.set_per_process_memory_fraction(1.0)
+
+            def drop_all():
+                GOV.set_budgets(device_bytes=1)
+                GOV.evict_to_low("device")
+                GOV.set_budgets()
+
+            with fusion(False):
+                if canon(b.query_batch(deep)) != want_deep:
+                    raise AssertionError("phase 13 (c): the deep group "
+                                         "differs")
+                # 1. the governed caches hold memory: one failure, absorbed
+                held = GOV.resident_bytes("device")
+                s0, h0 = oom(), LAUNCHES["bucket_hop"]
+                got = capped(lambda: b.query_batch(deep))
+                s1 = oom()
+                if canon(got) != want_deep or \
+                        s1["events"] != s0["events"] + 1 or s1["degraded"] or \
+                        LAUNCHES["bucket_hop"] == h0:
+                    raise AssertionError(f"phase 13 (c) 1: {s0} -> {s1}")
+                steps["absorbed"] = {"governed_bytes_before": held,
+                                     "cap": caps[-1], "oom": s1}
+                # 2. nothing left to evict: the retry fails too, and the
+                # error goes to the caller (a warning); nothing is served
+                # from the host and nothing stays degraded
+                drop_all()
+                warned = _Records(logging.WARNING)
+                log = logging.getLogger("dgraph_tpu_torch.memgov")
+                log.addHandler(warned)
+                raised = None
+                try:
+                    capped(lambda: b.query_batch(deep))
+                except Exception as e:  # noqa: BLE001 — classified below
+                    if not memgov.is_alloc_failure(e):
+                        raise
+                    raised = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+                finally:
+                    log.removeHandler(warned)
+                s2 = oom()
+                if raised is None or s2["degraded"] or \
+                        s2["events"] != s1["events"] + 1 or \
+                        len(warned.messages) != 1:
+                    raise AssertionError(f"phase 13 (c) 2: raised {raised}, "
+                                         f"{s1} -> {s2}, warnings "
+                                         f"{warned.messages}")
+                steps["raised"] = {"cap": caps[-1], "oom": s2, "error": raised,
+                                   "warning": warned.messages[0]}
+                # 3. the cap lifted: the card route serves at once
+                h0 = LAUNCHES["bucket_hop"]
+                if canon(b.query_batch(deep)) != want_deep or \
+                        LAUNCHES["bucket_hop"] == h0 or oom() != s2:
+                    raise AssertionError("phase 13 (c) 3: the card route did "
+                                         "not serve after the failure")
+                steps["after_failure_bucket_hop_launches"] = \
+                    LAUNCHES["bucket_hop"] - h0
+            part("c_real_oom")
+
+        # 4. the degraded route: both attempts of a program fail
+        # (injected), and the staged torch ops serve it on the card;
+        # 5. one injected allocation failure at each governed site
+        rag_eng = Engine(rag, device=device, device_threshold=LDBC_THRESHOLD)
+        rq = graphrag_mix.templates(g)
+        from dgraph_tpu_torch.engine import fused
+
+        def fused_routes(q):
+            r0 = fused.status()["routes"]
+            b.query_raw(q)
+            return {k: v - r0[k] for k, v in fused.status()["routes"].items()}
+
+        # a query of one block, served by its whole-block program
+        fused_q = next(q for q in queries.values() if fused_routes(q) ==
+                       {"fused": 1, "staged": 0, "fallback": 0})
+        order_q = ("{ q(func: uid(%s)) { knows (orderasc: first_name) "
+                   "{ uid } } }" % ", ".join(hex(int(p)) for p in persons))
+
+        def staged(fn):
+            def run():
+                with fusion(False):
+                    return fn()
+            return run
+
+        def at_zero(fn):
+            def run():
+                b.device_threshold = 0
+                try:
+                    return staged(fn)()
+                finally:
+                    b.device_threshold = LDBC_THRESHOLD
+            return run
+
+        sites = {
+            "bfs.ell_recurse": lambda: b.query_batch(work[-MEMCOST_RECURSE:]),
+            "bfs.ell_step": lambda: b.query_batch(shortest),
+            "fused.program": lambda: b.query_raw(fused_q),
+            "hop.gather_edges": at_zero(lambda: b.query_raw(order_q)),
+            "vec.topk": staged(lambda: rag_eng.query_bytes(rq["knn_hop"])),
+            "feat.agg": staged(
+                lambda: rag_eng.query_bytes(rq["msgpass_author"])),
+        }
+        # 4. both attempts of the program fail: the shape degrades to
+        # the staged torch ops on the card, sticky until the reset
+        want_f = b.query_raw(fused_q)
+        routes0 = fused.status()["routes"]
+        s3 = oom()
+        warned = _Records(logging.WARNING)
+        log = logging.getLogger("dgraph_tpu_torch.memgov")
+        log.addHandler(warned)
+        memgov.set_alloc_fault(lambda site: site == "fused.program")
+        try:
+            got = b.query_raw(fused_q)
+        finally:
+            memgov.set_alloc_fault(None)
+            log.removeHandler(warned)
+        s4 = oom()
+        again = b.query_raw(fused_q)
+        routes1 = fused.status()["routes"]
+        if got != want_f or again != want_f or \
+                s4["events"] != s3["events"] + 1 or \
+                s4["degraded"] != s3["degraded"] + 1 or \
+                len(warned.messages) != 1 or oom() != s4 or \
+                routes1["fallback"] != routes0["fallback"] + 2 or \
+                routes1["fused"] != routes0["fused"]:
+            raise AssertionError(f"phase 13 (c) 4: {s3} -> {s4}, routes "
+                                 f"{routes0} -> {routes1}, warnings "
+                                 f"{warned.messages}")
+        GOV.reset()
+        if b.query_raw(fused_q) != want_f or \
+                fused.status()["routes"]["fused"] != routes1["fused"] + 1:
+            raise AssertionError("phase 13 (c) 4: the program did not "
+                                 "serve after the reset")
+        steps["degraded_on_card"] = {
+            "oom": s4, "warning": warned.messages[0],
+            "routes": {k: routes1[k] - routes0[k] for k in routes1}}
+        part("c_degraded")
+        injected = steps["injected"] = {}
+        from dgraph_tpu_torch.ops.feat import LAUNCHES as COMBINE
+        for site, run in sites.items():
+            if site == "feat.agg":
+                for k in COMBINE:
+                    COMBINE[k] = 0
+            want = run()
+            armed = [True]
+
+            def hook(s, site=site, armed=armed):
+                if armed[0] and s == site:
+                    armed[0] = False
+                    return True
+                return False
+
+            before = oom()
+            memgov.set_alloc_fault(hook)
+            try:
+                got = run()
+            finally:
+                memgov.set_alloc_fault(None)
+            after = oom()
+            if armed[0] or got != want or \
+                    after["events"] != before["events"] + 1 or \
+                    after["degraded"] != before["degraded"]:
+                raise AssertionError(f"phase 13 (c) 5 {site}: armed "
+                                     f"{armed[0]}, {before} -> {after}")
+            injected[site] = after["events_total"] - before["events_total"]
+            if site == "feat.agg":
+                out["segment_combine_launches"] = COMBINE["segment_combine"]
+        part("c_injected")
+        out["status"] = {"oom": b.status()["oom"],
+                         "cost_priors": {k: b.status()["cost_priors"][k]
+                                         for k in ("shapes", "hits",
+                                                   "fallbacks", "refits")}}
+    except BaseException:
+        say("phase 13 memory and cost (stopped)", **out)
+        raise
+    finally:
+        if on_card:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        memgov.set_alloc_fault(None)
+        GOV.reset()
+        for x in alphas:
+            if x.wal is not None:
+                x.wal.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3493,6 +4068,7 @@ def main() -> None:
         return out
 
     phase_build()
+    no_oom("phase 2")
     from dgraph_tpu_torch.engine.batch import _ell_for
 
     t0 = time.perf_counter()
@@ -3508,10 +4084,13 @@ def main() -> None:
     from dgraph_tpu_torch.tools.hop_profile import make_seeds
     hop = phase_kernels(g, device,
                         pack_seed_masks(g, make_seeds(N_NODES, LANES)))
+    no_oom("phase 3")
     launches = counted("phase 4", lambda: phase_serve(
         store, device, N_NODES, SERVE_QUERIES, SERVE_DEPTH))
+    no_oom("phase 4")
     phase_bench(store, device, N_NODES, LANES, DEPTH, CHECK_LANES,
                 hop["bound_ms"])
+    no_oom("phase 5")
     del store, g
     from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
     t0 = time.perf_counter()
@@ -3524,24 +4103,30 @@ def main() -> None:
     # is on it, and these counts show none launched
     say("phase 6 ldbc", seconds=time.perf_counter() - t0,
         hand_kernel_launches=dict(LAUNCHES), **ldbc)
+    no_oom("phase 6")
     t0 = time.perf_counter()
     with no_fused_fallback("phase 7"):
         ic = counted("phase 7", lambda: phase_ic_batch(device, built))
     say("phase 7 ic batch", seconds=time.perf_counter() - t0, **ic)
+    no_oom("phase 7")
     t0 = time.perf_counter()
     fz = counted("phase 9", lambda: phase_fused(device, built))
     say("phase 9 fused", seconds=time.perf_counter() - t0, **fz)
+    no_oom("phase 9")
     t0 = time.perf_counter()
     handoff: dict = {}
     with no_fused_fallback("phase 11"):
         alpha = counted("phase 11", lambda: phase_alpha(
             device, built, handoff=handoff))
     say("phase 11 alpha", seconds=time.perf_counter() - t0, **alpha)
+    no_oom("phase 11")
     t0 = time.perf_counter()
+    kept: dict = {}     # phase 12's directory, for phase 13
     with no_fused_fallback("phase 12"):
         life = counted("phase 12", lambda: phase_lifecycle(
-            device, built, handoff))
+            device, built, handoff, keep=kept))
     say("phase 12 lifecycle", seconds=time.perf_counter() - t0, **life)
+    no_oom("phase 12")
     # phase 7's store (its placed graphs and programs) goes before the
     # feature and GraphRAG store is built from the same graph
     g = built["g"]
@@ -3558,6 +4143,7 @@ def main() -> None:
     with no_fused_fallback("phase 8"):
         feat = counted("phase 8", lambda: phase_features(device, g, store))
     say("phase 8 dql features", seconds=time.perf_counter() - t0, **feat)
+    no_oom("phase 8")
     t0 = time.perf_counter()
     cases = phase_combine_cases(device)
     say("phase 10 graphrag kernel", seconds=time.perf_counter() - t0,
@@ -3566,6 +4152,13 @@ def main() -> None:
     with no_fused_fallback("phase 10"):
         rag = counted("phase 10", lambda: phase_graphrag(device, g, store))
     say("phase 10 graphrag", seconds=time.perf_counter() - t0, **rag)
+    no_oom("phase 10")
+    # phase 10's store stays alive: phase 13 injects at its knn and
+    # @msgpass launches
+    t0 = time.perf_counter()
+    mem = counted("phase 13", lambda: phase_memory_cost(
+        device, g, kept, store))
+    say("phase 13 memory and cost", seconds=time.perf_counter() - t0, **mem)
     # the launches of each main path, counted from zero around its run
     paths = {"bucket_hop": {
                  "query_batch @recurse (phase 4)": launches["bucket_hop"],
@@ -3578,8 +4171,13 @@ def main() -> None:
                  "Alpha.query_batch after writes (phase 11)":
                      alpha["bucket_hop_launches"],
                  "restored Alpha.query_batch (phase 12)":
-                     life["bucket_hop_launches"]},
-             "segment_combine": rag["segment_combine_launches_by_path"]}
+                     life["bucket_hop_launches"],
+                 "Alpha.query_batch, memory and cost (phase 13)":
+                     mem["bucket_hop_launches"]},
+             "segment_combine": {
+                 **rag["segment_combine_launches_by_path"],
+                 "@msgpass under an injected fault (phase 13)":
+                     mem.get("segment_combine_launches", 0)}}
     hub = rag["timing"]["segment_combine_msgpass_hub"]
     errs = [cases["max_abs_err"], hub["max_abs_err"],
             rag["timing"]["segment_combine_featprop_mean"]["max_abs_err"]]

@@ -22,7 +22,7 @@ from dgraph_tpu_torch.engine.ir import (
 )
 from dgraph_tpu_torch.engine.emit import to_json_bytes
 from dgraph_tpu_torch.engine.outputnode import to_json
-from dgraph_tpu_torch.utils import tracing
+from dgraph_tpu_torch.utils import costprofile, tracing
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -101,6 +101,9 @@ class Engine:
                 return self._schema_query(*sq), None
             blocks = parse(q, variables)
             order = execution_order(blocks)
+        # the request's cost-profile shape key (utils/costprofile.py)
+        costprofile.add_shape(shape_of(blocks))
+        costprofile.add("queries", 1)
         ex = Executor(self.store, device=self.device,
                       device_threshold=self.device_threshold,
                       routes=self.routes)

@@ -25,15 +25,35 @@ own error, a filter that is not a node set) are served one by one by the
 per-query `Engine` on the same device; a query that fails there yields
 an error object in its slot.
 
-Deliberate differences from the reference: a kernel build or launch
-failure, or an out-of-memory, raises out of `query_batch` — the
-reference's group-failure catch in `Alpha.query_batch` and its OOM
-degrade to the per-query path are not ported, so no failure of the card
-is hidden. `@msgpass` queries join no group (the lane rebuild binds
-no features; the reference groups them and drops their bindings). The
-cost-prior launch gate and ordering (`_kernel_worth`,
-`order_plans_by_cost`) wait for `utils/costprior` (ROADMAP Queue 1 item
-9c); groups launch in plan order under the count rule MIN_BATCH.
+Failures: a kernel group whose launch fails for want of device memory
+gets the memory governor's lifecycle (utils/memgov.py) at the sites
+`bfs.ell_recurse` and `bfs.ell_step`: evict to the low watermark and
+ONE retry of the same launch on the card. A second classified
+allocation failure is counted, logged at warning and raises out of
+`query_batch` like any other failure; no group is served from the host
+in its place, and nothing stays degraded, so the next request launches
+on the card again. Nothing is caught around a group: a kernel build or
+launch failure, an illegal address, an assertion or any other error
+raises out of `query_batch` — the reference's catch-all around a group
+(`Alpha.query_batch`) is not ported, so no failure of the card or of a
+kernel is hidden. `@msgpass` queries join no group (the lane rebuild
+binds no features; the reference groups them and drops their bindings).
+
+Cost model (utils/costprior.py, utils/costprofile.py): a group below
+MIN_BATCH still launches when its shape's prior predicts at least
+KERNEL_WORTH_US (`_kernel_worth`); with priors on (`costprior.enabled`),
+`query_batch` launches its groups longest-predicted first
+(`order_plans_by_cost`, which gauges `plan_pack_imbalance{stage=}`):
+the group's launch-shape prior, learned from each group's own measured
+run (`costprior.learn_group`), else the feature fit where it predicts
+more than 0 µs, else the query count. Results are written by
+index, so the order changes no answer. Each launch feeds the request's
+cost record: its shape (`recurse:<pred>~d<depth>`,
+`shortest:<pred>~d<depth>`, `tree:*~d<stages>`), lanes, padding, depth,
+bucket blocks, execute µs, launches and the gap between them, ELL build
+µs and the plan memo's hit bit. The plan memo and the per-store ELL
+blocks, their device copies and the runners are governed caches
+(`batch.plan`, `batch.ell`, `batch.ell_dev`, `batch.kernel`).
 
 Request lifecycle: a deadline checkpoint (utils/deadline.py) runs before
 each group's run is issued ("kernel"), before each staged shortest
@@ -46,6 +66,7 @@ block ("kernel") and per walked-back level ("bfs"); groups count in
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 
@@ -54,11 +75,17 @@ from dgraph_tpu_torch.engine.execute import expands as _expands_schema
 from dgraph_tpu_torch.engine.ir import SubGraph
 from dgraph_tpu_torch.engine.outputnode import to_json
 from dgraph_tpu_torch.engine.recurse import RecurseData, _bind_recurse_vars
-from dgraph_tpu_torch.utils import deadline, tracing
+from dgraph_tpu_torch.utils import (costprior, costprofile, deadline, memgov,
+                                    tracing)
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from dgraph_tpu_torch.utils.jitcache import Memo
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 MIN_BATCH = 4            # below this the per-query engine is cheaper
+# a group SMALLER than MIN_BATCH still earns a launch when its predicted
+# cost says the work dwarfs the launch overhead (utils/costprior.py;
+# priors below the sample floor leave the count rule in charge)
+KERNEL_WORTH_US = 5_000.0
 # Depths past any real graph's diameter go to the per-query engine
 # (whose host loop exits when the frontier empties) instead of letting
 # a client-controlled depth size device buffers.
@@ -185,8 +212,9 @@ def plan_batch_groups(store, queries_blocks):
     ([(plan, original_indices)], leftover_indices). Each query goes to
     the first family that takes it — unfiltered single-block @recurse
     (`_BatchPlan`), unweighted shortest (`_ShortestPlan`), level tree
-    (`TreePlan`) — and groups smaller than MIN_BATCH join the leftovers
-    (the reference's count rule; its cost-prior override is not ported)."""
+    (`TreePlan`) — and a group smaller than MIN_BATCH joins the
+    leftovers unless its shape's prior says it is worth a launch
+    (`_kernel_worth`)."""
     from dgraph_tpu_torch.engine.treebatch import plan_tree
 
     groups: dict = {}
@@ -209,27 +237,103 @@ def plan_batch_groups(store, queries_blocks):
         leftover.append(i)
     plans = []
     for sig, items in groups.items():
-        if len(items) < MIN_BATCH:
+        if not _kernel_worth(f"recurse:{sig[0]}~d{sig[2]}", len(items)):
             leftover.extend(i for i, _ in items)
         else:
             plans.append((_BatchPlan([sg for _, sg in items],
                                      sig[0], sig[1], sig[2]),
                           [i for i, _ in items]))
     for sig, items in sp_groups.items():
-        if len(items) < MIN_BATCH:
+        if not _kernel_worth(f"shortest:{sig[1]}~d{sig[3]}", len(items)):
             leftover.extend(i for i, _ in items)
         else:
             plans.append((_ShortestPlan(sig, [it for _, it in items]),
                           [i for i, _ in items]))
     for sig, items in tree_groups.items():
-        if len(items) < MIN_BATCH:
+        plan = items[0][2]
+        if not _kernel_worth(f"tree:*~d{len(plan.stages)}", len(items)):
             leftover.extend(i for i, _b, _p in items)
         else:
-            plan = items[0][2]
             plan.queries = [b for _i, b, _p in items]
             plans.append((plan, [i for i, _b, _p in items]))
     leftover.sort()
     return plans, leftover
+
+
+def _kernel_worth(shape: str, n: int) -> bool:
+    """Launch gate by predicted COST as well as query count: MIN_BATCH
+    keeps its role, but a smaller group whose per-shape prior says the
+    work dwarfs the launch overhead (KERNEL_WORTH_US) still launches.
+    Without a trusted prior (unseen shape, priors off) the count rule
+    decides."""
+    if n >= MIN_BATCH:
+        return True
+    if n == 0:
+        return False
+    if not costprior.enabled():
+        return False
+    us = costprior.PRIORS.predict_shape(shape)
+    return us is not None and us >= KERNEL_WORTH_US
+
+
+# -- cost-ordered launches ---------------------------------------------------
+
+def _plan_shape(plan) -> str:
+    """The shape component a plan's launch records (the prior's key)."""
+    from dgraph_tpu_torch.engine.treebatch import TreePlan
+    if isinstance(plan, _ShortestPlan):
+        return f"shortest:{plan.attr}~d{plan.depth}"
+    if isinstance(plan, TreePlan):
+        return f"tree:*~d{len(plan.stages)}"
+    return f"recurse:{plan.attr}~d{plan.depth}"
+
+
+def _plan_queries(plan) -> int:
+    from dgraph_tpu_torch.engine.treebatch import TreePlan
+    if isinstance(plan, (_ShortestPlan, TreePlan)):
+        return len(plan.queries)
+    return len(plan.blocks)
+
+
+def plan_cost_us(plan) -> float:
+    """Predicted µs of one group launch: the per-shape prior first, the
+    feature least-squares fit for unseen shapes (lanes, depth and
+    queries are known at plan time) where it predicts more than 0 µs,
+    the query count as the last proxy (every query worth ~1 ms)."""
+    from dgraph_tpu_torch.engine.treebatch import TreePlan
+    n = _plan_queries(plan)
+    us = costprior.PRIORS.predict_shape(_plan_shape(plan))
+    if us is None:
+        depth = (len(plan.stages) if isinstance(plan, TreePlan)
+                 else plan.depth)
+        us = costprior.PRIORS.predict_features(
+            {"lanes": _lane_count(n), "depth": depth, "queries": n})
+    if us is None or us <= 0:
+        # no fit yet, or one that clamps at 0 µs (a line over unlike
+        # shapes goes negative at a lane group's features): no prediction
+        us = 1000.0 * n
+    return float(us)
+
+
+def order_plans_by_cost(plans):
+    """Kernel groups in launch order, DESCENDING predicted cost (longest
+    first: under a shared deadline the expensive group starts while the
+    budget is freshest, and the makespan shrinks). Gauges the pack
+    imbalance across the launches both ways — query counts and
+    predicted costs (`plan_pack_imbalance{stage=}`). Returns a new
+    list; the memoized plan list is never mutated."""
+    plans = list(plans)
+    if not costprior.enabled() or len(plans) < 2:
+        return plans
+    counts = [float(_plan_queries(p)) for p, _ in plans]
+    costs = [plan_cost_us(p) for p, _ in plans]
+    for stage, vals in (("count", counts), ("predicted", costs)):
+        mean = sum(vals) / len(vals)
+        METRICS.set_gauge("plan_pack_imbalance",
+                          max(vals) / mean if mean > 0 else 1.0,
+                          stage=stage)
+    order = sorted(range(len(plans)), key=lambda i: -costs[i])
+    return [plans[i] for i in order]
 
 
 # -- plan cache --------------------------------------------------------------
@@ -237,8 +341,7 @@ def plan_batch_groups(store, queries_blocks):
 # batch plans keyed by (schema fingerprint, query texts): a repeated
 # query template skips parse + planning. Plans carry only parsed
 # SubGraphs — seeds are evaluated against the CURRENT store at run time.
-_PLAN_CACHE_CAP = 256
-_plan_cache: dict = {}
+_plan_memo = Memo("batch.plan", capacity=256, governed="batch.plan")
 _cache_lock = threading.Lock()
 
 
@@ -255,12 +358,14 @@ def plan_batch_groups_cached(store, dqls: list):
     from dgraph_tpu_torch.dql.parser import parse
 
     key = (_schema_fingerprint(store), tuple(dqls))
-    with _cache_lock:
-        cached = _plan_cache.get(key)
+    cached = _plan_memo.get(key)
     if cached is not None:
         METRICS.inc("plan_cache_hits_total", cache="batch")
+        costprofile.note("plan_cache_hit", 1)
         return cached
     METRICS.inc("plan_cache_misses_total", cache="batch")
+    costprofile.note("plan_cache_hit", 0)
+    t_plan = time.perf_counter()
     with tracing.span("batch.plan", queries=len(dqls)):
         parsed = {}
         for i, q in enumerate(dqls):
@@ -275,33 +380,41 @@ def plan_batch_groups_cached(store, dqls: list):
     leftover = sorted([order[j] for j in group_left]
                       + [i for i in range(len(dqls)) if i not in parsed])
     out = (plans, leftover)
-    with _cache_lock:
-        # store under the POST-planning fingerprint: planning may create
-        # default schema entries for unknown predicates
-        _plan_cache[(_schema_fingerprint(store), tuple(dqls))] = out
-        while len(_plan_cache) > _PLAN_CACHE_CAP:
-            _plan_cache.pop(next(iter(_plan_cache)))
+    plan_us = (time.perf_counter() - t_plan) * 1e6
+    costprofile.add("plan_us", int(plan_us))
+    # store under the POST-planning fingerprint: planning may create
+    # default schema entries for unknown predicates
+    _plan_memo.put((_schema_fingerprint(store), tuple(dqls)), out,
+                   rebuild_us=plan_us)
+    memgov.GOVERNOR.maybe_evict("host")
     return out
 
 
 def query_batch(store, dqls: list, device=DEFAULT_DEVICE,
                 device_threshold: int = 512) -> list:
     """Serve many queries at once: each kernel group is ONE lane-packed
-    run on `device` (run_batch); the rest go through the per-query
-    Engine on the same device, whose failures become
-    `{"errors": [{"message": ...}]}` in their slot. Returns one JSON
-    dict per query, in order."""
+    run on `device` (run_batch), launched longest-predicted first when
+    the priors are on; the rest go through the per-query Engine on the
+    same device, whose failures become `{"errors": [{"message": ...}]}`
+    in their slot. A group's failure, an allocation failure its retry
+    did not absorb among them, raises. Returns one JSON dict per query,
+    in order."""
     from dgraph_tpu_torch.engine import Engine
 
     dev = resolve_device(device)
     plans, leftover = plan_batch_groups_cached(store, dqls)
     leftover = list(leftover)        # the cached list is never mutated
     results: list = [None] * len(dqls)
-    for plan, idxs in plans:
+    for plan, idxs in order_plans_by_cost(plans):
+        t0 = time.perf_counter()
         out = run_batch(store, plan, dev, device_threshold)
         if out is None:
             leftover.extend(idxs)
             continue
+        # the group's own prior, under its launch shape: what orders the
+        # next batches' groups and gates their small ones
+        costprior.learn_group(_plan_shape(plan),
+                              (time.perf_counter() - t0) * 1e6)
         for i, o in zip(idxs, out):
             results[i] = o
     eng = Engine(store, device=dev, device_threshold=device_threshold)
@@ -349,16 +462,37 @@ def run_batch(store, plan, device=DEFAULT_DEVICE,
                 family="recurse")
     METRICS.inc("kernel_padded_lanes_total", float(B - len(seeds)),
                 family="recurse")
+    _note_kernel_features(plan.attr, "recurse", B, B - len(seeds),
+                          plan.depth, len(plan.blocks))
+    costprofile.note_max("bucket_mix", len(g.parts))
+    t_exec = time.perf_counter()
     with tracing.span("batch.recurse_run", attr=plan.attr,
                       depth=plan.depth, queries=len(plan.blocks),
                       lanes=B):
-        fn = _recurse_for(store, plan.attr, plan.reverse, mask0.shape[1],
-                          dev)
-        # the seed mask is donated to the run (ops/bfs.py): a fresh
-        # device copy per launch
-        _last, _seen, _edges, hops = fn(put_mask(mask0, dev), plan.depth,
-                                        True)
-        hops = hops.cpu().numpy().view(np.uint32)     # [depth, n+1, W]
+        lkey = (plan.attr, plan.reverse, int(mask0.shape[1]), plan.depth,
+                g.n)
+
+        def _launch():
+            fn = _recurse_for(store, plan.attr, plan.reverse,
+                              mask0.shape[1], dev)
+            # the seed mask is donated to the run (ops/bfs.py): a fresh
+            # device copy per attempt, so a retry starts from the seeds
+            _last, _seen, _edges, hops = fn(put_mask(mask0, dev),
+                                            plan.depth, True)
+            return hops.cpu().numpy().view(np.uint32)   # [depth, n+1, W]
+
+        # allocation failure: evict to the low watermark and retry once;
+        # a second one raises out of the group
+        hops = memgov.oom_retry("bfs.ell_recurse", lkey, _launch)
+    t_end = time.perf_counter()
+    exec_us = (t_end - t_exec) * 1e6
+    costprofile.add_kernel("recurse", execute_us=exec_us)
+    costprofile.add_tablet_cost(plan.attr, exec_us)
+    costprofile.note_launch(t_exec, t_end)
+    # gather-traffic model: index reads plus one mask row per padded
+    # slot, per hop
+    costprofile.add("bytes_gathered",
+                    plan.depth * g.padded_edges * (4 + 4 * mask0.shape[1]))
     rel = store.rel(plan.attr, plan.reverse)
 
     with tracing.span("batch.recurse_rebuild"):
@@ -380,6 +514,20 @@ def run_batch(store, plan, device=DEFAULT_DEVICE,
 def _lane_count(nq: int) -> int:
     words = -(-nq // 32)
     return 32 * (1 << (words - 1).bit_length() if words > 1 else 1)
+
+
+def _note_kernel_features(attr: str, family: str, lanes: int,
+                          padded: int, depth: int, queries: int) -> None:
+    """One group launch's plan features into the request's cost record:
+    the shape component joins the record to its digest key; lanes,
+    padding and depth are the regressors of the feature fit."""
+    costprofile.add_shape(f"{family}:{attr}~d{depth}")
+    costprofile.note_max("lanes", lanes)
+    costprofile.note_max("depth", depth)
+    costprofile.add("padded_lanes", padded)
+    costprofile.note_max("padding_frac",
+                         int(1000 * padded / max(lanes, 1)))
+    costprofile.add("queries", queries)
 
 
 def _rebuild_recurse_batch(store, g, rel, hops, blocks,
@@ -435,12 +583,16 @@ def _rebuild_recurse_batch(store, g, rel, hops, blocks,
             fresh = np.unique(kc[lo:hi]).astype(np.int32)
             parents[q] = fresh
             all_nodes[q].append(fresh)
+    edges_total = 0
     for q in range(B):
         if p_parts[q]:
             datas[q].edges[0] = (np.concatenate(p_parts[q]),
                                  np.concatenate(c_parts[q]))
+            edges_total += len(datas[q].edges[0][0])
         datas[q].all_nodes = np.unique(
             np.concatenate(all_nodes[q])).astype(np.int32)
+    if edges_total:
+        costprofile.add("edges_traversed", edges_total)
     return datas
 
 
@@ -485,8 +637,11 @@ def _run_shortest_batch(store, plan: _ShortestPlan, device,
                     family="shortest")
         METRICS.inc("kernel_padded_lanes_total", float(32 * W - B),
                     family="shortest")
-        step = _step_for(store, plan.attr, plan.reverse, W,
-                         plan.first_visit, device)
+        _note_kernel_features(plan.attr, "shortest", 32 * W, 32 * W - B,
+                              plan.depth, B)
+        costprofile.note_max("bucket_mix", len(g.parts))
+        t_exec = time.perf_counter()
+        skey = (plan.attr, plan.reverse, W, plan.first_visit, n)
         unresolved = set(active)
         dst_rows = {q: int(g.new_of_old[int(dst[q])]) for q in active}
         frontier = put_mask(mask0, device)
@@ -497,10 +652,21 @@ def _run_shortest_batch(store, plan: _ShortestPlan, device,
             # is queued on the device as a whole
             deadline.checkpoint("kernel")
             chunk = min(SHORTEST_STAGE, plan.depth - done)
+            t_stage = time.perf_counter()
+
+            def _launch(frontier=frontier, seen=seen, chunk=chunk):
+                step = _step_for(store, plan.attr, plan.reverse, W,
+                                 plan.first_visit, device)
+                # the stage updates `seen` in place: it runs on a copy,
+                # so a retry starts from the carries it was handed
+                out = step(frontier, seen.clone(), chunk)
+                return out, out[2].cpu().numpy().view(np.uint32)
+
             with tracing.span("batch.step_run", attr=plan.attr,
                               hops=chunk, lanes=32 * W):
-                frontier, seen, hops = step(frontier, seen, chunk)
-                hops_np = hops.cpu().numpy().view(np.uint32)
+                (frontier, seen, _hops), hops_np = memgov.oom_retry(
+                    "bfs.ell_step", skey, _launch)
+            costprofile.note_launch(t_stage, time.perf_counter())
             for h in range(chunk):
                 lvl = hops_np[h]
                 levels.append(lvl)
@@ -512,6 +678,11 @@ def _run_shortest_batch(store, plan: _ShortestPlan, device,
                     elif not (alive[wq] & bq):
                         unresolved.discard(q)   # frontier exhausted
             done += chunk
+        exec_us = (time.perf_counter() - t_exec) * 1e6
+        costprofile.add_kernel("shortest", execute_us=exec_us)
+        costprofile.add_tablet_cost(plan.attr, exec_us)
+        costprofile.add("bytes_gathered",
+                        done * g.padded_edges * (4 + 4 * W))
 
     try:
         order_of = [execution_order(blocks) for blocks in plan.queries]
@@ -631,6 +802,66 @@ def _shortest_path_data(store, plan, g, rrel, levels, src: int,
 
 # -- per-store kernel caches -------------------------------------------------
 
+# the runners are closures over their device blocks; a nominal per-entry
+# charge keeps the cache byte-governable with honest relative pressure
+_KERNEL_NBYTES_EST = 64 << 10
+
+
+def _per_snapshot(host, attr: str, name: str, kind: str, **kw) -> dict:
+    """`host.<attr>`, a per-snapshot cache dict, joined to the memory
+    governor as cache `name` at first use (`memgov.govern_dict`: the
+    oldest-inserted entry is evicted first). Caller holds `_cache_lock`,
+    which the governor's callbacks take too."""
+    cache = host.__dict__.get(attr)
+    if cache is None:
+        cache = host.__dict__[attr] = {}
+        memgov.govern_dict(host, attr, name, kind, lock=_cache_lock, **kw)
+    return cache
+
+
+def _ell_cache(host) -> dict:
+    return _per_snapshot(host, "_ell_cache", "batch.ell", "host")
+
+
+def _ell_devs(host) -> dict:
+    return _per_snapshot(host, "_ell_devs", "batch.ell_dev", "device",
+                         on_evict=_drop_dependent_fns)
+
+
+def _ell_fns(host) -> dict:
+    return _per_snapshot(host, "_ell_fns", "batch.kernel", "host",
+                         sizer=lambda v: _KERNEL_NBYTES_EST)
+
+
+def _fn_pred(fkey) -> tuple:
+    """(attr, reverse) of a runner key: recurse runners key (attr,
+    reverse, W, device), step runners ("step", attr, reverse, W,
+    first_visit, device)."""
+    return tuple(fkey[1:3]) if fkey[0] == "step" else tuple(fkey[:2])
+
+
+def _drop_dependent_fns(host, dkey, value) -> int:
+    """Evicting a device ELL also drops the runners whose closures pin
+    its tensors, or the memory is never freed. Returns the ELL's bytes.
+    Caller holds `_cache_lock`."""
+    fns = host.__dict__.get("_ell_fns")
+    for fkey in [k for k in fns or () if _fn_pred(k) == tuple(dkey[:2])]:
+        del fns[fkey]
+    return memgov.estimate_nbytes(value)
+
+
+def _note_ell_cache(hit: bool) -> None:
+    """ell_cache_hit feature bit: 1 only when EVERY ELL lookup of the
+    request hit the snapshot cache."""
+    rec = costprofile.active()
+    if rec is None:
+        return
+    if not hit:
+        rec.note("ell_cache_hit", 0)
+    elif "ell_cache_hit" not in rec.vals:
+        rec.note("ell_cache_hit", 1)
+
+
 def _ell_for(store, attr: str, reverse: bool):
     """EllGraph per (store, predicate, direction), built once; None when
     the relation has no edges."""
@@ -638,12 +869,25 @@ def _ell_for(store, attr: str, reverse: bool):
 
     key = (attr, reverse)
     with _cache_lock:
-        cache = store.__dict__.setdefault("_ell_cache", {})
-        if key not in cache:
+        cache = _ell_cache(store)
+        if key in cache:
+            _note_ell_cache(hit=True)
+        else:
             rel = store.rel(attr, reverse)
-            cache[key] = (build_ell(rel.indptr, rel.indices)
-                          if rel.nnz else None)
-        return cache[key]
+            if rel.nnz == 0:
+                cache[key] = None
+            else:
+                _note_ell_cache(hit=False)
+                t_build = time.perf_counter()
+                with tracing.span("batch.build_ell", pred=attr,
+                                  reverse=reverse):
+                    cache[key] = build_ell(rel.indptr, rel.indices)
+                build_us = (time.perf_counter() - t_build) * 1e6
+                costprofile.add("build_us", int(build_us))
+                costprofile.add_tablet_cost(attr, build_us)
+        out = cache[key]
+    memgov.GOVERNOR.maybe_evict("host")
+    return out
 
 
 def _dev_for(store, attr: str, reverse: bool, device):
@@ -654,20 +898,28 @@ def _dev_for(store, attr: str, reverse: bool, device):
     g = _ell_for(store, attr, reverse)
     key = (attr, reverse, str(device))
     with _cache_lock:
-        devs = store.__dict__.setdefault("_ell_devs", {})
+        devs = _ell_devs(store)
         if key not in devs:
             devs[key] = device_ell(g, device)
-        return g, devs[key]
+        out = g, devs[key]
+    # the caller holds the blocks it was handed even if this pass evicts
+    # them; the next lookup places them again
+    memgov.GOVERNOR.maybe_evict("device")
+    return out
 
 
 def _recurse_for(store, attr: str, reverse: bool, W: int, device):
     """Recurse runner per (store, pred, dir, lane width, device)."""
     from dgraph_tpu_torch.ops.bfs import make_ell_recurse
 
-    g, dev = _dev_for(store, attr, reverse, device)
     key = (attr, reverse, W, str(device))
     with _cache_lock:
-        fns = store.__dict__.setdefault("_ell_fns", {})
+        fn = _ell_fns(store).get(key)
+    if fn is not None:
+        return fn
+    g, dev = _dev_for(store, attr, reverse, device)
+    with _cache_lock:
+        fns = _ell_fns(store)
         if key not in fns:
             fns[key] = make_ell_recurse(dev, g.outdeg, g.n, W,
                                         count_edges=False)
@@ -680,10 +932,14 @@ def _step_for(store, attr: str, reverse: bool, W: int, first_visit: bool,
     device) — the staged shortest path's program."""
     from dgraph_tpu_torch.ops.bfs import make_ell_step
 
-    g, dev = _dev_for(store, attr, reverse, device)
     key = ("step", attr, reverse, W, first_visit, str(device))
     with _cache_lock:
-        fns = store.__dict__.setdefault("_ell_fns", {})
+        fn = _ell_fns(store).get(key)
+    if fn is not None:
+        return fn
+    g, dev = _dev_for(store, attr, reverse, device)
+    with _cache_lock:
+        fns = _ell_fns(store)
         if key not in fns:
             fns[key] = make_ell_step(dev, g.n, W, first_visit=first_visit)
         return fns[key]
@@ -712,11 +968,11 @@ def carry_kernel_caches(old_store, new_store, touched) -> int:
         src_cache = old_store.__dict__.get("_ell_cache")
         if not src_cache:
             return 0
-        dst_cache = new_store.__dict__.setdefault("_ell_cache", {})
+        dst_cache = _ell_cache(new_store)
         src_devs = old_store.__dict__.get("_ell_devs", {})
         src_fns = old_store.__dict__.get("_ell_fns", {})
-        dst_devs = new_store.__dict__.setdefault("_ell_devs", {})
-        dst_fns = new_store.__dict__.setdefault("_ell_fns", {})
+        dst_devs = _ell_devs(new_store)
+        dst_fns = _ell_fns(new_store)
         for key, g in src_cache.items():
             attr, reverse = key
             if attr in touched or key in dst_cache:
@@ -726,10 +982,7 @@ def carry_kernel_caches(old_store, new_store, touched) -> int:
                 if dkey[:2] == key:
                     dst_devs.setdefault(dkey, dev)
             for fkey, fn in src_fns.items():
-                # recurse runners key (attr, reverse, W, device), step
-                # runners ("step", attr, reverse, W, first_visit, device)
-                at = fkey[1:3] if fkey[0] == "step" else fkey[:2]
-                if at == key:
+                if _fn_pred(fkey) == key:
                     dst_fns.setdefault(fkey, fn)
             carried += 1
     if carried:

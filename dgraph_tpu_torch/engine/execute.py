@@ -1,7 +1,7 @@
 """SubGraph execution: one root block at a time, level by level.
 
-Port of `dgraph_tpu/engine/execute.py` without the mesh, remote-task and
-memory-governor branches. An eligible root block runs first as one
+Port of `dgraph_tpu/engine/execute.py` without the mesh and remote-task
+branches. An eligible root block runs first as one
 whole-block program (`engine/fused.py`, which ignores
 `device_threshold`, as the reference's does); the rest is the staged
 route below. Each level's expansion is ONE batched CSR
@@ -10,8 +10,11 @@ gather over the whole frontier: frontiers of at least
 (`ops/hop.py:gather_edges`, or the fused `ops/level.py:expand_level`
 where no ordering, facet filter or `after` cursor needs per-edge host
 logic); smaller ones take the host numpy walk `csr_rows`. Every route
-produces the same (neighbors, seg, edge_pos) triple. A device failure or
-out-of-memory raises: there is no fallback to the host walk. A
+produces the same (neighbors, seg, edge_pos) triple. The device gather
+runs under the memory governor's allocation-failure lifecycle at site
+`hop.gather_edges` (utils/memgov.py): an allocation failure evicts to
+the low watermark and retries once on the card; a second one raises, as
+any other device failure does: there is no fallback to the host walk. A
 `similar_to` root takes the routed top-k of `store/vec.py`, and blocks
 with `@msgpass` bind their aggregates after the descent
 (`engine/feat.py:annotate_tree`).
@@ -24,9 +27,12 @@ A level's result is a `LevelNode`:
 
 Each expansion adds to the executor's `RouteCounts` (expansions, edges
 and the device ops' least bytes per route) and to
-`edges_traversed_total{path=}`; `chip_smoke.py` reads them to show which
-route served. Each root block and each level is a deadline checkpoint
-and a span (`engine.block`, `engine.level`, utils/tracing.py). The
+`edges_traversed_total{path=}`, and to the request's cost record
+(`utils/costprofile.py`: edges, modeled bytes gathered, the largest
+tablet touched, per-tablet cost) and the route EMAs of the cost priors;
+`chip_smoke.py` reads them to show which route served. Each root block
+and each level is a deadline checkpoint and a span (`engine.block`,
+`engine.level`, utils/tracing.py). The
 device work sits in `torch.profiler` ranges (`hop.gather_edges`,
 `level.expand_level`, `engine.to_device`, `engine.to_host`) so a profile
 attributes device time per op.
@@ -34,6 +40,7 @@ attributes device time per op.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -54,8 +61,8 @@ from dgraph_tpu_torch.ops.uidalgebra import pad_to
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import Kind
 from dgraph_tpu_torch.store.vec import similar_ranks
+from dgraph_tpu_torch.utils import costprior, costprofile, memgov, tracing
 from dgraph_tpu_torch.utils import deadline as dl
-from dgraph_tpu_torch.utils import tracing
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from dgraph_tpu_torch.utils.metrics import METRICS
 
@@ -110,6 +117,9 @@ class RouteCounts:
             # (a whole-block program's stage is its "fused" path)
             METRICS.inc("edges_traversed_total", float(n_edges),
                         path=_EDGE_PATH.get(route, route))
+            costprofile.add("edges_traversed", int(n_edges))
+            # gather-traffic model: neighbor + seg + position words
+            costprofile.add("bytes_gathered", 16 * int(n_edges))
 
     def on_device(self) -> int:
         """Expansions the device served."""
@@ -181,30 +191,51 @@ class Executor:
         """Whole-frontier CSR expansion → (neighbors, seg, edge_pos) host
         arrays. `edge_pos` indexes the CSR of the expansion direction;
         facet consumers map reverse positions through facet_positions()."""
+        t0 = time.perf_counter()
         rel = self.store.rel(pred, reverse)
+        # cost-model regressor: the largest tablet this request touched
+        costprofile.note_max("tablet_rows", int(len(rel.indptr)) - 1)
         if len(frontier) == 0 or rel.nnz == 0:
             self.routes.add("empty", 0)
             return EMPTY, EMPTY, EMPTY64
         if len(frontier) >= self.device_threshold:
-            return self._expand_device(pred, reverse, frontier)
-        out = csr_rows(rel, frontier)
-        self.routes.add("numpy", len(out[0]))
+            out, path = self._expand_device(pred, reverse, frontier), "device"
+        else:
+            out, path = csr_rows(rel, frontier), "numpy"
+            self.routes.add("numpy", len(out[0]))
+        if len(out[0]):
+            # learned route costs: µs per 1k edges EMA per path
+            costprior.PRIORS.learn_route(
+                path, (time.perf_counter() - t0) * 1e6
+                / len(out[0]) * 1000.0)
+            # placement signal: modeled µs charged to this tablet
+            costprofile.add_tablet_cost(pred, len(out[0]) // 16 + 1)
         return out
 
     def _expand_device(self, pred: str, reverse: bool, frontier: np.ndarray):
-        indptr, indices = self.store.device_rel(pred, reverse, self.device)
-        fr = _to_device(frontier, self.device)
         total = int(self.store.rel(pred, reverse).degree(frontier).sum())
         ecap = _bucket(max(total, 1))
-        with record_function("hop.gather_edges"):
-            nbrs, seg, pos, _valid, _total = gather_edges(
-                indptr, indices, fr, ecap)
-        # the valid slots are exactly the first `total` (known on the host
-        # from the same CSR): one device-to-host copy of the three columns
-        nbrs, seg, pos = _to_host(nbrs[:total], seg[:total], pos[:total])
+
+        def _launch():
+            indptr, indices = self.store.device_rel(pred, reverse,
+                                                    self.device)
+            fr = _to_device(frontier, self.device)
+            t0 = time.perf_counter()
+            with record_function("hop.gather_edges"):
+                nbrs, seg, pos, _valid, _total = gather_edges(
+                    indptr, indices, fr, ecap)
+            costprofile.note_launch(t0, time.perf_counter())
+            # the valid slots are exactly the first `total` (known on the
+            # host from the same CSR): one device-to-host copy of the
+            # three columns
+            return fr.shape[0], _to_host(nbrs[:total], seg[:total],
+                                         pos[:total])
+
+        f_cap, (nbrs, seg, pos) = memgov.oom_retry(
+            "hop.gather_edges", (pred, reverse), _launch)
         # outputs: neighbors, seg, edge_pos int32 and valid bool per slot
         self.routes.add("device", total, _gather_bytes(
-            len(frontier), fr.shape[0], total) + 13 * ecap)
+            len(frontier), f_cap, total) + 13 * ecap)
         return nbrs, seg, pos.astype(np.int64)
 
     def facet_positions(self, sg: SubGraph, pos: np.ndarray) -> np.ndarray:
@@ -612,11 +643,13 @@ class Executor:
         ecap = _bucket(max(total, 1))
         indptr, indices = self.store.device_rel(sg.attr, sg.is_reverse,
                                                 self.device)
+        t0 = time.perf_counter()
         with record_function("level.expand_level"):
             c_nbrs, c_seg, c_pos, n_kept, _nxt, _nu, _total = expand_level(
                 indptr, indices, fr, allowed_d, sg.offset, first,
                 edge_cap=ecap, out_cap=ecap, use_allowed=use_allowed)
             n = int(n_kept)
+        costprofile.note_launch(t0, time.perf_counter())
         nbrs, seg, pos = _to_host(c_nbrs[:n], c_seg[:n], c_pos[:n])
         # inputs as a gather plus the allowed set (when used); outputs:
         # kept nbrs, seg, pos and the deduped next frontier per slot

@@ -1,8 +1,7 @@
 """Feature-bearing traversal: `@msgpass` neighbour aggregation.
 
 Port of `dgraph_tpu/engine/feat.py` without its mesh route (ROADMAP
-Queue 1 item 10) and its memory-governor wrapper and cost-prior
-promotion (item 9c). `@msgpass(pred: emb, agg: mean)` on a block binds,
+Queue 1 item 10). `@msgpass(pred: emb, agg: mean)` on a block binds,
 for each node the level expands, the sum / mean / max of its traversal
 children's feature rows (a `store/vec.py` VecTablet), rendered under the
 key `mean(emb)`. Composed with `@recurse(loop: false)` each parent
@@ -16,7 +15,13 @@ aggregates over its first-visit edges. Two routes, one contract (the same
   host route bit for bit for any float input.
 
 `aggregate` takes the device route when the edges or the tablet rows
-reach `device_threshold`, and counts each route in the metrics registry
+reach `device_threshold`, or when the cost priors' feat route EMAs
+(utils/costprior.py) say the device beats the host. The device launch
+runs under the memory governor's allocation-failure lifecycle at site
+`feat.agg` (utils/memgov.py): one evict-and-retry on the card, and a
+second allocation failure raises; nothing falls back to the host
+combine. It counts each route
+in the metrics registry
 (`feat_route_total{route=}`, `feat_bytes_total`, the
 `featprop_latency_us` histogram); the whole-block program's featprop
 stage (`engine/fused.py`) counts as `fused`.
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from dgraph_tpu_torch.ops.feat import AGGS, segment_combine
+from dgraph_tpu_torch.utils import costprior, costprofile, memgov
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["AGGS", "host_combine", "aggregate", "annotate_tree",
@@ -90,36 +96,49 @@ def host_combine(subj: np.ndarray, vecs: np.ndarray, nbrs: np.ndarray,
 # -- device route --------------------------------------------------------------
 
 def _device_combine(store, pred: str, nbrs, seg, n_seg: int, agg: str,
-                    device):
-    subj_d, vecs_d = store.vec_device(pred, device)
+                    device, shape_key):
+    """The device combine through the allocation-failure lifecycle; an
+    allocation failure its retry does not absorb raises."""
     nb = torch.from_numpy(np.ascontiguousarray(nbrs, np.int32))
     sg = torch.from_numpy(np.ascontiguousarray(seg, np.int32))
-    cols = torch.stack([nb, sg]).to(vecs_d.device)
-    out, cnt, ecnt = segment_combine(subj_d, vecs_d, cols[0], cols[1],
-                                     len(nbrs), n_seg, agg)
-    return (out.cpu().numpy(), cnt.cpu().numpy(), ecnt.cpu().numpy())
+
+    def _launch():
+        subj_d, vecs_d = store.vec_device(pred, device)
+        cols = torch.stack([nb, sg]).to(vecs_d.device)
+        t0 = time.perf_counter()
+        out, cnt, ecnt = segment_combine(subj_d, vecs_d, cols[0], cols[1],
+                                         len(nbrs), n_seg, agg)
+        costprofile.note_launch(t0, time.perf_counter())
+        return (out.cpu().numpy(), cnt.cpu().numpy(), ecnt.cpu().numpy())
+
+    return memgov.oom_retry("feat.agg", shape_key, _launch)
 
 
 def aggregate(store, pred: str, agg: str, nbrs, seg, n_seg: int, device,
               device_threshold: int = 512):
     """Combine one level's kept-edge feature rows with route selection
     and accounting: the device when the edges or the tablet rows reach
-    `device_threshold`, the host otherwise. Returns (out[n_seg, d] f32,
-    cnt[n_seg] i32, ecnt[n_seg] i32)."""
+    `device_threshold` (or the feat route EMAs promote it), the host
+    otherwise. Returns (out[n_seg, d] f32, cnt[n_seg] i32, ecnt[n_seg]
+    i32)."""
     t = store.vec_tablet(pred)
     if t is None:
         raise ValueError(
             f"@msgpass(pred: {pred}): not a float32vector predicate")
+    work = len(nbrs)
     t0 = time.perf_counter()
-    big = len(nbrs) >= device_threshold or t.rows >= device_threshold
-    if t.rows and big:
+    big = work >= device_threshold or t.rows >= device_threshold
+    if t.rows and (big or costprior.promoted("feat_device", "feat_host")):
         route = "device"
-        out = _device_combine(store, pred, nbrs, seg, n_seg, agg, device)
+        out = _device_combine(store, pred, nbrs, seg, n_seg, agg,
+                              device, (pred, t.dim, agg))
     else:
         route = "host"
         out = host_combine(t.subj, t.vecs, nbrs, seg, n_seg, agg)
-    count_route(route, int(out[1].sum()), t.dim,
-                (time.perf_counter() - t0) * 1e6)
+    us = (time.perf_counter() - t0) * 1e6
+    count_route(route, int(out[1].sum()), t.dim, us)
+    if work:
+        costprior.PRIORS.learn_route("feat_" + route, us / work * 1000.0)
     return out
 
 

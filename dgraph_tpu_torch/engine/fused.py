@@ -35,17 +35,35 @@ regrown geometrically on overflow (`_MAX_ATTEMPTS`), and memoized per
 plan signature; each new set of caps is a new program and capture. The
 program memo is an LRU of at most `PROGRAM_CAPACITY` programs whose
 graphs reserve at most `PROGRAM_BYTES` of device memory in all (each
-capture's growth of `torch.cuda.memory_reserved`). A program holds its
-store's CSR tensors; the programs of a store that was collected are
-dropped at the next call.
+capture's growth of `torch.cuda.memory_reserved`). It is also the
+memory governor's `fused.program` cache (utils/memgov.py), charged those
+graph bytes against the device budget: with a budget set, the governor
+evicts programs below the memo's own bounds. An evicted program that a
+call still holds stays alive (graph, pool, static buffers and the CSR
+tensors it reads) until that call has copied its outputs out; the memo
+only drops its reference. A program holds its store's CSR tensors; the
+programs of a store that was collected are dropped at the next call,
+and so are those that read a `store.device` CSR or `store.vec` stack
+the governor evicted (a memo hit whose tensors are no longer the
+store's is built again).
 
-On the card a failing program raises, as a failing kernel does on the
-staged route: nothing moves work off the card quietly. On the CPU a
-block whose program fails is served by the staged route from then on
-(sticky per query shape, until `reset()`); every such fallback is
-logged with its traceback and counted in `status()`, beside the routes
-taken, program hits and misses, captures, capture milliseconds and the
-bytes the graphs hold. Routes, fallbacks, hits and misses also count in
+Each call runs under the governor's allocation-failure lifecycle at site
+`fused.program`, keyed by query shape: a `torch.cuda.OutOfMemoryError`
+(in a placement, the warm-up, the capture or a replay) evicts to the
+low watermark and runs the call once more; an allocation failure during
+a capture first discards the half-captured graph and its pool, so no
+dead pool is counted. A second allocation failure degrades the shape:
+the staged torch ops serve it on the same card until the governor's
+degraded set is reset. Any other failure of a program on the card
+raises, as a failing kernel does on the staged route: nothing moves work
+off the card quietly. On the CPU a block whose program fails is served
+by the staged route from then on (sticky per query shape, until
+`reset()`); every such fallback is logged with its traceback and
+counted in `status()`, beside the routes taken, program hits and
+misses, captures, capture milliseconds and the bytes the graphs hold.
+Each capture's time is the `fused` family's compile µs in the request's
+cost record (utils/costprofile.py), each call its execute µs and one
+launch. Routes, fallbacks, hits and misses also count in
 the metrics registry under the reference's names (`fused_route_total`,
 `fused_fallback_total`, `fused_program_{hits,misses}_total`).
 `DGRAPH_TPU_FUSED=0` pins every block to the staged route. The host
@@ -79,8 +97,8 @@ from dgraph_tpu_torch.ops.uidalgebra import sentinel, sort_unique_count
 from dgraph_tpu_torch.store import vec
 from dgraph_tpu_torch.store.types import Kind
 from dgraph_tpu_torch.store.vec import device_topk
+from dgraph_tpu_torch.utils import costprofile, memgov, tracing
 from dgraph_tpu_torch.utils import deadline as dl
-from dgraph_tpu_torch.utils import tracing
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["STAGE_KINDS", "FusedPlan", "enabled", "plan_block",
@@ -469,6 +487,7 @@ class _Program:
         self.static_in = None
         self.static_out = None
         self.graph_bytes = 0        # memory_reserved growth of the capture
+        self.capture_us = 0.0       # what capturing it again would cost
         self.held = True            # in the memo (False once dropped)
         self.last = None            # (split sizes, roots) of the last call
         self.combines = 0           # segment_combine calls the graph holds
@@ -486,6 +505,8 @@ class _Program:
             if not fits(sizes):
                 return sizes, outs
             self._capture()
+            # the graph's memory now counts against the device budget
+            memgov.GOVERNOR.maybe_evict("device")
         self.static_in.copy_(x)
         self.graph.replay()
         if self.combines:
@@ -508,18 +529,39 @@ class _Program:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         recorded = feat_ops.RECORDED["segment_combine"]
-        with torch.cuda.graph(graph):
-            # read after the context's own empty_cache(), which would
-            # otherwise hide the pool's growth
-            before = torch.cuda.memory_reserved(self.device)
-            self.static_out = self.fn(self.rels, self.static_in)
+        try:
+            with torch.cuda.graph(graph):
+                # read after the context's own empty_cache(), which would
+                # otherwise hide the pool's growth
+                before = torch.cuda.memory_reserved(self.device)
+                self.static_out = self.fn(self.rels, self.static_in)
+        except BaseException as e:
+            # a failed capture (an allocation failure among them) leaves
+            # a half-captured graph and its private pool: discard both,
+            # so a retry captures afresh and no dead pool is counted
+            self.static_out = None
+            try:
+                graph.reset()
+            except RuntimeError:
+                pass
+            del graph
+            torch.cuda.empty_cache()
+            first = e.__context__
+            if not memgov.is_alloc_failure(e) and \
+                    memgov.is_alloc_failure(first):
+                # ending a capture that an allocation failure cut short
+                # can fail in turn: the allocation failure is the cause
+                raise first from e
+            raise
         self.graph = graph
         self.combines = feat_ops.RECORDED["segment_combine"] - recorded
         self.graph_bytes = max(
             torch.cuda.memory_reserved(self.device) - before, 0)
+        capture_us = self.capture_us = (time.perf_counter() - t0) * 1e6
+        costprofile.add_kernel("fused", compile_us=capture_us)
         with _lock:
             _stats["captures"] += 1
-            _stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
+            _stats["capture_ms"] += capture_us / 1e3
             if self.held:
                 _stats["program_bytes"] += self.graph_bytes
                 _evict()
@@ -585,11 +627,68 @@ def _drop(key) -> None:
     _stats["evictions"] += 1
 
 
+def _governed_bytes() -> int:
+    with _lock:
+        return _stats["program_bytes"]
+
+
+def _coldest():
+    """(key, program) of the least recently used program that holds
+    graph memory, or None. Under `_lock`."""
+    return next(((k, p) for k, p in _programs.items() if p.graph_bytes),
+                None)
+
+
+def _evict_one() -> int:
+    """The governor's eviction: drop the least recently used program
+    that holds graph memory; returns its graph bytes (0: none holds
+    any)."""
+    with _lock:
+        cold = _coldest()
+        if cold is None:
+            return 0
+        _drop(cold[0])
+        return cold[1].graph_bytes
+
+
+def _coldest_value() -> float | None:
+    """Capture µs per graph byte of the program `_evict_one` would drop:
+    the governor evicts cheaper caches first (the reference prices its
+    program memo by compile µs per byte the same way)."""
+    with _lock:
+        cold = _coldest()
+    if cold is None:
+        return None
+    return cold[1].capture_us / cold[1].graph_bytes
+
+
+def _drop_holding(value) -> None:
+    """A `store.device` CSR or `store.vec` stack was evicted: drop the
+    programs whose graphs read its tensors, or evicting it frees no
+    memory and its next placement is a second copy."""
+    with _lock:
+        for key in [k for k, p in _programs.items()
+                    if any(r is value for r in p.rels)]:
+            _drop(key)
+
+
+memgov.GOVERNOR.register("fused.program", "device", _governed_bytes,
+                         _evict_one, value_cb=_coldest_value)
+memgov.GOVERNOR.add_dependent("store.device", _drop_holding)
+memgov.GOVERNOR.add_dependent("store.vec", _drop_holding)
+
+
 def _program_for(plan: FusedPlan, caps: tuple, layout: tuple, rels: tuple,
                  ex) -> _Program:
     key = (_store_key(ex.store), plan.sig, caps, layout, ex.device)
     with _lock:
         prog = _programs.get(key)
+        if prog is not None and any(a is not b
+                                    for a, b in zip(prog.rels, rels)):
+            # a tensor it reads was evicted and placed again since: a
+            # program only ever runs on the tensors the store holds
+            _drop(key)
+            prog = None
         hit = prog is not None
         if hit:
             _programs.move_to_end(key)
@@ -644,16 +743,18 @@ def reset() -> None:
 def try_fused(ex, sg):
     """The engine hook (`Executor._run_block`): serve one root block as
     one program, or return None for the staged route. Counts the route
-    either way. On the card a failing program (capture, launch, out of
-    memory) raises. On the CPU it is logged, its shape goes to the
-    staged route for good, and the staged route serves."""
+    either way. An allocation failure the evict-and-retry did not absorb
+    degrades the shape to the staged route on the same device. On the
+    card any other failure of a program (capture, launch) raises. On the
+    CPU it is logged, its shape goes to the staged route for good, and
+    the staged route serves."""
     if not enabled():
         return None
     from dgraph_tpu_torch.engine import shape_of
     shape = shape_of([sg])
     with _lock:
         disabled = shape in _disabled
-    if disabled:
+    if disabled or memgov.GOVERNOR.is_degraded("fused.program", shape):
         _route("fallback")
         return None
     try:
@@ -661,12 +762,22 @@ def try_fused(ex, sg):
         if plan is not None:
             with tracing.span("engine.fused", shape=shape,
                               stages=len(plan.stages)):
-                node = _run_plan(ex, sg, plan)
+                node = memgov.oom_retry(
+                    "fused.program", shape,
+                    lambda: _run_plan(ex, sg, plan), degrade=True)
             if node is not None:
                 _route("fused")
                 return node
     except (dl.DeadlineExceeded, dl.Cancelled):
         raise    # the request's budget died: not the program's failure
+    except memgov.OomDegraded:
+        # counted and logged by the governor: the staged route serves
+        # this shape on the same device until the degraded set is reset
+        with _lock:
+            _stats["fallbacks"] += 1
+        METRICS.inc("fused_fallback_total")
+        _route("fallback")
+        return None
     except Exception:  # noqa: BLE001 — the staged route serves instead
         if ex.device.type == "cuda":
             raise
@@ -777,10 +888,19 @@ def _run_plan(ex, sg, plan: FusedPlan):
         raise RuntimeError("fused caps failed to converge")
     with _lock:
         _caps_memo[plan.sig] = caps
-    for st, sz in zip(plan.stages, split):    # one expansion per stage
-        if st.kind in ("hop", "recurse"):
+    t_end = time.perf_counter()
+    costprofile.add_shape("fused")
+    costprofile.add_kernel("fused", execute_us=(t_end - t_exec) * 1e6)
+    costprofile.note_launch(t_exec, t_end)
+    for st, sz, rel in zip(plan.stages, split, rels):
+        n = rel.rows if st.kind in ("knn", "featprop") else 0
+        if st.kind in ("hop", "recurse"):   # one expansion per stage
             edges = int(sz[2]) if st.kind == "hop" else int(sz[2].sum())
             ex.routes.add("program", edges)
+            n = edges
+        if st.kind != "count":
+            # modeled per-tablet µs, the staged expansion's ~16 edges/µs
+            costprofile.add_tablet_cost(st.attr, n // 16 + 1)
     if plan.knn:
         vec.count_fused()
         # the root set is the program's own seed output: sorted, the

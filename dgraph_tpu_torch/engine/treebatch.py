@@ -28,6 +28,7 @@ engine's, as tests/test_torch_treebatch.py asserts.
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -37,7 +38,7 @@ from dgraph_tpu_torch.engine.execute import (EMPTY64, Executor, LevelNode,
 from dgraph_tpu_torch.engine.ir import FilterNode, SubGraph
 from dgraph_tpu_torch.engine.varorder import (_filter_uses, _func_uses,
                                               execution_order)
-from dgraph_tpu_torch.utils import deadline, tracing
+from dgraph_tpu_torch.utils import costprofile, deadline, tracing
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 EMPTY = np.zeros(0, np.int32)
@@ -312,11 +313,16 @@ def run_tree_batch(store, plan: TreePlan, device, device_threshold: int):
     METRICS.inc("kernel_group_queries_total", float(B), family="tree")
     METRICS.inc("kernel_padded_lanes_total", float(lanes - B),
                 family="tree")
+    from dgraph_tpu_torch.engine.batch import _note_kernel_features
+    _note_kernel_features("*", "tree", lanes, lanes - B,
+                          len(plan.stages), B)
+    t_exec = time.perf_counter()
     with tracing.span("batch.tree_run", stages=len(plan.stages),
                       queries=B, lanes=lanes, padded_lanes=lanes - B):
         fn, _descs = _tree_kernel_for(store, plan, rels, n, lanes // 32,
                                       device)
         outs = fn(*_tree_masks(n, lanes, seed_lists, filt_lists, device))
+        costprofile.note_launch(t_exec, time.perf_counter())
 
         # one host copy per stage output; bit tests against these masks
         # rebuild every query's edge rows
@@ -329,6 +335,8 @@ def run_tree_batch(store, plan: TreePlan, device, device_threshold: int):
                 masks.append((host(o[0]), host(o[1])))
             else:
                 masks.append((host(o), None))
+    costprofile.add_kernel("tree",
+                           execute_us=(time.perf_counter() - t_exec) * 1e6)
 
     out_json = []
     with tracing.span("batch.tree_rebuild"):

@@ -29,13 +29,27 @@ alpha.new_txn()`, any number of `txn.query` / `txn.mutate` calls, then
 `commit_now=True` mutations are single-shot transactions; with
 `commit_now=False` the server keeps the txn open, continued by start_ts.
 
-Left to ROADMAP Queue 1: the memory governor and the cost profile and
-prior, which the reference's request shell also records (item 9c);
-admission, ACL and the HTTP/gRPC front end (9d); the cluster (groups,
-replication, read gates, tablet routing; 9e); the flight recorder and
-the lock-order sanitizer (9f). Deliberate differences: locks are plain
-`threading` locks, and `query_batch` raises when a kernel group fails
-instead of serving its queries one by one (`engine/batch.py`).
+The memory governor and the cost model (utils/memgov.py,
+costprofile.py, costprior.py): the shell opens the request's cost record
+(`costprofile.profile(lane)`) and, with the priors on
+(`costprior.enabled`, the one switch), predicts a query's cost before
+the serve and learns from it after; `query_batch` launches its kernel
+groups longest-predicted first. `Alpha.open` merges the
+`costprofiles.json` and `costpriors.json` the last run saved beside its
+checkpoint (a corrupt one is counted and skipped) and refits the priors
+without overwriting them; `checkpoint_to` and `shutdown` save them.
+`Alpha.status()` reports the governor's budgets, each cache's resident
+bytes and evictions, the allocation failures and the degraded shapes,
+with the priors' summary. The reference's adapted-tablet cache
+(`api.tablet`) comes with the cluster that fills it (item 9e).
+
+Left to ROADMAP Queue 1: admission, ACL and the HTTP/gRPC front end
+(9d); the cluster (groups, replication, read gates, tablet routing; 9e);
+the flight recorder and the lock-order sanitizer (9f). Deliberate
+differences: locks are plain `threading` locks, and no kernel group is
+served query by query after a failure: any failure of a group, an
+allocation failure its evict-and-retry did not absorb among them,
+raises out of `query_batch` (`engine/batch.py`).
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import time
 from dataclasses import dataclass, field
 
 from dgraph_tpu_torch.cluster.oracle import Oracle, TxnAborted
@@ -52,6 +67,7 @@ from dgraph_tpu_torch.store.mvcc import MVCCStore, Mutation
 from dgraph_tpu_torch.store.schema import parse_schema
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import Kind, hash_password
+from dgraph_tpu_torch.utils import costprior, costprofile, memgov
 from dgraph_tpu_torch.utils import deadline as dl
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from dgraph_tpu_torch.utils.metrics import METRICS
@@ -118,6 +134,14 @@ class Alpha:
         alpha.oracle.bump_ts(max_ts)
         if max_uid:
             alpha.oracle.bump_uid(max_uid)
+        # cost-profile continuity: merge the aggregate the last run saved
+        # beside the checkpoint (the digest merge is exact)
+        costprofile.load(os.path.join(p_dir, "costprofiles.json"))
+        # merge the saved priors, then fill in the shapes the digests
+        # know and the model does not (no overwrite: the merged
+        # incremental refinements stay)
+        costprior.load(os.path.join(p_dir, "costpriors.json"))
+        costprior.refit(overwrite=False)
         return alpha
 
     def attach_wal(self, wal_path: str, sync: bool = True) -> tuple[int, int]:
@@ -190,6 +214,7 @@ class Alpha:
             with self._apply_lock:
                 if self.wal is not None:
                     self.wal.truncate(ts)
+            self._save_costprofiles(p_dir)
             return ts
         with self._apply_lock:
             store = self.mvcc.rollup()
@@ -199,7 +224,27 @@ class Alpha:
             checkpoint.save_versioned(store, p_dir, base_ts=ts)
             if self.wal is not None:
                 self.wal.truncate(ts)
+        self._save_costprofiles(p_dir)
         return ts
+
+    @staticmethod
+    def _save_costprofiles(p_dir: str) -> None:
+        """Save the cost-profile aggregate and the priors beside the
+        checkpoint (best effort: cost history is telemetry, never worth
+        failing a checkpoint over)."""
+        with contextlib.suppress(OSError):
+            costprofile.save(os.path.join(p_dir, "costprofiles.json"))
+        with contextlib.suppress(OSError):
+            costprior.save(os.path.join(p_dir, "costpriors.json"))
+
+    def status(self) -> dict:
+        """The memory governor's document (budgets and watermarks, each
+        cache's resident bytes and evictions, allocation failures and
+        degraded shapes) with the cost priors' summary."""
+        out = memgov.GOVERNOR.status()
+        out["cost_priors"] = {"enabled": costprior.enabled(),
+                              **costprior.status()}
+        return out
 
     def maintenance_rollup(self, p_dir: str | None = None,
                            pace=None) -> int:
@@ -246,29 +291,54 @@ class Alpha:
         return self.maintenance
 
     @contextlib.contextmanager
-    def _request(self, lane: str, deadline_ms: float | None):
+    def _request(self, lane: str, deadline_ms: float | None,
+                 query_text: str | None = None):
         """Request-lifecycle shell every public entry point runs inside:
         the budget (explicit `deadline_ms`, else `default_deadline_ms`)
         as the thread's ambient context (utils/deadline.py), which the
-        engine's hot loops checkpoint against. A nested call (a txn read
-        inside a request) reuses the enclosing context: the OUTER budget
-        governs. Every failed serve but a client's cancel counts in
-        `query_errors_total{lane=}`."""
+        engine's hot loops checkpoint against, and the request's cost
+        record (`costprofile.profile`, classified at close). With cost
+        priors on and a `query_text`, the cost is predicted before the
+        serve (shape memo → per-shape prior, lane EMA fallback) and the
+        observed cost learned after it. A nested call (a txn read inside
+        a request) reuses the enclosing context and record: the OUTER
+        budget governs. Every failed serve but a client's cancel counts
+        in `query_errors_total{lane=}`."""
         outer = dl.current()
         if outer is not None:
-            yield outer
+            # a nested leg on the outer record: the leg's boundary is not
+            # billed as a launch gap
+            with costprofile.launch_frame():
+                yield outer
             return
         if deadline_ms is None and self.default_deadline_ms:
             deadline_ms = self.default_deadline_ms
         ctx = dl.RequestContext(deadline_ms)
-        with dl.activate(ctx):
+        with dl.activate(ctx), costprofile.profile(lane):
+            predicted = source = None
+            priors_on = costprior.enabled()
+            if priors_on and query_text is not None:
+                predicted, source = costprior.predict(lane, text=query_text)
+            t0 = time.perf_counter()
+            completed = False
             try:
                 yield ctx
+                completed = True
             except dl.Cancelled:
                 raise   # the client's, not an error-budget burn
             except Exception:
                 METRICS.inc("query_errors_total", lane=lane)
                 raise
+            finally:
+                if predicted is not None:
+                    costprofile.note("predicted_us", int(predicted))
+                if completed and priors_on and query_text is not None:
+                    rec = costprofile.active()
+                    costprior.learn(
+                        lane, query_text,
+                        rec.shape_key() if rec is not None else None,
+                        (time.perf_counter() - t0) * 1e6,
+                        predicted_us=predicted, source=source)
 
     def shutdown(self, p_dir: str | None = None) -> None:
         """The clean-exit path: drain maintenance (finish the in-flight
@@ -336,7 +406,7 @@ class Alpha:
         `deadline_ms` bounds the request: the engine's loops checkpoint
         against it and raise a retryable `DeadlineExceeded` within one
         level / BFS iteration of the budget."""
-        with self._request("read", deadline_ms):
+        with self._request("read", deadline_ms, query_text=dql):
             with self._reading(read_ts) as ts:
                 out = self._engine(self._query_view(ts)).query(
                     dql, variables)
@@ -347,7 +417,7 @@ class Alpha:
                   read_ts: int | None = None,
                   deadline_ms: float | None = None) -> bytes:
         """Serving-path query: response BYTES (engine/emit.py)."""
-        with self._request("read", deadline_ms):
+        with self._request("read", deadline_ms, query_text=dql):
             with self._reading(read_ts) as ts:
                 raw = self._engine(self._query_view(ts)).query_bytes(
                     dql, variables)
@@ -357,11 +427,17 @@ class Alpha:
     def query_batch(self, dqls: list, read_ts: int | None = None,
                     deadline_ms: float | None = None) -> list:
         """Serve many queries at one snapshot: compatible groups run as
-        lane-packed kernel runs, the rest per query (engine/batch.py).
+        lane-packed kernel runs, longest-predicted first when the cost
+        priors are on, the rest per query (engine/batch.py).
         Returns one JSON dict per query, in order. A dead budget fails
-        the whole batch."""
+        the whole batch; so does any failure of a kernel group, an
+        allocation failure its evict-and-retry did not absorb among
+        them."""
         from dgraph_tpu_torch.engine.batch import query_batch
-        with self._request("read", deadline_ms):
+        # the batch's prior key is the joined texts: one combined shape,
+        # so a repeated batch hits the same prior
+        with self._request("read", deadline_ms,
+                           query_text="\x1e".join(dqls)):
             with self._reading(read_ts) as ts:
                 out = query_batch(self._query_view(ts), dqls,
                                   device=self.device,

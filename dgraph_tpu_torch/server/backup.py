@@ -479,6 +479,11 @@ def _restore_fold(mvcc, schema, dropped, p_dir: str, max_ts: int,
         METRICS.inc("restore_resumed_total")
 
     compress = native.HAVE_NATIVE
+    if "__uids__" in done:
+        # a resumed restore keeps the codec its first run staged: the
+        # journaled uids digest is that file's, and the manifest must
+        # name the codec of the block it sits beside
+        compress = os.path.exists(os.path.join(staging, "uids.duc"))
     lazy = stream.lazy_preds(base)
     written = resumed = 0
     try:

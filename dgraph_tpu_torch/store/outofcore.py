@@ -4,9 +4,11 @@ Port of `dgraph_tpu/store/outofcore.py`: `LazyPreds`, `open_out_of_core`
 and `_pd_nbytes`, with plain `threading` locks. Besides its `faults`
 and `evictions` attributes (the reference's), each fault and LRU
 eviction counts in `outofcore_faults_total` / `outofcore_evictions_total`.
-The reference also registers each residency with the process memory
-governor (ROADMAP Queue 1 item 9c) and heals a corrupt tablet from a
-group replica (item 9e).
+Each residency joins the process memory governor as the
+`outofcore.resident` cache under the host budget (utils/memgov.py),
+beside its own LRU: the governor adds the cross-cache budget, and its
+eviction surrenders the LRU-coldest tablet. Healing a corrupt tablet
+from a group replica waits for ROADMAP Queue 1 item 9e.
 
 Reference parity: Badger is an LSM — the reference's data set is NEVER
 required to fit in RAM; posting lists page in from disk through the block
@@ -98,6 +100,21 @@ class LazyPreds:
         self.faults = 0       # tablets loaded from disk
         self.evictions = 0    # tablets dropped under budget pressure
         self.releases = 0     # tablets dropped by a streaming pass
+        # join the memory governor: a re-fault reloads bit-identical
+        # arrays, so the governor may take the LRU-coldest tablet
+        from dgraph_tpu_torch.utils import memgov
+        memgov.govern_dict(self, "_resident", "outofcore.resident", "host",
+                           lock=self._lock, on_evict=LazyPreds._evicted,
+                           nbytes=lambda lp: lp.stats()["resident_bytes"])
+
+    def _evicted(self, pred: str, _pd) -> int:
+        """Governor eviction of the LRU-coldest tablet, under the lock:
+        its accounting, and the bytes freed."""
+        freed = self._sizes.pop(pred)
+        self.resident_bytes -= freed
+        self.evictions += 1
+        METRICS.inc("outofcore_evictions_total")
+        return freed
 
     def stats(self) -> dict[str, int]:
         """Residency counters read under the lock — the ONLY way other

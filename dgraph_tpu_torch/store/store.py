@@ -19,8 +19,14 @@ every scalar kind (geo values as `GeoVal`, passwords as their hashes,
 float32vector values as 1-D float32 rows of an object column), and
 `build_indexes` keys exact, hash, term, fulltext, trigram and geo tokens.
 A float32vector predicate's rows stack into a `store/vec.VecTablet`
-(`Store.vec_tablet`), placed on a device once (`Store.vec_device`). The
-mesh placements belong to a later slice (ROADMAP Queue 1 item 10).
+(`Store.vec_tablet`), placed on a device once (`Store.vec_device`).
+Both device caches are governed (`utils/memgov.py`: `store.device` and
+`store.vec` under the device budget): an evicted entry is placed again
+on next use and counted (`cache_replacements_total{cache=
+"store.device"}`, `vec_replacements_total{kind="device"}`), and the
+whole-block programs that read an evicted entry's tensors are dropped
+with it (`engine/fused.py`). The mesh
+placements belong to a later slice (ROADMAP Queue 1 item 10).
 
 `store_from_arrays` builds a port Store from a reference Store's numpy
 state (or plain arrays), so both packages can be handed the same data.
@@ -40,7 +46,9 @@ from dgraph_tpu_torch.store.geo import parse_geo
 from dgraph_tpu_torch.store.schema import PredicateSchema, Schema, parse_schema
 from dgraph_tpu_torch.store.tok import tokens_for
 from dgraph_tpu_torch.store.types import NUMPY_DTYPE, Kind, convert
+from dgraph_tpu_torch.utils import memgov
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from dgraph_tpu_torch.utils.metrics import METRICS
 
 TYPE_PRED = "dgraph.type"
 FILTER_SET_CAPACITY = 64   # memoized filter sets per store, LRU
@@ -179,6 +187,14 @@ def _edge_keys(rel: EdgeRel, n: int) -> np.ndarray:
     return src * n + rel.indices.astype(np.int64)
 
 
+def _vec_detail(store) -> list:
+    """Resident vector stacks with their dims (`GOVERNOR.status()` rows
+    that make eviction thrash on `store.vec` visible)."""
+    return [{"pred": pred, "placement": "device",
+             "rows": int(vecs.shape[0]), "dim": int(vecs.shape[1])}
+            for (pred, _dev), (_subj, vecs) in sorted(store._vec_dev.items())]
+
+
 class Store:
     """Immutable posting-store snapshot (host arrays + device cache)."""
 
@@ -199,6 +215,15 @@ class Store:
         # and their (subj, vecs) tensors per (predicate, device)
         self._vec_tab: dict = {}
         self._vec_dev: dict = {}
+        # keys ever placed: placing one again is a RE-placement (the
+        # governor evicted it), counted so eviction thrash is visible
+        self._placed: set = set()
+        # both device caches join the governor's device budget; an
+        # evicted entry is placed again on next use, and a launch that
+        # already holds its tensors keeps them
+        memgov.govern_dict(self, "_device", "store.device", "device")
+        memgov.govern_dict(self, "_vec_dev", "store.vec", "device",
+                           detail_cb=_vec_detail)
 
     def filter_set_memo(self, key, compute):
         """The allowed set `compute()` gives for a filter tree that reads
@@ -264,7 +289,19 @@ class Store:
             out = self._device[key] = (
                 torch.from_numpy(r.indptr).to(dev),
                 torch.from_numpy(r.indices).to(dev))
+            self._note_placed(("device",) + key, "cache_replacements_total",
+                              cache="store.device")
         return out
+
+    def _note_placed(self, key, counter: str, **labels) -> None:
+        """Count a re-placement, then let the governor evict above the
+        device budget's high watermark. The caller returns the tensors
+        it placed even if this pass evicts them: its launch holds them,
+        and the next lookup places them again."""
+        if key in self._placed:
+            METRICS.inc(counter, **labels)
+        self._placed.add(key)
+        memgov.GOVERNOR.maybe_evict("device")
 
     # -- vector tablets -----------------------------------------------------
     def vec_tablet(self, pred: str):
@@ -292,6 +329,8 @@ class Store:
             t = self.vec_tablet(pred)
             out = self._vec_dev[key] = (torch.from_numpy(t.subj).to(dev),
                                         torch.from_numpy(t.vecs).to(dev))
+            self._note_placed(("vec",) + key, "vec_replacements_total",
+                              kind="device")
         return out
 
     # -- values -------------------------------------------------------------

@@ -1,8 +1,7 @@
 """Vector tablets and brute-force k-NN seed selection (GraphRAG serving).
 
 Port of `dgraph_tpu/store/vec.py` without its mesh route (ROADMAP Queue 1
-item 10) and its memory-governor wrapper and cost-prior promotion (item
-9). A float32vector predicate's values become one `[n, d]` float32 stack
+item 10). A float32vector predicate's values become one `[n, d]` float32 stack
 (a `VecTablet`), and `similar_to(pred, k, <vector|uid>)` selects the k
 ranks of highest dot-product score, ties broken by the lower rank, as a
 sorted rank set. Two routes, one contract (the same rank set):
@@ -24,13 +23,20 @@ applies to matrix-matrix products, and
 reference, the routes give the same set whenever the scores are equal,
 which holds exactly for small-integer-valued vectors (the fixtures').
 
-`similar_ranks` picks the route by `device_threshold` alone (tablet rows)
-and counts each route in `knn_route_total{route=}` (host, device, and
-fused for a knn stage of a whole-block program).
+`similar_ranks` takes the device route when the tablet reaches
+`device_threshold` rows, or when the cost priors' measured µs-per-1k-rows
+EMAs (utils/costprior.py, learned from every call) say the device beats
+the host scan; it counts each route in `knn_route_total{route=}` (host,
+device, and fused for a knn stage of a whole-block program). The device
+launch runs under the memory governor's allocation-failure lifecycle at
+site `vec.topk` (utils/memgov.py): one evict-and-retry on the card, and
+a second allocation failure raises; nothing falls back to the host
+scan.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -38,6 +44,7 @@ import torch
 
 from dgraph_tpu_torch.store.types import parse_vector
 from dgraph_tpu_torch.ops.uidalgebra import sentinel
+from dgraph_tpu_torch.utils import costprior, costprofile, memgov
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["VecQueryError", "VecTablet", "build_tablet", "host_topk",
@@ -197,24 +204,48 @@ def _count(route: str) -> None:
     METRICS.inc("knn_route_total", route=route)
 
 
+def _device_similar(store, pred: str, q: np.ndarray, k: int, device,
+                    shape_key) -> np.ndarray:
+    """The device top-k over the placed stack, through the allocation-
+    failure lifecycle; an allocation failure its retry does not absorb
+    raises."""
+
+    def _launch():
+        subj_d, vecs_d = store.vec_device(pred, device)
+        q_d = torch.from_numpy(q).to(vecs_d.device)
+        t0 = time.perf_counter()
+        top = device_topk(subj_d, vecs_d, q_d, k)
+        costprofile.note_launch(t0, time.perf_counter())
+        return top.cpu().numpy()
+
+    return memgov.oom_retry("vec.topk", shape_key, _launch).astype(
+        np.int32, copy=False)
+
+
 def similar_ranks(store, f, device, device_threshold: int = 512
                   ) -> np.ndarray:
     """similar_to with route selection and accounting: the device top-k
-    on a tablet of at least `device_threshold` rows, the host scan
-    otherwise. A device failure raises."""
+    on a tablet of at least `device_threshold` rows (or when the knn
+    route EMAs promote it), the host scan otherwise. A device failure
+    raises."""
     resolved = resolve_query(store, f)
     if resolved is None:
         return EMPTY.copy()
     pred, k, q = resolved
     t = store.vec_tablet(pred)
-    if t.rows >= device_threshold:
-        subj_d, vecs_d = store.vec_device(pred, device)
-        q_d = torch.from_numpy(q).to(vecs_d.device)
-        out = device_topk(subj_d, vecs_d, q_d, k).cpu().numpy()
-        _count("device")
-        return out.astype(np.int32, copy=False)
-    _count("host")
-    return host_topk(t.subj, t.vecs, q, k)
+    n = t.rows
+    t0 = time.perf_counter()
+    if n >= device_threshold or costprior.promoted("knn_device", "knn_host"):
+        route = "device"
+        out = _device_similar(store, pred, q, k, device, (pred, t.dim, k))
+    else:
+        route = "host"
+        out = host_topk(t.subj, t.vecs, q, k)
+    _count(route)
+    if n:
+        costprior.PRIORS.learn_route(
+            "knn_" + route, (time.perf_counter() - t0) * 1e6 / n * 1000.0)
+    return out
 
 
 def count_fused() -> None:

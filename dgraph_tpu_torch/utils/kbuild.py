@@ -5,8 +5,11 @@ for sm_90a into `dgraph_tpu_torch/build/lib<name>-<hash>.so` at first use
 (the hash is of the source and flags, so an edited source rebuilds), then
 loaded with ctypes. The build directory is listed in `.gitignore`.
 `build_all` starts one `nvcc` per source at once and waits for all of
-them, and counts each build in `kernel_builds_total{kernel=,outcome=}`;
-nothing here runs at import time.
+them, and counts each build in `kernel_builds_total{kernel=,outcome=}`
+and its time as the compile µs of kernel family `nvcc:<name>` in the
+request's cost record (utils/costprofile.py); nothing here runs at
+import time. A failed build raises: it is never taken for an allocation
+failure (utils/memgov.py).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import subprocess
 import threading
 import time
 
+from dgraph_tpu_torch.utils import costprofile
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,6 +86,10 @@ def build_all(names=SOURCES) -> dict:
             continue
         os.replace(tmp, out)
         METRICS.inc("kernel_builds_total", kernel=name, outcome="ok")
+        # the build's time is this kernel family's compile µs in the
+        # request's cost record (utils/costprofile.py), when one is open
+        costprofile.add_kernel(f"nvcc:{name}",
+                               compile_us=(time.perf_counter() - t0) * 1e6)
         report[name] = {"seconds": time.perf_counter() - t0,
                         "ptxas": "\n".join(l for l in log.splitlines()
                                            if "ptxas" in l)}

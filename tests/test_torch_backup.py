@@ -14,6 +14,7 @@ import os
 
 import pytest
 
+import dgraph_tpu.native as ref_native
 import dgraph_tpu.server.api as ref_api
 import dgraph_tpu.server.backup as ref_backup
 import dgraph_tpu.store.checkpoint as ref_checkpoint
@@ -21,18 +22,16 @@ import dgraph_tpu.store.vault as ref_vault
 import test_backup
 import test_txn
 import test_vault
+from dgraph_tpu_torch import native
 from dgraph_tpu_torch.server import backup
 from dgraph_tpu_torch.server.api import Alpha
 from dgraph_tpu_torch.store import checkpoint, vault
 from test_torch_lifecycle import compare_case, reference_cases
 from test_torch_mvcc import assert_stores_equal
 
-# the CLI (ROADMAP Queue 1 item 9f) and the HTTP front end (9d); the
-# cost-profile and cost-prior sidecars an Alpha writes and reads beside
-# its checkpoint come with the cost model (9c)
+# the CLI (ROADMAP Queue 1 item 9f) and the HTTP front end (9d)
 BACKUP_SKIP = {"test_cli_backup_restore_roundtrip",
-               "test_verify_cli_and_admin_endpoint",
-               "test_corrupt_sidecars_never_abort_open"}
+               "test_verify_cli_and_admin_endpoint"}
 
 CASES = ([(test_backup, n) for n in reference_cases(test_backup,
                                                     BACKUP_SKIP)]
@@ -63,8 +62,9 @@ def test_reference_case_on_port(module, name, tmp_path, monkeypatch):
 
 def test_case_list_covers_the_issue():
     names = {n for _m, n in CASES}
-    assert len([n for m, n in CASES if m is test_backup]) == 12
+    assert len([n for m, n in CASES if m is test_backup]) == 13
     assert {"test_full_then_incremental_roundtrip",
+            "test_corrupt_sidecars_never_abort_open",
             "test_restore_kill_at_any_point_resumes_bit_identical",
             "test_verify_chain_clean_and_corrupt",
             "test_encrypted_backup_restore",
@@ -106,10 +106,31 @@ def _files(d):
             for f in sorted(os.listdir(d))}
 
 
-@pytest.mark.parametrize("writer", ["reference", "port"])
-def test_chain_crosses_packages(writer, tmp_path):
+# The uid block's codec follows each package's `native.HAVE_NATIVE`: the
+# reference's library is built only by `make -C dgraph_tpu/native`, the
+# port's at first use. A byte comparison holds both packages to one
+# codec: the reference's own switch, and the other codec as well, which
+# needs the reference's library when that codec is the compressed one.
+CHAIN_CASES = [(w, other) for other in (False, True)
+               for w in ("reference", "port")]
+
+
+def _one_codec(monkeypatch, other: bool):
+    on = ref_native.HAVE_NATIVE != other
+    if on and not ref_native.HAVE_NATIVE:
+        pytest.skip("the reference's native codec library is not built")
+    monkeypatch.setattr(native, "HAVE_NATIVE", on)
+    monkeypatch.setattr(ref_native, "HAVE_NATIVE", on)
+
+
+@pytest.mark.parametrize(
+    "writer,other", CHAIN_CASES,
+    ids=[f"{w}-other-codec" if o else w for w, o in CHAIN_CASES])
+def test_chain_crosses_packages(writer, other, tmp_path, monkeypatch):
     """A chain written by `writer` restores on both packages to equal
-    stores (array for array) and byte-identical checkpoint files."""
+    stores (array for array) and byte-identical checkpoint files, both
+    packages under one uid codec: the reference's own, or the other."""
+    _one_codec(monkeypatch, other)
     p, dest = str(tmp_path / "p"), str(tmp_path / "bk")
     if writer == "reference":
         _write_chain(lambda d: ref_api.Alpha.open(d, sync=False),
@@ -169,3 +190,53 @@ def test_restore_resumes_from_a_reference_journal(tmp_path):
     assert not os.path.exists(os.path.join(tgt, "restore.journal"))
     assert _files(checkpoint.resolve(tgt)) == \
         _files(ref_checkpoint.resolve(clean))
+
+
+def _killed_restore(dest, tgt, kill_at):
+    """A port restore into `tgt` killed at its `kill_at`-th file write:
+    its journal and staged files stay behind."""
+
+    class Kill(Exception):
+        pass
+
+    seen = [0]
+
+    def hook(path, data):
+        seen[0] += 1
+        if seen[0] == kill_at:
+            raise Kill(path)
+        return data
+
+    vault.set_io_fault(hook)
+    try:
+        with pytest.raises(Kill):
+            backup.restore(dest, tgt)
+    finally:
+        vault.set_io_fault(None)
+    assert os.path.exists(os.path.join(tgt, "restore.journal"))
+
+
+@pytest.mark.parametrize("first", [True, False], ids=["codec-then-plain",
+                                                      "plain-then-codec"])
+def test_restore_resumes_across_codecs(first, tmp_path, monkeypatch):
+    """A port restore killed under one uid codec and resumed by a
+    process with the other finishes, equal byte for byte to a clean
+    restore under the first run's codec: the resumed run keeps the
+    codec of the uid block its first run staged."""
+    if not native.built():
+        pytest.skip("the port's native codec library did not build")
+    p, dest = str(tmp_path / "p"), str(tmp_path / "bk")
+    monkeypatch.setattr(native, "HAVE_NATIVE", first)
+    _write_chain(lambda d: Alpha.open(d, sync=False, device="cpu"),
+                 backup.backup, p, dest)
+    clean = str(tmp_path / "clean")
+    backup.restore(dest, clean)
+    tgt = str(tmp_path / "tgt")
+    _killed_restore(dest, tgt, kill_at=4)
+    monkeypatch.setattr(native, "HAVE_NATIVE", not first)
+    backup.restore(dest, tgt)
+    assert not os.path.exists(os.path.join(tgt, "restore.journal"))
+    assert _files(checkpoint.resolve(tgt)) == \
+        _files(checkpoint.resolve(clean))
+    uids = "uids.duc" if first else "uids.npy"
+    assert uids in os.listdir(checkpoint.resolve(tgt))

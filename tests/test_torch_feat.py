@@ -35,6 +35,7 @@ from dgraph_tpu_torch.store import vec
 from dgraph_tpu_torch.store.store import store_from_arrays
 from dgraph_tpu_torch.utils.metrics import METRICS as PORT_METRICS
 from test_feat import _graphs, _oracle
+from test_torch_memgov import reset_cost_state
 
 CPU = "cpu"
 DIM = 4
@@ -67,6 +68,7 @@ def _fresh(monkeypatch):
     monkeypatch.setenv("DGRAPH_TPU_FUSED", "1")
     fused.reset()
     ref_fused.reset()
+    reset_cost_state()
     _BASE.clear()
     _BASE.update(_feat_counts(PORT_METRICS))
     yield

@@ -41,8 +41,10 @@ from dgraph_tpu_torch.engine import Engine, fused
 from dgraph_tpu_torch.engine.execute import Executor, _bucket
 from dgraph_tpu_torch.models import ldbc
 from dgraph_tpu_torch.store.store import StoreBuilder, store_from_arrays
+from dgraph_tpu_torch.utils import memgov
 from test_fused import IC_TEMPLATES
 from test_fused import _store as ref_store_of
+from test_torch_memgov import reset_cost_state
 
 CPU = "cpu"
 THRESHOLDS = [0, 10**9]
@@ -54,9 +56,11 @@ def _fresh(monkeypatch):
     monkeypatch.setenv("DGRAPH_TPU_FUSED", "1")
     fused.reset()
     ref_fused.reset()
+    reset_cost_state()
     yield
     fused.reset()
     ref_fused.reset()
+    reset_cost_state()
 
 
 @pytest.fixture(scope="module")
@@ -269,21 +273,44 @@ def test_sticky_fallback_lifecycle(stores, monkeypatch, caplog):
 def test_failing_program_raises_on_the_card(stores, monkeypatch, err):
     """On a CUDA executor a failing program raises: no shape is pinned
     to the staged route and no fallback is counted (no card needed: the
-    program call itself is replaced)."""
+    program call itself is replaced). The one exception is an allocation
+    failure (`torch.OutOfMemoryError`): the memory governor evicts and
+    runs the call once more, and when that fails too the shape is
+    degraded to the staged route on the same card, counted as one OOM
+    event, one degraded shape and one fallback — never pinned by the
+    program memo itself."""
     from types import SimpleNamespace
 
     _ref, port = stores
+    calls = []
 
     def boom(*a, **k):
+        calls.append(1)
         raise err
 
     monkeypatch.setattr(fused, "_run_plan", boom)
     ex = SimpleNamespace(store=port, device=torch.device("cuda"))
+    st0 = memgov.GOVERNOR.oom_stats()
+    if memgov.is_alloc_failure(err):
+        assert fused.try_fused(ex, parse(Q_HOP)[0]) is None
+        assert len(calls) == 2
+        st = fused.status()
+        assert st["fallbacks"] == 1 and not st["disabled"]
+        assert st["routes"] == {"fused": 0, "staged": 0, "fallback": 1}
+        assert memgov.GOVERNOR.oom_stats() == {
+            "events": st0["events"] + 1, "retries": st0["retries"] + 1,
+            "degraded": st0["degraded"] + 1}
+        # degraded: the next call goes to the staged route at once
+        assert fused.try_fused(ex, parse(Q_HOP)[0]) is None
+        assert len(calls) == 2
+        return
     with pytest.raises(type(err)):
         fused.try_fused(ex, parse(Q_HOP)[0])
+    assert len(calls) == 1
     st = fused.status()
     assert st["fallbacks"] == 0 and not st["disabled"]
     assert st["routes"] == {"fused": 0, "staged": 0, "fallback": 0}
+    assert memgov.GOVERNOR.oom_stats() == st0
 
 
 @pytest.mark.parametrize("filt,memo", [

@@ -29,6 +29,7 @@ from dgraph_tpu_torch.engine import Engine, batch, fused
 from dgraph_tpu_torch.models import ldbc
 from dgraph_tpu_torch.store.store import StoreBuilder
 from dgraph_tpu_torch.tools import graphrag_mix
+from test_torch_memgov import reset_cost_state
 
 CPU = "cpu"
 SF = 0.02
@@ -82,6 +83,7 @@ def _fresh(monkeypatch):
     monkeypatch.setenv("DGRAPH_TPU_FUSED", "1")
     fused.reset()
     ref_fused.reset()
+    reset_cost_state()
 
 
 def test_tablet_equals_reference(rag):

@@ -261,7 +261,9 @@ class _Binder:
         return v
 
 
-_REF_INSTANCES = ("dgraph_tpu.utils.metrics",)
+_REF_INSTANCES = ("dgraph_tpu.utils.metrics", "dgraph_tpu.utils.memgov",
+                  "dgraph_tpu.utils.costprofile",
+                  "dgraph_tpu.utils.costprior")
 
 
 def _ref_modules(module) -> list:

@@ -16,16 +16,18 @@ import pytest
 import dgraph_tpu.utils.metrics as ref_metrics
 import test_metrics
 from dgraph_tpu.engine import Engine as RefEngine
+from dgraph_tpu.engine import fused as ref_fused
 from dgraph_tpu.server.api import Alpha as RefAlpha
 from dgraph_tpu.store.store import StoreBuilder as RefBuilder
 from dgraph_tpu.store.schema import parse_schema as ref_parse_schema
-from dgraph_tpu_torch.engine import Engine
+from dgraph_tpu_torch.engine import Engine, fused
 from dgraph_tpu_torch.server.api import Alpha
 from dgraph_tpu_torch.store.schema import parse_schema
 from dgraph_tpu_torch.store.store import StoreBuilder
 from dgraph_tpu_torch.utils import metrics
 from dgraph_tpu_torch.utils.metrics import METRICS
 from test_torch_lifecycle import PORT, REF, run_reference_case
+from test_torch_memgov import reset_cost_state
 
 # a lint over the reference package's own sources (graftlint R5): the
 # port's static analysis is ROADMAP Queue 1 item 11
@@ -121,10 +123,10 @@ def _delta(registry, run):
             if v != before.get(k, 0.0)}
 
 
-# names only the reference can emit: its jit cache, cost profile and
-# prior, memory governor, pallas kernel, mesh and cluster legs
-_REF_ONLY = ("jit_", "costprofile", "cost_", "memgov", "pallas_", "mesh_",
-             "rpc_", "cache_", "noquorum", "prior")
+# names only the reference can emit: its jit cache, pallas kernel, mesh
+# and cluster legs (the cost profile, cost prior and memory governor
+# emit the reference's names at the reference's sites)
+_REF_ONLY = ("jit_", "pallas_", "mesh_", "rpc_", "noquorum")
 
 
 def _comparable(delta):
@@ -132,7 +134,23 @@ def _comparable(delta):
             if not k.startswith(_REF_ONLY)}
 
 
+@pytest.fixture
+def _fresh_process_state():
+    """Both packages' process-wide serving state back to empty: the
+    whole-block program memos and their memoized caps (caps another
+    file's store left would change how many attempts a call takes on one
+    side only), the governor and the cost priors."""
+    fused.reset()
+    ref_fused.reset()
+    reset_cost_state()
+    yield
+    fused.reset()
+    ref_fused.reset()
+    reset_cost_state()
+
+
 @pytest.mark.parametrize("threshold", [0, 10**9])
+@pytest.mark.usefixtures("_fresh_process_state")
 def test_engine_sites_emit_the_reference_names(threshold, monkeypatch):
     """The same queries through both engines add the same counters, with
     the same labels and the same values: edges per path, the fused
