@@ -279,13 +279,45 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 hop.gather_edges on the Alpha; vec.topk, feat.agg on the
                 GraphRAG store), each one event, no degrade, the same
                 answer. Each part's seconds printed
-  14. `route counters` (the run's totals and each phase's deltas), the
+  14. front end — the HTTP front end (server/http.py) over real sockets
+                on phase 13's SF1 directory, reopened on the card
+                (removed at the end): make_http_server(alpha,
+                "127.0.0.1", 0) driven by urllib. (a) 3 passes of the 14
+                IC templates and config 3 on POST /query, each body's
+                data byte-equal to the in-process query_raw (HTTP and
+                in-process p50s from alternating requests), phase 13's
+                batch on POST /query/batch equal to Alpha.query_batch,
+                its bucket_hop launches counted from zero; (b) 20
+                write_mix transactions through /mutate?commitNow=true and
+                5 through /mutate then /commit, one /alter and one
+                upsert, each read back over HTTP equal to the in-process
+                read; (c) attach_admission(2, 2) and 16 clients at once:
+                every 200 equal, the 429s equal to shed_total's and
+                /debug/admission's deltas, each Retry-After 1 s or more;
+                ?timeout=5ms gives 504 naming its stage; a client that
+                hangs up mid-batch is cancelled (request_cancelled_total
+                {stage="disconnect"}), its token, read, cost record and
+                program locks released within 1 s, the next batch
+                answered; (d) the program memo cleared, 8 concurrent
+                clients over the IC templates: equal answers, captures
+                and no fallback; (e) AclManager.ensure_groot and a
+                reader of some predicates: after one request of each
+                kind, 20 ACL'd /query and /query/batch requests build no
+                ELL, place no CSR, capture nothing, allocate no more
+                device memory, equal the in-process acl_user answers and
+                hold no hidden predicate; a write it may not make gives
+                401; (f) every DEBUG_ENDPOINTS row answers, /debug/memory
+                is GOVERNOR.status(), /debug/scheduler holds the batch's
+                shapes and the admission lanes, and a /debug/profile
+                start, a second start (409) and a stop around the batch
+                write a trace holding bucket_hop kernels
+  15. `route counters` (the run's totals and each phase's deltas), the
                 `kernels` JSON line, then the device JSON line last
 
-Phases 6 to 12 fail if any block falls back from its whole-block program
-to the staged route, and phases 2 to 12 and phase 13 (a) and (b) fail if
-an allocation failure was counted or a shape degraded (no degraded route
-may stand in for a kernel's result).
+Phases 6 to 12 and 14 fail if any block falls back from its whole-block
+program to the staged route, and phases 2 to 12, phase 13 (a) and (b)
+and phase 14 fail if an allocation failure was counted or a shape
+degraded (no degraded route may stand in for a kernel's result).
 
 It imports torch, numpy and dgraph_tpu_torch only.
 """
@@ -329,7 +361,7 @@ HOST_ONLY = 10**9                  # device_threshold of the pure numpy route
 LDBC_OPS = ("hop.gather_edges", "level.expand_level", "engine.to_device",
             "engine.to_host")
 # the engine's host layers, one profiler range each
-LDBC_LAYERS = ("engine.parse", "engine.execute", "engine.render")
+LDBC_LAYERS = ("engine.parse", "engine.query", "engine.render")
 # phase 7: the mixed IC batch and the 1024-lane kernel-only programs
 IC_BATCH_COPIES = 32
 IC14_COPIES = 4
@@ -3544,13 +3576,18 @@ def phase_graphrag(device, g, store) -> dict:
 
 # -- phase 13: the memory governor and the cost model --------------------------
 
-def no_oom(phase: str) -> None:
-    """Fail `phase` if the run so far counted an allocation failure or
-    degraded a shape: outside phase 13's own pressure, no degraded route
-    may stand in for a kernel's result."""
+def oom_events() -> float:
+    return sum(counter_totals(("oom_events_total",)).values())
+
+
+def no_oom(phase: str, since: float = 0.0) -> None:
+    """Fail `phase` if the run so far (past `since` allocation failures:
+    phase 13 counts its own) counted an allocation failure or degraded a
+    shape: outside phase 13's own pressure, no degraded route may stand
+    in for a kernel's result."""
     from dgraph_tpu_torch.utils import memgov
     from dgraph_tpu_torch.utils.metrics import METRICS
-    events = sum(counter_totals(("oom_events_total",)).values())
+    events = oom_events() - since
     degraded = METRICS.snapshot()["gauges"].get("oom_degraded", 0.0)
     st = memgov.GOVERNOR.oom_stats()
     if events or degraded or st["events"] or st["degraded"]:
@@ -3613,9 +3650,11 @@ def prior_source(plan) -> str:
     return "count"
 
 
-def phase_memory_cost(device, g, handoff: dict, rag) -> dict:
+def phase_memory_cost(device, g, handoff: dict, rag,
+                      keep: dict | None = None) -> dict:
     """Phase 13: the memory governor and the cost model on phase 12's
-    SF1 Alpha (its directory, which this phase removes) and on phase
+    SF1 Alpha (its directory, which this phase removes unless `keep` is
+    given: then it hands the directory on through `keep`) and on phase
     10's GraphRAG store."""
     import shutil
 
@@ -4039,6 +4078,7 @@ def phase_memory_cost(device, g, handoff: dict, rag) -> dict:
                                                    "fallbacks", "refits")}}
     except BaseException:
         say("phase 13 memory and cost (stopped)", **out)
+        keep = None             # a failed phase hands nothing on
         raise
     finally:
         if on_card:
@@ -4048,6 +4088,526 @@ def phase_memory_cost(device, g, handoff: dict, rag) -> dict:
         for x in alphas:
             if x.wal is not None:
                 x.wal.close()
+        if keep is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+        else:
+            keep.update(tmp=tmp, p_dir=p_dir)
+    return out
+
+
+# phase 14: the front end over real sockets (server/http.py)
+FRONT_PASSES = 3                # (a) IC-mix passes, over HTTP and in process
+FRONT_COMMIT_NOW = 20           # (b) write_mix txns through /mutate?commitNow
+FRONT_TWO_STEP = 5              # (b) through /mutate, then /commit
+FRONT_CLIENTS = 16              # (c) concurrent batch clients over (2, 2)
+FRONT_DISCONNECT_AFTER_S = 0.3  # (c) the hung-up batch: admitted this long
+FRONT_SLOW_IC14 = 8             # (c) IC14 queries that keep that batch busy
+FRONT_COLD_THREADS = 8          # (d) concurrent /query clients, cold programs
+FRONT_ACL_REQUESTS = 20         # (e) ACL'd requests after the warm-up
+FRONT_SECRET = "chip-smoke-phase-14"
+# (e) what the reader may read: persons, their friends and messages'
+# authors and dates; likes, tags and forums stay hidden
+FRONT_READABLE = ("first_name", "last_name", "city", "birthday_year",
+                  "creation_ts", "knows", "has_creator", "reply_of",
+                  "works_at", "org_name")
+FRONT_HIDDEN = ("likes", "has_tag", "tag_name", "has_member",
+                "container_of", "forum_title")
+READ_BACK = ("{ q(func: uid(%s)) { uid first_name creation_ts knows { uid } "
+             "likes { uid } has_creator { uid } reply_of { uid } "
+             "has_tag { uid } works_at { uid } } }")
+
+
+def http(base: str, path: str, body=None, headers=None,
+         ctype: str = "application/dql", timeout: float = 600.0):
+    """(status, headers, body bytes) of one request over a real socket;
+    an error status is an answer here, not an exception."""
+    import urllib.error
+    import urllib.request
+    data = body.encode() if isinstance(body, str) else body
+    req = urllib.request.Request(
+        base + path, data=data, method="GET" if data is None else "POST",
+        headers={"Content-Type": ctype, **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def data_bytes(body: bytes) -> bytes:
+    """The `data` member of a /query answer, as the bytes the server
+    spliced in (the emitter's, never re-encoded)."""
+    head = b'{"data":'
+    if not body.startswith(head):
+        raise AssertionError(f"not a query answer: {body[:200]!r}")
+    return body[len(head):body.rindex(b',"extensions":')]
+
+
+def phase_front_end(device, g, handoff: dict,
+                    disconnect_after_s: float = FRONT_DISCONNECT_AFTER_S,
+                    slow_ic14: int = FRONT_SLOW_IC14) -> dict:
+    """Phase 14: the HTTP front end (server/http.py) over real sockets
+    on phase 13's SF1 Alpha, reopened on the card from its directory,
+    which this phase removes."""
+    import re
+    import shutil
+    import socket
+    import threading
+
+    from dgraph_tpu_torch.engine import fused
+    from dgraph_tpu_torch.models import ldbc
+    from dgraph_tpu_torch.ops import bfs
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+    from dgraph_tpu_torch.server.acl import READ, AclManager, _hash_password
+    from dgraph_tpu_torch.server.api import Alpha
+    from dgraph_tpu_torch.server.debug_routes import DEBUG_ENDPOINTS
+    from dgraph_tpu_torch.server.http import make_http_server, serve_background
+    from dgraph_tpu_torch.store.store import Store
+    from dgraph_tpu_torch.tools import write_mix
+    from dgraph_tpu_torch.utils import costprofile, memgov
+    from dgraph_tpu_torch.utils.metrics import METRICS
+
+    on_card = torch.device(device).type == "cuda"
+    tmp, p_dir = handoff["tmp"], handoff["p_dir"]
+    out: dict = {}
+    parts = out["parts_s"] = {}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    def canon(results) -> list:
+        return [json.dumps(r, sort_keys=True) for r in results]
+
+    def fail(what, **kv):
+        raise AssertionError(f"phase 14 {what}: " + json.dumps(kv,
+                                                              default=str))
+
+    a = srv = None
+    try:
+        a = Alpha.open(p_dir, device=device, device_threshold=LDBC_THRESHOLD)
+        srv = make_http_server(a, "127.0.0.1", 0)
+        serve_background(srv)
+        port = srv.server_address[1]
+        base = f"http://127.0.0.1:{port}"
+        queries = dict(ldbc.ic_templates(g))
+        queries["config3"] = ldbc.config3_query(g)
+        rng = np.random.default_rng(LDBC_SEED)
+        persons = rng.choice(g.person_uids, MEMCOST_RECURSE, replace=False)
+        recurse = ["{ q(func: uid(%s)) @recurse(depth: %d) { uid knows } }"
+                   % (hex(int(p)), MEMCOST_RECURSE_DEPTH) for p in persons]
+        named = ldbc.ic_batch(g, copies=MEMCOST_BATCH_COPIES)
+        work = [q for _n, q in named] + recurse       # phase 13's batch
+        groups = [q for n, q in named if n != "IC14"] + recurse
+        slow = work + [q for n, q in ldbc.ic_batch(
+            g, copies=slow_ic14) if n == "IC14"]
+
+        def post_batch(qs, path="/query/batch", headers=None):
+            return http(base, path, json.dumps({"queries": qs}),
+                        headers=headers, ctype="application/json")
+
+        part("open")
+
+        # (a) reads: every /query body is the in-process bytes at the
+        # same snapshot (no write between); requests alternate, so both
+        # p50s see the same warm state
+        want = {k: a.query_raw(q) for k, q in queries.items()}
+        lat = {"http": [], "in_process": []}
+        for _ in range(FRONT_PASSES):
+            for k, q in queries.items():
+                t0 = time.perf_counter()
+                st, _h, body = http(base, "/query", q)
+                lat["http"].append((time.perf_counter() - t0) * 1e3)
+                if st != 200 or data_bytes(body) != want[k]:
+                    fail("(a)", template=k, status=st, body=body[:300])
+                t0 = time.perf_counter()
+                got = a.query_raw(q)
+                lat["in_process"].append((time.perf_counter() - t0) * 1e3)
+                if got != want[k]:
+                    fail("(a) in process", template=k)
+        want_work = canon(a.query_batch(work))
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        st, _h, body = post_batch(work)
+        batch_s = time.perf_counter() - t0
+        out["bucket_hop_launches"] = LAUNCHES["bucket_hop"]
+        if st != 200 or canon(json.loads(body)["data"]) != want_work:
+            fail("(a) /query/batch", status=st)
+        if on_card and not out["bucket_hop_launches"]:
+            fail("(a) /query/batch launched no bucket_hop")
+        out["a_reads"] = {
+            "requests": len(lat["http"]),
+            "http_p50_ms": float(np.median(lat["http"])),
+            "in_process_p50_ms": float(np.median(lat["in_process"])),
+            "http_p99_ms": float(np.percentile(lat["http"], 99)),
+            "batch_queries": len(work), "batch_http_s": batch_s,
+            "bucket_hop_launches": out["bucket_hop_launches"]}
+        part("a_reads")
+
+        # (b) writes over HTTP, each read back over HTTP and in process
+        # at the same snapshot
+        txns = [tx for tx in write_mix.make_mix(
+            g, n=100, seed=write_mix.WRITE_SEED + 3, tag="h").txns
+            if not tx.del_nquads][:FRONT_COMMIT_NOW + FRONT_TWO_STEP]
+        commit_ms = []
+
+        def read_back(uids, what):
+            q = READ_BACK % ", ".join(sorted(uids))
+            st, _h, body = http(base, "/query", q)
+            if st != 200 or data_bytes(body) != a.query_raw(q):
+                fail("(b) read after " + what, status=st, body=body[:300])
+            return json.loads(data_bytes(body))
+
+        for i, tx in enumerate(txns):
+            two_step = i >= FRONT_COMMIT_NOW
+            path = "/mutate" if two_step else "/mutate?commitNow=true"
+            t0 = time.perf_counter()
+            if tx.set_json is not None:
+                st, _h, body = http(base, path, json.dumps(
+                    {"set": tx.set_json}), ctype="application/json")
+                text = json.dumps(tx.set_json)
+            else:
+                st, _h, body = http(base, path, tx.set_nquads,
+                                    ctype="application/rdf")
+                text = tx.set_nquads
+            if st != 200:
+                fail("(b) /mutate", kind=tx.kind, status=st, body=body)
+            doc = json.loads(body)["data"]
+            if two_step:
+                if doc["txn"]["commit_ts"]:
+                    fail("(b) an open txn committed", doc=doc)
+                st, _h, body = http(
+                    base, f"/commit?startTs={doc['txn']['start_ts']}", "")
+                if st != 200 or not json.loads(body)["data"]["commit_ts"]:
+                    fail("(b) /commit", status=st, body=body)
+            commit_ms.append((time.perf_counter() - t0) * 1e3)
+            uids = set(doc["uids"].values()) | set(
+                re.findall(r"0x[0-9a-f]+", text))
+            got = read_back(uids, tx.kind)
+            if not got["q"]:
+                fail("(b) the write is not read back", kind=tx.kind)
+        st, _h, body = http(base, "/alter", "nickname: string @index(exact) .")
+        if st != 200:
+            fail("(b) /alter", status=st, body=body)
+        nick = hex(int(persons[0]))
+        st, _h, body = http(base, "/mutate?commitNow=true",
+                            f'<{nick}> <nickname> "front end" .',
+                            ctype="application/rdf")
+        q_nick = '{ q(func: eq(nickname, "front end")) { uid nickname } }'
+        st2, _h, body2 = http(base, "/query", q_nick)
+        if st != 200 or st2 != 200 or \
+                data_bytes(body2) != a.query_raw(q_nick) or \
+                json.loads(data_bytes(body2))["q"] != [
+                    {"uid": nick, "nickname": "front end"}]:
+            fail("(b) the altered schema", status=(st, st2), body=body2)
+        op = write_mix.tag_upserts(g, 1, seed=write_mix.WRITE_SEED + 3)[0]
+        st, _h, body = http(base, "/mutate?commitNow=true", op.src,
+                            ctype="application/rdf")
+        st2, _h, body2 = http(base, "/query", op.check)
+        if st != 200 or json.loads(body)["data"]["applied"] != 1 or \
+                st2 != 200 or data_bytes(body2) != a.query_raw(op.check) \
+                or not write_mix.upsert_took(
+                    json.loads(data_bytes(body2)), op):
+            fail("(b) the upsert", status=(st, st2), body=body)
+        out["b_writes"] = {"commit_now": FRONT_COMMIT_NOW,
+                           "mutate_then_commit": FRONT_TWO_STEP,
+                           "kinds": sorted({tx.kind for tx in txns}),
+                           "write_p50_ms": float(np.median(commit_ms))}
+        # fold the writes: the later parts read one stable snapshot
+        a.maintenance_rollup()
+        part("b_writes")
+
+        # (c) admission: 16 clients at once over (2, 2)
+        adm = a.attach_admission(2, 2)
+        want_c = canon(a.query_batch(work))
+
+        def sheds():
+            return sum(v for k, v in counter_totals(("shed_total",)).items()
+                       if 'lane="read"' in k)
+
+        def admission_doc():
+            st, _h, body = http(base, "/debug/admission")
+            return json.loads(body)["lanes"]["read"]
+
+        shed0, dbg0 = sheds(), admission_doc()["shed_total"]
+        answers: list = []
+        go = threading.Barrier(FRONT_CLIENTS)
+
+        def client():
+            go.wait()
+            try:
+                answers.append(post_batch(work))
+            except Exception as e:  # noqa: BLE001 — failed below
+                answers.append((repr(e), {}, b""))
+
+        threads = [threading.Thread(target=client)
+                   for _ in range(FRONT_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        burst_s = time.perf_counter() - t0
+        codes = [st for st, _h, _b in answers]
+        n429 = codes.count(429)
+        retry = []
+        for st, hdrs, body in answers:
+            if st == 200:
+                if canon(json.loads(body)["data"]) != want_c:
+                    fail("(c) a 200 answer differs")
+            elif st == 429:
+                retry.append(int(hdrs["Retry-After"]))
+                if json.loads(body)["errors"][0]["code"] != \
+                        "ServerOverloaded":
+                    fail("(c) a 429 body", body=body)
+            else:
+                fail("(c) status", status=st, body=body[:300])
+        shed_metric = sheds() - shed0
+        shed_debug = admission_doc()["shed_total"] - dbg0
+        if len(answers) != FRONT_CLIENTS or not n429 or \
+                n429 != shed_metric or n429 != shed_debug or \
+                min(retry) < 1:
+            fail("(c) sheds", codes=codes, shed_total=shed_metric,
+                 debug_admission=shed_debug, retry_after=retry)
+        st, _h, body = post_batch(work, "/query/batch?timeout=5ms")
+        err = json.loads(body)["errors"][0]
+        if st != 504 or err["code"] != "DeadlineExceeded" or \
+                not err["stage"]:
+            fail("(c) ?timeout=5ms", status=st, body=body)
+        # a client that hangs up mid-batch: its request is cancelled at
+        # the next checkpoint and everything it held is released
+        c0 = METRICS.get("request_cancelled_total", stage="disconnect")
+        lane = adm.lanes["read"]
+        payload = json.dumps({"queries": slow}).encode()
+        sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+        sock.sendall(b"POST /query/batch HTTP/1.1\r\nHost: smoke\r\n"
+                     b"Content-Type: application/json\r\n"
+                     b"Content-Length: %d\r\n\r\n" % len(payload) + payload)
+        t_admit = time.perf_counter() + 30
+        while lane.status()["inflight"] < 1 and \
+                time.perf_counter() < t_admit:
+            time.sleep(0.001)
+        time.sleep(disconnect_after_s)
+        t_close = time.perf_counter()
+        sock.close()
+        while time.perf_counter() < t_close + 30 and (
+                lane.status()["inflight"] or METRICS.get(
+                    "request_cancelled_total", stage="disconnect") == c0):
+            time.sleep(0.001)
+        freed_s = time.perf_counter() - t_close
+        cancelled = METRICS.get("request_cancelled_total",
+                                stage="disconnect") - c0
+        rec = [r for r in costprofile.recent(8)
+               if r.get("outcome") == "cancelled"]
+        locked = [k for k, p in fused._programs.items() if p.lock.locked()]
+        if cancelled != 1 or lane.status()["inflight"] or freed_s > 1.0 \
+                or not rec or locked or a._active_reads:
+            fail("(c) disconnect", cancelled=cancelled, freed_s=freed_s,
+                 lane=lane.status(), cost_records=len(rec),
+                 locked_programs=len(locked), reads=a._active_reads)
+        st, _h, body = post_batch(work)
+        if st != 200 or canon(json.loads(body)["data"]) != want_c:
+            fail("(c) the batch after the disconnect", status=st)
+        out["c_admission"] = {
+            "codes": {str(c): codes.count(c) for c in sorted(set(codes))},
+            "shed_total": shed_metric, "debug_admission_shed": shed_debug,
+            "retry_after_s": sorted(set(retry)), "burst_s": burst_s,
+            "timeout_stage": err["stage"], "disconnect_freed_s": freed_s,
+            "disconnect_cancelled": cancelled}
+        a.admission = None
+        part("c_admission")
+
+        # (d) cold programs under 8 concurrent clients: every capture on
+        # the card overlaps other request threads' work
+        want_d = {k: a.query_raw(q) for k, q in queries.items()}
+        fused.reset(counters=False)
+        st0 = fused.status()
+        keys = sorted(queries)
+        errors: list = []
+
+        def cold(t):
+            try:
+                for j in range(len(keys)):
+                    k = keys[(t * 2 + j) % len(keys)]
+                    st, _h, body = http(base, "/query", queries[k])
+                    if st != 200 or data_bytes(body) != want_d[k]:
+                        errors.append((k, st, body[:300]))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=cold, args=(t,))
+                   for t in range(FRONT_COLD_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        st1 = fused.status()
+        captures = st1["captures"] - st0["captures"]
+        if errors or st1["fallbacks"] != st0["fallbacks"] or \
+                st1["routes"]["fallback"] != st0["routes"]["fallback"] or \
+                (on_card and not captures):
+            fail("(d)", errors=errors[:3], before=st0, after=st1)
+        out["d_cold"] = {"threads": FRONT_COLD_THREADS,
+                         "requests": FRONT_COLD_THREADS * len(keys),
+                         "captures": captures, "programs": st1["programs"],
+                         "fallbacks": st1["fallbacks"] - st0["fallbacks"],
+                         "seconds": time.perf_counter() - t0}
+        part("d_cold")
+
+        # (e) ACL: a reader of some predicates, through the ACL view that
+        # reads the snapshot's caches
+        a.acl = AclManager(a, FRONT_SECRET)
+        a.acl.ensure_groot()
+        rules = ["_:g <dgraph.xid> \"readers\" .",
+                 "_:u <dgraph.xid> \"reader\" .",
+                 f"_:u <dgraph.password> \"{_hash_password('r-pass')}\" .",
+                 "_:u <dgraph.user.group> _:g ."]
+        for i, p in enumerate(FRONT_READABLE):
+            rules += [f"_:r{i} <dgraph.rule.predicate> \"{p}\" .",
+                      f"_:r{i} <dgraph.rule.permission> \"{READ}\""
+                      f"^^<xs:int> .", f"_:g <dgraph.acl.rule> _:r{i} ."]
+        a.mutate(set_nquads="\n".join(rules))
+        a.maintenance_rollup()
+
+        def login(user, pw):
+            st, _h, body = http(base, "/login", json.dumps(
+                {"userid": user, "password": pw}), ctype="application/json")
+            if st != 200:
+                fail("(e) /login", user=user, status=st, body=body)
+            return {"X-Dgraph-AccessToken":
+                    json.loads(body)["data"]["accessJWT"]}
+
+        reader, groot = login("reader", "r-pass"), login("groot", "password")
+        st, _h, body = http(base, "/query", queries["IC2"])
+        if st != 401:
+            fail("(e) a request without a token", status=st)
+        want_q = {k: a.query_raw(q, acl_user="reader")
+                  for k, q in queries.items()}
+        want_b = canon(a.query_batch(groups, acl_user="reader"))
+
+        def acl_request(i):
+            if i % 2:
+                k = keys[(i // 2) % len(keys)]
+                st, _h, body = http(base, "/query", queries[k],
+                                    headers=reader)
+                if st != 200 or data_bytes(body) != want_q[k]:
+                    fail("(e) /query", template=k, status=st)
+                text = data_bytes(body).decode()
+            else:
+                st, _h, body = post_batch(groups, headers=reader)
+                if st != 200 or canon(json.loads(body)["data"]) != want_b:
+                    fail("(e) /query/batch", status=st)
+                text = body.decode()
+            hidden = [p for p in FRONT_HIDDEN if f'"{p}"' in text]
+            if hidden:
+                fail("(e) hidden predicates answered", hidden=hidden)
+
+        # the first request of each kind: one batch, one pass of the mix
+        acl_request(0)
+        for i in range(len(keys)):
+            acl_request(2 * i + 1)
+        built, placed = [], []
+        real_build, real_placed = bfs.build_ell, Store._note_placed
+
+        def counting_build(*x, **k):
+            built.append(1)
+            return real_build(*x, **k)
+
+        def counting_placed(self, *x, **k):
+            placed.append(1)
+            return real_placed(self, *x, **k)
+
+        gc.collect()
+        alloc0 = torch.cuda.memory_allocated() if on_card else 0
+        captures0 = fused.status()["captures"]
+        allocs = []
+        bfs.build_ell, Store._note_placed = counting_build, counting_placed
+        try:
+            for i in range(FRONT_ACL_REQUESTS):
+                acl_request(i)
+                if on_card:
+                    allocs.append(torch.cuda.memory_allocated())
+        finally:
+            bfs.build_ell, Store._note_placed = real_build, real_placed
+        captured = fused.status()["captures"] - captures0
+        if built or placed or captured or (allocs and max(allocs) > alloc0):
+            fail("(e) the ACL view built or placed", ell_builds=len(built),
+                 placements=len(placed), captures=captured,
+                 allocated_after_first=alloc0,
+                 max_allocated=max(allocs) if allocs else 0)
+        st, _h, body = http(base, "/mutate?commitNow=true",
+                            f'<{nick}> <first_name> "renamed" .',
+                            headers=reader, ctype="application/rdf")
+        if st != 401 or json.loads(body)["errors"][0]["code"] != \
+                "Unauthorized":
+            fail("(e) a refused write", status=st, body=body)
+        out["e_acl"] = {"requests": FRONT_ACL_REQUESTS,
+                        "readable": len(FRONT_READABLE),
+                        "ell_builds": len(built), "placements": len(placed),
+                        "captures": captured,
+                        "allocated_after_first": alloc0,
+                        "max_allocated": max(allocs) if allocs else 0,
+                        "refused_write": st}
+        part("e_acl")
+
+        # (f) the debug surfaces
+        a.attach_admission(64, 64)
+        for path in DEBUG_ENDPOINTS:
+            st, _h, body = http(base, path)
+            if st != 200 or not body:
+                fail("(f) a debug row", path=path, status=st)
+        st, _h, body = http(base, "/debug/memory")
+        if json.loads(body) != json.loads(json.dumps(
+                memgov.GOVERNOR.status())):
+            fail("(f) /debug/memory is not GOVERNOR.status()")
+        st, _h, body = http(base, "/debug/scheduler?n=1000")
+        doc = json.loads(body)
+        shapes = [t["shape"] for t in doc["top"]]
+        if set(doc.get("admission", {}).get("lanes", {})) != \
+                {"read", "mutate"} or not any(
+                    f"recurse:knows~d{MEMCOST_RECURSE_DEPTH}" in s
+                    for s in shapes):
+            fail("(f) /debug/scheduler", shapes=shapes[:20],
+                 admission=doc.get("admission"))
+        prof_dir = os.path.join(tmp, "front-end-profile")
+        start = json.dumps({"action": "start", "dir": prof_dir})
+        st, _h, _b = http(base, "/debug/profile", start, headers=groot,
+                          ctype="application/json")
+        st2, _h, _b = http(base, "/debug/profile", start, headers=groot,
+                           ctype="application/json")
+        st3, _h, body = post_batch(work, headers=groot)
+        st4, _h, _b = http(base, "/debug/profile",
+                           json.dumps({"action": "stop"}), headers=groot,
+                           ctype="application/json")
+        import glob
+        files = glob.glob(os.path.join(prof_dir, "trace-*.json"))
+        kernels = []
+        if files:
+            with open(files[0]) as f:
+                kernels = [e for e in json.load(f)["traceEvents"]
+                           if e.get("cat") == "kernel"
+                           and "bucket_hop" in e.get("name", "")]
+        if (st, st2, st3, st4) != (200, 409, 200, 200) or not files or \
+                (on_card and not kernels):
+            fail("(f) /debug/profile", statuses=(st, st2, st3, st4),
+                 files=files, bucket_hop_events=len(kernels))
+        out["f_debug"] = {"rows": len(DEBUG_ENDPOINTS),
+                          "scheduler_shapes": len(shapes),
+                          "profile_bucket_hop_events": len(kernels)}
+        part("f_debug")
+    except BaseException:
+        say("phase 14 front end (stopped)", **out)
+        raise
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        if a is not None and a.wal is not None:
+            a.wal.close()
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -4156,9 +4716,21 @@ def main() -> None:
     # phase 10's store stays alive: phase 13 injects at its knn and
     # @msgpass launches
     t0 = time.perf_counter()
+    front_dir: dict = {}     # phase 13's directory, for phase 14
     mem = counted("phase 13", lambda: phase_memory_cost(
-        device, g, kept, store))
+        device, g, kept, store, keep=front_dir))
     say("phase 13 memory and cost", seconds=time.perf_counter() - t0, **mem)
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    oom0 = oom_events()     # phase 13's own, which its end reset
+    no_oom("phase 14 (start)", since=oom0)
+    with no_fused_fallback("phase 14"):
+        front = counted("phase 14", lambda: phase_front_end(
+            device, g, front_dir))
+    say("phase 14 front end", seconds=time.perf_counter() - t0, **front)
+    no_oom("phase 14", since=oom0)
     # the launches of each main path, counted from zero around its run
     paths = {"bucket_hop": {
                  "query_batch @recurse (phase 4)": launches["bucket_hop"],
@@ -4173,7 +4745,9 @@ def main() -> None:
                  "restored Alpha.query_batch (phase 12)":
                      life["bucket_hop_launches"],
                  "Alpha.query_batch, memory and cost (phase 13)":
-                     mem["bucket_hop_launches"]},
+                     mem["bucket_hop_launches"],
+                 "HTTP /query/batch (phase 14)":
+                     front["bucket_hop_launches"]},
              "segment_combine": {
                  **rag["segment_combine_launches_by_path"],
                  "@msgpass under an injected fault (phase 13)":

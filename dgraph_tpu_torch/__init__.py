@@ -8,5 +8,9 @@ large frontiers on the card through torch ops (`ops/hop.py`,
 `ops/level.py`, `ops/uidalgebra.py`); `engine.batch.query_batch` packs
 compatible `@recurse` queries into lane masks, with every ELL bucket of
 every hop computed by the hand-written CUDA kernel in
-`csrc/bucket_hop.cu` (wrapper: `ops/bucket_hop.py`).
+`csrc/bucket_hop.cu` (wrapper: `ops/bucket_hop.py`). `server/api.Alpha`
+is the single-node data server, and `server/http.make_http_server`
+serves it over HTTP.
 """
+
+__version__ = "0.1.0"

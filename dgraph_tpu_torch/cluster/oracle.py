@@ -127,6 +127,13 @@ class Oracle:
         with self._lock:
             self._next_uid = max(self._next_uid, uid + 1)
 
+    @property
+    def max_uid(self) -> int:
+        """Highest uid ever leased or bumped (the `maxUID` of the HTTP
+        front end's /state document)."""
+        with self._lock:
+            return self._next_uid - 1
+
     # -- commit arbitration -------------------------------------------------
     def commit(self, start_ts: int, conflict_keys) -> int:
         """First-committer-wins commit; returns commit_ts or raises

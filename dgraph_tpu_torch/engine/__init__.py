@@ -7,7 +7,7 @@ Port of `dgraph_tpu/engine`. `Engine` is the per-query entry point:
 parses DQL, executes each block level by level (frontiers of at least
 `device_threshold` rows expand on `device`, smaller ones on the host) and
 renders the reference's JSON. Parsing, execution and rendering run in
-`torch.profiler` ranges (`engine.parse`, `engine.execute`,
+spans and `torch.profiler` ranges (`engine.parse`, `engine.query`,
 `engine.render`) so a profile splits a query's host time by layer.
 """
 
@@ -108,7 +108,7 @@ class Engine:
                       device_threshold=self.device_threshold,
                       routes=self.routes)
         results: dict[int, LevelNode] = {}
-        with tracing.span("engine.execute", blocks=len(blocks)):
+        with tracing.span("engine.query", blocks=len(blocks)):
             for i in order:
                 results[i] = ex.run_block(blocks[i])
         roots = [results[i] for i in range(len(blocks))]  # textual order out

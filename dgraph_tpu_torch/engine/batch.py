@@ -850,6 +850,20 @@ def _drop_dependent_fns(host, dkey, value) -> int:
     return memgov.estimate_nbytes(value)
 
 
+def _cache_host(store, attr: str, reverse: bool):
+    """Where kernel caches live (reference `engine/batch.py:856`): the
+    UNDERLYING immutable snapshot when the view's predicate data IS the
+    snapshot's (an ACL view is a per-request throwaway: caching on it
+    would rebuild and place again per request); the view itself when
+    the data is view-local (a predicate the view hides)."""
+    base = getattr(store, "_ell_host", store)
+    if base is not store:
+        pd_view = store.preds.get(attr)
+        if pd_view is None or base.preds.get(attr) is not pd_view:
+            return store
+    return base
+
+
 def _note_ell_cache(hit: bool) -> None:
     """ell_cache_hit feature bit: 1 only when EVERY ELL lookup of the
     request hit the snapshot cache."""
@@ -863,17 +877,24 @@ def _note_ell_cache(hit: bool) -> None:
 
 
 def _ell_for(store, attr: str, reverse: bool):
-    """EllGraph per (store, predicate, direction), built once; None when
-    the relation has no edges."""
+    """EllGraph per (snapshot, predicate, direction), built once; None
+    when the relation has no edges. A view's readable predicates use
+    their snapshot's entries (`_cache_host`)."""
     from dgraph_tpu_torch.ops.bfs import build_ell
 
+    host = _cache_host(store, attr, reverse)
+    if getattr(host, "_ell_host", host) is not host:
+        # a view's own data (a predicate it hides, which reads as
+        # empty): nothing to build, and nothing cached on a per-request
+        # view
+        return None
     key = (attr, reverse)
     with _cache_lock:
-        cache = _ell_cache(store)
+        cache = _ell_cache(host)
         if key in cache:
             _note_ell_cache(hit=True)
         else:
-            rel = store.rel(attr, reverse)
+            rel = host.rel(attr, reverse)
             if rel.nnz == 0:
                 cache[key] = None
             else:
@@ -891,14 +912,15 @@ def _ell_for(store, attr: str, reverse: bool):
 
 
 def _dev_for(store, attr: str, reverse: bool, device):
-    """(EllGraph, DeviceEll) per (store, pred, dir, device): the index
-    blocks are placed once and shared by every lane width."""
+    """(EllGraph, DeviceEll) per (snapshot, pred, dir, device): the
+    index blocks are placed once and shared by every lane width."""
     from dgraph_tpu_torch.ops.bfs import device_ell
 
+    host = _cache_host(store, attr, reverse)
     g = _ell_for(store, attr, reverse)
     key = (attr, reverse, str(device))
     with _cache_lock:
-        devs = _ell_devs(store)
+        devs = _ell_devs(host)
         if key not in devs:
             devs[key] = device_ell(g, device)
         out = g, devs[key]
@@ -909,17 +931,18 @@ def _dev_for(store, attr: str, reverse: bool, device):
 
 
 def _recurse_for(store, attr: str, reverse: bool, W: int, device):
-    """Recurse runner per (store, pred, dir, lane width, device)."""
+    """Recurse runner per (snapshot, pred, dir, lane width, device)."""
     from dgraph_tpu_torch.ops.bfs import make_ell_recurse
 
+    host = _cache_host(store, attr, reverse)
     key = (attr, reverse, W, str(device))
     with _cache_lock:
-        fn = _ell_fns(store).get(key)
+        fn = _ell_fns(host).get(key)
     if fn is not None:
         return fn
     g, dev = _dev_for(store, attr, reverse, device)
     with _cache_lock:
-        fns = _ell_fns(store)
+        fns = _ell_fns(host)
         if key not in fns:
             fns[key] = make_ell_recurse(dev, g.outdeg, g.n, W,
                                         count_edges=False)
@@ -928,18 +951,19 @@ def _recurse_for(store, attr: str, reverse: bool, W: int, device):
 
 def _step_for(store, attr: str, reverse: bool, W: int, first_visit: bool,
               device):
-    """Resumable hop block per (store, pred, dir, lane width, family,
+    """Resumable hop block per (snapshot, pred, dir, lane width, family,
     device) — the staged shortest path's program."""
     from dgraph_tpu_torch.ops.bfs import make_ell_step
 
+    host = _cache_host(store, attr, reverse)
     key = ("step", attr, reverse, W, first_visit, str(device))
     with _cache_lock:
-        fn = _ell_fns(store).get(key)
+        fn = _ell_fns(host).get(key)
     if fn is not None:
         return fn
     g, dev = _dev_for(store, attr, reverse, device)
     with _cache_lock:
-        fns = _ell_fns(store)
+        fns = _ell_fns(host)
         if key not in fns:
             fns[key] = make_ell_step(dev, g.n, W, first_visit=first_visit)
         return fns[key]

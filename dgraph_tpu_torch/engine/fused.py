@@ -24,7 +24,11 @@ side stream) captures that function once into a `torch.cuda.CUDAGraph`;
 later calls copy the packed inputs (root frontier, allowed sets, page
 windows: one int32 buffer, one host-to-device copy) into the graph's
 static buffer and call `replay()`. The key is (store, plan signature,
-caps, root-frontier bucket, allowed-set buckets, device). The graph's
+caps, root-frontier bucket, allowed-set buckets, device), where the
+store is an ACL view's snapshot when the view reads the snapshot's data.
+Captures serialize under `utils/device.DEVICE_WIDE` and are
+thread-local, so concurrent HTTP request threads serve while one
+captures (see `_Program._capture`). The graph's
 outputs are overwritten by its next replay, so a call copies what it
 needs to the host under the program's lock: first the packed sizes (one
 small copy, the overflow check), then the kept rows.
@@ -99,6 +103,7 @@ from dgraph_tpu_torch.store.types import Kind
 from dgraph_tpu_torch.store.vec import device_topk
 from dgraph_tpu_torch.utils import costprofile, memgov, tracing
 from dgraph_tpu_torch.utils import deadline as dl
+from dgraph_tpu_torch.utils.device import DEVICE_WIDE
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["STAGE_KINDS", "FusedPlan", "enabled", "plan_block",
@@ -501,10 +506,18 @@ class _Program:
             outs, sizes = self.fn(self.rels, x)
             return sizes.numpy(), outs
         if self.graph is None:
-            sizes, outs = self._warm_up(x)
-            if not fits(sizes):
-                return sizes, outs
-            self._capture()
+            # the warm-up and the capture hold DEVICE_WIDE: every
+            # capture takes its class's one capture stream, and the
+            # warm-up's side stream comes from PyTorch's round-robin
+            # pool, which can hand out that very stream; a warm-up on
+            # it while another thread captures joins or breaks that
+            # capture. Other request threads' work (the default stream)
+            # goes on meanwhile.
+            with DEVICE_WIDE:
+                sizes, outs = self._warm_up(x)
+                if not fits(sizes):
+                    return sizes, outs
+                self._capture()
             # the graph's memory now counts against the device budget
             memgov.GOVERNOR.maybe_evict("device")
         self.static_in.copy_(x)
@@ -526,13 +539,20 @@ class _Program:
         return sizes.cpu().numpy(), outs
 
     def _capture(self) -> None:
+        """Capture `fn` into a graph; the caller holds `DEVICE_WIDE`, so
+        no other capture or warm-up, `empty_cache` or device-wide
+        `synchronize` runs while it is underway (utils/device.py).
+        Other request threads keep serving: the capture is thread-local,
+        so their launches, copies and allocations on the default stream
+        neither join nor invalidate it."""
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         recorded = feat_ops.RECORDED["segment_combine"]
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 # read after the context's own empty_cache(), which would
-                # otherwise hide the pool's growth
+                # otherwise hide the pool's growth (other threads'
+                # allocations meanwhile count in it too)
                 before = torch.cuda.memory_reserved(self.device)
                 self.static_out = self.fn(self.rels, self.static_in)
         except BaseException as e:
@@ -678,9 +698,20 @@ memgov.GOVERNOR.add_dependent("store.device", _drop_holding)
 memgov.GOVERNOR.add_dependent("store.vec", _drop_holding)
 
 
+def _program_host(store, plan: FusedPlan):
+    """The store a program is keyed by: the snapshot when every stage
+    reads the snapshot's own data (an ACL view's readable predicates,
+    `engine/batch.py:_cache_host`), so a view and its snapshot share
+    programs and neither drops the other's; else the store itself."""
+    from dgraph_tpu_torch.engine.batch import _cache_host
+    hosts = {_cache_host(store, st.attr, st.reverse) for st in plan.stages}
+    return hosts.pop() if len(hosts) == 1 else store
+
+
 def _program_for(plan: FusedPlan, caps: tuple, layout: tuple, rels: tuple,
                  ex) -> _Program:
-    key = (_store_key(ex.store), plan.sig, caps, layout, ex.device)
+    key = (_store_key(_program_host(ex.store, plan)), plan.sig, caps,
+           layout, ex.device)
     with _lock:
         prog = _programs.get(key)
         if prog is not None and any(a is not b
@@ -725,17 +756,20 @@ def captured() -> list:
         return [p for p in _programs.values() if p.graph is not None]
 
 
-def reset() -> None:
-    """Forget programs (and their graphs), caps, counters and sticky
-    fallbacks."""
+def reset(counters: bool = True) -> None:
+    """Forget programs (and their graphs) and caps; with `counters`
+    (the default) also the counters and the sticky fallbacks."""
     global _stats
     with _lock:
         for prog in _programs.values():
             prog.held = False
         _programs.clear()
         _caps_memo.clear()
-        _disabled.clear()
-        _stats = _fresh_stats()
+        if counters:
+            _disabled.clear()
+            _stats = _fresh_stats()
+        else:
+            _stats["program_bytes"] = 0
 
 
 # -- runtime --------------------------------------------------------------------
@@ -761,10 +795,10 @@ def try_fused(ex, sg):
         plan = plan_block(ex.store, sg)
         if plan is not None:
             with tracing.span("engine.fused", shape=shape,
-                              stages=len(plan.stages)):
+                              stages=len(plan.stages)) as sp:
                 node = memgov.oom_retry(
                     "fused.program", shape,
-                    lambda: _run_plan(ex, sg, plan), degrade=True)
+                    lambda: _run_plan(ex, sg, plan, sp), degrade=True)
             if node is not None:
                 _route("fused")
                 return node
@@ -793,11 +827,12 @@ def try_fused(ex, sg):
     return None
 
 
-def _run_plan(ex, sg, plan: FusedPlan):
+def _run_plan(ex, sg, plan: FusedPlan, sp=None):
     """The host shell around one program call: allowed sets and the
     root, caps (overflow contract), the call, the copy back, unpacking.
     Returns the root LevelNode, or None when the data needs the staged
-    route (an empty relation, a complement-shaped filter)."""
+    route (an empty relation, a complement-shaped filter). The call's
+    gathered edges go on the span `sp` (`edges`), as the reference's."""
     store = ex.store
     rels, devs, alloweds, pages = [], [], [], []
     for st, ssg in zip(plan.stages, plan.stage_sgs):
@@ -892,15 +927,19 @@ def _run_plan(ex, sg, plan: FusedPlan):
     costprofile.add_shape("fused")
     costprofile.add_kernel("fused", execute_us=(t_end - t_exec) * 1e6)
     costprofile.note_launch(t_exec, t_end)
+    total_edges = 0
     for st, sz, rel in zip(plan.stages, split, rels):
         n = rel.rows if st.kind in ("knn", "featprop") else 0
         if st.kind in ("hop", "recurse"):   # one expansion per stage
             edges = int(sz[2]) if st.kind == "hop" else int(sz[2].sum())
             ex.routes.add("program", edges)
+            total_edges += edges
             n = edges
         if st.kind != "count":
             # modeled per-tablet µs, the staged expansion's ~16 edges/µs
             costprofile.add_tablet_cost(st.attr, n // 16 + 1)
+    if sp is not None:
+        sp.attrs["edges"] = total_edges
     if plan.knn:
         vec.count_fused()
         # the root set is the program's own seed output: sorted, the

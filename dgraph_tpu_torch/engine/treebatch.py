@@ -454,23 +454,27 @@ def _pack_global(n: int, rank_lists, lanes: int) -> np.ndarray:
 
 
 def _tree_kernel_for(store, plan: TreePlan, rels, n: int, W: int, device):
-    """(run, stage descriptors) per (store, signature, lane width,
+    """(run, stage descriptors) per (snapshot, signature, lane width,
     device); the placed ELL blocks (shared with the other lane families)
     and the permutation vectors are placed once per (predicate,
     direction, device) and shared across signatures."""
     import torch
 
-    from dgraph_tpu_torch.engine.batch import _dev_for
+    from dgraph_tpu_torch.engine.batch import _cache_host, _dev_for
     from dgraph_tpu_torch.ops.bfs import make_ell_tree, prepare_parts
 
+    # on the snapshot when every stage reads the snapshot's data (an ACL
+    # view's readable predicates), else on the store itself
+    hosts = {_cache_host(store, a, r) for a, r in rels}
+    host = hosts.pop() if len(hosts) == 1 else store
     key = (plan.sig, W, str(device))
     with _cache_lock:
-        fns = store.__dict__.setdefault("_tree_fns", {})
+        fns = host.__dict__.setdefault("_tree_fns", {})
         if key in fns:
             return fns[key]
     placed = {rkey: _dev_for(store, *rkey, device)[1] for rkey in rels}
     with _cache_lock:
-        devs = store.__dict__.setdefault("_tree_devs", {})
+        devs = host.__dict__.setdefault("_tree_devs", {})
         for (attr, reverse), g in rels.items():
             dkey = (attr, reverse, str(device))
             if dkey not in devs:

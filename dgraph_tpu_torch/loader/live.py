@@ -1,7 +1,7 @@
 """Live loader: stream mutations through the transaction path.
 
 Port of `dgraph_tpu/loader/live.py` against the port's in-process
-`Alpha` (the remote gRPC client comes with ROADMAP Queue 1 item 9d).
+`Alpha` (the remote gRPC client comes with ROADMAP Queue 1 item 9e).
 Reference parity: `dgraph/cmd/live/run.go` — chunk the input RDF/JSON,
 batch N-Quads per mutation, fire batches with bounded concurrency and
 abort-retry, xidmap for blank/external ids.

@@ -43,13 +43,21 @@ bytes and evictions, the allocation failures and the degraded shapes,
 with the priors' summary. The reference's adapted-tablet cache
 (`api.tablet`) comes with the cluster that fills it (item 9e).
 
-Left to ROADMAP Queue 1: admission, ACL and the HTTP/gRPC front end
-(9d); the cluster (groups, replication, read gates, tablet routing; 9e);
-the flight recorder and the lock-order sanitizer (9f). Deliberate
-differences: locks are plain `threading` locks, and no kernel group is
-served query by query after a failure: any failure of a group, an
-allocation failure its evict-and-retry did not absorb among them,
-raises out of `query_batch` (`engine/batch.py`).
+The front end (server/http.py) serves an Alpha over HTTP. Its two
+guards live here: `attach_admission` arms admission control
+(server/admission.py), whose token the shell takes with the request's
+predicted cost, and `acl` (server/acl.AclManager) hides the predicates
+an `acl_user` may not read (`_query_view`) and refuses writes to those
+it may not write. A shed (`ServerOverloaded`), a client's cancel and an
+ACL refusal are not failed serves and stay out of `query_errors_total`.
+
+Left to ROADMAP Queue 1: the gRPC worker and the cluster (groups,
+replication, read gates, tablet routing; 9e); the flight recorder and
+the lock-order sanitizer (9f). Deliberate differences: locks are plain
+`threading` locks, and no kernel group is served query by query after a
+failure: any failure of a group, an allocation failure its
+evict-and-retry did not absorb among them, raises out of `query_batch`
+(`engine/batch.py`).
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from dataclasses import dataclass, field
 from dgraph_tpu_torch.cluster.oracle import Oracle, TxnAborted
 from dgraph_tpu_torch.loader.chunker import NQuad, parse_json, parse_rdf
 from dgraph_tpu_torch.loader.xidmap import XidMap
+from dgraph_tpu_torch.server.admission import ServerOverloaded
 from dgraph_tpu_torch.store.mvcc import MVCCStore, Mutation
 from dgraph_tpu_torch.store.schema import parse_schema
 from dgraph_tpu_torch.store.store import Store
@@ -98,6 +107,12 @@ class Alpha:
         self.maintenance = None
         # budget of requests that bring none of their own (0 = unbounded)
         self.default_deadline_ms = 0.0
+        # server/admission.AdmissionController | None: per-lane tokens, a
+        # bounded wait queue and shedding (attach_admission)
+        self.admission = None
+        self.acl = None  # server/acl.AclManager | None (enforcement on)
+        # slow-query log threshold of the HTTP front end, ms (0 = off)
+        self.slow_query_ms = 0.0
         self._apply_lock = threading.Lock()
         self._state_lock = threading.Lock()
         self._open_txns: dict[int, Txn] = {}
@@ -290,20 +305,50 @@ class Alpha:
             pacing_ms=pacing_ms).start()
         return self.maintenance
 
+    def attach_admission(self, max_inflight: int, queue_depth: int,
+                         default_deadline_ms: float = 0.0):
+        """Arm admission control on this Alpha (server/admission.py):
+        per-lane token limits, a bounded FIFO wait queue, and shedding
+        with a retryable `ServerOverloaded`. `default_deadline_ms`
+        budgets requests that bring none of their own."""
+        from dgraph_tpu_torch.server.admission import AdmissionController
+        self.admission = AdmissionController(max_inflight, queue_depth)
+        self.default_deadline_ms = float(default_deadline_ms)
+        return self.admission
+
+    @staticmethod
+    def _predict(lane: str, query_text: str) -> tuple[float, str]:
+        """(predicted µs, source) of a request. A prediction of 0 µs or
+        less is no prediction (a fit over unlike shapes clamps there, as
+        `engine/batch.py:plan_cost_us` reads it): the lane's observed-cost
+        EMA stands in, else the lane seed, so admission never sees a
+        request as free."""
+        predicted, source = costprior.predict(lane, text=query_text)
+        if predicted <= 0:
+            ema = costprior.lane_ema_us(lane)
+            predicted = ema if ema is not None and ema > 0 \
+                else costprior.LANE_SEED_US
+            source = "fallback"
+        return predicted, source
+
     @contextlib.contextmanager
     def _request(self, lane: str, deadline_ms: float | None,
                  query_text: str | None = None):
         """Request-lifecycle shell every public entry point runs inside:
         the budget (explicit `deadline_ms`, else `default_deadline_ms`)
         as the thread's ambient context (utils/deadline.py), which the
-        engine's hot loops checkpoint against, and the request's cost
-        record (`costprofile.profile`, classified at close). With cost
-        priors on and a `query_text`, the cost is predicted before the
-        serve (shape memo → per-shape prior, lane EMA fallback) and the
-        observed cost learned after it. A nested call (a txn read inside
-        a request) reuses the enclosing context and record: the OUTER
-        budget governs. Every failed serve but a client's cancel counts
-        in `query_errors_total{lane=}`."""
+        engine's hot loops checkpoint against, the request's cost record
+        (`costprofile.profile`, classified at close), and, with admission
+        attached, a `lane` token held for the duration. With cost priors
+        on and a `query_text`, the cost is predicted before admission
+        (shape memo → per-shape prior, lane EMA fallback), rides the
+        admission decision, and the observed cost is learned after the
+        serve; a shed keeps its prediction in the cost record. A nested
+        call (a txn read inside a request) reuses the enclosing context,
+        record and token: the OUTER budget governs, and a full lane never
+        deadlocks against its own request. Every failed serve but a shed,
+        a client's cancel and an ACL refusal counts in
+        `query_errors_total{lane=}`."""
         outer = dl.current()
         if outer is not None:
             # a nested leg on the outer record: the leg's boundary is not
@@ -318,14 +363,22 @@ class Alpha:
             predicted = source = None
             priors_on = costprior.enabled()
             if priors_on and query_text is not None:
-                predicted, source = costprior.predict(lane, text=query_text)
+                predicted, source = self._predict(lane, query_text)
             t0 = time.perf_counter()
             completed = False
             try:
-                yield ctx
+                if self.admission is not None:
+                    with self.admission.admit(lane, ctx, cost_us=predicted):
+                        # the budget may have died while queued
+                        ctx.check("admission")
+                        yield ctx
+                else:
+                    yield ctx
                 completed = True
-            except dl.Cancelled:
-                raise   # the client's, not an error-budget burn
+            except (ServerOverloaded, dl.Cancelled, PermissionError):
+                # not an error-budget burn: a shed is the shed rate's
+                # event, a cancel the client's, a refusal the caller's
+                raise
             except Exception:
                 METRICS.inc("query_errors_total", lane=lane)
                 raise
@@ -390,9 +443,13 @@ class Alpha:
                 if not self._active_reads[ts]:
                     del self._active_reads[ts]
 
-    def _query_view(self, ts: int) -> Store:
-        """The MVCC snapshot a query at `ts` executes against."""
-        return self.mvcc.read_view(ts)
+    def _query_view(self, ts: int, acl_user: str | None = None) -> Store:
+        """The store a query at `ts` executes against: the MVCC snapshot,
+        restricted to what `acl_user` may read when ACL is on."""
+        store = self.mvcc.read_view(ts)
+        if self.acl is not None and acl_user is not None:
+            store = self.acl.readable_view(acl_user, store)
+        return store
 
     def _engine(self, store: Store):
         from dgraph_tpu_torch.engine import Engine
@@ -401,30 +458,35 @@ class Alpha:
 
     def query(self, dql: str, variables: dict | None = None,
               read_ts: int | None = None,
+              acl_user: str | None = None,
               deadline_ms: float | None = None) -> dict:
-        """Read-only query at a snapshot (reference: Server.Query).
+        """Read-only query at a snapshot (reference: Server.Query). With
+        ACL on and an `acl_user`, unreadable predicates are invisible.
         `deadline_ms` bounds the request: the engine's loops checkpoint
         against it and raise a retryable `DeadlineExceeded` within one
         level / BFS iteration of the budget."""
         with self._request("read", deadline_ms, query_text=dql):
             with self._reading(read_ts) as ts:
-                out = self._engine(self._query_view(ts)).query(
+                out = self._engine(self._query_view(ts, acl_user)).query(
                     dql, variables)
         self._maybe_gc()
         return out
 
     def query_raw(self, dql: str, variables: dict | None = None,
                   read_ts: int | None = None,
+                  acl_user: str | None = None,
                   deadline_ms: float | None = None) -> bytes:
         """Serving-path query: response BYTES (engine/emit.py)."""
         with self._request("read", deadline_ms, query_text=dql):
             with self._reading(read_ts) as ts:
-                raw = self._engine(self._query_view(ts)).query_bytes(
-                    dql, variables)
+                raw = self._engine(
+                    self._query_view(ts, acl_user)).query_bytes(
+                        dql, variables)
         self._maybe_gc()
         return raw
 
     def query_batch(self, dqls: list, read_ts: int | None = None,
+                    acl_user: str | None = None,
                     deadline_ms: float | None = None) -> list:
         """Serve many queries at one snapshot: compatible groups run as
         lane-packed kernel runs, longest-predicted first when the cost
@@ -439,7 +501,7 @@ class Alpha:
         with self._request("read", deadline_ms,
                            query_text="\x1e".join(dqls)):
             with self._reading(read_ts) as ts:
-                out = query_batch(self._query_view(ts), dqls,
+                out = query_batch(self._query_view(ts, acl_user), dqls,
                                   device=self.device,
                                   device_threshold=self.device_threshold)
         self._maybe_gc()
@@ -450,30 +512,40 @@ class Alpha:
                set_json=None, del_json=None,
                commit_now: bool = True,
                start_ts: int | None = None,
+               acl_user: str | None = None,
                deadline_ms: float | None = None) -> dict:
         """Mutation RPC. With start_ts: continue that open txn. With
         commit_now=False: leave the txn open and return its start_ts.
-        The deadline stops the request only BEFORE the commit's WAL
-        append (`_commit`), never between the append and the apply."""
+        With ACL on and an `acl_user`, every predicate the txn touches
+        must be writable by the user, or the whole txn is discarded. The
+        deadline stops the request only BEFORE the commit's WAL append
+        (`_commit`), never between the append and the apply."""
         with self._request("mutate", deadline_ms):
             return self._mutate(set_nquads=set_nquads,
                                 del_nquads=del_nquads, set_json=set_json,
                                 del_json=del_json, commit_now=commit_now,
-                                start_ts=start_ts)
+                                start_ts=start_ts, acl_user=acl_user)
 
     def _mutate(self, *, set_nquads=None, del_nquads=None, set_json=None,
-                del_json=None, commit_now=True, start_ts=None) -> dict:
+                del_json=None, commit_now=True, start_ts=None,
+                acl_user=None) -> dict:
         created = not start_ts
         txn = self.txn(start_ts) if start_ts else self.new_txn()
         try:
             uids = txn.mutate(set_nquads=set_nquads, del_nquads=del_nquads,
                               set_json=set_json, del_json=del_json)
+            self._check_txn_acl(txn, acl_user)
             if commit_now:
                 txn.commit()
             return {"uids": uids,
                     "txn": {"start_ts": txn.start_ts,
                             "commit_ts": txn.commit_ts}}
         except TxnAborted:
+            txn.discard()
+            raise
+        except PermissionError:
+            # an ACL refusal leaves forbidden edits in the buffer: the
+            # whole txn dies, continued or not
             txn.discard()
             raise
         except Exception:
@@ -484,17 +556,18 @@ class Alpha:
             raise
 
     # -- upserts (edgraph doQueryInUpsert analog) -----------------------------
-    def _bind_upsert_vars(self, txn: "Txn", query_src: str):
+    def _bind_upsert_vars(self, txn: "Txn", query_src: str,
+                          acl_user: str | None = None):
         """Run the upsert's query on `device` at the txn's read snapshot
-        and convert the executor's rank-space var bindings to uid
-        space."""
+        (through `acl_user`'s readable view when ACL is on) and convert
+        the executor's rank-space var bindings to uid space."""
         import numpy as np
 
         from dgraph_tpu_torch.dql.parser import parse_schema_query
         if parse_schema_query(query_src) is not None:
             raise ValueError("schema{} queries cannot drive an upsert")
         with self._reading(txn.start_ts) as ts:
-            store = self.mvcc.read_view(ts)
+            store = self._query_view(ts, acl_user)
             out, ex = self._engine(store).query_with_vars(query_src)
         uid_vars = {
             name: store.uid_of(np.asarray(ranks, np.int32)).tolist()
@@ -508,6 +581,15 @@ class Alpha:
         for n, env in val_vars.items():
             counts.setdefault(n, len(env))
         return out, uid_vars, val_vars, counts
+
+    def _check_txn_acl(self, txn: "Txn", acl_user: str | None) -> None:
+        """Write-permission check over everything buffered in a txn."""
+        if self.acl is None or acl_user is None:
+            return
+        m = txn.mutation
+        touched = {e[1] for e in (m.edge_sets + m.edge_dels
+                                  + m.val_sets + m.val_dels)}
+        self.acl.check_mutation(acl_user, touched)
 
     def _run_upsert(self, commit_now: bool, start_ts: int | None,
                     run, deadline_ms: float | None = None) -> dict:
@@ -534,6 +616,7 @@ class Alpha:
 
     def upsert(self, src: str, commit_now: bool = True,
                start_ts: int | None = None,
+               acl_user: str | None = None,
                deadline_ms: float | None = None) -> dict:
         """Upsert block: run the query at the txn's read_ts, bind vars,
         evaluate @if conditions, substitute uid(v)/val(v) into the
@@ -546,7 +629,7 @@ class Alpha:
 
         def run(txn):
             out, uid_vars, val_vars, counts = self._bind_upsert_vars(
-                txn, req.query_src)
+                txn, req.query_src, acl_user)
             uids: dict[str, str] = {}
             applied = 0
             for m in req.mutations:
@@ -558,6 +641,7 @@ class Alpha:
                     uids.update(txn.mutate(set_nquads=set_rdf or None,
                                            del_nquads=del_rdf or None))
                     applied += 1
+            self._check_txn_acl(txn, acl_user)
             return out, uids, applied
 
         return self._run_upsert(commit_now, start_ts, run,
@@ -566,6 +650,7 @@ class Alpha:
     def upsert_json(self, query: str, cond: str = "",
                     set_json=None, del_json=None, commit_now: bool = True,
                     start_ts: int | None = None,
+                    acl_user: str | None = None,
                     deadline_ms: float | None = None) -> dict:
         """The JSON upsert form: {"query", "cond", "set"/"delete" as JSON
         mutation lists with uid(v)/val(v) references}."""
@@ -581,7 +666,7 @@ class Alpha:
 
         def run(txn):
             out, uid_vars, val_vars, counts = self._bind_upsert_vars(
-                txn, query)
+                txn, query, acl_user)
             uids: dict[str, str] = {}
             applied = 0
             if eval_cond(cond_tree, counts):
@@ -593,6 +678,7 @@ class Alpha:
                     uids.update(txn.mutate(set_json=set_sub or None,
                                            del_json=del_sub or None))
                     applied += 1
+            self._check_txn_acl(txn, acl_user)
             return out, uids, applied
 
         return self._run_upsert(commit_now, start_ts, run,

@@ -2,9 +2,11 @@
 
 Port of `dgraph_tpu/store/maintenance.py` with a plain
 `threading.Condition`. The reference also emits each job's start and
-outcome to its flight recorder (ROADMAP Queue 1 item 9f) and yields to
-queued foreground traffic when its admission controller reports
-waiters (item 9d); both come with those items. Reference parity: the
+outcome to its flight recorder (ROADMAP Queue 1 item 9f). Like it, the
+scheduler yields to queued foreground traffic: while the Alpha's
+admission controller (server/admission.py) reports waiters, policy jobs
+are not started and a running job parks at its tablet boundary (at most
+`LOAD_YIELD_MAX_S` per boundary). Reference parity: the
 reference runs rollups, snapshots, and backups as
 background Badger jobs WHILE serving (posting/mvcc.go's rollup ticker,
 worker/snapshot.go, ee/backup) — a serving system cannot stop the world
@@ -160,9 +162,17 @@ class MaintenanceScheduler:
     def paused(self) -> bool:
         return not self._resume.is_set()
 
+    # longest a job yields to queued foreground traffic per tablet
+    # boundary: bounded so a permanently saturated server still makes
+    # maintenance progress (one tablet per window)
+    LOAD_YIELD_MAX_S = 2.0
+
     def _pace(self) -> None:
         """Between-tablet hook handed to the streaming layer: apply the
-        configured pacing, then honor the pause gate."""
+        configured pacing, honor the pause gate, then YIELD to queued
+        foreground traffic: while the admission controller reports
+        waiters (`saturated()`), the job parks at this tablet boundary
+        (bounded by LOAD_YIELD_MAX_S)."""
         self.progress += 1
         if self.pacing_ms > 0:
             time.sleep(self.pacing_ms / 1e3)
@@ -173,6 +183,24 @@ class MaintenanceScheduler:
                 self._resume.wait()
             METRICS.observe("maintenance_pause_wait_us",
                             (time.perf_counter() - t0) * 1e6)
+        adm = getattr(self.alpha, "admission", None)
+        if adm is not None and adm.saturated():
+            METRICS.inc("maintenance_load_pauses_total")
+            t0 = time.perf_counter()
+            with tracing.span("maintenance.load_pause",
+                              job=self._running or ""):
+                limit = t0 + self.LOAD_YIELD_MAX_S
+                while (adm.saturated() and self._resume.is_set()
+                       and not self._stopping()
+                       and time.perf_counter() < limit):
+                    time.sleep(0.01)
+            METRICS.observe("maintenance_pause_wait_us",
+                            (time.perf_counter() - t0) * 1e6)
+
+    def _stopping(self) -> bool:
+        """`_stop` read under the cv (the yield loop above polls it)."""
+        with self._cv:
+            return self._stop
 
     # -- requests ------------------------------------------------------------
     def _submit(self, job: Job) -> Job:
@@ -252,6 +280,13 @@ class MaintenanceScheduler:
             # a failed job backing off blocks its policy twin — spawning
             # a fresh rollup every tick would bypass the backoff
             backing_off = {j.name for j in self._queue}
+        # queued foreground traffic defers policy jobs entirely (a
+        # REQUESTED job still runs): starting a rollup while the
+        # admission queue is non-empty would hand the machine to
+        # background work exactly when it is scarcest
+        adm = getattr(self.alpha, "admission", None)
+        if adm is not None and adm.saturated():
+            return None
         if not self.paused:
             return self._due_policy_job(exclude=backing_off)
         return None

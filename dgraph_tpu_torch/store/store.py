@@ -218,6 +218,8 @@ class Store:
         # keys ever placed: placing one again is a RE-placement (the
         # governor evicted it), counted so eviction thrash is visible
         self._placed: set = set()
+        # request threads place concurrently: one placement per key
+        self._place_lock = threading.Lock()
         # both device caches join the governor's device budget; an
         # evicted entry is placed again on next use, and a launch that
         # already holds its tensors keeps them
@@ -285,12 +287,18 @@ class Store:
         key = (pred, "rev" if reverse else "fwd", str(dev))
         out = self._device.get(key)
         if out is None:
-            r = self.rel(pred, reverse)
-            out = self._device[key] = (
-                torch.from_numpy(r.indptr).to(dev),
-                torch.from_numpy(r.indices).to(dev))
-            self._note_placed(("device",) + key, "cache_replacements_total",
-                              cache="store.device")
+            with self._place_lock:
+                out = self._device.get(key)
+                placed = out is None
+                if placed:
+                    r = self.rel(pred, reverse)
+                    out = self._device[key] = (
+                        torch.from_numpy(r.indptr).to(dev),
+                        torch.from_numpy(r.indices).to(dev))
+            if placed:
+                self._note_placed(("device",) + key,
+                                  "cache_replacements_total",
+                                  cache="store.device")
         return out
 
     def _note_placed(self, key, counter: str, **labels) -> None:
@@ -327,10 +335,16 @@ class Store:
         out = self._vec_dev.get(key)
         if out is None:
             t = self.vec_tablet(pred)
-            out = self._vec_dev[key] = (torch.from_numpy(t.subj).to(dev),
-                                        torch.from_numpy(t.vecs).to(dev))
-            self._note_placed(("vec",) + key, "vec_replacements_total",
-                              kind="device")
+            with self._place_lock:
+                out = self._vec_dev.get(key)
+                placed = out is None
+                if placed:
+                    out = self._vec_dev[key] = (
+                        torch.from_numpy(t.subj).to(dev),
+                        torch.from_numpy(t.vecs).to(dev))
+            if placed:
+                self._note_placed(("vec",) + key, "vec_replacements_total",
+                                  kind="device")
         return out
 
     # -- values -------------------------------------------------------------

@@ -17,8 +17,9 @@ Consumers in the port: the batch planner (`engine/batch.py`:
 `order_plans_by_cost` launches groups longest-first), the request shell
 (`Alpha._request` predicts before the serve and learns after it), and
 the route EMAs that promote the knn and feat device routes below their
-static thresholds (`store/vec.py`, `engine/feat.py`). Admission's use of
-the prediction waits for item 9d, the cluster's placement report for 9e.
+static thresholds (`store/vec.py`, `engine/feat.py`), and admission
+(server/admission.py), which takes the request's prediction with its
+token. The cluster's placement report comes with item 9e.
 
 Live counts: `cost_prior_hits_total{lane=}` and
 `cost_prior_fallbacks_total{lane=}`. The model persists as
@@ -48,7 +49,7 @@ FEATURES = tuple(costprofile.FEATURE_FIELDS)
 SAMPLE_FLOOR = 8         # observations before a shape prior is trusted
 BLEND = 0.5              # predicted = p50 + BLEND * (p90 - p50)
 _EMA_ALPHA = 0.2         # incremental refit smoothing (per shape + lane)
-_LANE_SEED_US = 50_000.0  # lane fallback before any observation (50 ms)
+LANE_SEED_US = 50_000.0  # lane fallback before any observation (50 ms)
 _TEXT_MEMO_MAX = 2048    # query-text → shape memo entries
 
 
@@ -107,7 +108,7 @@ class CostPriorModel:
                 return float(p["predicted_us"]), "prior"
             self.fallbacks += 1
             METRICS.inc("cost_prior_fallbacks_total", lane=lane)
-            return float(self._lane_ema.get(lane, _LANE_SEED_US)), \
+            return float(self._lane_ema.get(lane, LANE_SEED_US)), \
                 "fallback"
 
     def predict_shape(self, shape: str) -> float | None:
@@ -334,7 +335,7 @@ class CostPriorModel:
             return False
         return True
 
-    # -- surfacing (Alpha.status; /debug/scheduler comes with item 9d) ------
+    # -- surfacing (Alpha.status, /debug/scheduler) --------------------------
     def status(self, top_n: int = 10) -> dict:
         with self._lock:
             shapes = sorted(self._shapes.items(),

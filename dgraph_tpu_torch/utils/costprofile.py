@@ -469,7 +469,7 @@ def _classify(e: BaseException) -> str:
         return "deadline"
     if isinstance(e, dl.Cancelled):
         return "cancelled"
-    # by name: admission (ROADMAP Queue 1 item 9d) lives above utils
+    # by name: admission (server/admission.py) lives above utils
     if type(e).__name__ == "ServerOverloaded":
         return "shed"
     return "error"

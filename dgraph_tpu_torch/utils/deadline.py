@@ -21,10 +21,9 @@ tokens, fold gates) is released by the enclosing `with`/`finally`
 blocks it raises through — cancellation is an exception, never a
 thread kill.
 
-Budget forwarding over cluster RPCs and cross-thread lookup of another
-thread's context (`of_thread`, for the HTTP front end) come with ROADMAP
-Queue 1 items 9e and 9d; a thread that holds the context object can
-always `cancel()` it.
+`of_thread` finds the context another thread is running under: the HTTP
+front end's disconnect watcher (server/http.py) cancels through it.
+Budget forwarding over cluster RPCs comes with ROADMAP Queue 1 item 9e.
 
 Both `DeadlineExceeded` and `Cancelled` are RETRYABLE by contract: the
 server refused to spend more than the client's budget; nothing
@@ -42,7 +41,16 @@ import time
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["RequestContext", "DeadlineExceeded", "Cancelled",
-           "current", "activate", "checkpoint"]
+           "current", "activate", "checkpoint", "remaining_s",
+           "monotonic_s", "of_thread"]
+
+
+def monotonic_s() -> float:
+    """The package's one clock for deadline, backoff and elapsed
+    arithmetic: NTP steps and DST never move a budget. The wall clock
+    (`time.time`) is kept for timestamps that leave the process (span
+    epochs, token expiry read by another process)."""
+    return time.monotonic()
 
 
 class DeadlineExceeded(Exception):
@@ -137,6 +145,11 @@ class RequestContext:
 
 
 _TLS = threading.local()
+# thread ident -> active context, for cancelling from another thread (a
+# connection watcher that sees a closed socket cancels the context its
+# handler thread is running under). One store and one pop per request,
+# each atomic in CPython.
+_ACTIVE: dict[int, RequestContext] = {}
 
 
 def current() -> RequestContext | None:
@@ -144,15 +157,27 @@ def current() -> RequestContext | None:
     return getattr(_TLS, "ctx", None)
 
 
+def of_thread(ident: int) -> RequestContext | None:
+    """The active RequestContext of another thread (None when that
+    thread is not inside a request); `ctx.cancel()` is thread-safe."""
+    return _ACTIVE.get(ident)
+
+
 @contextlib.contextmanager
 def activate(ctx: RequestContext):
     """Install `ctx` as the thread's ambient request context."""
     prev = getattr(_TLS, "ctx", None)
+    ident = threading.get_ident()
     _TLS.ctx = ctx
+    _ACTIVE[ident] = ctx
     try:
         yield ctx
     finally:
         _TLS.ctx = prev
+        if prev is None:
+            _ACTIVE.pop(ident, None)
+        else:
+            _ACTIVE[ident] = prev
 
 
 def checkpoint(stage: str = "") -> None:
@@ -163,3 +188,10 @@ def checkpoint(stage: str = "") -> None:
     ctx = getattr(_TLS, "ctx", None)
     if ctx is not None:
         ctx.check(stage)
+
+
+def remaining_s() -> float | None:
+    """Remaining budget of the ambient context (None = unbounded or no
+    context)."""
+    ctx = getattr(_TLS, "ctx", None)
+    return None if ctx is None else ctx.remaining_s()

@@ -50,6 +50,7 @@ import weakref
 import torch
 
 from dgraph_tpu_torch.utils import logging as xlog
+from dgraph_tpu_torch.utils.device import DEVICE_WIDE
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = [
@@ -333,6 +334,26 @@ class Governor:
                 break
         return freed
 
+    # -- pressure (admission integration) ---------------------------------
+
+    def admission_pressure(self):
+        """Sustained-pressure probe for admission (server/admission.py):
+        a kind still above its high watermark AFTER an eviction pass has
+        nothing left to shed but load. Returns the kind name, or None.
+        Unarmed: one attribute read."""
+        if not self._armed:
+            return None
+        for kind in ("device", "host"):
+            budget = self._budgets[kind]
+            if not budget:
+                continue
+            high = int(budget * HIGH_WATERMARK)
+            if self.resident_bytes(kind) > high:
+                self.evict_to_low(kind)
+                if self.resident_bytes(kind) > high:
+                    return kind
+        return None
+
     # -- the allocation-failure lifecycle ---------------------------------
 
     def note_oom(self, site: str, shape: str, kind: str = "device") -> int:
@@ -350,7 +371,8 @@ class Governor:
         METRICS.inc("oom_events_total", site=site)
         freed = self.evict_to_low(kind)
         if kind == "device" and torch.cuda.is_initialized():
-            torch.cuda.empty_cache()
+            with DEVICE_WIDE:     # never while another thread captures
+                torch.cuda.empty_cache()
         return freed
 
     def degrade(self, site: str, shape: str) -> None:

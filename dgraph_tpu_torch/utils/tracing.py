@@ -16,7 +16,13 @@ per-trace index, Chrome trace-event and OTLP/JSON export) and
   the reference calls `jax.effects_barrier()`, so its duration covers
   the device work it queued;
 * `profile_start` / `profile_stop` write a Chrome trace
-  (`trace-<stamp>.json`) under the capture dir.
+  (`trace-<stamp>.json`) under the capture dir. A torch.profiler
+  session must start and stop on one thread, and the HTTP front end
+  calls the two from different request threads: both run on one
+  long-lived profiler thread (`_on_profiler_thread`), and the session
+  records the CPU ranges of every thread where the installed torch
+  offers it (`profile_all_threads`); the card's kernels are recorded
+  device-wide either way.
 
 Identity model: every span gets a process-unique integer `span_id`;
 nesting is a thread-local STACK of span ids, so concurrent (or nested)
@@ -122,6 +128,51 @@ def _activities():
     return acts
 
 
+def _new_profiler():
+    """A torch.profiler session over every thread's CPU ranges where
+    the installed torch has the option, else the starting thread's."""
+    kw = {}
+    try:
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        pass
+    return torch.profiler.profile(activities=_activities(), **kw)
+
+
+_PROF_THREAD = None     # the one thread every session starts and stops on
+_PROF_CALLS = None
+
+
+def _on_profiler_thread(fn):
+    """Run `fn()` on the profiler thread (started at first use) and
+    return its result, or raise its error, here."""
+    global _PROF_THREAD, _PROF_CALLS
+    import queue
+    if _PROF_THREAD is None:
+        _PROF_CALLS = queue.Queue()
+
+        def loop(calls=_PROF_CALLS):
+            while True:
+                f, box, done = calls.get()
+                try:
+                    box.append((True, f()))
+                except BaseException as e:  # noqa: BLE001 — handed back
+                    box.append((False, e))
+                done.set()
+
+        _PROF_THREAD = threading.Thread(target=loop, daemon=True,
+                                        name="dgraph-profiler")
+        _PROF_THREAD.start()
+    box, done = [], threading.Event()
+    _PROF_CALLS.put((fn, box, done))
+    done.wait()
+    ok, val = box[0]
+    if not ok:
+        raise val
+    return val
+
+
 def _trace_path(d: str) -> str:
     os.makedirs(d, exist_ok=True)
     stamp = time.strftime("%Y%m%d-%H%M%S")
@@ -145,8 +196,10 @@ def profile_start(trace_dir: str | None = None) -> str:
             raise RuntimeError(
                 f"a device profile is already capturing under "
                 f"{_PROFILE_DIR} — stop it first (single-flight)")
-        prof = torch.profiler.profile(activities=_activities())
-        prof.__enter__()
+        prof = _new_profiler()
+        from dgraph_tpu_torch.utils.device import DEVICE_WIDE
+        with DEVICE_WIDE:     # never while another thread captures
+            _on_profiler_thread(prof.__enter__)
         _PROFILE_DIR, _PROFILER = d, prof
         METRICS.inc("device_profile_captures_total", outcome="started")
         return d
@@ -164,7 +217,9 @@ def profile_stop() -> str:
         d, prof = _PROFILE_DIR, _PROFILER
         _PROFILE_DIR = _PROFILER = None
         try:
-            prof.__exit__(None, None, None)
+            from dgraph_tpu_torch.utils.device import DEVICE_WIDE
+            with DEVICE_WIDE:
+                _on_profiler_thread(lambda: prof.__exit__(None, None, None))
             prof.export_chrome_trace(_trace_path(d))
         except Exception:
             METRICS.inc("device_profile_captures_total",
@@ -184,7 +239,9 @@ def _fence() -> None:
     """Wait for the device work queued so far (the port's
     `jax.effects_barrier`)."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        from dgraph_tpu_torch.utils.device import DEVICE_WIDE
+        with DEVICE_WIDE:     # never while another thread captures
+            torch.cuda.synchronize()
 
 
 def new_trace_id() -> str:

@@ -13,9 +13,10 @@ on and off (the priors change the launch order, never an answer); the
 cost gate and the ordering; and the failure policy — only an allocation
 failure the evict-and-retry did not absorb is served per query; any
 other error of a kernel group raises out of `Alpha.query_batch`. The
-admission cases (SJF hand-off, displacement, idle decay, the A/B
-acceptance) and the `/debug/scheduler` case wait for ROADMAP Queue 1
-item 9d; the wall-clock overhead guard has a counted counterpart here.
+admission cases (SJF hand-off, displacement, idle decay) and the
+`/debug/scheduler` case run in `test_torch_admission.py`; the A/B
+acceptance needs `bench.sched_stage` and stays open (ROADMAP Queue 1);
+the wall-clock overhead guard has a counted counterpart here.
 """
 
 import json

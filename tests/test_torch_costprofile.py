@@ -9,8 +9,9 @@ each run's own assertions hold. Tolerance: exact.
 The reference's overhead guard is a wall-clock ratio; its port
 counterpart counts the recorder's work instead (no record and no
 recorder when profiling is off, one record per request when it is on).
-The HTTP, push-pipeline and device-profile cases wait for ROADMAP Queue
-1 items 9d and 9f.
+The `/debug/costs` case and a counterpart of the `/debug/profile` case
+run in `test_torch_http.py`; the push-pipeline cases wait for ROADMAP
+Queue 1 item 9f.
 """
 
 import pytest

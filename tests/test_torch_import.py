@@ -1,7 +1,10 @@
-"""The port stands alone: no jax, nothing of dgraph_tpu, CUDA by default.
+"""The port stands alone: no jax, no grpc, nothing of dgraph_tpu, CUDA
+by default.
 
 The import pin runs in a subprocess because tests/conftest.py imports
-jax into the pytest process.
+jax (and the reference's tests grpc) into the pytest process. The HTTP
+front end needs only the standard library; the gRPC worker comes with
+the cluster (ROADMAP Queue 1 item 9e).
 """
 
 import ast
@@ -39,6 +42,8 @@ def test_import_loads_no_jax_and_no_reference():
         "m.startswith('jax.') or m == 'dgraph_tpu' or "
         "m.startswith('dgraph_tpu.'))\n"
         "assert not bad, bad\n"
+        "assert 'jax' not in sys.modules\n"
+        "assert 'grpc' not in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -52,7 +57,8 @@ def test_scan_covers_whole_block_programs_and_native():
             "native/__init__.py"} <= scanned
 
 
-@pytest.mark.parametrize("path", sorted(_port_files()))
+@pytest.mark.parametrize("path", sorted(_port_files())
+                         + [os.path.join(ROOT, "chip_smoke.py")])
 def test_no_file_imports_jax_or_reference(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
@@ -64,7 +70,8 @@ def test_no_file_imports_jax_or_reference(path):
             continue
         for n in names:
             top = n.split(".")[0]
-            assert top not in ("jax", "jaxlib", "dgraph_tpu"), (path, n)
+            assert top not in ("jax", "jaxlib", "dgraph_tpu", "grpc"), \
+                (path, n)
 
 
 def test_scan_covers_the_lifecycle_modules():
@@ -73,6 +80,13 @@ def test_scan_covers_the_lifecycle_modules():
             "utils/deadline.py", "server/export.py", "server/backup.py",
             "store/maintenance.py", "dql/upsert.py", "loader/bulk.py",
             "loader/live.py"} <= scanned
+
+
+def test_scan_covers_the_front_end_modules():
+    scanned = {os.path.relpath(p, PKG) for p in _port_files()}
+    assert {"server/admission.py", "server/acl.py",
+            "server/debug_routes.py", "server/fleet.py",
+            "server/http.py"} <= scanned
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -312,12 +312,15 @@ def _fixture_fn(module, name):
     return getattr(f, "__wrapped__", None) if f is not None else None
 
 
-def _resolve(fn, module, m, tmp, factory, cache, pkg, finalizers):
+def _resolve(fn, module, m, tmp, factory, cache, pkg, finalizers,
+             fixtures=None):
     kw = {}
     for p in inspect.signature(fn).parameters:
         if p == "self":
             continue
-        if p == "tmp_path":
+        if fixtures and p in fixtures:
+            kw[p] = fixtures[p]     # a pytest fixture the caller passes
+        elif p == "tmp_path":
             tmp.mkdir(parents=True, exist_ok=True)
             kw[p] = tmp
         elif p == "monkeypatch":
@@ -332,7 +335,7 @@ def _resolve(fn, module, m, tmp, factory, cache, pkg, finalizers):
             ffn = _fixture_fn(module, p)
             assert ffn is not None, f"no fixture {p}"
             val = ffn(**_resolve(ffn, module, m, tmp, factory, cache, pkg,
-                                 finalizers))
+                                 finalizers, fixtures))
             if inspect.isgenerator(val):
                 gen, val = val, next(val)
                 finalizers.append(gen)
@@ -343,9 +346,11 @@ def _resolve(fn, module, m, tmp, factory, cache, pkg, finalizers):
 
 
 def run_reference_case(module, name, pkg, tmp, monkeypatch, factory=None,
-                       cache=None, after=None, extra=None) -> list:
+                       cache=None, after=None, extra=None,
+                       fixtures=None) -> list:
     """Run `module.name` (a function, or `Class::method`) with `pkg`'s
-    objects; returns the transcript. `after(tr)` may add to it."""
+    objects; returns the transcript. `after(tr)` may add to it;
+    `fixtures` maps fixture names to values the caller supplies."""
     tr = Transcript(tmp, module.__name__)
     finalizers = []
     with monkeypatch.context() as m:
@@ -358,7 +363,7 @@ def run_reference_case(module, name, pkg, tmp, monkeypatch, factory=None,
             try:
                 fn(**_resolve(fn, module, m, tmp, factory,
                               cache if cache is not None else {}, pkg,
-                              finalizers))
+                              finalizers, fixtures))
                 if after is not None:
                     after(tr)
             finally:

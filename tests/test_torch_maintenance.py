@@ -22,16 +22,12 @@ from dgraph_tpu_torch.utils import tracing
 from dgraph_tpu_torch.utils.metrics import METRICS
 from test_torch_lifecycle import compare_case, reference_cases
 
-# the HTTP admin triggers wait for the front end (ROADMAP Queue 1 item 9d)
+# the HTTP admin triggers run with the front end's cases
+# (tests/test_torch_http.py)
 SKIP = {"test_admin_http_triggers"}
 # reader and writer threads interleave with the scheduler differently in
 # each run
 NONDETERMINISTIC = {"test_scheduler_rollup_checkpoint_while_serving"}
-# the port keeps a snapshot's kernel caches on the snapshot itself: it
-# has no routed or ACL views (items 9d-9e), whose caches the reference's
-# `_cache_host` redirects to their base
-EXTRA = {"dgraph_tpu.engine.batch": {
-    "_cache_host": lambda store, attr, reverse: store}}
 
 CASES = reference_cases(test_maintenance, SKIP)
 _SEEDS: dict = {}     # (package, module, fixture) -> the seed checkpoint
@@ -42,7 +38,7 @@ def test_reference_case_on_port(name, tmp_path, monkeypatch,
                                 tmp_path_factory):
     compare_case(test_maintenance, name, tmp_path, monkeypatch,
                  factory=tmp_path_factory, cache=_SEEDS,
-                 nondeterministic=NONDETERMINISTIC, extra=EXTRA)
+                 nondeterministic=NONDETERMINISTIC)
 
 
 def test_case_list_covers_the_issue():

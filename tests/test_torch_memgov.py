@@ -19,8 +19,9 @@ port degrades only `fused.program`, to the staged torch ops on the same
 device, and raises at every other site, so the reference's host-degrade
 cases run the port's counterparts under their own names
 (`PORT_POLICY`), and its sticky-degrade case runs `oom_retry` as a
-degrading site calls it. The HTTP `/debug/memory` and flight-recorder
-cases wait for ROADMAP Queue 1 items 9d and 9f.
+degrading site calls it. The HTTP part of the `/debug/memory` case runs
+in `test_torch_http.py`; the flight-recorder cases wait for ROADMAP
+Queue 1 item 9f.
 """
 
 import functools

@@ -104,7 +104,7 @@ def test_engine_stages_are_spans_in_one_trace():
     with tracing.trace("request") as tid:
         eng.query_bytes("{ q(func: uid(0x1)) { f { f { uid } } } }")
     names = [s.name for s in tracing.trace_spans(tid)]
-    for n in ("engine.parse", "engine.block", "engine.execute",
+    for n in ("engine.parse", "engine.block", "engine.query",
               "engine.render", "request"):
         assert n in names
     assert names[-1] == "request"

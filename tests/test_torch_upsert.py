@@ -19,7 +19,7 @@ from dgraph_tpu_torch.server.api import Alpha
 from dgraph_tpu_torch.tools import write_mix
 from test_torch_lifecycle import compare_case, reference_cases
 
-# the HTTP forms wait for the front end (ROADMAP Queue 1 item 9d)
+# the HTTP forms run with the front end's cases (tests/test_torch_http.py)
 SKIP = {"test_http_upsert_paths", "test_http_json_list"}
 CASES = reference_cases(test_upsert, SKIP)
 
