@@ -206,9 +206,10 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 bfs checkpoint, a batch cancelled from another thread
                 raises Cancelled, and after each the IC mix answers in
                 phase 11's bytes with no read registered and no context
-                left; (b) 100 get-or-create tag upserts (200 before
-                phase 13 came: the cut that pays for it;
-                tools/write_mix.tag_upserts, half on existing tags),
+                left; (b) 40 get-or-create tag upserts (200 before
+                phase 13 came, 100 before phase 15: the cuts that pay
+                for them; tools/write_mix.tag_upserts, half on existing
+                tags),
                 each read back, p50/p99; (c) an incremental backup of
                 the upserts, verify_chain clean, restore into a new
                 directory, Alpha.open on the card: the base equal to the
@@ -287,9 +288,10 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 data byte-equal to the in-process query_raw (HTTP and
                 in-process p50s from alternating requests), phase 13's
                 batch on POST /query/batch equal to Alpha.query_batch,
-                its bucket_hop launches counted from zero; (b) 20
+                its bucket_hop launches counted from zero; (b) 6
                 write_mix transactions through /mutate?commitNow=true and
-                5 through /mutate then /commit, one /alter and one
+                2 through /mutate then /commit (20 and 5 before phase 15
+                came: each read-back folds SF1), one /alter and one
                 upsert, each read back over HTTP equal to the in-process
                 read; (c) attach_admission(2, 2) and 16 clients at once:
                 every 200 equal, the 429s equal to shed_total's and
@@ -311,13 +313,56 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 shapes and the admission lanes, and a /debug/profile
                 start, a second start (409) and a stop around the batch
                 write a trace holding bucket_hop kernels
-  15. `route counters` (the run's totals and each phase's deltas), the
+  15. cluster — SF1 split by predicate over two groups of three port
+                Alphas (start_cluster_alpha(..., device="cuda",
+                wal_dir=...)) and one Zero (make_zero_server(ZeroState(
+                replicas=3))), in this process over loopback gRPC, in a
+                temporary directory it removes: the person side
+                (first_name, last_name, city, birthday_year, knows,
+                works_at, org_name) and the content side (the rest);
+                each group's replicas share one immutable base holding
+                its tablets over the whole uid vocabulary, and every
+                node heartbeats Zero each second (the CLI's loop). The
+                reference is a single-node Alpha over the whole SF1.
+                (a) every node's local tablets are its group's and
+                Groups.tablet_owner agrees everywhere (boot seconds,
+                each node's placed device bytes); (b) 3 passes of the 14
+                IC templates from one coordinator of each group, every
+                answer byte-equal to the single node's, both remote
+                routes (ServeTask hops, whole-tablet pulls) moving bytes,
+                each coordinator's p50 beside the single node's; phase
+                13's batch on a content-side coordinator (knows foreign)
+                equal to the single node's, its bucket_hop launches
+                counted from zero; a second run of it builds no ELL,
+                places no CSR or ELL and pulls no tablet; (c) 25
+                write_mix transactions (seed 21), 5 of them writing both
+                groups at once, alternating coordinators of the two
+                groups and mirrored into the single node, each read at
+                its commit ts on every replica of each group it wrote,
+                equal to the mirror; two coordinators writing one key at
+                once: one commits, one raises TxnAborted; commit p50 and
+                p99 beside phase 11's; (d) a person-side replica stopped
+                during 10 commits (peers serve, commits reach the
+                majority), restarted from its WAL, caught up through
+                FetchLog and reading as its peers; every breaker to it
+                closed again; a replica cut off from both peers
+                (FaultyGroups) raises ReadUnavailable and NoQuorum, and
+                after the heal reads as the single node; (e)
+                move_tablet("likes") to the person side under 4 reader
+                threads, every answer the single node's, after which the
+                person side reads likes from its own card and fetches
+                nothing; (f) make_http_server over a coordinator: /state
+                lists both groups of three and the split, /debug/peers
+                every breaker, /debug/fleet all six nodes. Each part's
+                seconds printed
+  16. `route counters` (the run's totals and each phase's deltas), the
                 `kernels` JSON line, then the device JSON line last
 
-Phases 6 to 12 and 14 fail if any block falls back from its whole-block
-program to the staged route, and phases 2 to 12, phase 13 (a) and (b)
-and phase 14 fail if an allocation failure was counted or a shape
-degraded (no degraded route may stand in for a kernel's result).
+Phases 6 to 12, 14 and 15 fail if any block falls back from its
+whole-block program to the staged route, and phases 2 to 12, phase 13
+(a) and (b), phase 14 and phase 15 fail if an allocation failure was
+counted or a shape degraded (no degraded route may stand in for a
+kernel's result).
 
 It imports torch, numpy and dgraph_tpu_torch only.
 """
@@ -400,7 +445,8 @@ ALPHA_BATCH_COPIES = 4     # ic_batch copies read after the writes (8 before PR 
 ALPHA_REPS = 3             # warm IC-mix passes
 ALPHA_SUFFIX_TXNS = 4      # likes committed between the ELL view and the fold
 ALPHA_ELL_TEMPLATES = ("IC2", "IC7", "config3")   # knows, ~has_creator, ~likes
-LIFECYCLE_UPSERTS = 100         # (b) tag upserts; 200 before phase 13
+LIFECYCLE_UPSERTS = 40          # (b) tag upserts; 200 before phase 13, 100
+#                                 before phase 15
 LIFECYCLE_BATCH_COPIES = 8      # (a) the batch under a 1 ms budget
 LIFECYCLE_RESTORED_COPIES = 4   # (c) the restored batch (MIN_BATCH)
 LIFECYCLE_DEADLINE_MS = 20      # (a) IC14's budget
@@ -4097,8 +4143,9 @@ def phase_memory_cost(device, g, handoff: dict, rag,
 
 # phase 14: the front end over real sockets (server/http.py)
 FRONT_PASSES = 3                # (a) IC-mix passes, over HTTP and in process
-FRONT_COMMIT_NOW = 20           # (b) write_mix txns through /mutate?commitNow
-FRONT_TWO_STEP = 5              # (b) through /mutate, then /commit
+FRONT_COMMIT_NOW = 6            # (b) write_mix txns through /mutate?commitNow
+FRONT_TWO_STEP = 2              # (b) through /mutate, then /commit (20 and 5
+#                                 before phase 15)
 FRONT_CLIENTS = 16              # (c) concurrent batch clients over (2, 2)
 FRONT_DISCONNECT_AFTER_S = 0.3  # (c) the hung-up batch: admitted this long
 FRONT_SLOW_IC14 = 8             # (c) IC14 queries that keep that batch busy
@@ -4612,6 +4659,636 @@ def phase_front_end(device, g, handoff: dict,
     return out
 
 
+# -- phase 15: the cluster on the card -----------------------------------------
+
+# SF1 split by predicate over two groups of three replicas: the person
+# side and the content side
+CLUSTER_GROUPS = (("first_name", "last_name", "city", "birthday_year",
+                   "knows", "works_at", "org_name"),
+                  ("creation_ts", "has_creator", "reply_of", "has_tag",
+                   "tag_name", "has_member", "container_of", "forum_title",
+                   "likes", "dgraph.type"))
+CLUSTER_REPLICAS = 3
+CLUSTER_PASSES = 3              # (b) IC-mix passes from each coordinator
+CLUSTER_BATCH_COPIES = 4        # (b) phase 13's batch: ic_batch copies
+CLUSTER_WRITE_SEED = 21         # (c) write_mix seed (tag "c")
+CLUSTER_TXNS = 25               # (c) replicated transactions
+CLUSTER_CROSS = 5               # (c) of them writing both groups at once
+CLUSTER_DOWN_COMMITS = 10       # (d) commits while a replica is down
+CLUSTER_MOVE_READERS = 4        # (e) reader threads during the move
+CLUSTER_MOVE = "likes"          # (e) the tablet moved to the person side
+# (c) the read-back of a group's predicates on a subject set
+CLUSTER_READ = ("{ q(func: uid(%s)) { uid first_name last_name city "
+                "birthday_year org_name knows { uid } works_at { uid } } }",
+                "{ q(func: uid(%s)) { uid creation_ts tag_name forum_title "
+                "has_creator { uid } reply_of { uid } has_tag { uid } "
+                "has_member { uid } container_of { uid } likes { uid } } }")
+CLUSTER_LIKES_Q = '{ q(func: eq(city, "%s")) { uid likes { uid } } }'
+
+
+def _cluster_txn_groups(tx) -> set:
+    """The groups (0 person side, 1 content side) a write_mix txn
+    touches."""
+    text = json.dumps(tx.set_json) if tx.set_json is not None else \
+        (tx.set_nquads or "") + (tx.del_nquads or "")
+    return {i for i, preds in enumerate(CLUSTER_GROUPS)
+            if any(f"<{p}>" in text or f'"{p}"' in text for p in preds)}
+
+
+def _mirrored(parts, uids: dict) -> list:
+    """The mutate() arguments of a committed txn's parts with its blank
+    nodes written as the uids the cluster gave them, for the single-node
+    mirror."""
+    import copy
+    import re
+    out = []
+    for kw in parts:
+        kw = copy.deepcopy(kw)
+        for key in ("set_nquads", "del_nquads"):
+            if key in kw:
+                kw[key] = re.sub(r"_:\w+", lambda m: f"<{uids[m.group(0)]}>",
+                                 kw[key])
+        if "set_json" in kw:
+            blank = [u for b, u in uids.items() if b.startswith("_:json.")]
+            kw["set_json"] = dict(kw["set_json"], uid=blank[0])
+        out.append(kw)
+    return out
+
+
+def phase_cluster(device, g, single_commit_p50_ms=None) -> dict:
+    """Phase 15: SF1 split by predicate over two groups of three port
+    Alphas and one Zero, in this process over loopback gRPC, on the
+    card: boot, routed reads and the lane batch against a single-node
+    Alpha over the whole SF1 (the reference), replicated writes mirrored
+    into it, a replica down and restarted from its WAL, a minority
+    partition, a tablet move under reads and the front end's cluster
+    documents. Works in a temporary directory, which it removes."""
+    import copy
+    import re
+    import shutil
+    import tempfile
+    import threading
+
+    from dgraph_tpu_torch.cluster import start_cluster_alpha
+    from dgraph_tpu_torch.cluster.fault import FaultyGroups
+    from dgraph_tpu_torch.cluster.zero import (ZeroClient, ZeroState,
+                                               make_zero_server)
+    from dgraph_tpu_torch.models import ldbc
+    from dgraph_tpu_torch.ops import bfs
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+    from dgraph_tpu_torch.server.api import (Alpha, NoQuorum,
+                                             ReadUnavailable, TxnAborted)
+    from dgraph_tpu_torch.server.http import make_http_server, serve_background
+    from dgraph_tpu_torch.store.store import Store, StoreBuilder
+    from dgraph_tpu_torch.tools import write_mix
+    from dgraph_tpu_torch.utils import memgov
+
+    on_card = torch.device(device).type == "cuda"
+    out: dict = {}
+    parts = out["parts_s"] = {}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    def fail(what, **kv):
+        raise AssertionError(f"phase 15 {what}: " + json.dumps(kv,
+                                                              default=str))
+
+    def count(name) -> float:
+        return sum(counter_totals((name,)).values())
+
+    def canon(results) -> list:
+        return [json.dumps(r, sort_keys=True) for r in results]
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    servers, nodes, https = [], [], []
+    zs = None
+    beat = threading.Event()
+
+    def heartbeats():
+        """Every node's liveness heartbeat to Zero each second (the
+        CLI's heartbeat loop, ROADMAP item 9f): Zero moves tablets only
+        to nodes its liveness sweep holds alive."""
+        while not beat.wait(1.0):
+            for n in list(nodes):
+                a = n["alpha"]
+                if n.get("down"):
+                    continue
+                ts = max(a.mvcc.base_ts, max(
+                    (lay.commit_ts for lay in a.mvcc.layers), default=0))
+                try:
+                    a.groups.zero.heartbeat(
+                        a.groups.node_id, group=a.groups.gid, max_ts=ts,
+                        max_uid=a.mvcc.uid_high())
+                except Exception:  # noqa: BLE001 — the next beat retries
+                    pass
+
+    beater = threading.Thread(target=heartbeats, daemon=True)
+    try:
+        # (a) boot: one immutable base per group (its tablets over the
+        # whole uid vocabulary, the rank space being shared), shared by
+        # its three replicas; every node arms a WAL
+        t0 = time.perf_counter()
+        b = StoreBuilder()
+        ldbc.load_into(b, g)
+        full = b.finalize()
+        single = Alpha(base=full, device=device,
+                       device_threshold=LDBC_THRESHOLD)
+        bases = [Store(full.uids, full.schema,
+                       {p: full.preds[p] for p in preds if p in full.preds})
+                 for preds in CLUSTER_GROUPS]
+        out["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zs, zport, _zstate = make_zero_server(
+            ZeroState(replicas=CLUSTER_REPLICAS))
+        zs.start()
+        zt = f"127.0.0.1:{zport}"
+
+        def boot(k, i, addr="127.0.0.1:0"):
+            d = os.path.join(tmp, f"g{k}n{i}")
+            os.makedirs(d, exist_ok=True)
+            a, s, bound = start_cluster_alpha(
+                zt, base=bases[k], device_threshold=LDBC_THRESHOLD,
+                wal_dir=d, addr=addr, device=device)
+            return {"alpha": a, "server": s, "addr": bound, "dir": d}
+
+        for k in range(2):
+            for i in range(CLUSTER_REPLICAS):
+                n = boot(k, i)
+                servers.append(n["server"])
+                nodes.append(n)
+        group = [[n for n in nodes[k * CLUSTER_REPLICAS:
+                                   (k + 1) * CLUSTER_REPLICAS]]
+                 for k in range(2)]
+        gids = [grp[0]["alpha"].groups.gid for grp in group]
+        if len(set(gids)) != 2 or any(
+                n["alpha"].groups.gid != gids[k]
+                for k in range(2) for n in group[k]):
+            fail("(a) groups", gids=[n["alpha"].groups.gid for n in nodes])
+        zc = ZeroClient(zt)
+        for k, preds in enumerate(CLUSTER_GROUPS):
+            for p in preds:
+                zc.should_serve(p, gids[k])
+        for n in nodes:
+            n["alpha"].groups.refresh()
+        beater.start()
+        owners = {}
+        for n in nodes:
+            a = n["alpha"]
+            k = gids.index(a.groups.gid)
+            local = set(a.mvcc.read_view(a.oracle.read_only_ts()).preds)
+            if local != set(bases[k].preds):
+                fail("(a) local tablets", node=n["addr"], local=sorted(local))
+            owners[n["addr"]] = {p: a.groups.tablet_owner(p, claim=False)
+                                 for preds in CLUSTER_GROUPS for p in preds}
+        if any(o != owners[nodes[0]["addr"]] for o in owners.values()) or \
+                any(owners[nodes[0]["addr"]][p] != gids[k]
+                    for k, preds in enumerate(CLUSTER_GROUPS)
+                    for p in preds):
+            fail("(a) tablet_owner disagrees", owners=owners)
+
+        def placed(a) -> dict:
+            """Device bytes a node holds: its snapshot's (shared with its
+            group's replicas) and its pulled tablets' hosts'."""
+            snap = a.mvcc.read_view(a.oracle.read_only_ts())
+            mine = sum(memgov.estimate_nbytes(v) for v in snap._device
+                       .values()) + sum(memgov.estimate_nbytes(v) for v in
+                                        snap.__dict__.get("_ell_devs", {})
+                                        .values())
+            with a._state_lock:
+                hosts = [e[-1] for e in a._tablet_cache.values()]
+            pulled = sum(memgov.estimate_nbytes(v)
+                         for h in hosts for v in
+                         list(h._device.values())
+                         + list(h.__dict__.get("_ell_devs", {}).values()))
+            return {"snapshot": mine, "pulled": pulled}
+
+        out["a_boot"] = {"seconds": time.perf_counter() - t0,
+                         "groups": {str(gids[k]): [n["addr"] for n in
+                                                   group[k]]
+                                    for k in range(2)},
+                         "split": {str(gids[k]): sorted(bases[k].preds)
+                                   for k in range(2)},
+                         "placed_device_bytes": {n["addr"]: placed(
+                             n["alpha"]) for n in nodes}}
+        part("a_boot")
+
+        # (b) reads: the IC mix from one coordinator of each group, byte
+        # for byte the single node's; then phase 13's batch on a content-
+        # side coordinator, where `knows` is foreign
+        coords = [group[0][0]["alpha"], group[1][0]["alpha"]]
+        queries = dict(ldbc.ic_templates(g))
+        want = {k: single.query_raw(q) for k, q in queries.items()}
+        tb0, th0 = count("tablet_bytes_fetched"), \
+            count("taskhop_bytes_fetched")
+        lat = {"single": [], gids[0]: [], gids[1]: []}
+        for _ in range(CLUSTER_PASSES):
+            for k, q in queries.items():
+                for a in coords:
+                    t0 = time.perf_counter()
+                    got = a.query_raw(q)
+                    lat[a.groups.gid].append(
+                        (time.perf_counter() - t0) * 1e3)
+                    if got != want[k]:
+                        fail("(b) IC answer", template=k,
+                             group=a.groups.gid, got=got[:300],
+                             want=want[k][:300])
+                t0 = time.perf_counter()
+                single.query_raw(q)
+                lat["single"].append((time.perf_counter() - t0) * 1e3)
+        tablet_bytes = count("tablet_bytes_fetched") - tb0
+        taskhop_bytes = count("taskhop_bytes_fetched") - th0
+        if not tablet_bytes or not taskhop_bytes:
+            fail("(b) both remote routes", tablet_bytes=tablet_bytes,
+                 taskhop_bytes=taskhop_bytes)
+        rng = np.random.default_rng(LDBC_SEED)
+        persons = rng.choice(g.person_uids, MEMCOST_RECURSE, replace=False)
+        work = [q for _n, q in ldbc.ic_batch(
+            g, copies=CLUSTER_BATCH_COPIES)] + [
+            "{ q(func: uid(%s)) @recurse(depth: %d) { uid knows } }"
+            % (hex(int(p)), MEMCOST_RECURSE_DEPTH) for p in persons]
+        want_work = canon(single.query_batch(work))
+        content = coords[1]
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        got = content.query_batch(work)
+        batch_cold_s = time.perf_counter() - t0
+        out["bucket_hop_launches"] = LAUNCHES["bucket_hop"]
+        if canon(got) != want_work:
+            fail("(b) cluster batch differs from the single node's")
+        if on_card and not out["bucket_hop_launches"]:
+            fail("(b) the cluster batch launched no bucket_hop")
+        # the second run at the same version: no ELL built, no CSR or
+        # ELL placed, no tablet pulled
+        built = {"ell": 0, "ell_placed": 0, "csr_placed": 0}
+        real = bfs.build_ell, bfs.device_ell, Store._note_placed
+
+        def build_ell(*a, **kw):
+            built["ell"] += 1
+            return real[0](*a, **kw)
+
+        def device_ell(*a, **kw):
+            built["ell_placed"] += 1
+            return real[1](*a, **kw)
+
+        def note_placed(self, *a, **kw):
+            built["csr_placed"] += 1
+            return real[2](self, *a, **kw)
+
+        tb1 = count("tablet_bytes_fetched")
+        bfs.build_ell, bfs.device_ell = build_ell, device_ell
+        Store._note_placed = note_placed
+        try:
+            t0 = time.perf_counter()
+            again = content.query_batch(work)
+            batch_warm_s = time.perf_counter() - t0
+        finally:
+            bfs.build_ell, bfs.device_ell, Store._note_placed = real
+        built["tablet_bytes_pulled"] = count("tablet_bytes_fetched") - tb1
+        if canon(again) != want_work or any(built.values()):
+            fail("(b) the second batch built, placed or pulled", **built)
+        out["b_reads"] = {
+            "ic_mix_p50_ms": {str(k): float(np.median(v))
+                              for k, v in lat.items()},
+            "tablet_bytes_fetched": tablet_bytes,
+            "taskhop_bytes_fetched": taskhop_bytes,
+            "batch_queries": len(work), "batch_cold_s": batch_cold_s,
+            "batch_warm_s": batch_warm_s,
+            "bucket_hop_launches": out["bucket_hop_launches"],
+            "second_run": built,
+            "placed_device_bytes": {n["addr"]: placed(n["alpha"])
+                                    for n in nodes}}
+        part("b_reads")
+
+        # (c) replicated writes, alternating coordinators of the two
+        # groups, mirrored into the single node; every acked commit is
+        # read at its commit ts on each replica of each group it wrote
+        mix = write_mix.make_mix(g, n=100, seed=CLUSTER_WRITE_SEED, tag="c")
+        by = [[tx for tx in mix.txns if _cluster_txn_groups(tx) == {k}]
+              for k in range(2)]
+        singles = by[0][CLUSTER_CROSS:CLUSTER_CROSS + 3] + by[1][
+            CLUSTER_CROSS:CLUSTER_CROSS + CLUSTER_TXNS - 3 - CLUSTER_CROSS]
+        txns = []
+        for i in range(CLUSTER_TXNS):
+            if i % (CLUSTER_TXNS // CLUSTER_CROSS) == 0:
+                j = i // (CLUSTER_TXNS // CLUSTER_CROSS)
+                txns.append([by[0][j], by[1][j]])
+            else:
+                txns.append([singles.pop(0)])
+        commit_ms, reads = [], 0
+
+        def commit_on(a, parts_kw):
+            t0 = time.perf_counter()
+            t = a.new_txn()
+            uids = {}
+            for kw in parts_kw:
+                uids.update(t.mutate(**kw))
+            cts = t.commit()
+            return cts, uids, (time.perf_counter() - t0) * 1e3
+
+        def subjects_of(kws, uids) -> set:
+            out = set(uids.values())
+            for kw in kws:
+                out |= set(re.findall(r"0x[0-9a-f]+", json.dumps(kw)))
+            return out
+
+        def check_commit(touched, subjects, cts):
+            """The commit at `cts` on every replica of each group it
+            wrote, read at its commit ts, against the mirror."""
+            nonlocal reads
+            for k in sorted(touched):
+                q = CLUSTER_READ[k] % ", ".join(sorted(subjects))
+                mirror = single.query_raw(q)
+                for n in group[k]:
+                    got = n["alpha"].query_raw(q, read_ts=cts)
+                    reads += 1
+                    if got != mirror:
+                        fail("(c) a replica differs from the mirror",
+                             node=n["addr"], ts=cts, got=got[:300],
+                             want=mirror[:300])
+
+        for i, txn_parts in enumerate(txns):
+            kws = [tx.kwargs() for tx in txn_parts]
+            a = coords[i % 2]
+            cts, uids, ms = commit_on(a, copy.deepcopy(kws))
+            commit_ms.append(ms)
+            mirror_kws = _mirrored(kws, uids)
+            t = single.new_txn()
+            for kw in mirror_kws:
+                t.mutate(**kw)
+            t.commit()
+            check_commit(set().union(*(_cluster_txn_groups(tx)
+                                       for tx in txn_parts)),
+                         subjects_of(mirror_kws, uids), cts)
+        # two coordinators, one per group, write one key at once
+        person = hex(int(g.person_uids[3]))
+        go = threading.Barrier(2)
+        results = {}
+
+        def race(k):
+            t = coords[k].new_txn()
+            t.mutate(set_nquads=f'<{person}> <first_name> "Race{k}" .')
+            go.wait()
+            try:
+                results[k] = t.commit()
+            except TxnAborted as e:
+                results[k] = e
+
+        threads = [threading.Thread(target=race, args=(k,))
+                   for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        won = [k for k, r in results.items() if isinstance(r, int) and r]
+        lost = [k for k, r in results.items() if isinstance(r, TxnAborted)]
+        if len(won) != 1 or len(lost) != 1:
+            fail("(c) concurrent writes of one key", results=results)
+        single.mutate(set_nquads=f'<{person}> <first_name> '
+                                 f'"Race{won[0]}" .')
+        check_commit({0}, {person}, results[won[0]])
+        out["c_writes"] = {
+            "txns": len(txns), "cross_group": CLUSTER_CROSS,
+            "kinds": sorted({tx.kind for p in txns for tx in p}),
+            "commit_p50_ms": float(np.median(commit_ms)),
+            "commit_p99_ms": float(np.percentile(commit_ms, 99)),
+            "single_node_commit_p50_ms": single_commit_p50_ms,
+            "replica_reads": reads, "race_winner_group": gids[won[0]]}
+        part("c_writes")
+
+        # (d) a person-side replica down during commits, restarted from
+        # its WAL; then a coordinator cut off from both its peers
+        victim = group[0][2]
+        ru0 = count("read_unavailable_total")
+        victim["down"] = True
+        victim["server"].stop(None)
+        victim["alpha"].wal.close()
+        # half of them write the person side: its stage reaches two of
+        # three replicas, the majority
+        dmix = write_mix.make_mix(g, n=100, seed=CLUSTER_WRITE_SEED + 1,
+                                  tag="d")
+        half = CLUSTER_DOWN_COMMITS // 2
+        sides = [[tx for tx in dmix.txns
+                  if _cluster_txn_groups(tx) == {k}][:half]
+                 for k in range(2)]
+        down_txns = [tx for pair in zip(*sides) for tx in pair]
+        touched = {0: set(), 1: set()}
+        for i, tx in enumerate(down_txns):
+            kws = [tx.kwargs()]
+            cts, uids, _ms = commit_on(coords[i % 2], copy.deepcopy(kws))
+            mirror_kws = _mirrored(kws, uids)
+            single.mutate(**mirror_kws[0])
+            for k in _cluster_txn_groups(tx):
+                touched[k] |= subjects_of(mirror_kws, uids)
+        # with the replica still down, its group's live replicas and the
+        # other group's coordinator serve every write of the outage
+        for k, subjects in touched.items():
+            if not subjects:
+                continue
+            q = CLUSTER_READ[k] % ", ".join(sorted(subjects))
+            want_q = single.query_raw(q)
+            for n in [n for n in group[k] if n is not victim] + [
+                    {"alpha": coords[1 - k], "addr": "other group"}]:
+                if n["alpha"].query_raw(q) != want_q:
+                    fail("(d) a read while a replica is down",
+                         node=n["addr"])
+        breakers = {n["addr"]: n["alpha"].groups.resilience.snapshot()
+                    .get(victim["addr"], {}) for n in group[0][:2]}
+        t0 = time.perf_counter()
+        for _ in range(50):
+            try:
+                back = boot(0, 2, addr=victim["addr"])
+                break
+            except RuntimeError:      # the port is still being released
+                time.sleep(0.1)
+        else:
+            fail("(d) the replica did not restart")
+        servers.append(back["server"])
+        heals0 = count("fetchlog_heals_total")
+        back["alpha"].resync_on_join()
+        catch_up_s = time.perf_counter() - t0
+        if count("fetchlog_heals_total") <= heals0:
+            fail("(d) the restarted replica healed nothing via FetchLog")
+        group[0][2] = nodes[nodes.index(victim)] = back
+        # every node's breaker to the restarted replica closes through
+        # its half-open probe (the pooled channel that saw the refused
+        # connects is dropped first, as a failed broadcast drops it)
+        t0 = time.perf_counter()
+        for n in nodes:
+            if n is back:
+                continue
+            grp = n["alpha"].groups
+            grp.invalidate(victim["addr"])
+            while grp.resilience.state(victim["addr"]) != "closed":
+                if time.perf_counter() - t0 > 60:
+                    fail("(d) a breaker to the restarted replica stays "
+                         "open", node=n["addr"])
+                try:
+                    grp.pool(victim["addr"]).ping()
+                except Exception:  # noqa: BLE001 — probe again
+                    time.sleep(0.1)
+        breakers_closed_s = time.perf_counter() - t0
+        q = CLUSTER_READ[0] % ", ".join(hex(int(p)) for p in persons)
+        for qq in (q, queries["IC3"], queries["IC13"]):
+            if back["alpha"].query_raw(qq) != \
+                    group[0][0]["alpha"].query_raw(qq) or \
+                    back["alpha"].query_raw(qq) != single.query_raw(qq):
+                fail("(d) the restarted replica's reads")
+        cut = group[0][1]
+        cut["alpha"].groups = FaultyGroups(cut["alpha"].groups)
+        for n in group[0]:
+            if n is not cut:
+                cut["alpha"].groups.drop_link(n["addr"])
+        try:
+            cut["alpha"].query_raw(q)
+            fail("(d) the minority side served a read")
+        except ReadUnavailable:
+            pass
+        try:
+            cut["alpha"].mutate(
+                set_nquads=f'<{person}> <last_name> "Minority" .')
+            fail("(d) the minority side committed")
+        except NoQuorum:
+            pass
+        cut["alpha"].groups.heal_all()
+        for qq in (q, queries["IC3"]):
+            if cut["alpha"].query_raw(qq) != single.query_raw(qq):
+                fail("(d) the healed node's reads")
+        after = {n["addr"]: n["alpha"].groups.resilience.snapshot()
+                 .get(victim["addr"], {}) for n in group[0][:2]}
+        out["d_failure"] = {
+            "down_commits": len(down_txns), "catch_up_s": catch_up_s,
+            "breakers_closed_s": breakers_closed_s,
+            "read_unavailable_total": count("read_unavailable_total") - ru0,
+            "breakers_to_victim_while_down": {
+                a: {k: b.get(k) for k in ("state", "opened_total",
+                                          "failures_total")}
+                for a, b in breakers.items()},
+            "breakers_to_victim_after": {
+                a: {k: b.get(k) for k in ("state", "opened_total",
+                                          "failures_total")}
+                for a, b in after.items()}}
+        part("d_failure")
+
+        # (e) `likes` moves to the person side while 4 threads read it
+        likes_qs = [CLUSTER_LIKES_Q % c for c in ldbc.CITIES[:2]] + [
+            q for n, q in ldbc.ic_batch(g, copies=2) if n == "IC7"]
+        want_likes = {q: single.query_raw(q) for q in likes_qs}
+        person_side = coords[0]
+        for q in likes_qs:                     # warm the pulls
+            if person_side.query_raw(q) != want_likes[q]:
+                fail("(e) a read before the move", query=q)
+        f0 = (count("tablet_bytes_fetched"), count("taskhop_bytes_fetched"))
+        for q in likes_qs[:2]:
+            person_side.query_raw(q)
+        moving, bad, served = threading.Event(), [], [0]
+
+        def reader(k):
+            a = coords[k % 2]
+            i = 0
+            while moving.is_set() or i < 2 * len(likes_qs):
+                q = likes_qs[i % len(likes_qs)]
+                got = a.query_raw(q)
+                served[0] += 1
+                if got != want_likes[q]:
+                    bad.append((k, q, moving.is_set(), got[:200],
+                                want_likes[q][:200]))
+                i += 1
+
+        moving.set()
+        threads = [threading.Thread(target=reader, args=(k,))
+                   for k in range(CLUSTER_MOVE_READERS)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        moved = zc.move_tablet(CLUSTER_MOVE, gids[0])
+        move_s = time.perf_counter() - t0
+        for n in nodes:
+            n["alpha"].groups.refresh()
+        moving.clear()
+        for t in threads:
+            t.join(600)
+        if not moved or bad or any(t.is_alive() for t in threads):
+            fail("(e) the move", moved=moved, bad=bad[:3])
+        if not all(n["alpha"].groups.serves(CLUSTER_MOVE) and
+                   CLUSTER_MOVE in n["alpha"].mvcc.read_view(
+                       n["alpha"].oracle.read_only_ts()).preds
+                   for n in group[0]):
+            fail("(e) the person side does not hold the moved tablet")
+        f1 = (count("tablet_bytes_fetched"), count("taskhop_bytes_fetched"))
+        for q in likes_qs[:2]:
+            if person_side.query_raw(q) != want_likes[q]:
+                fail("(e) a read after the move")
+        f2 = (count("tablet_bytes_fetched"), count("taskhop_bytes_fetched"))
+        if f2 != f1:
+            fail("(e) the person side still fetches after the move",
+                 before=f1, after=f2)
+        out["e_move"] = {"moved": moved, "move_s": move_s,
+                         "reads_during_move": served[0],
+                         "fetch_bytes_before_move": [f1[0] - f0[0],
+                                                     f1[1] - f0[1]],
+                         "fetch_bytes_after_move": [f2[0] - f1[0],
+                                                    f2[1] - f1[1]]}
+        part("e_move")
+
+        # (f) the front end over a person-side coordinator
+        srv = make_http_server(coords[0], "127.0.0.1", 0)
+        serve_background(srv)
+        https.append(srv)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        st, _h, body = http(base, "/state")
+        state = json.loads(body)
+        members = {g_: sorted(m["addr"] for m in doc["members"].values())
+                   for g_, doc in state["groups"].items()}
+        split = {g_: sorted(doc["tablets"]) for g_, doc
+                 in state["groups"].items()}
+        want_split = {str(gids[k]): sorted(set(CLUSTER_GROUPS[k])
+                                           ^ {CLUSTER_MOVE})
+                      for k in range(2)}
+        if st != 200 or members != {str(gids[k]): sorted(
+                n["addr"] for n in group[k]) for k in range(2)} or \
+                split != want_split:
+            fail("(f) /state", status=st, members=members, split=split,
+                 want_split=want_split)
+        st, _h, body = http(base, "/debug/peers")
+        peers = json.loads(body)
+        if st != 200 or not peers["enabled"] or not peers["peers"]:
+            fail("(f) /debug/peers", status=st, body=body[:300])
+        t0 = time.perf_counter()
+        st, _h, body = http(base, "/debug/fleet")
+        fleet_s = time.perf_counter() - t0
+        doc = json.loads(body)
+        if st != 200 or doc["errors"] or set(doc["nodes"]) != {
+                n["addr"] for n in nodes}:
+            fail("(f) /debug/fleet", status=st, errors=doc.get("errors"),
+                 nodes=sorted(doc.get("nodes", ())))
+        out["f_front_end"] = {
+            "state_groups": members, "state_split": split,
+            "peer_states": {a: p["state"] for a, p in
+                            peers["peers"].items()},
+            "fleet_nodes": len(doc["nodes"]), "fleet_s": fleet_s}
+        part("f_front_end")
+    finally:
+        beat.set()
+        if beater.is_alive():
+            beater.join(10)
+        for srv in https:
+            srv.shutdown()
+        for s in servers:
+            s.stop(None)
+        if zs is not None:
+            zs.stop(None)
+        for n in nodes:
+            if n["alpha"].wal is not None:
+                n["alpha"].wal.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4731,6 +5408,14 @@ def main() -> None:
             device, g, front_dir))
     say("phase 14 front end", seconds=time.perf_counter() - t0, **front)
     no_oom("phase 14", since=oom0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with no_fused_fallback("phase 15"):
+        cl = counted("phase 15", lambda: phase_cluster(
+            device, g, alpha["commits"]["p50_ms"]))
+    say("phase 15 cluster", seconds=time.perf_counter() - t0, **cl)
+    no_oom("phase 15", since=oom0)
     # the launches of each main path, counted from zero around its run
     paths = {"bucket_hop": {
                  "query_batch @recurse (phase 4)": launches["bucket_hop"],
@@ -4747,7 +5432,9 @@ def main() -> None:
                  "Alpha.query_batch, memory and cost (phase 13)":
                      mem["bucket_hop_launches"],
                  "HTTP /query/batch (phase 14)":
-                     front["bucket_hop_launches"]},
+                     front["bucket_hop_launches"],
+                 "cluster Alpha.query_batch (phase 15)":
+                     cl["bucket_hop_launches"]},
              "segment_combine": {
                  **rag["segment_combine_launches_by_path"],
                  "@msgpass under an injected fault (phase 13)":

@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import hashlib
 import threading
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 
 
 class TxnAborted(Exception):
@@ -42,6 +43,7 @@ def fingerprint(key) -> str:
 class TxnStatus:
     start_ts: int
     commit_ts: int  # 0 while pending, -1 if aborted
+    created: float = field(default_factory=time.monotonic)
 
 
 class Oracle:
@@ -129,8 +131,10 @@ class Oracle:
 
     @property
     def max_uid(self) -> int:
-        """Highest uid ever leased or bumped (the `maxUID` of the HTTP
-        front end's /state document)."""
+        """Highest uid ever leased or bumped — the watermark a rejoining
+        node must hand Zero so leases never reuse uids minted in a WAL
+        tail (reference: zero assign.go lease restore), and the `maxUID`
+        of the HTTP front end's /state document."""
         with self._lock:
             return self._next_uid - 1
 
@@ -161,3 +165,24 @@ class Oracle:
             st = self._pending.get(start_ts)
             if st is not None and st.commit_ts == 0:
                 st.commit_ts = -1
+
+    def expire_older_than(self, max_age_s: float) -> int:
+        """Abort pending txns OLDER than max_age_s (age since start, not
+        idleness — Zero only hears from a txn again at commit). A
+        coordinator that crashed without abort must not pin the gc
+        watermark forever (reference: Zero lease timeouts). A later
+        commit of an expired txn raises TxnAborted, exactly like a lost
+        conflict; max_age_s is therefore also the ceiling on transaction
+        lifetime and should be generous."""
+        cutoff = time.monotonic() - max_age_s
+        n = 0
+        with self._lock:
+            for st in self._pending.values():
+                if st.commit_ts == 0 and st.created < cutoff:
+                    st.commit_ts = -1
+                    n += 1
+        return n
+
+    def status(self, start_ts: int) -> TxnStatus | None:
+        with self._lock:
+            return self._pending.get(start_ts)

@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 
 import numpy as np
 
@@ -853,15 +854,52 @@ def _drop_dependent_fns(host, dkey, value) -> int:
 def _cache_host(store, attr: str, reverse: bool):
     """Where kernel caches live (reference `engine/batch.py:856`): the
     UNDERLYING immutable snapshot when the view's predicate data IS the
-    snapshot's (an ACL view is a per-request throwaway: caching on it
-    would rebuild and place again per request); the view itself when
-    the data is view-local (a predicate the view hides)."""
+    snapshot's (an ACL view or a routed view is a per-request throwaway:
+    caching on it would rebuild and place again per request); the Store
+    the Alpha's tablet cache keeps beside a pulled tablet
+    (`cluster/routed.py`), so a pulled tablet at an unchanged version is
+    built and placed once; the view itself when the data is view-local
+    (a predicate an ACL view hides)."""
     base = getattr(store, "_ell_host", store)
     if base is not store:
         pd_view = store.preds.get(attr)
-        if pd_view is None or base.preds.get(attr) is not pd_view:
+        if pd_view is None:
             return store
+        if base.preds.get(attr) is not pd_view:
+            pulled = getattr(store, "tablet_host", None)
+            host = pulled(attr) if pulled is not None else None
+            return host if host is not None else store
     return base
+
+
+def release_host(host) -> None:
+    """Drop every kernel cache a pulled tablet's host holds: its placed
+    CSRs (and the programs that read them, through the governor's
+    `store.device` dependents), its ELL blocks, their device copies,
+    the runners and the tree programs, including the tree programs a
+    snapshot keeps over it and another host (`_tree_kernel_for`). The
+    Alpha calls it when it drops the tablet (`api.tablet`)."""
+    with host._place_lock:
+        placed = list(host._device.values())
+        host._device.clear()
+    for value in placed:
+        memgov.GOVERNOR.evicted("store.device", value)
+    with _cache_lock:
+        for attr in ("_ell_cache", "_ell_devs", "_ell_fns", "_tree_fns",
+                     "_tree_devs"):
+            cache = host.__dict__.get(attr)
+            if cache:
+                cache.clear()
+        for snap in list(MIXED_TREE_HOSTS):
+            for attr in ("_tree_fns", "_tree_devs"):
+                cache = snap.__dict__.get(attr, {})
+                for key in [k for k in cache if host in k[-1]]:
+                    del cache[key]
+
+
+# snapshots that keep tree programs over a pulled tablet's host and
+# their own data (`_tree_kernel_for`): `release_host` purges them
+MIXED_TREE_HOSTS: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def _note_ell_cache(hit: bool) -> None:

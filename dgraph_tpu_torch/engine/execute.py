@@ -1,13 +1,14 @@
 """SubGraph execution: one root block at a time, level by level.
 
-Port of `dgraph_tpu/engine/execute.py` without the mesh and remote-task
-branches. An eligible root block runs first as one
-whole-block program (`engine/fused.py`, which ignores
-`device_threshold`, as the reference's does); the rest is the staged
-route below. Each level's expansion is ONE batched CSR
-gather over the whole frontier: frontiers of at least
-`device_threshold` rows expand on the device through torch ops
-(`ops/hop.py:gather_edges`, or the fused `ops/level.py:expand_level`
+Port of `dgraph_tpu/engine/execute.py` without the mesh branches (ROADMAP
+Queue 1 item 10). On a clustered Alpha's routed view a small-frontier
+hop over a foreign tablet runs on its owner (`expand`, route "remote").
+An eligible root block runs first as one whole-block program
+(`engine/fused.py`, which ignores `device_threshold`, as the
+reference's does); the rest is the staged route below. Each level's
+expansion is ONE batched CSR gather over the whole frontier: frontiers
+of at least `device_threshold` rows expand on the device through torch
+ops (`ops/hop.py:gather_edges`, or the fused `ops/level.py:expand_level`
 where no ordering, facet filter or `after` cursor needs per-edge host
 logic); smaller ones take the host numpy walk `csr_rows`. Every route
 produces the same (neighbors, seg, edge_pos) triple. The device gather
@@ -68,7 +69,7 @@ from dgraph_tpu_torch.utils.metrics import METRICS
 
 EMPTY64 = np.zeros(0, np.int64)
 
-ROUTES = ("device", "fused", "program", "numpy", "empty")
+ROUTES = ("device", "fused", "program", "numpy", "remote", "empty")
 
 
 @dataclass
@@ -98,7 +99,8 @@ class RouteCounts:
     """Expansions and edges per execution route: `device` (gather_edges
     on the device), `fused` (expand_level on the device), `program` (a
     hop or recurse stage of a whole-block program, `engine/fused.py`),
-    `numpy` (the host walk) and `empty` (nothing to expand).
+    `numpy` (the host walk), `remote` (a hop its owner served over the
+    worker transport) and `empty` (nothing to expand).
     `least_bytes` sums, per device route, the bytes its op must move:
     each input read once (the frontier, its rows' indptr pairs, the
     edges' indices, the allowed set) and each output written once (the
@@ -187,11 +189,31 @@ class Executor:
         self.val_vars: dict[str, dict[int, object]] = {}
 
     # -- frontier expansion (the hot op) ------------------------------------
-    def expand(self, pred: str, reverse: bool, frontier: np.ndarray):
+    def expand(self, pred: str, reverse: bool, frontier: np.ndarray,
+               allow_remote: bool = True):
         """Whole-frontier CSR expansion → (neighbors, seg, edge_pos) host
         arrays. `edge_pos` indexes the CSR of the expansion direction;
-        facet consumers map reverse positions through facet_positions()."""
+        facet consumers map reverse positions through facet_positions().
+
+        On a routed view (a clustered Alpha's, `cluster/routed.py`), a
+        small-frontier hop over a foreign tablet may run on its OWNER
+        through ServeTask instead of faulting the whole tablet in
+        (reference: ProcessTaskOverNetwork), counted as route "remote";
+        remote results carry no edge positions, so callers needing
+        facets pass allow_remote=False."""
         t0 = time.perf_counter()
+        if allow_remote and len(frontier):
+            remote = getattr(self.store, "remote_expand", None)
+            out = remote(pred, reverse, frontier) if remote is not None \
+                else None
+            if out is not None:
+                self.routes.add("remote", len(out[0]))
+                if len(out[0]):
+                    costprior.PRIORS.learn_route(
+                        "remote", (time.perf_counter() - t0) * 1e6
+                        / len(out[0]) * 1000.0)
+                    costprofile.add_tablet_cost(pred, len(out[0]) // 16 + 1)
+                return out
         rel = self.store.rel(pred, reverse)
         # cost-model regressor: the largest tablet this request touched
         costprofile.note_max("tablet_rows", int(len(rel.indptr)) - 1)
@@ -562,7 +584,9 @@ class Executor:
             fused = self._fused_level(sg, frontier)
             if fused is not None:
                 return (*fused, True)
-            nbrs, seg, pos = self.expand(sg.attr, sg.is_reverse, frontier)
+            nbrs, seg, pos = self.expand(
+                sg.attr, sg.is_reverse, frontier,
+                allow_remote=not _needs_facets(sg))
             nbrs, seg, pos = self.filter_edges(sg.filters, nbrs, seg, pos)
             nbrs, seg, pos = self.facet_filter_edges(sg, sg.attr, nbrs,
                                                      seg, pos)

@@ -774,6 +774,16 @@ def reset(counters: bool = True) -> None:
 
 # -- runtime --------------------------------------------------------------------
 
+def _routed(store) -> bool:
+    """Does `store`, or a view it wraps (an ACL view over a routed one),
+    route foreign tablets over the wire (`cluster/routed.RoutedView`)?"""
+    while store is not None:
+        if getattr(store, "remote_expand", None) is not None:
+            return True
+        store = getattr(store, "_base", None)
+    return False
+
+
 def try_fused(ex, sg):
     """The engine hook (`Executor._run_block`): serve one root block as
     one program, or return None for the staged route. Counts the route
@@ -781,8 +791,14 @@ def try_fused(ex, sg):
     degrades the shape to the staged route on the same device. On the
     card any other failure of a program (capture, launch) raises. On the
     CPU it is logged, its shape goes to the staged route for good, and
-    the staged route serves."""
+    the staged route serves. A routed view (a clustered Alpha's,
+    `cluster/routed.py`) runs the staged route, as in the reference:
+    reading its plan's relations would fault foreign tablets over the
+    wire inside the warm-up and the capture."""
     if not enabled():
+        return None
+    if _routed(ex.store):
+        _route("staged")
         return None
     from dgraph_tpu_torch.engine import shape_of
     shape = shape_of([sg])

@@ -62,6 +62,8 @@ def expand_recurse(ex, root) -> None:
     if args.loop and not args.depth:
         raise ValueError("@recurse(loop: true) requires depth")
 
+    from dgraph_tpu_torch.engine.execute import _needs_facets
+
     data = split_children(ex, root.sg, RecurseData(loop=args.loop))
     frontier = root.nodes
     seen = root.nodes.copy()
@@ -74,7 +76,9 @@ def expand_recurse(ex, root) -> None:
         level: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         new_parts = []
         for i, esg in enumerate(data.edge_sgs):
-            nbrs, seg, pos = ex.expand(esg.attr, esg.is_reverse, frontier)
+            nbrs, seg, pos = ex.expand(
+                esg.attr, esg.is_reverse, frontier,
+                allow_remote=not _needs_facets(esg))
             nbrs, seg, pos = ex.filter_edges(esg.filters, nbrs, seg, pos)
             nbrs, seg, pos = ex.facet_filter_edges(esg, esg.attr, nbrs,
                                                    seg, pos)

@@ -218,7 +218,10 @@ def _weighted_one(ex, data: PathData, src: int, dst: int, wkeys,
     banned_us = {u for u, _, _ in banned_edges}
 
     def relax_edges(frontier, i, esg):
-        nbrs, seg, pos = ex.expand(esg.attr, esg.is_reverse, frontier)
+        # a weighted hop reads edge facets: never the remote route,
+        # whose answers carry no edge positions
+        nbrs, seg, pos = ex.expand(esg.attr, esg.is_reverse, frontier,
+                                   allow_remote=not wkeys[i])
         nbrs, seg, pos = ex.filter_edges(esg.filters, nbrs, seg, pos)
         if not len(nbrs):
             return nbrs, seg, np.zeros(0)

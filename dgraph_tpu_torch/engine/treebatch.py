@@ -460,14 +460,31 @@ def _tree_kernel_for(store, plan: TreePlan, rels, n: int, W: int, device):
     direction, device) and shared across signatures."""
     import torch
 
-    from dgraph_tpu_torch.engine.batch import _cache_host, _dev_for
+    from dgraph_tpu_torch.engine.batch import (MIXED_TREE_HOSTS,
+                                               _cache_host, _dev_for)
     from dgraph_tpu_torch.ops.bfs import make_ell_tree, prepare_parts
 
     # on the snapshot when every stage reads the snapshot's data (an ACL
-    # view's readable predicates), else on the store itself
-    hosts = {_cache_host(store, a, r) for a, r in rels}
-    host = hosts.pop() if len(hosts) == 1 else store
-    key = (plan.sig, W, str(device))
+    # view's readable predicates), on a pulled tablet's host when every
+    # stage reads it; a routed view's mix of the snapshot's data and
+    # pulled tablets goes on the snapshot, keyed by the pulled tablets'
+    # hosts (`engine/batch.py:release_host` purges it); else on the
+    # store itself
+    rel_host = {rkey: _cache_host(store, *rkey) for rkey in rels}
+    hosts = set(rel_host.values())
+    snap = getattr(store, "_ell_host", store)
+    if len(hosts) == 1:
+        host = hosts.pop()
+    elif store not in hosts and snap is not store:
+        host = snap
+        with _cache_lock:
+            MIXED_TREE_HOSTS.add(snap)
+    else:
+        host = store
+    tags = {rkey: (h,) if h is not host else () for rkey, h in
+            rel_host.items()}
+    key = (plan.sig, W, str(device),
+           tuple(h for h in rel_host.values() if h is not host))
     with _cache_lock:
         fns = host.__dict__.setdefault("_tree_fns", {})
         if key in fns:
@@ -476,7 +493,7 @@ def _tree_kernel_for(store, plan: TreePlan, rels, n: int, W: int, device):
     with _cache_lock:
         devs = host.__dict__.setdefault("_tree_devs", {})
         for (attr, reverse), g in rels.items():
-            dkey = (attr, reverse, str(device))
+            dkey = (attr, reverse, str(device), tags[(attr, reverse)])
             if dkey not in devs:
                 perm_in = np.concatenate([g.perm_order, [n]])
                 out_idx = np.concatenate([g.new_of_old, [n]])
@@ -487,7 +504,8 @@ def _tree_kernel_for(store, plan: TreePlan, rels, n: int, W: int, device):
         stage_descs = []
         for s in plan.stages:
             perm_in, out_idx, prepared = devs[(s.attr, s.reverse,
-                                               str(device))]
+                                               str(device),
+                                               tags[(s.attr, s.reverse)])]
             stage_descs.append({
                 "kind": s.kind, "prepared": prepared, "perm_in": perm_in,
                 "out_idx": out_idx, "parent": s.parent,

@@ -252,6 +252,13 @@ class AclView(Store):
             return self._base.device_rel(pred, reverse, device)
         return Store.device_rel(self, pred, reverse, device)
 
+    def tablet_host(self, pred):
+        """A pulled tablet's host when the view reads it through a routed
+        view (`cluster/routed.py`), else None."""
+        pulled = getattr(self._base, "tablet_host", None)
+        return pulled(pred) if pulled is not None and self._shared(pred) \
+            else None
+
     def vec_tablet(self, pred):
         if self._shared(pred):
             return self._base.vec_tablet(pred)

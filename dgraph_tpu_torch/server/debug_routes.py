@@ -4,10 +4,9 @@ Port of `dgraph_tpu/server/debug_routes.py`, with only the rows whose
 handlers exist here. `server/http.py` renders `GET /debug` from this
 dict and keys its dispatch tables (`_DEBUG_GET` / `_DEBUG_POST`) on the
 same paths; `tests/test_torch_http.py` pins the two to each other in
-both directions. The reference's `/debug/peers`, `/debug/fleet` and
-`/debug/fleet/flight` come with the cluster (ROADMAP Queue 1 item 9e);
-`/debug/locks`, `/debug/races`, `/debug/flightrecorder`,
-`/debug/timeseries` and `/debug/slo` with item 9f.
+both directions. The reference's `/debug/fleet/flight`, `/debug/locks`,
+`/debug/races`, `/debug/flightrecorder`, `/debug/timeseries` and
+`/debug/slo` come with ROADMAP Queue 1 item 9f.
 
 Import-free, so a tool can read the inventory without the server.
 """
@@ -20,8 +19,8 @@ DEBUG_ENDPOINTS: dict[str, str] = {
     "/debug/prometheus_metrics":
         "GET: every metric series in Prometheus text exposition format",
     "/debug/traces":
-        "GET: span JSON; ?trace_id= one request's spans, ?n= limits the "
-        "recent ring",
+        "GET: span JSON; ?trace_id= one request's spans, ?peer= proxies "
+        "a cluster peer's registry, ?n= limits the recent ring",
     "/debug/events":
         "GET: the same spans as Chrome trace-event JSON — load the "
         "body in Perfetto / chrome://tracing",
@@ -41,6 +40,13 @@ DEBUG_ENDPOINTS: dict[str, str] = {
         "fused-vs-staged route counts + program cache",
     "/debug/admission":
         "GET: per-lane inflight/queued/shed counts + limits",
+    "/debug/peers":
+        "GET: per-peer circuit-breaker state, EMA latency, last error "
+        "+ zero health",
+    "/debug/fleet":
+        "GET: cluster-wide snapshot — per-node fragments fanned out "
+        "over the worker transport, exactly-merged cost digests, "
+        "instance-labeled metrics; degrades per dark peer, never 500s",
     "/debug/memory":
         "GET: memory-governor snapshot — per-cache resident bytes / "
         "registrants / evictions against the device+host budgets and "

@@ -1,9 +1,9 @@
-"""HTTP API: the single-node Alpha's REST surface.
+"""HTTP API: an Alpha's REST surface.
 
-Port of `dgraph_tpu/server/http.py` without its cluster branches.
-Reference parity: `dgraph/cmd/alpha/run.go` HTTP handlers — POST
-/query, /query/batch, /mutate, /commit, /alter, /login and the /admin
-triggers; GET /health, /state (the single-node topology document),
+Port of `dgraph_tpu/server/http.py`. Reference parity:
+`dgraph/cmd/alpha/run.go` HTTP handlers — POST /query, /query/batch,
+/mutate, /commit, /alter, /login and the /admin triggers; GET /health,
+/state (the topology document: a single node's, or Zero's membership),
 /admin/maintenance and the /debug surface (server/debug_routes.py).
 stdlib `ThreadingHTTPServer`: every request runs on its own thread
 against the one Alpha, whose reads run on its device (the card by
@@ -20,9 +20,13 @@ registration and its cost record. Errors map to codes: 409 aborted txn,
 duration form) or `X-Deadline-Ms`; an inbound `X-Trace-Id` joins the
 caller's trace and every answer echoes its trace id.
 
-The gRPC worker (`server/task.py`), `/debug/peers` and `/debug/fleet*`
-come with the cluster (ROADMAP Queue 1 item 9e); the flight recorder,
-time series, SLO and lock-sanitizer surfaces with item 9f.
+Over a clustered Alpha (`cluster.start_cluster_alpha`), /state is Zero's
+membership, `/debug/peers` the node's breaker table and `/debug/fleet`
+every node's snapshot gathered over the worker transport
+(server/fleet.py); `/debug/traces?peer=` pulls a peer's spans. Those
+branches import `grpc` when they run, so a single-node server loads no
+`grpc`. `/debug/fleet/flight`, the flight recorder, time series, SLO and
+lock-sanitizer surfaces come with ROADMAP Queue 1 item 9f.
 
     srv = make_http_server(alpha, "127.0.0.1", 0)
     serve_background(srv)          # port: srv.server_address[1]
@@ -66,6 +70,8 @@ _DEBUG_GET = {
     "/debug/scheduler": "_dbg_scheduler",
     "/debug/admission": "_dbg_admission",
     "/debug/memory": "_dbg_memory",
+    "/debug/peers": "_dbg_peers",
+    "/debug/fleet": "_dbg_fleet",
 }
 _DEBUG_POST = {
     "/debug/profile": "_post_profile",
@@ -163,6 +169,10 @@ def make_http_server(alpha: Alpha, addr: str = "127.0.0.1",
         def _send_bytes(self, code: int, data: bytes,
                         ctype: str = "application/json",
                         headers: dict | None = None):
+            held = getattr(self, "_held", None)
+            if held is not None:     # answered once its span is recorded
+                held.append((code, data, ctype, headers))
+                return
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(data)))
@@ -221,18 +231,53 @@ def make_http_server(alpha: Alpha, addr: str = "127.0.0.1",
                 self._send(200, [{"status": "healthy",
                                   "uptime": int(dl.monotonic_s() - start_time)}])
             elif self.path == "/state":
-                # the single node's topology document (the cluster's,
-                # with Zero's membership, comes with ROADMAP item 9e)
-                st = {"counter": alpha.oracle.max_assigned,
-                      "groups": {"1": {"members": {"1": {
-                          "id": "1", "addr": f"{addr}:{port}",
-                          "leader": True, "alive": True}},
-                          "tablets": {p: {"predicate": p}
-                                      for p in
-                                      alpha.mvcc.schema.predicates}}},
-                      "dead": [],
-                      "maxUID": alpha.oracle.max_uid,
-                      "maxTxnTs": alpha.oracle.max_assigned}
+                if alpha.groups is not None:
+                    # cluster mode: real topology from Zero, including
+                    # liveness (reference: /state mirrors the membership
+                    # stream with health marking). Zero being down must
+                    # produce an error RESPONSE, not a crashed handler.
+                    import grpc as _grpc
+                    try:
+                        ms = alpha.groups.zero.membership()
+                    except _grpc.RpcError as e:
+                        self._send(503, {"errors": [{
+                            "message": f"zero unreachable: {e.code()}"}]})
+                        return
+                    dead = {int(d) for d in ms.dead}
+
+                    def group_doc(grp):
+                        # any-coordinator design: no raft leader; the
+                        # flag marks the lowest LIVE member for shape
+                        # parity (none when the whole group is dark)
+                        live = [int(m) for m in grp.nodes
+                                if int(m) not in dead]
+                        lead = min(live) if live else None
+                        return {
+                            "members": {str(n): {
+                                "id": str(n), "addr": a,
+                                "leader": int(n) == lead,
+                                "alive": int(n) not in dead}
+                                for n, a in grp.nodes.items()},
+                            "tablets": {p: {"predicate": p}
+                                        for p in grp.tablets}}
+
+                    st = {"counter": int(ms.counter),
+                          "groups": {str(g): group_doc(grp)
+                                     for g, grp in ms.groups.items()},
+                          "dead": sorted(dead),
+                          "maxUID": alpha.mvcc.uid_high(),
+                          "maxTxnTs": alpha.oracle.max_assigned}
+                else:
+                    st = {"counter": alpha.oracle.max_assigned,
+                          "groups": {"1": {"members": {"1": {
+                              "id": "1", "addr": f"{addr}:{port}",
+                              "leader": True, "alive": True}},
+                              "tablets": {p: {"predicate": p}
+                                          for p in
+                                          alpha.mvcc.schema.predicates}}},
+                          "dead": [],
+                          "maxUID": alpha.oracle.max_uid,
+                          "maxTxnTs": alpha.oracle.max_assigned}
                 self._send(200, st)
             elif (route := _route_of(self.path, _DEBUG_GET)) is not None:
                 getattr(self, _DEBUG_GET[route])()
@@ -340,6 +385,35 @@ def make_http_server(alpha: Alpha, addr: str = "127.0.0.1",
                 self._send(200, {"enabled": True,
                                  **alpha.admission.status()})
 
+        def _dbg_peers(self):
+            # per-peer resilience state: breaker state, EMA
+            # latency, consecutive failures, last error — the
+            # operator's answer to "which replica is dying on us"
+            # (cluster/resilience.py PeerTable.snapshot)
+            if alpha.groups is None:
+                self._send(200, {"enabled": False})
+            else:
+                res = getattr(alpha.groups, "resilience", None)
+                doc = {"enabled": res is not None,
+                       "peers": res.snapshot() if res else {}}
+                zh = getattr(alpha.groups.zero, "health", None)
+                if zh is not None:
+                    doc["zero"] = zh.snapshot()
+                self._send(200, doc)
+
+        def _dbg_fleet(self):
+            # cluster-wide snapshot (server/fleet.py): fan out over
+            # every known node through the pooled, breaker-aware
+            # clients; merge cost digests exactly and instance-label
+            # the metrics. Partial on peer failure — never a 500.
+            from dgraph_tpu_torch.server import fleet
+            qs = self._qs()
+            budget = float((qs.get("budget_ms")
+                            or [fleet.FLEET_BUDGET_MS])[0])
+            self._send_bytes(200, json.dumps(
+                fleet.fleet_snapshot(alpha, budget_ms=budget),
+                default=str).encode())
+
         def _dbg_memory(self):
             # memory-governor snapshot (utils/memgov.py): budgets +
             # watermarks, per-cache resident bytes/registrants/
@@ -380,6 +454,18 @@ def make_http_server(alpha: Alpha, addr: str = "127.0.0.1",
                 urllib.parse.urlsplit(self.path).query)
             tid = (qs.get("trace_id") or [None])[0]
             n = int((qs.get("n") or [256])[0])
+            peer = (qs.get("peer") or [None])[0]
+            if peer:
+                # proxy to the peer's registry over the worker
+                # transport (DebugTraces RPC): peer-leg spans become
+                # reachable from THIS node's debug surface
+                from dgraph_tpu_torch.server.task import Client
+                c = Client(peer)
+                try:
+                    dicts = c.debug_traces(trace_id=tid or "", n=n)
+                finally:
+                    c.close()
+                return [tracing.Span(**d) for d in dicts]
             if tid:
                 return tracing.trace_spans(tid)
             return tracing.recent(n)
@@ -442,12 +528,20 @@ def make_http_server(alpha: Alpha, addr: str = "127.0.0.1",
             the scheduler re-establishes it around `maintenance.job`
             (store/maintenance.py) — an operator-initiated backup is
             traceable end to end even though it runs later on the
-            scheduler thread."""
-            with tracing.trace(
-                    "http.admin",
-                    trace_id=self.headers.get("X-Trace-Id") or None,
-                    path=self.path.partition("?")[0]) as tid:
-                self._admin_dispatch(acl_user, tid)
+            scheduler thread. The answer goes out once the trace's
+            `http.admin` span is recorded, so a client that reads the
+            trace on its answer finds the whole of it."""
+            held = self._held = []
+            try:
+                with tracing.trace(
+                        "http.admin",
+                        trace_id=self.headers.get("X-Trace-Id") or None,
+                        path=self.path.partition("?")[0]) as tid:
+                    self._admin_dispatch(acl_user, tid)
+            finally:
+                self._held = None
+            for answer in held:
+                self._send_bytes(*answer)
 
         def _admin_dispatch(self, acl_user, tid):
             if alpha.acl is not None:

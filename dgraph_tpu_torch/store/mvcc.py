@@ -208,6 +208,13 @@ class _LazyFoldPreds:
         self._done: dict[str, object] = {}
         self._lock = threading.Lock()
 
+    def size_hints(self) -> dict:
+        """Delegate to the base checkpoint's manifest sizes (the
+        tablet-size heartbeat must not fold the view in); pending-layer
+        growth is below the hint's own accuracy."""
+        hints = getattr(self._base.preds, "size_hints", None)
+        return hints() if hints is not None else {}
+
     def get(self, pred, default=None):
         if pred not in self._names:
             return default
@@ -276,6 +283,9 @@ class MVCCStore:
         # pred -> [drop_ts, ...]: DropAttr history; stragglers landing
         # below a drop must not resurrect the predicate
         self.dropped: dict[str, list[int]] = {}
+        # highest uid this store has ever held (a clustered node's
+        # /state maxUID)
+        self.max_uid_seen = int(base.uids[-1]) if base.n_nodes else 0
 
     @property
     def base(self) -> Store:
@@ -301,6 +311,14 @@ class MVCCStore:
                 raise ValueError(f"duplicate commit_ts {commit_ts}")
             bisect.insort(self.layers, _Layer(commit_ts, mut),
                           key=lambda l: l.commit_ts)
+            self.max_uid_seen = max(self.max_uid_seen,
+                                    max(mut.all_uids(), default=0))
+
+    def uid_high(self) -> int:
+        """`max_uid_seen` read under the lock (the /state document's
+        maxUID while apply threads advance it)."""
+        with self._lock:
+            return self.max_uid_seen
 
     def has_applied(self, commit_ts: int) -> bool:
         """Whether a commit_ts is present as a retained delta layer."""
@@ -328,6 +346,8 @@ class MVCCStore:
             self._history = patched
             bisect.insort(self.layers, _Layer(commit_ts, mut),
                           key=lambda l: l.commit_ts)
+            self.max_uid_seen = max(self.max_uid_seen,
+                                    max(mut.all_uids(), default=0))
             self._views.clear()
 
     # -- read path ----------------------------------------------------------
@@ -542,6 +562,27 @@ class MVCCStore:
         """Oldest retained fold point — reads below this would fail."""
         with self._lock:
             return self._history[0][0]
+
+    def install_tablet(self, pred: str, pd) -> None:
+        """Swap a whole predicate's data into the newest fold (snapshot
+        resync of an owned tablet from a replica — reference: Badger
+        Stream snapshot install). Point-in-time reads below the newest
+        fold keep their old view; new reads see the resynced tablet.
+
+        The incoming blocks are rank-indexed against the CURRENT
+        vocabulary (identical cluster-wide by the vocab-touch broadcast),
+        so the state is folded to a snapshot carrying that vocabulary
+        before the swap — patching an older fold would mis-index."""
+        from dgraph_tpu_torch.store.store import Store, build_indexes
+        self.rollup()
+        with self._lock:
+            fold_ts, store = self._history[-1]
+            preds = dict(store.preds)
+            preds[pred] = pd
+            build_indexes({pred: pd})
+            self._history[-1] = (fold_ts, Store(
+                uids=store.uids, schema=store.schema, preds=preds))
+            self._views.clear()
 
     def gc(self, min_active_ts: int) -> None:
         """Drop snapshots/layers unreachable by any ts ≥ min_active_ts."""

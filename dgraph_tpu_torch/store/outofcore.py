@@ -7,8 +7,9 @@ eviction counts in `outofcore_faults_total` / `outofcore_evictions_total`.
 Each residency joins the process memory governor as the
 `outofcore.resident` cache under the host budget (utils/memgov.py),
 beside its own LRU: the governor adds the cross-cache budget, and its
-eviction surrenders the LRU-coldest tablet. Healing a corrupt tablet
-from a group replica waits for ROADMAP Queue 1 item 9e.
+eviction surrenders the LRU-coldest tablet. A clustered Alpha sets
+`heal_cb`, which heals a tablet whose segment fails its integrity check
+from a group replica.
 
 Reference parity: Badger is an LSM — the reference's data set is NEVER
 required to fit in RAM; posting lists page in from disk through the block
@@ -44,7 +45,7 @@ from collections import OrderedDict
 
 import numpy as np
 
-from dgraph_tpu_torch.store import checkpoint
+from dgraph_tpu_torch.store import checkpoint, vault
 from dgraph_tpu_torch.store.schema import parse_schema
 from dgraph_tpu_torch.store.store import PredicateData, Store, build_indexes
 from dgraph_tpu_torch.utils.metrics import METRICS
@@ -100,6 +101,13 @@ class LazyPreds:
         self.faults = 0       # tablets loaded from disk
         self.evictions = 0    # tablets dropped under budget pressure
         self.releases = 0     # tablets dropped by a streaming pass
+        # corruption-heal hook (a clustered Alpha): called with the
+        # predicate when a fault fails its integrity check; returns a
+        # replacement PredicateData pulled from a group replica
+        # (TabletSnapshot with the PeerTable's failover) or None to
+        # refuse. The healed copy serves in memory; the corrupt segment
+        # on disk is rewritten by the next checkpoint or fold.
+        self.heal_cb = None
         # join the memory governor: a re-fault reloads bit-identical
         # arrays, so the governor may take the LRU-coldest tablet
         from dgraph_tpu_torch.utils import memgov
@@ -221,10 +229,19 @@ class LazyPreds:
             # loop: usually resident now; retry covers an eviction race
 
         try:
-            # a corrupt segment raises StorageCorruption naming the file
-            pd = checkpoint.load_predicate(self._dir, pred, meta,
-                                           self._schema)
-            build_indexes({pred: pd})
+            try:
+                pd = checkpoint.load_predicate(self._dir, pred, meta,
+                                               self._schema)
+                build_indexes({pred: pd})
+            except vault.StorageCorruption:
+                # a clustered Alpha heals the bad tablet from a group
+                # replica before refusing; alone it raises, naming the file
+                heal = self.heal_cb
+                pd = heal(pred) if heal is not None else None
+                if pd is None:
+                    raise
+                build_indexes({pred: pd})
+                METRICS.inc("storage_heals_total")
             size = _pd_nbytes(pd)
             evicted = 0
             with self._lock:

@@ -2,8 +2,8 @@
 
 Port of `dgraph_tpu/store/stream.py`: `iter_tablets`, `save_streaming`,
 `write_fold`, `checkpoint_streaming` and `gc_superseded`, the same
-passes. The replica heal hook a clustered reference Alpha carries onto
-each new fold point comes with the cluster (ROADMAP Queue 1 item 9e).
+passes. A clustered Alpha's replica heal hook (`LazyPreds.heal_cb`)
+carries onto each new fold point.
 
 Reference parity: Badger's Stream framework + the background jobs the
 reference runs over it — posting-list rollups, raft snapshots, and
@@ -210,6 +210,11 @@ def checkpoint_streaming(mvcc: MVCCStore, root_dir: str,
         write_fold(mvcc, subdir, plan=plan, pace=pace, job=job)
         new_base, _ts = open_out_of_core(subdir, budget_bytes)
         new_base.preds.root_dir = root_dir  # next fold writes beside it
+        # a clustered Alpha's corruption-heal hook (replica
+        # TabletSnapshot) carries onto every new fold point
+        old_lazy = lazy_preds(mvcc.base)
+        if old_lazy is not None:
+            new_base.preds.heal_cb = old_lazy.heal_cb
         mvcc.install_fold(new_ts, new_base, plan[4])
     except BaseException:
         shutil.rmtree(subdir, ignore_errors=True)

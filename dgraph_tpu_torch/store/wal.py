@@ -98,6 +98,16 @@ def _doc_mut(doc: dict) -> Mutation:
     )
 
 
+def mut_to_bytes(mut: Mutation) -> bytes:
+    """Standalone Mutation codec (cluster broadcast payloads reuse the WAL
+    JSON encoding)."""
+    return json.dumps(_mut_doc(mut), separators=(",", ":")).encode()
+
+
+def mut_from_bytes(b: bytes) -> Mutation:
+    return _doc_mut(json.loads(b))
+
+
 class Journal:
     """Generic fsync'd append-only JSON-record log (torn-tail safe). The
     WAL layers mutation semantics on top; Zero journals its state machine
@@ -223,6 +233,18 @@ class WAL(Journal):
     def append_drop_attr(self, pred: str, ts: int) -> None:
         """Durably record a DropAttr (replay re-drops the predicate)."""
         super().append({"ts": ts, "drop_attr": pred})
+
+    def append_pend(self, mut: Mutation, commit_ts: int) -> None:
+        """Durably log a STAGED mutation (commit-quorum phase 1,
+        reference: raft log append before commit). Not applied until a
+        matching decision marker commits it; an unresolved pend is
+        invisible to readers and was never acked to any client."""
+        super().append({"ts": commit_ts, "pend": _mut_doc(mut)})
+
+    def append_decision(self, commit_ts: int, commit: bool) -> None:
+        """Durably record the coordinator's commit/abort decision for a
+        staged ts (commit-quorum phase 2; the raft commit-index analog)."""
+        super().append({"ts": commit_ts, "dec": 1 if commit else 0})
 
     def truncate(self, upto_ts: int) -> None:
         """Drop records with commit_ts ≤ upto_ts (checkpoint just absorbed

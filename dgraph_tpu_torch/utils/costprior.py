@@ -19,7 +19,7 @@ Consumers in the port: the batch planner (`engine/batch.py`:
 the route EMAs that promote the knn and feat device routes below their
 static thresholds (`store/vec.py`, `engine/feat.py`), and admission
 (server/admission.py), which takes the request's prediction with its
-token. The cluster's placement report comes with item 9e.
+token.
 
 Live counts: `cost_prior_hits_total{lane=}` and
 `cost_prior_fallbacks_total{lane=}`. The model persists as

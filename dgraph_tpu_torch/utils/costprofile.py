@@ -24,9 +24,10 @@ MAX_LABEL_SETS); later novel shapes collapse into `other` and count
 `cost_records_total{outcome=}`. The aggregate persists as JSON beside
 the checkpoint (`costprofiles.json`) and merges across restarts; a
 corrupt file counts in `sidecar_load_failures_total{file=}` and never
-aborts a boot. Per-tablet cost sums (`add_tablet_cost`) are kept for the
-cluster's placement report (item 9e, with the per-shard sums of item
-10).
+aborts a boot. Per-tablet cost sums (`add_tablet_cost`) feed a
+clustered Alpha's health report to Zero (`Alpha.report_health`), which
+tablet moves read; per-shard sums (`add_shard_cost`) wait for their
+caller, the mesh route (item 10).
 
 Surfaces: `summary()` (per-shape digests and the top-N shapes), a
 `query.cost` span per request when tracing is on, `recent()` and the
@@ -47,7 +48,8 @@ __all__ = ["FIELDS", "DIGEST_FIELDS", "FEATURE_FIELDS", "Digest",
            "Recorder", "Aggregator", "COSTS", "profile", "active",
            "note", "note_max", "add", "add_shape", "add_kernel",
            "note_launch", "launch_frame",
-           "add_tablet_cost", "tablet_costs", "recent",
+           "add_tablet_cost", "tablet_costs", "add_shard_cost",
+           "shard_costs", "recent",
            "add_sink", "remove_sink", "set_enabled", "summary",
            "save", "load", "reset"]
 
@@ -445,6 +447,9 @@ COSTS = Aggregator()
 # expansions. Bounded metrics-style (cap + "other"); ships to Zero in
 # the health heartbeat so tablet moves prefer under-loaded groups.
 _TABLET_COSTS: dict[str, int] = {}
+# per-device-shard cost sums (same µs-equivalent scale, bounded the same
+# way): the residency and balance signal of a sharded serving path
+_SHARD_COSTS: dict[str, int] = {}
 _TABLET_LOCK = threading.Lock()
 _RECENT: list = []            # ring of finished records (lock-guarded)
 _RECENT_LOCK = threading.Lock()
@@ -596,6 +601,27 @@ def tablet_costs() -> dict[str, int]:
         return dict(_TABLET_COSTS)
 
 
+def add_shard_cost(shard, us) -> None:
+    """Charge `us` µs-equivalents of work to one device shard, the
+    shard-keyed twin of `add_tablet_cost`: tablet sums drive Zero's
+    group placement, shard sums the balance of a sharded route (the
+    mesh, ROADMAP Queue 1 item 10, is its caller)."""
+    if not _ENABLED:
+        return
+    key = str(shard)
+    with _TABLET_LOCK:
+        if key not in _SHARD_COSTS \
+                and len(_SHARD_COSTS) >= MAX_LABEL_SETS:
+            key = OVERFLOW_SHAPE
+        _SHARD_COSTS[key] = _SHARD_COSTS.get(key, 0) + int(us)
+
+
+def shard_costs() -> dict[str, int]:
+    """Per-shard cost sums since process start."""
+    with _TABLET_LOCK:
+        return dict(_SHARD_COSTS)
+
+
 def recent(n: int = 100) -> list[dict]:
     with _RECENT_LOCK:
         return _RECENT[-n:]
@@ -633,4 +659,5 @@ def reset() -> None:
         _RECENT.clear()
     with _TABLET_LOCK:
         _TABLET_COSTS.clear()
+        _SHARD_COSTS.clear()
     del _SINKS[:]

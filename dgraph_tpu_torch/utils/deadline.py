@@ -23,7 +23,8 @@ thread kill.
 
 `of_thread` finds the context another thread is running under: the HTTP
 front end's disconnect watcher (server/http.py) cancels through it.
-Budget forwarding over cluster RPCs comes with ROADMAP Queue 1 item 9e.
+A cluster RPC's leg forwards the remaining budget as its gRPC timeout
+(server/task.py `Client._attempt`).
 
 Both `DeadlineExceeded` and `Cancelled` are RETRYABLE by contract: the
 server refused to spend more than the client's budget; nothing

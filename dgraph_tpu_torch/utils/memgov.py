@@ -75,9 +75,10 @@ GOVERNED_CACHES: dict[str, str] = {
     "batch.kernel": "recurse/step runners per launch configuration",
     "store.device": "per-relation CSR (indptr, indices) tensors placed "
                     "by Store.device_rel",
-    "api.tablet": "adapted tablet cache: per-(pred, snapshot) tablets "
-                  "fetched from other groups (the cluster, ROADMAP Queue "
-                  "1 item 9e; nothing on a single node registers it)",
+    "api.tablet": "pulled tablet cache: per-(pred, version, vocabulary "
+                  "width) tablets fetched from other groups, each with "
+                  "the host of its kernel caches (a clustered Alpha; "
+                  "nothing on a single node registers it)",
     "outofcore.resident": "LazyPreds resident tablets: out-of-core "
                           "postings faulted from disk under its own LRU",
     "store.vec": "float32vector embedding stacks placed by "

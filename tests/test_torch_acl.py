@@ -7,7 +7,7 @@ harness of `test_torch_lifecycle.py` with HTTP answers recorded,
 `test_torch_http.py`), then with the reference's; the transcripts must
 be equal, exactly, but for the fields `test_torch_http.py` names and the
 salted password hashes the ACL's own reads return. `test_grpc_gate`
-waits for the worker transport (ROADMAP Queue 1 item 9e).
+runs over the worker transport in `test_torch_cluster.py`.
 
 The port's own checks:
   * an ACL view reads its snapshot's device caches: after the first

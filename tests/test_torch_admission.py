@@ -13,8 +13,8 @@ sorted transcripts are compared. Tolerance: exact, but for the fields
 `test_torch_http.py` names.
 
 `test_admission.py`'s two lifecycle cases run in
-`test_torch_lifecycle.py`; its two gRPC cases wait for the worker
-transport (ROADMAP Queue 1 item 9e). Its wall-clock overhead guard has a
+`test_torch_lifecycle.py`; its two gRPC cases run over the worker
+transport in `test_torch_cluster.py`. Its wall-clock overhead guard has a
 counted counterpart here: an uncontended request takes exactly one token
 and waits in no queue, and a nested call takes none.
 
@@ -77,7 +77,7 @@ def test_reference_admission_case_on_port(module, name, tmp_path,
 def test_case_list_covers_the_module():
     """Every test_admission.py case runs on the port somewhere: here,
     in test_torch_lifecycle.py (the two lifecycle cases), or as the
-    counted counterpart below; the gRPC two wait for item 9e."""
+    counted counterpart below; the gRPC two in test_torch_cluster.py."""
     from test_torch_lifecycle import ADMISSION_CASES as LIFECYCLE
     grpc = {"test_grpc_budget_forwarding_deadline",
             "test_peer_spans_reachable_over_worker_transport"}

@@ -198,7 +198,8 @@ def test_reference_http_case_on_port(module, name, tmp_path, monkeypatch,
 
 def test_case_list_covers_the_front_end():
     """Every single-node HTTP case of test_server.py is here; the rest of
-    the module is gRPC and mesh serving (ROADMAP items 9e and 10)."""
+    the module is gRPC serving (test_torch_cluster.py) and mesh serving
+    (ROADMAP item 10)."""
     single = {n for n in dir(test_server) if n.startswith("test_")
               and "grpc" not in n and "mesh" not in n}
     assert single == set(SERVER_CASES)
@@ -239,7 +240,8 @@ def _post(url, body: bytes, ctype="application/dql"):
 
 def test_debug_inventory_and_route_tables_agree_both_ways():
     """Every inventoried path has a handler, every handler a row, and
-    no row names a route that waits for items 9e or 9f."""
+    no row names a route that waits for item 9f; the cluster's rows
+    (item 9e) are served."""
     served_paths = set(port_http._DEBUG_GET) | set(port_http._DEBUG_POST)
     assert served_paths == set(DEBUG_ENDPOINTS)
     srv = port_http.make_http_server(_alpha())
@@ -249,10 +251,11 @@ def test_debug_inventory_and_route_tables_agree_both_ways():
             assert callable(getattr(srv.RequestHandlerClass, name)), name
     finally:
         srv.server_close()
-    for later in ("/debug/peers", "/debug/fleet", "/debug/fleet/flight",
-                  "/debug/locks", "/debug/races", "/debug/flightrecorder",
-                  "/debug/timeseries", "/debug/slo"):
+    for later in ("/debug/fleet/flight", "/debug/locks", "/debug/races",
+                  "/debug/flightrecorder", "/debug/timeseries",
+                  "/debug/slo"):
         assert later not in DEBUG_ENDPOINTS
+    assert {"/debug/peers", "/debug/fleet"} <= set(DEBUG_ENDPOINTS)
     assert "torch.profiler" in DEBUG_ENDPOINTS["/debug/profile"]
 
 
@@ -273,7 +276,7 @@ def test_debug_memory_is_the_governor_status(served):
     test_debug_memory_endpoint_reports_the_lifecycle: the document is
     the governor's, with a host budget and an injected allocation
     failure that degraded a shape. The reference also lists `api.tablet`,
-    a cache the cluster fills (ROADMAP item 9e)."""
+    a cache a clustered Alpha fills."""
     a, base = served
     memgov.GOVERNOR.set_budgets(host_bytes=64 << 20)
     memgov.set_alloc_fault(lambda site: site == "dbg.site")

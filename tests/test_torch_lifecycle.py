@@ -350,8 +350,12 @@ def run_reference_case(module, name, pkg, tmp, monkeypatch, factory=None,
                        fixtures=None) -> list:
     """Run `module.name` (a function, or `Class::method`) with `pkg`'s
     objects; returns the transcript. `after(tr)` may add to it;
-    `fixtures` maps fixture names to values the caller supplies."""
+    `fixtures` maps fixture names to values the caller supplies;
+    `extra` maps module names to names bound in them, or is a function
+    of (pkg, transcript) that returns that map."""
     tr = Transcript(tmp, module.__name__)
+    if callable(extra):
+        extra = extra(pkg, tr)
     finalizers = []
     with monkeypatch.context() as m:
         with bound(module, pkg, m, tr, extra):
