@@ -353,16 +353,55 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 person side reads likes from its own card and fetches
                 nothing; (f) make_http_server over a coordinator: /state
                 lists both groups of three and the split, /debug/peers
-                every breaker, /debug/fleet all six nodes. Each part's
-                seconds printed
-  16. `route counters` (the run's totals and each phase's deltas), the
+                every breaker, /debug/fleet all six nodes; (g) the flight
+                recorder armed on a person-side coordinator: a read of a
+                fresh content-side write whose first wire attempt to the
+                content side stalls 3 s is convicted (after 1 s at the
+                least; a read before folds the new commit ts), the
+                bundle names the content-side peer and holds its flight
+                pulled over DebugFlight, and /debug/fleet/flight?peer=
+                serves it.
+                Each part's seconds printed
+  16. observability — runs between phases 14 and 15, on phase 14's SF1
+                Alpha and HTTP server, then stops that server and
+                removes its directory. (a) utils/flightrec armed with
+                the Alpha (device capture on), utils/timeseries armed at
+                0.25 s with the forecast and an SLO engine (read
+                latency, error rate, shed rate), a utils/push pusher to a
+                collector in this process: the IC mix over /query in 5
+                interleaved disarmed/armed passes (p50 of each, the
+                armed/disarmed ratios; reported, not gated) and phase
+                13's batch over /query/batch, answers equal to the
+                in-process ones, its bucket_hop launches counted from
+                zero; spans and cost records reach the collector,
+                /debug/timeseries, /debug/slo and /debug/flightrecorder
+                armed; (b) stall factor 2: an IC14 instance taught a
+                400 µs prior is convicted while /query/batch runs on
+                another client; exactly one dump, holding the IC14
+                request's query and stack, surfaces.memory with the
+                governor's device bytes and timeseries.ring, and a
+                device_profile naming bucket_hop (or, if DEVICE_WIDE
+                stayed held past 1 s, the busy card); (c) (2, 2)
+                admission under 16 clients looping the batch for 4 s:
+                forecast sheds counted, each an admission.shed event of
+                reason forecast in the ring, every 200 answer equal;
+                (d) one injected allocation failure at bfs.ell_recurse
+                absorbed (memory.oom) and one at fused.program degrading
+                (memory.degrade), answers equal, /debug/memory lists
+                timeseries.ring, the governor reset after; (e) a child
+                process started with DGRAPH_TPU_LOCK_SANITIZER=1 and
+                DGRAPH_TPU_RACE_SANITIZER=1 opens a copy of the
+                directory on the card and serves 8 concurrent /query
+                clients over cold programs plus 4 writes: no lock-order
+                cycle, no race, the long holds listed
+  17. `route counters` (the run's totals and each phase's deltas), the
                 `kernels` JSON line, then the device JSON line last
 
 Phases 6 to 12, 14 and 15 fail if any block falls back from its
 whole-block program to the staged route, and phases 2 to 12, phase 13
-(a) and (b), phase 14 and phase 15 fail if an allocation failure was
-counted or a shape degraded (no degraded route may stand in for a
-kernel's result).
+(a) and (b), phase 14, phase 16 beyond its two injected failures and
+phase 15 fail if an allocation failure was counted or a shape degraded
+(no degraded route may stand in for a kernel's result).
 
 It imports torch, numpy and dgraph_tpu_torch only.
 """
@@ -4192,12 +4231,14 @@ def data_bytes(body: bytes) -> bytes:
 
 def phase_front_end(device, g, handoff: dict,
                     disconnect_after_s: float = FRONT_DISCONNECT_AFTER_S,
-                    slow_ic14: int = FRONT_SLOW_IC14) -> dict:
+                    slow_ic14: int = FRONT_SLOW_IC14,
+                    keep: dict | None = None) -> dict:
     """Phase 14: the HTTP front end (server/http.py) over real sockets
-    on phase 13's SF1 Alpha, reopened on the card from its directory,
-    which this phase removes."""
+    on phase 13's SF1 Alpha, reopened on the card from its directory.
+    Given `keep`, a successful phase hands its Alpha, server, directory
+    and query sets on to phase 16 (which stops the server and removes
+    the directory); otherwise, or on a failure, this phase does."""
     import re
-    import shutil
     import socket
     import threading
 
@@ -4646,16 +4687,549 @@ def phase_front_end(device, g, handoff: dict,
                           "scheduler_shapes": len(shapes),
                           "profile_bucket_hop_events": len(kernels)}
         part("f_debug")
+        if keep is not None:
+            keep.update(alpha=a, server=srv, base=base, tmp=tmp,
+                        p_dir=p_dir, queries=queries, work=work,
+                        recurse=recurse, groot=groot)
     except BaseException:
         say("phase 14 front end (stopped)", **out)
+        keep = None             # a failed phase hands nothing on
         raise
     finally:
-        if srv is not None:
-            srv.shutdown()
-            srv.server_close()
-        if a is not None and a.wal is not None:
-            a.wal.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if keep is None:
+            close_front_end(a, srv, tmp)
+    return out
+
+
+def close_front_end(a, srv, tmp) -> None:
+    """Stop phase 14's server, close its Alpha's WAL and remove its
+    directory."""
+    import shutil
+    if srv is not None:
+        srv.shutdown()
+        srv.server_close()
+    if a is not None and a.wal is not None:
+        a.wal.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- phase 16: the flight recorder, the metrics history and the sanitizers ----
+
+OBS_PAIRS = 5                   # (a) interleaved disarmed/armed IC-mix passes
+OBS_TS_INTERVAL_S = 0.25        # (a) the sampler's cadence
+OBS_RING = 1 << 16              # (a) flight-ring events kept
+OBS_PUSH_INTERVAL_S = 0.2       # (a) the telemetry pusher's cadence
+OBS_STALL_FACTOR = 2.0          # (b) conviction at 2 x the prediction
+OBS_STALL_FLOOR_MS = 50.0       # (b) ... and no sooner than 50 ms
+OBS_TINY_PRIOR_US = 400.0       # (b) the IC14 instance's taught prior
+OBS_BURST_CLIENTS = 16          # (c) clients looping /query/batch over (2, 2)
+OBS_BURST_S = 4.0               # (c) how long they loop
+OBS_CHILD_THREADS = 8           # (e) concurrent /query clients, cold programs
+OBS_CHILD_WRITES = 4            # (e) writes beside them
+OBS_CHILD_TIMEOUT_S = 300       # (e) the child's time limit
+
+# (e) the child: the port with both sanitizers on from its first import
+SANITIZER_CHILD = r"""
+import json, sys, threading, time, urllib.request
+spec = json.load(open(sys.argv[1]))
+from dgraph_tpu_torch.engine import fused
+from dgraph_tpu_torch.server.api import Alpha
+from dgraph_tpu_torch.server.http import make_http_server, serve_background
+from dgraph_tpu_torch.utils import locks
+t0 = time.perf_counter()
+a = Alpha.open(spec["p_dir"], device=spec["device"],
+               device_threshold=spec["threshold"])
+srv = make_http_server(a, "127.0.0.1", 0)
+serve_background(srv)
+base = "http://127.0.0.1:%d" % srv.server_address[1]
+boot_s = time.perf_counter() - t0
+
+def post(path, body, ctype="application/dql"):
+    req = urllib.request.Request(base + path, data=body.encode(),
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.read()
+
+queries = spec["queries"]
+keys = sorted(queries)
+want = {k: a.query_raw(q) for k, q in queries.items()}
+fused.reset(counters=False)          # every program cold again
+st0 = fused.status()
+errors = []
+
+def reader(t):
+    try:
+        for j in range(len(keys)):
+            k = keys[(t * 2 + j) % len(keys)]
+            st, body = post("/query", queries[k])
+            head = b'{"data":'
+            got = body[len(head):body.rindex(b',"extensions":')]
+            if st != 200 or got != want[k]:
+                errors.append(("read", k, st))
+    except Exception as e:
+        errors.append(repr(e))
+
+def writer():
+    try:
+        for w in spec["writes"]:
+            st, body = post("/mutate?commitNow=true", w, "application/rdf")
+            if st != 200 or not json.loads(body)["data"]["txn"]["commit_ts"]:
+                errors.append(("write", st, body[:200].decode()))
+    except Exception as e:
+        errors.append(repr(e))
+
+threads = [threading.Thread(target=reader, args=(t,))
+           for t in range(spec["threads"])]
+threads.append(threading.Thread(target=writer))
+t1 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(600)
+serve_s = time.perf_counter() - t1
+for k, q in queries.items():
+    if a.query_raw(q) != want[k]:
+        errors.append(("after", k))
+st1 = fused.status()
+srv.shutdown()
+if a.wal is not None:
+    a.wal.close()
+snap = locks.GRAPH.snapshot()
+races = locks.RACES.snapshot()
+names = sorted({e["from"] for e in snap["edges"]}
+               | {e["to"] for e in snap["edges"]})
+doc = {"lock_sanitizer": locks.enabled(),
+       "race_sanitizer": locks.race_enabled(),
+       "boot_s": boot_s, "serve_s": serve_s, "errors": errors[:5],
+       "captures": st1["captures"] - st0["captures"],
+       "fallbacks": st1["fallbacks"] - st0["fallbacks"],
+       "acquires": snap["acquires_total"], "edges": len(snap["edges"]),
+       "locks_in_edges": names, "cycles": snap["cycles"],
+       "long_holds": snap["long_holds"],
+       "races_total": races["races_total"], "races": races["reports"],
+       "tracked_classes": races["tracked_classes"]}
+print(json.dumps(doc, default=str), flush=True)
+sys.exit(0 if not errors and not snap["cycles"]
+         and not races["reports"] else 1)
+"""
+
+
+class _Collector:
+    """A telemetry collector in this process: counts the spans and cost
+    records the pusher POSTs to /v1/traces and /v1/costs."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        self.lock = threading.Lock()
+        self.spans = self.costs = self.posts = 0
+        col = self
+
+        class H(BaseHTTPRequestHandler):
+            def do_POST(self):
+                doc = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                with col.lock:
+                    col.posts += 1
+                    if self.path == "/v1/traces":
+                        col.spans += sum(
+                            len(ss["spans"]) for rs in doc["resourceSpans"]
+                            for ss in rs["scopeSpans"])
+                    else:
+                        col.costs += len(doc["records"])
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+
+    def counts(self) -> dict:
+        with self.lock:
+            return {"spans": self.spans, "costs": self.costs,
+                    "posts": self.posts}
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def phase_observability(device, g, front: dict,
+                        burst_s: float = OBS_BURST_S,
+                        stall_floor_ms: float = OBS_STALL_FLOOR_MS) -> dict:
+    """Phase 16: the flight recorder, the metrics history with its SLOs
+    and forecast shedding, the telemetry pusher and the lock and race
+    sanitizers, on phase 14's SF1 Alpha and HTTP server; stops that
+    server and removes phase 14's directory at its end."""
+    import shutil
+    import tempfile
+    import threading
+
+    from dgraph_tpu_torch.models import ldbc
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
+    from dgraph_tpu_torch.utils import (costprior, flightrec, memgov, slo,
+                                        timeseries, tracing)
+    from dgraph_tpu_torch.utils.metrics import METRICS
+    from dgraph_tpu_torch.utils.push import TelemetryPusher
+
+    on_card = torch.device(device).type == "cuda"
+    a, base, tmp = front["alpha"], front["base"], front["tmp"]
+    queries, work = front["queries"], front["work"]
+    out: dict = {}
+    parts = out["parts_s"] = {}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    def fail(what, **kv):
+        raise AssertionError(f"phase 16 {what}: " + json.dumps(kv,
+                                                              default=str))
+
+    def canon(results) -> list:
+        return [json.dumps(r, sort_keys=True) for r in results]
+
+    def post_batch(qs, path="/query/batch"):
+        return http(base, path, json.dumps({"queries": qs}),
+                    ctype="application/json")
+
+    def ring(kind):
+        return [e for e in flightrec._STATE.ring.recent()
+                if e["kind"] == kind]
+
+    diag = os.path.join(tmp, "flight")
+    col = pusher = None
+    try:
+        # the front end's ACL and admission off: this phase's requests
+        # carry no token, and (c) attaches its own lanes
+        a.acl = None
+        a.admission = None
+        want = {k: a.query_raw(q) for k, q in queries.items()}
+        want_work = canon(a.query_batch(work))
+
+        # (a) armed serving: recorder, sampler with its forecast and
+        # SLOs, and a pusher to a collector in this process
+        col = _Collector()
+        pusher = TelemetryPusher(col.url, interval_s=OBS_PUSH_INTERVAL_S)
+        engine = slo.SloEngine({"read_latency_p99_us": 1_000_000.0,
+                                "error_rate": 0.01, "shed_rate": 0.05},
+                               fast_window_s=30.0, slow_window_s=120.0)
+
+        def arm():
+            flightrec.arm(diag_dir=diag, alpha=a, pusher=pusher,
+                          capture_device=True, ring_max=OBS_RING)
+            timeseries.arm(interval_s=OBS_TS_INTERVAL_S, slo_engine=engine,
+                           forecast=True)
+
+        def disarm():
+            timeseries.disarm()
+            flightrec.disarm()
+
+        def mix_pass() -> list:
+            lat = []
+            for k, q in queries.items():
+                t0 = time.perf_counter()
+                st, _h, body = http(base, "/query", q)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if st != 200 or data_bytes(body) != want[k]:
+                    fail("(a) /query", template=k, status=st,
+                         body=body[:300])
+            return lat
+
+        pusher.start()
+        p50 = {"disarmed": [], "armed": []}
+        for _ in range(OBS_PAIRS):
+            disarm()
+            p50["disarmed"].append(float(np.median(mix_pass())))
+            arm()
+            p50["armed"].append(float(np.median(mix_pass())))
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        st, _h, body = post_batch(work)
+        out["bucket_hop_launches"] = LAUNCHES["bucket_hop"]
+        if st != 200 or canon(json.loads(body)["data"]) != want_work:
+            fail("(a) /query/batch", status=st)
+        if on_card and not out["bucket_hop_launches"]:
+            fail("(a) /query/batch launched no bucket_hop")
+        time.sleep(2 * OBS_TS_INTERVAL_S)
+        end = time.perf_counter() + 10
+        while time.perf_counter() < end and not (
+                col.counts()["spans"] and col.counts()["costs"]):
+            time.sleep(0.05)
+        got = col.counts()
+        ts_doc = json.loads(http(base, "/debug/timeseries?name="
+                                 "query_latency_us")[2])
+        slo_doc = json.loads(http(base, "/debug/slo")[2])
+        fr_doc = json.loads(http(base, "/debug/flightrecorder")[2])
+        if not got["spans"] or not got["costs"] or not ts_doc["armed"] \
+                or not ts_doc["series"] or not slo_doc["armed"] or \
+                not fr_doc["armed"] or not ring("span") or \
+                not ring("cost"):
+            fail("(a) telemetry", collector=got, timeseries=ts_doc.get(
+                "points"), slo=slo_doc.get("armed"),
+                 ring=fr_doc.get("ring_stats"))
+        ratio = [x / y for x, y in zip(p50["armed"], p50["disarmed"])]
+        out["a_armed"] = {
+            "pairs": OBS_PAIRS, "requests_per_pass": len(queries),
+            "ic_mix_p50_ms": p50, "armed_over_disarmed": ratio,
+            "armed_over_disarmed_median": float(np.median(ratio)),
+            "batch_queries": len(work),
+            "bucket_hop_launches": out["bucket_hop_launches"],
+            "collector": got, "pusher": pusher.status(),
+            "ts_points": timeseries.state().ring.points_total,
+            "slo_states": {n: {w: s["windows"][w]["burn"]
+                               for w in s["windows"]}
+                           for n, s in slo_doc["states"].items()},
+            "dumps_while_serving": len(flightrec.dumps())}
+        part("a_armed")
+
+        # (b) conviction: an IC14 instance taught a tiny prior, served
+        # while /query/batch keeps the card busy on another client
+        flightrec.disarm()
+        prof = os.path.join(tmp, "flight-profile")
+        tracing.enable_device_trace(prof)
+        flightrec.arm(diag_dir=diag, alpha=a, pusher=pusher,
+                      capture_device=True, ring_max=OBS_RING, poll_s=0.02,
+                      stall_factor=OBS_STALL_FACTOR,
+                      stall_floor_ms=stall_floor_ms,
+                      min_dump_interval_s=600.0)
+        ic14 = next(q for n, q in ldbc.ic_batch(g, copies=2, seed=16)
+                    if n == "IC14")
+        want_14 = a.query_raw(ic14)
+        for _ in range(costprior.SAMPLE_FLOOR):
+            costprior.learn("read", ic14, "chip-smoke-stall",
+                            actual_us=OBS_TINY_PRIOR_US)
+        stop = threading.Event()
+        batch_answers = []
+
+        def busy():
+            while not stop.is_set():
+                batch_answers.append(post_batch(work))
+
+        t_busy = threading.Thread(target=busy, name="phase16-batch")
+        t_busy.start()
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        st, _h, body = http(base, "/query", ic14)
+        ic14_ms = (time.perf_counter() - t0) * 1e3
+        end = time.perf_counter() + 30
+        while time.perf_counter() < end and not flightrec.dumps():
+            time.sleep(0.02)
+        stop.set()
+        t_busy.join(600)
+        time.sleep(0.2)             # a later conviction would dump here
+        dumps = flightrec.dumps()
+        if st != 200 or data_bytes(body) != want_14:
+            fail("(b) the convicted request's answer", status=st)
+        for st2, _h2, b2 in batch_answers:
+            if st2 != 200 or canon(json.loads(b2)["data"]) != want_work:
+                fail("(b) a /query/batch beside the conviction", status=st2)
+        if len(dumps) != 1 or not dumps[0]["path"]:
+            fail("(b) dumps", dumps=dumps)
+        with open(dumps[0]["path"]) as f:
+            bundle = json.load(f)
+        reason = bundle["reason"]
+        op = reason.get("op", {})
+        prof_doc = bundle.get("device_profile", {})
+        kernels = prof_doc.get("kernels", [])
+        mem = bundle["surfaces"]["memory"]
+        if reason["kind"] != "request" or \
+                " ".join(ic14.split())[:200] != op.get("query") or \
+                "query_raw" not in op.get("stack", "") or \
+                mem["budgets"]["device"]["resident_bytes"] <= 0 or \
+                "timeseries.ring" not in mem["caches"]:
+            fail("(b) the bundle", reason={k: v for k, v in reason.items()
+                                           if k != "op"},
+                 query=op.get("query"), stack=op.get("stack", "")[-500:],
+                 memory=mem["budgets"])
+        busy_card = "error" in prof_doc
+        if on_card and not busy_card and \
+                not any("bucket_hop" in k for k in kernels):
+            fail("(b) the device profile names no bucket_hop",
+                 profile=prof_doc)
+        out["b_conviction"] = {
+            "dumps": len(dumps), "kind": reason["kind"],
+            "threshold_us": reason.get("threshold_us"),
+            "convicted_elapsed_us": op.get("elapsed_us"),
+            "ic14_ms": ic14_ms, "batches_beside": len(batch_answers),
+            "bundle_bytes": os.path.getsize(dumps[0]["path"]),
+            "device_profile": {"busy": busy_card,
+                               "error": prof_doc.get("error"),
+                               "kernels": len(kernels),
+                               "bucket_hop": [k for k in kernels
+                                              if "bucket_hop" in k]},
+            "governor_device_bytes":
+                mem["budgets"]["device"]["resident_bytes"]}
+        tracing.enable_device_trace(None)
+        # the taught prior goes: (c) predicts from what was learned
+        costprior.reset()
+        costprior.refit()
+        part("b_conviction")
+
+        # (c) forecast shedding: a burst on the read lane over (2, 2)
+        flightrec.disarm()
+        flightrec.arm(diag_dir=diag, alpha=a, pusher=pusher,
+                      ring_max=OBS_RING, watchdog=False)
+        a.attach_admission(2, 2)
+        f0 = METRICS.get("forecast_sheds_total", lane="read")
+        answers = []
+        t_end = time.perf_counter() + burst_s
+
+        def client():
+            while time.perf_counter() < t_end:
+                answers.append(post_batch(work))
+
+        threads = [threading.Thread(target=client)
+                   for _ in range(OBS_BURST_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        fsheds = METRICS.get("forecast_sheds_total", lane="read") - f0
+        codes = [st for st, _h, _b in answers]
+        for st, _h, b2 in answers:
+            if st == 200 and canon(json.loads(b2)["data"]) != want_work:
+                fail("(c) a 200 answer differs")
+            if st not in (200, 429):
+                fail("(c) status", status=st, body=b2[:300])
+        events = [e for e in ring("admission.shed")
+                  if e.get("reason") == "forecast"]
+        if not fsheds or len(events) != fsheds:
+            fail("(c) forecast sheds", forecast_sheds=fsheds,
+                 ring_events=len(events), codes=codes[:50],
+                 forecast=timeseries._FORECAST.status())
+        out["c_forecast"] = {
+            "clients": OBS_BURST_CLIENTS, "burst_s": burst_s,
+            "requests": len(answers),
+            "codes": {str(c): codes.count(c) for c in sorted(set(codes))},
+            "forecast_sheds": fsheds, "ring_events": len(events),
+            "shed_reasons": {r: sum(1 for e in ring("admission.shed")
+                                    if e.get("reason") == r)
+                             for r in sorted({e.get("reason") for e in
+                                              ring("admission.shed")})},
+            "forecast": timeseries._FORECAST.status()}
+        a.admission = None
+        timeseries.disarm()
+        part("c_forecast")
+
+        # (d) memory events: one absorbed allocation failure at the
+        # recurse group's launch, one degrading at a whole-block program
+        GOV = memgov.GOVERNOR
+        recurse = front["recurse"]
+        want_r = canon(a.query_batch(recurse))
+        from dgraph_tpu_torch.engine import fused
+
+        def fused_routes(q):
+            r0 = fused.status()["routes"]
+            a.query_raw(q)
+            return {k: v - r0[k] for k, v in fused.status()["routes"].items()}
+
+        # a query of one block, served by its whole-block program
+        fused_q = next(q for q in queries.values() if fused_routes(q) ==
+                       {"fused": 1, "staged": 0, "fallback": 0})
+        want_f = a.query_raw(fused_q)
+        e0 = GOV.oom_stats()
+        armed = [True]
+
+        def once(site):
+            if armed[0] and site == "bfs.ell_recurse":
+                armed[0] = False
+                return True
+            return False
+
+        memgov.set_alloc_fault(once)
+        try:
+            st, _h, body = post_batch(recurse)
+        finally:
+            memgov.set_alloc_fault(None)
+        if armed[0] or st != 200 or canon(json.loads(body)["data"]) != \
+                want_r or len(ring("memory.oom")) != 1:
+            fail("(d) the absorbed failure", fired=not armed[0], status=st,
+                 oom=ring("memory.oom"))
+        memgov.set_alloc_fault(lambda site: site == "fused.program")
+        try:
+            st, _h, body = http(base, "/query", fused_q)
+        finally:
+            memgov.set_alloc_fault(None)
+        e1 = GOV.oom_stats()
+        deg = ring("memory.degrade")
+        st_m, _h, body_m = http(base, "/debug/memory")
+        if st != 200 or data_bytes(body) != want_f or len(deg) != 1 or \
+                deg[0]["site"] != "fused.program" or \
+                e1["events"] != e0["events"] + 2 or \
+                "timeseries.ring" not in json.loads(body_m)["caches"]:
+            fail("(d) the degraded program", status=st, degrade=deg,
+                 oom=(e0, e1), memory_status=st_m)
+        out["d_memory"] = {"oom_events": e1["events"] - e0["events"],
+                           "memory_oom": ring("memory.oom"),
+                           "memory_degrade": deg,
+                           "governed": sorted(json.loads(body_m)["caches"])}
+        GOV.reset()
+        part("d_memory")
+        flightrec.disarm()
+
+        # (e) both sanitizers in a child process started with them on,
+        # over a copy of this Alpha's directory
+        a.checkpoint_to(front["p_dir"])
+        child_dir = os.path.join(tmp, "sanitized")
+        shutil.copytree(front["p_dir"], child_dir)
+        uids = [hex(int(u)) for u in g.person_uids[:OBS_CHILD_WRITES]]
+        spec = {"p_dir": child_dir, "device": device,
+                "threshold": LDBC_THRESHOLD, "queries": queries,
+                "threads": OBS_CHILD_THREADS,
+                "writes": [f'<{u}> <nickname> "sanitized {i}" .'
+                           for i, u in enumerate(uids)]}
+        spec_path = os.path.join(tmp, "sanitized.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        env = dict(os.environ, DGRAPH_TPU_LOCK_SANITIZER="1",
+                   DGRAPH_TPU_RACE_SANITIZER="1")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", SANITIZER_CHILD, spec_path], env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=OBS_CHILD_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        try:
+            doc = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            doc = None
+        if proc.returncode != 0 or doc is None:
+            fail("(e) the sanitized child", rc=proc.returncode,
+                 stdout=proc.stdout[-2000:], stderr=proc.stderr[-3000:])
+        if not doc["lock_sanitizer"] or not doc["race_sanitizer"] or \
+                doc["cycles"] or doc["races"] or doc["errors"] or \
+                doc["fallbacks"] or (on_card and not doc["captures"]):
+            fail("(e) the sanitized child", doc=doc)
+        out["e_sanitizers"] = {
+            "child_s": child_s, "boot_s": doc["boot_s"],
+            "serve_s": doc["serve_s"], "threads": OBS_CHILD_THREADS,
+            "writes": OBS_CHILD_WRITES, "captures": doc["captures"],
+            "acquires": doc["acquires"], "edges": doc["edges"],
+            "locks_in_edges": doc["locks_in_edges"],
+            "cycles": len(doc["cycles"]), "races": len(doc["races"]),
+            "long_holds": doc["long_holds"],
+            "tracked_classes": len(doc["tracked_classes"])}
+        part("e_sanitizers")
+    except BaseException:
+        say("phase 16 observability (stopped)", **out)
+        raise
+    finally:
+        timeseries.disarm()
+        flightrec.disarm()
+        slo.uninstall()
+        tracing.enable_device_trace(None)
+        memgov.set_alloc_fault(None)
+        if pusher is not None:
+            pusher.stop(flush=False)
+        if col is not None:
+            col.close()
+        close_front_end(a, front["server"], tmp)
     return out
 
 
@@ -4684,6 +5258,8 @@ CLUSTER_READ = ("{ q(func: uid(%s)) { uid first_name last_name city "
                 "has_creator { uid } reply_of { uid } has_tag { uid } "
                 "has_member { uid } container_of { uid } likes { uid } } }")
 CLUSTER_LIKES_Q = '{ q(func: eq(city, "%s")) { uid likes { uid } } }'
+CLUSTER_STALL_S = 3.0           # (g) the wedged leg to the content side
+CLUSTER_STALL_FLOOR_MS = 1000.0  # (g) conviction no sooner than this
 
 
 def _cluster_txn_groups(tx) -> set:
@@ -5272,6 +5848,70 @@ def phase_cluster(device, g, single_commit_p50_ms=None) -> dict:
                             peers["peers"].items()},
             "fleet_nodes": len(doc["nodes"]), "fleet_s": fleet_s}
         part("f_front_end")
+
+        # (g) the flight recorder across the cluster: a coordinator
+        # request waiting on a leg to the content side is convicted, and
+        # the bundle pulls that peer's flight over DebugFlight
+        from dgraph_tpu_torch.utils import flightrec
+        tag = "phase 15 flight"
+        commit_on(coords[1], [{"set_nquads": f'_:t <tag_name> "{tag}" .'}])
+        # a person-side read first: the coordinator's fold of the new
+        # commit ts (~0.6 s at SF1) is done before the convicted request,
+        # which then spends its time in the stalled leg, not in the fold
+        coords[0].query_raw(CLUSTER_READ[0] % hex(int(g.person_uids[0])))
+        content_addrs = {n["addr"] for n in group[1]}
+        fired = threading.Event()
+
+        def stall_once():
+            if not fired.is_set():
+                fired.set()
+                time.sleep(CLUSTER_STALL_S)
+
+        clients = [coords[0].groups.pool(x) for x in content_addrs]
+        diag = os.path.join(tmp, "flight")
+        flightrec.arm(diag_dir=diag, alpha=coords[0], poll_s=0.02,
+                      stall_factor=2.0, stall_floor_ms=CLUSTER_STALL_FLOOR_MS,
+                      min_dump_interval_s=600.0)
+        try:
+            for c in clients:
+                c.fault_check = stall_once
+            q_tag = '{ q(func: eq(tag_name, "%s")) { tag_name } }' % tag
+            t0 = time.perf_counter()
+            got = json.loads(coords[0].query_raw(q_tag))
+            wedged_s = time.perf_counter() - t0
+            dumps = flightrec.dumps()
+        finally:
+            for c in clients:
+                c.fault_check = None
+            flightrec.disarm()
+        bundle = {}
+        if len(dumps) == 1 and dumps[0]["path"]:
+            with open(dumps[0]["path"]) as f:
+                bundle = json.load(f)
+        reason = bundle.get("reason") or {}
+        pulled = bundle.get("peer_flight") or {}
+        if not fired.is_set() or got["q"] != [{"tag_name": tag}] or \
+                len(dumps) != 1 or reason.get("kind") != "request" or \
+                reason.get("peer") not in content_addrs or \
+                set(pulled.get("flight") or ()) < {"inflight", "ring",
+                                                   "watchdog"}:
+            fail("(g) the conviction on a peer leg", fired=fired.is_set(),
+                 answer=got, dumps=dumps, reason={k: v for k, v in
+                                                  reason.items() if k != "op"},
+                 peer_flight={k: v for k, v in pulled.items()
+                              if k != "flight"})
+        st, _h, body = http(base, "/debug/fleet/flight?peer=" +
+                            reason["peer"])
+        peer_doc = json.loads(body) if st == 200 else {}
+        if set(peer_doc) < {"armed", "inflight", "ring", "watchdog"}:
+            fail("(g) /debug/fleet/flight", status=st, body=body[:300])
+        out["g_flight"] = {"stall_s": CLUSTER_STALL_S, "wedged_s": wedged_s,
+                           "peer": reason["peer"],
+                           "peer_rpc": reason.get("peer_rpc"),
+                           "threshold_us": reason.get("threshold_us"),
+                           "peer_inflight": len(pulled["flight"]["inflight"]),
+                           "fleet_flight_keys": sorted(peer_doc)}
+        part("g_flight")
     finally:
         beat.set()
         if beater.is_alive():
@@ -5403,11 +6043,24 @@ def main() -> None:
     t0 = time.perf_counter()
     oom0 = oom_events()     # phase 13's own, which its end reset
     no_oom("phase 14 (start)", since=oom0)
+    served: dict = {}        # phase 14's Alpha and server, for phase 16
     with no_fused_fallback("phase 14"):
         front = counted("phase 14", lambda: phase_front_end(
-            device, g, front_dir))
+            device, g, front_dir, keep=served))
     say("phase 14 front end", seconds=time.perf_counter() - t0, **front)
     no_oom("phase 14", since=oom0)
+    t0 = time.perf_counter()
+    obs = counted("phase 16", lambda: phase_observability(
+        device, g, served))
+    say("phase 16 observability", seconds=time.perf_counter() - t0, **obs)
+    # phase 16 (d) injects exactly two allocation failures: one absorbed
+    # at bfs.ell_recurse, one degrading fused.program (reset after)
+    if obs["d_memory"]["oom_events"] != 2:
+        raise AssertionError(f"phase 16: {obs['d_memory']['oom_events']} "
+                             f"allocation failures, not its two")
+    oom0 += 2
+    no_oom("phase 16", since=oom0)
+    del served
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5433,6 +6086,8 @@ def main() -> None:
                      mem["bucket_hop_launches"],
                  "HTTP /query/batch (phase 14)":
                      front["bucket_hop_launches"],
+                 "HTTP /query/batch, recorder and sampler armed (phase 16)":
+                     obs["bucket_hop_launches"],
                  "cluster Alpha.query_batch (phase 15)":
                      cl["bucket_hop_launches"]},
              "segment_combine": {

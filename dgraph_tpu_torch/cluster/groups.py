@@ -1,6 +1,6 @@
 """Groups: cluster membership, tablet routing, connection pooling.
 
-Port of `dgraph_tpu/cluster/groups.py`, with a plain `threading.Lock`.
+Port of `dgraph_tpu/cluster/groups.py`, with its `groups.pool` lock.
 
 Reference parity: `worker/groups.go` (`groups()`, `BelongsTo`, tablet map
 kept fresh from Zero's membership stream) + `conn/pool.go` (one cached
@@ -11,13 +11,12 @@ exactly as the reference's first-asker rule.
 
 from __future__ import annotations
 
-import threading
-
 import grpc
 
 from dgraph_tpu_torch.cluster.resilience import PeerTable
 from dgraph_tpu_torch.cluster.zero import ZeroClient
 from dgraph_tpu_torch.utils.metrics import METRICS
+from dgraph_tpu_torch.utils import locks
 
 
 class Groups:
@@ -37,12 +36,13 @@ class Groups:
         self.resilience = PeerTable(threshold=breaker_threshold,
                                     cooldown_ms=breaker_cooldown_ms,
                                     retries=rpc_retries)
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("groups.pool")
         self._pools: dict[str, object] = {}
         self._tablets: dict[str, int] = {}
         self._groups: dict[int, dict[int, str]] = {}
         self._counter = -1
         self.refresh()
+        locks.guarded(self, "groups.pool")
 
     # -- membership ----------------------------------------------------------
     def refresh(self) -> None:

@@ -1,8 +1,8 @@
 """The cluster Oracle: timestamps, uid leases, commit arbitration.
 
-Port of `dgraph_tpu/cluster/oracle.py`, the same code with a plain
-`threading.Lock` (the reference's lock-order sanitizer, `utils/locks`,
-is not ported). Reference parity: Zero's oracle (`dgraph/cmd/zero/oracle.go` — Timestamps,
+Port of `dgraph_tpu/cluster/oracle.py`, the same code, with its
+`oracle.state` lock (`utils/locks`). Reference parity: Zero's oracle
+(`dgraph/cmd/zero/oracle.go` — Timestamps,
 commit with conflict checks, MaxAssigned watermark) and uid leasing
 (`zero.Server.AssignUids`, `dgraph/cmd/zero/assign.go`). In the reference
 this state machine is replicated via group-0 Raft; here it is a single
@@ -22,9 +22,10 @@ Transaction model (snapshot isolation, first-committer-wins):
 from __future__ import annotations
 
 import hashlib
-import threading
 import time
 from dataclasses import dataclass, field
+
+from dgraph_tpu_torch.utils import locks
 
 
 class TxnAborted(Exception):
@@ -50,13 +51,14 @@ class Oracle:
     """Timestamp + uid authority with commit conflict detection."""
 
     def __init__(self, first_ts: int = 1, first_uid: int = 1):
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("oracle.state")
         self._next_ts = first_ts
         self._next_uid = first_uid
         self._pending: dict[int, TxnStatus] = {}
         # sha1 fingerprint of conflict key → commit_ts of the last writer
         self._commits: dict[str, int] = {}
         self._max_assigned = first_ts - 1
+        locks.guarded(self, "oracle.state")
 
     # -- timestamps ---------------------------------------------------------
     def read_ts(self) -> int:

@@ -1,10 +1,8 @@
 """Peer-failure resilience: circuit breakers + budget-aware retries.
 
 Port of `dgraph_tpu/cluster/resilience.py`: `PeerTable`, `BreakerOpen`
-and the retry policy, with a plain `threading.Lock`. A breaker
-transition is a `breaker.transition` span and a `breaker_state` gauge;
-the reference also sends it to its flight recorder, which comes with
-ROADMAP Queue 1 item 9f.
+and the retry policy. A breaker transition is a `breaker.transition`
+span, a `breaker_state` gauge and a flight-recorder event.
 
 Reference parity: the reference rides on grpc-go's connection backoff
 plus raft's leader liveness — a dead peer stops being asked because the
@@ -48,13 +46,12 @@ peer C must never leak into node B's).
 from __future__ import annotations
 
 import random
-import threading
 import time
 
 import grpc
 
 from dgraph_tpu_torch.utils import deadline as dl
-from dgraph_tpu_torch.utils import tracing
+from dgraph_tpu_torch.utils import flightrec, locks, tracing
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["BreakerOpen", "PeerTable", "RETRYABLE_CODES"]
@@ -130,9 +127,10 @@ class PeerTable:
         self.backoff_s = max(backoff_ms, 0.1) / 1e3
         self.max_backoff_s = max(max_backoff_ms, backoff_ms) / 1e3
         self.max_cooldown_s = max(max_cooldown_ms, cooldown_ms) / 1e3
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("resilience.peers")
         self._peers: dict[str, _Peer] = {}
         self._rng = random.Random(0xD6B2E55)  # jitter only, never schedules
+        locks.guarded(self, "resilience.peers")
 
     # -- state machine -------------------------------------------------------
     def _peer(self, addr: str) -> _Peer:
@@ -147,6 +145,8 @@ class PeerTable:
         if to == "open":
             p.opened += 1
         METRICS.set_gauge("breaker_state", _STATE_GAUGE[to], peer=addr)
+        flightrec.emit("breaker.transition", peer=addr, frm=frm, to=to,
+                       consecutive_failures=p.fails)
         # transitions are rare; a zero-duration span doubles as the
         # event record (/debug/traces, OTLP export)
         with tracing.span("breaker.transition", peer=addr, frm=frm,

@@ -28,7 +28,6 @@ caches by the snapshot alone (ROADMAP Queue 3).
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 
 import grpc
@@ -37,6 +36,7 @@ from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.utils import deadline
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE
 from dgraph_tpu_torch.utils.metrics import METRICS
+from dgraph_tpu_torch.utils import locks
 
 
 class _RoutedPreds(dict):
@@ -114,12 +114,12 @@ class RoutedView(Store):
         # view keeps its own memo, and what it places for a predicate
         # that has no host stays here too
         self._filter_sets = OrderedDict()
-        self._filter_lock = threading.Lock()
+        self._filter_lock = locks.make_lock("routed.filter")
         self._device: dict = {}
         self._vec_tab: dict = {}
         self._vec_dev: dict = {}
         self._placed: set = set()
-        self._place_lock = threading.Lock()
+        self._place_lock = locks.make_lock("routed.place")
 
     def remote_expand(self, pred, reverse, frontier):
         """A small-frontier hop over a foreign tablet, run on its owner

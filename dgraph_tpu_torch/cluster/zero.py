@@ -4,8 +4,9 @@ Port of `dgraph_tpu/cluster/zero.py`, all of it: `ZeroState` with its
 journal, compaction, leases, heartbeats, replica cursor and `promote`,
 `ZeroService` and `make_zero_server`, `move_tablet` and `rebalance_once`,
 `elect_better` and `run_standby`, `ZeroClient` and `RemoteOracle`.
-Zero holds no tensors and takes no device. Its locks are plain
-`threading` locks, and its gRPC method paths are the reference's
+Zero holds no tensors and takes no device. Its locks are the
+reference's (`zero.state`, `zero.remote_oracle`), and its gRPC method
+paths are the reference's
 (`dgraph_tpu.Zero`), so a port Alpha joins a reference Zero and the
 reverse. The messages are the port's own (`protos/task_pb2.py`).
 
@@ -24,7 +25,6 @@ streamed — same information, simpler transport.
 
 from __future__ import annotations
 
-import threading
 import time
 from concurrent import futures
 
@@ -32,6 +32,7 @@ import grpc
 
 from dgraph_tpu_torch.cluster.oracle import Oracle, TxnAborted
 from dgraph_tpu_torch.protos import task_pb2 as pb
+from dgraph_tpu_torch.utils import locks
 
 SERVICE_ZERO = "dgraph_tpu.Zero"
 
@@ -68,7 +69,7 @@ class ZeroState:
         self.replicas = replicas
         self.txn_timeout_s = txn_timeout_s
         self.liveness_s = liveness_s
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("zero.state")
         self._next_node = 1
         self._next_group = 1
         # group_id -> {node_id: addr}
@@ -130,6 +131,7 @@ class ZeroState:
         for nodes in self.groups.values():
             for nid in nodes:
                 self.last_seen.setdefault(nid, now)
+        locks.guarded(self, "zero.state")
 
     def _replay(self, doc: dict) -> None:
         import time as _time
@@ -1194,9 +1196,10 @@ class RemoteOracle:
 
     def __init__(self, zero: ZeroClient):
         self.zero = zero
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("zero.remote_oracle")
         self._local_pending: set[int] = set()
         self._max_seen = 0
+        locks.guarded(self, "zero.remote_oracle")
 
     def read_ts(self) -> int:
         ts = self.zero.read_ts()

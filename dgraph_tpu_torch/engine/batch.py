@@ -65,7 +65,6 @@ block ("kernel") and per walked-back level ("bfs"); groups count in
 
 from __future__ import annotations
 
-import threading
 import time
 import weakref
 
@@ -81,6 +80,7 @@ from dgraph_tpu_torch.utils import (costprior, costprofile, deadline, memgov,
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from dgraph_tpu_torch.utils.jitcache import Memo
 from dgraph_tpu_torch.utils.metrics import METRICS
+from dgraph_tpu_torch.utils import locks
 
 MIN_BATCH = 4            # below this the per-query engine is cheaper
 # a group SMALLER than MIN_BATCH still earns a launch when its predicted
@@ -343,7 +343,7 @@ def order_plans_by_cost(plans):
 # query template skips parse + planning. Plans carry only parsed
 # SubGraphs — seeds are evaluated against the CURRENT store at run time.
 _plan_memo = Memo("batch.plan", capacity=256, governed="batch.plan")
-_cache_lock = threading.Lock()
+_cache_lock = locks.make_lock("batch.plan_cache")
 
 
 def _schema_fingerprint(store) -> tuple:

@@ -80,7 +80,6 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 import time
 import weakref
 from collections import OrderedDict
@@ -105,6 +104,7 @@ from dgraph_tpu_torch.utils import costprofile, memgov, tracing
 from dgraph_tpu_torch.utils import deadline as dl
 from dgraph_tpu_torch.utils.device import DEVICE_WIDE
 from dgraph_tpu_torch.utils.metrics import METRICS
+from dgraph_tpu_torch.utils import locks
 
 __all__ = ["STAGE_KINDS", "FusedPlan", "enabled", "plan_block",
            "try_fused", "status", "reset", "captured"]
@@ -487,7 +487,7 @@ class _Program:
         self.rels = rels            # the CSR tensors the graph reads
         self.device = device
         self.stages, self.caps, self.layout = stages, caps, layout
-        self.lock = threading.Lock()
+        self.lock = locks.make_lock("fused.program")
         self.graph = None
         self.static_in = None
         self.static_out = None
@@ -589,7 +589,7 @@ class _Program:
 
 # -- program and caps memos, counters --------------------------------------------
 
-_lock = threading.Lock()
+_lock = locks.make_lock("fused.registry")
 _programs: OrderedDict = OrderedDict()   # key → _Program (LRU, under _lock)
 _caps_memo: dict = {}     # plan sig → last good caps (under _lock)
 _disabled: set = set()    # query shapes pinned to the staged route

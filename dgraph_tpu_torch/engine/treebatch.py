@@ -27,7 +27,6 @@ engine's, as tests/test_torch_treebatch.py asserts.
 
 from __future__ import annotations
 
-import threading
 import time
 from dataclasses import dataclass, field
 
@@ -40,13 +39,14 @@ from dgraph_tpu_torch.engine.varorder import (_filter_uses, _func_uses,
                                               execution_order)
 from dgraph_tpu_torch.utils import costprofile, deadline, tracing
 from dgraph_tpu_torch.utils.metrics import METRICS
+from dgraph_tpu_torch.utils import locks
 
 EMPTY = np.zeros(0, np.int32)
 
 MAX_KERNEL_DEPTH = 64      # recurse stages: device buffers scale with it
 MAX_STAGES = 12            # one [n+1, W] mask per stage stays resident
 
-_cache_lock = threading.Lock()
+_cache_lock = locks.make_lock("treebatch.cache")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """External id → uid assignment.
 
-Port of `dgraph_tpu/loader/xidmap.py`, the same code with plain
-`threading.Lock`s.
+Port of `dgraph_tpu/loader/xidmap.py`, the same code, with its
+`xidmap.shard` / `xidmap.pool` locks.
 
 Reference parity: `xidmap/xidmap.go` — a sharded map handing out uids for
 blank-node / external ids during loads, backed by Zero's uid leases. Here a
@@ -11,9 +11,8 @@ leases, like the reference's lease chunking).
 
 from __future__ import annotations
 
-import threading
-
 from dgraph_tpu_torch.cluster.oracle import Oracle
+from dgraph_tpu_torch.utils import locks
 
 LEASE_CHUNK = 1024
 
@@ -22,9 +21,10 @@ class XidMap:
     def __init__(self, oracle: Oracle, shards: int = 16):
         self._oracle = oracle
         self._shards = [
-            (threading.Lock(), {}) for _ in range(shards)]
-        self._pool_lock = threading.Lock()
+            (locks.make_lock("xidmap.shard"), {}) for _ in range(shards)]
+        self._pool_lock = locks.make_lock("xidmap.pool")
         self._pool: list[int] = []
+        locks.guarded(self, "xidmap.pool")
 
     def _lease(self) -> int:
         with self._pool_lock:

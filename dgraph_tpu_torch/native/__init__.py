@@ -24,9 +24,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 
 import numpy as np
+
+from dgraph_tpu_torch.utils import locks
 
 HAVE_NATIVE = True
 HAVE_EMIT = True
@@ -37,7 +38,7 @@ SOURCES = ("codec.cpp", "csr.cpp", "emit.cpp")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 BUILD_TIMEOUT_S = 300
 
-_lock = threading.Lock()
+_lock = locks.make_lock("native.build")
 _lib: ctypes.CDLL | None = None
 
 

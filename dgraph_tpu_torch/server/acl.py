@@ -42,12 +42,12 @@ import hashlib
 import hmac
 import json
 import re
-import threading
 import time
 
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import check_password, hash_password
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE
+from dgraph_tpu_torch.utils import locks
 
 __all__ = ["READ", "WRITE", "MODIFY", "GROOT", "GUARDIANS", "AclError",
            "AclManager", "AclView"]
@@ -237,7 +237,7 @@ class AclView(Store):
         self._vec_tab: dict = {}
         self._vec_dev: dict = {}
         self._placed: set = set()
-        self._place_lock = threading.Lock()
+        self._place_lock = locks.make_lock("acl.place")
 
     def _shared(self, pred: str) -> bool:
         """Does the view read `pred`'s data as the snapshot holds it?"""

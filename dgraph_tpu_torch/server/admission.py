@@ -1,10 +1,9 @@
 """Admission control: bounded concurrency, FIFO queueing, load shedding.
 
-Port of `dgraph_tpu/server/admission.py`, with plain `threading` locks
-(the lock-order sanitizer comes with ROADMAP Queue 1 item 9f). The
-reference bounds work at the `worker.Task` gRPC boundary with context
-deadlines and lets gRPC's stream limits shed the rest; a serving stack at
-north-star traffic needs the explicit form: a token-based concurrency
+Port of `dgraph_tpu/server/admission.py`. The reference bounds work at
+the `worker.Task` gRPC boundary with context deadlines and lets gRPC's
+stream limits shed the rest; a serving stack at north-star traffic
+needs the explicit form: a token-based concurrency
 limit per LANE (reads and mutations don't starve each other), a bounded
 FIFO wait queue in front of each, and shedding: when the queue is full
 the request is REFUSED with a retryable `ServerOverloaded` carrying a
@@ -35,8 +34,12 @@ Queued waiters respect the request's deadline: a request whose budget
 expires while waiting is shed (`shed_total{reason="deadline"}`). A
 memory governor still above its high watermark after an eviction pass
 (`memgov.GOVERNOR.admission_pressure`) sheds arrivals before the queue
-fills (`reason="memory_pressure"`). The reference's flight-recorder
-events and its forecast shedding come with item 9f.
+fills (`reason="memory_pressure"`). With the time-series sampler armed,
+its Holt forecast of the lane's arrivals times the predicted cost sheds
+an arrival while the hint is still short (`reason="forecast"`,
+`forecast_sheds_total{lane=}`). Every shed is an `admission.shed` event
+in the flight recorder's ring, and `head_waits()` is its watchdog's
+queue-head stall signal.
 
 The maintenance scheduler consults `saturated()` at tablet boundaries
 and yields the machine while real traffic is queued
@@ -50,7 +53,8 @@ import threading
 import time
 from collections import deque
 
-from dgraph_tpu_torch.utils import costprofile, memgov, tracing
+from dgraph_tpu_torch.utils import (costprofile, flightrec, locks, memgov,
+                                    timeseries, tracing)
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 __all__ = ["AdmissionController", "ServerOverloaded", "LANES"]
@@ -106,7 +110,7 @@ class _Lane:
         self.name = name
         self.max_inflight = max(1, int(max_inflight))
         self.queue_depth = max(0, int(queue_depth))
-        self.lock = threading.Lock()
+        self.lock = locks.make_lock(f"admission.{name}")
         self.inflight = 0
         self.waiters: deque[_Waiter] = deque()
         self.admitted_total = 0
@@ -118,6 +122,7 @@ class _Lane:
         self._last_activity = time.monotonic()
         # predicted µs currently admitted (cost-aware retry hints)
         self.inflight_cost_us = 0.0
+        locks.guarded(self, "admission.*")
 
     # -- gauges ---------------------------------------------------------------
     def _publish(self) -> None:
@@ -164,6 +169,8 @@ class _Lane:
         if cost_us is not None:
             METRICS.observe("shed_predicted_cost_us", cost_us,
                             lane=self.name)
+        flightrec.emit("admission.shed", lane=self.name, reason=reason,
+                       cost_us=cost_us)
         return ServerOverloaded(
             f"{self.name} lane overloaded: {self.inflight} "
             f"inflight, {len(self.waiters)} queued (limits "
@@ -191,6 +198,8 @@ class _Lane:
         METRICS.inc("shed_total", lane=self.name, reason="displaced")
         METRICS.observe("shed_predicted_cost_us", victim.cost_us,
                         lane=self.name)
+        flightrec.emit("admission.shed", lane=self.name,
+                       reason="displaced", cost_us=victim.cost_us)
         victim.displaced = True
         victim.event.set()
         return True
@@ -228,6 +237,16 @@ class _Lane:
             if pressured is not None:
                 hint = self._retry_after_s(len(self.waiters), cost_us)
                 raise self._overloaded(hint, "memory_pressure", cost_us)
+            # predicted-load shedding: the Holt trend over sampled
+            # arrival rates × this lane's predicted cost says demand
+            # outruns the tokens before the forecast horizon — shed NOW,
+            # while the retry hint is still short, instead of after the
+            # queue fills. Disarmed: one module-global load + None check.
+            if timeseries.forecast_probe(self.name, cost_us,
+                                         self.max_inflight):
+                METRICS.inc("forecast_sheds_total", lane=self.name)
+                hint = self._retry_after_s(len(self.waiters), cost_us)
+                raise self._overloaded(hint, "forecast", cost_us)
             if len(self.waiters) >= self.queue_depth:
                 if cost_us is None or not self._try_displace(cost_us):
                     hint = self._retry_after_s(len(self.waiters),
@@ -275,6 +294,10 @@ class _Lane:
                         self._publish()
                         METRICS.inc("shed_total", lane=self.name,
                                     reason="deadline")
+                        flightrec.emit("admission.shed",
+                                       lane=self.name,
+                                       reason="deadline",
+                                       cost_us=w.cost_us)
                 if ctx is not None:
                     ctx.check("admission")
                 raise ServerOverloaded(  # cancel-less fallback
@@ -327,7 +350,8 @@ class _Lane:
 
     def head_wait_s(self) -> tuple[float, float] | None:
         """(oldest waiter's wait seconds, service EMA seconds), or
-        None when the queue is empty: the queue-head stall signal."""
+        None when the queue is empty — the flight-recorder watchdog's
+        queue-head stall signal (utils/flightrec.py)."""
         with self.lock:
             if not self.waiters:
                 return None

@@ -70,10 +70,10 @@ the same process's handler could need: the RPCs of the commit run under
 this node's `_apply_lock` only, which a handler of ANOTHER node never
 takes.
 
-Left to ROADMAP Queue 1: the CLI, the flight recorder and the lock-order
-sanitizer (9f), the mesh (10). Deliberate differences: locks are plain
-`threading` locks, and no kernel group is served query by query after a
-failure: any failure of a group, an allocation failure its
+Every request registers with the flight recorder's watchdog
+(`flightrec.track_request`). Left to ROADMAP Queue 1: the CLI (9f), the
+mesh (10). Deliberate difference: no kernel group is served query by
+query after a failure: any failure of a group, an allocation failure its
 evict-and-retry did not absorb among them, raises out of `query_batch`
 (`engine/batch.py`).
 """
@@ -82,7 +82,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import threading
 import time
 from dataclasses import dataclass, field
 
@@ -96,9 +95,9 @@ from dgraph_tpu_torch.store.mvcc import MVCCStore, Mutation
 from dgraph_tpu_torch.store.schema import parse_schema
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import Kind, hash_password
-from dgraph_tpu_torch.utils import costprior, costprofile, memgov
+from dgraph_tpu_torch.utils import (costprior, costprofile, flightrec,
+                                    locks, memgov, tracing)
 from dgraph_tpu_torch.utils import deadline as dl
-from dgraph_tpu_torch.utils import tracing
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from dgraph_tpu_torch.utils.metrics import METRICS
 
@@ -252,13 +251,14 @@ class Alpha:
         self.acl = None  # server/acl.AclManager | None (enforcement on)
         # slow-query log threshold of the HTTP front end, ms (0 = off)
         self.slow_query_ms = 0.0
-        self._apply_lock = threading.Lock()
-        self._state_lock = threading.Lock()
+        self._apply_lock = locks.make_lock("alpha.apply")
+        self._state_lock = locks.make_lock("alpha.state")
         self._open_txns: dict[int, Txn] = {}
         self._active_reads: dict[int, int] = {}
         self._gc_tick = 0
         if base is not None and base.n_nodes:
             self.oracle.bump_uid(int(base.uids[-1]))
+        locks.guarded(self, "alpha.state")
         _register_tablet_cache(self)
 
     @classmethod
@@ -529,13 +529,20 @@ class Alpha:
             t0 = time.perf_counter()
             completed = False
             try:
-                if self.admission is not None:
-                    with self.admission.admit(lane, ctx, cost_us=predicted):
-                        # the budget may have died while queued
-                        ctx.check("admission")
+                # the flight recorder's watchdog walks this entry: a
+                # request running far past `predicted` (or wedged past
+                # its deadline) is convicted and dumped with its stack
+                with flightrec.track_request(ctx, lane,
+                                             predicted_us=predicted,
+                                             query=query_text):
+                    if self.admission is not None:
+                        with self.admission.admit(lane, ctx,
+                                                  cost_us=predicted):
+                            # the budget may have died while queued
+                            ctx.check("admission")
+                            yield ctx
+                    else:
                         yield ctx
-                else:
-                    yield ctx
                 completed = True
             except (ServerOverloaded, dl.Cancelled, PermissionError):
                 # not an error-budget burn: a shed is the shed rate's
@@ -1960,6 +1967,7 @@ class Alpha:
                     "healed corrupt tablet %s from replica %s "
                     "(on-disk copy rewrites at the next checkpoint)",
                     pred, addr)
+                flightrec.emit("storage.heal", pred=pred, replica=addr)
                 return unpack_tablet(blob, pred, self.mvcc.schema)
         return None
 

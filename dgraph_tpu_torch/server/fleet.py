@@ -5,10 +5,10 @@ Port of `dgraph_tpu/server/fleet.py`:
 * `node_snapshot(alpha)` — ONE node's fleet fragment: identity (addr,
   node id, group, build, uptime), span/propagation counters, the full
   metrics exposition, the cost-digest state (integer, exactly
-  mergeable) and the breaker states. Served over the worker transport
-  by the DebugFleet RPC. The reference's fragment also carries the
-  flight recorder's watchdog, the lock and race gates, the time series
-  and the SLO states, which come with ROADMAP Queue 1 item 9f.
+  mergeable), the breaker states, the flight recorder's watchdog and
+  dump counts, the race and lock-cycle gate counts, the time-series
+  digest and the SLO states. Served over the worker transport by the
+  DebugFleet RPC.
 
 * `fleet_snapshot(alpha)` — the `GET /debug/fleet` document: fan out
   over every known cluster node through the pooled clients (so each
@@ -17,7 +17,8 @@ Port of `dgraph_tpu/server/fleet.py`:
   gRPC deadline), and merge: cost digests combine EXACTLY, metrics
   expositions concatenate with an `instance` label per series. A dark
   or breaker-open peer degrades to an entry in `errors` — the snapshot
-  is partial, never a 500.
+  is partial, never a 500. Per-node SLO burn rates fold into one
+  worst-burn-per-objective view (`slo.worst_burn`).
 
 * identity metrics — `build_info` and `process_uptime_s`, refreshed on
   every exposition render, so scrapes always carry a live uptime.
@@ -30,7 +31,7 @@ Port of `dgraph_tpu/server/fleet.py`:
 from __future__ import annotations
 
 from dgraph_tpu_torch import __version__
-from dgraph_tpu_torch.utils import costprofile, tracing
+from dgraph_tpu_torch.utils import costprofile, flightrec, locks, tracing
 from dgraph_tpu_torch.utils import deadline as dl
 from dgraph_tpu_torch.utils.metrics import METRICS
 
@@ -71,6 +72,9 @@ def node_snapshot(alpha) -> dict:
     groups = getattr(alpha, "groups", None)
     res = getattr(groups, "resilience", None) if groups is not None \
         else None
+    races = locks.RACES.snapshot()
+    lock_graph = locks.GRAPH.snapshot()
+    fr = flightrec.state(1)  # watchdog/dump status; ring stays local
     return {
         "addr": groups.my_addr if groups is not None else "local",
         "node_id": groups.node_id if groups is not None else 0,
@@ -81,7 +85,34 @@ def node_snapshot(alpha) -> dict:
         "metrics": METRICS.render(),
         "costs": costprofile.COSTS.to_state(),
         "breakers": res.snapshot() if res is not None else {},
+        "watchdog": fr.get("watchdog", {"armed": False}),
+        "flight": {"armed": fr["armed"], "inflight": fr["inflight"],
+                   "dumps": len(fr["dumps"])},
+        "gates": {"races": races.get("races_total", 0),
+                  "lock_cycles": len(lock_graph.get("cycles", ()))},
+        # the recent-window digest + SLO states, so the fleet merge can
+        # answer "which node is burning budget" without another pull
+        "timeseries": _timeseries_fragment(),
+        "slo": _slo_fragment(),
     }
+
+
+def _timeseries_fragment() -> dict | None:
+    from dgraph_tpu_torch.utils import timeseries
+    s = timeseries.state()
+    if s is None:
+        return None
+    return s.ring.summary(60.0)
+
+
+def _slo_fragment() -> dict | None:
+    from dgraph_tpu_torch.utils import slo
+    eng = slo.ENGINE
+    if eng is None:
+        return None
+    st = eng.status()
+    return {"states": st["states"],
+            "breaches_total": st["breaches_total"]}
 
 
 def _with_instance(line: str, instance: str) -> str:
@@ -149,12 +180,29 @@ def fleet_snapshot(alpha, budget_ms: float = FLEET_BUDGET_MS) -> dict:
                 frag.get("costs") or {}))
         except Exception:  # noqa: BLE001 — a malformed fragment merges as empty
             pass
+    # per-node burn rates fold into one worst-burn-per-objective view;
+    # nodes with no engine armed are absent (partial, never a 500)
+    slo_merged: dict[str, dict] = {}
+    breaches_total = 0
+    for addr, frag in fragments.items():
+        sl = frag.get("slo") or {}
+        breaches_total += sl.get("breaches_total", 0)
+        for name, st in (sl.get("states") or {}).items():
+            for win, w in (st.get("windows") or {}).items():
+                cur = slo_merged.setdefault(name, {}).get(win)
+                if cur is None or w.get("burn", 0) > cur["burn"]:
+                    slo_merged[name][win] = {
+                        "burn": w.get("burn", 0),
+                        "breached": w.get("breached", False),
+                        "node": addr}
     return {
         "self": me,
         "nodes": {addr: {k: v for k, v in frag.items()
                          if k not in ("metrics", "costs")}
                   for addr, frag in fragments.items()},
         "errors": errors,
+        "slo": {"worst_burn": slo_merged,
+                "breaches_total": breaches_total},
         # exact merge: integer digest state is associative, so this is
         # bit-identical to merging the same fragments in-process (the
         # tier-1 test pins it against a local Aggregator.merge)

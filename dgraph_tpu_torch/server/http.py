@@ -25,8 +25,12 @@ membership, `/debug/peers` the node's breaker table and `/debug/fleet`
 every node's snapshot gathered over the worker transport
 (server/fleet.py); `/debug/traces?peer=` pulls a peer's spans. Those
 branches import `grpc` when they run, so a single-node server loads no
-`grpc`. `/debug/fleet/flight`, the flight recorder, time series, SLO and
-lock-sanitizer surfaces come with ROADMAP Queue 1 item 9f.
+`grpc`. `/debug/fleet/flight?peer=` pulls a peer's flight-recorder
+snapshot over the `DebugFlight` RPC; `/debug/flightrecorder` (GET the
+ring and watchdog, POST a one-shot bundle), `/debug/timeseries`,
+`/debug/slo`, `/debug/locks` and `/debug/races` serve the flight
+recorder, the sampler, the SLO engine and the sanitizers
+(`utils/{flightrec,timeseries,slo,locks}.py`).
 
     srv = make_http_server(alpha, "127.0.0.1", 0)
     serve_background(srv)          # port: srv.server_address[1]
@@ -49,10 +53,9 @@ from dgraph_tpu_torch.dql.upsert import is_upsert as _is_upsert
 from dgraph_tpu_torch.server.admission import ServerOverloaded
 from dgraph_tpu_torch.server.api import Alpha, TxnAborted
 from dgraph_tpu_torch.server.debug_routes import DEBUG_ENDPOINTS
-from dgraph_tpu_torch.utils import costprofile
+from dgraph_tpu_torch.utils import costprofile, flightrec, locks, tracing
 from dgraph_tpu_torch.utils import deadline as dl
 from dgraph_tpu_torch.utils import logging as xlog
-from dgraph_tpu_torch.utils import tracing
 from dgraph_tpu_torch.utils.deadline import Cancelled, DeadlineExceeded
 from dgraph_tpu_torch.utils.metrics import METRICS
 
@@ -69,12 +72,19 @@ _DEBUG_GET = {
     "/debug/profile": "_dbg_profile",
     "/debug/scheduler": "_dbg_scheduler",
     "/debug/admission": "_dbg_admission",
-    "/debug/memory": "_dbg_memory",
+    "/debug/locks": "_dbg_locks",
+    "/debug/races": "_dbg_races",
     "/debug/peers": "_dbg_peers",
+    "/debug/flightrecorder": "_dbg_flightrec",
     "/debug/fleet": "_dbg_fleet",
+    "/debug/fleet/flight": "_dbg_fleet_flight",
+    "/debug/memory": "_dbg_memory",
+    "/debug/timeseries": "_dbg_timeseries",
+    "/debug/slo": "_dbg_slo",
 }
 _DEBUG_POST = {
     "/debug/profile": "_post_profile",
+    "/debug/flightrecorder": "_post_flightrec",
 }
 
 
@@ -98,7 +108,7 @@ def _route_of(path: str, table: dict) -> str | None:
 # one hop (the log-line form carried the id; nothing served it)
 _SLOW_MAX = 256
 _SLOW_LOG: deque = deque(maxlen=_SLOW_MAX)
-_SLOW_LOCK = threading.Lock()
+_SLOW_LOCK = locks.make_lock("http.slowlog")
 
 
 def slow_queries_snapshot(trace_id: str | None = None) -> list[dict]:
@@ -414,12 +424,104 @@ def make_http_server(alpha: Alpha, addr: str = "127.0.0.1",
                 fleet.fleet_snapshot(alpha, budget_ms=budget),
                 default=str).encode())
 
+        def _dbg_fleet_flight(self):
+            # a node's flight-recorder snapshot (in-flight ops with
+            # stacks + ring + watchdog); ?peer=host:port pulls a
+            # cluster peer's over the DebugFlight worker RPC — the
+            # operator's manual form of the watchdog's peer pull
+            qs = self._qs()
+            peer = (qs.get("peer") or [None])[0]
+            n = int((qs.get("n") or [256])[0])
+            if peer:
+                from dgraph_tpu_torch.server.task import Client
+                c = Client(peer)
+                try:
+                    doc = c.debug_flight(n)
+                finally:
+                    c.close()
+            else:
+                doc = flightrec.flight_snapshot(n)
+            self._send_bytes(200, json.dumps(doc,
+                                             default=str).encode())
+
         def _dbg_memory(self):
             # memory-governor snapshot (utils/memgov.py): budgets +
             # watermarks, per-cache resident bytes/registrants/
             # evictions, allocation-failure counters, degraded shapes
             from dgraph_tpu_torch.utils import memgov
             self._send(200, memgov.GOVERNOR.status())
+
+        def _dbg_timeseries(self):
+            # retained metrics history (utils/timeseries.py): the
+            # sampler ring's windowed points — ?name= filters series
+            # by prefix, ?window= bounds the lookback seconds,
+            # ?rate=false serves raw counter deltas instead of rates
+            from dgraph_tpu_torch.utils import timeseries
+            qs = self._qs()
+            name = (qs.get("name") or [None])[0]
+            window = (qs.get("window") or [None])[0]
+            rate = (qs.get("rate") or ["true"])[0] != "false"
+            self._send_bytes(200, json.dumps(timeseries.status(
+                name=name,
+                window_s=float(window) if window else None,
+                rate=rate), default=str).encode())
+
+        def _dbg_slo(self):
+            # SLO engine state (utils/slo.py): every inventoried
+            # objective with its target and both windows' burn rates,
+            # breach counts, and the sustained-burn conviction feed
+            from dgraph_tpu_torch.utils import slo
+            eng = slo.ENGINE
+            if eng is None:
+                self._send(200, {"armed": False})
+            else:
+                self._send_bytes(200, json.dumps(
+                    {"armed": True, **eng.status()},
+                    default=str).encode())
+
+        def _dbg_locks(self):
+            # lock-order sanitizer state: acquisition-graph edges,
+            # detected cycles (each with both stacks), long holds
+            # (utils/locks.py; enabled under
+            # DGRAPH_TPU_LOCK_SANITIZER=1, else a stub)
+            self._send(200, locks.GRAPH.snapshot())
+
+        def _dbg_races(self):
+            # Eraser lockset race sanitizer state: tracked classes +
+            # every report, each with both access stacks
+            # (utils/locks.py; enabled under
+            # DGRAPH_TPU_RACE_SANITIZER=1, else a stub)
+            self._send(200, locks.RACES.snapshot())
+
+        def _dbg_flightrec(self):
+            # flight-recorder state (utils/flightrec.py): ring tail,
+            # watchdog config + conviction counts, recent dumps
+            n = int((self._qs().get("n") or [100])[0])
+            self._send_bytes(200, json.dumps(flightrec.state(n),
+                                             default=str).encode())
+
+        def _post_flightrec(self, acl_user):
+            # one-shot diagnostic bundle (admin bar): {"action":
+            # "dump"} builds the full bundle — stacks, flight ring,
+            # every debug surface, metrics, config — writes it under
+            # the armed diag dir (when one is configured) and returns
+            # it inline
+            if alpha.acl is not None:
+                alpha.acl.check_alter(acl_user)
+            body = self._body().decode()
+            req = json.loads(body) if body.strip() else {}
+            action = req.get("action", "dump")
+            if action != "dump":
+                self._send(400, {"errors": [{
+                    "message": f"unknown action {action!r} "
+                               f"(want dump)"}]})
+                return
+            out = flightrec.dump(trigger="http", alpha=alpha,
+                                 reason=req.get("reason"))
+            self._send_bytes(200, json.dumps(
+                {"data": {"path": out["path"],
+                          "bundle": out["bundle"]}},
+                default=str).encode())
 
         def _post_profile(self, acl_user):
             # on-demand torch.profiler device capture (admin bar):

@@ -6,9 +6,11 @@ Port of `dgraph_tpu/server/task.py`: `DgraphService`, `WorkerService`,
 own copy of the reference's (`protos/task_pb2.py`), so a port node and a
 reference node serve each other. `ServeTask` expands a hop through the
 port's `Executor` on the node's device: a frontier of at least
-`device_threshold` rows runs on the card. The flight recorder's
-`DebugFlight` and its in-flight RPC legs come with ROADMAP Queue 1
-item 9f.
+`device_threshold` rows runs on the card. `DebugFlight` serves this
+node's flight-recorder snapshot, and every outbound attempt is an
+in-flight leg of the recorder (`flightrec.rpc_leg`), so a watchdog
+conviction of a request waiting on a peer names that peer and pulls its
+flight.
 
 Reference parity: `worker/server.go` (grpc `pb.Worker` service —
 `ServeTask` is the boundary the north star names: an Alpha offloads
@@ -35,7 +37,7 @@ from dgraph_tpu_torch.server.admission import ServerOverloaded
 from dgraph_tpu_torch.server.api import (Alpha, NoQuorum, ReadUnavailable,
                                    StageRefused, TxnAborted)
 from dgraph_tpu_torch.utils import deadline as dl
-from dgraph_tpu_torch.utils import tracing
+from dgraph_tpu_torch.utils import flightrec, tracing
 
 SERVICE_DGRAPH = "dgraph_tpu.Dgraph"
 SERVICE_WORKER = "dgraph_tpu.Worker"
@@ -70,7 +72,8 @@ def _inbound_trace(ctx):
 # protocol must run to completion — a budget interrupt between stage
 # and decide would leak an undecided pend.
 _BUDGET_FORWARDED = {"ServeTask", "FetchLog", "TabletSnapshot",
-                     "ChainHead", "Query", "DebugTraces", "DebugFleet"}
+                     "ChainHead", "Query", "DebugTraces", "DebugFleet",
+                     "DebugFlight"}
 
 # worker RPCs the resilience layer may RE-ATTEMPT on a transport
 # failure (cluster/resilience.py). Every receive path is idempotent —
@@ -79,7 +82,8 @@ _BUDGET_FORWARDED = {"ServeTask", "FetchLog", "TabletSnapshot",
 # refuses non-transport failures (DEADLINE_EXCEEDED, app errors).
 _RETRYABLE_RPCS = {"ServeTask", "Ping", "ChainHead", "ApplyMutation",
                    "ApplyDecision", "FetchLog", "DebugTraces",
-                   "DebugFleet", "PullTablet", "TabletSnapshot"}
+                   "DebugFleet", "DebugFlight", "PullTablet",
+                   "TabletSnapshot"}
 
 
 # a whole-tablet snapshot at SF1 (TabletSnapshot, PullTablet) is tens of
@@ -415,6 +419,19 @@ class WorkerService:
             doc = fleet.node_snapshot(self.alpha)
         return pb.Payload(data=_json.dumps(doc, default=str).encode())
 
+    def DebugFlight(self, req: pb.Operation, ctx) -> pb.Payload:
+        """Serve this node's flight-recorder snapshot — every in-flight
+        op with its stack and trace spans, the flight ring, watchdog
+        state (utils/flightrec.flight_snapshot) — so a coordinator's
+        watchdog conviction (or an operator's /debug/fleet/flight
+        pull) can see what the implicated peer was doing when a leg
+        wedged. Operation.drop_attr carries the ring tail length, as
+        DebugTraces does."""
+        import json as _json
+        with _inbound_trace(ctx):
+            doc = flightrec.flight_snapshot(int(req.drop_attr or 256))
+        return pb.Payload(data=_json.dumps(doc, default=str).encode())
+
     def PullTablet(self, req: pb.PullTabletRequest, ctx) -> pb.Payload:
         """Pull a whole tablet from a peer and install it locally — the
         data-ship leg of a tablet move (reference: movePredicate's Badger
@@ -488,6 +505,7 @@ def make_server(alpha: Alpha, addr: str = "127.0.0.1:0",
             "FetchLog": _unary(w.FetchLog, pb.FetchLogRequest),
             "DebugTraces": _unary(w.DebugTraces, pb.Operation),
             "DebugFleet": _unary(w.DebugFleet, pb.Operation),
+            "DebugFlight": _unary(w.DebugFlight, pb.Operation),
             "PullTablet": _unary(w.PullTablet, pb.PullTabletRequest),
             "TabletSnapshot": _unary(w.TabletSnapshot,
                                      pb.TabletSnapshotRequest),
@@ -542,39 +560,42 @@ class Client:
         wire; a deadline that fires mid-call surfaces as
         DeadlineExceeded (ours), NOT RpcError — the peer is alive, OUR
         budget died, and callers (and the retry policy) must not
-        mistake that for an unreachable replica."""
+        mistake that for an unreachable replica. The whole attempt is
+        marked as an in-flight leg (flightrec.rpc_leg) so a watchdog
+        conviction of a request stuck here names this peer."""
         kw = {}
         tid = tracing.current_trace_id()
         if tid and tracing.enabled():
             kw["metadata"] = ((TRACE_ID_MD, tid),
                               (PARENT_SPAN_MD,
                                str(tracing.current_span_id())))
-        if self.fault_check is not None:
-            self.fault_check()
-        if method in _BUDGET_FORWARDED:
-            ctx = dl.current()
-            if ctx is not None:
-                rem = ctx.remaining_s()
-                if rem is not None:
-                    ctx.check(f"rpc.{method}")
-                    try:
-                        return rpc(req, timeout=rem, **kw)
-                    except grpc.RpcError as e:
-                        code = (e.code() if hasattr(e, "code")
-                                else None)
-                        if code == \
-                                grpc.StatusCode.DEADLINE_EXCEEDED:
-                            ctx.check(f"rpc.{method}")  # raises if dead
-                            from dgraph_tpu_torch.utils.metrics import \
-                                METRICS
-                            METRICS.inc("deadline_exceeded_total",
-                                        stage=f"rpc.{method}")
-                            raise dl.DeadlineExceeded(
-                                f"budget expired inside {method} "
-                                f"RPC",
-                                stage=f"rpc.{method}") from e
-                        raise
-        return rpc(req, **kw)
+        with flightrec.rpc_leg(self.peer_addr, method):
+            if self.fault_check is not None:
+                self.fault_check()
+            if method in _BUDGET_FORWARDED:
+                ctx = dl.current()
+                if ctx is not None:
+                    rem = ctx.remaining_s()
+                    if rem is not None:
+                        ctx.check(f"rpc.{method}")
+                        try:
+                            return rpc(req, timeout=rem, **kw)
+                        except grpc.RpcError as e:
+                            code = (e.code() if hasattr(e, "code")
+                                    else None)
+                            if code == \
+                                    grpc.StatusCode.DEADLINE_EXCEEDED:
+                                ctx.check(f"rpc.{method}")  # raises if dead
+                                from dgraph_tpu_torch.utils.metrics import \
+                                    METRICS
+                                METRICS.inc("deadline_exceeded_total",
+                                            stage=f"rpc.{method}")
+                                raise dl.DeadlineExceeded(
+                                    f"budget expired inside {method} "
+                                    f"RPC",
+                                    stage=f"rpc.{method}") from e
+                            raise
+            return rpc(req, **kw)
 
     def query(self, dql: str, start_ts: int = 0) -> dict:
         import json
@@ -646,6 +667,15 @@ class Client:
         import json as _json
         r = self._call(SERVICE_WORKER, "DebugFleet", pb.Operation(),
                        pb.Payload)
+        return _json.loads(bytes(r.data).decode())
+
+    def debug_flight(self, n: int = 256) -> dict:
+        """Pull the peer's flight-recorder snapshot (DebugFlight RPC):
+        in-flight ops with stacks + spans, flight ring tail, watchdog
+        state."""
+        import json as _json
+        r = self._call(SERVICE_WORKER, "DebugFlight",
+                       pb.Operation(drop_attr=str(n)), pb.Payload)
         return _json.loads(bytes(r.data).decode())
 
     def fetch_log(self, since_ts: int):

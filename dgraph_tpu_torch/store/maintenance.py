@@ -1,8 +1,8 @@
 """Background maintenance scheduler: paced, budget-bounded jobs.
 
-Port of `dgraph_tpu/store/maintenance.py` with a plain
-`threading.Condition`. The reference also emits each job's start and
-outcome to its flight recorder (ROADMAP Queue 1 item 9f). Like it, the
+Port of `dgraph_tpu/store/maintenance.py`. Each job's start and
+outcome is a `maintenance.job` event in the flight recorder's ring, and
+`progress` is its watchdog's stall signal. Like the reference, the
 scheduler yields to queued foreground traffic: while the Alpha's
 admission controller (server/admission.py) reports waiters, policy jobs
 are not started and a running job parks at its tablet boundary (at most
@@ -42,8 +42,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 
+from dgraph_tpu_torch.utils import flightrec, locks, tracing
 from dgraph_tpu_torch.utils import logging as xlog
-from dgraph_tpu_torch.utils import tracing
 from dgraph_tpu_torch.utils.metrics import METRICS
 
 # priorities: lower runs first
@@ -98,7 +98,7 @@ class MaintenanceScheduler:
         self._log = xlog.get("maintenance")
         self._queue: list[Job] = []
         self._seq = 0
-        self._cv = threading.Condition()
+        self._cv = locks.make_condition("maintenance.cv")
         self._resume = threading.Event()
         self._resume.set()              # not paused
         self._stop = False
@@ -111,6 +111,7 @@ class MaintenanceScheduler:
         # scheduler thread (at job start and every _pace call) — a
         # RUNNING job whose progress stops advancing is stalled
         self.progress = 0
+        locks.guarded(self, "maintenance.cv")
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "MaintenanceScheduler":
@@ -308,6 +309,8 @@ class MaintenanceScheduler:
         with self._cv:
             self._running = job.name
         self.progress += 1  # a fresh job is progress (scheduler thread)
+        flightrec.emit("maintenance.job", job=job.name,
+                       outcome="started", attempt=job.attempts)
         t0 = time.perf_counter()
         try:
             # re-join the triggering request's trace (attach is a
@@ -319,6 +322,8 @@ class MaintenanceScheduler:
                 sp.attrs["outcome"] = "ok"
             METRICS.inc("maintenance_jobs_total", job=job.name,
                         outcome="ok")
+            flightrec.emit("maintenance.job", job=job.name,
+                           outcome="ok", attempt=job.attempts)
             METRICS.observe("maintenance_job_us",
                             (time.perf_counter() - t0) * 1e6,
                             job=job.name)
@@ -326,6 +331,10 @@ class MaintenanceScheduler:
             job.done.set()
         except Exception as e:  # noqa: BLE001 — retried below
             job.attempts += 1
+            flightrec.emit("maintenance.job", job=job.name,
+                           outcome=("failed" if job.attempts
+                                    >= MAX_ATTEMPTS else "retry"),
+                           attempt=job.attempts, error=str(e)[:200])
             if job.attempts >= MAX_ATTEMPTS:
                 METRICS.inc("maintenance_jobs_total", job=job.name,
                             outcome="failed")

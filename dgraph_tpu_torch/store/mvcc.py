@@ -3,7 +3,7 @@
 Port of `dgraph_tpu/store/mvcc.py`: `Mutation`, `MVCCStore` (apply,
 read_view, rollup, absorb_straggler, drop_predicate, rebuild_base,
 fold_plan/install_fold, gc), `_LazyFoldPreds` and `_materialize`, with
-plain `threading` locks.
+the reference's `mvcc.store` / `mvcc.lazyview` locks (`utils/locks`).
 
 Reference parity: `posting/mvcc.go` + `posting/list.go` — each posting list
 is an immutable layer plus delta layers keyed by commit timestamp;
@@ -33,7 +33,6 @@ flag) folds it on the fast path.
 from __future__ import annotations
 
 import bisect
-import threading
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -44,6 +43,7 @@ from dgraph_tpu_torch.store.store import (
     ValueColumn, _csr_from_pairs, build_indexes)
 from dgraph_tpu_torch.store.types import NUMPY_DTYPE, Kind, convert
 from dgraph_tpu_torch.utils.metrics import METRICS
+from dgraph_tpu_torch.utils import locks
 
 _VIEW_CACHE = 8  # non-fold-point views retained (newest win)
 
@@ -206,7 +206,8 @@ class _LazyFoldPreds:
         self._vocab = vocab
         self._names = set(fold_preds(base, pending))
         self._done: dict[str, object] = {}
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("mvcc.lazyview")
+        locks.guarded(self, "mvcc.lazyview")
 
     def size_hints(self) -> dict:
         """Delegate to the base checkpoint's manifest sizes (the
@@ -273,7 +274,7 @@ class MVCCStore:
     """Versioned posting store: fold-point snapshots + delta layers."""
 
     def __init__(self, base: Store | None = None, base_ts: int = 0):
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("mvcc.store")
         base = base if base is not None else StoreBuilder().finalize()
         # fold points, ascending by ts; the first is the oldest snapshot
         # an open reader can still reach
@@ -286,6 +287,7 @@ class MVCCStore:
         # highest uid this store has ever held (a clustered node's
         # /state maxUID)
         self.max_uid_seen = int(base.uids[-1]) if base.n_nodes else 0
+        locks.guarded(self, "mvcc.store")
 
     @property
     def base(self) -> Store:

@@ -1,7 +1,8 @@
 """Out-of-core store: fault predicate tablets in on first touch, evict LRU.
 
 Port of `dgraph_tpu/store/outofcore.py`: `LazyPreds`, `open_out_of_core`
-and `_pd_nbytes`, with plain `threading` locks. Besides its `faults`
+and `_pd_nbytes`, with the `outofcore.residency` lock (`utils/locks`).
+Besides its `faults`
 and `evictions` attributes (the reference's), each fault and LRU
 eviction counts in `outofcore_faults_total` / `outofcore_evictions_total`.
 Each residency joins the process memory governor as the
@@ -49,6 +50,7 @@ from dgraph_tpu_torch.store import checkpoint, vault
 from dgraph_tpu_torch.store.schema import parse_schema
 from dgraph_tpu_torch.store.store import PredicateData, Store, build_indexes
 from dgraph_tpu_torch.utils.metrics import METRICS
+from dgraph_tpu_torch.utils import locks
 
 
 def _pd_nbytes(pd: PredicateData) -> int:
@@ -94,7 +96,7 @@ class LazyPreds:
         self.budget_bytes = budget_bytes
         self._resident: OrderedDict[str, PredicateData] = OrderedDict()
         self._sizes: dict[str, int] = {}
-        self._lock = threading.RLock()
+        self._lock = locks.make_rlock("outofcore.residency")
         self._inflight: dict[str, threading.Event] = {}
         self.resident_bytes = 0
         self.peak_resident_bytes = 0  # high-water mark of resident_bytes
@@ -114,6 +116,7 @@ class LazyPreds:
         memgov.govern_dict(self, "_resident", "outofcore.resident", "host",
                            lock=self._lock, on_evict=LazyPreds._evicted,
                            nbytes=lambda lp: lp.stats()["resident_bytes"])
+        locks.guarded(self, "outofcore.residency")
 
     def _evicted(self, pred: str, _pd) -> int:
         """Governor eviction of the LRU-coldest tablet, under the lock:

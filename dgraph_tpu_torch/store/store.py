@@ -34,7 +34,6 @@ state (or plain arrays), so both packages can be handed the same data.
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
@@ -49,6 +48,7 @@ from dgraph_tpu_torch.store.types import NUMPY_DTYPE, Kind, convert
 from dgraph_tpu_torch.utils import memgov
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from dgraph_tpu_torch.utils.metrics import METRICS
+from dgraph_tpu_torch.utils import locks
 
 TYPE_PRED = "dgraph.type"
 FILTER_SET_CAPACITY = 64   # memoized filter sets per store, LRU
@@ -210,7 +210,7 @@ class Store:
         self._empty_rel = EdgeRel(np.zeros(self.n_nodes + 1, np.int32),
                                   np.zeros(0, np.int32))
         self._filter_sets: OrderedDict = OrderedDict()
-        self._filter_lock = threading.Lock()
+        self._filter_lock = locks.make_lock("store.filter")
         # float32vector tablets: host stacks built from the value column,
         # and their (subj, vecs) tensors per (predicate, device)
         self._vec_tab: dict = {}
@@ -219,7 +219,7 @@ class Store:
         # governor evicted it), counted so eviction thrash is visible
         self._placed: set = set()
         # request threads place concurrently: one placement per key
-        self._place_lock = threading.Lock()
+        self._place_lock = locks.make_lock("store.place")
         # both device caches join the governor's device budget; an
         # evicted entry is placed again on next use, and a launch that
         # already holds its tensors keeps them

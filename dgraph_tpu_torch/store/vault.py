@@ -5,9 +5,8 @@ sealed by either package opens in the other), crc checks, typed
 `StorageCorruption`, the IO fault hook, and AES-GCM through the
 `cryptography` package imported only when a key is set. A key set
 without that package raises; nothing falls back to plaintext. Every
-detected corruption counts in `storage_corruption_total{file_kind=}`;
-the reference's flight-recorder event waits for the flight recorder
-(ROADMAP Queue 1 item 9f).
+detected corruption counts in `storage_corruption_total{file_kind=}`
+and is a `storage.corruption` event in the flight recorder's ring.
 
 Reference parity: the enterprise encryption-at-rest feature (SURVEY §2.5
 `ee/`) — the reference encrypts Badger SSTs and value-log blocks with an
@@ -86,6 +85,11 @@ def corruption(path: str, kind: str, detail: str = "") -> StorageCorruption:
     detection path (checkpoint load, replay, sidecars) goes through."""
     from dgraph_tpu_torch.utils.metrics import METRICS
     METRICS.inc("storage_corruption_total", file_kind=kind)
+    # lazy import: vault sits below the telemetry modules (flightrec
+    # writes its bundles through atomic_write)
+    from dgraph_tpu_torch.utils import flightrec
+    flightrec.emit("storage.corruption", file=path, file_kind=kind,
+                   detail=detail[:200])
     return StorageCorruption(path, kind=kind, detail=detail)
 
 

@@ -1,8 +1,8 @@
 """Write-ahead log for committed mutations.
 
 Port of `dgraph_tpu/store/wal.py`, the same record format and codec, so a
-log written by either package replays in the other. The write lock is a
-plain `threading.Lock`.
+log written by either package replays in the other. The write lock is
+`wal.write` (`utils/locks`).
 
 Reference parity: the durability role Badger plays in the reference —
 every committed txn is on disk before the commit call returns, so a crash
@@ -25,7 +25,6 @@ from __future__ import annotations
 import json
 import os
 import struct
-import threading
 import zlib
 from typing import Iterator
 
@@ -33,6 +32,7 @@ import numpy as np
 
 from dgraph_tpu_torch.store import vault
 from dgraph_tpu_torch.store.mvcc import Mutation
+from dgraph_tpu_torch.utils import locks
 
 MAGIC = b"DGW1"   # legacy frames (pre ordinal binding) — read-only
 MAGIC2 = b"DGW2"  # current frames: payload AAD-bound to the ordinal
@@ -129,10 +129,11 @@ class Journal:
                     f.truncate(valid_end)
                     f.flush()
                     os.fsync(f.fileno())
-        self._wlock = threading.Lock()
+        self._wlock = locks.make_lock("wal.write")
         self._f = open(path, "ab")
         if needs_reseal:
             self._reseal_legacy()
+        locks.guarded(self, "wal.write")
 
     def _reseal_legacy(self) -> None:
         """Legacy frames (pre-ordinal DGW1, or plaintext written before

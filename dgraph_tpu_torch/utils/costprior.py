@@ -1,8 +1,7 @@
 """Per-shape cost priors: the deciding half of the cost model.
 
-Port of `dgraph_tpu/utils/costprior.py` with plain `threading` locks
-(ROADMAP Queue 1 item 9f); no device code. It turns the cost profile's
-digests (utils/costprofile.py) into priors the serving loop consults
+Port of `dgraph_tpu/utils/costprior.py`; no device code. It turns the
+cost profile's digests (utils/costprofile.py) into priors the serving loop consults
 BEFORE running a request. Per shape fingerprint the prior is the
 percentile blend of the digest, p50 + BLEND·(p90−p50), refit
 incrementally as requests complete (an EMA toward the observed cost) and
@@ -31,11 +30,11 @@ from __future__ import annotations
 
 import json
 
-import threading
 
 from dgraph_tpu_torch.utils import costprofile
 from dgraph_tpu_torch.utils.costprofile import Digest
 from dgraph_tpu_torch.utils.metrics import MAX_LABEL_SETS, METRICS
+from dgraph_tpu_torch.utils import locks
 
 __all__ = ["FEATURES", "SAMPLE_FLOOR", "BLEND", "CostPriorModel",
            "PRIORS", "enabled", "set_enabled", "predict", "lane_ema_us",
@@ -60,7 +59,7 @@ class CostPriorModel:
 
     def __init__(self, sample_floor: int = SAMPLE_FLOOR,
                  max_shapes: int = MAX_LABEL_SETS):
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("costprior.model")
         self.sample_floor = int(sample_floor)
         self.max_shapes = int(max_shapes)
         # shape → {"n", "predicted_us", "p50", "p90"}
@@ -87,6 +86,7 @@ class CostPriorModel:
         # weighted least-squares fit of p50 cost on feature means
         # (unseen-shape predictor for the batch planner)
         self._fit: dict | None = None
+        locks.guarded(self, "costprior.model")
 
     # -- prediction ----------------------------------------------------------
     def shape_for_text(self, text: str) -> str | None:
@@ -122,7 +122,7 @@ class CostPriorModel:
 
     def lane_ema_us(self, lane: str) -> float | None:
         """The lane's observed-cost EMA, or None before any completed
-        request (the flight recorder's fallback, ROADMAP item 9f)."""
+        request (the flight recorder's fallback)."""
         with self._lock:
             v = self._lane_ema.get(lane)
             return float(v) if v is not None else None
@@ -389,9 +389,9 @@ def enabled() -> bool:
 
 def set_enabled(flag: bool) -> None:
     """The one off switch, process-wide (the CLI's `--cost_priors` comes
-    with ROADMAP Queue 1 item 9f). Disabling stops predictions, the
-    batch's cost order and the route promotions, but keeps learned
-    state."""
+    with ROADMAP Queue 1 item 9f, second half). Disabling stops
+    predictions, the batch's cost order and the route promotions, but
+    keeps learned state."""
     global _ENABLED
     _ENABLED = bool(flag)
 

@@ -1,8 +1,7 @@
 """Query cost profiles: shape-keyed resource accounting.
 
-Port of `dgraph_tpu/utils/costprofile.py` with plain `threading` locks
-(ROADMAP Queue 1 item 9f). Per-request records join the plan features
-that predict cost (query-shape fingerprint, lane count, padding, depth,
+Port of `dgraph_tpu/utils/costprofile.py`. Per-request records join the
+plan features that predict cost (query-shape fingerprint, lane count, padding, depth,
 cache-hit bits, tablet sizes) with the measured costs (parse/plan/build,
 per-kernel-family compile vs execute, bytes gathered, edges traversed,
 outcome), under the reference's field vocabulary (`FIELDS`).
@@ -31,7 +30,8 @@ caller, the mesh route (item 10).
 
 Surfaces: `summary()` (per-shape digests and the top-N shapes), a
 `query.cost` span per request when tracing is on, `recent()` and the
-sinks for a push pipeline (item 9f).
+sinks the flight recorder and the telemetry pusher tap
+(`utils/flightrec.py`, `utils/push.py`).
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ import time
 
 from dgraph_tpu_torch.utils import deadline as dl
 from dgraph_tpu_torch.utils.metrics import MAX_LABEL_SETS, METRICS
+from dgraph_tpu_torch.utils import locks
 
 __all__ = ["FIELDS", "DIGEST_FIELDS", "FEATURE_FIELDS", "Digest",
            "Recorder", "Aggregator", "COSTS", "profile", "active",
@@ -302,10 +303,11 @@ class Aggregator:
     process-wide registry (METRICS-style); tests construct their own."""
 
     def __init__(self, max_shapes: int = MAX_LABEL_SETS):
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("costprofile.aggregator")
         self._shapes: dict[str, _ShapeStats] = {}
         self.max_shapes = int(max_shapes)
         self.records_total = 0
+        locks.guarded(self, "costprofile.aggregator")
 
     def _guard(self, shape: str) -> str:
         """Admit or collapse a shape key (caller holds the lock) — the
@@ -450,9 +452,9 @@ _TABLET_COSTS: dict[str, int] = {}
 # per-device-shard cost sums (same µs-equivalent scale, bounded the same
 # way): the residency and balance signal of a sharded serving path
 _SHARD_COSTS: dict[str, int] = {}
-_TABLET_LOCK = threading.Lock()
+_TABLET_LOCK = locks.make_lock("costprofile.tablets")
 _RECENT: list = []            # ring of finished records (lock-guarded)
-_RECENT_LOCK = threading.Lock()
+_RECENT_LOCK = locks.make_lock("costprofile.recent")
 _SINKS: list = []             # push-pipeline subscribers
 _TLS = threading.local()
 _ENABLED = True

@@ -21,14 +21,15 @@ warm-ups). Each of them runs under this lock, and so does a capture.
 
 from __future__ import annotations
 
-import threading
 
 import torch
+
+from dgraph_tpu_torch.utils import locks
 
 DEFAULT_DEVICE = "cuda"
 
 # reentrant: a capture's own clean-up empties the cache under it
-DEVICE_WIDE = threading.RLock()
+DEVICE_WIDE = locks.make_rlock("device.wide")
 
 
 def resolve_device(device=DEFAULT_DEVICE) -> torch.device:

@@ -11,7 +11,8 @@ record themselves in the cost profile.
 from __future__ import annotations
 
 import collections
-import threading
+
+from dgraph_tpu_torch.utils import locks
 
 __all__ = ["Memo"]
 
@@ -36,13 +37,14 @@ class Memo:
         self._sizes: dict = {}
         self._costs: dict = {}
         self._bytes = 0
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock(f"jitcache.memo.{name}")
         if governed is not None:
             from dgraph_tpu_torch.utils import memgov
             memgov.GOVERNOR.register(governed, kind, self.nbytes,
                                      self.evict_one,
                                      value_cb=self.coldest_value,
                                      owner=self)
+        locks.guarded(self, "jitcache.memo.*")
 
     def get(self, key):
         with self._lock:

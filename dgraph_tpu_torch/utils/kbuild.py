@@ -19,11 +19,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 
 from dgraph_tpu_torch.utils import costprofile
 from dgraph_tpu_torch.utils.metrics import METRICS
+from dgraph_tpu_torch.utils import locks
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
 
-_lock = threading.Lock()
+_lock = locks.make_lock("kbuild.build")
 _libs: dict[str, ctypes.CDLL] = {}
 
 

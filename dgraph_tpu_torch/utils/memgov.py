@@ -1,8 +1,6 @@
 """Process-wide memory governor: one budget over every byte-holding cache.
 
-Port of `dgraph_tpu/utils/memgov.py` with plain `threading` locks (the
-lock-order sanitizer comes with ROADMAP Queue 1 item 9f) and no flight
-recorder events (9f). Every cache that holds bytes registers a *name*
+Port of `dgraph_tpu/utils/memgov.py`. Every cache that holds bytes registers a *name*
 (from the static `GOVERNED_CACHES` inventory below), a byte-accounting
 callback and an evict-one callback. Two budgets (`device`, `host`) with
 high/low watermarks govern them: when resident bytes cross the high
@@ -44,7 +42,6 @@ from __future__ import annotations
 
 import contextlib
 import sys
-import threading
 import weakref
 
 import torch
@@ -52,6 +49,7 @@ import torch
 from dgraph_tpu_torch.utils import logging as xlog
 from dgraph_tpu_torch.utils.device import DEVICE_WIDE
 from dgraph_tpu_torch.utils.metrics import METRICS
+from dgraph_tpu_torch.utils import locks
 
 __all__ = [
     "GOVERNED_CACHES", "Governor", "GOVERNOR", "AllocFault", "OomDegraded",
@@ -60,8 +58,8 @@ __all__ = [
 ]
 
 # The static inventory: every governed cache the port has, by name. The
-# reference's `store.sharded` (mesh shard stacks) and `timeseries.ring`
-# (the metrics history) come back with ROADMAP Queue 1 items 10 and 9f.
+# reference's `store.sharded` (mesh shard stacks) comes back with ROADMAP
+# Queue 1 item 10.
 GOVERNED_CACHES: dict[str, str] = {
     "fused.program": "whole-block programs: captured CUDA graphs per "
                      "program key, charged the memory their capture "
@@ -77,13 +75,16 @@ GOVERNED_CACHES: dict[str, str] = {
                     "by Store.device_rel",
     "api.tablet": "pulled tablet cache: per-(pred, version, vocabulary "
                   "width) tablets fetched from other groups, each with "
-                  "the host of its kernel caches (a clustered Alpha; "
-                  "nothing on a single node registers it)",
+                  "the host of its kernel caches (every Alpha "
+                  "registers it; a single node never fills it)",
     "outofcore.resident": "LazyPreds resident tablets: out-of-core "
                           "postings faulted from disk under its own LRU",
     "store.vec": "float32vector embedding stacks placed by "
                  "Store.vec_device — the k-NN seed tablets; evicted "
                  "stacks re-place on next use",
+    "timeseries.ring": "retained metrics history: the sampler daemon's "
+                       "bounded ring of windowed points — under "
+                       "pressure the oldest history is surrendered first",
 }
 
 # watermark fractions of the configured budget: eviction starts above
@@ -194,7 +195,7 @@ class Governor:
     cache drops its reference, the launch keeps its own."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("memgov.governor")
         self._entries: dict[int, _Entry] = {}
         self._next_id = 0
         self._budgets = {"device": 0, "host": 0}
@@ -202,8 +203,9 @@ class Governor:
         self._evictions: dict[str, int] = {}
         self._oom_events = 0
         self._degraded: dict[tuple[str, str], int] = {}
-        self._deg_lock = threading.Lock()  # leaf lock
+        self._deg_lock = locks.make_lock("memgov.degraded")  # leaf lock
         self._dependents: dict[str, list] = {}
+        locks.guarded(self, "memgov.governor")
 
     # -- registration -----------------------------------------------------
 
@@ -374,6 +376,9 @@ class Governor:
         if kind == "device" and torch.cuda.is_initialized():
             with DEVICE_WIDE:     # never while another thread captures
                 torch.cuda.empty_cache()
+        from dgraph_tpu_torch.utils import flightrec
+        flightrec.emit("memory.oom", site=site, shape=str(shape),
+                       freed_bytes=freed)
         return freed
 
     def degrade(self, site: str, shape: str) -> None:
@@ -385,6 +390,8 @@ class Governor:
             self._degraded[key] = self._degraded.get(key, 0) + 1
             n = len(self._degraded)
         METRICS.set_gauge("oom_degraded", float(n))
+        from dgraph_tpu_torch.utils import flightrec
+        flightrec.emit("memory.degrade", site=site, shape=str(shape))
         self._warn(site, shape, "this shape is served by its degraded "
                    "route on the same card until reset")
 

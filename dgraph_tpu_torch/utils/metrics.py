@@ -1,8 +1,7 @@
 """Prometheus-text metrics registry with labels.
 
-Port of `dgraph_tpu/utils/metrics.py`, the same registry with a plain
-`threading` lock (the lock-order sanitizer comes with ROADMAP Queue 1
-item 9f). Reference parity: `x/metrics.go` + the
+Port of `dgraph_tpu/utils/metrics.py`, the same registry under its
+`metrics.registry` lock. Reference parity: `x/metrics.go` + the
 `/debug/prometheus_metrics` endpoint — query latency histograms, pending txns, and (our north-star
 first-class counter, per BASELINE.json) edges traversed. No client
 library dependency: counters/gauges/histograms rendered in Prometheus
@@ -28,7 +27,7 @@ overflow.
 
 from __future__ import annotations
 
-import threading
+from dgraph_tpu_torch.utils import locks
 
 # standard µs latency ladder: 100µs … 10s, then +Inf
 BUCKETS_US = (100, 1_000, 10_000, 100_000, 1_000_000, 10_000_000)
@@ -60,7 +59,7 @@ def _series(name: str, lk: tuple, extra: str = "") -> str:
 
 class Registry:
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = locks.make_lock("metrics.registry")
         self._counters: dict[tuple[str, tuple], float] = {}
         self._gauges: dict[tuple[str, tuple], float] = {}
         self._hists: dict[tuple[str, tuple], list] = {}
@@ -69,6 +68,7 @@ class Registry:
         self._label_limits: dict[str, int] = {}  # per-name cap overrides
         self.max_label_sets = MAX_LABEL_SETS
         self._enabled = True
+        locks.guarded(self, "metrics.registry")
 
     def set_enabled(self, flag: bool) -> None:
         """Disarm recording (render/snapshot still serve what exists) —

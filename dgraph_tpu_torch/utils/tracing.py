@@ -48,13 +48,14 @@ from dataclasses import dataclass, field
 
 import torch
 from torch.profiler import record_function
+from dgraph_tpu_torch.utils import locks
 
 _TRACE_DIR: str | None = None
 _BUF: deque = deque(maxlen=4096)
 _TRACES: "OrderedDict[str, list]" = OrderedDict()
 _MAX_TRACES = 256          # retained per-trace span lists
 _MAX_TRACE_SPANS = 4096    # spans retained per trace
-_LOCK = threading.Lock()
+_LOCK = locks.make_lock("tracing.registry")
 _TLS = threading.local()
 # span ids must stay unique when spans from SEVERAL processes merge into
 # one trace (cross-process propagation, /debug/fleet): the counter is
@@ -116,7 +117,7 @@ def enable_device_trace(trace_dir: str) -> None:
 # a torch.profiler capture is process-global in effect (one CUPTI
 # session): start/stop are single-flight behind a lock, so two callers
 # can never run two captures at once.
-_PROFILE_LOCK = threading.Lock()
+_PROFILE_LOCK = locks.make_lock("tracing.profile")
 _PROFILE_DIR: str | None = None
 _PROFILER = None
 
@@ -180,10 +181,30 @@ def _trace_path(d: str) -> str:
                            f".json")
 
 
-def profile_start(trace_dir: str | None = None) -> str:
+class CardBusy(RuntimeError):
+    """`DEVICE_WIDE` stayed held past the caller's timeout."""
+
+
+@contextlib.contextmanager
+def _device_wide(timeout_s: float | None):
+    """`DEVICE_WIDE`, waited for at most `timeout_s` (None: no limit)."""
+    from dgraph_tpu_torch.utils.device import DEVICE_WIDE
+    if not DEVICE_WIDE.acquire(timeout=-1 if timeout_s is None
+                               else timeout_s):
+        raise CardBusy(f"the card is busy: DEVICE_WIDE held for more "
+                       f"than {timeout_s} s by another thread")
+    try:
+        yield
+    finally:
+        DEVICE_WIDE.release()
+
+
+def profile_start(trace_dir: str | None = None,
+                  wide_timeout_s: float | None = None) -> str:
     """Start a torch.profiler capture under `trace_dir` (default: the
     dir `enable_device_trace` armed). Raises when no dir is configured
-    or a capture is already running (single-flight). Returns the
+    or a capture is already running (single-flight), and `CardBusy`
+    when `DEVICE_WIDE` stays held past `wide_timeout_s`. Returns the
     capture dir."""
     from dgraph_tpu_torch.utils.metrics import METRICS
     global _PROFILE_DIR, _PROFILER
@@ -197,33 +218,33 @@ def profile_start(trace_dir: str | None = None) -> str:
                 f"a device profile is already capturing under "
                 f"{_PROFILE_DIR} — stop it first (single-flight)")
         prof = _new_profiler()
-        from dgraph_tpu_torch.utils.device import DEVICE_WIDE
-        with DEVICE_WIDE:     # never while another thread captures
+        with _device_wide(wide_timeout_s):  # never while another captures
             _on_profiler_thread(prof.__enter__)
         _PROFILE_DIR, _PROFILER = d, prof
         METRICS.inc("device_profile_captures_total", outcome="started")
         return d
 
 
-def profile_stop() -> str:
+def profile_stop(wide_timeout_s: float | None = None) -> str:
     """Stop the running capture, write its Chrome trace
     (`<dir>/trace-<stamp>-<pid>-<n>.json`, Perfetto-loadable) and
-    return the dir."""
+    return the dir. On `CardBusy` the capture keeps running."""
     from dgraph_tpu_torch.utils.metrics import METRICS
     global _PROFILE_DIR, _PROFILER
     with _PROFILE_LOCK:
         if _PROFILE_DIR is None:
             raise RuntimeError("no device profile is running")
         d, prof = _PROFILE_DIR, _PROFILER
-        _PROFILE_DIR = _PROFILER = None
         try:
-            from dgraph_tpu_torch.utils.device import DEVICE_WIDE
-            with DEVICE_WIDE:
-                _on_profiler_thread(lambda: prof.__exit__(None, None, None))
+            with _device_wide(wide_timeout_s):
+                _PROFILE_DIR = _PROFILER = None
+                _on_profiler_thread(
+                    lambda: prof.__exit__(None, None, None))
             prof.export_chrome_trace(_trace_path(d))
+        except CardBusy:
+            raise
         except Exception:
-            METRICS.inc("device_profile_captures_total",
-                        outcome="error")
+            METRICS.inc("device_profile_captures_total", outcome="error")
             raise
         METRICS.inc("device_profile_captures_total", outcome="ok")
         return d

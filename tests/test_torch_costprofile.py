@@ -10,8 +10,8 @@ The reference's overhead guard is a wall-clock ratio; its port
 counterpart counts the recorder's work instead (no record and no
 recorder when profiling is off, one record per request when it is on).
 The `/debug/costs` case and a counterpart of the `/debug/profile` case
-run in `test_torch_http.py`; the push-pipeline cases wait for ROADMAP
-Queue 1 item 9f.
+run in `test_torch_http.py`. The telemetry pusher's cases
+(`utils/push.py`) run here too.
 """
 
 import pytest
@@ -40,7 +40,9 @@ CASES = ["test_digest_merge_is_exact_and_associative",
          "test_persistence_round_trip_and_merge",
          "test_alpha_checkpoint_persists_and_reopen_merges",
          "test_records_speak_the_shared_vocabulary",
-         "test_kernel_launch_count_and_dispatch_gap_attribution"]
+         "test_kernel_launch_count_and_dispatch_gap_attribution",
+         "test_pusher_delivers_spans_and_costs_through_faults",
+         "test_pusher_bounded_buffer_drops_are_counted_not_blocking"]
 
 
 @pytest.mark.parametrize("name", CASES)

@@ -7,18 +7,16 @@ metrics, the instance-labelled exposition, the inbound `X-Trace-Id`)
 runs twice through the cluster harness of `test_torch_cluster.py`: the
 port's objects bound in, its Alphas on the CPU, then the reference's.
 The transcripts must be equal but for ports, ids and clocks
-(`test_torch_cluster.normalise`). Left out, each named in ROADMAP Queue
-1 item 9f with what it waits for: the flight recorder's cases
-(`test_fleet_flight_route_and_peer_proxy`,
-`test_watchdog_conviction_names_wedged_peer`, `test_debug_flight_rpc_
-direct`) and the CLI's (`test_diagnose_fleet_cli_writes_per_node_files`,
-`test_fleet_cli_summary`). Two cases read what the port deliberately
-names otherwise or lacks, and run as port counterparts below:
-`test_identity_metrics_on_exposition` reads `build_info`'s `jax=` and
-`backend=` labels, which the port names `torch=` and `device=` (ROADMAP
-Queue 3), and `test_fleet_snapshot_merges_exactly_and_degrades` reads a
-node fragment's lock and race `gates`, which come with the lock
-sanitizer (9f). `test_propagation_overhead_under_5_percent`, a
+(`test_torch_cluster.normalise`); the watchdog's conviction of a request
+wedged on a peer leg is timing-shaped, so only its own assertions hold.
+Left out, named in ROADMAP Queue 1 item 9f (second half): the CLI's
+cases (`test_diagnose_fleet_cli_writes_per_node_files`,
+`test_fleet_cli_summary`). `test_identity_metrics_on_exposition` reads
+`build_info`'s `jax=` and `backend=` labels, which the port names
+`torch=` and `device=` (ROADMAP Queue 3), and runs as a port
+counterpart below; so does a second run of `test_fleet_snapshot_
+merges_exactly_and_degrades` over a hand-built cluster, which also reads
+the fragment's lock and race `gates`. `test_propagation_overhead_under_5_percent`, a
 wall-clock ratio of the reference's engine on the CPU, is measured for
 the port on the card instead (chip_smoke.py phase 12 (e)).
 """
@@ -28,23 +26,22 @@ import urllib.request
 
 import pytest
 
+import dgraph_tpu.utils.flightrec as ref_flightrec
 import test_fleet
 from dgraph_tpu_torch.cluster import start_cluster_alpha
 from dgraph_tpu_torch.cluster.zero import ZeroClient, make_zero_server
 from dgraph_tpu_torch.server.api import Alpha
 from dgraph_tpu_torch.server.http import make_http_server, serve_background
-from dgraph_tpu_torch.utils import costprofile, tracing
+from dgraph_tpu_torch.utils import costprofile, flightrec, tracing
 from dgraph_tpu_torch.utils.metrics import METRICS
 from test_torch_cluster import compare_cluster_case
 from test_torch_lifecycle import reference_cases
 
 SKIP = {"test_identity_metrics_on_exposition",
-        "test_fleet_snapshot_merges_exactly_and_degrades",
-        "test_fleet_flight_route_and_peer_proxy",
-        "test_watchdog_conviction_names_wedged_peer",
-        "test_debug_flight_rpc_direct",
         "test_diagnose_fleet_cli_writes_per_node_files",
         "test_fleet_cli_summary"}
+# a watchdog thread decides when this case's conviction lands
+NONDET = {"test_watchdog_conviction_names_wedged_peer"}
 # the wall-clock overhead ratio is a CPU timing of the reference's
 # engine (it flakes under the suite's six workers); the port's tracing
 # overhead is measured on the card (chip_smoke.py phase 12 (e)), as
@@ -56,18 +53,23 @@ CASES = reference_cases(test_fleet, skip=SKIP)
 @pytest.fixture(autouse=True)
 def _clean():
     """The reference file's own reset (its autouse fixture), applied to
-    the port's cost profile and tracing as well."""
+    the port's flight recorder, cost profile and tracing as well."""
+    for mod in (flightrec, ref_flightrec):
+        mod.disarm()
     for mod in (costprofile, test_fleet.costprofile):
         mod.reset()
         mod.set_enabled(True)
     for mod in (tracing, test_fleet.tracing):
         mod.set_enabled(True)
     yield
+    for mod in (flightrec, ref_flightrec):
+        mod.disarm()
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_fleet_case_on_port(name, tmp_path, monkeypatch):
-    compare_cluster_case(test_fleet, name, tmp_path, monkeypatch)
+    compare_cluster_case(test_fleet, name, tmp_path, monkeypatch,
+                         nondeterministic=name in NONDET)
 
 
 # -- port counterparts -------------------------------------------------------------
@@ -94,8 +96,8 @@ def test_identity_metrics_on_exposition_name_the_torch_build():
 
 
 def test_fleet_snapshot_merges_exactly_and_degrades_on_port():
-    """The reference case on a port cluster, its `gates` (9f) aside:
-    every node's fragment over the worker transport, the cost digests
+    """The reference case on a hand-built port cluster: every node's
+    fragment (its lock and race `gates` clean) over the worker transport, the cost digests
     merged bit-identically to an in-process merge, the exposition
     instance-labelled, and a dead peer an entry in `errors`, never a
     500."""
@@ -133,6 +135,7 @@ def test_fleet_snapshot_merges_exactly_and_degrades_on_port():
         n1 = doc["nodes"][addr1]
         assert n1["build"]["version"] and n1["uptime_s"] >= 0
         assert "spans" in n1 and "breakers" in n1
+        assert n1["gates"] == {"races": 0, "lock_cycles": 0}
         frags = {addr1: a1.groups.pool(addr1).debug_fleet(),
                  addr2: a1.groups.pool(addr2).debug_fleet()}
         expect = costprofile.Aggregator()

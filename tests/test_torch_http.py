@@ -239,9 +239,9 @@ def _post(url, body: bytes, ctype="application/dql"):
 
 
 def test_debug_inventory_and_route_tables_agree_both_ways():
-    """Every inventoried path has a handler, every handler a row, and
-    no row names a route that waits for item 9f; the cluster's rows
-    (item 9e) are served."""
+    """Every inventoried path has a handler, every handler a row; the
+    cluster's rows (item 9e) and the flight recorder's, time series',
+    SLO and sanitizer rows (item 9f, first half) are served."""
     served_paths = set(port_http._DEBUG_GET) | set(port_http._DEBUG_POST)
     assert served_paths == set(DEBUG_ENDPOINTS)
     srv = port_http.make_http_server(_alpha())
@@ -251,10 +251,12 @@ def test_debug_inventory_and_route_tables_agree_both_ways():
             assert callable(getattr(srv.RequestHandlerClass, name)), name
     finally:
         srv.server_close()
-    for later in ("/debug/fleet/flight", "/debug/locks", "/debug/races",
-                  "/debug/flightrecorder", "/debug/timeseries",
-                  "/debug/slo"):
-        assert later not in DEBUG_ENDPOINTS
+    for served_9f in ("/debug/fleet/flight", "/debug/locks",
+                      "/debug/races", "/debug/flightrecorder",
+                      "/debug/timeseries", "/debug/slo"):
+        assert served_9f in DEBUG_ENDPOINTS
+        assert served_9f in port_http._DEBUG_GET
+    assert "/debug/flightrecorder" in port_http._DEBUG_POST
     assert {"/debug/peers", "/debug/fleet"} <= set(DEBUG_ENDPOINTS)
     assert "torch.profiler" in DEBUG_ENDPOINTS["/debug/profile"]
 
@@ -275,8 +277,9 @@ def test_debug_memory_is_the_governor_status(served):
     """The HTTP part of test_memgov.py::
     test_debug_memory_endpoint_reports_the_lifecycle: the document is
     the governor's, with a host budget and an injected allocation
-    failure that degraded a shape. The reference also lists `api.tablet`,
-    a cache a clustered Alpha fills."""
+    failure that degraded a shape. Every Alpha registers `api.tablet`
+    (`server/api.py:_register_tablet_cache`), so it is listed, as in the
+    reference's case."""
     a, base = served
     memgov.GOVERNOR.set_budgets(host_bytes=64 << 20)
     memgov.set_alloc_fault(lambda site: site == "dbg.site")
@@ -297,6 +300,7 @@ def test_debug_memory_is_the_governor_status(served):
         assert {"site": "dbg.site", "shape": "lanes=32",
                 "count": 1} in doc["degraded"]
         assert "store.device" in doc["caches"]
+        assert "api.tablet" in doc["caches"]
         assert all(set(c) >= {"kind", "bytes", "registrants", "evictions"}
                    for c in doc["caches"].values())
     finally:

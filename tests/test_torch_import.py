@@ -143,6 +143,18 @@ def test_scan_covers_the_front_end_modules():
             "server/http.py"} <= scanned
 
 
+def test_scan_covers_the_observability_modules():
+    """The flight recorder, the metrics history, the SLO engine, the
+    telemetry pusher and the sanitizers are scanned and load on their
+    own without jax or the reference package."""
+    scanned = {os.path.relpath(p, PKG) for p in _port_files()}
+    mods = {"utils/locks.py", "utils/lockinv.py", "utils/flightrec.py",
+            "utils/timeseries.py", "utils/slo.py", "utils/push.py"}
+    assert mods <= scanned
+    _import_in_subprocess(
+        ["dgraph_tpu_torch." + m[:-3].replace("/", ".") for m in mods])
+
+
 def test_scan_covers_the_cluster_modules():
     scanned = {os.path.relpath(p, PKG) for p in _port_files()}
     assert GRPC_FILES | {"cluster/tablet.py", "cluster/oracle.py",

@@ -166,7 +166,16 @@ def _recorded(fn, tr: Transcript):
 class _Proxy(types.ModuleType):
     """A module's names for one run. A name the case SETS (a module
     constant it lowers, a monkeypatch) is set on the real module too, so
-    the module's own functions see it; a wrapped name stays wrapped."""
+    the module's own functions see it; a wrapped name stays wrapped. A
+    name read through the proxy that it copied unchanged from the real
+    module is read from the real module, so a global the module rebinds
+    later (`flightrec._STATE` once armed) reads as it is now."""
+
+    def __getattribute__(self, k):
+        d = object.__getattribute__(self, "__dict__")
+        if k in d.get("_proxy_live_", ()):
+            return getattr(d["_target"], k)
+        return object.__getattribute__(self, k)
 
     def __setattr__(self, k, v):
         object.__setattr__(self, k, v)
@@ -234,6 +243,9 @@ class _Binder:
             elif k in _RECORDED_FUNCS and callable(v):
                 proxy.__dict__[k] = _recorded(v, self.tr)
         proxy.__dict__.update(self.extra.get(refname, {}))
+        proxy.__dict__["_proxy_live_"] = frozenset(
+            k for k, v in src.__dict__.items()
+            if not k.startswith("__") and proxy.__dict__.get(k) is v)
         return proxy
 
     def alpha(self, cls):
@@ -263,12 +275,21 @@ class _Binder:
 
 _REF_INSTANCES = ("dgraph_tpu.utils.metrics", "dgraph_tpu.utils.memgov",
                   "dgraph_tpu.utils.costprofile",
-                  "dgraph_tpu.utils.costprior")
+                  "dgraph_tpu.utils.costprior", "dgraph_tpu.utils.locks")
 
 
 def _ref_modules(module) -> list:
+    """The reference modules `module` names, the submodules it imports
+    with `from dgraph_tpu.x import sub` among them (bound too, so that
+    such an import inside a case body never loads a package's source
+    under the other package's name)."""
     src = inspect.getsource(module)
     names = set(re.findall(r"\bdgraph_tpu(?:\.\w+)+", src))
+    for pkg, paren, line in re.findall(
+            r"from\s+(dgraph_tpu(?:\.\w+)*)\s+import\s+"
+            r"(?:\(([\w\s,]+)\)|([\w ,]+))", src):
+        names.update(f"{pkg}.{w.split()[0]}"
+                     for w in (paren or line).split(",") if w.strip())
     out = []
     for n in sorted(names):
         while n.count("."):
@@ -297,7 +318,7 @@ def bound(module, pkg, m, tr, extra=None):
         m.setitem(sys.modules, n, proxy)
         parent, _, child = n.rpartition(".")
         if parent in sys.modules:
-            m.setattr(sys.modules[parent], child, proxy)
+            m.setattr(sys.modules[parent], child, proxy, raising=False)
     for k, v in list(vars(module).items()):
         if k.startswith("__"):
             continue

@@ -19,9 +19,8 @@ port degrades only `fused.program`, to the staged torch ops on the same
 device, and raises at every other site, so the reference's host-degrade
 cases run the port's counterparts under their own names
 (`PORT_POLICY`), and its sticky-degrade case runs `oom_retry` as a
-degrading site calls it. The HTTP part of the `/debug/memory` case runs
-in `test_torch_http.py`; the flight-recorder cases wait for ROADMAP
-Queue 1 item 9f.
+degrading site calls it, as does the flight-bundle case. The HTTP part
+of the `/debug/memory` case runs in `test_torch_http.py`.
 """
 
 import functools
@@ -88,10 +87,13 @@ MEMGOV_CASES = [
     "test_oom_retry_sticky_degrades_on_repeat",
     "test_non_alloc_errors_pass_through_untouched",
     "test_degraded_route_is_bit_identical_to_device_route",
+    "test_flight_bundle_carries_the_memory_surface",
 ]
 
 
-# the case's `oom_retry` is a site's with a degraded route on the card
+# the cases' `oom_retry` is a site's with a degraded route on the card
+DEGRADING_CASES = {"test_oom_retry_sticky_degrades_on_repeat",
+                   "test_flight_bundle_carries_the_memory_surface"}
 DEGRADING = {"dgraph_tpu.utils.memgov": {
     "oom_retry": functools.partial(memgov.oom_retry, degrade=True)}}
 
@@ -102,7 +104,7 @@ def test_memgov_case_on_port(name, tmp_path, monkeypatch):
         PORT_POLICY[name](monkeypatch)
         return
     _compare(test_memgov, name, tmp_path, monkeypatch,
-             port_extra=DEGRADING if "sticky" in name else None)
+             port_extra=DEGRADING if name in DEGRADING_CASES else None)
 
 
 def test_is_alloc_failure_classification():
@@ -193,10 +195,9 @@ def test_governed_caches_are_the_ports():
     assert set(memgov.GOVERNED_CACHES) == {
         "fused.program", "batch.plan", "batch.ell", "batch.ell_dev",
         "batch.kernel", "store.device", "api.tablet",
-        "outofcore.resident", "store.vec"}
+        "outofcore.resident", "store.vec", "timeseries.ring"}
     assert set(memgov.GOVERNED_CACHES) == \
-        set(ref_memgov.GOVERNED_CACHES) - {"store.sharded",
-                                           "timeseries.ring"}
+        set(ref_memgov.GOVERNED_CACHES) - {"store.sharded"}
     a = Alpha(device="cpu", device_threshold=0)
     a.alter("friend: [uid] @reverse .")
     a.mutate(set_nquads="\n".join(f"<{i}> <friend> <{i % 9 + 1}> ."

@@ -9,11 +9,12 @@ twice through the cluster harness of `test_torch_cluster.py`: the port's
 objects bound in, its Alphas on the CPU, then the reference's. The
 transcripts must be equal but for ports, ids and clocks
 (`test_torch_cluster.normalise`); the fuzz schedules whose outcomes
-turn on the wall clock keep their own assertions (`FUZZ_CLOCKED`). Left out, each named in ROADMAP Queue 1
-item 9f with what it waits for: the fuzz cases that read the lock
-sanitizer (`test_partition_fuzz_smoke`, `test_crash_restart_fuzz_schedule`,
-`test_disk_fault_fuzz_smoke`) or arm the flight recorder's watchdog
-(those two and `test_alloc_fault_fuzz_smoke`).
+turn on the wall clock keep their own assertions (`FUZZ_CLOCKED`),
+among them the smokes that run with the port's lock and race sanitizers
+on and its flight recorder's watchdog armed (`test_partition_fuzz_smoke`,
+`test_crash_restart_fuzz_schedule`, `test_disk_fault_fuzz_smoke`,
+`test_alloc_fault_fuzz_smoke`): each asserts no lock cycle, no race and
+no spurious stall dump.
 """
 
 import pytest
@@ -31,10 +32,8 @@ def test_quorum_case_on_port(name, tmp_path, monkeypatch):
     compare_cluster_case(test_quorum, name, tmp_path, monkeypatch)
 
 
-# lock sanitizer or armed watchdog (9f); `-m slow` explorations
-FUZZ_SKIP = {"test_partition_fuzz_smoke", "test_crash_restart_fuzz_schedule",
-             "test_disk_fault_fuzz_smoke", "test_alloc_fault_fuzz_smoke",
-             "test_partition_fuzz_full", "test_crash_restart_fuzz_full"}
+# the `-m slow` explorations
+FUZZ_SKIP = {"test_partition_fuzz_full", "test_crash_restart_fuzz_full"}
 FUZZ_CASES = reference_cases(test_partition_fuzz, skip=FUZZ_SKIP)
 # a seeded schedule of drops, delays and restarts: whether a transfer on
 # a reachable node commits or is refused turns on the breakers' cool-
@@ -44,7 +43,9 @@ FUZZ_CLOCKED = {"test_deadline_fault_fuzz_schedule",
                 "test_clock_free_delay_fuzz_smoke",
                 "test_wal_truncation_fuzz_schedule",
                 "test_wal_truncation_race_heals_via_fetchlog",
-                "test_read_cancelled_mid_fetchlog_heal_retries_cleanly"}
+                "test_read_cancelled_mid_fetchlog_heal_retries_cleanly",
+                "test_partition_fuzz_smoke", "test_crash_restart_fuzz_schedule",
+                "test_disk_fault_fuzz_smoke", "test_alloc_fault_fuzz_smoke"}
 
 
 @pytest.mark.parametrize("name", FUZZ_CASES)
