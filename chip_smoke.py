@@ -322,7 +322,8 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 works_at, org_name) and the content side (the rest);
                 each group's replicas share one immutable base holding
                 its tablets over the whole uid vocabulary, and every
-                node heartbeats Zero each second (the CLI's loop). The
+                node heartbeats Zero each second through the CLI's loop
+                (cli.run_heartbeat_loop, one thread per node). The
                 reference is a single-node Alpha over the whole SF1.
                 (a) every node's local tablets are its group's and
                 Groups.tablet_owner agrees everywhere (boot seconds,
@@ -393,8 +394,43 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 DGRAPH_TPU_RACE_SANITIZER=1 opens a copy of the
                 directory on the card and serves 8 concurrent /query
                 clients over cold programs plus 4 writes: no lock-order
-                cycle, no race, the long holds listed
-  17. `route counters` (the run's totals and each phase's deltas), the
+                cycle, no race, the long holds listed; beside (e)'s, a
+                second copy of the directory and a copy of phase 12
+                (f)'s sf 0.1 bulk directory go to phase 17
+  17. cli      — runs last, `python -m dgraph_tpu_torch` in child
+                processes on the card over a copy of phase 14's SF1
+                directory that phase 16 hands on with the Alpha's
+                in-process answers over it; each child's output is a
+                file of the phase's temp dir, which it removes. (a)
+                `alpha` (device left at its default) with phase 13's
+                device budget, admission (4, 16) and a 0.25 s sampler:
+                3 passes of the IC templates and config 3 over /query
+                and phase 13's batch over /query/batch, byte-equal to
+                the in-process answers, the batch between a
+                /debug/profile start and stop whose trace's bucket_hop
+                kernels are counted and `kernel_group_launches_total`
+                rising; /debug/memory shows the flag's budget; 2
+                write_mix transactions through /mutate?commitNow read
+                back; (b) SIGUSR2 writes one bundle within 5 s;
+                `diagnose` (trigger http) and `fleet` (self "local")
+                exit 0; (c) SIGINT 0.2 s into a /query/batch from
+                another client: "draining maintenance", exit 0 within
+                60 s (the batch's outcome printed); `debug` shows a
+                base_ts at or past the last acknowledged commit;
+                `backup`, `backup verify` and `restore` of phase 12
+                (f)'s sf 0.1 bulk directory, the restored one equal
+                under `debug` (nodes, predicates, edges, indexes,
+                schema) to the source; (d) `zero
+                --liveness 3` and two `alpha --zero --heartbeat 0.5`
+                with empty directories: test_cluster.py's two-process
+                alter, mutate and cross-node read through the port's
+                gRPC client, `fleet` over both nodes; the Zero killed,
+                each alpha counts 3 or more liveness failures in
+                /debug/prometheus_metrics and logs "zero link is likely
+                dead"; both stopped by SIGINT with exit 0. Any other
+                exit code, any differing answer or any child still
+                running fails the phase. Each part's seconds printed
+  18. `route counters` (the run's totals and each phase's deltas), the
                 `kernels` JSON line, then the device JSON line last
 
 Phases 6 to 12, 14 and 15 fail if any block falls back from its
@@ -4859,11 +4895,15 @@ class _Collector:
 
 def phase_observability(device, g, front: dict,
                         burst_s: float = OBS_BURST_S,
-                        stall_floor_ms: float = OBS_STALL_FLOOR_MS) -> dict:
+                        stall_floor_ms: float = OBS_STALL_FLOOR_MS,
+                        keep: dict | None = None) -> dict:
     """Phase 16: the flight recorder, the metrics history with its SLOs
     and forecast shedding, the telemetry pusher and the lock and race
     sanitizers, on phase 14's SF1 Alpha and HTTP server; stops that
-    server and removes phase 14's directory at its end."""
+    server and removes phase 14's directory at its end. Given `keep`, a
+    successful phase hands phase 17 a copy of the directory (made with
+    (e)'s), the Alpha's in-process answers over it and a copy of phase
+    12 (f)'s sf 0.1 bulk directory."""
     import shutil
     import tempfile
     import threading
@@ -5178,6 +5218,16 @@ def phase_observability(device, g, front: dict,
         a.checkpoint_to(front["p_dir"])
         child_dir = os.path.join(tmp, "sanitized")
         shutil.copytree(front["p_dir"], child_dir)
+        if keep is not None:
+            cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+            keep.update(tmp=cli_tmp, p_dir=os.path.join(cli_tmp, "p"),
+                        small=os.path.join(cli_tmp, "small"),
+                        queries=queries, work=work,
+                        want={k: a.query_raw(q) for k, q in queries.items()},
+                        want_work=canon(a.query_batch(work)))
+            shutil.copytree(front["p_dir"], keep["p_dir"])
+            # phase 12 (f)'s bulk-loaded sf 0.1 directory
+            shutil.copytree(os.path.join(tmp, "bulk"), keep["small"])
         uids = [hex(int(u)) for u in g.person_uids[:OBS_CHILD_WRITES]]
         spec = {"p_dir": child_dir, "device": device,
                 "threshold": LDBC_THRESHOLD, "queries": queries,
@@ -5218,6 +5268,9 @@ def phase_observability(device, g, front: dict,
         part("e_sanitizers")
     except BaseException:
         say("phase 16 observability (stopped)", **out)
+        if keep:
+            shutil.rmtree(keep.pop("tmp"), ignore_errors=True)
+            keep.clear()
         raise
     finally:
         timeseries.disarm()
@@ -5305,6 +5358,7 @@ def phase_cluster(device, g, single_commit_p50_ms=None) -> dict:
     import tempfile
     import threading
 
+    from dgraph_tpu_torch import cli
     from dgraph_tpu_torch.cluster import start_cluster_alpha
     from dgraph_tpu_torch.cluster.fault import FaultyGroups
     from dgraph_tpu_torch.cluster.zero import (ZeroClient, ZeroState,
@@ -5317,6 +5371,7 @@ def phase_cluster(device, g, single_commit_p50_ms=None) -> dict:
     from dgraph_tpu_torch.server.http import make_http_server, serve_background
     from dgraph_tpu_torch.store.store import Store, StoreBuilder
     from dgraph_tpu_torch.tools import write_mix
+    from dgraph_tpu_torch.utils import logging as xlog
     from dgraph_tpu_torch.utils import memgov
 
     on_card = torch.device(device).type == "cuda"
@@ -5343,26 +5398,24 @@ def phase_cluster(device, g, single_commit_p50_ms=None) -> dict:
     servers, nodes, https = [], [], []
     zs = None
     beat = threading.Event()
+    beaters = []
+    hb_log = xlog.get("chip_smoke.cluster")
 
-    def heartbeats():
-        """Every node's liveness heartbeat to Zero each second (the
-        CLI's heartbeat loop, ROADMAP item 9f): Zero moves tablets only
-        to nodes its liveness sweep holds alive."""
-        while not beat.wait(1.0):
-            for n in list(nodes):
-                a = n["alpha"]
-                if n.get("down"):
-                    continue
-                ts = max(a.mvcc.base_ts, max(
-                    (lay.commit_ts for lay in a.mvcc.layers), default=0))
-                try:
-                    a.groups.zero.heartbeat(
-                        a.groups.node_id, group=a.groups.gid, max_ts=ts,
-                        max_uid=a.mvcc.uid_high())
-                except Exception:  # noqa: BLE001 — the next beat retries
-                    pass
+    def liveness_step(i):
+        """Node slot i's liveness heartbeat to Zero, as the CLI's alpha
+        sends it (Zero moves tablets only to nodes its liveness sweep
+        holds alive); a slot whose node is down sends none."""
+        def step():
+            n = nodes[i]
+            if n.get("down"):
+                return
+            a = n["alpha"]
+            ts = max(a.mvcc.base_ts, max(
+                (lay.commit_ts for lay in a.mvcc.layers), default=0))
+            a.groups.zero.heartbeat(a.groups.node_id, group=a.groups.gid,
+                                    max_ts=ts, max_uid=a.mvcc.uid_high())
+        return step
 
-    beater = threading.Thread(target=heartbeats, daemon=True)
     try:
         # (a) boot: one immutable base per group (its tablets over the
         # whole uid vocabulary, the rank space being shared), shared by
@@ -5410,7 +5463,15 @@ def phase_cluster(device, g, single_commit_p50_ms=None) -> dict:
                 zc.should_serve(p, gids[k])
         for n in nodes:
             n["alpha"].groups.refresh()
-        beater.start()
+        # one CLI heartbeat loop per node slot, every second
+        hb0 = count("heartbeat_failures_total")
+        for i in range(len(nodes)):
+            t = threading.Thread(
+                target=cli.run_heartbeat_loop, daemon=True,
+                args=("liveness", 1.0, liveness_step(i), hb_log),
+                kwargs={"stop": beat})
+            t.start()
+            beaters.append(t)
         owners = {}
         for n in nodes:
             a = n["alpha"]
@@ -5914,8 +5975,12 @@ def phase_cluster(device, g, single_commit_p50_ms=None) -> dict:
         part("g_flight")
     finally:
         beat.set()
-        if beater.is_alive():
-            beater.join(10)
+        for t in beaters:
+            t.join(10)
+        if beaters:
+            out["heartbeats"] = {
+                "loops": len(beaters),
+                "failures": count("heartbeat_failures_total") - hb0}
         for srv in https:
             srv.shutdown()
         for s in servers:
@@ -5925,6 +5990,464 @@ def phase_cluster(device, g, single_commit_p50_ms=None) -> dict:
         for n in nodes:
             if n["alpha"].wal is not None:
                 n["alpha"].wal.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# -- phase 17: the CLI on the card --------------------------------------------
+
+CLI_MAX_INFLIGHT = 4            # (a) admission tokens per lane
+CLI_QUEUE_DEPTH = 16            # (a) ... and the wait queue
+CLI_TS_INTERVAL_S = 0.25        # (a) the child's sampler cadence
+CLI_PASSES = 3                  # (a) IC-mix passes over HTTP
+CLI_WRITES = 2                  # (a) write_mix txns through /mutate?commitNow
+CLI_WRITE_SEED = 31             # (a) their seed (tag "cli")
+CLI_BOOT_S = 300.0              # a child's boot: torch import, SF1 open
+CLI_SIGUSR2_S = 5.0             # (b) the bundle lands within this
+CLI_INFLIGHT_S = 0.2            # (c) SIGINT this long into a batch
+CLI_SIGINT_S = 60.0             # (c) the clean exit within this
+CLI_VERB_S = 600                # (b), (c) an offline verb's time limit
+CLI_HEARTBEAT_S = 0.5           # (d) the cluster Alphas' liveness period
+CLI_ZERO_LIVENESS_S = 3         # (d) Zero's liveness window
+CLI_ESCALATE_S = 60.0           # (d) the dead Zero's escalation within this
+CLI_CLUSTER_Q = '{ q(func: eq(name, "alice")) { name friend { name } } }'
+CLI_CLUSTER_WANT = {"q": [{"name": "alice", "friend": [{"name": "bob"}]}]}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def port_open(port: int) -> bool:
+    import socket
+    with socket.socket() as s:
+        return s.connect_ex(("127.0.0.1", port)) == 0
+
+
+class _Children:
+    """The phase's `python -m dgraph_tpu_torch` processes, each with its
+    output in a file of the phase's directory; `close` kills and waits
+    for every one still running."""
+
+    def __init__(self, tmp: str):
+        self.tmp, self.procs = tmp, {}
+
+    def start(self, name: str, *argv: str) -> subprocess.Popen:
+        log = open(os.path.join(self.tmp, f"{name}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dgraph_tpu_torch", *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+            stderr=subprocess.STDOUT)
+        self.procs[name] = (proc, log)
+        return proc
+
+    def log(self, name: str) -> str:
+        with open(os.path.join(self.tmp, f"{name}.log")) as f:
+            return f.read()
+
+    def alive(self) -> list:
+        return sorted(n for n, (p, _l) in self.procs.items()
+                      if p.poll() is None)
+
+    def close(self) -> None:
+        for proc, log in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
+
+
+def run_verb(seconds: dict, label: str, *argv: str) -> tuple:
+    """(exit code, printed JSON or None, output) of one offline verb;
+    its wall seconds go to `seconds[label]`."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "dgraph_tpu_torch", *argv],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=CLI_VERB_S)
+    seconds[label] = time.perf_counter() - t0
+    try:
+        doc = json.loads(r.stdout)
+    except ValueError:
+        doc = None
+    return r.returncode, doc, r.stdout[-2000:] + r.stderr[-3000:]
+
+
+def prom_value(text: str, name: str, **labels) -> float:
+    """The sum of `dgraph_tpu_<name>` samples carrying `labels`."""
+    import re
+    total = 0.0
+    for m in re.finditer(r"^dgraph_tpu_%s(\{[^}]*\})? (\S+)$"
+                         % re.escape(name), text, re.M):
+        got = dict(re.findall(r'(\w+)="([^"]*)"', m.group(1) or ""))
+        if all(got.get(k) == v for k, v in labels.items()):
+            total += float(m.group(2))
+    return total
+
+
+def debug_doc(p_dir: str) -> dict:
+    """The `debug` verb's document of `p_dir`, made in this process."""
+    import contextlib
+    import io
+
+    from dgraph_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["debug", "--p", p_dir])
+    return json.loads(buf.getvalue())
+
+
+def wait_up(kids: _Children, name: str, base: str,
+            limit_s: float = CLI_BOOT_S) -> float:
+    """Seconds until the child `name` answers /health; fails if it exits
+    or takes longer than `limit_s`."""
+    t0 = time.perf_counter()
+    while True:
+        proc = kids.procs[name][0]
+        if proc.poll() is not None:
+            raise AssertionError(f"phase 17: {name} exited with "
+                                 f"{proc.returncode}: "
+                                 f"{kids.log(name)[-3000:]}")
+        try:
+            st, _h, _b = http(base, "/health", timeout=5)
+            if st == 200:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > limit_s:
+            raise AssertionError(f"phase 17: {name} not up in {limit_s} s: "
+                                 f"{kids.log(name)[-3000:]}")
+        time.sleep(0.2)
+
+
+def phase_cli(device, g, handed: dict, device_budget_bytes: int) -> dict:
+    """Phase 17: `python -m dgraph_tpu_torch` in real processes on the
+    card, over phase 16's copy of phase 14's SF1 directory (`handed`,
+    with the in-process answers over it). (a) the alpha verb serving
+    HTTP; (b) SIGUSR2, `diagnose` and `fleet`; (c) SIGINT, then `debug`,
+    `backup`, `backup verify` and `restore`; (d) a `zero` and two
+    cluster alphas, the cross-node read and the dead Zero's escalated
+    heartbeats. Removes everything it made; fails if a child is still
+    running at its end."""
+    import glob
+    import re
+    import shutil
+    import signal
+    import threading
+    from http.client import HTTPException
+
+    from dgraph_tpu_torch.server.task import Client
+    from dgraph_tpu_torch.tools import write_mix
+
+    on_card = torch.device(device).type == "cuda"
+    tmp, p_dir = handed["tmp"], handed["p_dir"]
+    queries, work = handed["queries"], handed["work"]
+    out: dict = {}
+    parts = out["parts_s"] = {}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    def fail(what, **kv):
+        raise AssertionError(f"phase 17 {what}: " + json.dumps(kv,
+                                                              default=str))
+
+    def canon(results) -> list:
+        return [json.dumps(r, sort_keys=True) for r in results]
+
+    kids = _Children(tmp)
+    verb_s: dict = {}       # each offline verb's wall seconds
+    try:
+        # (a) the alpha verb on the card, its device left at the default
+        budget_mb = -(-device_budget_bytes // (1 << 20))
+        hport, gport = free_port(), free_port()
+        diag = os.path.join(tmp, "diag")
+        on_cpu = [] if on_card else ["--device", "cpu"]
+        kids.start("alpha", "alpha", *on_cpu, "--p", p_dir, "--http_port",
+                   str(hport), "--grpc_port", str(gport),
+                   "--device_budget_mb", str(budget_mb),
+                   "--max_inflight", str(CLI_MAX_INFLIGHT),
+                   "--queue_depth", str(CLI_QUEUE_DEPTH),
+                   "--ts_interval_s", str(CLI_TS_INTERVAL_S),
+                   "--diag_dir", diag)
+        base = f"http://127.0.0.1:{hport}"
+        boot_s = wait_up(kids, "alpha", base)
+        lat = []
+        for _ in range(CLI_PASSES):
+            for k, q in queries.items():
+                t0 = time.perf_counter()
+                st, _h, body = http(base, "/query", q)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if st != 200 or data_bytes(body) != handed["want"][k]:
+                    fail("(a) /query", template=k, status=st,
+                         body=body[:300])
+
+        def prom() -> str:
+            st, _h, body = http(base, "/debug/prometheus_metrics")
+            if st != 200:
+                fail("(a) /debug/prometheus_metrics", status=st)
+            return body.decode()
+
+        groups0 = prom_value(prom(), "kernel_group_launches_total")
+        prof_dir = os.path.join(tmp, "profile")
+        st, _h, _b = http(base, "/debug/profile", json.dumps(
+            {"action": "start", "dir": prof_dir}), ctype="application/json")
+        t0 = time.perf_counter()
+        st2, _h, body = http(base, "/query/batch",
+                             json.dumps({"queries": work}),
+                             ctype="application/json")
+        batch_s = time.perf_counter() - t0
+        st3, _h, _b = http(base, "/debug/profile",
+                           json.dumps({"action": "stop"}),
+                           ctype="application/json")
+        if (st, st2, st3) != (200, 200, 200) or \
+                canon(json.loads(body)["data"]) != handed["want_work"]:
+            fail("(a) /query/batch", statuses=(st, st2, st3))
+        groups = prom_value(prom(), "kernel_group_launches_total") - groups0
+        files = glob.glob(os.path.join(prof_dir, "trace-*.json"))
+        launches = 0
+        if files:
+            with open(files[0]) as f:
+                launches = sum(1 for e in json.load(f)["traceEvents"]
+                               if e.get("cat") == "kernel"
+                               and "bucket_hop" in e.get("name", ""))
+        out["bucket_hop_launches"] = launches
+        if not files or groups <= 0 or (on_card and not launches):
+            fail("(a) the batch's kernels", traces=len(files),
+                 kernel_groups=groups, bucket_hop=launches)
+        st, _h, body = http(base, "/debug/memory")
+        mem = json.loads(body)
+        if st != 200 or \
+                mem["budgets"]["device"]["budget_bytes"] != budget_mb << 20:
+            fail("(a) /debug/memory", status=st,
+                 budgets=mem.get("budgets"))
+        txns = [tx for tx in write_mix.make_mix(
+            g, n=100, seed=CLI_WRITE_SEED, tag="cli").txns
+            if not tx.del_nquads][:CLI_WRITES]
+        acked = 0
+        for tx in txns:
+            if tx.set_json is not None:
+                st, _h, body = http(base, "/mutate?commitNow=true",
+                                    json.dumps({"set": tx.set_json}),
+                                    ctype="application/json")
+                text = json.dumps(tx.set_json)
+            else:
+                st, _h, body = http(base, "/mutate?commitNow=true",
+                                    tx.set_nquads, ctype="application/rdf")
+                text = tx.set_nquads
+            doc = json.loads(body)["data"] if st == 200 else {}
+            if not doc.get("txn", {}).get("commit_ts"):
+                fail("(a) /mutate", kind=tx.kind, status=st, body=body[:300])
+            acked = max(acked, doc["txn"]["commit_ts"])
+            uids = set(doc["uids"].values()) | set(
+                re.findall(r"0x[0-9a-f]+", text))
+            st, _h, body = http(base, "/query",
+                                READ_BACK % ", ".join(sorted(uids)))
+            if st != 200 or not json.loads(data_bytes(body))["q"]:
+                fail("(a) a write not read back", kind=tx.kind, status=st)
+        warm = lat[len(queries):]          # the passes after the first
+        out["a_alpha"] = {
+            "boot_s": boot_s, "requests": len(lat),
+            "http_p50_ms": float(np.median(lat)),
+            "warm_http_p50_ms": float(np.median(warm)),
+            "http_p99_ms": float(np.percentile(lat, 99)),
+            "batch_queries": len(work), "batch_http_s": batch_s,
+            "kernel_groups": groups, "bucket_hop_launches": launches,
+            "device_budget_mb": budget_mb,
+            "device_resident_bytes":
+                mem["budgets"]["device"]["resident_bytes"],
+            "cache_evictions": sum(c.get("evictions", 0)
+                                   for c in mem["caches"].values()),
+            "writes": [tx.kind for tx in txns], "last_commit_ts": acked}
+        part("a_alpha")
+
+        # (b) diagnostics: SIGUSR2, then the diagnose and fleet verbs
+        proc = kids.procs["alpha"][0]
+        proc.send_signal(signal.SIGUSR2)
+        t0 = time.perf_counter()
+        bundles = []
+        while time.perf_counter() - t0 < CLI_SIGUSR2_S and not bundles:
+            time.sleep(0.05)
+            bundles = glob.glob(os.path.join(diag, "flight-sigusr2-*.json"))
+        sig_s = time.perf_counter() - t0
+        if len(bundles) != 1:
+            fail("(b) SIGUSR2", bundles=bundles, seconds=sig_s)
+        addr = f"127.0.0.1:{hport}"
+        rc, doc, text = run_verb(verb_s, "diagnose", "diagnose", addr, "--out",
+                                 os.path.join(tmp, "pulled.json"))
+        if rc != 0 or doc is None or doc["trigger"] != "http" or \
+                not doc["server_path"]:
+            fail("(b) diagnose", rc=rc, doc=doc, out=text)
+        rc, fdoc, text = run_verb(verb_s, "fleet", "fleet", addr, "--out",
+                                  os.path.join(tmp, "fleet.json"))
+        if rc != 0 or fdoc is None or fdoc["self"] != "local" or \
+                set(fdoc["nodes"]) != {"local"}:
+            fail("(b) fleet", rc=rc, doc=fdoc, out=text)
+        out["b_diagnostics"] = {"sigusr2_s": sig_s,
+                                "surfaces": len(doc["surfaces"]),
+                                "fleet_self": fdoc["self"]}
+        part("b_diagnostics")
+
+        # (c) SIGINT while a request thread serves the batch on the card:
+        # drain, final checkpoint, exit 0; then the offline verbs over
+        # the directory it left
+        inflight = {}
+
+        def batch_client():
+            try:
+                inflight["status"] = http(
+                    base, "/query/batch", json.dumps({"queries": work}),
+                    ctype="application/json")[0]
+            except (OSError, HTTPException) as e:
+                inflight["status"] = type(e).__name__
+
+        client = threading.Thread(target=batch_client, daemon=True)
+        client.start()
+        time.sleep(CLI_INFLIGHT_S)
+        busy = client.is_alive()
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=CLI_SIGINT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        sigint_s = time.perf_counter() - t0
+        client.join(CLI_SIGINT_S)
+        if rc != 0 or "draining maintenance" not in kids.log("alpha"):
+            fail("(c) SIGINT", rc=rc, seconds=sigint_s,
+                 log=kids.log("alpha")[-3000:])
+        t0 = time.perf_counter()
+        rc, dbg, text = run_verb(verb_s, "debug", "debug", "--p", p_dir)
+        if rc != 0 or dbg is None or dbg["base_ts"] < acked:
+            fail("(c) debug after SIGINT", rc=rc, acked=acked,
+                 base_ts=None if dbg is None else dbg["base_ts"], out=text)
+        # backup, verify and restore of phase 12's sf 0.1 directory (on
+        # SF1 the script passed ~800 s); its `debug` document from this
+        # process is what the restored one must equal
+        small = handed["small"]
+        want_dbg = debug_doc(small)
+        bk, restored = os.path.join(tmp, "bk"), os.path.join(tmp, "r")
+        rc, man, text = run_verb(verb_s, "backup", "backup", "--p", small,
+                                  "--dest", bk)
+        if rc != 0 or man is None or man["type"] != "full":
+            fail("(c) backup", rc=rc, out=text)
+        rc, ver, text = run_verb(verb_s, "backup verify", "backup",
+                                  "verify", "--dest", bk)
+        if rc != 0 or ver is None or not ver["ok"]:
+            fail("(c) backup verify", rc=rc, out=text)
+        rc, res, text = run_verb(verb_s, "restore", "restore", "--dest",
+                                  bk, "--p", restored)
+        if rc != 0 or res is None:
+            fail("(c) restore", rc=rc, out=text)
+        rc, dbg2, text = run_verb(verb_s, "debug restored", "debug",
+                                   "--p", restored)
+        keys = ("nodes", "predicates", "schema")
+        if rc != 0 or dbg2 is None or \
+                {k: dbg2[k] for k in keys} != {k: want_dbg[k] for k in keys}:
+            fail("(c) the restored directory differs under debug", rc=rc,
+                 out=text)
+        out["c_offline"] = {
+            "sigint_s": sigint_s, "batch_in_flight": busy,
+            "batch_outcome": inflight.get("status"),
+            "base_ts": dbg["base_ts"],
+            "predicates": len(dbg["predicates"]),
+            "restored_nodes": want_dbg["nodes"],
+            "backup_bytes": dir_bytes(bk),
+            "restored_max_ts": res["restored_max_ts"],
+            "verbs_s": time.perf_counter() - t0, "verb_s": verb_s}
+        part("c_offline")
+
+        # (d) the cluster through the CLI: a Zero and two alphas on the
+        # card with empty directories
+        zport = free_port()
+        kids.start("zero", "zero", "--port", str(zport), "--liveness",
+                   str(CLI_ZERO_LIVENESS_S))
+        t0 = time.perf_counter()
+        while not port_open(zport):
+            if kids.procs["zero"][0].poll() is not None or \
+                    time.perf_counter() - t0 > CLI_BOOT_S:
+                fail("(d) zero did not come up", log=kids.log("zero"))
+            time.sleep(0.1)
+        nodes = []
+        for i in range(2):
+            h, gp = free_port(), free_port()
+            kids.start(f"node{i}", "alpha", *on_cpu, "--p",
+                       os.path.join(tmp, f"c{i}"), "--grpc_port", str(gp),
+                       "--http_port", str(h), "--zero",
+                       f"127.0.0.1:{zport}", "--heartbeat",
+                       str(CLI_HEARTBEAT_S))
+            nodes.append((f"node{i}", f"http://127.0.0.1:{h}",
+                          f"127.0.0.1:{gp}"))
+        t0 = time.perf_counter()
+        for name, b, _g in nodes:
+            wait_up(kids, name, b)
+        boot_s = time.perf_counter() - t0
+        c1, c2 = Client(nodes[0][2]), Client(nodes[1][2])
+        c1.alter("name: string @index(exact) .\nfriend: [uid] .")
+        c1.mutate(set_nquads='_:a <name> "alice" .\n_:b <name> "bob" .\n'
+                             '_:a <friend> _:b .', commit_now=True)
+        t0 = time.perf_counter()
+        while c2.query(CLI_CLUSTER_Q) != CLI_CLUSTER_WANT:
+            if time.perf_counter() - t0 > 30:
+                fail("(d) the cross-node read",
+                     got=c2.query(CLI_CLUSTER_Q))
+            time.sleep(0.5)
+        read_s = time.perf_counter() - t0
+        if c1.query(CLI_CLUSTER_Q) != CLI_CLUSTER_WANT:
+            fail("(d) the writing node's read", got=c1.query(CLI_CLUSTER_Q))
+        c1.channel.close()
+        c2.channel.close()
+        rc, fdoc, text = run_verb(verb_s, "fleet cluster", "fleet",
+                                  nodes[0][1][len("http://"):])
+        if rc != 0 or fdoc is None or fdoc["self"] != nodes[0][2] or \
+                set(fdoc["nodes"]) != {n[2] for n in nodes}:
+            fail("(d) fleet over the cluster", rc=rc, doc=fdoc, out=text)
+        zero = kids.procs["zero"][0]
+        zero.kill()
+        zero.wait()
+        t0 = time.perf_counter()
+        fails = {}
+        for name, b, _g in nodes:
+            while True:
+                st, _h, body = http(b, "/debug/prometheus_metrics")
+                fails[name] = prom_value(body.decode(),
+                                         "heartbeat_failures_total",
+                                         kind="liveness")
+                if fails[name] >= 3 and \
+                        "zero link is likely dead" in kids.log(name):
+                    break
+                if time.perf_counter() - t0 > CLI_ESCALATE_S:
+                    fail("(d) the dead Zero's heartbeats", node=name,
+                         failures=fails[name], log=kids.log(name)[-2000:])
+                time.sleep(0.25)
+        escalate_s = time.perf_counter() - t0
+        for name, _b, _g in nodes:
+            proc = kids.procs[name][0]
+            proc.send_signal(signal.SIGINT)
+            try:
+                rc = proc.wait(timeout=CLI_SIGINT_S)
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                fail("(d) a cluster alpha's SIGINT", node=name, rc=rc,
+                     log=kids.log(name)[-3000:])
+        out["d_cluster"] = {"boot_s": boot_s, "cross_read_s": read_s,
+                            "escalate_s": escalate_s,
+                            "liveness_failures": fails}
+        part("d_cluster")
+        left = kids.alive()
+        if left:
+            fail("children still running", names=left)
+    except BaseException:
+        say("phase 17 cli (stopped)", **out)
+        raise
+    finally:
+        kids.close()
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -6050,8 +6573,9 @@ def main() -> None:
     say("phase 14 front end", seconds=time.perf_counter() - t0, **front)
     no_oom("phase 14", since=oom0)
     t0 = time.perf_counter()
+    handed: dict = {}        # a copy of phase 14's directory, for phase 17
     obs = counted("phase 16", lambda: phase_observability(
-        device, g, served))
+        device, g, served, keep=handed))
     say("phase 16 observability", seconds=time.perf_counter() - t0, **obs)
     # phase 16 (d) injects exactly two allocation failures: one absorbed
     # at bfs.ell_recurse, one degrading fused.program (reset after)
@@ -6064,11 +6588,20 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    with no_fused_fallback("phase 15"):
-        cl = counted("phase 15", lambda: phase_cluster(
-            device, g, alpha["commits"]["p50_ms"]))
-    say("phase 15 cluster", seconds=time.perf_counter() - t0, **cl)
-    no_oom("phase 15", since=oom0)
+    try:
+        with no_fused_fallback("phase 15"):
+            cl = counted("phase 15", lambda: phase_cluster(
+                device, g, alpha["commits"]["p50_ms"]))
+        say("phase 15 cluster", seconds=time.perf_counter() - t0, **cl)
+        no_oom("phase 15", since=oom0)
+    except BaseException:
+        import shutil
+        shutil.rmtree(handed["tmp"], ignore_errors=True)
+        raise
+    t0 = time.perf_counter()
+    cli = counted("phase 17", lambda: phase_cli(
+        device, g, handed, mem["b_budget"]["budget"]))
+    say("phase 17 cli", seconds=time.perf_counter() - t0, **cli)
     # the launches of each main path, counted from zero around its run
     paths = {"bucket_hop": {
                  "query_batch @recurse (phase 4)": launches["bucket_hop"],
@@ -6089,7 +6622,9 @@ def main() -> None:
                  "HTTP /query/batch, recorder and sampler armed (phase 16)":
                      obs["bucket_hop_launches"],
                  "cluster Alpha.query_batch (phase 15)":
-                     cl["bucket_hop_launches"]},
+                     cl["bucket_hop_launches"],
+                 "CLI alpha process, HTTP /query/batch, from its trace "
+                 "(phase 17)": cli["bucket_hop_launches"]},
              "segment_combine": {
                  **rag["segment_combine_launches_by_path"],
                  "@msgpass under an injected fault (phase 13)":

@@ -71,8 +71,8 @@ this node's `_apply_lock` only, which a handler of ANOTHER node never
 takes.
 
 Every request registers with the flight recorder's watchdog
-(`flightrec.track_request`). Left to ROADMAP Queue 1: the CLI (9f), the
-mesh (10). Deliberate difference: no kernel group is served query by
+(`flightrec.track_request`); the CLI (`cli.py`) serves it as a process.
+Left to ROADMAP Queue 1: the mesh (10). Deliberate difference: no kernel group is served query by
 query after a failure: any failure of a group, an allocation failure its
 evict-and-retry did not absorb among them, raises out of `query_batch`
 (`engine/batch.py`).

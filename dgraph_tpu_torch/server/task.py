@@ -94,13 +94,23 @@ GRPC_OPTIONS = (("grpc.max_receive_message_length", -1),
                 ("grpc.max_send_message_length", -1))
 
 
+# gRPC reports a call that carries no deadline as ~9.2e18 s remaining
+# (its infinite future), not as None. Forwarded as a leg's timeout, that
+# overflows the peer call's deadline, which then fails at once with
+# DEADLINE_EXCEEDED (the reference's fault, ROADMAP Queue 3): a budget
+# this long is no budget.
+_NO_DEADLINE_S = 1e9
+
+
 def _grpc_deadline_ms(ctx) -> float | None:
     """Re-establish a request budget from the inbound gRPC deadline
     (reference: the server-side context.Context carrying the caller's
-    deadline). Tolerates a missing context (tests drive handlers
-    directly)."""
+    deadline); None when the caller set none. Tolerates a missing
+    context (tests drive handlers directly)."""
     rem = ctx.time_remaining() if ctx is not None else None
-    return None if rem is None else max(rem, 0.0) * 1e3
+    if rem is None or rem > _NO_DEADLINE_S:
+        return None
+    return max(rem, 0.0) * 1e3
 
 
 class DgraphService:

@@ -388,8 +388,9 @@ def enabled() -> bool:
 
 
 def set_enabled(flag: bool) -> None:
-    """The one off switch, process-wide (the CLI's `--cost_priors` comes
-    with ROADMAP Queue 1 item 9f, second half). Disabling stops
+    """The one off switch, process-wide (the CLI's `--cost_priors` /
+    `--no-cost_priors` set it; the reference's per-Alpha opt-out has no
+    counterpart). Disabling stops
     predictions, the batch's cost order and the route promotions, but
     keeps learned state."""
     global _ENABLED

@@ -29,13 +29,8 @@ from dgraph_tpu_torch.store import checkpoint, vault
 from test_torch_lifecycle import compare_case, reference_cases
 from test_torch_mvcc import assert_stores_equal
 
-# the CLI (ROADMAP Queue 1 item 9f); the admin-endpoint half of the
-# second runs in test_torch_http.py
-BACKUP_SKIP = {"test_cli_backup_restore_roundtrip",
-               "test_verify_cli_and_admin_endpoint"}
-
-CASES = ([(test_backup, n) for n in reference_cases(test_backup,
-                                                    BACKUP_SKIP)]
+# the cases that run the CLI run in test_torch_cli.py
+CASES = ([(test_backup, n) for n in reference_cases(test_backup)]
          + [(test_vault, "test_encrypted_backup_restore"),
             (test_txn, "test_drop_attr_in_backup_chain")])
 

@@ -62,6 +62,7 @@ from dgraph_tpu_torch.utils import memgov
 from dgraph_tpu_torch.utils.metrics import METRICS
 from test_torch_lifecycle import (PORT, REF, _recording_alpha,
                                   reference_cases, run_reference_case)
+from test_torch_lifecycle import settled_threads  # noqa: F401 (autouse)
 from test_torch_mvcc import assert_stores_equal
 
 # -- the harness ---------------------------------------------------------------
@@ -109,19 +110,20 @@ def cluster_extra(pkg, tr):
 
 def compare_cluster_case(module, name, tmp_path, monkeypatch,
                          nondeterministic=False, factory=None, polls=False,
-                         port_ordered=False):
+                         port_ordered=False, fixtures=None):
     """Both runs of one reference case; their transcripts must be equal
     (after `normalise`) unless the case is nondeterministic. `polls`:
     the case polls a condition on the clock, reading the same answer
     until it holds, so a run of equal entries counts once.
     `port_ordered`: the case picks its nodes by the sort order of their
     ephemeral ports, which decides which node's uid lease a new uid
-    comes from, so uids are written as placeholders."""
+    comes from, so uids are written as placeholders. `fixtures` maps
+    the pytest fixtures the case takes (capsys, caplog) to the caller's."""
     logs = {}
     for pkg in (PORT, REF):
         log = run_reference_case(module, name, pkg, tmp_path / pkg,
                                  monkeypatch, factory=factory,
-                                 extra=cluster_extra)
+                                 extra=cluster_extra, fixtures=fixtures)
         logs[pkg] = [(k, normalise(v)) for k, v in log]
         if port_ordered:
             logs[pkg] = [(k, _UID.sub('"<uid>"', v)) for k, v in logs[pkg]]
@@ -135,9 +137,8 @@ def compare_cluster_case(module, name, tmp_path, monkeypatch,
 
 # -- test_cluster.py on the port ---------------------------------------------------
 
-# the CLI's case waits for ROADMAP Queue 1 item 9f
-CLUSTER_CASES = reference_cases(
-    test_cluster, skip={"test_two_process_cluster_via_cli"})
+# the CLI's case runs in test_torch_cli.py
+CLUSTER_CASES = reference_cases(test_cluster)
 
 
 @pytest.mark.parametrize("name", CLUSTER_CASES)

@@ -9,9 +9,8 @@ port's objects bound in, its Alphas on the CPU, then the reference's.
 The transcripts must be equal but for ports, ids and clocks
 (`test_torch_cluster.normalise`); the watchdog's conviction of a request
 wedged on a peer leg is timing-shaped, so only its own assertions hold.
-Left out, named in ROADMAP Queue 1 item 9f (second half): the CLI's
-cases (`test_diagnose_fleet_cli_writes_per_node_files`,
-`test_fleet_cli_summary`). `test_identity_metrics_on_exposition` reads
+The CLI's cases (`test_diagnose_fleet_cli_writes_per_node_files`,
+`test_fleet_cli_summary`) run in `test_torch_cli.py`. `test_identity_metrics_on_exposition` reads
 `build_info`'s `jax=` and `backend=` labels, which the port names
 `torch=` and `device=` (ROADMAP Queue 3), and runs as a port
 counterpart below; so does a second run of `test_fleet_snapshot_
@@ -36,10 +35,9 @@ from dgraph_tpu_torch.utils import costprofile, flightrec, tracing
 from dgraph_tpu_torch.utils.metrics import METRICS
 from test_torch_cluster import compare_cluster_case
 from test_torch_lifecycle import reference_cases
+from test_torch_lifecycle import settled_threads  # noqa: F401 (autouse)
 
-SKIP = {"test_identity_metrics_on_exposition",
-        "test_diagnose_fleet_cli_writes_per_node_files",
-        "test_fleet_cli_summary"}
+SKIP = {"test_identity_metrics_on_exposition"}
 # a watchdog thread decides when this case's conviction lands
 NONDET = {"test_watchdog_conviction_names_wedged_peer"}
 # the wall-clock overhead ratio is a CPU timing of the reference's

@@ -8,10 +8,10 @@ pusher), then with the reference's own. Both packages' recorders, cost
 priors and cost profiles are reset around each run, as the reference
 file's own autouse fixture does. A case with a watchdog thread or a
 signal is timing-shaped, so only its own assertions hold; the others'
-transcripts must be equal. Left out: `test_http_acceptance_stalled_
-query_dumps_and_diagnose_pulls`, whose last step runs the reference's
-CLI (`cli.main(["diagnose", ...])`, ROADMAP Queue 1 item 9f, second
-half), and `test_armed_overhead_under_5_percent`, a wall-clock ratio of
+transcripts must be equal. `test_http_acceptance_stalled_query_dumps_
+and_diagnose_pulls`, whose last step runs the CLI (`cli.main(["diagnose",
+...])`), runs in `test_torch_cli.py`. Left out:
+`test_armed_overhead_under_5_percent`, a wall-clock ratio of
 an Alpha on the CPU that the suite's six workers make noisy; the port's
 armed-versus-disarmed p50 is measured on the card (`chip_smoke.py`
 phase 16 (a)), as for the tracing guard (`test_torch_tracing.py`).
@@ -35,9 +35,8 @@ from dgraph_tpu_torch.utils import costprior, costprofile, flightrec, tracing
 from dgraph_tpu_torch.utils.device import DEVICE_WIDE
 from test_torch_lifecycle import PORT, REF, reference_cases, run_reference_case
 
-CASES = reference_cases(test_flightrec, skip={
-    "test_http_acceptance_stalled_query_dumps_and_diagnose_pulls",
-    "test_armed_overhead_under_5_percent"})
+CASES = reference_cases(test_flightrec,
+                        skip={"test_armed_overhead_under_5_percent"})
 # a watchdog thread or a signal decides when these cases' events land
 NONDET = {"test_stalled_request_triggers_exactly_one_dump",
           "test_second_conviction_inside_interval_is_suppressed",

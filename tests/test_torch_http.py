@@ -23,7 +23,8 @@ The port's own checks: the debug inventory and the route tables agree
 both ways; `/debug/memory` is `GOVERNOR.status()`; a `/debug/profile`
 round trip writes a Chrome trace (the reference's case reads
 `jax.profiler`'s `.trace.json.gz`); `/admin/backup/verify` answers as
-`verify_chain` (the reference's case also runs its CLI, item 9f); and
+`verify_chain` (the reference's whole case, its CLI half too, runs in
+`test_torch_cli.py`); and
 8 concurrent HTTP clients get the answers one client gets.
 """
 
@@ -49,6 +50,7 @@ from dgraph_tpu_torch.server.debug_routes import DEBUG_ENDPOINTS
 from dgraph_tpu_torch.utils import memgov
 from test_torch_lifecycle import (PORT, REF, Transcript, bound,
                                  run_reference_case)
+from test_torch_lifecycle import settled_threads  # noqa: F401 (autouse)
 from test_torch_memgov import reset_cost_state
 
 # -- recording HTTP answers -----------------------------------------------------
@@ -342,7 +344,7 @@ def test_debug_profile_roundtrip_writes_a_chrome_trace(served, tmp_path):
 def test_admin_backup_verify_answers_as_verify_chain(tmp_path):
     """The admin-endpoint half of test_backup.py::
     test_verify_cli_and_admin_endpoint on a chain the port wrote (the
-    CLI half waits for ROADMAP item 9f)."""
+    whole case runs in test_torch_cli.py)."""
     from dgraph_tpu_torch.server.backup import verify_chain
     with pytest.MonkeyPatch.context() as m:
         # the reference module's helper, with the port's Alpha and backup

@@ -6,9 +6,10 @@ jax (and the reference's tests grpc) into the pytest process. `grpc` is
 imported by the cluster's transport alone: the protos, the gRPC worker
 (`server/task.py`) and `cluster/{zero,groups,resilience,routed,fault}.py`,
 and, inside the functions of their cluster branches only, by
-`server/{http,fleet,api}.py`. Importing the single-node modules (every
-other one: the server, the engine, the store, the utils) loads no
-`grpc`; the HTTP front end needs only the standard library.
+`server/{http,fleet,api}.py` and `cli.py` (its Zero join). Importing the
+single-node modules (every other one: the server, the engine, the
+store, the utils, the CLI) loads no `grpc`; the HTTP front end needs
+only the standard library.
 """
 
 import ast
@@ -43,7 +44,8 @@ GRPC_FILES = {"protos/__init__.py", "protos/task_pb2.py", "server/task.py",
               "cluster/zero.py", "cluster/groups.py",
               "cluster/resilience.py", "cluster/routed.py",
               "cluster/fault.py"}
-LAZY_GRPC_FILES = {"server/http.py", "server/fleet.py", "server/api.py"}
+LAZY_GRPC_FILES = {"server/http.py", "server/fleet.py", "server/api.py",
+                   "cli.py"}
 
 
 def _single_node_modules():
@@ -85,8 +87,22 @@ def test_single_node_modules_load_no_grpc():
     assert {"dgraph_tpu_torch.server.api", "dgraph_tpu_torch.server.http",
             "dgraph_tpu_torch.server.fleet", "dgraph_tpu_torch.engine",
             "dgraph_tpu_torch.store.store",
-            "dgraph_tpu_torch.utils.memgov"} <= set(mods)
+            "dgraph_tpu_torch.utils.memgov", "dgraph_tpu_torch.cli",
+            "dgraph_tpu_torch.__main__",
+            "dgraph_tpu_torch.utils.config"} <= set(mods)
     _import_in_subprocess(mods, "'grpc' not in sys.modules")
+
+
+def test_cli_loads_no_grpc_until_a_cluster_verb_runs():
+    """The CLI, its entry module and its typed config alone: the alpha
+    and zero verbs import the transport inside their functions, and
+    torch waits for a verb that needs it (`diagnose`, `fleet` and
+    `--version` start without it)."""
+    _import_in_subprocess(["dgraph_tpu_torch.cli",
+                           "dgraph_tpu_torch.__main__",
+                           "dgraph_tpu_torch.utils.config"],
+                          "'grpc' not in sys.modules",
+                          "'torch' not in sys.modules")
 
 
 def test_scan_covers_whole_block_programs_and_native():

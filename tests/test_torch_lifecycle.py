@@ -11,15 +11,24 @@ then again with the reference's own objects. Each run writes a
 transcript — every `Alpha` query and mutation result, every backup
 manifest and loader count, with the run's temp dir written as `<tmp>` —
 and the two transcripts must be equal. Tolerance: exact.
+
+A case that starts the reference's CLI in a subprocess
+(`[python, "-m", "dgraph_tpu", verb, ...]`) starts the port's on the
+port's run (`port_argv`: `-m dgraph_tpu_torch`, and `--device cpu`
+after `alpha` and `live`); each run's transcript holds the verb, its
+flags' names, its exit code and what it printed as JSON. Those cases
+(`CLI_CASES`) run in `test_torch_cli.py`, not in their home files.
 """
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import importlib
 import inspect
 import json
 import re
+import subprocess
 import sys
 import threading
 import time
@@ -161,6 +170,77 @@ def _recorded(fn, tr: Transcript):
         return out
     call.__name__ = fn.__name__
     return call
+
+
+# the reference's cases that start its CLI, by module: test_torch_cli.py
+# runs them, and `reference_cases` leaves them out of their home files
+CLI_CASES = {
+    "test_backup": ("test_cli_backup_restore_roundtrip",
+                    "test_verify_cli_and_admin_endpoint"),
+    "test_cluster": ("test_two_process_cluster_via_cli",),
+    "test_fleet": ("test_diagnose_fleet_cli_writes_per_node_files",
+                   "test_fleet_cli_summary"),
+    "test_flightrec": (
+        "test_http_acceptance_stalled_query_dumps_and_diagnose_pulls",),
+    "test_loaders": ("test_cli_bulk_debug_export",),
+    "test_resilience": ("test_heartbeat_failures_metered_and_escalated",),
+    "test_vault": ("test_cli_key_flag",),
+}
+# the verbs that build an Alpha that serves queries: the port's take
+# --device, and the harness runs them on the CPU
+DEVICE_VERBS = ("alpha", "live")
+
+
+def _cli_verb(args):
+    """The reference CLI's verb and its arguments, or None when `args`
+    starts something else."""
+    if isinstance(args, (list, tuple)) and len(args) >= 4 and \
+            list(args[1:3]) == ["-m", REF]:
+        return [str(a) for a in args[3:]]
+    return None
+
+
+def port_argv(args):
+    """A reference CLI argv as the port's: `-m dgraph_tpu_torch`, with
+    `--device cpu` after a verb that builds a serving Alpha."""
+    verb = _cli_verb(args)
+    if verb is None:
+        return args
+    extra = ["--device", "cpu"] if verb[0] in DEVICE_VERBS else []
+    return [args[0], "-m", PORT, verb[0], *extra, *verb[1:]]
+
+
+def cli_bindings(pkg, tr):
+    """`subprocess` for one run: the port's run starts the port's CLI
+    where a case starts the reference's; both runs write each CLI run
+    a case makes through `subprocess.run` to the transcript (verb, flag
+    names, exit code, printed JSON but its `elapsed_s`)."""
+    real_popen, real_run = subprocess.Popen, subprocess.run
+
+    class Popen(real_popen):
+        def __init__(self, args, *a, **kw):
+            if pkg == PORT:
+                args = port_argv(args)
+            super().__init__(args, *a, **kw)
+
+    def run(*a, **kw):
+        out = real_run(*a, **kw)
+        verb = _cli_verb(a[0] if a else kw.get("args"))
+        if verb is not None and \
+                sys._getframe(1).f_globals.get("__name__") == tr.caller:
+            text = out.stdout if isinstance(out.stdout, str) else ""
+            try:
+                doc = json.loads(text)
+            except ValueError:
+                doc = None
+            if isinstance(doc, dict):
+                doc.pop("elapsed_s", None)
+            tr.add("cli", {"verb": verb[0],
+                           "flags": [f for f in verb if f.startswith("--")],
+                           "rc": out.returncode, "json": doc})
+        return out
+
+    return {"Popen": Popen, "run": run}
 
 
 class _Proxy(types.ModuleType):
@@ -308,6 +388,8 @@ def bound(module, pkg, m, tr, extra=None):
     """`module`'s reference names bound to `pkg`'s objects for one run
     (undone by the monkeypatch context `m`)."""
     b = _Binder(pkg, tr, extra)
+    for k, v in cli_bindings(pkg, tr).items():
+        m.setattr(subprocess, k, v)
     names = _ref_modules(module)
     for n in (*names, *_REF_INSTANCES):
         b.ref_module(n)
@@ -398,8 +480,37 @@ def run_reference_case(module, name, pkg, tmp, monkeypatch, factory=None,
     return tr.log
 
 
+# the threads a test leaves on their way out: a stopped gRPC server's
+# executor workers (woken only when a collection frees the executor),
+# its poll and grace threads, an HTTP handler finishing its reply
+_TRANSIENT = ("_worker", "_serve", "cancel_all_calls_after_grace",
+              "process_request_thread")
+
+
+@pytest.fixture(autouse=True)
+def settled_threads():
+    """Each test's transient threads ended before the next test starts.
+    Left alone, they end at some later garbage collection, inside
+    whichever test of the worker runs then; a test that compares thread
+    sets (test_flightrec.py's test_disarmed_is_inert_and_starts_zero_
+    threads) then fails. Files that start servers import this fixture."""
+    before = set(threading.enumerate())
+    yield
+    left = [t for t in set(threading.enumerate()) - before
+            if getattr(getattr(t, "_target", None), "__name__", "")
+            in _TRANSIENT]
+    if not left:
+        return
+    gc.collect()
+    end = time.monotonic() + 5.0
+    for t in left:
+        t.join(max(0.0, end - time.monotonic()))
+
+
 def reference_cases(module, skip=()):
-    """The module's test functions and test-class methods, by name."""
+    """The module's test functions and test-class methods, by name; its
+    CLI cases (`CLI_CASES`, run in test_torch_cli.py) left out."""
+    skip = {*skip, *CLI_CASES.get(module.__name__, ())}
     out = []
     for n, obj in vars(module).items():
         if n.startswith("test_") and inspect.isfunction(obj):

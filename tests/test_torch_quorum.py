@@ -23,6 +23,7 @@ import test_partition_fuzz
 import test_quorum
 from test_torch_cluster import compare_cluster_case
 from test_torch_lifecycle import reference_cases
+from test_torch_lifecycle import settled_threads  # noqa: F401 (autouse)
 
 QUORUM_CASES = reference_cases(test_quorum)
 

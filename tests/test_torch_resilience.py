@@ -6,10 +6,9 @@ application error, the retry-storm bound against a dead peer, the crash
 and failover acceptance) runs twice through the cluster harness of
 `test_torch_cluster.py`: the port's objects bound in, then the
 reference's. The transcripts must be equal but for ports, ids, clocks
-and breaker retry times (`test_torch_cluster.normalise`). Left out,
-named in ROADMAP Queue 1 item 9f (second half):
-`test_heartbeat_failures_metered_and_escalated` (the CLI's heartbeat
-loop). `test_resilience_wrapper_overhead_under_5_percent` builds its
+and breaker retry times (`test_torch_cluster.normalise`). The CLI's
+heartbeat loop (`test_heartbeat_failures_metered_and_escalated`) runs
+in `test_torch_cli.py`. `test_resilience_wrapper_overhead_under_5_percent` builds its
 wrapped client's `PeerTable` with the lock sanitizer's switch cleared,
 which the port's `utils/locks` reads as the reference's does.
 """
@@ -19,9 +18,9 @@ import pytest
 import test_resilience
 from test_torch_cluster import compare_cluster_case
 from test_torch_lifecycle import reference_cases
+from test_torch_lifecycle import settled_threads  # noqa: F401 (autouse)
 
-SKIP = {"test_heartbeat_failures_metered_and_escalated"}
-CASES = reference_cases(test_resilience, skip=SKIP)
+CASES = reference_cases(test_resilience)
 # reads the same answers until the breakers close, as often as the
 # clock takes, and crashes the replica whose port sorts first
 POLLS = {"test_crash_failover_acceptance"}

@@ -18,6 +18,7 @@ import test_zero_ha
 import test_zero_hardening
 from test_torch_cluster import compare_cluster_case
 from test_torch_lifecycle import reference_cases
+from test_torch_lifecycle import settled_threads  # noqa: F401 (autouse)
 
 CASES = [(test_zero_ha, n) for n in reference_cases(test_zero_ha)] + \
     [(test_zero_hardening, n) for n in reference_cases(test_zero_hardening)]
