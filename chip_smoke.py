@@ -430,7 +430,18 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 dead"; both stopped by SIGINT with exit 0. Any other
                 exit code, any differing answer or any child still
                 running fails the phase. Each part's seconds printed
-  18. `route counters` (the run's totals and each phase's deltas), the
+  18. static analysis against the card's run — (a) `python -m
+                dgraph_tpu_torch.analysis --format=json` in a child
+                process over the tree as shipped: exit 0, no unwaived
+                finding, the waived count of each rule printed; (b) its
+                facts hold what this process did in phases 1-17: every
+                lock name `utils/locks` made, every metric name in
+                METRICS and every span name the tracer recorded has a
+                static site, the caches registered with memgov.GOVERNOR
+                are the `governed_caches` inventory (both ways), and
+                each kernel of KERNEL_SOURCES that launched has a launch
+                site and its source; any miss fails the phase
+  19. `route counters` (the run's totals and each phase's deltas), the
                 `kernels` JSON line, then the device JSON line last
 
 Phases 6 to 12, 14 and 15 fail if any block falls back from its
@@ -6452,6 +6463,54 @@ def phase_cli(device, g, handed: dict, device_budget_bytes: int) -> dict:
     return out
 
 
+# -- phase 18: static analysis against the card's run -------------------------
+
+LINT_TIMEOUT_S = 300      # (a) the analyzer's child process
+
+
+def phase_static_analysis(launches: dict) -> dict:
+    """Phase 18: (a) the port's static analysis over the tree as
+    shipped, in a child process: exit 0 and no unwaived finding; (b) its
+    facts against what this process did in phases 1-17 (`launches`: the
+    main paths' launches of each hand kernel)."""
+    from dgraph_tpu_torch.analysis.facts import runtime_misses
+    from dgraph_tpu_torch.utils import locks, memgov, tracing
+    from dgraph_tpu_torch.utils.metrics import METRICS
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dgraph_tpu_torch.analysis", "--format=json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=LINT_TIMEOUT_S)
+    lint_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 18 (a): the analyzer exited "
+                             f"{proc.returncode}: {proc.stdout[-3000:]}"
+                             f"{proc.stderr[-3000:]}")
+    doc = json.loads(proc.stdout)
+    if doc["findings"]:
+        raise AssertionError("phase 18 (a): unwaived findings: "
+                             + json.dumps(doc["findings"]))
+    t1 = time.perf_counter()
+    made, names, spans = set(locks.MADE), METRICS.names(), tracing.names()
+    caches = memgov.GOVERNOR.registered_names(ever=True)
+    misses = runtime_misses(doc["facts"], locks=made, metrics=names,
+                            spans=spans, caches=caches, launches=launches,
+                            sources=KERNEL_SOURCES)
+    if misses:
+        raise AssertionError("phase 18 (b): the static facts miss what "
+                             "the run did: " + json.dumps(misses))
+    return {"a_lint": {"seconds": lint_s, "findings": 0,
+                       "waived_by_rule": {r: n for r, n in
+                                          doc["counts"]["waived"].items()
+                                          if n},
+                       "facts": doc["facts"]["totals"]},
+            "b_run": {"seconds": time.perf_counter() - t1,
+                      "lock_names": len(made), "metric_names": len(names),
+                      "span_names": len(spans), "caches": sorted(caches),
+                      "kernel_launches": launches}}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -6629,6 +6688,11 @@ def main() -> None:
                  **rag["segment_combine_launches_by_path"],
                  "@msgpass under an injected fault (phase 13)":
                      mem.get("segment_combine_launches", 0)}}
+    t0 = time.perf_counter()
+    lint = phase_static_analysis({name: sum(paths[name].values())
+                                  for name in KERNEL_SOURCES})
+    say("phase 18 static analysis", seconds=time.perf_counter() - t0,
+        **lint)
     hub = rag["timing"]["segment_combine_msgpass_hub"]
     errs = [cases["max_abs_err"], hub["max_abs_err"],
             rag["timing"]["segment_combine_featprop_mean"]["max_abs_err"]]

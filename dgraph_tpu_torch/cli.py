@@ -101,6 +101,10 @@ def _join_zero(join, target: str, log):
 
     import grpc
     deadline = time.monotonic() + ZERO_JOIN_WAIT_S
+    # graftlint: allow(retry-deadline): only UNAVAILABLE (Zero not yet
+    # listening) is retried, for ZERO_JOIN_WAIT_S; DEADLINE_EXCEEDED and
+    # every other code raise at once, and the join spends no request
+    # budget
     while True:
         try:
             return join()

@@ -44,6 +44,8 @@ def shape_of(blocks) -> str:
         if sg.var_name:
             mods += "~v"
         d, node = 0, sg
+        # graftlint: allow(hot-loop-checkpoint): bounded by the parsed
+        # tree's depth (parser-limited), no data-dependent iteration
         while node.children:
             d += 1
             node = node.children[0]

@@ -131,6 +131,7 @@ class RouteCounts:
 
 def _bucket(n: int, lo: int = 64) -> int:
     b = lo
+    # graftlint: allow(hot-loop-checkpoint): O(log n) shift arithmetic
     while b < n:
         b <<= 1
     return b

@@ -103,7 +103,7 @@ from dgraph_tpu_torch.store.vec import device_topk
 from dgraph_tpu_torch.utils import costprofile, memgov, tracing
 from dgraph_tpu_torch.utils import deadline as dl
 from dgraph_tpu_torch.utils.device import DEVICE_WIDE
-from dgraph_tpu_torch.utils.metrics import METRICS
+from dgraph_tpu_torch.utils.metrics import MAX_LABEL_SETS, METRICS
 from dgraph_tpu_torch.utils import locks
 
 __all__ = ["STAGE_KINDS", "FusedPlan", "enabled", "plan_block",
@@ -630,11 +630,15 @@ def _evict() -> None:
     used until the memo holds `PROGRAM_CAPACITY` programs and
     `PROGRAM_BYTES` of graph memory (the newest program stays). Under
     `_lock`."""
+    # graftlint: allow(hot-loop-checkpoint): bounded — each pass pops
+    # one collected store's id, and no request budget runs in eviction
     while _collected:
         sid = _collected.pop()
         _stores.pop(sid, None)
         for key in [k for k in _programs if k[0] == sid]:
             _drop(key)
+    # graftlint: allow(hot-loop-checkpoint): bounded FIFO eviction of
+    # an in-memory memo, one program dropped a pass
     while len(_programs) > 1 and (len(_programs) > PROGRAM_CAPACITY
                                   or _stats["program_bytes"] > PROGRAM_BYTES):
         _drop(next(iter(_programs)))
@@ -730,8 +734,10 @@ def _program_for(plan: FusedPlan, caps: tuple, layout: tuple, rels: tuple,
                 _build_program(tuple(plan.stages), caps, layout), rels,
                 ex.device, tuple(plan.stages), caps, layout)
             _evict()
-    METRICS.inc("fused_program_hits_total" if hit
-                else "fused_program_misses_total")
+    if hit:
+        METRICS.inc("fused_program_hits_total")
+    else:
+        METRICS.inc("fused_program_misses_total")
     return prog
 
 
@@ -777,6 +783,8 @@ def reset(counters: bool = True) -> None:
 def _routed(store) -> bool:
     """Does `store`, or a view it wraps (an ACL view over a routed one),
     route foreign tablets over the wire (`cluster/routed.RoutedView`)?"""
+    # graftlint: allow(hot-loop-checkpoint): bounded by the views
+    # stacked on one store (ACL over routed over base), no data
     while store is not None:
         if getattr(store, "remote_expand", None) is not None:
             return True
@@ -939,6 +947,10 @@ def _run_plan(ex, sg, plan: FusedPlan, sp=None):
         raise RuntimeError("fused caps failed to converge")
     with _lock:
         _caps_memo[plan.sig] = caps
+        # graftlint: allow(hot-loop-checkpoint): bounded FIFO
+        # eviction of an in-memory memo, at most one entry over
+        while len(_caps_memo) > 4 * MAX_LABEL_SETS:
+            _caps_memo.pop(next(iter(_caps_memo)))
     t_end = time.perf_counter()
     costprofile.add_shape("fused")
     costprofile.add_kernel("fused", execute_us=(t_end - t_exec) * 1e6)

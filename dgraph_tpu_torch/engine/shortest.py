@@ -98,6 +98,8 @@ def _shortest_path(ex, sg) -> PathData:
             # iterative walk-back: following the first parent at every
             # step IS the first path the recursive enumeration would yield
             rev, cur = [], int(dst)
+            # graftlint: allow(hot-loop-checkpoint): walk-back length is
+            # bounded by the BFS depth the checkpointed loop above built
             while True:
                 plist = parents[cur]
                 if not plist:

@@ -386,6 +386,7 @@ def _tree_inputs(store, plan: TreePlan, device, device_threshold: int):
     filt_lists: list[list[np.ndarray]] = [[] for _ in plan.filt_paths]
     idx_per_query: list[_StageIndex] = []
     root_displays: list[dict[int, np.ndarray]] = []
+    # graftlint: allow(cache-registration): per-call local memo of this one batch's filter sets — it dies with the function, never holds bytes across requests
     filt_cache: dict = {}        # one batch's filter sets, by constants
     for blocks in plan.queries:
         ex = Executor(store, device=device,

@@ -75,6 +75,8 @@ def execution_order(blocks: list[SubGraph]) -> list[int]:
     done: set[str] = set()
     remaining = list(range(len(blocks)))
     order: list[int] = []
+    # graftlint: allow(hot-loop-checkpoint): parse-time planning,
+    # bounded by the query's block count
     while remaining:
         progressed = False
         for i in list(remaining):

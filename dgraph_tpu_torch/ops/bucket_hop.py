@@ -129,6 +129,8 @@ def bucket_hop_plain(nbr: torch.Tensor, frontier: torch.Tensor,
         rows = frontier[sel]                               # [r, K, W]
         if live is not None:
             rows.masked_fill_(~live[sel][:, :, None], 0)
+        # graftlint: allow(hot-loop-checkpoint): O(log K) halving of the
+        # bucket's slot axis
         while rows.shape[1] > 1:
             half = rows.shape[1] // 2
             folded = rows[:, :half] | rows[:, half:2 * half]

@@ -126,9 +126,9 @@ class AclManager:
         if not rows or not _check_password(password,
                                            rows[0]["dgraph.password"]):
             raise AclError("invalid credentials")
-        # the wall clock: any Alpha that shares the HMAC secret verifies
-        # the expiry, and a monotonic reading means nothing across
-        # processes
+        # graftlint: allow(wall-clock): token exp is verified by any
+        # alpha sharing the HMAC secret — a monotonic reading is
+        # meaningless across processes
         doc = json.dumps({"u": userid,
                           "exp": time.time() + TOKEN_TTL_S},
                          separators=(",", ":")).encode()
@@ -149,7 +149,8 @@ class AclManager:
         if not hmac.compare_digest(sig, want):
             raise AclError("bad token signature")
         payload = json.loads(doc)
-        if payload["exp"] < time.time():   # see login(): cross-process
+        # graftlint: allow(wall-clock): see login() — cross-process exp
+        if payload["exp"] < time.time():
             raise AclError("token expired")
         return _check_userid(payload["u"])
 

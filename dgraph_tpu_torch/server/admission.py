@@ -286,9 +286,7 @@ class _Lane:
                     if w.granted:
                         break
                     if not w.displaced:
-                        # w.granted and w.displaced are read again under
-                        # this acquisition: a grant that raced the
-                        # timeout wins (the break above)
+                        # graftlint: allow(split-critical-section): the deadline-withdraw path — w.granted/w.displaced are re-validated under THIS acquisition before the waiter removes itself; a grant that raced the timeout wins (the break above)
                         self.waiters.remove(w)
                         self.shed_total += 1
                         self._publish()

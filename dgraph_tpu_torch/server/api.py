@@ -400,6 +400,7 @@ class Alpha:
             checkpoint.save_versioned(store, p_dir, base_ts=ts)
             if self.wal is not None:
                 self.wal.truncate(ts)
+            # graftlint: allow(split-critical-section): exclusive branches — the streaming path RETURNED above; the two acquisitions never run in one call
             self._wal_floor = max(self._wal_floor, ts)
         self._save_costprofiles(p_dir)
         return ts
@@ -601,6 +602,7 @@ class Alpha:
                     or self.mvcc.floor_ts() <= ts):
                 break
             with self._state_lock:
+                # graftlint: allow(split-critical-section): the register/recheck/unregister retry protocol documented above — each acquisition is an independent refcount step, and the gc race it exists to close is re-checked per attempt
                 self._active_reads[ts] -= 1
                 if not self._active_reads[ts]:
                     del self._active_reads[ts]
@@ -608,6 +610,7 @@ class Alpha:
             yield ts
         finally:
             with self._state_lock:
+                # graftlint: allow(split-critical-section): refcount release — the earlier read registered this ts; decrementing in its own acquisition is the protocol, not check-then-act
                 self._active_reads[ts] -= 1
                 if not self._active_reads[ts]:
                     del self._active_reads[ts]
@@ -724,9 +727,7 @@ class Alpha:
                 continue
             pend_origins.discard(node)  # resolved, or truly undecided
             with self._state_lock:
-                # the pop lands only after a COMPLETED catch-up covering
-                # everything this gap recorded; a gap recorded concurrently re-
-                # arms on the next chained receive or read probe
+                # graftlint: allow(split-critical-section): the pop lands only after a COMPLETED catch-up covering everything this gap recorded; a gap recorded concurrently re-arms on the next chained receive or read probe
                 self._origin_gaps.pop(node, None)
             gaps.pop(node, None)
             if seen >= head:
@@ -796,9 +797,7 @@ class Alpha:
                     f"here; retry")
         else:
             with self._state_lock:
-                # monotonic freshness stamp — whichever verification finishes
-                # last wins, and any concurrent write only ADVANCES the lease;
-                # no decision was made on the earlier read
+                # graftlint: allow(split-critical-section): monotonic freshness stamp — whichever verification finishes last wins, and any concurrent write only ADVANCES the lease; no decision was made on the earlier read
                 self._read_verified_at = time.monotonic()
 
     def _engine(self, store: Store):
@@ -1332,9 +1331,7 @@ class Alpha:
                 origin, since_ts, e)
         else:
             with self._state_lock:
-                # pop only after this call's own catch_up SUCCEEDED; a
-                # concurrently recorded gap re-arms on the next chained receive
-                # or read probe
+                # graftlint: allow(split-critical-section): pop only after this call's own catch_up SUCCEEDED; a concurrently recorded gap re-arms on the next chained receive or read probe
                 self._origin_gaps.pop(origin, None)
 
     def receive_stage(self, mut: Mutation, ts: int, origin: int,
@@ -1421,9 +1418,7 @@ class Alpha:
         with self._state_lock:
             orphans = [t for t in stale if t in self._pending]
             for t in orphans:
-                # re-validated — only ts still in _pending under THIS
-                # acquisition are deleted; a decision that raced the fetch
-                # already removed its entry
+                # graftlint: allow(split-critical-section): re-validated — only ts still in _pending under THIS acquisition are deleted; a decision that raced the fetch already removed its entry
                 del self._pending[t]
         if self.wal is not None:
             for t in orphans:
@@ -1719,6 +1714,7 @@ class Alpha:
                 lambda k: k[0] == pred and len(k) == 3 and k[2] != n)
             old = self._tablet_cache.get((pred, version, n))
             if old is None:
+                # graftlint: allow(split-critical-section): idempotent cache fill — concurrent fillers install equivalent adaptations for the same (pred, version, n) key, and stale widths are simply re-deleted
                 self._tablet_cache[(pred, version, n)] = adapted
             else:
                 adapted = old      # a concurrent filler got here first

@@ -225,7 +225,7 @@ class _LazyFoldPreds:
                 return pd if pd is not None else default
         pd = self._fold(pred)
         with self._lock:
-            # two threads folding one tablet: the first install wins
+            # graftlint: allow(split-critical-section): double-checked fold — setdefault re-validates under the reacquisition; when two threads fold the same tablet concurrently the first install wins and both return it
             self._done.setdefault(pred, pd)
             pd = self._done[pred]
         return pd if pd is not None else default

@@ -254,6 +254,7 @@ class LazyPreds:
                     # a concurrent path re-installed this tablet while we
                     # were loading: replacing must not double-charge the
                     # budget — retire the old accounting first
+                    # graftlint: allow(split-critical-section): the in-flight-event protocol — the cold load runs outside the lock BY DESIGN (a seconds-long load must not freeze readers), and this reacquisition re-validates _sizes/_resident before installing
                     self._resident.pop(pred, None)
                     self.resident_bytes -= prev
                 self._resident[pred] = pd
@@ -282,6 +283,7 @@ class LazyPreds:
             return pd
         finally:
             with self._lock:
+                # graftlint: allow(split-critical-section): the in-flight event this same thread INSTALLED in the first acquisition is retired here; waiters re-loop and re-validate residency themselves
                 self._inflight.pop(pred, None)
             ev.set()
 

@@ -226,6 +226,7 @@ class Store:
         memgov.govern_dict(self, "_device", "store.device", "device")
         memgov.govern_dict(self, "_vec_dev", "store.vec", "device",
                            detail_cb=_vec_detail)
+        locks.guarded(self, "store.filter")
 
     def filter_set_memo(self, key, compute):
         """The allowed set `compute()` gives for a filter tree that reads
@@ -241,6 +242,7 @@ class Store:
         if out is None:
             return None
         with self._filter_lock:
+            # graftlint: allow(split-critical-section): idempotent memo fill — the answer for a key is fixed for this snapshot, so a concurrent filler installs an equal array
             self._filter_sets[key] = out
             while len(self._filter_sets) > FILTER_SET_CAPACITY:
                 self._filter_sets.popitem(last=False)
@@ -296,18 +298,17 @@ class Store:
                         torch.from_numpy(r.indptr).to(dev),
                         torch.from_numpy(r.indices).to(dev))
             if placed:
-                self._note_placed(("device",) + key,
-                                  "cache_replacements_total",
-                                  cache="store.device")
+                self._note_placed(("device",) + key, lambda: METRICS.inc(
+                    "cache_replacements_total", cache="store.device"))
         return out
 
-    def _note_placed(self, key, counter: str, **labels) -> None:
-        """Count a re-placement, then let the governor evict above the
-        device budget's high watermark. The caller returns the tensors
-        it placed even if this pass evicts them: its launch holds them,
-        and the next lookup places them again."""
+    def _note_placed(self, key, count) -> None:
+        """Count a re-placement (`count()`), then let the governor evict
+        above the device budget's high watermark. The caller returns the
+        tensors it placed even if this pass evicts them: its launch holds
+        them, and the next lookup places them again."""
         if key in self._placed:
-            METRICS.inc(counter, **labels)
+            count()
         self._placed.add(key)
         memgov.GOVERNOR.maybe_evict("device")
 
@@ -343,8 +344,8 @@ class Store:
                         torch.from_numpy(t.subj).to(dev),
                         torch.from_numpy(t.vecs).to(dev))
             if placed:
-                self._note_placed(("vec",) + key, "vec_replacements_total",
-                                  kind="device")
+                self._note_placed(("vec",) + key, lambda: METRICS.inc(
+                    "vec_replacements_total", kind="device"))
         return out
 
     # -- values -------------------------------------------------------------

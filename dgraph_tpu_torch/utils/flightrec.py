@@ -89,7 +89,8 @@ CAPTURE_WAIT_S = 1.0       # longest wait for DEVICE_WIDE in a capture
 
 
 def _now_ms() -> int:
-    # bundle and ring timestamps cross the process boundary — the dump file is read offline, long after this
+    # graftlint: allow(wall-clock): bundle/ring timestamps CROSS the
+    # process boundary — the dump file is read offline, long after this
     # process (and its monotonic epoch) is gone
     return int(time.time() * 1e3)
 

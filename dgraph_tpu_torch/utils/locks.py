@@ -33,13 +33,13 @@ locks are made at import):
                EMPTY C(v) here is a data race, reported with BOTH
                access stacks.
 
-  The guarded fields of a class come from `utils/lockinv.py`, which
-  infers them from the port's own source the way the reference's
-  static analysis does: the fields a class writes under one of its
-  locks at three quarters or more of their access sites. Direct field
-  peeks from test frames are exempt (the harness checks internals at
-  quiescent points). Off, `guarded()` returns at once and the fields
-  are plain attributes.
+  The guarded fields of a class come from the port's static analysis
+  (`analysis/guards.py: runtime_inventory`, rules R9-R12): the fields a
+  class writes under one of its locks at three quarters or more of
+  their access sites, less those whose unguarded access carries a
+  reasoned `guarded-field` waiver. Direct field peeks from test frames
+  are exempt (the harness checks internals at quiescent points). Off,
+  `guarded()` returns at once and the fields are plain attributes.
 
 This module imports nothing of the port (metrics and tracing make their
 locks through it), and the instrumented fast path never calls back into
@@ -54,7 +54,7 @@ import threading
 import time
 import traceback
 
-__all__ = ["enabled", "make_lock", "make_rlock", "make_condition",
+__all__ = ["enabled", "make_lock", "make_rlock", "make_condition", "MADE",
            "GRAPH", "LockGraph", "TracedLock", "TracedRLock",
            "set_enabled", "race_enabled", "guarded", "attach",
            "RACES", "RaceTable", "set_race_enabled"]
@@ -75,6 +75,27 @@ def enabled() -> bool:
 
 def _stack() -> str:
     return "".join(traceback.format_stack()[:-_STACK_SKIP])
+
+
+def _frames() -> tuple:
+    """The stack `_stack` prints, as raw (file, line, function) frames,
+    innermost last: taken without reading a source file. The race table
+    keeps one at every state change of a field, on the request path of
+    whichever thread touches it, and renders it (`_render`) only into a
+    report; formatting there reads every frame's file (a `stat` each,
+    through `linecache`), milliseconds a change on a loaded host."""
+    out = []
+    f = sys._getframe(_STACK_SKIP)
+    while f is not None:
+        out.append((f.f_code.co_filename, f.f_lineno, f.f_code.co_name,
+                    None))
+        f = f.f_back
+    out.reverse()
+    return tuple(out)
+
+
+def _render(frames: tuple) -> str:
+    return "".join(traceback.StackSummary.from_list(frames).format())
 
 
 class LockGraph:
@@ -295,20 +316,28 @@ class TracedRLock(TracedLock):
         return True
 
 
+# every order-class name a constructor below was called with in this
+# process (chip_smoke.py holds them against the static lock classes)
+MADE: set = set()
+
+
 def make_lock(name: str) -> "threading.Lock | TracedLock":
     """The one lock constructor every subsystem uses: a plain
     `threading.Lock` in production, a `TracedLock` under the sanitizer.
     `name` is the site's order-class (e.g. "mvcc.store")."""
+    MADE.add(name)
     return TracedLock(name) if enabled() else threading.Lock()
 
 
 def make_rlock(name: str) -> "threading.RLock | TracedRLock":
+    MADE.add(name)
     return TracedRLock(name) if enabled() else threading.RLock()
 
 
 def make_condition(name: str) -> threading.Condition:
     """A Condition whose underlying lock participates in the order
     graph (wait() releases/reacquires through the traced wrapper)."""
+    MADE.add(name)
     if enabled():
         return threading.Condition(TracedLock(name))
     return threading.Condition()
@@ -453,7 +482,7 @@ class RaceTable:
             # kept: it is "the other side" of a race surfacing at the
             # very first cross-thread write.
             states[field] = {"mode": _EXCLUSIVE, "owner": tid,
-                             "set": None, "stack": _stack(),
+                             "set": None, "stack": _frames(),
                              "stack_tid": tid, "stack_held": (),
                              "reported": False}
             return
@@ -471,7 +500,7 @@ class RaceTable:
                     and not s["reported"]:
                 self._report(obj, field, s, tid, held, write)
                 return
-            s["stack"] = _stack()
+            s["stack"] = _frames()
             s["stack_tid"] = tid
             s["stack_held"] = tuple(sorted(held))
             return
@@ -501,7 +530,7 @@ class RaceTable:
         if shrank:
             # this access shrank the candidate set: it is one of the
             # two accesses that prove any upcoming race
-            s["stack"] = _stack()
+            s["stack"] = _frames()
             s["stack_tid"] = tid
             s["stack_held"] = tuple(sorted(held))
 
@@ -519,7 +548,7 @@ class RaceTable:
                 "kind": "write" if write else "read",
                 "first": {"thread": s["stack_tid"],
                           "lockset": list(s["stack_held"]),
-                          "stack": s["stack"] or ""},
+                          "stack": _render(s["stack"])},
                 "second": {"thread": tid,
                            "lockset": sorted(held),
                            "stack": _stack()},
@@ -569,7 +598,7 @@ class RaceTable:
         """The `guarded()` slow path: resolve the statically-inferred
         field inventory for this object's class (walking the MRO —
         `WAL(Journal)` arms Journal's fields) and attach the shim."""
-        from dgraph_tpu_torch.utils.lockinv import runtime_inventory
+        from dgraph_tpu_torch.analysis.guards import runtime_inventory
         inv = runtime_inventory()
         fields: list = []
         hit_key = None

@@ -197,6 +197,7 @@ class Governor:
     def __init__(self):
         self._lock = locks.make_lock("memgov.governor")
         self._entries: dict[int, _Entry] = {}
+        self._ever: set = set()      # every name registered so far
         self._next_id = 0
         self._budgets = {"device": 0, "host": 0}
         self._armed = False          # any budget set (lock-free fast path)
@@ -229,6 +230,7 @@ class Governor:
             self._next_id += 1
             rid = self._next_id
             self._entries[rid] = e
+            self._ever.add(name)
             self._prune_locked()
         return rid
 
@@ -255,8 +257,12 @@ class Governor:
         for k in dead:
             del self._entries[k]
 
-    def registered_names(self) -> set:
+    def registered_names(self, ever: bool = False) -> set:
+        """The names of the live registrations, or with `ever` of every
+        registration this process made (resets keep them)."""
         with self._lock:
+            if ever:
+                return set(self._ever)
             return {e.name for e in self._entries.values() if e.alive()}
 
     def _snapshot(self, kind=None) -> list:

@@ -174,6 +174,13 @@ class Registry:
                 out.append(f"dgraph_tpu_{_series(name + '_count', lk)} {n}")
         return "\n".join(out) + "\n"
 
+    def names(self) -> set:
+        """Every metric name recorded so far: counters, gauges and
+        histograms."""
+        with self._lock:
+            return {n for table in (self._counters, self._gauges,
+                                    self._hists) for n, _lk in table}
+
     def snapshot(self) -> dict:
         """Flat dict view. Label-free series keep their bare name (the
         historical shape); labeled ones render as `name{k="v",...}`."""

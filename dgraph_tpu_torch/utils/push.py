@@ -153,7 +153,7 @@ class TelemetryPusher:
         req = urllib.request.Request(
             self.url + path, data=json.dumps(doc).encode(),
             headers={"Content-Type": "application/json"}, method="POST")
-        # telemetry export to an EXTERNAL
+        # graftlint: allow(direct-io): telemetry export to an EXTERNAL
         # collector, not a cluster RPC — it must not ride the peer
         # breaker/retry wrapper; this loop has its own bounded
         # retry/backoff/drop policy

@@ -70,6 +70,7 @@ _SINKS: list = []          # live-export subscribers (utils/push.py)
 # spans recorded, and spans recorded under a PROPAGATED (attach'd)
 # trace context — both under _LOCK with the registries
 _STAT = {"spans": 0, "propagated": 0}
+_NAMES: set = set()        # every span name recorded in this process
 
 
 @dataclass
@@ -350,8 +351,8 @@ def span(name: str, device: bool = False, **attrs):
     s = Span(name=name, span_id=sid,
              parent_id=stack[-1] if stack else 0,
              trace_id=getattr(_TLS, "trace_id", ""),
-             # span start is an EPOCH timestamp: Perfetto/OTLP exports
-             # align traces across processes by wall clock
+             # graftlint: allow(wall-clock): span start is an EPOCH timestamp —
+             # Perfetto/OTLP exports align traces across processes by wall clock
              start_us=int(time.time() * 1e6),
              tid=threading.get_ident(), pid=_PID, attrs=attrs)
     stack.append(sid)
@@ -375,6 +376,7 @@ def span(name: str, device: bool = False, **attrs):
         propagated = getattr(_TLS, "attach_depth", 0) > 0
         with _LOCK:
             _STAT["spans"] += 1
+            _NAMES.add(name)
             if propagated:
                 _STAT["propagated"] += 1
             _BUF.append(s)
@@ -418,6 +420,12 @@ def trace_spans(trace_id: str) -> list[Span]:
     before parents, so the root span is last)."""
     with _LOCK:
         return list(_TRACES.get(trace_id, ()))
+
+
+def names() -> set:
+    """Every span name recorded in this process so far."""
+    with _LOCK:
+        return set(_NAMES)
 
 
 def stats() -> dict:

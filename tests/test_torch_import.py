@@ -164,7 +164,7 @@ def test_scan_covers_the_observability_modules():
     telemetry pusher and the sanitizers are scanned and load on their
     own without jax or the reference package."""
     scanned = {os.path.relpath(p, PKG) for p in _port_files()}
-    mods = {"utils/locks.py", "utils/lockinv.py", "utils/flightrec.py",
+    mods = {"utils/locks.py", "analysis/guards.py", "utils/flightrec.py",
             "utils/timeseries.py", "utils/slo.py", "utils/push.py"}
     assert mods <= scanned
     _import_in_subprocess(

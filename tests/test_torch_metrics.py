@@ -29,8 +29,8 @@ from dgraph_tpu_torch.utils.metrics import METRICS
 from test_torch_lifecycle import PORT, REF, run_reference_case
 from test_torch_memgov import reset_cost_state
 
-# a lint over the reference package's own sources (graftlint R5): the
-# port's static analysis is ROADMAP Queue 1 item 11
+# graftlint R5 over the package: it runs on the port in test_torch_lint.py
+# with the reference's other analyzer cases
 SKIP = {"test_every_emitted_metric_name_is_documented"}
 # renders whatever the process accumulated so far: only its own
 # strictness assertions hold

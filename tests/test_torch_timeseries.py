@@ -11,8 +11,9 @@ are disarmed around each run, as the reference file's own autouse
 fixture does. The cases that serve HTTP or run the sampler's thread are
 timing-shaped (trace ids, clocks), so only their own assertions hold;
 the others' transcripts must be equal. Left out: `test_bench_compare_
-gate`, which runs the reference's static analysis (`dgraph_tpu.
-analysis`, ROADMAP Queue 1 item 11), and `test_armed_sampler_overhead_
+gate`, which drives the analysis CLI and runs on the port in
+`test_torch_lint.py` with the reference's other analyzer cases, and
+`test_armed_sampler_overhead_
 under_5_percent`, a wall-clock ratio of an engine on the CPU that the
 suite's six workers make noisy; the port's armed-versus-disarmed cost
 is measured on the card (`chip_smoke.py` phase 16 (a)), as for the
