@@ -441,14 +441,58 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 are the `governed_caches` inventory (both ways), and
                 each kernel of KERNEL_SOURCES that launched has a launch
                 site and its source; any miss fails the phase
-  19. `route counters` (the run's totals and each phase's deltas), the
+  19. mesh     — mesh serving in one process (parallel/): a mesh of four
+                shards of card 0 (`make_mesh(4, devices=[cuda:0] * 4)`),
+                its parts run where their stores live, all before phase
+                18, each under `reshard_guard` with the mesh programs
+                wrapped (CUDA events and least bytes per call; every
+                program's largest call replayed on the mesh and in its
+                single-device form, ONE shard of the card, or the
+                device top-k and segment_combine over the whole stack):
+                (c) after phase 5, on the bench graph: 4 var-block
+                `@recurse(depth: 4)` queries from 16 roots each through
+                `_chain_recurse`, then `_fused_recurse`, each answer
+                equal to the single-device engine's and each query's
+                edges equal to cpu_recurse; (e) bitmap_recurse_sharded
+                at 512 int8 lanes, depth 4, from make_seeds: every
+                lane's visited set equal to make_ell_recurse's on the
+                same seeds (the bucket_hop kernel), the per-lane edges
+                to make_ell_count's; (a) after phase 12, on phase 6's SF1
+                store: the IC mix and config 3 through `Engine(mesh=,
+                device_threshold=0)`, each byte-equal to the numpy
+                route, plus a root `orderasc` + `first:` (mesh_topk) and
+                a child `orderdesc` (mesh_row_sort); (b) `has(has_creator)`
+                (1M messages, past ring_threshold) expanded through
+                ring_matrix_hop, the answer equal to the single-device
+                route's and the edge matrix to its gather; (f) an
+                `Alpha(mesh=)` over HTTP: 4 IC-mix requests,
+                /debug/scheduler's `mesh.shard_cost_us`, the same
+                requests under a device budget of half the sharded
+                tablets' bytes (a store.sharded eviction and a
+                re-placement counted), then `python -m dgraph_tpu_torch
+                alpha --mesh-devices <the card count>` on an empty
+                directory serving an alter, a commit and a query at
+                device_threshold 0 with `mesh.shard_cost_us`, exit 0 on
+                SIGINT, and one card more exiting non-zero before its
+                directory exists; (d) after phase 10, on its
+                GraphRAG store: the nine templates through `knn_mesh`
+                and `feat_mesh` (segment_combine per shard): knn answers
+                exact, @msgpass max exact, sum and mean to rtol=1e-5,
+                atol=1e-6 against the single-device engine. Prints each
+                part's seconds, the `mesh_*` counters and gauges, and per
+                program its launches, device ms, bound and the
+                single-device form's ms
+  20. `route counters` (the run's totals and each phase's deltas), the
                 `kernels` JSON line, then the device JSON line last
 
 Phases 6 to 12, 14 and 15 fail if any block falls back from its
 whole-block program to the staged route, and phases 2 to 12, phase 13
 (a) and (b), phase 14, phase 16 beyond its two injected failures and
-phase 15 fail if an allocation failure was counted or a shape degraded
-(no degraded route may stand in for a kernel's result).
+phases 15 and 19 fail if an allocation failure was counted or a shape
+degraded (no degraded route may stand in for a kernel's result). Phase
+19 fails on any answer that differs, any reshard, any expansion off the
+mesh in (a)-(e) (device, whole-block program, host walk; a knn or feat
+route other than the mesh's), a mesh route or program never taken.
 
 It imports torch, numpy and dgraph_tpu_torch only.
 """
@@ -6511,6 +6555,814 @@ def phase_static_analysis(launches: dict) -> dict:
                       "kernel_launches": launches}}
 
 
+# -- phase 19: mesh serving in one process ----------------------------------------
+
+MESH_SHARDS = 4
+MESH_RECURSE_QUERIES = 4        # (c) queries of MESH_RECURSE_ROOTS roots
+MESH_RECURSE_ROOTS = 16         # each: 64 roots in all
+MESH_RECURSE_DEPTH = 4
+MESH_RECURSE_SEED = 17
+MESH_LANES = 512                # (e) lanes (int8 mask columns)
+MESH_DEPTH = 4
+MESH_LANE_SEED = 23
+MESH_HTTP_TEMPLATES = ("IC2", "IC7", "IC9", "config3")   # (f)
+MESH_TIMING_REPS = 3
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-6
+# each mesh program and the reference function it ports
+MESH_PROGRAMS = {
+    "matrix_hop": ("dgraph_tpu_torch.parallel.dhop", "matrix_hop",
+                   "dgraph_tpu/parallel/dhop.py:117"),
+    "matrix_level": ("dgraph_tpu_torch.parallel.dhop", "matrix_level",
+                     "dgraph_tpu/parallel/dhop.py:167"),
+    "ring_matrix_hop": ("dgraph_tpu_torch.parallel.dhop", "ring_matrix_hop",
+                        "dgraph_tpu/parallel/dhop.py:286"),
+    "chain_hop": ("dgraph_tpu_torch.parallel.dhop", "chain_hop",
+                  "dgraph_tpu/parallel/dhop.py:500"),
+    "recurse_fused_matrix": ("dgraph_tpu_torch.parallel.dhop",
+                             "recurse_fused_matrix",
+                             "dgraph_tpu/parallel/dhop.py:410"),
+    "mesh_topk": ("dgraph_tpu_torch.parallel.dsort", "mesh_topk",
+                  "dgraph_tpu/parallel/dsort.py:130"),
+    "mesh_row_sort": ("dgraph_tpu_torch.parallel.dsort", "mesh_row_sort",
+                      "dgraph_tpu/parallel/dsort.py:190"),
+    "knn_mesh": ("dgraph_tpu_torch.store.vec", "_mesh_topk",
+                 "dgraph_tpu/store/vec.py:213"),
+    "feat_mesh": ("dgraph_tpu_torch.engine.feat", "_mesh_combine",
+                  "dgraph_tpu/engine/feat.py:136"),
+    "bitmap_recurse_sharded": ("dgraph_tpu_torch.parallel.dbfs",
+                               "bitmap_recurse_sharded",
+                               "dgraph_tpu/parallel/dbfs.py:137"),
+}
+_SENT = 2**31 - 1
+
+
+def card_mesh(device):
+    """Phase 19's mesh: four shards of card 0 (four of the CPU in a
+    rehearsal)."""
+    from dgraph_tpu_torch.parallel.mesh import make_mesh
+    if torch.device(device).type == "cuda":
+        return make_mesh(MESH_SHARDS,
+                         devices=[torch.device("cuda", 0)] * MESH_SHARDS)
+    return make_mesh(MESH_SHARDS, device="cpu")
+
+
+def _valid(x) -> int:
+    return int((np.asarray(x) != _SENT).sum())
+
+
+def mesh_least_bytes(name: str, a: dict, out) -> int:
+    """Least bytes of one mesh program call: each input it must read once
+    (the frontier, the indptr pairs of its real rows, the edges' ids, a
+    filter set, the tablet rows it scores) and each output written once
+    (the real edges' (nbrs, seg, pos), the next frontier and seen set,
+    ranks, feature rows), whatever the shard count."""
+    if name == "matrix_hop":
+        fr = np.asarray(a["frontier"])
+        total = int(np.asarray(out[3]).sum())
+        return 4 * fr.size + 8 * _valid(fr) + 16 * total
+    if name == "matrix_level":
+        fr = np.asarray(a["frontier"])
+        total = int(np.asarray(out[4]).sum())
+        kept = int(np.asarray(out[3]).sum())
+        allowed = 4 * len(np.asarray(a["allowed"])) if a["use_allowed"] \
+            else 0
+        return 4 * fr.size + 8 * _valid(fr) + 4 * total + allowed + 12 * kept
+    if name == "ring_matrix_hop":
+        ch = np.asarray(a["frontier_chunks"])
+        return 4 * ch.size + 8 * _valid(ch) + \
+            16 * int(np.asarray(out[3]).sum())
+    if name == "chain_hop":
+        fr = np.asarray(a["frontier"])
+        caps = 4 * (a["out_cap"] + a["seen_cap"])
+        return 2 * caps + 8 * _valid(fr) + 4 * int(out[2]) + 8 * int(out[7])
+    if name == "recurse_fused_matrix":
+        frs = np.asarray(out[7])
+        return (4 * (a["out_cap"] + a["seen_cap"]) + 8 * _valid(frs)
+                + 4 * int(out[2]) + 12 * _valid(out[4]) + 4 * frs.size)
+    if name == "mesh_topk":
+        return 12 * len(a["ranks"]) + 4 * (0 if out is None else len(out))
+    if name == "mesh_row_sort":
+        return 24 * len(a["nbrs"])
+    if name == "knn_mesh":
+        t = a["store"].vec_tablet(a["pred"])
+        return int(t.vecs.nbytes + t.subj.nbytes) + 4 * t.dim + 4 * a["k"]
+    if name == "feat_mesh":
+        n_seg, dim = out[0].shape
+        return (8 * len(a["nbrs"]) + 4 * dim * int(out[1].sum())
+                + 4 * n_seg * dim + 8 * n_seg)
+    if name == "bitmap_recurse_sharded":
+        slabs = np.asarray(a["mask_slabs"])
+        n, b = slabs.shape[0] * slabs.shape[1], slabs.shape[2]
+        return 8 * int(np.asarray(a["deg_s"]).sum()) + 4 * n + 3 * n * b \
+            + 4 * b
+    raise KeyError(name)
+
+
+class ProgramTape:
+    """The mesh programs wrapped while armed: per call its device ms (a
+    CUDA event pair around it) and least bytes; the largest call's
+    arguments are kept for the timing replays."""
+
+    def __init__(self, device):
+        self.on_card = torch.device(device).type == "cuda"
+        self.calls = {n: [] for n in MESH_PROGRAMS}
+        self.biggest: dict = {}
+        self.fns: dict = {}
+
+    @contextlib.contextmanager
+    def armed(self):
+        import importlib
+        import inspect
+        saved = []
+        for name, (mod, attr, _ref) in MESH_PROGRAMS.items():
+            m = importlib.import_module(mod)
+            fn = getattr(m, attr)
+            self.fns[name] = fn
+            saved.append((m, attr, fn))
+            setattr(m, attr, self._wrap(name, fn, inspect.signature(fn)))
+        try:
+            yield self
+        finally:
+            for m, attr, fn in saved:
+                setattr(m, attr, fn)
+
+    def _wrap(self, name, fn, sig):
+        def call(*a, **kw):
+            ev = None
+            if self.on_card:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            out = fn(*a, **kw)
+            if ev is not None:
+                ev[1].record()
+            args = sig.bind(*a, **kw)
+            args.apply_defaults()
+            nb = mesh_least_bytes(name, args.arguments, out)
+            self.calls[name].append((ev, nb))
+            if nb >= self.biggest.get(name, (-1,))[0]:
+                self.biggest[name] = (nb, a, kw)
+            return out
+        return call
+
+    def summary(self) -> dict:
+        if self.on_card:
+            torch.cuda.synchronize()
+        out = {}
+        for name, calls in self.calls.items():
+            if not calls:
+                continue
+            ms = [e[0].elapsed_time(e[1]) for e, _b in calls] \
+                if self.on_card else []
+            nb = sum(b for _e, b in calls)
+            out[name] = {"calls": len(calls), "ms_total": sum(ms),
+                         "least_bytes": nb,
+                         "bound_ms": nb / HBM_BYTES_PER_S * 1e3}
+        return out
+
+
+def one_shard_rel(srel, device):
+    """The same CSR as a 1-shard ShardedRel on `device`, stitched on the
+    device from a placed mesh tablet (the single-device form)."""
+    from dgraph_tpu_torch.parallel.mesh import Sharded
+    from dgraph_tpu_torch.parallel.pshard import ShardedRel
+    ptrs, idxs, base = [], [], 0
+    for p, i in zip(srel.indptr_s.parts, srel.indices_s.parts):
+        nnz = int(p[-1])
+        ptrs.append(p[:-1].to(device) + base)
+        idxs.append(i[:nnz].to(device))
+        base += nnz
+    n = srel.n_nodes
+    ptr = torch.cat(ptrs)[:n]
+    ptr = torch.cat([ptr, torch.tensor([base], dtype=ptr.dtype,
+                                       device=ptr.device)])
+    return ShardedRel(indptr_s=Sharded([ptr]),
+                      indices_s=Sharded([torch.cat(idxs)]),
+                      row_lo=np.zeros(1, np.int32), n_nodes=n,
+                      pos_lo=np.zeros(1, np.int64))
+
+
+def _single(name, a: dict, device):
+    """The single-device form of one recorded call: the program on ONE
+    shard of the card (a 1-shard mesh over the whole CSR: what the
+    sharded program reduces to), the device top-k over the whole stack
+    for knn, segment_combine over the whole stack for @msgpass."""
+    import functools
+    from dgraph_tpu_torch.ops.feat import segment_combine
+    from dgraph_tpu_torch.parallel import dhop, dsort
+    from dgraph_tpu_torch.parallel.mesh import make_mesh
+    from dgraph_tpu_torch.parallel.pshard import shard_frontier
+    from dgraph_tpu_torch.store import vec
+
+    dev = torch.device(device)
+    one = (make_mesh(devices=[dev]) if dev.type == "cuda"
+           else make_mesh(1, device="cpu"))
+    if name in ("matrix_hop", "matrix_level", "chain_hop",
+                "recurse_fused_matrix"):
+        rel = one_shard_rel(a["rel"], dev)
+        kw = {k: v for k, v in a.items() if k not in ("mesh", "rel")}
+        if name == "matrix_hop":
+            kw["edge_cap"] *= MESH_SHARDS
+        elif name == "matrix_level":
+            kw["edge_cap"] *= MESH_SHARDS
+        elif name == "chain_hop":
+            kw["edge_cap"] *= MESH_SHARDS
+            kw["frontier"] = np.asarray(kw["frontier"])
+            kw["seen"] = np.asarray(kw["seen"])
+        else:
+            kw["edge_cap"] *= MESH_SHARDS
+        return functools.partial(getattr(dhop, name), one, rel, **kw)
+    if name == "ring_matrix_hop":
+        rel = one_shard_rel(a["rel"], dev)
+        ch = np.asarray(a["frontier_chunks"])
+        fr = ch[ch != _SENT]
+        cap = 64
+        while cap < max(len(fr), 1):
+            cap <<= 1
+        return functools.partial(
+            dhop.ring_matrix_hop, one, rel, shard_frontier(fr, 1, cap),
+            a["edge_cap"] * MESH_SHARDS * MESH_SHARDS)
+    if name in ("mesh_topk", "mesh_row_sort"):
+        kw = {k: v for k, v in a.items() if k != "mesh"}
+        return functools.partial(getattr(dsort, name), one, **kw)
+    if name == "knn_mesh":
+        subj, vecs = a["store"].vec_device(a["pred"], dev)
+        q = torch.from_numpy(np.asarray(a["q"], np.float32)).to(dev)
+        return functools.partial(vec.device_topk, subj, vecs, q, a["k"])
+    if name == "feat_mesh":
+        subj, vecs = a["store"].vec_device(a["pred"], dev)
+        nb = torch.from_numpy(np.asarray(a["nbrs"], np.int32)).to(dev)
+        sg = torch.from_numpy(np.asarray(a["seg"], np.int32)).to(dev)
+        return functools.partial(segment_combine, subj, vecs, nb, sg,
+                                 len(nb), a["n_seg"], a["agg"])
+    return None
+
+
+def mesh_program_rows(tape: ProgramTape, device, main_calls: dict,
+                      rows: dict) -> None:
+    """Fold one part of the phase into `rows`, per mesh program: its
+    calls on the part's main path (`main_calls`, read before any
+    replay), device ms per call and least-bytes bound over all of them,
+    and its largest call replayed (1 warm-up, MESH_TIMING_REPS timed,
+    CUDA events) on the mesh and in its single-device form. The tape
+    then lets go of the part's arguments (their stores)."""
+    import inspect
+    served = tape.summary()
+    for name, (nb, a, kw) in tape.biggest.items():
+        fn = tape.fns[name]
+        args = inspect.signature(fn).bind(*a, **kw)
+        args.apply_defaults()
+        big = {"least_bytes": nb, "bound_ms": nb / HBM_BYTES_PER_S * 1e3}
+        if tape.on_card and name != "bitmap_recurse_sharded":
+            fn(*a, **kw)
+            big["mesh_ms"] = float(np.median(cuda_ms(
+                lambda _x: fn(*a, **kw), MESH_TIMING_REPS)))
+            single = _single(name, dict(args.arguments), device)
+            if single is not None:
+                single()
+                big["single_ms"] = float(np.median(cuda_ms(
+                    lambda _x: single(), MESH_TIMING_REPS)))
+            del single
+        row = rows.setdefault(name, {"reference": MESH_PROGRAMS[name][2],
+                                     "launches": 0, "calls": 0,
+                                     "ms_total": 0.0, "least_bytes": 0,
+                                     "bound_ms": 0.0, "largest_call": None})
+        got = served.get(name, {})
+        row["launches"] += main_calls.get(name, 0)
+        for k in ("calls", "ms_total", "least_bytes", "bound_ms"):
+            row[k] += got.get(k, 0)
+        if row["largest_call"] is None or \
+                nb > row["largest_call"]["least_bytes"]:
+            row["largest_call"] = big
+    tape.biggest.clear()
+    tape.calls = {n: [] for n in MESH_PROGRAMS}
+
+
+def mesh_routes_ok(eng, part: str) -> None:
+    """Fail `part` when its mesh engine served an expansion off the mesh
+    (the device, a whole-block program or the host walk)."""
+    off = {r: n for r, n in eng.routes.expansions.items()
+           if n and r in ("device", "fused", "program", "numpy", "remote")}
+    if off:
+        raise AssertionError(f"phase 19 {part}: expansions off the mesh "
+                             f"{off}")
+
+
+def route_set(name: str) -> dict:
+    from dgraph_tpu_torch.utils.metrics import METRICS
+    return {r: METRICS.get(name, route=r)
+            for r in ("host", "device", "fused", "mesh")}
+
+
+def mesh_counters() -> dict:
+    """The `mesh_*` counters and gauges of the registry (the reshard
+    count read even when it never moved)."""
+    from dgraph_tpu_torch.parallel.mesh import reshard_count
+    from dgraph_tpu_torch.utils.metrics import METRICS
+    snap = METRICS.snapshot()
+    return {"mesh_hop_resharded_total": reshard_count(),
+            **{k: v for part in ("counters", "gauges")
+               for k, v in snap[part].items() if k.startswith("mesh_")}}
+
+
+def phase_mesh_bench(device, store, mesh, tape: ProgramTape) -> dict:
+    """Phase 19 (c) and (e) on the bench graph (phases 4-5's store)."""
+    from dgraph_tpu_torch.engine import Engine, recurse
+    from dgraph_tpu_torch.engine.batch import _dev_for
+    from dgraph_tpu_torch.ops import bfs
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES as HOP
+    from dgraph_tpu_torch.parallel import dbfs
+    from dgraph_tpu_torch.parallel.mesh import (PROGRAM_CALLS, host_np,
+                                                reshard_count, reshard_guard)
+    from dgraph_tpu_torch.tools.hop_profile import make_seeds
+
+    rel = store.rel("follows")
+    n = store.n_nodes
+    out: dict = {}
+    # (c) @recurse(depth: 4) from 64 roots: chained hops, then one call
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(MESH_RECURSE_SEED)
+    roots = [np.unique(rng.integers(0, n, MESH_RECURSE_ROOTS))
+             for _ in range(MESH_RECURSE_QUERIES)]
+    qs = ["{ v as var(func: uid(%s)) @recurse(depth: %d) { follows } "
+          "q(func: uid(v)) { count(uid) } }"
+          % (", ".join(hex(int(r) + 1) for r in rs), MESH_RECURSE_DEPTH)
+          for rs in roots]
+    want_edges = [cpu_recurse(rel.indptr, rel.indices, rs,
+                              MESH_RECURSE_DEPTH) for rs in roots]
+    single = Engine(store, device=device, device_threshold=LDBC_THRESHOLD)
+    want = [single.query_bytes(q) for q in qs]
+    r0 = reshard_count()
+    c = {}
+    for route, chain in (("chain", True), ("fused", False)):
+        PROGRAM_CALLS.clear()
+        eng = Engine(store, device=device, device_threshold=0, mesh=mesh)
+        recurse.MESH_CHAIN_HOPS = chain
+        per = []
+        try:
+            with reshard_guard():
+                for q, w, we in zip(qs, want, want_edges):
+                    e0 = eng.routes.edges["mesh_chain"]
+                    t1 = time.perf_counter()
+                    got = eng.query_bytes(q)
+                    per.append({"ms": (time.perf_counter() - t1) * 1e3,
+                                "edges": eng.routes.edges["mesh_chain"] - e0,
+                                "answer": got.decode()})
+                    if got != w:
+                        raise AssertionError(
+                            f"phase 19 (c) {route}: answer {got[:200]!r} "
+                            f"!= the single-device engine's {w[:200]!r}")
+                    if per[-1]["edges"] != we:
+                        raise AssertionError(
+                            f"phase 19 (c) {route}: {per[-1]['edges']} "
+                            f"edges, cpu_recurse counts {we}")
+        finally:
+            recurse.MESH_CHAIN_HOPS = True
+        mesh_routes_ok(eng, f"(c) {route}")
+        c[route] = {"queries": per, "programs": dict(PROGRAM_CALLS)}
+    if not c["chain"]["programs"].get("chain_hop") or \
+            not c["fused"]["programs"].get("recurse_fused_matrix"):
+        raise AssertionError(f"phase 19 (c): routes not taken {c}")
+    out["c_recurse"] = {"seconds": time.perf_counter() - t0,
+                        "roots": int(sum(len(r) for r in roots)),
+                        "depth": MESH_RECURSE_DEPTH, "cpu_edges": want_edges,
+                        **c}
+    # (e) the sharded bitmap traversal against make_ell_recurse
+    t0 = time.perf_counter()
+    seeds = make_seeds(n, MESH_LANES, seed=MESH_LANE_SEED)
+    src_s, dst_s, deg_s, rows = dbfs.shard_coo_by_src(rel.indptr,
+                                                      rel.indices,
+                                                      MESH_SHARDS)
+    mask0 = bfs.ranks_to_bitmap(seeds, n)
+    slabs = dbfs.shard_mask(mask0, MESH_SHARDS, rows)
+    PROGRAM_CALLS.clear()
+    with reshard_guard():
+        last_s, seen_s, edges_r = dbfs.bitmap_recurse_sharded(
+            mesh, src_s, dst_s, deg_s, slabs, MESH_DEPTH)
+    calls = dict(PROGRAM_CALLS)
+    on_card = tape.on_card
+    seen_d = torch.cat(seen_s.parts)[:n]
+    edges_mesh = host_np(edges_r).astype(np.int64)
+    g, dev = _dev_for(store, "follows", False, device)
+    W = MESH_LANES // 32
+    for k in HOP:
+        HOP[k] = 0
+    fn = bfs.make_ell_recurse(dev, g.outdeg, g.n, W, count_edges=False)
+    last, seen, _ = fn(bfs.put_mask(bfs.pack_seed_masks(g, seeds), device),
+                       MESH_DEPTH)
+    hop_launches = dict(HOP)
+    ell_edges = bfs.make_ell_count(g.outdeg, g.n, device)(
+        last, seen).cpu().numpy()
+    shifts = torch.arange(32, dtype=torch.int32, device=seen.device)
+    bits = ((seen[:g.n, :, None] >> shifts) & 1).reshape(g.n, MESH_LANES)
+    new_of_old = torch.from_numpy(np.asarray(g.new_of_old, np.int64)).to(
+        seen.device)
+    ell_seen = bits[new_of_old].to(torch.int8)
+    host_seen = seen[:g.n].cpu().numpy().view(np.uint32)
+    for q in (0, MESH_LANES - 1):     # the unpacking against the host's
+        got = np.nonzero(ell_seen[:, q].cpu().numpy())[0]
+        rows_q = np.nonzero((host_seen[:, q // 32] >> np.uint32(q % 32))
+                            & np.uint32(1))[0]
+        if not np.array_equal(got, np.sort(g.perm_order[rows_q])):
+            raise AssertionError(f"phase 19 (e): lane {q} unpacked wrong")
+    same = bool(torch.equal(ell_seen, seen_d.to(ell_seen.device)))
+    if not same:
+        bad = int((ell_seen != seen_d).any(0).sum())
+        raise AssertionError(f"phase 19 (e): {bad} lanes' visited sets "
+                             f"differ from make_ell_recurse's")
+    if not np.array_equal(edges_mesh, ell_edges.astype(np.int64)):
+        raise AssertionError("phase 19 (e): per-lane edges differ from "
+                             "make_ell_count's")
+    e = {"seconds": time.perf_counter() - t0, "lanes": MESH_LANES,
+         "depth": MESH_DEPTH, "rows_per_shard": rows,
+         "edge_cap_per_shard": int(src_s.shape[1]),
+         "visited_total": int(seen_d.to(torch.int64).sum()),
+         "edges_total": int(edges_mesh.sum()), "programs": calls,
+         "bucket_hop_launches": hop_launches.get("bucket_hop", 0),
+         "partials_bytes": MESH_SHARDS * rows * MESH_SHARDS * MESH_LANES}
+    del seen_d, last_s, seen_s, ell_seen, bits
+    if on_card:
+        # the whole call on the four shards and on ONE shard of the card
+        # (the single-device form of the same program)
+        from dgraph_tpu_torch.parallel.mesh import make_mesh
+        ms = cuda_ms(lambda _x: dbfs.bitmap_recurse_sharded(
+            mesh, src_s, dst_s, deg_s, slabs, MESH_DEPTH), 1)
+        one = make_mesh(devices=[torch.device(device, 0)])
+        s1, d1, g1, r1 = dbfs.shard_coo_by_src(rel.indptr, rel.indices, 1)
+        m1 = dbfs.shard_mask(mask0, 1, r1)
+        ms1 = cuda_ms(lambda _x: dbfs.bitmap_recurse_sharded(
+            one, s1, d1, g1, m1, MESH_DEPTH), 1)
+        nb = (8 * rel.nnz + 4 * n + 3 * n * MESH_LANES + 4 * MESH_LANES)
+        e["timing"] = {"mesh_ms": ms[0], "single_ms": ms1[0],
+                       "least_bytes": nb,
+                       "bound_ms": nb / HBM_BYTES_PER_S * 1e3}
+        del s1, d1, g1, m1
+    out["e_bitmap"] = e
+    if reshard_count() != r0:
+        raise AssertionError("phase 19 (c)/(e): reshards counted")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def ldbc_mesh_queries(g) -> dict:
+    """(a)'s extra orderings: a root `orderasc` + `first:` (mesh_topk)
+    and a child-level `orderdesc` (mesh_row_sort)."""
+    p = hex(int(g.person_uids[len(g.person_uids) // 3]))
+    return {
+        "topk": '{ q(func: has(first_name), orderasc: birthday_year, '
+                'first: 25) { uid first_name birthday_year } }',
+        "row_sort": '{ q(func: uid(%s)) { knows (orderdesc: birthday_year) '
+                    '{ uid birthday_year } } }' % p,
+    }
+
+
+RING_QUERY = ('{ var(func: has(has_creator)) '
+              '{ c as has_creator (orderasc: first_name) } '
+              'q(func: uid(c), orderasc: first_name, first: 20) '
+              '{ uid first_name } n(func: uid(c)) { count(uid) } }')
+
+
+def phase_mesh_ldbc(device, built: dict, mesh, tape: ProgramTape) -> dict:
+    """Phase 19 (a), (b) and (f) on phase 6's SF1 store."""
+    from dgraph_tpu_torch.engine import Engine
+    from dgraph_tpu_torch.engine.execute import Executor
+    from dgraph_tpu_torch.models import ldbc
+    from dgraph_tpu_torch.parallel.mesh import (PROGRAM_CALLS, reshard_count,
+                                                reshard_guard)
+
+    g, store = built["g"], built["store"]
+    out: dict = {}
+    r0 = reshard_count()
+    # (a) the IC mix and config 3, per query, and the two orderings
+    t0 = time.perf_counter()
+    queries = dict(ldbc.ic_templates(g))
+    queries["config3"] = ldbc.config3_query(g)
+    want = dict(built["ldbc_bytes"])
+    extra = ldbc_mesh_queries(g)
+    host = Engine(store, device="cpu", device_threshold=HOST_ONLY)
+    with fusion(False):     # the pure numpy route
+        want.update({k: host.query_bytes(q) for k, q in extra.items()})
+    PROGRAM_CALLS.clear()
+    knn0, feat0 = route_set("knn_route_total"), route_set("feat_route_total")
+    eng = Engine(store, device=device, device_threshold=0, mesh=mesh)
+    per = {}
+    with reshard_guard():
+        for k, q in {**queries, **extra}.items():
+            before = dict(eng.routes.expansions)
+            t1 = time.perf_counter()
+            got = eng.query_bytes(q)
+            per[k] = {"ms": (time.perf_counter() - t1) * 1e3,
+                      "routes": {r: v - before[r]
+                                 for r, v in eng.routes.expansions.items()
+                                 if v - before[r]}}
+            if got != want[k]:
+                raise AssertionError(f"phase 19 (a) {k}: the mesh engine's "
+                                     f"answer differs from the single-device"
+                                     f" engine's")
+    mesh_routes_ok(eng, "(a)")
+    calls = dict(PROGRAM_CALLS)
+    for name in ("mesh_topk", "mesh_row_sort", "matrix_hop", "matrix_level",
+                 "chain_hop"):
+        if not calls.get(name):
+            raise AssertionError(f"phase 19 (a): {name} never ran ({calls})")
+    if route_set("knn_route_total") != knn0 or \
+            route_set("feat_route_total") != feat0:
+        raise AssertionError("phase 19 (a): a knn or feat route ran")
+    out["a_ic_mix"] = {"seconds": time.perf_counter() - t0,
+                       "per_query": per, "programs": calls,
+                       "routes": {"expansions": dict(eng.routes.expansions),
+                                  "edges": dict(eng.routes.edges),
+                                  "least_bytes": dict(eng.routes.least_bytes)}}
+    # (b) a frontier past ring_threshold: ~1M messages over has_creator
+    t0 = time.perf_counter()
+    with fusion(False):
+        want_ring = Engine(store, device=device,
+                           device_threshold=LDBC_THRESHOLD).query_bytes(
+            RING_QUERY)
+    PROGRAM_CALLS.clear()
+    ring_eng = Engine(store, device=device, device_threshold=0, mesh=mesh)
+    with reshard_guard():
+        t1 = time.perf_counter()
+        got = ring_eng.query_bytes(RING_QUERY)
+        ring_ms = (time.perf_counter() - t1) * 1e3
+    calls = dict(PROGRAM_CALLS)
+    if got != want_ring:
+        raise AssertionError("phase 19 (b): the ring route's answer differs "
+                             "from the single-device route's")
+    if not calls.get("ring_matrix_hop") or not calls.get("mesh_row_sort"):
+        raise AssertionError(f"phase 19 (b): the ring did not run ({calls})")
+    mesh_routes_ok(ring_eng, "(b)")
+    # the ring's edge matrix itself against the single-device gather
+    frontier = store.has_ranks("has_creator")
+    ex = Executor(store, device=device, device_threshold=0, mesh=mesh)
+    single = Executor(store, device=device, device_threshold=0)
+    with reshard_guard():
+        ring = ex._expand_mesh("has_creator", False, frontier)
+    flat = single._expand_device("has_creator", False, frontier)
+    for x, y, what in zip(ring, flat, ("nbrs", "seg", "pos")):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            raise AssertionError(f"phase 19 (b): the ring's {what} differ "
+                                 f"from the single-device gather")
+    out["b_ring"] = {"seconds": time.perf_counter() - t0,
+                     "frontier": int(len(frontier)),
+                     "ring_threshold": Executor.ring_threshold,
+                     "edges": int(len(ring[0])), "query_ms": ring_ms,
+                     "programs": calls}
+    if reshard_count() != r0:
+        raise AssertionError("phase 19 (a)/(b): reshards counted")
+    out["f_alpha"] = mesh_alpha_http(device, g, store, mesh, built)
+    return out
+
+
+def mesh_alpha_http(device, g, store, mesh, built: dict) -> dict:
+    """Phase 19 (f): an Alpha on the mesh over HTTP, then the same
+    requests under a device budget that evicts `store.sharded`."""
+    from dgraph_tpu_torch.models import ldbc
+    from dgraph_tpu_torch.server.api import Alpha
+    from dgraph_tpu_torch.server.http import make_http_server, serve_background
+    from dgraph_tpu_torch.utils import memgov
+    from dgraph_tpu_torch.utils.metrics import METRICS
+
+    t0 = time.perf_counter()
+    queries = dict(ldbc.ic_templates(g))
+    queries["config3"] = ldbc.config3_query(g)
+    names = MESH_HTTP_TEMPLATES
+    a = Alpha(base=store, device=device, device_threshold=0, mesh=mesh)
+    srv = make_http_server(a, "127.0.0.1", 0)
+    serve_background(srv)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    res: dict = {}
+    try:
+        def serve(tag):
+            lat = {}
+            for k in names:
+                t1 = time.perf_counter()
+                status, _h, body = http(base, "/query", queries[k])
+                lat[k] = (time.perf_counter() - t1) * 1e3
+                if status != 200 or data_bytes(body) != \
+                        built["ldbc_bytes"][k]:
+                    raise AssertionError(f"phase 19 (f) {tag} {k}: status "
+                                         f"{status}, answer differs")
+            return lat
+
+        res["served_ms"] = serve("served")
+        status, _h, body = http(base, "/debug/scheduler")
+        doc = json.loads(body)
+        cost = (doc.get("mesh") or {}).get("shard_cost_us")
+        if status != 200 or not cost or not sum(cost.values()):
+            raise AssertionError("phase 19 (f): /debug/scheduler shows no "
+                                 "mesh.shard_cost_us")
+        res["shard_cost_us"] = cost
+        ev0 = memgov.GOVERNOR.status()["caches"]["store.sharded"]["evictions"]
+        rp0 = METRICS.get("cache_replacements_total", cache="store.sharded")
+        resident = memgov.GOVERNOR.status()["caches"]["store.sharded"][
+            "bytes"]
+        # a budget under the sharded tablets' own bytes: placing one
+        # evicts another
+        budget = max(resident // 2, 1)
+        was = (memgov.GOVERNOR.budget("device"),
+               memgov.GOVERNOR.budget("host"))
+        memgov.GOVERNOR.set_budgets(device_bytes=budget, host_bytes=was[1])
+        try:
+            memgov.GOVERNOR.maybe_evict("device")
+            res["budget_ms"] = serve("under budget")
+        finally:
+            memgov.GOVERNOR.set_budgets(*was)
+        st = memgov.GOVERNOR.status()["caches"]["store.sharded"]
+        res["budget"] = {"device_bytes": budget,
+                         "sharded_bytes_before": resident,
+                         "evictions": st["evictions"] - ev0,
+                         "replacements": METRICS.get(
+                             "cache_replacements_total",
+                             cache="store.sharded") - rp0}
+        if res["budget"]["evictions"] < 1 or res["budget"]["replacements"] < 1:
+            raise AssertionError(f"phase 19 (f): no store.sharded tablet "
+                                 f"evicted and placed again {res['budget']}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    res["cli"] = mesh_cli(device)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+MESH_CLI_SCHEMA = "name: string @index(exact) .\nfriend: [uid] @reverse ."
+MESH_CLI_RDF = "\n".join(
+    f'_:p{i} <name> "p{i}" .\n_:p{i} <friend> _:p{(i * 7 + 3) % 40} .'
+    for i in range(40))
+MESH_CLI_Q = '{ q(func: eq(name, "p1")) { name friend { name friend { name } } } }'
+
+
+def mesh_cli(device) -> dict:
+    """Phase 19 (f), the CLI: `alpha --mesh-devices N` (N = this machine's
+    cards; two CPU shards in a rehearsal) on an empty directory serves an
+    alter, a commit and a query over HTTP at device_threshold 0, with
+    /debug/scheduler showing `mesh.shard_cost_us`, and exits 0 on SIGINT;
+    one card more exits non-zero, naming item 10b, before its directory
+    exists."""
+    import shutil
+    import signal
+    import tempfile
+
+    from dgraph_tpu_torch.engine import Engine
+    from dgraph_tpu_torch.server.api import Alpha
+
+    on_card = torch.device(device).type == "cuda"
+    n = torch.cuda.device_count() if on_card else 2
+    tmp = tempfile.mkdtemp(prefix="mesh_cli_")
+    kids = _Children(tmp)
+    out: dict = {"mesh_devices": n}
+    try:
+        hport, gport = free_port(), free_port()
+        on_cpu = [] if on_card else ["--device", "cpu"]
+        kids.start("alpha", "alpha", *on_cpu, "--p", os.path.join(tmp, "p"),
+                   "--http_port", str(hport), "--grpc_port", str(gport),
+                   "--mesh-devices", str(n), "--store", "device_threshold=0")
+        base = f"http://127.0.0.1:{hport}"
+        out["boot_s"] = wait_up(kids, "alpha", base)
+        st1, _h, _b = http(base, "/alter", MESH_CLI_SCHEMA)
+        st2, _h, _b = http(base, "/mutate?commitNow=true", MESH_CLI_RDF,
+                           ctype="application/rdf")
+        t0 = time.perf_counter()
+        st3, _h, body = http(base, "/query", MESH_CLI_Q)
+        out["query_ms"] = (time.perf_counter() - t0) * 1e3
+        plain = Alpha(device="cpu", device_threshold=10**9)
+        plain.alter(MESH_CLI_SCHEMA)
+        plain.mutate(set_nquads=MESH_CLI_RDF)
+        want = json.loads(Engine(plain.mvcc.read_view(
+            plain.oracle.read_ts()), device="cpu").query_bytes(MESH_CLI_Q))
+        st4, _h, sched = http(base, "/debug/scheduler")
+        cost = (json.loads(sched).get("mesh") or {}).get("shard_cost_us")
+        if (st1, st2, st3, st4) != (200, 200, 200, 200) or \
+                json.loads(data_bytes(body)) != want or not cost:
+            raise AssertionError(
+                f"phase 19 (f) cli: statuses {(st1, st2, st3, st4)}, "
+                f"answer {body[:300]!r}, shard costs {cost}: "
+                f"{kids.log('alpha')[-2000:]}")
+        out["shard_cost_us"] = cost
+        proc = kids.procs["alpha"][0]
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=CLI_SIGINT_S)
+        out["sigint_s"] = time.perf_counter() - t0
+        if rc != 0 or "device mesh" not in kids.log("alpha"):
+            raise AssertionError(f"phase 19 (f) cli: exit {rc}: "
+                                 f"{kids.log('alpha')[-2000:]}")
+        if on_card:
+            wide = os.path.join(tmp, "wide")
+            rc, _doc, text = run_verb(out, "wide_s", "alpha", "--p", wide,
+                                      "--mesh-devices", str(n + 1))
+            if rc == 0 or "item 10b" not in text or os.path.exists(wide):
+                raise AssertionError(f"phase 19 (f) cli: --mesh-devices "
+                                     f"{n + 1} exited {rc}: {text}")
+            out["wide_rc"] = rc
+    finally:
+        kids.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_mesh_graphrag(device, g, store, mesh, tape: ProgramTape) -> dict:
+    """Phase 19 (d) on phase 10's GraphRAG store: knn through knn_mesh and
+    the @msgpass templates through feat_mesh."""
+    from dgraph_tpu_torch.engine import Engine
+    from dgraph_tpu_torch.ops.feat import LAUNCHES as COMBINE
+    from dgraph_tpu_torch.parallel.mesh import (PROGRAM_CALLS, reshard_count,
+                                                reshard_guard)
+    from dgraph_tpu_torch.tools import graphrag_mix
+
+    t0 = time.perf_counter()
+    queries = graphrag_mix.templates(g)
+    single = Engine(store, device=device, device_threshold=LDBC_THRESHOLD)
+    want = {k: json.loads(single.query_bytes(q)) for k, q in queries.items()}
+    exact = {"knn_hop", "knn_uid", "knn_recurse"}
+    PROGRAM_CALLS.clear()
+    for k in COMBINE:
+        COMBINE[k] = 0
+    knn0, feat0 = route_set("knn_route_total"), route_set("feat_route_total")
+    r0 = reshard_count()
+    eng = Engine(store, device=device, device_threshold=0, mesh=mesh)
+    per = {}
+    with reshard_guard():
+        for k, q in queries.items():
+            t1 = time.perf_counter()
+            got = json.loads(eng.query_bytes(q))
+            per[k] = {"ms": (time.perf_counter() - t1) * 1e3}
+            err = json_float_err(want[k], got, exact_floats=(
+                k in exact or k.endswith("_max")))
+            per[k]["max_rel_err"] = err
+    launches = dict(COMBINE)
+    calls = dict(PROGRAM_CALLS)
+    mesh_routes_ok(eng, "(d)")
+    knn = {r: v - knn0[r] for r, v in route_set("knn_route_total").items()}
+    feat = {r: v - feat0[r] for r, v in route_set("feat_route_total").items()}
+    if knn["mesh"] < 4 or any(knn[r] for r in ("host", "device", "fused")):
+        raise AssertionError(f"phase 19 (d): knn routes {knn}")
+    if feat["mesh"] < 5 or any(feat[r] for r in ("host", "device", "fused")):
+        raise AssertionError(f"phase 19 (d): feat routes {feat}")
+    if reshard_count() != r0:
+        raise AssertionError("phase 19 (d): reshards counted")
+    return {"seconds": time.perf_counter() - t0, "per_query": per,
+            "programs": calls, "knn_routes": knn, "feat_routes": feat,
+            "segment_combine_launches": launches.get("segment_combine", 0)}
+
+
+def json_float_err(want, got, exact_floats: bool) -> float:
+    """Hold a JSON answer against another: equal structure and values,
+    floats exactly or to rtol=MESH_RTOL, atol=MESH_ATOL. Returns the
+    largest relative float difference."""
+    worst = [0.0]
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            if not isinstance(b, dict) or a.keys() != b.keys():
+                raise AssertionError(f"phase 19 (d): keys differ at {path}")
+            for k in a:
+                walk(a[k], b[k], f"{path}.{k}")
+        elif isinstance(a, list):
+            if not isinstance(b, list) or len(a) != len(b):
+                raise AssertionError(f"phase 19 (d): lengths differ at "
+                                     f"{path}")
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}[{i}]")
+        elif isinstance(a, float) and isinstance(b, (int, float)):
+            diff = abs(a - b)
+            worst[0] = max(worst[0], diff / max(abs(a), 1e-30))
+            if exact_floats and a != b or \
+                    diff > MESH_ATOL + MESH_RTOL * abs(a):
+                raise AssertionError(f"phase 19 (d): {b} != {a} at {path}")
+        elif a != b:
+            raise AssertionError(f"phase 19 (d): {b!r} != {a!r} at {path}")
+
+    walk(want, got, "")
+    return worst[0]
+
+
+def merge_calls(*parts) -> dict:
+    """The mesh program calls of several main paths, summed."""
+    out: dict = {}
+    for p in parts:
+        for k, v in p.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def check_mesh_routes(rows: dict) -> None:
+    """Phase 19 as a whole: the matrix, level and chain routes counted in
+    `mesh_route_total`, and every mesh program of the slice launched."""
+    from dgraph_tpu_torch.utils.metrics import METRICS
+    for route in ("mesh", "fused", "chain"):
+        if not METRICS.get("mesh_route_total", route=route):
+            raise AssertionError(f"phase 19: mesh_route_total{{route="
+                                 f"{route!r}}} never counted")
+    missing = [n for n in MESH_PROGRAMS if not rows.get(n, {}).get(
+        "launches")]
+    if missing:
+        raise AssertionError(f"phase 19: programs never launched {missing}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -6550,6 +7402,22 @@ def main() -> None:
     phase_bench(store, device, N_NODES, LANES, DEPTH, CHECK_LANES,
                 hop["bound_ms"])
     no_oom("phase 5")
+    # phase 19 (c) and (e) on the bench graph while its store lives; its
+    # other parts run where their stores do, all before phase 18
+    mesh, ptape = card_mesh(device), ProgramTape(device)
+    mesh_rows: dict = {}
+    mesh_s: dict = {}
+    t0 = time.perf_counter()
+    with ptape.armed():
+        bench_mesh = counted("phase 19 (c, e)", lambda: phase_mesh_bench(
+            device, store, mesh, ptape))
+    mesh_program_rows(ptape, device, merge_calls(
+        bench_mesh["c_recurse"]["chain"]["programs"],
+        bench_mesh["c_recurse"]["fused"]["programs"],
+        bench_mesh["e_bitmap"]["programs"]), mesh_rows)
+    mesh_s["c_e"] = time.perf_counter() - t0
+    say("phase 19 mesh (c, e)", seconds=mesh_s["c_e"], **bench_mesh)
+    no_oom("phase 19 (c, e)")
     del store, g
     from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES
     t0 = time.perf_counter()
@@ -6586,6 +7454,17 @@ def main() -> None:
             device, built, handoff, keep=kept))
     say("phase 12 lifecycle", seconds=time.perf_counter() - t0, **life)
     no_oom("phase 12")
+    # phase 19 (a), (b) and (f) on phase 6's store, before it goes
+    t0 = time.perf_counter()
+    with ptape.armed():
+        ldbc_mesh = counted("phase 19 (a, b, f)", lambda: phase_mesh_ldbc(
+            device, built, mesh, ptape))
+    mesh_program_rows(ptape, device, merge_calls(
+        ldbc_mesh["a_ic_mix"]["programs"], ldbc_mesh["b_ring"]["programs"]),
+        mesh_rows)
+    mesh_s["a_b_f"] = time.perf_counter() - t0
+    say("phase 19 mesh (a, b, f)", seconds=mesh_s["a_b_f"], **ldbc_mesh)
+    no_oom("phase 19 (a, b, f)")
     # phase 7's store (its placed graphs and programs) goes before the
     # feature and GraphRAG store is built from the same graph
     g = built["g"]
@@ -6612,6 +7491,18 @@ def main() -> None:
         rag = counted("phase 10", lambda: phase_graphrag(device, g, store))
     say("phase 10 graphrag", seconds=time.perf_counter() - t0, **rag)
     no_oom("phase 10")
+    t0 = time.perf_counter()
+    with ptape.armed():
+        rag_mesh = counted("phase 19 (d)", lambda: phase_mesh_graphrag(
+            device, g, store, mesh, ptape))
+    mesh_program_rows(ptape, device, rag_mesh["programs"], mesh_rows)
+    mesh_s["d"] = time.perf_counter() - t0
+    say("phase 19 mesh (d)", **{**rag_mesh, "seconds": mesh_s["d"]})
+    no_oom("phase 19 (d)")
+    check_mesh_routes(mesh_rows)
+    say("phase 19 mesh", seconds=sum(mesh_s.values()), parts_s=mesh_s,
+        shards=mesh.size, devices=sorted({str(d) for d in mesh.devices}),
+        counters=mesh_counters(), programs=mesh_rows)
     # phase 10's store stays alive: phase 13 injects at its knn and
     # @msgpass launches
     t0 = time.perf_counter()
@@ -6687,7 +7578,12 @@ def main() -> None:
              "segment_combine": {
                  **rag["segment_combine_launches_by_path"],
                  "@msgpass under an injected fault (phase 13)":
-                     mem.get("segment_combine_launches", 0)}}
+                     mem.get("segment_combine_launches", 0),
+                 "@msgpass through feat_mesh, per shard (phase 19 (d))":
+                     rag_mesh["segment_combine_launches"]}}
+    paths["bucket_hop"]["make_ell_recurse against the sharded bitmap "
+                        "traversal (phase 19 (e))"] = \
+        bench_mesh["e_bitmap"]["bucket_hop_launches"]
     t0 = time.perf_counter()
     lint = phase_static_analysis({name: sum(paths[name].values())
                                   for name in KERNEL_SOURCES})

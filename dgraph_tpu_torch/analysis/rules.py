@@ -672,12 +672,13 @@ class CapturePurity(Rule):
 class ShardMapCompat(Rule):
     name = "shard-map-compat"
     doc = ("the mesh layer's collectives resolve ONLY through "
-           "parallel/mesh.py (Queue 1 item 10 brings it): a direct "
+           "parallel/mesh.py (all_gather, psum, pmax, ppermute, "
+           "psum_scatter; a mesh across processes, ROADMAP item 10b, "
+           "brings torch.distributed there): a direct "
            "`torch.distributed` reference or import anywhere else, or a "
            "`shard_map` spelling of the reference's, pins the layer to "
            "one backend and one version, so a change of either re-parks "
-           "the mesh. Until the mesh module lands the rule has nothing "
-           "to flag; its fixtures keep it firing")
+           "the mesh")
 
     SHIM = P + "parallel/mesh.py"
 

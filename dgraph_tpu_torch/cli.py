@@ -13,8 +13,12 @@ The port's own rules:
   given `--device cpu`. `backup` opens its Alpha on the CPU as
   `server/backup.py` does; `bulk`, `restore`, `export` and `debug` run
   host code.
-* `--mesh-devices` with any value but 0 and `--jax-coordinator` exit
-  non-zero: mesh serving and its rendezvous are ROADMAP Queue 1 item 10.
+* `--mesh-devices N` serves the engine over a mesh of this process's
+  devices (`parallel/mesh.make_mesh`): the first N cards, -1 all of
+  them; with `--device cpu`, N shards of the CPU (-1: one). A count
+  above this machine's cards exits non-zero before the posting
+  directory is touched. A mesh across processes and its rendezvous
+  (`--jax-coordinator`) are ROADMAP item 10b: the flag exits non-zero.
 * Importing this module loads no grpc: the `alpha` and `zero` verbs
   import the transport inside their functions.
 """
@@ -79,8 +83,28 @@ ZERO_JOIN_WAIT_S = 60.0
 # final checkpoint goes ahead without them
 REQUEST_DRAIN_S = 30.0
 
-MESH_REFUSED = ("mesh serving is not ported yet (ROADMAP Queue 1 item "
-                "10): {flag} is refused")
+MESH_REFUSED = ("a mesh across processes is not ported yet (ROADMAP "
+                "item 10b): {flag} is refused")
+MESH_TOO_WIDE = ("alpha: {flag} asks for {want} cards and this machine has "
+                 "{have}: one process serves a mesh of its own cards (more "
+                 "cards across processes is ROADMAP item 10b)")
+
+
+def _alpha_mesh(n: int, device: str):
+    """The alpha's mesh for `--mesh-devices n` (n != 0) on `device`, or
+    an exit naming the card count when n asks for more cards than the
+    machine has (checked before any directory is touched)."""
+    import torch
+
+    from dgraph_tpu_torch.parallel.mesh import make_mesh
+    if torch.device(device).type == "cpu":
+        return make_mesh(n if n > 0 else 1, device="cpu")
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n > have or have == 0:
+        raise SystemExit(MESH_TOO_WIDE.format(
+            flag=f"--mesh-devices {n}", want=n if n > 0 else "all",
+            have=have))
+    return make_mesh(None if n < 0 else n)
 
 
 def _require_device(device: str, verb: str) -> None:
@@ -176,11 +200,11 @@ def cmd_alpha(args) -> int:
             if overrides.get(k) is None:  # dedicated flags win
                 overrides[k] = v
     cfg = load_config(AlphaConfig, args.config, overrides)
-    if cfg.mesh_devices:
-        raise SystemExit(MESH_REFUSED.format(
-            flag=f"--mesh-devices {cfg.mesh_devices}"))
     if args.jax_coordinator:
         raise SystemExit(MESH_REFUSED.format(flag="--jax-coordinator"))
+    # SPMD serving: the engine runs its hops sharded over the mesh
+    mesh = (_alpha_mesh(cfg.mesh_devices, cfg.device)
+            if cfg.mesh_devices else None)
     _require_device(cfg.device, "alpha")
     from dgraph_tpu_torch.server.api import Alpha
     from dgraph_tpu_torch.server.http import make_http_server, serve_background
@@ -200,10 +224,13 @@ def cmd_alpha(args) -> int:
 
     # checkpoint + WAL replay boot: every commit that reached disk before
     # a crash is recovered (reference: badger open + raft WAL restore)
+    if mesh is not None:
+        log.info("device mesh: %d shards over %s", mesh.size,
+                 ", ".join(sorted({str(d) for d in mesh.devices})))
     alpha = Alpha.open(cfg.p_dir, device_threshold=cfg.device_threshold,
                        memory_budget=(cfg.memory_budget_mb << 20)
                        if cfg.memory_budget_mb else None,
-                       device=cfg.device)
+                       device=cfg.device, mesh=mesh)
     alpha.slow_query_ms = cfg.slow_query_ms
     # unified cache governor (utils/memgov.py): arm the process-wide
     # byte budgets — every registered cache (fused programs, ELL
@@ -766,16 +793,15 @@ def main(argv=None) -> int:
                         "without a card, cuda exits non-zero")
     p.add_argument("--mesh-devices", type=int, default=None,
                    dest="mesh_devices",
-                   help="SPMD engine over N devices: any value but 0 is "
-                        "refused until mesh serving is ported (ROADMAP "
-                        "Queue 1 item 10)")
+                   help="SPMD engine over N devices (-1 = all cards, "
+                        "0 = off; with --device cpu, N CPU shards)")
     p.add_argument("--acl_secret_file", default=None,
                    help="enable ACL; file holds the token-signing secret")
     p.add_argument("--jax-coordinator", default=None,
                    dest="jax_coordinator",
                    help="host:port of a multi-host mesh's coordinator: "
-                        "refused until mesh serving is ported (ROADMAP "
-                        "Queue 1 item 10)")
+                        "refused until a mesh across processes is ported "
+                        "(ROADMAP item 10b)")
     p.add_argument("--zero", default=None,
                    help="zero address(es) → join a cluster; a comma-"
                         "separated list fails over (primary,standby)")

@@ -116,8 +116,14 @@ class RoutedView(Store):
         self._filter_sets = OrderedDict()
         self._filter_lock = locks.make_lock("routed.filter")
         self._device: dict = {}
+        self._sharded: dict = {}
+        self._sharded_mesh = None
+        self._mesh_shard_bytes = self._mesh_shard_nnz = None
+        self._key_cols: dict = {}
+        self._key_cols_mesh = None
         self._vec_tab: dict = {}
         self._vec_dev: dict = {}
+        self._vec_mesh = None
         self._placed: set = set()
         self._place_lock = locks.make_lock("routed.place")
 
@@ -150,6 +156,16 @@ class RoutedView(Store):
             return host.device_rel(pred, reverse, device)
         return Store.device_rel(self, pred, reverse, device)
 
+    def sharded_rel(self, pred, reverse, mesh):
+        host = self._host(pred)
+        if host is not None:
+            return host.sharded_rel(pred, reverse, mesh)
+        return Store.sharded_rel(self, pred, reverse, mesh)
+
+    def key_col_host(self, pred):
+        host = self._host(pred)
+        return host.key_col_host(pred) if host is not None else self
+
     def vec_tablet(self, pred):
         host = self._host(pred)
         if host is not None:
@@ -161,6 +177,12 @@ class RoutedView(Store):
         if host is not None:
             return host.vec_device(pred, device)
         return Store.vec_device(self, pred, device)
+
+    def vec_sharded(self, pred, mesh):
+        host = self._host(pred)
+        if host is not None:
+            return host.vec_sharded(pred, mesh)
+        return Store.vec_sharded(self, pred, mesh)
 
 
 def routed_view(alpha, store: Store, read_ts: int) -> Store:

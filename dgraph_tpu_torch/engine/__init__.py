@@ -5,8 +5,9 @@ Port of `dgraph_tpu/engine`. `Engine` is the per-query entry point:
     Engine(store).query_bytes('{ q(func: uid(0x1)) { friend { name } } }')
 
 parses DQL, executes each block level by level (frontiers of at least
-`device_threshold` rows expand on `device`, smaller ones on the host) and
-renders the reference's JSON. Parsing, execution and rendering run in
+`device_threshold` rows expand on `device`, or on every shard of `mesh`
+when one is given, smaller ones on the host) and renders the reference's
+JSON. Parsing, execution and rendering run in
 spans and `torch.profiler` ranges (`engine.parse`, `engine.query`,
 `engine.render`) so a profile splits a query's host time by layer.
 """
@@ -16,7 +17,8 @@ from __future__ import annotations
 import json
 
 
-from dgraph_tpu_torch.engine.execute import Executor, LevelNode, RouteCounts
+from dgraph_tpu_torch.engine.execute import (Executor, LevelNode, RouteCounts,
+                                             check_mesh)
 from dgraph_tpu_torch.engine.ir import (
     FilterNode, FuncNode, Order, RecurseArgs, ShortestArgs, SubGraph,
 )
@@ -59,14 +61,17 @@ class Engine:
     """Parse + execute + render DQL queries over a Store snapshot.
 
     `device` defaults to the card and raises without one unless the
-    caller names "cpu". `routes` accumulates, over every query this
-    engine serves, the expansions and edges each execution route took."""
+    caller names "cpu". `mesh` (`parallel/mesh.make_mesh`, devices of
+    `device`'s type) serves the expansions sharded. `routes` accumulates,
+    over every query this engine serves, the expansions and edges each
+    execution route took."""
 
     def __init__(self, store, device=DEFAULT_DEVICE,
-                 device_threshold: int = 512):
+                 device_threshold: int = 512, mesh=None):
         self.store = store
         self.device = resolve_device(device)
         self.device_threshold = device_threshold
+        self.mesh = check_mesh(mesh, self.device)
         self.routes = RouteCounts()
 
     def query(self, q: str, variables: dict | None = None) -> dict:
@@ -108,7 +113,7 @@ class Engine:
         costprofile.add("queries", 1)
         ex = Executor(self.store, device=self.device,
                       device_threshold=self.device_threshold,
-                      routes=self.routes)
+                      routes=self.routes, mesh=self.mesh)
         results: dict[int, LevelNode] = {}
         with tracing.span("engine.query", blocks=len(blocks)):
             for i in order:

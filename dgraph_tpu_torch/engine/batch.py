@@ -392,12 +392,13 @@ def plan_batch_groups_cached(store, dqls: list):
 
 
 def query_batch(store, dqls: list, device=DEFAULT_DEVICE,
-                device_threshold: int = 512) -> list:
+                device_threshold: int = 512, mesh=None) -> list:
     """Serve many queries at once: each kernel group is ONE lane-packed
     run on `device` (run_batch), launched longest-predicted first when
     the priors are on; the rest go through the per-query Engine on the
-    same device, whose failures become `{"errors": [{"message": ...}]}`
-    in their slot. A group's failure, an allocation failure its retry
+    same device (over `mesh` when one is given, as the reference's
+    Alpha serves them), whose failures become `{"errors": [{"message":
+    ...}]}` in their slot. A group's failure, an allocation failure its retry
     did not absorb among them, raises. Returns one JSON dict per query,
     in order."""
     from dgraph_tpu_torch.engine import Engine
@@ -418,7 +419,8 @@ def query_batch(store, dqls: list, device=DEFAULT_DEVICE,
                               (time.perf_counter() - t0) * 1e6)
         for i, o in zip(idxs, out):
             results[i] = o
-    eng = Engine(store, device=dev, device_threshold=device_threshold)
+    eng = Engine(store, device=dev, device_threshold=device_threshold,
+                 mesh=mesh)
     with tracing.span("batch.leftover", queries=len(leftover)):
         for i in sorted(leftover):
             try:
@@ -1013,8 +1015,9 @@ def carry_kernel_caches(old_store, new_store, touched) -> int:
     the same vocabulary such a predicate folds to identical CSR arrays, so
     the old snapshot's ELL blocks (`_ell_cache`), their device copies
     (`_ell_devs`, the same tensors) and the runners built over them
-    (`_ell_fns`) stay valid. Nothing is copied and nothing is built. The
-    whole-block programs and the per-predicate CSR tensors are not
+    (`_ell_fns`) stay valid, and so do the mesh-sharded tablets
+    (`carry_mesh_residency`). Nothing is copied and nothing is built.
+    The whole-block programs and the per-predicate CSR tensors are not
     carried: they start empty on the new snapshot, as in the reference.
     Returns how many (predicate, direction) entries carried, and counts
     them in `ell_cache_carried_total`."""
@@ -1025,6 +1028,7 @@ def carry_kernel_caches(old_store, new_store, touched) -> int:
         return 0
     if not np.array_equal(old_store.uids, new_store.uids):
         return 0
+    carry_mesh_residency(old_store, new_store, touched)
     carried = 0
     with _cache_lock:
         src_cache = old_store.__dict__.get("_ell_cache")
@@ -1049,4 +1053,33 @@ def carry_kernel_caches(old_store, new_store, touched) -> int:
             carried += 1
     if carried:
         METRICS.inc("ell_cache_carried_total", float(carried))
+    return carried
+
+
+def carry_mesh_residency(old_store, new_store, touched) -> int:
+    """Hand a folded snapshot the mesh-sharded tablets
+    (`Store.sharded_rel`) of the predicates the folded layers left
+    untouched, for the same mesh: such a predicate folds to the same
+    CSR, so its placed shard stack stays valid and the serving path
+    never places a resident tablet again because of an unrelated fold.
+    A touched predicate starts unplaced on the new snapshot. Returns how
+    many (predicate, direction) entries carried, counted in
+    `mesh_resident_carried_total`."""
+    src = getattr(old_store, "_sharded", None)
+    if not src or not hasattr(new_store, "_sharded"):
+        return 0
+    mesh = old_store._sharded_mesh
+    carried = 0
+    with new_store._place_lock:
+        if new_store._sharded_mesh is not mesh:
+            new_store._sharded = {}
+            new_store._sharded_mesh = mesh
+        dst = new_store._sharded
+        for key, srel in list(src.items()):
+            if key[0] in touched or key in dst:
+                continue
+            dst[key] = srel
+            carried += 1
+    if carried:
+        METRICS.inc("mesh_resident_carried_total", float(carried))
     return carried

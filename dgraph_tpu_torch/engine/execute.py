@@ -1,8 +1,20 @@
 """SubGraph execution: one root block at a time, level by level.
 
-Port of `dgraph_tpu/engine/execute.py` without the mesh branches (ROADMAP
-Queue 1 item 10). On a clustered Alpha's routed view a small-frontier
-hop over a foreign tablet runs on its owner (`expand`, route "remote").
+Port of `dgraph_tpu/engine/execute.py`. On a clustered Alpha's routed
+view a small-frontier hop over a foreign tablet runs on its owner
+(`expand`, route "remote"). With a mesh (`parallel/mesh.py`, one process;
+a mesh across processes is ROADMAP item 10b) a large frontier expands on
+every shard at once: `parallel/dhop.matrix_hop` over the row-sharded CSR
+(`Store.sharded_rel`), or, past `ring_threshold` rows, the ring of
+`ring_matrix_hop`; a frontier below `device_threshold` takes the mesh
+when the cost priors' route EMAs say it beats the host walk
+(`_mesh_promoted`). The host stitches the shards' edge lists back into
+global row order (`_stitch_edge_parts`). The fused level runs as
+`matrix_level`, single-key orderings as `parallel/dsort.py`'s
+`mesh_topk` (root) and `mesh_row_sort` (child level), and every
+expansion counts `mesh_route_total{route=}`; both mesh hops run under
+the allocation-failure lifecycle at sites `mesh.matrix_hop` and
+`mesh.ring_matrix_hop`, and raise after one evict-and-retry.
 An eligible root block runs first as one whole-block program
 (`engine/fused.py`, which ignores `device_threshold`, as the
 reference's does); the rest is the staged route below. Each level's
@@ -58,7 +70,8 @@ from dgraph_tpu_torch.engine.mathexpr import eval_math
 from dgraph_tpu_torch.engine.varorder import _filter_uses
 from dgraph_tpu_torch.ops.hop import gather_edges
 from dgraph_tpu_torch.ops.level import NO_LIMIT, expand_level
-from dgraph_tpu_torch.ops.uidalgebra import pad_to
+from dgraph_tpu_torch.ops.uidalgebra import SENTINEL32, pad_to
+from dgraph_tpu_torch.parallel.mesh import host_np
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import Kind
 from dgraph_tpu_torch.store.vec import similar_ranks
@@ -69,7 +82,8 @@ from dgraph_tpu_torch.utils.metrics import METRICS
 
 EMPTY64 = np.zeros(0, np.int64)
 
-ROUTES = ("device", "fused", "program", "numpy", "remote", "empty")
+ROUTES = ("device", "fused", "program", "mesh", "mesh_level", "mesh_chain",
+          "numpy", "remote", "empty")
 
 
 @dataclass
@@ -91,7 +105,8 @@ class LevelNode:
     feat_key: str = ""
 
 
-_EDGE_PATH = {"program": "fused"}
+_EDGE_PATH = {"program": "fused", "mesh_level": "fused",
+              "mesh_chain": "chain"}
 
 
 @dataclass
@@ -99,8 +114,11 @@ class RouteCounts:
     """Expansions and edges per execution route: `device` (gather_edges
     on the device), `fused` (expand_level on the device), `program` (a
     hop or recurse stage of a whole-block program, `engine/fused.py`),
-    `numpy` (the host walk), `remote` (a hop its owner served over the
-    worker transport) and `empty` (nothing to expand).
+    `mesh` (matrix_hop or ring_matrix_hop on a mesh), `mesh_level`
+    (matrix_level), `mesh_chain` (a hop of the mesh `@recurse`,
+    `engine/recurse.py`), `numpy` (the host walk), `remote` (a hop its
+    owner served over the worker transport) and `empty` (nothing to
+    expand).
     `least_bytes` sums, per device route, the bytes its op must move:
     each input read once (the frontier, its rows' indptr pairs, the
     edges' indices, the allowed set) and each output written once (the
@@ -124,9 +142,12 @@ class RouteCounts:
             costprofile.add("bytes_gathered", 16 * int(n_edges))
 
     def on_device(self) -> int:
-        """Expansions the device served."""
-        return (self.expansions["device"] + self.expansions["fused"]
-                + self.expansions["program"])
+        """Expansions the device (or the mesh) served."""
+        return sum(self.expansions[r] for r in MESH_ROUTES + (
+            "device", "fused", "program"))
+
+
+MESH_ROUTES = ("mesh", "mesh_level", "mesh_chain")
 
 
 def _bucket(n: int, lo: int = 64) -> int:
@@ -165,6 +186,23 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
         return pad_to(a, _bucket(max(len(a), 1)), device)
 
 
+def _host_pad(a: np.ndarray, size: int) -> np.ndarray:
+    """A sorted rank set sentinel-padded to `size` on the host: a mesh
+    program's upload (a host input is never a reshard)."""
+    out = np.full(size, SENTINEL32, np.int32)
+    out[:len(a)] = a
+    return out
+
+
+def check_mesh(mesh, device: torch.device):
+    """`mesh`, once its devices are of `device`'s type (a CPU engine
+    over card shards, or the reverse, raises)."""
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"a mesh of {mesh.device_type} devices cannot "
+                         f"serve an engine on {device}")
+    return mesh
+
+
 def _gather_bytes(n_front: int, f_cap: int, total: int) -> int:
     """Least bytes of one frontier gather: the padded frontier, the
     indptr pair of each real row and each edge's index, read once."""
@@ -174,17 +212,19 @@ def _gather_bytes(n_front: int, f_cap: int, total: int) -> int:
 class Executor:
     """Executes SubGraph trees against a Store snapshot.
 
-    `device_threshold`: frontiers at least this large expand on `device`;
-    smaller ones take the host walk. 0 sends every non-empty frontier to
-    the device; 10**9 keeps all work on the host."""
+    `device_threshold`: frontiers at least this large expand on `device`
+    (on `mesh` when one is given); smaller ones take the host walk. 0
+    sends every non-empty frontier to the device; 10**9 keeps all work
+    on the host. A mesh's devices must be of `device`'s type."""
 
     def __init__(self, store: Store, device=DEFAULT_DEVICE,
                  device_threshold: int = 512,
-                 routes: RouteCounts | None = None):
+                 routes: RouteCounts | None = None, mesh=None):
         self.store = store
         self.device = resolve_device(device)
         self.device_threshold = device_threshold
         self.routes = routes if routes is not None else RouteCounts()
+        self.mesh = check_mesh(mesh, self.device)
         # variable environments (reference: query var propagation)
         self.uid_vars: dict[str, np.ndarray] = {}
         self.val_vars: dict[str, dict[int, object]] = {}
@@ -209,6 +249,7 @@ class Executor:
                 else None
             if out is not None:
                 self.routes.add("remote", len(out[0]))
+                self._count_mesh_route("remote")
                 if len(out[0]):
                     costprior.PRIORS.learn_route(
                         "remote", (time.perf_counter() - t0) * 1e6
@@ -220,12 +261,18 @@ class Executor:
         costprofile.note_max("tablet_rows", int(len(rel.indptr)) - 1)
         if len(frontier) == 0 or rel.nnz == 0:
             self.routes.add("empty", 0)
+            self._count_mesh_route("empty")
             return EMPTY, EMPTY, EMPTY64
-        if len(frontier) >= self.device_threshold:
+        if self.mesh is not None and (
+                len(frontier) >= self.device_threshold
+                or self._mesh_promoted(len(frontier))):
+            out, path = self._expand_mesh(pred, reverse, frontier), "mesh"
+        elif len(frontier) >= self.device_threshold:
             out, path = self._expand_device(pred, reverse, frontier), "device"
         else:
             out, path = csr_rows(rel, frontier), "numpy"
             self.routes.add("numpy", len(out[0]))
+        self._count_mesh_route(path)
         if len(out[0]):
             # learned route costs: µs per 1k edges EMA per path
             costprior.PRIORS.learn_route(
@@ -260,6 +307,187 @@ class Executor:
         self.routes.add("device", total, _gather_bytes(
             len(frontier), f_cap, total) + 13 * ecap)
         return nbrs, seg, pos.astype(np.int64)
+
+    # -- the mesh routes ------------------------------------------------------
+    def _count_mesh_route(self, path: str) -> None:
+        """Route-selector accounting while a mesh is configured: which
+        route served (the promotion A/B signal)."""
+        if self.mesh is not None:
+            METRICS.inc("mesh_route_total", route=path)
+
+    # learned-promotion floor: below this many frontier rows, per-launch
+    # dispatch overhead dominates any measured per-edge win, so the host
+    # walk keeps them whatever the route EMAs say
+    mesh_floor = 64
+
+    def _mesh_promoted(self, n: int) -> bool:
+        """Cost-prior route promotion: a frontier below device_threshold
+        still takes the mesh when the measured per-edge cost EMAs
+        (utils/costprior.py, learned from every expansion) say the mesh
+        beats the host walk. Without data, or with priors off, the
+        threshold alone routes."""
+        if n < self.mesh_floor or not costprior.enabled():
+            return False
+        m = costprior.PRIORS.route_cost("mesh")
+        h = costprior.PRIORS.route_cost("numpy")
+        return m is not None and h is not None and m < h
+
+    def _note_mesh_shards(self, counts) -> None:
+        """Shard-keyed accounting for one mesh expansion: the `mesh`
+        shape component and `mesh_shards` feature of the request's cost
+        record, and modeled per-shard µs (~16 edges per µs, the scale
+        tablets are charged at) into the shard cost sums
+        (`/debug/scheduler`)."""
+        counts = np.asarray(counts)
+        costprofile.add_shape("mesh")
+        costprofile.note_max("mesh_shards", int(len(counts)))
+        for d, c in enumerate(counts.tolist()):
+            if int(c):
+                costprofile.add_shard_cost(d, int(c) // 16 + 1)
+
+    def _shard_edge_cap(self, n_shards: int, rows_per_shard: int,
+                        frontier: np.ndarray, deg: np.ndarray) -> int:
+        """Per-shard edge-cap bucket: rows partition over shards, so each
+        shard needs only ITS slab's degree sum."""
+        shard_of = np.minimum(frontier // rows_per_shard, n_shards - 1)
+        per_shard = np.bincount(shard_of, weights=deg, minlength=n_shards)
+        return _bucket(max(int(per_shard.max()), 1))
+
+    @staticmethod
+    def _stitch_edge_parts(parts):
+        """Stitch per-shard edge slices into one global edge matrix: each
+        frontier row's edges come from exactly one slice, so a stable
+        sort by seg recovers global CSR row order. `parts` yields (nbrs,
+        seg, local_pos, pos_lo): pos offsets into the absolute facet
+        position space."""
+        parts_n, parts_s, parts_p = [], [], []
+        for nbrs, seg, pos, pos_lo in parts:
+            if not len(nbrs):
+                continue
+            parts_n.append(nbrs)
+            parts_s.append(seg)
+            parts_p.append(pos.astype(np.int64) + int(pos_lo))
+        if not parts_n:
+            return EMPTY, EMPTY, EMPTY64
+        nbrs = np.concatenate(parts_n)
+        seg = np.concatenate(parts_s)
+        pos = np.concatenate(parts_p)
+        order = np.argsort(seg, kind="stable")
+        return nbrs[order], seg[order], pos[order]
+
+    @classmethod
+    def _reassemble_shards(cls, srel, nbrs_s, seg_s, pos_s, counts):
+        """The shards' first counts[d] slots of (nbrs, seg, pos), one
+        device-to-host copy per column and shard, stitched."""
+        counts = host_np(counts)
+        with record_function("engine.to_host"):
+            parts = [(nbrs_s.parts[d][:int(c)], seg_s.parts[d][:int(c)],
+                      pos_s.parts[d][:int(c)])
+                     for d, c in enumerate(counts.tolist())]
+            host = [_to_host(*p) if int(c) else [EMPTY] * 3
+                    for p, c in zip(parts, counts.tolist())]
+        return cls._stitch_edge_parts(
+            (h[0], h[1], h[2], srel.pos_lo[d]) for d, h in enumerate(host))
+
+    # frontiers above this replicate poorly: shard them and rotate the
+    # chunks around the ring instead. Tests lower it to force the ring.
+    ring_threshold = 1 << 17
+
+    def _expand_mesh(self, pred: str, reverse: bool, frontier: np.ndarray):
+        """Expansion over the mesh: every shard expands the row slab it
+        owns, the outputs stay sharded, the host stitches the edge
+        matrix (the reference's scatter/gather over groups). Frontiers
+        past ring_threshold take the sharded ring."""
+        from dgraph_tpu_torch.parallel.dhop import matrix_hop
+
+        if len(frontier) > self.ring_threshold:
+            return self._expand_mesh_ring(pred, reverse, frontier)
+        D = self.mesh.size
+        srel = self.store.sharded_rel(pred, reverse, self.mesh)
+        f_cap = _bucket(len(frontier))
+        fr = _host_pad(frontier, f_cap)
+        deg = self.store.rel(pred, reverse).degree(frontier)
+        edge_cap = self._shard_edge_cap(D, srel.rows_per_shard, frontier,
+                                        deg)
+
+        def _launch():
+            placed = self.store.sharded_rel(pred, reverse, self.mesh)
+            t0 = time.perf_counter()
+            with record_function("mesh.matrix_hop"):
+                nbrs_s, seg_s, pos_s, totals, max_shard = matrix_hop(
+                    self.mesh, placed, fr, edge_cap)
+                totals = host_np(totals)
+            costprofile.note_launch(t0, time.perf_counter())
+            return placed, nbrs_s, seg_s, pos_s, totals, int(max_shard)
+
+        placed, nbrs_s, seg_s, pos_s, totals, max_shard = memgov.oom_retry(
+            "mesh.matrix_hop", (pred, reverse), _launch)
+        if max_shard > edge_cap:
+            raise AssertionError(f"mesh.matrix_hop: {max_shard} edges on "
+                                 f"a shard past its cap {edge_cap}")
+        self._note_mesh_shards(totals)
+        out = self._reassemble_shards(placed, nbrs_s, seg_s, pos_s, totals)
+        total = int(deg.sum())
+        # each shard reads the replicated frontier and writes its
+        # (nbrs, seg, pos, valid) slots
+        self.routes.add("mesh", total, D * 4 * f_cap + 8 * len(frontier)
+                        + 4 * total + D * 13 * edge_cap)
+        return out
+
+    def _expand_mesh_ring(self, pred: str, reverse: bool,
+                          frontier: np.ndarray):
+        """Sharded-frontier expansion: the frontier's chunks rotate
+        around the ring (ppermute) while every shard expands the
+        resident chunk against its row slab."""
+        from dgraph_tpu_torch.parallel.dhop import ring_matrix_hop
+        from dgraph_tpu_torch.parallel.pshard import shard_frontier
+
+        srel = self.store.sharded_rel(pred, reverse, self.mesh)
+        d = srel.n_shards
+        per = -(-len(frontier) // d)
+        f_cap = _bucket(max(per, 1))
+        chunks = shard_frontier(frontier, d, f_cap)
+        # per (origin chunk × shard) edge cap: a chunk meets every slab
+        deg = self.store.rel(pred, reverse).degree(frontier)
+        shard_of = np.minimum(frontier // srel.rows_per_shard, d - 1)
+        chunk_of = np.minimum(np.arange(len(frontier)) // per, d - 1)
+        per_pair = np.zeros((d, d))
+        np.add.at(per_pair, (chunk_of, shard_of), deg)
+        edge_cap = _bucket(max(int(per_pair.max()), 1))
+
+        def _launch():
+            placed = self.store.sharded_rel(pred, reverse, self.mesh)
+            t0 = time.perf_counter()
+            with record_function("mesh.ring_matrix_hop"):
+                nbrs_a, seg_a, pos_a, totals, max_e = ring_matrix_hop(
+                    self.mesh, placed, chunks, edge_cap)
+                totals = host_np(totals)
+            costprofile.note_launch(t0, time.perf_counter())
+            return placed, nbrs_a, seg_a, pos_a, totals, int(max_e)
+
+        placed, nbrs_a, seg_a, pos_a, totals, max_e = memgov.oom_retry(
+            "mesh.ring_matrix_hop", (pred, reverse), _launch)
+        if max_e > edge_cap:
+            raise AssertionError(f"mesh.ring_matrix_hop: {max_e} edges in "
+                                 f"a step past its cap {edge_cap}")
+        self._note_mesh_shards(totals.sum(axis=1))
+        with record_function("engine.to_host"):
+            host = [[_to_host(nbrs_a.parts[dev][i, :int(totals[dev, i])],
+                              seg_a.parts[dev][i, :int(totals[dev, i])],
+                              pos_a.parts[dev][i, :int(totals[dev, i])])
+                     for i in range(d)] for dev in range(d)]
+        nbrs, seg, pos = self._stitch_edge_parts(
+            (host[dev][i][0], host[dev][i][1] + ((dev - i) % d) * per,
+             host[dev][i][2], placed.pos_lo[dev])
+            for dev in range(d) for i in range(d))
+        keep = seg < len(frontier)  # drop chunk padding rows
+        total = int(deg.sum())
+        # each step every shard reads its resident chunk and writes its
+        # (nbrs, seg, pos, valid) slots
+        self.routes.add("mesh", total, d * d * 4 * f_cap
+                        + 8 * len(frontier) + 4 * total
+                        + d * d * 13 * edge_cap)
+        return nbrs[keep], seg[keep], pos[keep]
 
     def facet_positions(self, sg: SubGraph, pos: np.ndarray) -> np.ndarray:
         """Edge positions in the forward-CSR space facet columns key on."""
@@ -412,9 +640,9 @@ class Executor:
             return (np.unique(np.concatenate(parts)).astype(np.int32)
                     if parts else EMPTY)
         if f.name == "similar_to":
-            # the routed k-NN seed (device top-k on a large tablet)
+            # the routed k-NN seed (device or mesh top-k on a large tablet)
             return similar_ranks(self.store, f, self.device,
-                                 self.device_threshold)
+                                 self.device_threshold, mesh=self.mesh)
         return eval_func(self.store, f, self.val_vars)
 
     # -- root evaluation ----------------------------------------------------
@@ -551,9 +779,11 @@ class Executor:
         ordered display list."""
         ranks = self.root_ranks(sg)
         ranks = self.apply_filter(sg.filters, ranks)
-        order_idx = (self.order_ranks(ranks, sg.orders)
-                     if sg.orders else np.arange(len(ranks)))
-        display = ranks[order_idx]
+        display = self._mesh_order_topk(sg, ranks)
+        if display is None:
+            order_idx = (self.order_ranks(ranks, sg.orders)
+                         if sg.orders else np.arange(len(ranks)))
+            display = ranks[order_idx]
         page = self.paginate(len(display), sg, display)
         return display[page].astype(np.int32)
 
@@ -603,7 +833,10 @@ class Executor:
                 if sg.facet_orders:
                     order_idx = self._facet_order(sg, nbrs, seg, pos)
                 else:
-                    order_idx = self.order_ranks(nbrs, sg.orders, seg=seg)
+                    order_idx = self._mesh_row_order(sg, nbrs, seg)
+                    if order_idx is None:
+                        order_idx = self.order_ranks(nbrs, sg.orders,
+                                                     seg=seg)
                 nbrs, seg = nbrs[order_idx], seg[order_idx]
                 pos = pos[order_idx] if len(pos) else pos
             # per-row pagination (seg is nondecreasing: CSR construction
@@ -636,6 +869,37 @@ class Executor:
         self._descend(node)
         return node
 
+    def _mesh_order_topk(self, sg: SubGraph, ranks: np.ndarray):
+        """Root order-by on the mesh (the reference's SortOverNetwork): a
+        single-key `orderasc`/`orderdesc` runs as per-shard top-k and a
+        merge, capped when `first` bounds the result, full-length
+        otherwise. The ordered display list, or None for the host."""
+        if (self.mesh is None or len(sg.orders) != 1
+                or sg.first < 0 or sg.after
+                or len(ranks) < self.device_threshold):
+            return None
+        o = sg.orders[0]
+        if o.is_val_var:
+            return None
+        from dgraph_tpu_torch.parallel.dsort import mesh_topk
+        k = (sg.first + max(sg.offset, 0)) if sg.first else len(ranks)
+        return mesh_topk(self.mesh, self.store, o.attr, o.lang, ranks, k,
+                         desc=o.desc)
+
+    def _mesh_row_order(self, sg: SubGraph, nbrs: np.ndarray,
+                        seg: np.ndarray):
+        """Child-level order-by on the mesh: the whole edge list sorted
+        by (row, key, uid) in one program. None for the host lexsort."""
+        if (self.mesh is None or len(sg.orders) != 1 or sg.facet_orders
+                or len(nbrs) < self.device_threshold):
+            return None
+        o = sg.orders[0]
+        if o.is_val_var:
+            return None
+        from dgraph_tpu_torch.parallel.dsort import mesh_row_sort
+        return mesh_row_sort(self.mesh, self.store, o.attr, o.lang, nbrs,
+                             seg, desc=o.desc)
+
     def _fused_level(self, sg: SubGraph, frontier: np.ndarray):
         """Large-frontier route: expand → filter → paginate → dedupe in
         one device pass (ops.level.expand_level); the only host work is
@@ -659,10 +923,14 @@ class Executor:
             allowed = self.filter_set(sg.filters)
             if allowed is None:
                 return None
+        first = sg.first if sg.first else NO_LIMIT
+        if self.mesh is not None:
+            return self._fused_level_mesh(
+                sg, frontier, allowed if use_allowed else None, first)
+        if use_allowed:
             allowed_d = _to_device(allowed, self.device)
         else:
             allowed_d = pad_to(EMPTY, 1, self.device)
-        first = sg.first if sg.first else NO_LIMIT
         fr = _to_device(frontier, self.device)
         total = int(rel.degree(frontier).sum())
         ecap = _bucket(max(total, 1))
@@ -682,6 +950,44 @@ class Executor:
         self.routes.add("fused", n, _gather_bytes(
             len(frontier), fr.shape[0], total) + a_bytes + 16 * ecap)
         return nbrs, seg, pos.astype(np.int64)
+
+    def _fused_level_mesh(self, sg: SubGraph, frontier: np.ndarray,
+                          allowed, first: int):
+        """The fused level on the mesh: expand, filter and paginate on
+        every shard in one program (the reference's pushdown into each
+        group's processTask); the host only stitches row order."""
+        from dgraph_tpu_torch.parallel.dhop import matrix_level
+
+        D = self.mesh.size
+        srel = self.store.sharded_rel(sg.attr, sg.is_reverse, self.mesh)
+        f_cap = _bucket(len(frontier))
+        fr = _host_pad(frontier, f_cap)
+        al = (_host_pad(allowed, _bucket(max(len(allowed), 1)))
+              if allowed is not None else _host_pad(EMPTY, 1))
+        deg = self.store.rel(sg.attr, sg.is_reverse).degree(frontier)
+        edge_cap = self._shard_edge_cap(D, srel.rows_per_shard, frontier,
+                                        deg)
+        t0 = time.perf_counter()
+        with record_function("mesh.matrix_level"):
+            nbrs_s, seg_s, pos_s, kept, totals, max_shard = matrix_level(
+                self.mesh, srel, fr, al, sg.offset, first, edge_cap,
+                allowed is not None)
+            kept = host_np(kept)
+        costprofile.note_launch(t0, time.perf_counter())
+        if int(max_shard) > edge_cap:
+            raise AssertionError(f"mesh.matrix_level: {int(max_shard)} "
+                                 f"edges on a shard past its cap {edge_cap}")
+        self._note_mesh_shards(host_np(totals))
+        self._count_mesh_route("fused")
+        out = self._reassemble_shards(srel, nbrs_s, seg_s, pos_s, kept)
+        total = int(deg.sum())
+        a_bytes = 4 * len(al) * D if allowed is not None else 0
+        # as the mesh gather, plus the allowed set each shard reads and
+        # the kept (nbrs, seg, pos) plus the masked nbrs it writes
+        self.routes.add("mesh_level", len(out[0]), D * 4 * f_cap
+                        + 8 * len(frontier) + 4 * total + a_bytes
+                        + D * 16 * edge_cap)
+        return out
 
     # -- leaves, vars, expand(_all_) ----------------------------------------
     def _concrete_children(self, parent: LevelNode) -> list[SubGraph]:

@@ -1,26 +1,36 @@
 """Feature-bearing traversal: `@msgpass` neighbour aggregation.
 
-Port of `dgraph_tpu/engine/feat.py` without its mesh route (ROADMAP
-Queue 1 item 10). `@msgpass(pred: emb, agg: mean)` on a block binds,
-for each node the level expands, the sum / mean / max of its traversal
-children's feature rows (a `store/vec.py` VecTablet), rendered under the
-key `mean(emb)`. Composed with `@recurse(loop: false)` each parent
-aggregates over its first-visit edges. Two routes, one contract (the same
-`[d]` f32 bindings):
+Port of `dgraph_tpu/engine/feat.py`. `@msgpass(pred: emb, agg: mean)`
+on a block binds, for each node the level expands, the sum / mean / max
+of its traversal children's feature rows (a `store/vec.py` VecTablet),
+rendered under the key `mean(emb)`. Composed with `@recurse(loop:
+false)` each parent aggregates over its first-visit edges. Three routes,
+one contract (the same `[d]` f32 bindings):
 
 * host — `host_combine`, numpy `add.at` / `maximum.at` over the kept-edge
   lists: the reference's own route;
 * device — `ops/feat.py:segment_combine` on the tablet's tensors, the
   hand kernel on the card, which sums in edge order and so equals the
-  host route bit for bit for any float input.
+  host route bit for bit for any float input;
+* mesh — `_mesh_combine` on the stack row-sharded over a mesh
+  (`Store.vec_sharded`): every shard runs `segment_combine` (the hand
+  kernel on the card) over the edges whose neighbour has a row in its
+  slab, and the partials merge by `psum` (sums, counts) or `pmax`
+  (maxima; a shard without a participant in a segment offers -inf
+  there), the mean dividing once after the merge. Each row lives on one
+  shard, so counts and max are exact, and sum and mean differ from the
+  edge-order sum only by the shard-order addition of the partials (the
+  reference's psum likewise). A mesh across processes is ROADMAP item
+  10b.
 
-`aggregate` takes the device route when the edges or the tablet rows
-reach `device_threshold`, or when the cost priors' feat route EMAs
-(utils/costprior.py) say the device beats the host. The device launch
-runs under the memory governor's allocation-failure lifecycle at site
-`feat.agg` (utils/memgov.py): one evict-and-retry on the card, and a
-second allocation failure raises; nothing falls back to the host
-combine. It counts each route
+`aggregate` takes the mesh route when a mesh is given, or else the
+device route, when the edges or the tablet rows reach
+`device_threshold` or the cost priors' feat route EMAs
+(utils/costprior.py) say that route beats the host. The device and
+mesh launches run under the memory governor's allocation-failure
+lifecycle at site `feat.agg` (utils/memgov.py): one evict-and-retry on
+the card, and a second allocation failure raises; nothing falls back to
+the host combine. It counts each route
 in the metrics registry
 (`feat_route_total{route=}`, `feat_bytes_total`, the
 `featprop_latency_us` histogram); the whole-block program's featprop
@@ -114,13 +124,65 @@ def _device_combine(store, pred: str, nbrs, seg, n_seg: int, agg: str,
     return memgov.oom_retry("feat.agg", shape_key, _launch)
 
 
+def _mesh_combine(store, pred: str, nbrs, seg, n_seg: int, agg: str,
+                  mesh, shape_key):
+    """The mesh combine through the allocation-failure lifecycle:
+    per-shard partials merged by psum / pmax (see the module doc)."""
+    from dgraph_tpu_torch.parallel.mesh import (count_program, pmax, psum,
+                                                replicate)
+    nb = np.ascontiguousarray(nbrs, np.int32)
+    sg = np.ascontiguousarray(seg, np.int32)
+    part_agg = "max" if agg == "max" else "sum"
+
+    def _launch():
+        subj_s, vecs_s, _rows = store.vec_sharded(pred, mesh)
+        count_program("feat_mesh")
+        cols = replicate(mesh, np.stack([nb, sg])).parts
+        t0 = time.perf_counter()
+        outs, cnts, ecnt = [], [], None
+        for d in range(mesh.size):
+            subj, vecs = subj_s.parts[d], vecs_s.parts[d]
+            if subj.shape[0]:
+                out, cnt, ec = segment_combine(subj, vecs, cols[d][0],
+                                               cols[d][1], len(nb), n_seg,
+                                               part_agg)
+                ecnt = ec if ecnt is None else ecnt
+            else:
+                out = vecs.new_zeros((n_seg, vecs.shape[1]))
+                cnt = torch.zeros(n_seg, dtype=torch.int32,
+                                  device=vecs.device)
+            if agg == "max":
+                # no participant on this shard: offer -inf to the pmax
+                out = torch.where((cnt > 0)[:, None], out, -torch.inf)
+            outs.append(out)
+            cnts.append(cnt)
+        cnt = psum(mesh, cnts)[0]
+        if agg == "max":
+            out = pmax(mesh, outs)[0]
+            out = torch.where((cnt > 0)[:, None], out, 0.0)
+        else:
+            out = psum(mesh, outs)[0]
+            if agg == "mean":
+                out = torch.where(
+                    (cnt > 0)[:, None],
+                    out / cnt.clamp(min=1)[:, None].to(torch.float32), 0.0)
+        costprofile.note_launch(t0, time.perf_counter())
+        # the live edges per segment do not depend on the rows: any
+        # shard's count is the structural one
+        ecnt = (ecnt.cpu().numpy() if ecnt is not None else np.bincount(
+            sg[(sg >= 0) & (sg < n_seg)], minlength=n_seg).astype(np.int32))
+        return out.cpu().numpy(), cnt.cpu().numpy(), ecnt
+
+    return memgov.oom_retry("feat.agg", shape_key, _launch)
+
+
 def aggregate(store, pred: str, agg: str, nbrs, seg, n_seg: int, device,
-              device_threshold: int = 512):
+              device_threshold: int = 512, mesh=None):
     """Combine one level's kept-edge feature rows with route selection
-    and accounting: the device when the edges or the tablet rows reach
-    `device_threshold` (or the feat route EMAs promote it), the host
-    otherwise. Returns (out[n_seg, d] f32, cnt[n_seg] i32, ecnt[n_seg]
-    i32)."""
+    and accounting: the mesh when one is given, else the device, when
+    the edges or the tablet rows reach `device_threshold` (or the feat
+    route EMAs promote that route), the host otherwise. Returns
+    (out[n_seg, d] f32, cnt[n_seg] i32, ecnt[n_seg] i32)."""
     t = store.vec_tablet(pred)
     if t is None:
         raise ValueError(
@@ -128,7 +190,13 @@ def aggregate(store, pred: str, agg: str, nbrs, seg, n_seg: int, device,
     work = len(nbrs)
     t0 = time.perf_counter()
     big = work >= device_threshold or t.rows >= device_threshold
-    if t.rows and (big or costprior.promoted("feat_device", "feat_host")):
+    if mesh is not None and t.rows and (
+            big or costprior.promoted("feat_mesh", "feat_host")):
+        route = "mesh"
+        out = _mesh_combine(store, pred, nbrs, seg, n_seg, agg, mesh,
+                            (pred, t.dim, agg))
+    elif t.rows and (big or costprior.promoted("feat_device",
+                                               "feat_host")):
         route = "device"
         out = _device_combine(store, pred, nbrs, seg, n_seg, agg,
                               device, (pred, t.dim, agg))
@@ -186,7 +254,8 @@ def _annotate_level(ex, node, args) -> None:
     nbrs = np.concatenate(childs) if childs else EMPTY
     seg = np.concatenate(segs) if segs else EMPTY
     vals, _cnt, ecnt = aggregate(ex.store, args.pred, args.agg, nbrs, seg,
-                                 n, ex.device, ex.device_threshold)
+                                 n, ex.device, ex.device_threshold,
+                                 mesh=ex.mesh)
     nodes = np.asarray(node.nodes)
     node.feat_vals = {int(nodes[i]): np.asarray(vals[i], np.float32)
                       for i in np.nonzero(ecnt > 0)[0].tolist()}
@@ -212,7 +281,8 @@ def _annotate_recurse(ex, node, args) -> None:
     uniq, seg = np.unique(parents, return_inverse=True)
     vals, _cnt, _ecnt = aggregate(ex.store, args.pred, args.agg, childs,
                                   seg.astype(np.int32), len(uniq),
-                                  ex.device, ex.device_threshold)
+                                  ex.device, ex.device_threshold,
+                                  mesh=ex.mesh)
     # every unique parent has at least one kept edge by construction
     data.feat_vals = {int(r): np.asarray(vals[i], np.float32)
                       for i, r in enumerate(uniq.tolist())}

@@ -802,10 +802,15 @@ def try_fused(ex, sg):
     the staged route serves. A routed view (a clustered Alpha's,
     `cluster/routed.py`) runs the staged route, as in the reference:
     reading its plan's relations would fault foreign tablets over the
-    wire inside the warm-up and the capture."""
+    wire inside the warm-up and the capture. So does a mesh executor:
+    its routes are the mesh programs, which no graph captures."""
     if not enabled():
         return None
-    if _routed(ex.store):
+    if _routed(ex.store) or getattr(ex, "mesh", None) is not None:
+        # the cluster's and the mesh's serving universes have their own
+        # routes (ServeTask; matrix_level and the chained hops): a
+        # program is the single-device route, and nothing of a mesh is
+        # captured into a CUDA graph
         _route("staged")
         return None
     from dgraph_tpu_torch.engine import shape_of

@@ -27,12 +27,22 @@ Two more programs ride the same hop: `make_ell_step`, a resumable block
 of hops whose carries the caller hands forward (the shortest-path lane
 groups), and `make_ell_tree`, the level-tree pipeline over masks in the
 store's global rank space (the level-tree lane groups). Their row
-gathers and ANDs are torch ops; every gather-OR is the bucket hop. The
-COO bitmap kernels are a later slice (ROADMAP Queue 2).
+gathers and ANDs are torch ops; every gather-OR is the bucket hop.
+
+The reference's push-form COO hop over `[n, B]` int8 masks (one lane
+per byte) is here too, as torch ops: `bitmap_hop` gathers the frontier
+rows of every edge's `src` and scatter-maxes them into `dst`
+(`scatter_max_rows`; out-of-range `dst` slots drop), and
+`bitmap_recurse` is its depth-bounded loop=false `@recurse`, with
+`ranks_to_bitmap` / `bitmap_to_ranks` the host helpers. Its per-lane
+edge counter is exact (float64 block products), where the reference's
+f32 matvec is exact below 2^24 per lane. The mesh's slab-sharded form
+is `parallel/dbfs.py`.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -41,10 +51,92 @@ import torch
 from dgraph_tpu_torch.ops.bucket_hop import bucket_hop
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["EllGraph", "build_ell", "pack_seed_masks", "unpack_masks",
+__all__ = ["ranks_to_bitmap", "bitmap_to_ranks", "bitmap_hop",
+           "bitmap_recurse", "lane_edges", "scatter_max_rows", "EllGraph",
+           "build_ell", "pack_seed_masks", "unpack_masks",
            "put_mask", "DeviceEll", "device_ell", "prepare_parts",
            "make_ell_count", "make_ell_recurse", "make_ell_step",
            "make_ell_tree"]
+
+def scatter_max_rows(out: torch.Tensor, index: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """`out[index[i]] = max(out[index[i]], rows[i])` for every i, in
+    place (`index_reduce_`, which torch marks beta: its warning is
+    silenced here)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=r"index_reduce\(\)")
+        return out.index_reduce_(0, index, rows, "amax")
+
+
+def ranks_to_bitmap(rank_lists, n_nodes: int) -> np.ndarray:
+    """Host helper: B rank lists → [n_nodes, B] int8 frontier bitmap."""
+    out = np.zeros((n_nodes, len(rank_lists)), np.int8)
+    for q, ranks in enumerate(rank_lists):
+        out[np.asarray(ranks, np.int64), q] = 1
+    return out
+
+
+def bitmap_to_ranks(mask) -> list:
+    """Host helper: [n_nodes, B] bitmap → list of B sorted rank arrays."""
+    m = np.asarray(mask)
+    return [np.nonzero(m[:, q])[0].astype(np.int32)
+            for q in range(m.shape[1])]
+
+
+def _on(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def bitmap_hop(src, dst, mask: torch.Tensor) -> torch.Tensor:
+    """One hop of B concurrent traversals over a COO edge list:
+    next[v, q] = OR over edges u→v of mask[u, q]. `src`/`dst` [E] int32
+    (any order) on the mask's device; `src` clamps into the rows, a
+    `dst` outside them is dropped."""
+    n = mask.shape[0]
+    src = _on(src, mask.device).long().clamp(0, max(n - 1, 0))
+    dst = _on(dst, mask.device).long()
+    dst = torch.where((dst >= 0) & (dst < n), dst, n)
+    out = torch.zeros((n + 1, mask.shape[1]), dtype=mask.dtype,
+                      device=mask.device)
+    scatter_max_rows(out, dst, mask[src])
+    return out[:n]
+
+
+def lane_edges(deg: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-lane out-degree mass Σ_v deg[v]·mask[v, q], exact (float64
+    products of COUNT_BLK-row blocks), int32 as the reference's."""
+    acc = torch.zeros(mask.shape[1], dtype=torch.float64, device=mask.device)
+    degf = deg.to(torch.float64)
+    for lo in range(0, mask.shape[0], COUNT_BLK):
+        hi = min(mask.shape[0], lo + COUNT_BLK)
+        acc += degf[lo:hi] @ mask[lo:hi].to(torch.float64)
+    return acc.round().to(torch.int32)
+
+
+def bitmap_recurse(src, dst, deg, mask0, depth: int,
+                   device=DEFAULT_DEVICE):
+    """Depth-bounded loop=false @recurse for B queries at once over a COO
+    edge list. `deg` [n] int32 is the out-degree (for edge counting),
+    `mask0` [n, B] int8 each query's seed set; host arrays go to
+    `device`, tensors stay where they are. Returns `(last[n, B],
+    seen[n, B], edges[B] int32)`: each query's last fresh frontier, its
+    visited set, and the edges traversed from every expanded frontier."""
+    dev = (mask0.device if isinstance(mask0, torch.Tensor)
+           else resolve_device(device))
+    mask0 = _on(mask0, dev)
+    src, dst, deg = _on(src, dev), _on(dst, dev), _on(deg, dev)
+    frontier, seen = mask0, mask0
+    edges = torch.zeros(mask0.shape[1], dtype=torch.int32, device=dev)
+    for _h in range(depth):
+        edges = edges + lane_edges(deg, frontier)
+        nxt = bitmap_hop(src, dst, frontier)
+        fresh = torch.where(seen > 0, 0, nxt).to(mask0.dtype)
+        seen = torch.maximum(seen, fresh)
+        frontier = fresh
+    return frontier, seen, edges
+
 
 SEG_MIN_DEG = 32      # dense-lane ELL up to this in-degree; heavier → tiles
 SEG_TILE = 8          # segment-CSR tile width (max padding per heavy row)

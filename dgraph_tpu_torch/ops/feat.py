@@ -28,8 +28,10 @@ bit for bit for any float input. On the CPU the same call runs
 (`searchsorted`, `index_add_`, `scatter_reduce`), which is exact against
 the kernel for small-integer-valued features (sums are then exact in any
 order). Which one runs depends only on where the tensors lie: a CUDA
-tensor launches the kernel or raises. The `mask_empty=False` partials of
-the reference serve only its mesh route (ROADMAP Queue 1 item 10).
+tensor launches the kernel or raises. The reference's `mask_empty=False`
+partials serve only its mesh route; the port's mesh route
+(`engine/feat.py:_mesh_combine`) calls this function per shard and masks
+its empty segments for the merge itself.
 """
 
 from __future__ import annotations

@@ -25,9 +25,11 @@ so every device cache lives on the snapshot and is shared with it:
   * the ELL blocks, their device copies, the runners and the tree
     programs (`engine/batch.py:_cache_host` redirects to `_ell_host`);
   * the whole-block programs (`engine/fused.py` keys them by that host);
-  * the placed CSRs and embedding stacks (`device_rel`, `vec_tablet`
-    and `vec_device` answer from the snapshot; the view registers
-    nothing with the memory governor).
+  * the placed CSRs and embedding stacks, on a device or sharded over a
+    mesh, and the mesh's sort-key columns (`device_rel`,
+    `sharded_rel`, `vec_tablet`, `vec_device`, `vec_sharded` and
+    `key_col_host` answer from the snapshot; the view registers nothing
+    with the memory governor).
 
 A hidden predicate reads as empty, and what the view computes for one
 stays on the view. The snapshot's memo of whole-store filter sets is
@@ -235,8 +237,14 @@ class AclView(Store):
         # what the view computes for a HIDDEN predicate (an empty
         # tablet) stays here, never in the snapshot's caches
         self._device: dict = {}
+        self._sharded: dict = {}
+        self._sharded_mesh = None
+        self._mesh_shard_bytes = self._mesh_shard_nnz = None
+        self._key_cols: dict = {}
+        self._key_cols_mesh = None
         self._vec_tab: dict = {}
         self._vec_dev: dict = {}
+        self._vec_mesh = None
         self._placed: set = set()
         self._place_lock = locks.make_lock("acl.place")
 
@@ -252,6 +260,15 @@ class AclView(Store):
         if self._shared(pred):
             return self._base.device_rel(pred, reverse, device)
         return Store.device_rel(self, pred, reverse, device)
+
+    def sharded_rel(self, pred, reverse, mesh):
+        if self._shared(pred):
+            return self._base.sharded_rel(pred, reverse, mesh)
+        return Store.sharded_rel(self, pred, reverse, mesh)
+
+    def key_col_host(self, pred):
+        return self._base.key_col_host(pred) if self._shared(pred) \
+            else self
 
     def tablet_host(self, pred):
         """A pulled tablet's host when the view reads it through a routed
@@ -269,6 +286,11 @@ class AclView(Store):
         if self._shared(pred):
             return self._base.vec_device(pred, device)
         return Store.vec_device(self, pred, device)
+
+    def vec_sharded(self, pred, mesh):
+        if self._shared(pred):
+            return self._base.vec_sharded(pred, mesh)
+        return Store.vec_sharded(self, pred, mesh)
 
 
 class _AclPreds(dict):

@@ -72,8 +72,10 @@ takes.
 
 Every request registers with the flight recorder's watchdog
 (`flightrec.track_request`); the CLI (`cli.py`) serves it as a process.
-Left to ROADMAP Queue 1: the mesh (10). Deliberate difference: no kernel group is served query by
-query after a failure: any failure of a group, an allocation failure its
+With `mesh=` (a `parallel/mesh.Mesh` of this process's devices) every
+engine the Alpha makes serves its expansions sharded; a mesh across
+processes is ROADMAP item 10b. Deliberate difference: no kernel group is
+served query by query after a failure: any failure of a group, an allocation failure its
 evict-and-retry did not absorb among them, raises out of `query_batch`
 (`engine/batch.py`).
 """
@@ -193,8 +195,12 @@ class Alpha:
     def __init__(self, base: Store | None = None,
                  device_threshold: int = 512, base_ts: int = 0,
                  device=DEFAULT_DEVICE, *, wal=None, oracle=None,
-                 groups=None):
+                 groups=None, mesh=None):
+        from dgraph_tpu_torch.engine.execute import check_mesh
         self.device = resolve_device(device)
+        # parallel/mesh.Mesh | None: every engine this Alpha makes serves
+        # its expansions sharded over it
+        self.mesh = check_mesh(mesh, self.device)
         self.oracle = oracle if oracle is not None else Oracle()
         self.mvcc = MVCCStore(base=base, base_ts=base_ts)
         self.oracle.bump_ts(base_ts)
@@ -264,7 +270,7 @@ class Alpha:
     @classmethod
     def open(cls, p_dir: str, device_threshold: int = 512,
              sync: bool = True, memory_budget: int | None = None,
-             device=DEFAULT_DEVICE) -> "Alpha":
+             device=DEFAULT_DEVICE, mesh=None) -> "Alpha":
         """Boot from a persistence dir: newest checkpoint + WAL replay.
         Every commit that reached the WAL before a crash is recovered.
 
@@ -283,7 +289,7 @@ class Alpha:
             else:
                 base, base_ts = checkpoint.load(p_dir)
         alpha = cls(base=base, device_threshold=device_threshold,
-                    base_ts=base_ts, device=device)
+                    base_ts=base_ts, device=device, mesh=mesh)
         if base is not None and hasattr(base.preds, "heal_cb"):
             # out-of-core: a tablet fault that fails its integrity check
             # heals from a group replica once this alpha joins a cluster;
@@ -803,7 +809,7 @@ class Alpha:
     def _engine(self, store: Store):
         from dgraph_tpu_torch.engine import Engine
         return Engine(store, device=self.device,
-                      device_threshold=self.device_threshold)
+                      device_threshold=self.device_threshold, mesh=self.mesh)
 
     def query(self, dql: str, variables: dict | None = None,
               read_ts: int | None = None,
@@ -855,7 +861,8 @@ class Alpha:
                 self._verify_read_chains(ts)
                 out = query_batch(self._query_view(ts, acl_user), dqls,
                                   device=self.device,
-                                  device_threshold=self.device_threshold)
+                                  device_threshold=self.device_threshold,
+                                  mesh=self.mesh)
         self._maybe_gc()
         return out
 

@@ -376,6 +376,12 @@ def make_http_server(alpha: Alpha, addr: str = "127.0.0.1",
                    **costprior.status(top_n=n)}
             if alpha.admission is not None:
                 doc["admission"] = alpha.admission.status()
+            # mesh-route view: the shard-keyed cost sums the mesh
+            # expansions record (engine/execute.py), how the scheduler
+            # sees work land across the mesh's shards
+            shard_cost = costprofile.shard_costs()
+            if shard_cost:
+                doc["mesh"] = {"shard_cost_us": shard_cost}
             # fused-vs-staged route selection (engine/fused.py):
             # per-route counts + the program cache
             from dgraph_tpu_torch.engine import fused

@@ -259,7 +259,8 @@ class WorkerService:
     def _serve(self, req: pb.TaskQuery, ts: int) -> pb.TaskResult:
         store = self.alpha.mvcc.read_view(ts)
         ex = Executor(store, device=self.alpha.device,
-                      device_threshold=self.alpha.device_threshold)
+                      device_threshold=self.alpha.device_threshold,
+                      mesh=self.alpha.mesh)
         if req.func_name:
             from dgraph_tpu_torch.engine.ir import FuncNode
             from dgraph_tpu_torch.engine.funcs import eval_func

@@ -25,8 +25,17 @@ Both device caches are governed (`utils/memgov.py`: `store.device` and
 on next use and counted (`cache_replacements_total{cache=
 "store.device"}`, `vec_replacements_total{kind="device"}`), and the
 whole-block programs that read an evicted entry's tensors are dropped
-with it (`engine/fused.py`). The mesh
-placements belong to a later slice (ROADMAP Queue 1 item 10).
+with it (`engine/fused.py`). On a mesh (`parallel/mesh.py`) a CSR is
+placed row-sharded once per (predicate, direction) for one mesh
+(`Store.sharded_rel`, governed as `store.sharded`, charged the bytes
+its shard tensors hold; a placement updates the gauges
+`mesh_shard_bytes{shard=}` and `mesh_shard_balance`), and an embedding
+stack once per predicate (`Store.vec_sharded`, under `store.vec`). A
+placement for another mesh drops the entries of the old one; an
+evicted entry is placed again on next use
+(`cache_replacements_total{cache="store.sharded"}`,
+`vec_replacements_total{kind="mesh"}`). A mesh across processes is
+ROADMAP item 10b.
 
 `store_from_arrays` builds a port Store from a reference Store's numpy
 state (or plain arrays), so both packages can be handed the same data.
@@ -190,9 +199,19 @@ def _edge_keys(rel: EdgeRel, n: int) -> np.ndarray:
 def _vec_detail(store) -> list:
     """Resident vector stacks with their dims (`GOVERNOR.status()` rows
     that make eviction thrash on `store.vec` visible)."""
-    return [{"pred": pred, "placement": "device",
-             "rows": int(vecs.shape[0]), "dim": int(vecs.shape[1])}
-            for (pred, _dev), (_subj, vecs) in sorted(store._vec_dev.items())]
+    out = []
+    for (pred, kind), v in sorted(store._vec_dev.items()):
+        if kind == "mesh":
+            _subj, vecs, rows = v
+            out.append({"pred": pred, "placement": "mesh",
+                        "shards": len(vecs.parts), "rows": int(rows),
+                        "dim": int(vecs.parts[0].shape[-1])})
+        else:
+            _subj, vecs = v
+            out.append({"pred": pred, "placement": "device",
+                        "rows": int(vecs.shape[0]),
+                        "dim": int(vecs.shape[1])})
+    return out
 
 
 class Store:
@@ -207,6 +226,17 @@ class Store:
         self.preds = preds
         # (pred, direction, device) → (indptr, indices) int32 tensors
         self._device: dict = {}
+        # (pred, direction) → parallel/pshard.ShardedRel placed on
+        # `_sharded_mesh`; per-shard resident bytes and true edges of
+        # the placed tablets (the residency gauges)
+        self._sharded: dict = {}
+        self._sharded_mesh = None
+        self._mesh_shard_bytes = None
+        self._mesh_shard_nnz = None
+        # (pred, lang) → the mesh's sort-key columns (parallel/dsort.py)
+        self._key_cols: dict = {}
+        self._key_cols_mesh = None
+        self._vec_mesh = None
         self._empty_rel = EdgeRel(np.zeros(self.n_nodes + 1, np.int32),
                                   np.zeros(0, np.int32))
         self._filter_sets: OrderedDict = OrderedDict()
@@ -224,6 +254,7 @@ class Store:
         # evicted entry is placed again on next use, and a launch that
         # already holds its tensors keeps them
         memgov.govern_dict(self, "_device", "store.device", "device")
+        memgov.govern_dict(self, "_sharded", "store.sharded", "device")
         memgov.govern_dict(self, "_vec_dev", "store.vec", "device",
                            detail_cb=_vec_detail)
         locks.guarded(self, "store.filter")
@@ -302,6 +333,66 @@ class Store:
                     "cache_replacements_total", cache="store.device"))
         return out
 
+    def sharded_rel(self, pred: str, reverse: bool, mesh):
+        """One CSR row-sharded over `mesh` (`parallel/pshard.py`), placed
+        once per (predicate, direction) for that mesh: the tablet
+        residency of the mesh routes. A placement for another mesh drops
+        the old mesh's entries."""
+        from dgraph_tpu_torch.parallel.pshard import device_put_rel, shard_rel
+        key = (pred, "rev" if reverse else "fwd")
+        out = self._sharded.get(key) if self._sharded_mesh is mesh else None
+        if out is not None:
+            return out
+        with self._place_lock:
+            if self._sharded_mesh is not mesh:
+                self._sharded = {}
+                self._sharded_mesh = mesh
+                self._mesh_shard_bytes = self._mesh_shard_nnz = None
+            cache = self._sharded
+            out = cache.get(key)
+            placed = out is None
+            if placed:
+                host = shard_rel(self.rel(pred, reverse), mesh.size)
+                out = cache[key] = device_put_rel(host, mesh)
+                self._note_mesh_residency(host)
+        if placed:
+            self._note_placed(("sharded", id(mesh)) + key,
+                              lambda: METRICS.inc("cache_replacements_total",
+                                                  cache="store.sharded"))
+        return out
+
+    def _note_mesh_residency(self, srel) -> None:
+        """Residency gauges for a newly placed sharded tablet (host form
+        of it): `mesh_shard_bytes{shard=}` sums each shard's resident
+        bytes over this snapshot's placed tablets (padded widths: what
+        the device holds), `mesh_shard_balance` is max/mean TRUE edges
+        per shard (1.0 = balanced; padding hides imbalance from the
+        bytes gauge). Caller holds `_place_lock`."""
+        ptr = np.asarray(srel.indptr_s)
+        d = ptr.shape[0]
+        per_bytes = (ptr[0].nbytes + np.asarray(srel.indices_s[0]).nbytes
+                     + 4)
+        nnz = ptr[:, -1].astype(np.int64)
+        if self._mesh_shard_bytes is None or \
+                len(self._mesh_shard_bytes) != d:
+            self._mesh_shard_bytes = np.zeros(d, np.int64)
+            self._mesh_shard_nnz = np.zeros(d, np.int64)
+        self._mesh_shard_bytes += per_bytes
+        self._mesh_shard_nnz += nnz
+        for s in range(d):
+            METRICS.set_gauge("mesh_shard_bytes",
+                              float(self._mesh_shard_bytes[s]), shard=s)
+        mean = float(self._mesh_shard_nnz.mean())
+        if mean > 0:
+            METRICS.set_gauge("mesh_shard_balance",
+                              float(self._mesh_shard_nnz.max()) / mean)
+
+    def key_col_host(self, pred: str) -> "Store":
+        """The store whose cache holds `pred`'s mesh sort-key column
+        (`parallel/dsort.py`): this one (an ACL view answers for the
+        predicates it shares with its snapshot)."""
+        return self
+
     def _note_placed(self, key, count) -> None:
         """Count a re-placement (`count()`), then let the governor evict
         above the device budget's high watermark. The caller returns the
@@ -346,6 +437,40 @@ class Store:
             if placed:
                 self._note_placed(("vec",) + key, lambda: METRICS.inc(
                     "vec_replacements_total", kind="device"))
+        return out
+
+    def vec_sharded(self, pred: str, mesh):
+        """A float32vector predicate's stack row-sharded over `mesh`:
+        shard d holds rows [d·R, (d+1)·R) of the tablet (R = ceil(rows /
+        D); the last shards may hold fewer, or none), placed once per
+        predicate for that mesh under `store.vec`. Returns (subj
+        Sharded, vecs Sharded, R)."""
+        from dgraph_tpu_torch.parallel.mesh import shard
+        key = (pred, "mesh")
+        out = self._vec_dev.get(key) if self._vec_mesh is mesh else None
+        if out is not None:
+            return out
+        t = self.vec_tablet(pred)
+        with self._place_lock:
+            cache = self._vec_dev
+            if self._vec_mesh is not mesh:
+                for k in [k for k in cache if k[1] == "mesh"]:
+                    cache.pop(k, None)
+                self._vec_mesh = mesh
+            out = cache.get(key)
+            placed = out is None
+            if placed:
+                d = mesh.size
+                rows = -(-max(t.rows, 1) // d)
+                cut = [min(i * rows, t.rows) for i in range(d + 1)]
+                subj = shard(mesh, [torch.from_numpy(t.subj[a:b])
+                                    for a, b in zip(cut, cut[1:])])
+                vecs = shard(mesh, [torch.from_numpy(t.vecs[a:b])
+                                    for a, b in zip(cut, cut[1:])])
+                out = cache[key] = (subj, vecs, rows)
+        if placed:
+            self._note_placed(("vec", id(mesh)) + key, lambda: METRICS.inc(
+                "vec_replacements_total", kind="mesh"))
         return out
 
     # -- values -------------------------------------------------------------

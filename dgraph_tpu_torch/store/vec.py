@@ -1,10 +1,10 @@
 """Vector tablets and brute-force k-NN seed selection (GraphRAG serving).
 
-Port of `dgraph_tpu/store/vec.py` without its mesh route (ROADMAP Queue 1
-item 10). A float32vector predicate's values become one `[n, d]` float32 stack
-(a `VecTablet`), and `similar_to(pred, k, <vector|uid>)` selects the k
-ranks of highest dot-product score, ties broken by the lower rank, as a
-sorted rank set. Two routes, one contract (the same rank set):
+Port of `dgraph_tpu/store/vec.py`. A float32vector predicate's values
+become one `[n, d]` float32 stack (a `VecTablet`), and `similar_to(pred,
+k, <vector|uid>)` selects the k ranks of highest dot-product score, ties
+broken by the lower rank, as a sorted rank set. Three routes, one
+contract (the same rank set):
 
 * host — numpy matmul + lexsort((rank, -score)): the reference's own
   route and the one the others are held to;
@@ -15,7 +15,13 @@ sorted rank set. Two routes, one contract (the same rank set):
   set the host lexsort does, with no full sort (`-0.0` is made `+0.0`
   and NaN sorts last, as lexsort has them). The whole-block program's
   knn stage (`engine/fused.py`) runs the same function inside its
-  graph.
+  graph;
+* mesh — `_mesh_topk` on the stack row-sharded over a mesh
+  (`Store.vec_sharded`): every shard scores its rows and keeps its k
+  best keys, an `all_gather` brings the D·k candidates together and one
+  more selection takes the global k (the global top-k is a subset of
+  the shards' top-k union). Keys are distinct, so the set is the
+  host's. A mesh across processes is ROADMAP item 10b.
 
 The product is a float32 GEMV: cuBLAS runs it in full float32 (TF32
 applies to matrix-matrix products, and
@@ -23,15 +29,15 @@ applies to matrix-matrix products, and
 reference, the routes give the same set whenever the scores are equal,
 which holds exactly for small-integer-valued vectors (the fixtures').
 
-`similar_ranks` takes the device route when the tablet reaches
-`device_threshold` rows, or when the cost priors' measured µs-per-1k-rows
-EMAs (utils/costprior.py, learned from every call) say the device beats
-the host scan; it counts each route in `knn_route_total{route=}` (host,
-device, and fused for a knn stage of a whole-block program). The device
-launch runs under the memory governor's allocation-failure lifecycle at
-site `vec.topk` (utils/memgov.py): one evict-and-retry on the card, and
-a second allocation failure raises; nothing falls back to the host
-scan.
+`similar_ranks` takes the mesh route when a mesh is given, or else the
+device route, when the tablet reaches `device_threshold` rows or the
+cost priors' measured µs-per-1k-rows EMAs (utils/costprior.py, learned
+from every call) say that route beats the host scan; it counts each
+route in `knn_route_total{route=}` (host, device, mesh, and fused for a
+knn stage of a whole-block program). The device and mesh launches run
+under the memory governor's allocation-failure lifecycle at site
+`vec.topk` (utils/memgov.py): one evict-and-retry on the card, and a
+second allocation failure raises; nothing falls back to the host scan.
 """
 
 from __future__ import annotations
@@ -222,12 +228,54 @@ def _device_similar(store, pred: str, q: np.ndarray, k: int, device,
         np.int32, copy=False)
 
 
-def similar_ranks(store, f, device, device_threshold: int = 512
-                  ) -> np.ndarray:
-    """similar_to with route selection and accounting: the device top-k
-    on a tablet of at least `device_threshold` rows (or when the knn
-    route EMAs promote it), the host scan otherwise. A device failure
-    raises."""
+# the key a shard with fewer than k rows pads its candidates with: past
+# every real key (a real key's high word is at most INT32_MAX, NaN's)
+_NO_KEY = torch.iinfo(torch.int64).max
+
+
+def _mesh_topk(store, pred: str, q: np.ndarray, k: int, mesh,
+               shape_key) -> np.ndarray:
+    """The mesh top-k over the row-sharded stack, through the
+    allocation-failure lifecycle: each shard's k best keys (`topk_keys`),
+    gathered, and the k best of those."""
+    from dgraph_tpu_torch.parallel.mesh import (all_gather, count_program,
+                                                replicate)
+
+    def _launch():
+        subj_s, vecs_s, rows = store.vec_sharded(pred, mesh)
+        # a shard offers at most min(k, rows) candidates; the merge takes
+        # up to k across all of them
+        kk = min(k, rows)
+        k_out = min(k, kk * mesh.size)
+        count_program("knn_mesh")
+        q_r = replicate(mesh, q).parts
+        t0 = time.perf_counter()
+        cands = []
+        for d in range(mesh.size):
+            subj, vecs = subj_s.parts[d], vecs_s.parts[d]
+            keys = topk_keys(torch.mv(vecs, q_r[d]), subj)
+            top = torch.topk(keys, min(kk, keys.shape[0]), largest=False,
+                             sorted=False).values
+            pad = kk - top.shape[0]
+            cands.append(torch.cat([top, top.new_full((pad,), _NO_KEY)])
+                         if pad else top)
+        keys = all_gather(mesh, cands)[0].reshape(-1)
+        best = torch.topk(keys, k_out, largest=False, sorted=False).values
+        best = best[best != _NO_KEY]
+        out = (best & 0xFFFFFFFF).to(torch.int32)
+        costprofile.note_launch(t0, time.perf_counter())
+        return torch.sort(out).values.cpu().numpy()
+
+    return memgov.oom_retry("vec.topk", shape_key, _launch).astype(
+        np.int32, copy=False)
+
+
+def similar_ranks(store, f, device, device_threshold: int = 512,
+                  mesh=None) -> np.ndarray:
+    """similar_to with route selection and accounting: the mesh top-k
+    when a mesh is given, else the device top-k, on a tablet of at least
+    `device_threshold` rows (or when the knn route EMAs promote that
+    route), the host scan otherwise. A device failure raises."""
     resolved = resolve_query(store, f)
     if resolved is None:
         return EMPTY.copy()
@@ -235,7 +283,12 @@ def similar_ranks(store, f, device, device_threshold: int = 512
     t = store.vec_tablet(pred)
     n = t.rows
     t0 = time.perf_counter()
-    if n >= device_threshold or costprior.promoted("knn_device", "knn_host"):
+    if mesh is not None and (n >= device_threshold
+                             or costprior.promoted("knn_mesh", "knn_host")):
+        route = "mesh"
+        out = _mesh_topk(store, pred, q, k, mesh, (pred, t.dim, k))
+    elif n >= device_threshold or costprior.promoted("knn_device",
+                                                     "knn_host"):
         route = "device"
         out = _device_similar(store, pred, q, k, device, (pred, t.dim, k))
     else:

@@ -2,8 +2,8 @@
 
 Port of `dgraph_tpu/utils/config.py`, with one field of its own:
 `AlphaConfig.device`, where the Alpha reads (default the card; "cpu"
-only when asked). `mesh_devices` stays a field, but the CLI refuses any
-value but 0 until mesh serving is ported (ROADMAP Queue 1 item 10).
+only when asked). `mesh_devices` is served over this process's devices
+(`cli.py`); a mesh across processes is ROADMAP item 10b.
 Reference parity: `x/flags.go` (`z.SuperFlag` grouped flags like
 `--badger compression=zstd;numgoroutines=8`) and the cobra/viper flag
 surface of `dgraph alpha|zero` (SURVEY §5 config system). One dataclass
@@ -44,8 +44,7 @@ class AlphaConfig:
     grpc_port: int = 9080
     device: str = "cuda"          # where reads run: "cuda" or "cpu"
     device_threshold: int = 512   # frontier size that moves a hop on-device
-    mesh_devices: int = 0         # 0 = no mesh (any other value is
-                                  # refused: ROADMAP Queue 1 item 10)
+    mesh_devices: int = 0         # 0 = no mesh; -1 = all devices; N = N
     rollup_every: int = 64        # commits between automatic rollups
     memory_budget_mb: int = 0     # 0 = fully resident; >0 = out-of-core
                                   # tablet faulting under this budget

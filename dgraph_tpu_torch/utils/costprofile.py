@@ -25,8 +25,9 @@ the checkpoint (`costprofiles.json`) and merges across restarts; a
 corrupt file counts in `sidecar_load_failures_total{file=}` and never
 aborts a boot. Per-tablet cost sums (`add_tablet_cost`) feed a
 clustered Alpha's health report to Zero (`Alpha.report_health`), which
-tablet moves read; per-shard sums (`add_shard_cost`) wait for their
-caller, the mesh route (item 10).
+tablet moves read; per-shard sums (`add_shard_cost`) are charged by the
+mesh routes (`engine/execute.py`, `engine/recurse.py`) and read by
+`/debug/scheduler`.
 
 Surfaces: `summary()` (per-shape digests and the top-N shapes), a
 `query.cost` span per request when tracing is on, `recent()` and the
@@ -607,7 +608,7 @@ def add_shard_cost(shard, us) -> None:
     """Charge `us` µs-equivalents of work to one device shard, the
     shard-keyed twin of `add_tablet_cost`: tablet sums drive Zero's
     group placement, shard sums the balance of a sharded route (the
-    mesh, ROADMAP Queue 1 item 10, is its caller)."""
+    mesh routes of `engine/execute.py` and `engine/recurse.py`)."""
     if not _ENABLED:
         return
     key = str(shard)

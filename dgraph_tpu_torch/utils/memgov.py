@@ -57,9 +57,8 @@ __all__ = [
     "estimate_nbytes", "govern_dict", "HIGH_WATERMARK", "LOW_WATERMARK",
 ]
 
-# The static inventory: every governed cache the port has, by name. The
-# reference's `store.sharded` (mesh shard stacks) comes back with ROADMAP
-# Queue 1 item 10.
+# The static inventory: every governed cache the port has, by name,
+# the reference's `store.sharded` (mesh shard stacks) among them.
 GOVERNED_CACHES: dict[str, str] = {
     "fused.program": "whole-block programs: captured CUDA graphs per "
                      "program key, charged the memory their capture "
@@ -73,6 +72,9 @@ GOVERNED_CACHES: dict[str, str] = {
     "batch.kernel": "recurse/step runners per launch configuration",
     "store.device": "per-relation CSR (indptr, indices) tensors placed "
                     "by Store.device_rel",
+    "store.sharded": "mesh shard stacks placed by Store.sharded_rel: "
+                     "per-(pred, direction) row-sharded CSR tensors on the "
+                     "mesh's devices, charged their shards' bytes",
     "api.tablet": "pulled tablet cache: per-(pred, version, vocabulary "
                   "width) tablets fetched from other groups, each with "
                   "the host of its kernel caches (every Alpha "

@@ -492,13 +492,37 @@ def test_no_card_process_exits_nonzero(tmp_path):
     (["--mesh-devices", "2"], "--mesh-devices 2"),
     (["--mesh-devices", "-1"], "--mesh-devices -1"),
     (["--store", "mesh_devices=4"], "--mesh-devices 4"),
-    (["--jax-coordinator", "127.0.0.1:1"], "--jax-coordinator")])
+    (["--device", "cpu", "--jax-coordinator", "127.0.0.1:1"],
+     "--jax-coordinator")])
 def test_mesh_flags_refused_naming_item_10(argv, flag, tmp_path):
+    """A mesh wider than this machine's cards (none here) and a mesh
+    across processes exit before the directory exists, naming the
+    multi-process mesh (ROADMAP item 10b)."""
+    import torch
+    if torch.cuda.is_available() and "--jax-coordinator" not in argv:
+        pytest.skip("a card is present: the mesh may fit")
     p = tmp_path / "p"
     with pytest.raises(SystemExit) as ei:
-        cli.main(["alpha", "--device", "cpu", "--p", str(p), *argv])
-    assert "item 10" in str(ei.value.code) and flag in str(ei.value.code)
+        cli.main(["alpha", "--p", str(p), *argv])
+    assert "item 10b" in str(ei.value.code) and flag in str(ei.value.code)
     assert not p.exists()
+
+
+@pytest.mark.parametrize("n,shards", [(2, 2), (-1, 1)])
+def test_mesh_devices_serve_on_cpu_shards(n, shards, tmp_path, monkeypatch):
+    """`--device cpu --mesh-devices N` opens the Alpha over N CPU
+    shards (-1: one), the mesh built before the directory is touched."""
+    from dgraph_tpu_torch.server import api
+
+    def capture(*a, mesh=None, **kw):
+        raise _Stop(mesh)
+
+    monkeypatch.setattr(api.Alpha, "open", staticmethod(capture))
+    with pytest.raises(_Stop) as got:
+        cli.main(["alpha", "--device", "cpu", "--p", str(tmp_path / "p"),
+                  "--mesh-devices", str(n)])
+    mesh = got.value.args[0]
+    assert mesh.size == shards and mesh.device_type == "cpu"
 
 
 def test_port_argv_translation():

@@ -201,7 +201,7 @@ def test_reference_http_case_on_port(module, name, tmp_path, monkeypatch,
 def test_case_list_covers_the_front_end():
     """Every single-node HTTP case of test_server.py is here; the rest of
     the module is gRPC serving (test_torch_cluster.py) and mesh serving
-    (ROADMAP item 10)."""
+    (test_torch_mesh.py)."""
     single = {n for n in dir(test_server) if n.startswith("test_")
               and "grpc" not in n and "mesh" not in n}
     assert single == set(SERVER_CASES)

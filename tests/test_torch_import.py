@@ -171,6 +171,20 @@ def test_scan_covers_the_observability_modules():
         ["dgraph_tpu_torch." + m[:-3].replace("/", ".") for m in mods])
 
 
+def test_scan_covers_the_mesh_modules():
+    """Mesh serving in one process: the mesh, its placements and
+    programs are scanned and load on their own without jax or the
+    reference package."""
+    scanned = {os.path.relpath(p, PKG) for p in _port_files()}
+    mods = {"parallel/__init__.py", "parallel/mesh.py",
+            "parallel/pshard.py", "parallel/dhop.py", "parallel/dsort.py",
+            "parallel/dbfs.py"}
+    assert mods <= scanned
+    _import_in_subprocess(
+        ["dgraph_tpu_torch." + m[:-3].replace("/", ".").replace(
+            ".__init__", "") for m in mods], "'grpc' not in sys.modules")
+
+
 def test_scan_covers_the_cluster_modules():
     scanned = {os.path.relpath(p, PKG) for p in _port_files()}
     assert GRPC_FILES | {"cluster/tablet.py", "cluster/oracle.py",
@@ -196,6 +210,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
         bfs.put_mask(bfs.pack_seed_masks(g, [[0]] * 32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bfs.make_ell_count(g.outdeg, g.n)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bfs.bitmap_recurse(np.zeros(1, np.int32), np.zeros(1, np.int32),
+                           np.ones(1, np.int32), np.ones((1, 1), np.int8), 1)
+    from dgraph_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(2)
     b = StoreBuilder()
     b.add_edge(1, "f", 2)
     store = b.finalize()

@@ -529,6 +529,22 @@ def test_r7_flags_torch_distributed_outside_the_mesh_module():
     assert "shard-map-compat" not in _rules(a)
 
 
+def test_r7_accepts_collectives_in_the_mesh_module_only():
+    """The mesh module as shipped, with a torch.distributed collective
+    added (the multi-process mesh's), passes R7 at its own path; the
+    same file anywhere else is flagged at that collective."""
+    src = open(os.path.join(ROOT, "dgraph_tpu_torch/parallel/mesh.py")
+               ).read()
+    extra = "\n\ndef _all_reduce(t):\n    torch.distributed.all_reduce(t)\n"
+    line = (src + extra).count("\n")
+    a = port_scan("dgraph_tpu_torch/parallel/mesh.py", src + extra)
+    assert "shard-map-compat" not in _rules(a)
+    a = port_scan("dgraph_tpu_torch/parallel/dhop.py", src + extra)
+    assert [f.line for f in _rules(a)["shard-map-compat"]] == [line]
+    a = port_scan("dgraph_tpu_torch/parallel/dhop.py", src)
+    assert "shard-map-compat" not in _rules(a)
+
+
 def test_r12_exempts_only_the_ports_locks_module():
     src = "import threading\nx = threading.Lock()\n"
     assert "untracked-lock" in _rules(

@@ -194,10 +194,9 @@ def test_governed_caches_are_the_ports():
     registered once the modules that hold them are in use."""
     assert set(memgov.GOVERNED_CACHES) == {
         "fused.program", "batch.plan", "batch.ell", "batch.ell_dev",
-        "batch.kernel", "store.device", "api.tablet",
+        "batch.kernel", "store.device", "store.sharded", "api.tablet",
         "outofcore.resident", "store.vec", "timeseries.ring"}
-    assert set(memgov.GOVERNED_CACHES) == \
-        set(ref_memgov.GOVERNED_CACHES) - {"store.sharded"}
+    assert set(memgov.GOVERNED_CACHES) == set(ref_memgov.GOVERNED_CACHES)
     a = Alpha(device="cpu", device_threshold=0)
     a.alter("friend: [uid] @reverse .")
     a.mutate(set_nquads="\n".join(f"<{i}> <friend> <{i % 9 + 1}> ."
@@ -206,7 +205,8 @@ def test_governed_caches_are_the_ports():
                    for i in range(1, 6)])
     names = memgov.GOVERNOR.registered_names()
     assert {"fused.program", "batch.plan", "batch.ell", "batch.ell_dev",
-            "batch.kernel", "store.device", "store.vec"} <= names
+            "batch.kernel", "store.device", "store.sharded",
+            "store.vec"} <= names
 
 
 def _friend_store(n=512):
