@@ -382,7 +382,9 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 request's query and stack, surfaces.memory with the
                 governor's device bytes and timeseries.ring, and a
                 device_profile naming bucket_hop (or, if DEVICE_WIDE
-                stayed held past 1 s, the busy card); (c) (2, 2)
+                stayed held past 1 s, the busy card), beside the
+                batch's bucket_hop launch times against the capture
+                window (`hop_timeline`); (c) (2, 2)
                 admission under 16 clients looping the batch for 4 s:
                 forecast sheds counted, each an admission.shed event of
                 reason forecast in the ring, every 200 answer equal;
@@ -469,12 +471,8 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 /debug/scheduler's `mesh.shard_cost_us`, the same
                 requests under a device budget of half the sharded
                 tablets' bytes (a store.sharded eviction and a
-                re-placement counted), then `python -m dgraph_tpu_torch
-                alpha --mesh-devices <the card count>` on an empty
-                directory serving an alter, a commit and a query at
-                device_threshold 0 with `mesh.shard_cost_us`, exit 0 on
-                SIGINT, and one card more exiting non-zero before its
-                directory exists; (d) after phase 10, on its
+                re-placement counted; its CLI child moved to phase 20
+                (c)); (d) after phase 10, on its
                 GraphRAG store: the nine templates through `knn_mesh`
                 and `feat_mesh` (segment_combine per shard): knn answers
                 exact, @msgpass max exact, sum and mean to rtol=1e-5,
@@ -482,16 +480,39 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 part's seconds, the `mesh_*` counters and gauges, and per
                 program its launches, device ms, bound and the
                 single-device form's ms
-  20. `route counters` (the run's totals and each phase's deltas), the
+  20. mesh across processes — right after phase 19 (d): two child
+                processes, ranks 0 and 1, each with two shards of card
+                0, one 4-shard mesh over a gloo process group
+                (`mesh.init_distributed`, DGRAPH_TPU_LOCAL_SHARDS=2);
+                each builds SF1 with the GraphRAG embeddings (phase 6's
+                and 10's seeds) and serves (a) phase 19 (a)'s IC mix and
+                orderings, (b)'s ring query and (d)'s nine templates at
+                device_threshold 0, every answer byte-equal on both
+                ranks to phase 19's on the single-process mesh, with
+                segment_combine launched on each rank, no reshard, no
+                route off the mesh and no allocation failure; then (b)
+                a matrix_hop over has_creator slabs each rank alone
+                holds (`assemble_sharded_rel`), its edges equal to the
+                CSR walk. Per program each rank's calls and CUDA-event
+                ms beside phase 19's. (c) two `alpha --jax-coordinator
+                --mesh-devices -1` processes (two shards of card 0 each)
+                on empty directories: the same alter and commit, one
+                query to both at once, both equal to a plain Alpha's,
+                `mesh.shard_cost_us` on each, exit 0 on SIGINT; then
+                `alpha --mesh-devices <cards + 1>` exits non-zero,
+                naming the device count, before its directory exists.
+                (d) with two cards or more, (a)'s IC mix with one rank
+                per card over NCCL; else the line says why not
+  21. `route counters` (the run's totals and each phase's deltas), the
                 `kernels` JSON line, then the device JSON line last
 
 Phases 6 to 12, 14 and 15 fail if any block falls back from its
 whole-block program to the staged route, and phases 2 to 12, phase 13
 (a) and (b), phase 14, phase 16 beyond its two injected failures and
 phases 15 and 19 fail if an allocation failure was counted or a shape
-degraded (no degraded route may stand in for a kernel's result). Phase
-19 fails on any answer that differs, any reshard, any expansion off the
-mesh in (a)-(e) (device, whole-block program, host walk; a knn or feat
+degraded (no degraded route may stand in for a kernel's result). Phases
+19 and 20 fail on any answer that differs, any reshard, any expansion
+off the mesh (device, whole-block program, host walk; a knn or feat
 route other than the mesh's), a mesh route or program never taken.
 
 It imports torch, numpy and dgraph_tpu_torch only.
@@ -5101,12 +5122,54 @@ def phase_observability(device, g, front: dict,
                             actual_us=OBS_TINY_PRIOR_US)
         stop = threading.Event()
         batch_answers = []
+        # where the batch's bucket_hop launches fall against the capture
+        # window: the bundle's capture calls are timed, the launch count
+        # read every 2 ms
+        marks: dict = {}
+        capture_calls = (tracing.profile_start, tracing.profile_stop)
+
+        def timed(name, fn):
+            def call(*args, **kw):
+                marks[name] = time.perf_counter()
+                return fn(*args, **kw)
+            return call
+
+        tracing.profile_start = timed("capture_start", capture_calls[0])
+        tracing.profile_stop = timed("capture_stop", capture_calls[1])
+        hops: list = []
 
         def busy():
             while not stop.is_set():
                 batch_answers.append(post_batch(work))
 
+        def watch():
+            last = LAUNCHES["bucket_hop"]
+            while not stop.is_set():
+                n = LAUNCHES["bucket_hop"]
+                if n != last:
+                    hops.append((time.perf_counter(), n - last))
+                    last = n
+                time.sleep(0.002)
+
+        def hop_timeline() -> dict:
+            rel = [(t - t_post, k) for t, k in hops]
+            times = [t for t, _k in rel]
+            w = [marks[m] - t_post for m in ("capture_start", "capture_stop")
+                 if m in marks]
+            return {
+                "ic14_sent_s": t0 - t_post,
+                "capture_s": w,
+                "launches_in_capture": sum(
+                    k for t, k in rel if len(w) == 2 and w[0] <= t <= w[1]),
+                "launches": sum(k for _t, k in rel),
+                "first_last_launch_s": times[:1] + times[-1:],
+                "gaps_over_250ms_s": [[a, b] for a, b in zip(times, times[1:])
+                                      if b - a > 0.25][:8]}
+
+        t_watch = threading.Thread(target=watch, name="phase16-hops")
         t_busy = threading.Thread(target=busy, name="phase16-batch")
+        t_post = time.perf_counter()
+        t_watch.start()
         t_busy.start()
         time.sleep(0.05)
         t0 = time.perf_counter()
@@ -5117,6 +5180,8 @@ def phase_observability(device, g, front: dict,
             time.sleep(0.02)
         stop.set()
         t_busy.join(600)
+        t_watch.join(60)
+        tracing.profile_start, tracing.profile_stop = capture_calls
         time.sleep(0.2)             # a later conviction would dump here
         dumps = flightrec.dumps()
         if st != 200 or data_bytes(body) != want_14:
@@ -5146,7 +5211,7 @@ def phase_observability(device, g, front: dict,
         if on_card and not busy_card and \
                 not any("bucket_hop" in k for k in kernels):
             fail("(b) the device profile names no bucket_hop",
-                 profile=prof_doc)
+                 profile=prof_doc, hop_timeline=hop_timeline())
         out["b_conviction"] = {
             "dumps": len(dumps), "kind": reason["kind"],
             "threshold_us": reason.get("threshold_us"),
@@ -5158,6 +5223,7 @@ def phase_observability(device, g, front: dict,
                                "kernels": len(kernels),
                                "bucket_hop": [k for k in kernels
                                               if "bucket_hop" in k]},
+            "hop_timeline": hop_timeline(),
             "governor_device_bytes":
                 mem["budgets"]["device"]["resident_bytes"]}
         tracing.enable_device_trace(None)
@@ -6090,12 +6156,12 @@ class _Children:
     def __init__(self, tmp: str):
         self.tmp, self.procs = tmp, {}
 
-    def start(self, name: str, *argv: str) -> subprocess.Popen:
+    def start(self, name: str, *argv: str, env=None) -> subprocess.Popen:
         log = open(os.path.join(self.tmp, f"{name}.log"), "w")
         proc = subprocess.Popen(
             [sys.executable, "-m", "dgraph_tpu_torch", *argv],
             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
-            stderr=subprocess.STDOUT)
+            stderr=subprocess.STDOUT, env=env)
         self.procs[name] = (proc, log)
         return proc
 
@@ -6155,14 +6221,14 @@ def debug_doc(p_dir: str) -> dict:
 
 
 def wait_up(kids: _Children, name: str, base: str,
-            limit_s: float = CLI_BOOT_S) -> float:
+            limit_s: float = CLI_BOOT_S, phase: str = "phase 17") -> float:
     """Seconds until the child `name` answers /health; fails if it exits
     or takes longer than `limit_s`."""
     t0 = time.perf_counter()
     while True:
         proc = kids.procs[name][0]
         if proc.poll() is not None:
-            raise AssertionError(f"phase 17: {name} exited with "
+            raise AssertionError(f"{phase}: {name} exited with "
                                  f"{proc.returncode}: "
                                  f"{kids.log(name)[-3000:]}")
         try:
@@ -6172,7 +6238,7 @@ def wait_up(kids: _Children, name: str, base: str,
         except OSError:
             pass
         if time.perf_counter() - t0 > limit_s:
-            raise AssertionError(f"phase 17: {name} not up in {limit_s} s: "
+            raise AssertionError(f"{phase}: {name} not up in {limit_s} s: "
                                  f"{kids.log(name)[-3000:]}")
         time.sleep(0.2)
 
@@ -6607,7 +6673,8 @@ def card_mesh(device):
 
 
 def _valid(x) -> int:
-    return int((np.asarray(x) != _SENT).sum())
+    from dgraph_tpu_torch.parallel.mesh import host_np
+    return int((host_np(x) != _SENT).sum())
 
 
 def mesh_least_bytes(name: str, a: dict, out) -> int:
@@ -6615,28 +6682,31 @@ def mesh_least_bytes(name: str, a: dict, out) -> int:
     (the frontier, the indptr pairs of its real rows, the edges' ids, a
     filter set, the tablet rows it scores) and each output written once
     (the real edges' (nbrs, seg, pos), the next frontier and seen set,
-    ranks, feature rows), whatever the shard count."""
+    ranks, feature rows), whatever the shard count. A sharded output of
+    a mesh across processes is read through host_np, which gathers it:
+    every rank reads it in turn."""
+    from dgraph_tpu_torch.parallel.mesh import host_np
     if name == "matrix_hop":
-        fr = np.asarray(a["frontier"])
-        total = int(np.asarray(out[3]).sum())
+        fr = host_np(a["frontier"])
+        total = int(host_np(out[3]).sum())
         return 4 * fr.size + 8 * _valid(fr) + 16 * total
     if name == "matrix_level":
-        fr = np.asarray(a["frontier"])
-        total = int(np.asarray(out[4]).sum())
-        kept = int(np.asarray(out[3]).sum())
+        fr = host_np(a["frontier"])
+        total = int(host_np(out[4]).sum())
+        kept = int(host_np(out[3]).sum())
         allowed = 4 * len(np.asarray(a["allowed"])) if a["use_allowed"] \
             else 0
         return 4 * fr.size + 8 * _valid(fr) + 4 * total + allowed + 12 * kept
     if name == "ring_matrix_hop":
-        ch = np.asarray(a["frontier_chunks"])
+        ch = host_np(a["frontier_chunks"])
         return 4 * ch.size + 8 * _valid(ch) + \
-            16 * int(np.asarray(out[3]).sum())
+            16 * int(host_np(out[3]).sum())
     if name == "chain_hop":
-        fr = np.asarray(a["frontier"])
+        fr = host_np(a["frontier"])
         caps = 4 * (a["out_cap"] + a["seen_cap"])
         return 2 * caps + 8 * _valid(fr) + 4 * int(out[2]) + 8 * int(out[7])
     if name == "recurse_fused_matrix":
-        frs = np.asarray(out[7])
+        frs = host_np(out[7])
         return (4 * (a["out_cap"] + a["seen_cap"]) + 8 * _valid(frs)
                 + 4 * int(out[2]) + 12 * _valid(out[4]) + 4 * frs.size)
     if name == "mesh_topk":
@@ -7024,8 +7094,11 @@ RING_QUERY = ('{ var(func: has(has_creator)) '
               '{ uid first_name } n(func: uid(c)) { count(uid) } }')
 
 
-def phase_mesh_ldbc(device, built: dict, mesh, tape: ProgramTape) -> dict:
-    """Phase 19 (a), (b) and (f) on phase 6's SF1 store."""
+def phase_mesh_ldbc(device, built: dict, mesh, tape: ProgramTape,
+                    answers: dict | None = None) -> dict:
+    """Phase 19 (a), (b) and (f) on phase 6's SF1 store; the mesh's
+    answers of (a) and (b) go to `answers` (phase 20 holds its processes
+    to them)."""
     from dgraph_tpu_torch.engine import Engine
     from dgraph_tpu_torch.engine.execute import Executor
     from dgraph_tpu_torch.models import ldbc
@@ -7057,6 +7130,8 @@ def phase_mesh_ldbc(device, built: dict, mesh, tape: ProgramTape) -> dict:
                       "routes": {r: v - before[r]
                                  for r, v in eng.routes.expansions.items()
                                  if v - before[r]}}
+            if answers is not None:
+                answers.setdefault("a", {})[k] = got.decode()
             if got != want[k]:
                 raise AssertionError(f"phase 19 (a) {k}: the mesh engine's "
                                      f"answer differs from the single-device"
@@ -7088,6 +7163,8 @@ def phase_mesh_ldbc(device, built: dict, mesh, tape: ProgramTape) -> dict:
         got = ring_eng.query_bytes(RING_QUERY)
         ring_ms = (time.perf_counter() - t1) * 1e3
     calls = dict(PROGRAM_CALLS)
+    if answers is not None:
+        answers["b"] = got.decode()
     if got != want_ring:
         raise AssertionError("phase 19 (b): the ring route's answer differs "
                              "from the single-device route's")
@@ -7183,7 +7260,6 @@ def mesh_alpha_http(device, g, store, mesh, built: dict) -> dict:
     finally:
         srv.shutdown()
         srv.server_close()
-    res["cli"] = mesh_cli(device)
     res["seconds"] = time.perf_counter() - t0
     return res
 
@@ -7194,69 +7270,330 @@ MESH_CLI_RDF = "\n".join(
     for i in range(40))
 MESH_CLI_Q = '{ q(func: eq(name, "p1")) { name friend { name friend { name } } } }'
 
+XMESH_PROCESSES = 2             # phase 20: ranks, each with ...
+XMESH_LOCAL_SHARDS = 2          # ... this many shards of card 0
+XMESH_TIMEOUT_S = 300           # the process group's timeout
+XMESH_CHILD_S = 600             # a child's whole run
+XMESH_SLAB_FRONTIER = 4096      # (b) message rows drawn for the hop
+XMESH_SLAB_SEED = 29
 
-def mesh_cli(device) -> dict:
-    """Phase 19 (f), the CLI: `alpha --mesh-devices N` (N = this machine's
-    cards; two CPU shards in a rehearsal) on an empty directory serves an
-    alter, a commit and a query over HTTP at device_threshold 0, with
-    /debug/scheduler showing `mesh.shard_cost_us`, and exits 0 on SIGINT;
-    one card more exits non-zero, naming item 10b, before its directory
-    exists."""
+# phase 20 (a, b), one rank: argv spec.json rank
+XMESH_CHILD = r"""
+import json, os, sys, time
+spec = json.load(open(sys.argv[1]))
+rank = int(sys.argv[2])
+sys.path.insert(0, spec["root"])
+t_start = time.perf_counter()
+import numpy as np
+import torch
+import chip_smoke as cs
+from dgraph_tpu_torch.parallel import mesh as M
+device = spec["device"]
+if spec["nccl"]:
+    os.environ["LOCAL_RANK"] = str(rank)
+M.init_distributed(spec["coordinator"], spec["processes"], rank)
+mesh = M.make_mesh(device=device)
+if mesh.backend != spec["backend"] or not mesh.spans_processes:
+    raise AssertionError(f"mesh {mesh!r}, not over {spec['backend']}")
+out = {"rank": rank, "mesh": repr(mesh), "backend": mesh.backend,
+       "local": list(mesh.local), "boot_s": time.perf_counter() - t_start}
+from dgraph_tpu_torch.engine import Engine
+from dgraph_tpu_torch.models import ldbc
+from dgraph_tpu_torch.ops.feat import LAUNCHES as COMBINE
+from dgraph_tpu_torch.tools import graphrag_mix
+t0 = time.perf_counter()
+g = ldbc.generate(sf=spec["sf"], seed=cs.LDBC_SEED)
+store, _emb = cs.build_graphrag_store(g)
+out["build_s"] = time.perf_counter() - t0
+if spec.get("ring_threshold"):
+    from dgraph_tpu_torch.engine.execute import Executor
+    Executor.ring_threshold = spec["ring_threshold"]
+want = json.load(open(spec["answers"]))
+queries = dict(ldbc.ic_templates(g))
+queries["config3"] = ldbc.config3_query(g)
+queries.update(cs.ldbc_mesh_queries(g))
+parts = {"a": queries}
+if "b" in spec["parts"]:
+    parts["b"] = {"ring": cs.RING_QUERY}
+if "d" in spec["parts"]:
+    parts["d"] = graphrag_mix.templates(g)
+tape = cs.ProgramTape(device)
+M.PROGRAM_CALLS.clear()
+for k in COMBINE:
+    COMBINE[k] = 0
+knn0 = cs.route_set("knn_route_total")
+feat0 = cs.route_set("feat_route_total")
+r0 = M.reshard_count()
+per, seconds = {}, {}
+with tape.armed(), M.reshard_guard():
+    for part, qs in parts.items():
+        t0 = time.perf_counter()
+        eng = Engine(store, device=device, device_threshold=0, mesh=mesh)
+        for k, q in qs.items():
+            t1 = time.perf_counter()
+            got = eng.query_bytes(q).decode()
+            per[f"{part}:{k}"] = (time.perf_counter() - t1) * 1e3
+            exp = want["b"] if part == "b" else want[part][k]
+            if got != exp:
+                raise AssertionError(f"phase 20 ({part}) {k}: rank {rank}'s "
+                                     f"answer differs from phase 19's")
+        cs.mesh_routes_ok(eng, f"({part}) across processes")
+        seconds[part] = time.perf_counter() - t0
+calls = dict(M.PROGRAM_CALLS)
+launches = dict(COMBINE)
+knn = {r: v - knn0[r] for r, v in cs.route_set("knn_route_total").items()}
+feat = {r: v - feat0[r] for r, v in cs.route_set("feat_route_total").items()}
+on_card = torch.device(device).type == "cuda"
+if "d" in parts and ((on_card and not launches.get("segment_combine"))
+                     or not knn["mesh"] or not feat["mesh"]):
+    raise AssertionError(f"phase 20: segment_combine {launches}, knn "
+                         f"{knn}, feat {feat}")
+if any(knn[r] or feat[r] for r in ("host", "device", "fused")):
+    raise AssertionError(f"phase 20: knn {knn}, feat {feat} off the mesh")
+if M.reshard_count() != r0:
+    raise AssertionError("phase 20: reshards counted")
+cs.no_oom(f"phase 20 rank {rank}")
+out.update(seconds=seconds, per_query_ms=per, programs=calls,
+           segment_combine_launches=launches.get("segment_combine", 0),
+           knn_routes=knn, feat_routes=feat, tape=tape.summary(),
+           cross_calls=dict(M.CROSS_CALLS))
+if "slabs" in spec["parts"]:
+    # (b) this rank materialises only its own shards' slabs of
+    # has_creator; assemble_sharded_rel agrees the rest with one gather
+    from dgraph_tpu_torch.parallel.dhop import matrix_hop
+    from dgraph_tpu_torch.parallel.pshard import assemble_sharded_rel
+    t0 = time.perf_counter()
+    rel = store.rel("has_creator")
+    n = rel.indptr.shape[0] - 1
+    rows = -(-n // mesh.size)
+    local = {}
+    for d in mesh.local:
+        lo, hi = min(d * rows, n), min(d * rows + rows, n)
+        ptr = rel.indptr[lo:hi + 1].astype(np.int64)
+        base = int(ptr[0])
+        lp = (ptr - base).astype(np.int32)
+        lp = np.concatenate([lp, np.full(rows - (hi - lo), lp[-1],
+                                         np.int32)])
+        local[d] = (lp, rel.indices[base:base + int(lp[-1])])
+    c0 = dict(M.CROSS_CALLS)
+    srel = assemble_sharded_rel(mesh, n, local)
+    if M.CROSS_CALLS.get("nnz", 0) != c0.get("nnz", 0) + 1:
+        raise AssertionError("phase 20 (b): no nnz agreement")
+    rng = np.random.default_rng(cs.XMESH_SLAB_SEED)
+    cand = np.unique(rng.integers(0, n, cs.XMESH_SLAB_FRONTIER))
+    fr = cand[rel.indptr[cand + 1] > rel.indptr[cand]].astype(np.int32)
+    owners = set((fr // rows).tolist())
+    if not {mesh.ranks[d] for d in owners} >= set(mesh.owners):
+        raise AssertionError("phase 20 (b): the frontier misses a rank")
+    deg = (rel.indptr[fr + 1] - rel.indptr[fr]).astype(np.int64)
+    cap = 64
+    while cap < max(int(deg.sum()), 1):
+        cap <<= 1
+    pad = np.full(cap, cs._SENT, np.int32)
+    pad[:len(fr)] = fr
+    t1 = time.perf_counter()
+    nbrs_s, seg_s, _pos, totals, max_e = matrix_hop(mesh, srel, pad, cap)
+    nb, sg, tot = M.host_np(nbrs_s), M.host_np(seg_s), M.host_np(totals)
+    hop_ms = (time.perf_counter() - t1) * 1e3
+    if int(M.host_np(max_e)) > cap:
+        raise AssertionError("phase 20 (b): past the edge cap")
+    got = np.concatenate([np.stack([sg[d, :int(tot[d])], nb[d, :int(tot[d])]])
+                          for d in range(mesh.size)], axis=1)
+    got = got[:, np.lexsort((got[1], got[0]))]
+    seg = np.repeat(np.arange(len(fr)), deg)
+    idx = np.concatenate([rel.indices[rel.indptr[f]:rel.indptr[f + 1]]
+                          for f in fr])
+    want_e = np.stack([seg, idx])
+    want_e = want_e[:, np.lexsort((want_e[1], want_e[0]))]
+    if not np.array_equal(got, want_e):
+        raise AssertionError("phase 20 (b): the disjoint-slab hop's edges "
+                             "differ from the CSR walk")
+    out["b_slabs"] = {"seconds": time.perf_counter() - t0,
+                      "frontier": int(len(fr)), "edges": int(deg.sum()),
+                      "hop_ms": hop_ms,
+                      "local_bytes": int(sum(p.nbytes + i.nbytes for p, i in
+                                             local.values()))}
+out["seconds_total"] = time.perf_counter() - t_start
+M.shutdown_distributed()
+print(json.dumps(out), flush=True)
+"""
+
+
+def xmesh_children(device, answers_path: str, tmp: str, parts,
+                   nccl: bool = False, sf: float = LDBC_SF,
+                   ring_threshold: int | None = None) -> list:
+    """Run phase 20's two ranks (XMESH_CHILD) to their end; their JSON
+    documents, or a failure with their output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = {"root": root, "device": device, "answers": answers_path,
+            "coordinator": f"127.0.0.1:{free_port()}",
+            "processes": XMESH_PROCESSES, "sf": sf, "parts": list(parts),
+            "local_shards": 1 if nccl else XMESH_LOCAL_SHARDS,
+            "backend": "nccl" if nccl else "gloo", "nccl": nccl,
+            "ring_threshold": ring_threshold}
+    spec_path = os.path.join(tmp, "nccl.json" if nccl else "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, DGRAPH_TPU_DIST_TIMEOUT_S=str(XMESH_TIMEOUT_S),
+               DGRAPH_TPU_LOCAL_SHARDS=str(spec["local_shards"]))
+    logs, procs = [], []
+    try:
+        for r in range(XMESH_PROCESSES):
+            logs.append(open(os.path.join(tmp, f"rank{r}{nccl:d}.log"),
+                             "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", XMESH_CHILD, spec_path, str(r)],
+                cwd=root, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + XMESH_CHILD_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    docs = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        try:
+            doc = json.loads(text.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            doc = None
+        if p.returncode != 0 or doc is None:
+            raise AssertionError(f"phase 20: rank {r} exited "
+                                 f"{p.returncode}: {text[-4000:]}")
+        docs.append(doc)
+    return docs
+
+
+def xmesh_program_rows(docs: list, rows19: dict) -> dict:
+    """Per mesh program: each rank's calls and CUDA-event ms across
+    processes beside phase 19's in-process calls and ms (per call)."""
+    out = {}
+    for name in MESH_PROGRAMS:
+        ranks = [d["tape"].get(name) for d in docs]
+        if not any(ranks):
+            continue
+        one = rows19.get(name, {})
+        out[name] = {
+            "calls": [r["calls"] if r else 0 for r in ranks],
+            "ms_total": [r["ms_total"] if r else 0.0 for r in ranks],
+            "ms_per_call": [r["ms_total"] / r["calls"] if r else None
+                            for r in ranks],
+            "bound_ms": ranks[0]["bound_ms"] if ranks[0] else None,
+            "in_process_calls": one.get("calls"),
+            "in_process_ms_per_call": (one["ms_total"] / one["calls"]
+                                       if one.get("calls") else None)}
+    return out
+
+
+def mesh_cli_pair(device) -> dict:
+    """Phase 20 (c): two `alpha --jax-coordinator` processes, each with
+    XMESH_LOCAL_SHARDS shards of card 0 (two of the CPU in a rehearsal),
+    one 4-shard mesh over gloo, on empty directories: the same alter and
+    commit to both, one query to both at once, both answers equal to a
+    plain CPU Alpha's, /debug/scheduler's `mesh.shard_cost_us` on each,
+    exit 0 on SIGINT; then one process asking for one device more than
+    the machine has exits non-zero, naming the count, before its
+    directory exists."""
     import shutil
     import signal
     import tempfile
+    import threading
 
     from dgraph_tpu_torch.engine import Engine
     from dgraph_tpu_torch.server.api import Alpha
 
     on_card = torch.device(device).type == "cuda"
-    n = torch.cuda.device_count() if on_card else 2
     tmp = tempfile.mkdtemp(prefix="mesh_cli_")
     kids = _Children(tmp)
-    out: dict = {"mesh_devices": n}
+    out: dict = {"processes": XMESH_PROCESSES,
+                 "local_shards": XMESH_LOCAL_SHARDS}
+    names = [f"alpha{r}" for r in range(XMESH_PROCESSES)]
     try:
-        hport, gport = free_port(), free_port()
+        coord = f"127.0.0.1:{free_port()}"
+        hports = [free_port() for _ in names]
         on_cpu = [] if on_card else ["--device", "cpu"]
-        kids.start("alpha", "alpha", *on_cpu, "--p", os.path.join(tmp, "p"),
-                   "--http_port", str(hport), "--grpc_port", str(gport),
-                   "--mesh-devices", str(n), "--store", "device_threshold=0")
-        base = f"http://127.0.0.1:{hport}"
-        out["boot_s"] = wait_up(kids, "alpha", base)
-        st1, _h, _b = http(base, "/alter", MESH_CLI_SCHEMA)
-        st2, _h, _b = http(base, "/mutate?commitNow=true", MESH_CLI_RDF,
-                           ctype="application/rdf")
-        t0 = time.perf_counter()
-        st3, _h, body = http(base, "/query", MESH_CLI_Q)
-        out["query_ms"] = (time.perf_counter() - t0) * 1e3
-        plain = Alpha(device="cpu", device_threshold=10**9)
+        for r, name in enumerate(names):
+            kids.start(name, "alpha", *on_cpu, "--p", os.path.join(tmp, name),
+                       "--http_port", str(hports[r]),
+                       "--grpc_port", str(free_port()),
+                       "--jax-coordinator", coord, "--mesh-devices", "-1",
+                       "--store", "device_threshold=0",
+                       env=dict(os.environ,
+                                JAX_NUM_PROCESSES=str(XMESH_PROCESSES),
+                                JAX_PROCESS_ID=str(r),
+                                DGRAPH_TPU_LOCAL_SHARDS=str(
+                                    XMESH_LOCAL_SHARDS),
+                                DGRAPH_TPU_DIST_TIMEOUT_S=str(
+                                    XMESH_TIMEOUT_S)))
+        bases = [f"http://127.0.0.1:{p}" for p in hports]
+        out["boot_s"] = max(wait_up(kids, name, base, phase="phase 20 (c)")
+                            for name, base in zip(names, bases))
+        st = [http(b, "/alter", MESH_CLI_SCHEMA)[0] for b in bases]
+        st += [http(b, "/mutate?commitNow=true", MESH_CLI_RDF,
+                    ctype="application/rdf")[0] for b in bases]
+        got, lat = {}, {}
+
+        def ask(r):
+            t1 = time.perf_counter()
+            got[r] = http(bases[r], "/query", MESH_CLI_Q)
+            lat[r] = (time.perf_counter() - t1) * 1e3
+
+        threads = [threading.Thread(target=ask, args=(r,))
+                   for r in range(XMESH_PROCESSES)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(CLI_SIGINT_S)
+        out["query_ms"] = [lat.get(r) for r in range(XMESH_PROCESSES)]
+        plain = Alpha(device="cpu", device_threshold=HOST_ONLY)
         plain.alter(MESH_CLI_SCHEMA)
         plain.mutate(set_nquads=MESH_CLI_RDF)
         want = json.loads(Engine(plain.mvcc.read_view(
             plain.oracle.read_ts()), device="cpu").query_bytes(MESH_CLI_Q))
-        st4, _h, sched = http(base, "/debug/scheduler")
-        cost = (json.loads(sched).get("mesh") or {}).get("shard_cost_us")
-        if (st1, st2, st3, st4) != (200, 200, 200, 200) or \
-                json.loads(data_bytes(body)) != want or not cost:
-            raise AssertionError(
-                f"phase 19 (f) cli: statuses {(st1, st2, st3, st4)}, "
-                f"answer {body[:300]!r}, shard costs {cost}: "
-                f"{kids.log('alpha')[-2000:]}")
-        out["shard_cost_us"] = cost
-        proc = kids.procs["alpha"][0]
+        costs = []
+        for b in bases:
+            s4, _h, sched = http(b, "/debug/scheduler")
+            st.append(s4)
+            costs.append((json.loads(sched).get("mesh") or {}).get(
+                "shard_cost_us"))
+        for r, name in enumerate(names):
+            if r not in got or got[r][0] != 200 or \
+                    json.loads(data_bytes(got[r][2])) != want:
+                raise AssertionError(
+                    f"phase 20 (c): {name}'s answer "
+                    f"{got.get(r, (None, None, b''))[2][:300]!r}: "
+                    f"{kids.log(name)[-2000:]}")
+        if set(st) != {200} or not all(costs):
+            raise AssertionError(f"phase 20 (c): statuses {st}, shard costs "
+                                 f"{costs}")
+        out["shard_cost_us"] = costs
         t0 = time.perf_counter()
-        proc.send_signal(signal.SIGINT)
-        rc = proc.wait(timeout=CLI_SIGINT_S)
+        for name in names:
+            kids.procs[name][0].send_signal(signal.SIGINT)
+        rcs = [kids.procs[name][0].wait(timeout=CLI_SIGINT_S)
+               for name in names]
         out["sigint_s"] = time.perf_counter() - t0
-        if rc != 0 or "device mesh" not in kids.log("alpha"):
-            raise AssertionError(f"phase 19 (f) cli: exit {rc}: "
-                                 f"{kids.log('alpha')[-2000:]}")
+        for r, (name, rc) in enumerate(zip(names, rcs)):
+            t = kids.log(name)
+            if rc != 0 or "over gloo" not in t or \
+                    f"process {r}/{XMESH_PROCESSES}" not in t:
+                raise AssertionError(f"phase 20 (c): {name} exited {rc}: "
+                                     f"{t[-2000:]}")
+        out["backend"] = "gloo"
         if on_card:
+            n = torch.cuda.device_count()
             wide = os.path.join(tmp, "wide")
-            rc, _doc, text = run_verb(out, "wide_s", "alpha", "--p", wide,
-                                      "--mesh-devices", str(n + 1))
-            if rc == 0 or "item 10b" not in text or os.path.exists(wide):
-                raise AssertionError(f"phase 19 (f) cli: --mesh-devices "
-                                     f"{n + 1} exited {rc}: {text}")
+            rc, _doc, txt = run_verb(out, "wide_s", "alpha", "--p", wide,
+                                     "--mesh-devices", str(n + 1))
+            if rc == 0 or f"asks for {n + 1} devices and this machine " \
+                    f"has {n}" not in txt or os.path.exists(wide):
+                raise AssertionError(f"phase 20 (c): --mesh-devices {n + 1} "
+                                     f"exited {rc}: {txt}")
             out["wide_rc"] = rc
     finally:
         kids.close()
@@ -7264,9 +7601,71 @@ def mesh_cli(device) -> dict:
     return out
 
 
-def phase_mesh_graphrag(device, g, store, mesh, tape: ProgramTape) -> dict:
+def phase_mesh_processes(device, answers: dict, rows19: dict,
+                         sf: float = LDBC_SF,
+                         ring_threshold: int | None = None) -> dict:
+    """Phase 20: a mesh across processes. (a, b) two ranks, each with two
+    shards of card 0, one 4-shard mesh over gloo: each builds SF1 with
+    the GraphRAG embeddings from phase 6's and 10's seeds and serves
+    phase 19's (a) IC mix and orderings, (b) ring query and (d) nine
+    GraphRAG templates at device_threshold 0, every answer byte-equal to
+    phase 19's on the single-process 4-shard mesh, then a matrix_hop
+    over has_creator slabs each rank alone holds (assemble_sharded_rel),
+    its edges equal to the CSR walk; (c) the CLI pair; (d) NCCL, one
+    rank per card, where there are two cards."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="xmesh_")
+    out: dict = {}
+    try:
+        path = os.path.join(tmp, "answers.json")
+        with open(path, "w") as f:
+            json.dump(answers, f)
+        t0 = time.perf_counter()
+        docs = xmesh_children(device, path, tmp, ("a", "b", "d", "slabs"),
+                              sf=sf, ring_threshold=ring_threshold)
+        out["a_b_children_s"] = time.perf_counter() - t0
+        for d in docs:
+            if torch.device(device).type == "cuda" and \
+                    d["segment_combine_launches"] < 1:
+                raise AssertionError(f"phase 20: rank {d['rank']} launched "
+                                     f"no segment_combine")
+        out["ranks"] = [{k: d[k] for k in (
+            "rank", "mesh", "backend", "local", "boot_s", "build_s",
+            "seconds", "seconds_total", "programs",
+            "segment_combine_launches", "knn_routes", "feat_routes",
+            "cross_calls", "b_slabs")} for d in docs]
+        out["per_query_ms"] = {k: [d["per_query_ms"][k] for d in docs]
+                               for k in docs[0]["per_query_ms"]}
+        out["programs"] = xmesh_program_rows(docs, rows19)
+        t0 = time.perf_counter()
+        out["c_cli"] = mesh_cli_pair(device)
+        out["c_cli"]["seconds"] = time.perf_counter() - t0
+        cards = torch.cuda.device_count() if \
+            torch.device(device).type == "cuda" else 0
+        if cards >= 2:
+            t0 = time.perf_counter()
+            nd = xmesh_children(device, path, tmp, ("a",), nccl=True, sf=sf,
+                                ring_threshold=ring_threshold)
+            out["nccl"] = {"seconds": time.perf_counter() - t0,
+                           "per_query_ms": {k: [d["per_query_ms"][k]
+                                                for d in nd]
+                                            for k in nd[0]["per_query_ms"]},
+                           "mesh": nd[0]["mesh"]}
+        else:
+            out["nccl"] = f"not run: {cards} card" + ("" if cards == 1
+                                                      else "s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_mesh_graphrag(device, g, store, mesh, tape: ProgramTape,
+                        answers: dict | None = None) -> dict:
     """Phase 19 (d) on phase 10's GraphRAG store: knn through knn_mesh and
-    the @msgpass templates through feat_mesh."""
+    the @msgpass templates through feat_mesh; the mesh's answers go to
+    `answers["d"]`."""
     from dgraph_tpu_torch.engine import Engine
     from dgraph_tpu_torch.ops.feat import LAUNCHES as COMBINE
     from dgraph_tpu_torch.parallel.mesh import (PROGRAM_CALLS, reshard_count,
@@ -7288,8 +7687,11 @@ def phase_mesh_graphrag(device, g, store, mesh, tape: ProgramTape) -> dict:
     with reshard_guard():
         for k, q in queries.items():
             t1 = time.perf_counter()
-            got = json.loads(eng.query_bytes(q))
+            raw = eng.query_bytes(q)
             per[k] = {"ms": (time.perf_counter() - t1) * 1e3}
+            got = json.loads(raw)
+            if answers is not None:
+                answers.setdefault("d", {})[k] = raw.decode()
             err = json_float_err(want[k], got, exact_floats=(
                 k in exact or k.endswith("_max")))
             per[k]["max_rel_err"] = err
@@ -7456,9 +7858,10 @@ def main() -> None:
     no_oom("phase 12")
     # phase 19 (a), (b) and (f) on phase 6's store, before it goes
     t0 = time.perf_counter()
+    mesh_answers: dict = {}   # phase 19's answers, phase 20's reference
     with ptape.armed():
         ldbc_mesh = counted("phase 19 (a, b, f)", lambda: phase_mesh_ldbc(
-            device, built, mesh, ptape))
+            device, built, mesh, ptape, answers=mesh_answers))
     mesh_program_rows(ptape, device, merge_calls(
         ldbc_mesh["a_ic_mix"]["programs"], ldbc_mesh["b_ring"]["programs"]),
         mesh_rows)
@@ -7494,7 +7897,7 @@ def main() -> None:
     t0 = time.perf_counter()
     with ptape.armed():
         rag_mesh = counted("phase 19 (d)", lambda: phase_mesh_graphrag(
-            device, g, store, mesh, ptape))
+            device, g, store, mesh, ptape, answers=mesh_answers))
     mesh_program_rows(ptape, device, rag_mesh["programs"], mesh_rows)
     mesh_s["d"] = time.perf_counter() - t0
     say("phase 19 mesh (d)", **{**rag_mesh, "seconds": mesh_s["d"]})
@@ -7503,6 +7906,13 @@ def main() -> None:
     say("phase 19 mesh", seconds=sum(mesh_s.values()), parts_s=mesh_s,
         shards=mesh.size, devices=sorted({str(d) for d in mesh.devices}),
         counters=mesh_counters(), programs=mesh_rows)
+    # phase 20: the same answers from a mesh across two processes
+    t0 = time.perf_counter()
+    xmesh = phase_mesh_processes(device, mesh_answers, mesh_rows)
+    say("phase 20 mesh across processes", seconds=time.perf_counter() - t0,
+        backend="gloo", nccl=xmesh.pop("nccl"), **xmesh)
+    del mesh_answers
+    no_oom("phase 20")
     # phase 10's store stays alive: phase 13 injects at its knn and
     # @msgpass launches
     t0 = time.perf_counter()
@@ -7580,7 +7990,11 @@ def main() -> None:
                  "@msgpass under an injected fault (phase 13)":
                      mem.get("segment_combine_launches", 0),
                  "@msgpass through feat_mesh, per shard (phase 19 (d))":
-                     rag_mesh["segment_combine_launches"]}}
+                     rag_mesh["segment_combine_launches"],
+                 "@msgpass through feat_mesh across two processes, per "
+                 "shard of each rank (phase 20 (a))":
+                     sum(r["segment_combine_launches"]
+                         for r in xmesh["ranks"])}}
     paths["bucket_hop"]["make_ell_recurse against the sharded bitmap "
                         "traversal (phase 19 (e))"] = \
         bench_mesh["e_bitmap"]["bucket_hop_launches"]

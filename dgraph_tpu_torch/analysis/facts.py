@@ -26,6 +26,9 @@ both ways against its runtime registry (`tests/test_torch_lint.py`, and
   **debug_endpoints** (`server/debug_routes.DEBUG_ENDPOINTS`),
   **slo_specs** (`utils/slo.SLO_SPECS`) — re-exported verbatim from
   those torch-free modules.
+* **collective_sites** — every `torch.distributed` call (through any
+  import alias) with its file and line: the process group and the
+  cross-process collectives, which R7 keeps in `parallel/mesh.py`.
 * **fused_stage_kinds** (`engine/fused.STAGE_KINDS`) and
   **governed_caches** (`utils/memgov.GOVERNED_CACHES`) — read from the
   literal in their module's source: both modules import torch, which
@@ -43,7 +46,7 @@ import re
 from dgraph_tpu_torch.analysis import BENCH_SCRIPT, PACKAGE
 from dgraph_tpu_torch.analysis.guards import class_inventory
 from dgraph_tpu_torch.analysis.rules import (_dotted, _name_arg, _owner,
-                                             captured_functions,
+                                             _resolved, captured_functions,
                                              import_aliases)
 
 __all__ = ["extract_facts", "literal_of", "runtime_misses"]
@@ -132,10 +135,17 @@ def extract_facts(contexts) -> dict:
     metrics: list[dict] = []
     guarded_fields: list[dict] = []
     guarded_sites: list[dict] = []
+    collectives: list[dict] = []
     for ctx in contexts:
         if not (ctx.rel.startswith(PACKAGE + "/")
                 or ctx.rel == BENCH_SCRIPT):
             continue
+        aliases = import_aliases(ctx)
+        for node in ctx.nodes(ast.Call):
+            full = _resolved(_dotted(node.func), aliases)
+            if full.startswith("torch.distributed."):
+                collectives.append({"call": full[len("torch.distributed."):],
+                                    "file": ctx.rel, "line": node.lineno})
         guarded_fields.extend(class_inventory(ctx))
         guarded_sites.extend(_guarded_sites(ctx))
         sites.extend(_kernel_sites(ctx))
@@ -217,6 +227,8 @@ def extract_facts(contexts) -> dict:
         "cost_record_fields": cost_fields,
         "cost_prior_features": prior_features,
         "debug_endpoints": debug_endpoints,
+        "collective_sites": sorted(collectives, key=lambda c: (
+            c["file"], c["line"], c["call"])),
         "fused_stage_kinds": fused_stages,
         "governed_caches": governed_caches,
         "slo_specs": slo_specs,
@@ -236,6 +248,7 @@ def extract_facts(contexts) -> dict:
             "cost_record_fields": len(cost_fields),
             "cost_prior_features": len(prior_features),
             "debug_endpoints": len(debug_endpoints),
+            "collective_sites": len(collectives),
             "fused_stage_kinds": len(fused_stages),
             "governed_caches": len(governed_caches),
             "slo_specs": len(slo_specs),

@@ -673,8 +673,8 @@ class ShardMapCompat(Rule):
     name = "shard-map-compat"
     doc = ("the mesh layer's collectives resolve ONLY through "
            "parallel/mesh.py (all_gather, psum, pmax, ppermute, "
-           "psum_scatter; a mesh across processes, ROADMAP item 10b, "
-           "brings torch.distributed there): a direct "
+           "psum_scatter, and the torch.distributed process group and "
+           "calls that carry them across processes): a direct "
            "`torch.distributed` reference or import anywhere else, or a "
            "`shard_map` spelling of the reference's, pins the layer to "
            "one backend and one version, so a change of either re-parks "

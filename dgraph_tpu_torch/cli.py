@@ -15,10 +15,20 @@ The port's own rules:
   host code.
 * `--mesh-devices N` serves the engine over a mesh of this process's
   devices (`parallel/mesh.make_mesh`): the first N cards, -1 all of
-  them; with `--device cpu`, N shards of the CPU (-1: one). A count
-  above this machine's cards exits non-zero before the posting
-  directory is touched. A mesh across processes and its rendezvous
-  (`--jax-coordinator`) are ROADMAP item 10b: the flag exits non-zero.
+  them; with `--device cpu`, N shards of the CPU (-1: one). With
+  `--jax-coordinator host:port` (or JAX_COORDINATOR_ADDRESS) and the
+  env pair JAX_NUM_PROCESSES / JAX_PROCESS_ID, the process joins a
+  process group first (`mesh.init_distributed`) and N counts the
+  global device list, every process's in rank order (-1: all of
+  them); each process offers DGRAPH_TPU_LOCAL_SHARDS shards (default
+  1) of its card, or of the CPU with `--device cpu`. The collectives
+  run over NCCL when every process has cards of its own, else over
+  gloo; the log names the backend. A count above the devices exits
+  non-zero, naming the device count, before the posting directory is
+  touched, and so does a process left without a shard. Serving across
+  processes is SPMD: every process must receive the same mesh
+  requests in the same order, so `--max_inflight` (admission control,
+  which sheds per process) exits non-zero beside a coordinator.
 * Importing this module loads no grpc: the `alpha` and `zero` verbs
   import the transport inside their functions.
 """
@@ -83,28 +93,46 @@ ZERO_JOIN_WAIT_S = 60.0
 # final checkpoint goes ahead without them
 REQUEST_DRAIN_S = 30.0
 
-MESH_REFUSED = ("a mesh across processes is not ported yet (ROADMAP "
-                "item 10b): {flag} is refused")
-MESH_TOO_WIDE = ("alpha: {flag} asks for {want} cards and this machine has "
-                 "{have}: one process serves a mesh of its own cards (more "
-                 "cards across processes is ROADMAP item 10b)")
+MESH_TOO_WIDE = ("alpha: {flag} asks for {want} devices and this machine "
+                 "has {have}")
 
 
-def _alpha_mesh(n: int, device: str):
-    """The alpha's mesh for `--mesh-devices n` (n != 0) on `device`, or
-    an exit naming the card count when n asks for more cards than the
-    machine has (checked before any directory is touched)."""
+def _alpha_mesh(n: int, device: str, coordinator: str | None):
+    """The alpha's mesh for `--mesh-devices n` (n != 0) on `device`: over
+    this process's devices, or, with a coordinator (the flag or
+    JAX_COORDINATOR_ADDRESS), over the first n of every process's once
+    this process has joined the group. Exits naming the device count
+    when n asks for more devices than there are, and when the mesh
+    leaves this process without a shard (checked before any directory
+    is touched)."""
+    import os
+
     import torch
 
-    from dgraph_tpu_torch.parallel.mesh import make_mesh
+    from dgraph_tpu_torch.parallel import mesh as pmesh
+    flag = f"--mesh-devices {n}"
+    if coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS"):
+        if torch.device(device).type == "cuda":
+            _require_device(device, "alpha")
+        try:
+            pmesh.init_distributed(coordinator)
+        except ValueError as e:
+            raise SystemExit(f"alpha: --jax-coordinator: {e}") from None
+        try:
+            mesh = pmesh.make_mesh(None if n < 0 else n, device=device)
+        except ValueError as e:
+            raise SystemExit(f"alpha: {flag}: {e}") from None
+        if not mesh.local:
+            raise SystemExit(f"alpha: {flag} leaves process {mesh.rank} "
+                             f"without a shard of the mesh")
+        return mesh
     if torch.device(device).type == "cpu":
-        return make_mesh(n if n > 0 else 1, device="cpu")
+        return pmesh.make_mesh(n if n > 0 else 1, device="cpu")
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n > have or have == 0:
         raise SystemExit(MESH_TOO_WIDE.format(
-            flag=f"--mesh-devices {n}", want=n if n > 0 else "all",
-            have=have))
-    return make_mesh(None if n < 0 else n)
+            flag=flag, want=n if n > 0 else "all", have=have))
+    return pmesh.make_mesh(None if n < 0 else n)
 
 
 def _require_device(device: str, verb: str) -> None:
@@ -157,6 +185,8 @@ def _drain_requests(log) -> None:
 
 
 def cmd_alpha(args) -> int:
+    import os
+
     overrides = {
         "p_dir": args.p, "http_port": args.http_port,
         "grpc_port": args.grpc_port, "log_level": args.log_level,
@@ -200,10 +230,19 @@ def cmd_alpha(args) -> int:
             if overrides.get(k) is None:  # dedicated flags win
                 overrides[k] = v
     cfg = load_config(AlphaConfig, args.config, overrides)
-    if args.jax_coordinator:
-        raise SystemExit(MESH_REFUSED.format(flag="--jax-coordinator"))
+    if args.jax_coordinator and not cfg.mesh_devices:
+        raise SystemExit(f"alpha: --jax-coordinator {args.jax_coordinator} "
+                         f"joins a mesh across processes: give "
+                         f"--mesh-devices too")
+    if cfg.max_inflight > 0 and (args.jax_coordinator or os.environ.get(
+            "JAX_COORDINATOR_ADDRESS")):
+        raise SystemExit(f"alpha: --max_inflight {cfg.max_inflight}: "
+                         f"admission control sheds per process, and a "
+                         f"request one process sheds and another serves "
+                         f"puts the ranks of a mesh across processes out "
+                         f"of step; serve it without admission control")
     # SPMD serving: the engine runs its hops sharded over the mesh
-    mesh = (_alpha_mesh(cfg.mesh_devices, cfg.device)
+    mesh = (_alpha_mesh(cfg.mesh_devices, cfg.device, args.jax_coordinator)
             if cfg.mesh_devices else None)
     _require_device(cfg.device, "alpha")
     from dgraph_tpu_torch.server.api import Alpha
@@ -227,6 +266,14 @@ def cmd_alpha(args) -> int:
     if mesh is not None:
         log.info("device mesh: %d shards over %s", mesh.size,
                  ", ".join(sorted({str(d) for d in mesh.devices})))
+    if mesh is not None and mesh.spans_processes:
+        from dgraph_tpu_torch.parallel.mesh import (process_count,
+                                                    process_index)
+        log.info("multi-process runtime: process %d/%d", process_index(),
+                 process_count())
+        log.info("device mesh across %d processes over %s: this process "
+                 "holds shards %s", len(mesh.owners), mesh.backend,
+                 list(mesh.local))
     alpha = Alpha.open(cfg.p_dir, device_threshold=cfg.device_threshold,
                        memory_budget=(cfg.memory_budget_mb << 20)
                        if cfg.memory_budget_mb else None,
@@ -384,10 +431,9 @@ def cmd_alpha(args) -> int:
     # with NO operator action; SIGUSR2 and POST /debug/flightrecorder
     # dump on demand
     import dataclasses as _dc
-    import os as _os
 
     from dgraph_tpu_torch.utils import flightrec
-    diag_dir = cfg.diag_dir or _os.path.join(cfg.p_dir, "diag")
+    diag_dir = cfg.diag_dir or os.path.join(cfg.p_dir, "diag")
     flightrec.arm(
         diag_dir=diag_dir, stall_factor=cfg.stall_factor,
         stall_floor_ms=cfg.stall_floor_ms, alpha=alpha, pusher=pusher,
@@ -445,6 +491,9 @@ def cmd_alpha(args) -> int:
             n = tracing.export_otlp(cfg.trace_export)
             log.info("exported %d spans as OTLP/JSON to %s", n,
                      cfg.trace_export)
+        if mesh is not None and mesh.spans_processes:
+            from dgraph_tpu_torch.parallel.mesh import shutdown_distributed
+            shutdown_distributed()
     return 0
 
 
@@ -799,9 +848,9 @@ def main(argv=None) -> int:
                    help="enable ACL; file holds the token-signing secret")
     p.add_argument("--jax-coordinator", default=None,
                    dest="jax_coordinator",
-                   help="host:port of a multi-host mesh's coordinator: "
-                        "refused until a mesh across processes is ported "
-                        "(ROADMAP item 10b)")
+                   help="host:port of a mesh across processes' "
+                        "coordinator (with --mesh-devices; rank and world "
+                        "size from JAX_PROCESS_ID / JAX_NUM_PROCESSES)")
     p.add_argument("--zero", default=None,
                    help="zero address(es) → join a cluster; a comma-"
                         "separated list fails over (primary,standby)")

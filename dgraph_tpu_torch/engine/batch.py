@@ -41,7 +41,10 @@ binds no features; the reference groups them and drops their bindings).
 
 Cost model (utils/costprior.py, utils/costprofile.py): a group below
 MIN_BATCH still launches when its shape's prior predicts at least
-KERNEL_WORTH_US (`_kernel_worth`); with priors on (`costprior.enabled`),
+KERNEL_WORTH_US (`_kernel_worth`), except over a mesh that spans
+processes, where the count rule alone decides (a rank's own timings
+must not send a group to a lane kernel on one rank and to the mesh's
+collectives on another); with priors on (`costprior.enabled`),
 `query_batch` launches its groups longest-predicted first
 (`order_plans_by_cost`, which gauges `plan_pack_imbalance{stage=}`):
 the group's launch-shape prior, learned from each group's own measured
@@ -208,14 +211,14 @@ def plan_batch(store, queries_blocks):
     return None
 
 
-def plan_batch_groups(store, queries_blocks):
+def plan_batch_groups(store, queries_blocks, learned: bool = True):
     """Split a MIXED batch into structurally compatible kernel groups:
     ([(plan, original_indices)], leftover_indices). Each query goes to
     the first family that takes it — unfiltered single-block @recurse
     (`_BatchPlan`), unweighted shortest (`_ShortestPlan`), level tree
     (`TreePlan`) — and a group smaller than MIN_BATCH joins the
     leftovers unless its shape's prior says it is worth a launch
-    (`_kernel_worth`)."""
+    (`_kernel_worth`; with `learned` False the count rule alone)."""
     from dgraph_tpu_torch.engine.treebatch import plan_tree
 
     groups: dict = {}
@@ -238,21 +241,24 @@ def plan_batch_groups(store, queries_blocks):
         leftover.append(i)
     plans = []
     for sig, items in groups.items():
-        if not _kernel_worth(f"recurse:{sig[0]}~d{sig[2]}", len(items)):
+        if not _kernel_worth(f"recurse:{sig[0]}~d{sig[2]}", len(items),
+                             learned):
             leftover.extend(i for i, _ in items)
         else:
             plans.append((_BatchPlan([sg for _, sg in items],
                                      sig[0], sig[1], sig[2]),
                           [i for i, _ in items]))
     for sig, items in sp_groups.items():
-        if not _kernel_worth(f"shortest:{sig[1]}~d{sig[3]}", len(items)):
+        if not _kernel_worth(f"shortest:{sig[1]}~d{sig[3]}", len(items),
+                             learned):
             leftover.extend(i for i, _ in items)
         else:
             plans.append((_ShortestPlan(sig, [it for _, it in items]),
                           [i for i, _ in items]))
     for sig, items in tree_groups.items():
         plan = items[0][2]
-        if not _kernel_worth(f"tree:*~d{len(plan.stages)}", len(items)):
+        if not _kernel_worth(f"tree:*~d{len(plan.stages)}", len(items),
+                             learned):
             leftover.extend(i for i, _b, _p in items)
         else:
             plan.queries = [b for _i, b, _p in items]
@@ -261,17 +267,17 @@ def plan_batch_groups(store, queries_blocks):
     return plans, leftover
 
 
-def _kernel_worth(shape: str, n: int) -> bool:
+def _kernel_worth(shape: str, n: int, learned: bool = True) -> bool:
     """Launch gate by predicted COST as well as query count: MIN_BATCH
     keeps its role, but a smaller group whose per-shape prior says the
     work dwarfs the launch overhead (KERNEL_WORTH_US) still launches.
-    Without a trusted prior (unseen shape, priors off) the count rule
-    decides."""
+    Without a trusted prior (unseen shape, priors off) or with `learned`
+    False the count rule decides."""
     if n >= MIN_BATCH:
         return True
     if n == 0:
         return False
-    if not costprior.enabled():
+    if not learned or not costprior.enabled():
         return False
     us = costprior.PRIORS.predict_shape(shape)
     return us is not None and us >= KERNEL_WORTH_US
@@ -352,13 +358,13 @@ def _schema_fingerprint(store) -> tuple:
             tuple(sorted((k, repr(v)) for k, v in sch.types.items())))
 
 
-def plan_batch_groups_cached(store, dqls: list):
-    """parse + plan_batch_groups with plan memoization. Returns
-    ([(plan, original_indices)], leftover_indices); unparseable queries
-    land in leftover."""
+def plan_batch_groups_cached(store, dqls: list, learned: bool = True):
+    """parse + plan_batch_groups with plan memoization (`learned` as
+    there, and part of the key). Returns ([(plan, original_indices)],
+    leftover_indices); unparseable queries land in leftover."""
     from dgraph_tpu_torch.dql.parser import parse
 
-    key = (_schema_fingerprint(store), tuple(dqls))
+    key = (_schema_fingerprint(store), tuple(dqls), learned)
     cached = _plan_memo.get(key)
     if cached is not None:
         METRICS.inc("plan_cache_hits_total", cache="batch")
@@ -376,7 +382,7 @@ def plan_batch_groups_cached(store, dqls: list):
                 pass
         order = sorted(parsed)
         plans, group_left = plan_batch_groups(
-            store, [parsed[i] for i in order])
+            store, [parsed[i] for i in order], learned)
     plans = [(p, [order[j] for j in idxs]) for p, idxs in plans]
     leftover = sorted([order[j] for j in group_left]
                       + [i for i in range(len(dqls)) if i not in parsed])
@@ -385,7 +391,7 @@ def plan_batch_groups_cached(store, dqls: list):
     costprofile.add("plan_us", int(plan_us))
     # store under the POST-planning fingerprint: planning may create
     # default schema entries for unknown predicates
-    _plan_memo.put((_schema_fingerprint(store), tuple(dqls)), out,
+    _plan_memo.put((_schema_fingerprint(store), tuple(dqls), learned), out,
                    rebuild_us=plan_us)
     memgov.GOVERNOR.maybe_evict("host")
     return out
@@ -400,11 +406,14 @@ def query_batch(store, dqls: list, device=DEFAULT_DEVICE,
     Alpha serves them), whose failures become `{"errors": [{"message":
     ...}]}` in their slot. A group's failure, an allocation failure its retry
     did not absorb among them, raises. Returns one JSON dict per query,
-    in order."""
+    in order. Over a mesh that spans processes the groups are formed by
+    the count rule alone, so every rank sends the same queries to the
+    mesh."""
     from dgraph_tpu_torch.engine import Engine
 
     dev = resolve_device(device)
-    plans, leftover = plan_batch_groups_cached(store, dqls)
+    plans, leftover = plan_batch_groups_cached(
+        store, dqls, learned=mesh is None or not mesh.spans_processes)
     leftover = list(leftover)        # the cached list is never mutated
     results: list = [None] * len(dqls)
     for plan, idxs in order_plans_by_cost(plans):

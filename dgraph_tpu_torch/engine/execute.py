@@ -2,8 +2,8 @@
 
 Port of `dgraph_tpu/engine/execute.py`. On a clustered Alpha's routed
 view a small-frontier hop over a foreign tablet runs on its owner
-(`expand`, route "remote"). With a mesh (`parallel/mesh.py`, one process;
-a mesh across processes is ROADMAP item 10b) a large frontier expands on
+(`expand`, route "remote"). With a mesh (`parallel/mesh.py`, of one
+process or across several) a large frontier expands on
 every shard at once: `parallel/dhop.matrix_hop` over the row-sharded CSR
 (`Store.sharded_rel`), or, past `ring_threshold` rows, the ring of
 `ring_matrix_hop`; a frontier below `device_threshold` takes the mesh
@@ -14,7 +14,10 @@ global row order (`_stitch_edge_parts`). The fused level runs as
 `mesh_topk` (root) and `mesh_row_sort` (child level), and every
 expansion counts `mesh_route_total{route=}`; both mesh hops run under
 the allocation-failure lifecycle at sites `mesh.matrix_hop` and
-`mesh.ring_matrix_hop`, and raise after one evict-and-retry.
+`mesh.ring_matrix_hop`, and raise after one evict-and-retry (at once
+while the mesh spans processes). Over a mesh that spans processes the
+stitches read the shards' outputs through `mesh.host_np` and
+`mesh.gather_shards` only, which gather the other processes' parts.
 An eligible root block runs first as one whole-block program
 (`engine/fused.py`, which ignores `device_threshold`, as the
 reference's does); the rest is the staged route below. Each level's
@@ -71,7 +74,7 @@ from dgraph_tpu_torch.engine.varorder import _filter_uses
 from dgraph_tpu_torch.ops.hop import gather_edges
 from dgraph_tpu_torch.ops.level import NO_LIMIT, expand_level
 from dgraph_tpu_torch.ops.uidalgebra import SENTINEL32, pad_to
-from dgraph_tpu_torch.parallel.mesh import host_np
+from dgraph_tpu_torch.parallel.mesh import gather_shards, host_np
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import Kind
 from dgraph_tpu_torch.store.vec import similar_ranks
@@ -325,8 +328,11 @@ class Executor:
         still takes the mesh when the measured per-edge cost EMAs
         (utils/costprior.py, learned from every expansion) say the mesh
         beats the host walk. Without data, or with priors off, the
-        threshold alone routes."""
-        if n < self.mesh_floor or not costprior.enabled():
+        threshold alone routes, and so it does while the mesh spans
+        processes: a rank's own timings must not choose a route the
+        other ranks do not take."""
+        if (n < self.mesh_floor or not costprior.enabled()
+                or self.mesh.spans_processes):
             return False
         m = costprior.PRIORS.route_cost("mesh")
         h = costprior.PRIORS.route_cost("numpy")
@@ -378,14 +384,16 @@ class Executor:
     @classmethod
     def _reassemble_shards(cls, srel, nbrs_s, seg_s, pos_s, counts):
         """The shards' first counts[d] slots of (nbrs, seg, pos), one
-        device-to-host copy per column and shard, stitched."""
-        counts = host_np(counts)
+        device-to-host copy per shard (other processes' shards arrive by
+        one gather per column of their first max(counts) slots),
+        stitched."""
+        counts = host_np(counts).tolist()
+        top = max(max(int(c) for c in counts), 1)
         with record_function("engine.to_host"):
-            parts = [(nbrs_s.parts[d][:int(c)], seg_s.parts[d][:int(c)],
-                      pos_s.parts[d][:int(c)])
-                     for d, c in enumerate(counts.tolist())]
-            host = [_to_host(*p) if int(c) else [EMPTY] * 3
-                    for p, c in zip(parts, counts.tolist())]
+            cols = [gather_shards(x.prefix(top))
+                    for x in (nbrs_s, seg_s, pos_s)]
+            host = [_to_host(*(col[d][:int(c)] for col in cols))
+                    for d, c in enumerate(counts)]
         return cls._stitch_edge_parts(
             (h[0], h[1], h[2], srel.pos_lo[d]) for d, h in enumerate(host))
 
@@ -421,7 +429,8 @@ class Executor:
             return placed, nbrs_s, seg_s, pos_s, totals, int(max_shard)
 
         placed, nbrs_s, seg_s, pos_s, totals, max_shard = memgov.oom_retry(
-            "mesh.matrix_hop", (pred, reverse), _launch)
+            "mesh.matrix_hop", (pred, reverse), _launch,
+            retry=not self.mesh.spans_processes)
         if max_shard > edge_cap:
             raise AssertionError(f"mesh.matrix_hop: {max_shard} edges on "
                                  f"a shard past its cap {edge_cap}")
@@ -466,15 +475,18 @@ class Executor:
             return placed, nbrs_a, seg_a, pos_a, totals, int(max_e)
 
         placed, nbrs_a, seg_a, pos_a, totals, max_e = memgov.oom_retry(
-            "mesh.ring_matrix_hop", (pred, reverse), _launch)
+            "mesh.ring_matrix_hop", (pred, reverse), _launch,
+            retry=not self.mesh.spans_processes)
         if max_e > edge_cap:
             raise AssertionError(f"mesh.ring_matrix_hop: {max_e} edges in "
                                  f"a step past its cap {edge_cap}")
         self._note_mesh_shards(totals.sum(axis=1))
+        top = max(int(totals.max()), 1)
         with record_function("engine.to_host"):
-            host = [[_to_host(nbrs_a.parts[dev][i, :int(totals[dev, i])],
-                              seg_a.parts[dev][i, :int(totals[dev, i])],
-                              pos_a.parts[dev][i, :int(totals[dev, i])])
+            cols = [gather_shards(x.prefix(top))
+                    for x in (nbrs_a, seg_a, pos_a)]
+            host = [[_to_host(*(col[dev][i, :int(totals[dev, i])]
+                                for col in cols))
                      for i in range(d)] for dev in range(d)]
         nbrs, seg, pos = self._stitch_edge_parts(
             (host[dev][i][0], host[dev][i][1] + ((dev - i) % d) * per,

@@ -20,8 +20,10 @@ one contract (the same `[d]` f32 bindings):
   there), the mean dividing once after the merge. Each row lives on one
   shard, so counts and max are exact, and sum and mean differ from the
   edge-order sum only by the shard-order addition of the partials (the
-  reference's psum likewise). A mesh across processes is ROADMAP item
-  10b.
+  reference's psum likewise). Over a mesh that spans processes each
+  process runs the kernel for its own shards and the merge gathers
+  every shard's partial before it adds them in shard order, so the
+  answer is the single-process mesh's bit for bit.
 
 `aggregate` takes the mesh route when a mesh is given, or else the
 device route, when the edges or the tablet rows reach
@@ -139,8 +141,8 @@ def _mesh_combine(store, pred: str, nbrs, seg, n_seg: int, agg: str,
         count_program("feat_mesh")
         cols = replicate(mesh, np.stack([nb, sg])).parts
         t0 = time.perf_counter()
-        outs, cnts, ecnt = [], [], None
-        for d in range(mesh.size):
+        outs, cnts, ecnt = [None] * mesh.size, [None] * mesh.size, None
+        for d in mesh.local:
             subj, vecs = subj_s.parts[d], vecs_s.parts[d]
             if subj.shape[0]:
                 out, cnt, ec = segment_combine(subj, vecs, cols[d][0],
@@ -154,14 +156,15 @@ def _mesh_combine(store, pred: str, nbrs, seg, n_seg: int, agg: str,
             if agg == "max":
                 # no participant on this shard: offer -inf to the pmax
                 out = torch.where((cnt > 0)[:, None], out, -torch.inf)
-            outs.append(out)
-            cnts.append(cnt)
-        cnt = psum(mesh, cnts)[0]
+            outs[d] = out
+            cnts[d] = cnt
+        lead = mesh.lead
+        cnt = psum(mesh, cnts)[lead]
         if agg == "max":
-            out = pmax(mesh, outs)[0]
+            out = pmax(mesh, outs)[lead]
             out = torch.where((cnt > 0)[:, None], out, 0.0)
         else:
-            out = psum(mesh, outs)[0]
+            out = psum(mesh, outs)[lead]
             if agg == "mean":
                 out = torch.where(
                     (cnt > 0)[:, None],
@@ -173,7 +176,8 @@ def _mesh_combine(store, pred: str, nbrs, seg, n_seg: int, agg: str,
             sg[(sg >= 0) & (sg < n_seg)], minlength=n_seg).astype(np.int32))
         return out.cpu().numpy(), cnt.cpu().numpy(), ecnt
 
-    return memgov.oom_retry("feat.agg", shape_key, _launch)
+    return memgov.oom_retry("feat.agg", shape_key, _launch,
+                            retry=not mesh.spans_processes)
 
 
 def aggregate(store, pred: str, agg: str, nbrs, seg, n_seg: int, device,
@@ -190,8 +194,11 @@ def aggregate(store, pred: str, agg: str, nbrs, seg, n_seg: int, device,
     work = len(nbrs)
     t0 = time.perf_counter()
     big = work >= device_threshold or t.rows >= device_threshold
+    # while the mesh spans processes only the sizes choose it: every
+    # rank must take the same route (parallel/mesh.py)
     if mesh is not None and t.rows and (
-            big or costprior.promoted("feat_mesh", "feat_host")):
+            big or (not mesh.spans_processes
+                    and costprior.promoted("feat_mesh", "feat_host"))):
         route = "mesh"
         out = _mesh_combine(store, pred, nbrs, seg, n_seg, agg, mesh,
                             (pred, t.dim, agg))

@@ -17,8 +17,10 @@ with `mesh.reshard_guard` armed around the loop, or as one
 `recurse_fused_matrix` call (`_fused_recurse`). Each hop is a span
 (`mesh.hop`: pred, hop, shards) and charges its shards' modeled µs to
 the cost profile's shard sums. Both follow the overflow protocol: a cap
-a hop's `needs` exceeds grows to its bucket and the loop runs again. A
-mesh across processes is ROADMAP item 10b.
+a hop's `needs` exceeds grows to its bucket and the loop runs again.
+Every read of a hop's outputs goes through `mesh.host_np`: over a mesh
+that spans processes it gathers the other processes' parts, and the
+`needs` it reads are replicated, so every rank takes the same re-run.
 """
 
 from __future__ import annotations

@@ -14,7 +14,11 @@ lanes of a frontier bitmap `[n_nodes, B]` int8 (`ops/bfs.py`
 The partials are int8 lane sums: masks are 0/1, so the sum is at most
 the shard count, and a mesh of more than 127 shards is refused rather
 than let a lane sum wrap. On one card the D partials are D·N·B bytes at
-once (4 × 1,048,576 × 512 ≈ 2.1 GB at the chip check's size).
+once (4 × 1,048,576 × 512 ≈ 2.1 GB at the chip check's size). When the
+mesh spans processes each process builds its own shards' partials, and
+the `psum_scatter` gathers every shard's partial to each process before
+it folds them: (D - L)·N·B bytes received per process and hop, L its
+own shards.
 """
 
 from __future__ import annotations
@@ -111,29 +115,36 @@ def bitmap_recurse_sharded(mesh: Mesh, src_s, dst_s, deg_s, mask_slabs,
         raise ValueError(f"int8 lane sums hold at most {MAX_SHARDS} "
                          f"shards, not {mesh.size}")
     count_program("bitmap_recurse_sharded")
-    src = [p.long() for p in shard(mesh, src_s).parts]
-    dst = [p.long() for p in shard(mesh, dst_s).parts]
+    src = [None if p is None else p.long()
+           for p in shard(mesh, src_s).parts]
+    dst = [None if p is None else p.long()
+           for p in shard(mesh, dst_s).parts]
     deg = shard(mesh, deg_s).parts
     mask0 = shard(mesh, mask_slabs).parts
-    rows, B = mask0[0].shape
+    rows, B = mask0[mesh.lead].shape
     n_pad = rows * mesh.size
     frontier, seen = list(mask0), list(mask0)
-    edges = [torch.zeros(B, dtype=torch.int32, device=m.device)
+    edges = [None if m is None else
+             torch.zeros(B, dtype=torch.int32, device=m.device)
              for m in mask0]
     for _h in range(depth):
         hop_edges = psum(mesh, [lane_edges(deg[d], frontier[d])
+                                if mesh.is_local(d) else None
                                 for d in range(mesh.size)])
-        edges = [e + h for e, h in zip(edges, hop_edges)]
+        edges = [None if e is None else e + h
+                 for e, h in zip(edges, hop_edges)]
         partials = [_partial(src[d], dst[d], frontier[d], n_pad)
+                    if mesh.is_local(d) else None
                     for d in range(mesh.size)]
         # fold the partials across shards and land each shard's slab
         summed = psum_scatter(mesh, partials, scatter_dimension=0,
                               tiled=True)
         del partials
-        for d in range(mesh.size):
+        for d in mesh.local:
             nxt = (summed[d] > 0).to(torch.int8)
             fresh = torch.where(seen[d] > 0, 0, nxt).to(torch.int8)
             seen[d] = torch.maximum(seen[d], fresh)
             frontier[d] = fresh
         del summed
-    return Sharded(frontier), Sharded(seen), Replicated(edges)
+    return (Sharded(frontier, mesh), Sharded(seen, mesh),
+            Replicated(edges))

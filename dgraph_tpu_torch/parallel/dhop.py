@@ -25,6 +25,11 @@ caller re-runs at the next bucket when one exceeds its cap; edge totals
 are merged by `psum`. A replicated result is computed once per distinct
 device (shards of one card share it). Each program counts one call in
 `mesh.PROGRAM_CALLS`.
+
+When the mesh spans processes each process runs the bodies of its own
+shards (`Mesh.local`) and leaves the others' parts None; the merges go
+through the same collectives, which then cross processes, and every
+program returns the same objects as in one process.
 """
 
 from __future__ import annotations
@@ -48,22 +53,30 @@ __all__ = ["scatter_gather_hop", "matrix_hop", "matrix_level", "ring_hop",
 
 
 def _each(mesh: Mesh, fn, *reps) -> list:
-    """`fn` of shard d's operands for every shard d; shards handed the
-    same tensors (a replicated value on one device) share one result."""
+    """`fn` of shard d's operands for every shard d of this process
+    (None for the others); shards handed the same tensors (a replicated
+    value on one device) share one result."""
     memo: dict = {}
-    out = []
-    for d in range(mesh.size):
+    out: list = [None] * mesh.size
+    for d in mesh.local:
         args = tuple(r[d] for r in reps)
         key = tuple(id(a) for a in args)
         if key not in memo:
             memo[key] = fn(*args)
-        out.append(memo[key])
+        out[d] = memo[key]
     return out
 
 
+def _per_shard(mesh: Mesh, fn) -> list:
+    """`fn(d)` for every shard d of this process, None for the others."""
+    return [fn(d) if mesh.is_local(d) else None for d in range(mesh.size)]
+
+
 def _unzip(rows: list) -> list:
-    """Per-shard tuples of values → one per-shard list per value."""
-    return [list(col) for col in zip(*rows)]
+    """Per-shard tuples of values → one per-shard list per value (None
+    where the shard belongs to another process)."""
+    k = len(next(r for r in rows if r is not None))
+    return [[None if r is None else r[i] for r in rows] for i in range(k)]
 
 
 def _slabs(rel: ShardedRel) -> tuple:
@@ -117,14 +130,14 @@ def scatter_gather_hop(mesh: Mesh, rel: ShardedRel, frontier,
     count_program("scatter_gather_hop")
     fr = replicate(mesh, hop_input(frontier, mesh))
     ptr, idx, lo = _slabs(rel)
-    locals_, cnts, totals = [], [], []
-    for d in range(mesh.size):
+
+    def body(d):
         nbrs, total = _local_expand(ptr[d], idx[d], lo[d], fr.parts[d],
                                     edge_cap)
         local, cnt = sort_unique_count(nbrs, out_cap)
-        locals_.append(local)
-        cnts.append(cnt)
-        totals.append(total)
+        return local, cnt, total
+
+    locals_, cnts, totals = _unzip(_per_shard(mesh, body))
     total_all = psum(mesh, totals)
     # overflow witnesses survive the reductions: if any shard needed
     # more than edge_cap slots or out_cap uniques, the max carries it
@@ -145,14 +158,15 @@ def matrix_hop(mesh: Mesh, rel: ShardedRel, frontier, edge_cap: int):
     count_program("matrix_hop")
     fr = replicate(mesh, hop_input(frontier, mesh))
     ptr, idx, lo = _slabs(rel)
-    rows = []
-    for d in range(mesh.size):
+
+    def body(d):
         nbrs, seg, pos, _valid, total = _local_expand_full(
             ptr[d], idx[d], lo[d], fr.parts[d], edge_cap)
-        rows.append((nbrs, seg, pos, total))
-    nbrs, seg, pos, totals = _unzip(rows)
-    return (Sharded(nbrs), Sharded(seg), Sharded(pos), Sharded(totals),
-            Replicated(pmax(mesh, totals)))
+        return nbrs, seg, pos, total
+
+    nbrs, seg, pos, totals = _unzip(_per_shard(mesh, body))
+    return (Sharded(nbrs, mesh), Sharded(seg, mesh), Sharded(pos, mesh),
+            Sharded(totals, mesh), Replicated(pmax(mesh, totals)))
 
 
 def matrix_level(mesh: Mesh, rel: ShardedRel, frontier, allowed, offset,
@@ -170,17 +184,19 @@ def matrix_level(mesh: Mesh, rel: ShardedRel, frontier, allowed, offset,
     al = replicate(mesh, allowed)
     ptr, idx, lo = _slabs(rel)
     f_cap = fr.shape[0]
-    rows = []
-    for d in range(mesh.size):
+
+    def body(d):
         nbrs, seg, pos, valid, total = _local_expand_full(
             ptr[d], idx[d], lo[d], fr.parts[d], edge_cap)
         c_nbrs, c_seg, c_pos, n_kept, _ = filter_paginate(
             nbrs, seg, pos, valid, al.parts[d], offset, first, f_cap,
             use_allowed)
-        rows.append((c_nbrs, c_seg, c_pos, n_kept, total))
-    nbrs, seg, pos, kept, totals = _unzip(rows)
-    return (Sharded(nbrs), Sharded(seg), Sharded(pos), Sharded(kept),
-            Sharded(totals), Replicated(pmax(mesh, totals)))
+        return c_nbrs, c_seg, c_pos, n_kept, total
+
+    nbrs, seg, pos, kept, totals = _unzip(_per_shard(mesh, body))
+    return (Sharded(nbrs, mesh), Sharded(seg, mesh), Sharded(pos, mesh),
+            Sharded(kept, mesh), Sharded(totals, mesh),
+            Replicated(pmax(mesh, totals)))
 
 
 def _ring(n: int) -> list:
@@ -200,14 +216,14 @@ def ring_hop(mesh: Mesh, rel: ShardedRel, frontier_chunks, edge_cap: int,
     chunks = shard(mesh, hop_input(frontier_chunks, mesh, SHARDED)).parts
     ptr, idx, lo = _slabs(rel)
     D = mesh.size
-    dt = chunks[0].dtype
-    acc = [torch.full((out_cap,), sentinel(dt), dtype=dt, device=dev)
-           for dev in mesh.devices]
-    zero = [torch.zeros((), dtype=torch.int32, device=dev)
-            for dev in mesh.devices]
+    dt = chunks[mesh.lead].dtype
+    acc = _per_shard(mesh, lambda d: torch.full(
+        (out_cap,), sentinel(dt), dtype=dt, device=mesh.devices[d]))
+    zero = _per_shard(mesh, lambda d: torch.zeros(
+        (), dtype=torch.int32, device=mesh.devices[d]))
     total, need, max_step = list(zero), list(zero), list(zero)
     for _i in range(D):
-        for d in range(D):
+        for d in mesh.local:
             nbrs, t = _local_expand(ptr[d], idx[d], lo[d], chunks[d],
                                     edge_cap)
             # fold this step's neighbours into the running local union,
@@ -221,7 +237,7 @@ def ring_hop(mesh: Mesh, rel: ShardedRel, frontier_chunks, edge_cap: int,
     total_all = psum(mesh, total)
     max_edges = pmax(mesh, max_step)
     merged, count = _merge(mesh, acc, need, out_cap)
-    return (Sharded(acc), Replicated(merged), Replicated(count),
+    return (Sharded(acc, mesh), Replicated(merged), Replicated(count),
             Replicated(total_all), Replicated(max_edges))
 
 
@@ -237,21 +253,20 @@ def ring_matrix_hop(mesh: Mesh, rel: ShardedRel, frontier_chunks,
     ptr, idx, lo = _slabs(rel)
     D = mesh.size
     steps: list = [[] for _ in range(D)]
-    max_e = [torch.zeros((), dtype=torch.int32, device=dev)
-             for dev in mesh.devices]
+    max_e = _per_shard(mesh, lambda d: torch.zeros(
+        (), dtype=torch.int32, device=mesh.devices[d]))
     for _i in range(D):
-        for d in range(D):
+        for d in mesh.local:
             nbrs, seg, pos, _valid, t = _local_expand_full(
                 ptr[d], idx[d], lo[d], chunks[d], edge_cap)
             steps[d].append((nbrs, seg, pos, t))
             max_e[d] = torch.maximum(max_e[d], t)
         chunks = ppermute(mesh, chunks, _ring(D))
-    out = [[], [], [], []]
-    for d in range(D):
-        for k, col in enumerate(zip(*steps[d])):
-            out[k].append(torch.stack(col))
-    return (Sharded(out[0]), Sharded(out[1]), Sharded(out[2]),
-            Sharded(out[3]), Replicated(pmax(mesh, max_e)))
+    out = _unzip(_per_shard(mesh, lambda d: tuple(
+        torch.stack(col) for col in zip(*steps[d]))))
+    return (Sharded(out[0], mesh), Sharded(out[1], mesh),
+            Sharded(out[2], mesh), Sharded(out[3], mesh),
+            Replicated(pmax(mesh, max_e)))
 
 
 def _visit_once(mesh, rel, fr_parts, seen_parts, edge_cap, out_cap,
@@ -261,8 +276,8 @@ def _visit_once(mesh, rel, fr_parts, seen_parts, edge_cap, out_cap,
     shard, replicated, and each shard's (masked nbrs, masked seg,
     edge_pos, raw edges, kept edges)."""
     ptr, idx, lo = _slabs(rel)
-    rows = []
-    for d in range(mesh.size):
+
+    def body(d):
         fr = fr_parts[d]
         snt = sentinel(fr.dtype)
         nbrs, seg, pos, valid, t = gather_edges(
@@ -277,9 +292,11 @@ def _visit_once(mesh, rel, fr_parts, seen_parts, edge_cap, out_cap,
         else:
             keep = valid
         local, local_cnt = sort_unique_count(nbrs, out_cap)
-        rows.append((local, local_cnt, t, nbrs, seg, pos,
-                     keep.sum(dtype=torch.int32)))
-    locals_, cnts, ts, m_nbrs, m_seg, m_pos, kept = _unzip(rows)
+        return (local, local_cnt, t, nbrs, seg, pos,
+                keep.sum(dtype=torch.int32))
+
+    locals_, cnts, ts, m_nbrs, m_seg, m_pos, kept = _unzip(
+        _per_shard(mesh, body))
     gathered = all_gather(mesh, locals_)
     top_cnt = pmax(mesh, cnts)
     top_t = pmax(mesh, ts)
@@ -362,16 +379,13 @@ def recurse_fused_matrix(mesh: Mesh, rel: ShardedRel, frontier,
     count_program("recurse_fused_matrix")
     last, seen, edges, needs, ys = _recurse(
         mesh, rel, frontier, edge_cap, out_cap, seen_cap, depth, True)
-    nbrs, seg, pos = [], [], []
-    for d in range(mesh.size):
-        nbrs.append(torch.stack([y[0][d] for y in ys]))
-        seg.append(torch.stack([y[1][d] for y in ys]))
-        pos.append(torch.stack([y[2][d] for y in ys]))
+    nbrs, seg, pos = _unzip(_per_shard(mesh, lambda d: tuple(
+        torch.stack([y[k][d] for y in ys]) for k in range(3))))
     frontiers = _each(mesh, lambda *fs: torch.stack(fs),
                       *[y[3] for y in ys])
     return (Replicated(last), Replicated(seen), Replicated(edges),
-            Replicated(needs), Sharded(nbrs), Sharded(seg), Sharded(pos),
-            Replicated(frontiers))
+            Replicated(needs), Sharded(nbrs, mesh), Sharded(seg, mesh),
+            Sharded(pos, mesh), Replicated(frontiers))
 
 
 def chain_hop(mesh: Mesh, rel: ShardedRel, frontier, seen, edge_cap: int,
@@ -396,5 +410,5 @@ def chain_hop(mesh: Mesh, rel: ShardedRel, frontier, seen, edge_cap: int,
     needs = _each(mesh, lambda a, b, c: torch.stack([a, b, c]),
                   n_out, n_seen, top_t)
     return (Replicated(fresh), Replicated(seen2), Replicated(sum_t),
-            Replicated(needs), Sharded(m_nbrs), Sharded(m_seg),
-            Sharded(ts), Replicated(psum(mesh, kept)))
+            Replicated(needs), Sharded(m_nbrs, mesh), Sharded(m_seg, mesh),
+            Sharded(ts, mesh), Replicated(psum(mesh, kept)))

@@ -3,7 +3,8 @@
 Port of `dgraph_tpu/parallel/dsort.py`. Every shard ranks the candidates
 living in its row slab against a dense sort-key column, takes its local
 top-k, and an `all_gather` plus a second sort merge them into the global
-top-k (`mesh_topk`; the host reads the first shard's merge); a child
+top-k (`mesh_topk`; the host reads the merge of this process's first
+shard); a child
 level's edges sort by (row, key, uid) against the same column, each
 shard contributing the keys of the ranks it owns through a `psum`
 (`mesh_row_sort`).
@@ -148,8 +149,8 @@ def mesh_topk(mesh: Mesh, store, pred: str, lang: str, ranks: np.ndarray,
     cand = replicate(mesh, _pad(np.asarray(ranks, np.int32), cap)).parts
     # full-length sorts (no `first`) take kk = cap, as the reference
     kk = cap if k >= len(ranks) else min(k, cap)
-    tops_r, tops_v = [], []
-    for d in range(mesh.size):
+    tops_r, tops_v = [None] * mesh.size, [None] * mesh.size
+    for d in mesh.local:
         keys = keys_s.parts[d]
         if desc:
             # negate finite keys only: missing (+inf) still sorts last
@@ -163,10 +164,10 @@ def mesh_topk(mesh: Mesh, store, pred: str, lang: str, ranks: np.ndarray,
         # rank sorts after every real row, missing-valued ones included
         cand_m = torch.where(mine, c, sentinel(c.dtype))
         order = _lexsort((cand_m, ck))[:kk]
-        tops_r.append(cand_m[order])
-        tops_v.append(ck[order])
-    gr = all_gather(mesh, tops_r)[0].reshape(-1)
-    gv = all_gather(mesh, tops_v)[0].reshape(-1)
+        tops_r[d] = cand_m[order]
+        tops_v[d] = ck[order]
+    gr = all_gather(mesh, tops_r)[mesh.lead].reshape(-1)
+    gv = all_gather(mesh, tops_v)[mesh.lead].reshape(-1)
     top_r = gr[_lexsort((gr, gv))[:kk]].cpu().numpy()
     out = top_r[valid_mask_np(top_r)]
     return out[:min(k, len(ranks))]
@@ -193,16 +194,17 @@ def mesh_row_sort(mesh: Mesh, store, pred: str, lang: str,
     # pad_to's padding: seg's pad value never matters (valid_mask(nbrs)
     # masks the padded slots)
     sg = replicate(mesh, _pad(np.asarray(seg, np.int32), cap)).parts
-    parts = []
-    for d in range(mesh.size):
+    parts = [None] * mesh.size
+    for d in mesh.local:
         local = nb[d] - int(row_lo[d])
         mine = valid_mask(nb[d]) & (local >= 0) & (local < rows)
-        parts.append(torch.where(
-            mine, keys_s.parts[d][local.clamp(0, rows - 1).long()], 0.0))
+        parts[d] = torch.where(
+            mine, keys_s.parts[d][local.clamp(0, rows - 1).long()], 0.0)
     # every valid rank lives on exactly ONE shard: the psum assembles the
     # full per-edge key vector
-    kv = psum(mesh, parts)[0]
-    n0, s0 = nb[0], sg[0]
+    lead = mesh.lead
+    kv = psum(mesh, parts)[lead]
+    n0, s0 = nb[lead], sg[lead]
     if desc:
         kv = torch.where(torch.isinf(kv), kv, -kv)
     # padded slots sort last within their (nonexistent) row

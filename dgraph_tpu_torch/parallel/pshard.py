@@ -16,9 +16,11 @@ as the reference has it:
                                local position + pos_lo)
 
 `device_put_rel` places `indptr_s` and `indices_s` as `mesh.Sharded`
-values (row d on shard d's device); `row_lo` and `pos_lo` stay host
-arrays, read by the programs as per-shard constants. Object ranks stay
-global, so a neighbour gather needs no cross-shard translation.
+values (row d on shard d's device, for the shards of this process);
+`row_lo` and `pos_lo` stay host arrays, read by the programs as
+per-shard constants. Object ranks stay global, so a neighbour gather
+needs no cross-shard translation. `assemble_sharded_rel` builds the
+same placed relation from the slabs of this process's shards alone.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from dgraph_tpu_torch.ops.uidalgebra import SENTINEL32
-from dgraph_tpu_torch.parallel.mesh import Mesh, Sharded, shard
+from dgraph_tpu_torch.parallel.mesh import (Mesh, Sharded, gather_shards,
+                                            shard)
 from dgraph_tpu_torch.store.store import EdgeRel
 
 __all__ = ["ShardedRel", "shard_rel", "device_put_rel",
@@ -104,27 +107,34 @@ def device_put_rel(srel: ShardedRel, mesh: Mesh) -> ShardedRel:
 
 def assemble_sharded_rel(mesh: Mesh, n_nodes: int,
                          local_shards: dict) -> ShardedRel:
-    """A placed ShardedRel from per-shard slabs, `local_shards[d] =
-    (indptr_local [R+1] int32, indices [nnz_d] int32)`, without the whole
-    relation ever materialising. One process holds every shard of its
-    mesh; slabs held by other processes (the reference's multi-host
-    deployment, with its host-level exchange of capacities and pos_lo)
-    are ROADMAP item 10b."""
+    """A placed ShardedRel from per-shard slabs, without the whole
+    relation ever materialising: this process supplies `local_shards[d]
+    = (indptr_local [R+1] int32, indices [nnz_d] int32)` for exactly the
+    shards it owns (`mesh.local`); a missing or extra slab raises. Shard
+    shapes must agree across processes, so the edge capacity (the
+    largest shard nnz) and the absolute edge-position bases `pos_lo`
+    come from every shard's nnz, read by one gather (`gather_shards`)
+    made only when shards of other processes exist. Edge data never
+    moves."""
     D = mesh.size
-    if set(local_shards) != set(range(D)):
-        raise NotImplementedError(
-            f"shards {sorted(set(range(D)) - set(local_shards))} are not "
-            f"local: a mesh across processes is ROADMAP item 10b")
+    if set(local_shards) != set(mesh.local):
+        raise ValueError(
+            f"process {mesh.rank} owns shards {list(mesh.local)} of the "
+            f"mesh and was given slabs {sorted(local_shards)}")
     rows = -(-n_nodes // D) if n_nodes else 1
-    nnz = np.array([len(local_shards[d][1]) for d in range(D)], np.int64)
+    own = [np.array([len(local_shards[d][1]) if mesh.is_local(d) else 0],
+                    np.int64) for d in range(D)]
+    nnz = np.concatenate([p.cpu().numpy() for p in gather_shards(
+        shard(mesh, own), "nnz")])
     cap = max(int(nnz.max()), 1)
     pos_lo = np.concatenate([[0], np.cumsum(nnz[:-1])]).astype(np.int64)
     row_lo = np.minimum(np.arange(D) * rows, n_nodes).astype(np.int32)
-    ptr = np.zeros((D, rows + 1), np.int32)
-    idx = np.full((D, cap), SENTINEL32, np.int32)
-    for d in range(D):
-        ptr[d, :] = local_shards[d][0]
-        idx[d, :nnz[d]] = local_shards[d][1]
+    ptr: list = [None] * D
+    idx: list = [None] * D
+    for d in mesh.local:
+        ptr[d] = np.asarray(local_shards[d][0], np.int32)
+        idx[d] = np.full(cap, SENTINEL32, np.int32)
+        idx[d][:nnz[d]] = local_shards[d][1]
     return ShardedRel(indptr_s=shard(mesh, ptr), indices_s=shard(mesh, idx),
                       row_lo=row_lo, n_nodes=n_nodes, pos_lo=pos_lo)
 

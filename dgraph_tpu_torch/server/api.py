@@ -72,9 +72,11 @@ takes.
 
 Every request registers with the flight recorder's watchdog
 (`flightrec.track_request`); the CLI (`cli.py`) serves it as a process.
-With `mesh=` (a `parallel/mesh.Mesh` of this process's devices) every
-engine the Alpha makes serves its expansions sharded; a mesh across
-processes is ROADMAP item 10b. Deliberate difference: no kernel group is
+With `mesh=` (a `parallel/mesh.Mesh`, of this process's devices or
+across processes) every engine the Alpha makes serves its expansions
+sharded. Across processes the serving is SPMD: every rank's Alpha must
+receive the same mesh requests in the same order, and admission control
+(which sheds per process) is refused. Deliberate difference: no kernel group is
 served query by query after a failure: any failure of a group, an allocation failure its
 evict-and-retry did not absorb among them, raises out of `query_batch`
 (`engine/batch.py`).
@@ -479,8 +481,13 @@ class Alpha:
         """Arm admission control on this Alpha (server/admission.py):
         per-lane token limits, a bounded FIFO wait queue, and shedding
         with a retryable `ServerOverloaded`. `default_deadline_ms`
-        budgets requests that bring none of their own."""
+        budgets requests that bring none of their own. Refused over a
+        mesh that spans processes: a request shed on one rank and served
+        on another would put the ranks out of step."""
         from dgraph_tpu_torch.server.admission import AdmissionController
+        if self.mesh is not None and self.mesh.spans_processes:
+            raise ValueError("admission control sheds per process: a mesh "
+                             "across processes serves without it")
         self.admission = AdmissionController(max_inflight, queue_depth)
         self.default_deadline_ms = float(default_deadline_ms)
         return self.admission

@@ -34,8 +34,10 @@ stack once per predicate (`Store.vec_sharded`, under `store.vec`). A
 placement for another mesh drops the entries of the old one; an
 evicted entry is placed again on next use
 (`cache_replacements_total{cache="store.sharded"}`,
-`vec_replacements_total{kind="mesh"}`). A mesh across processes is
-ROADMAP item 10b.
+`vec_replacements_total{kind="mesh"}`). Over a mesh that spans
+processes a placement puts this process's shards only, and makes no
+collective: one rank's eviction and re-placement cannot put the ranks
+out of step.
 
 `store_from_arrays` builds a port Store from a reference Store's numpy
 state (or plain arrays), so both packages can be handed the same data.
@@ -205,7 +207,7 @@ def _vec_detail(store) -> list:
             _subj, vecs, rows = v
             out.append({"pred": pred, "placement": "mesh",
                         "shards": len(vecs.parts), "rows": int(rows),
-                        "dim": int(vecs.parts[0].shape[-1])})
+                        "dim": int(vecs.lead.shape[-1])})
         else:
             _subj, vecs = v
             out.append({"pred": pred, "placement": "device",

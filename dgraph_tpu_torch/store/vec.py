@@ -21,7 +21,8 @@ contract (the same rank set):
   best keys, an `all_gather` brings the D·k candidates together and one
   more selection takes the global k (the global top-k is a subset of
   the shards' top-k union). Keys are distinct, so the set is the
-  host's. A mesh across processes is ROADMAP item 10b.
+  host's. Over a mesh that spans processes each process scores its own
+  shards and the gather crosses processes.
 
 The product is a float32 GEMV: cuBLAS runs it in full float32 (TF32
 applies to matrix-matrix products, and
@@ -250,23 +251,24 @@ def _mesh_topk(store, pred: str, q: np.ndarray, k: int, mesh,
         count_program("knn_mesh")
         q_r = replicate(mesh, q).parts
         t0 = time.perf_counter()
-        cands = []
-        for d in range(mesh.size):
+        cands = [None] * mesh.size
+        for d in mesh.local:
             subj, vecs = subj_s.parts[d], vecs_s.parts[d]
             keys = topk_keys(torch.mv(vecs, q_r[d]), subj)
             top = torch.topk(keys, min(kk, keys.shape[0]), largest=False,
                              sorted=False).values
             pad = kk - top.shape[0]
-            cands.append(torch.cat([top, top.new_full((pad,), _NO_KEY)])
-                         if pad else top)
-        keys = all_gather(mesh, cands)[0].reshape(-1)
+            cands[d] = (torch.cat([top, top.new_full((pad,), _NO_KEY)])
+                        if pad else top)
+        keys = all_gather(mesh, cands)[mesh.lead].reshape(-1)
         best = torch.topk(keys, k_out, largest=False, sorted=False).values
         best = best[best != _NO_KEY]
         out = (best & 0xFFFFFFFF).to(torch.int32)
         costprofile.note_launch(t0, time.perf_counter())
         return torch.sort(out).values.cpu().numpy()
 
-    return memgov.oom_retry("vec.topk", shape_key, _launch).astype(
+    return memgov.oom_retry("vec.topk", shape_key, _launch,
+                            retry=not mesh.spans_processes).astype(
         np.int32, copy=False)
 
 
@@ -283,8 +285,11 @@ def similar_ranks(store, f, device, device_threshold: int = 512,
     t = store.vec_tablet(pred)
     n = t.rows
     t0 = time.perf_counter()
-    if mesh is not None and (n >= device_threshold
-                             or costprior.promoted("knn_mesh", "knn_host")):
+    # while the mesh spans processes only the size chooses it: every
+    # rank must take the same route (parallel/mesh.py)
+    if mesh is not None and (n >= device_threshold or (
+            not mesh.spans_processes
+            and costprior.promoted("knn_mesh", "knn_host"))):
         route = "mesh"
         out = _mesh_topk(store, pred, q, k, mesh, (pred, t.dim, k))
     elif n >= device_threshold or costprior.promoted("knn_device",

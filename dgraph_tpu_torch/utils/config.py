@@ -2,8 +2,9 @@
 
 Port of `dgraph_tpu/utils/config.py`, with one field of its own:
 `AlphaConfig.device`, where the Alpha reads (default the card; "cpu"
-only when asked). `mesh_devices` is served over this process's devices
-(`cli.py`); a mesh across processes is ROADMAP item 10b.
+only when asked). `mesh_devices` is served over this process's devices,
+or, under `--jax-coordinator`, over the first N of every process's
+(`cli.py`).
 Reference parity: `x/flags.go` (`z.SuperFlag` grouped flags like
 `--badger compression=zstd;numgoroutines=8`) and the cobra/viper flag
 surface of `dgraph alpha|zero` (SURVEY §5 config system). One dataclass

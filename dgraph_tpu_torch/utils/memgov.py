@@ -492,14 +492,16 @@ GOVERNOR = Governor()
 
 
 def oom_retry(site: str, shape, fn, kind: str = "device",
-              degrade: bool = False):
+              degrade: bool = False, retry: bool = True):
     """Run one device launch with the allocation-failure lifecycle: a
     classified allocation failure triggers evict-to-low-watermark and
     ONE retry of the same `fn`. A second one is logged at warning and
     raises: with `degrade` (a site whose degraded route runs on the same
     card) it sticky-degrades the (site, shape) and raises `OomDegraded`
     for that route, and a shape already degraded raises it at once;
-    otherwise the allocation error itself goes to the caller. Any other
+    otherwise the allocation error itself goes to the caller. Without
+    `retry` (a mesh program across processes, whose other ranks would
+    not re-run it) the first failure is counted and raises. Any other
     exception passes through untouched."""
     if degrade and GOVERNOR.is_degraded(site, shape):
         raise OomDegraded(site, str(shape))
@@ -508,6 +510,9 @@ def oom_retry(site: str, shape, fn, kind: str = "device",
         return fn()
     except Exception as e:
         if not is_alloc_failure(e):
+            raise
+        if not retry:
+            GOVERNOR.note_oom(site, str(shape), kind=kind)
             raise
     GOVERNOR.note_oom(site, str(shape), kind=kind)
     try:

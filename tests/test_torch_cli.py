@@ -492,19 +492,42 @@ def test_no_card_process_exits_nonzero(tmp_path):
     (["--mesh-devices", "2"], "--mesh-devices 2"),
     (["--mesh-devices", "-1"], "--mesh-devices -1"),
     (["--store", "mesh_devices=4"], "--mesh-devices 4"),
+    (["--device", "cpu", "--mesh-devices", "-1", "--jax-coordinator",
+      "127.0.0.1:1"], "--jax-coordinator"),
     (["--device", "cpu", "--jax-coordinator", "127.0.0.1:1"],
-     "--jax-coordinator")])
-def test_mesh_flags_refused_naming_item_10(argv, flag, tmp_path):
-    """A mesh wider than this machine's cards (none here) and a mesh
-    across processes exit before the directory exists, naming the
-    multi-process mesh (ROADMAP item 10b)."""
+     "--jax-coordinator 127.0.0.1:1"),
+    (["--device", "cpu", "--mesh-devices", "-1", "--jax-coordinator",
+      "127.0.0.1:1", "--max_inflight", "2"], "--max_inflight 2")])
+def test_mesh_flags_refused_naming_item_10(argv, flag, tmp_path,
+                                           monkeypatch):
+    """A mesh wider than this machine's cards (none here) exits before
+    the directory exists, naming the device count; so does a coordinator
+    without a rank and a world size (the env pair is unset), naming what
+    is missing, a coordinator without `--mesh-devices`, and a coordinator
+    beside admission control, which sheds per process. A working mesh
+    across processes is `test_torch_multihost.py`'s CLI case."""
     import torch
-    if torch.cuda.is_available() and "--jax-coordinator" not in argv:
+    if torch.cuda.is_available() and "--jax-coordinator" not in " ".join(
+            argv):
         pytest.skip("a card is present: the mesh may fit")
+    for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                "JAX_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
     p = tmp_path / "p"
     with pytest.raises(SystemExit) as ei:
         cli.main(["alpha", "--p", str(p), *argv])
-    assert "item 10b" in str(ei.value.code) and flag in str(ei.value.code)
+    msg = str(ei.value.code)
+    assert flag in msg
+    if "--mesh-devices" in flag:
+        want = "all" if flag.endswith("-1") else flag.split()[-1]
+        assert f"asks for {want} devices and this machine has 0" in msg
+    elif "--max_inflight" in flag:
+        assert "admission control sheds per process" in msg
+    elif "--mesh-devices" in argv:
+        assert "without the number of processes" in msg and \
+            "JAX_PROCESS_ID" in msg
+    else:
+        assert "give --mesh-devices too" in msg
     assert not p.exists()
 
 

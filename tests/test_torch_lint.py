@@ -530,19 +530,24 @@ def test_r7_flags_torch_distributed_outside_the_mesh_module():
 
 
 def test_r7_accepts_collectives_in_the_mesh_module_only():
-    """The mesh module as shipped, with a torch.distributed collective
-    added (the multi-process mesh's), passes R7 at its own path; the
-    same file anywhere else is flagged at that collective."""
+    """The mesh module as shipped (its torch.distributed import carries
+    the multi-process mesh), with one more torch.distributed collective
+    added, passes R7 at its own path; the same file anywhere else is
+    flagged at its import and at that collective, and only there."""
     src = open(os.path.join(ROOT, "dgraph_tpu_torch/parallel/mesh.py")
                ).read()
+    imports = [i + 1 for i, text in enumerate(src.splitlines())
+               if text.strip() == "import torch.distributed as dist"]
+    assert imports
     extra = "\n\ndef _all_reduce(t):\n    torch.distributed.all_reduce(t)\n"
     line = (src + extra).count("\n")
     a = port_scan("dgraph_tpu_torch/parallel/mesh.py", src + extra)
     assert "shard-map-compat" not in _rules(a)
     a = port_scan("dgraph_tpu_torch/parallel/dhop.py", src + extra)
-    assert [f.line for f in _rules(a)["shard-map-compat"]] == [line]
+    assert [f.line for f in _rules(a)["shard-map-compat"]] == \
+        imports + [line]
     a = port_scan("dgraph_tpu_torch/parallel/dhop.py", src)
-    assert "shard-map-compat" not in _rules(a)
+    assert [f.line for f in _rules(a)["shard-map-compat"]] == imports
 
 
 def test_r12_exempts_only_the_ports_locks_module():

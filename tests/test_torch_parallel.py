@@ -136,8 +136,9 @@ def test_shard_rel_matches_reference(graph, n_shards):
 
 def test_assemble_sharded_rel_from_local_slabs():
     """The per-shard slabs of `shard_rel`, assembled, give the placed
-    relation `device_put_rel` gives (one process holds every shard);
-    slabs held elsewhere are the multi-process mesh (item 10b)."""
+    relation `device_put_rel` gives (one process holds every shard); a
+    slab missing for a shard this process owns raises
+    (`test_torch_multihost.py` assembles slabs held by two processes)."""
     g = random_csr(n=N, avg_deg=7, seed=2)
     host = pshard.shard_rel(EdgeRel(indptr=g.indptr, indices=g.indices), 8)
     m = mesh.make_mesh(8, device="cpu")
@@ -148,7 +149,9 @@ def test_assemble_sharded_rel_from_local_slabs():
     _equal((want.indptr_s, want.indices_s, want.row_lo, want.pos_lo),
            (got.indptr_s, got.indices_s, got.row_lo, got.pos_lo))
     del slabs[3]
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(ValueError, match=r"owns shards \[0, 1, 2, 3, 4, "
+                       r"5, 6, 7\] of the mesh and was given slabs "
+                       r"\[0, 1, 2, 4, 5, 6, 7\]"):
         pshard.assemble_sharded_rel(m, N, slabs)
 
 
@@ -313,8 +316,15 @@ def test_collectives_on_shards_of_one_device():
 
 def test_make_mesh_devices_counts_and_refusals(monkeypatch):
     assert mesh.make_mesh(3, device="cpu").size == 3
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    for var in ("JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match=r"127\.0\.0\.1:1 given without "
+                       r"the number of processes .* and this process's "
+                       r"rank"):
         mesh.init_distributed("127.0.0.1:1")
+    with pytest.raises(ValueError, match=r"without this process's rank "
+                       r"\(process_id, JAX_PROCESS_ID\)"):
+        mesh.init_distributed("127.0.0.1:1", num_processes=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mesh.make_mesh(1)
