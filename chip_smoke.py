@@ -10,16 +10,28 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 (native/*.cpp, g++)
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 bit-exact:
-                - random buckets: K in 1,3,8,32,1024; W in 1,2,3,8,128,256;
+                - random buckets, each one launch of a one-entry launch
+                  table: K in 1,3,8,32,1024; W in 1,2,3,8,128,256;
                   frontier row occupancy 1 %, 20 %, 100 %; exact and
                   all-ones row flags; plain and fused (first-visit) mode;
                   out, seen and flags compared, rows outside the bucket's
-                  slice untouched;
+                  slice untouched; then narrow rows of many slots (K 64 to
+                  131,072 at W 1, 2, 3, 4, 8, 32, 1-17 rows, one-bit rows
+                  and 20 %-occupied words): the slot-parallel bodies and
+                  rows split over blocks;
+                - one hop of a has_tag-like 2^20-node graph (hub combines
+                  of K2 up to 131,072) at W 1-32, plain and fused, with
+                  and without flags, run twice, against the plain table
+                  walk: its launches (one per table level) and the parts
+                  its split rows take;
                 - the four real hops of the phase-5 run, each from the
-                  frontier and seen of the run up to the hop before: fused
-                  kernel vs plain fused hop and vs the unfused kernel plus
-                  the torch update; per hop its time, row occupancy and
-                  least-bytes bound; per-launch times of hops 1 and 4;
+                  frontier and seen of the run up to the hop before: the
+                  fused hop (two grouped launches, asserted) vs the plain
+                  table walk and vs the unfused kernel plus the torch
+                  update; per hop its CUDA-event time, each level's device
+                  time, row occupancy and least-bytes bound; per-bucket
+                  device times (one-entry tables) and host µs per hop of
+                  hops 1 and 4;
                 - the first kernel's yardstick: one unfused, flag-less hop
                   of a random ~0.25-density frontier (every row occupied),
                   beside that kernel's 2.672 ms (PERF.md)
@@ -75,12 +87,13 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 recurse runs against their host rebuild and render),
                 and every tree
                 and step program of the batch held against the same
-                program on bucket_hop_plain, mask for mask; (b) at 1024
-                lanes (W = 32): the tree programs of IC3, IC12 and config
-                3 and one 8-hop make_ell_step stage, first-visit and
-                level-DAG, each against its plain-hop run, with its
-                launches, CUDA-event time (median of 5), plain time and
-                least-bytes bound
+                program on bucket_hop_plain, mask for mask (IC4, IC6 and
+                IC12 timed over 5 runs); (b) at 1024 lanes (W = 32): the
+                tree programs of IC3, IC4, IC6, IC12 and config 3 and one
+                8-hop make_ell_step stage, first-visit and level-DAG, each
+                against its plain-hop run, with its launches, CUDA-event
+                time (median of 5), plain time and least-bytes bound; IC4,
+                IC6 and IC12's kernel-over-plain ratios at W = 1 and 32
   8. dql features — the DQL-feature mix (tools/feature_mix.py) on a second
                 store built from phase 6's SF1 graph (phase 7's store freed
                 first): models/ldbc.SCHEMA plus first_name with trigram and
@@ -377,14 +390,19 @@ Phases, one printed line each; any failure raises and exits non-zero:
                 zero; spans and cost records reach the collector,
                 /debug/timeseries, /debug/slo and /debug/flightrecorder
                 armed; (b) stall factor 2: an IC14 instance taught a
-                400 µs prior is convicted while /query/batch runs on
-                another client; exactly one dump, holding the IC14
+                400 µs prior is convicted while 3 clients, staggered by
+                0.1 s from 0.05 s before IC14 is sent, loop /query/batch
+                and a fourth loops phase 13's recurse group from the
+                conviction on, until the bundle is written (the expected
+                answers served before the recorder is armed); exactly one
+                dump, holding the IC14
                 request's query and stack, surfaces.memory with the
                 governor's device bytes and timeseries.ring, and a
                 device_profile naming bucket_hop (or, if DEVICE_WIDE
                 stayed held past 1 s, the busy card), beside the
-                batch's bucket_hop launch times against the capture
-                window (`hop_timeline`); (c) (2, 2)
+                batches' bucket_hop launch times against the capture
+                window and its longest launch-free stretch
+                (`hop_timeline`); (c) (2, 2)
                 admission under 16 clients looping the batch for 4 s:
                 forecast sheds counted, each an admission.shed event of
                 reason forecast in the ring, every 200 answer equal;
@@ -563,7 +581,10 @@ IC_BATCH_COPIES = 32
 IC14_COPIES = 4
 IC_BATCH_SEED = 5
 KERNEL_LANES = 1024
-KERNEL_TEMPLATES = ("IC3", "IC12", "config3")
+KERNEL_TEMPLATES = ("IC3", "IC4", "IC6", "IC12", "config3")
+# the tree groups whose heavy narrow rows lost to their plain runs before
+# the slot-parallel bodies: timed over REPS at W = 1 and W = 32
+HEAVY_TEMPLATES = ("IC4", "IC6", "IC12")
 STEP_HOPS = 8
 # the lane serving path's profiler ranges (engine/batch.py, treebatch.py)
 BATCH_RANGES = ("batch.tree_run", "batch.tree_rebuild", "batch.step_run",
@@ -760,20 +781,86 @@ def phase_build() -> dict:
 RANDOM_WIDTHS = (1, 2, 3, 8, 128, 256)
 RANDOM_KS = (1, 3, 8, 32, 1024)
 RANDOM_OCCUPANCY = (0.01, 0.2, 1.0)
+# narrow rows of many slots: the slot-parallel bodies and rows split over
+# blocks (ops/bucket_hop.py choose_body)
+NARROW_WIDTHS = (1, 2, 3, 4, 8, 32)
+NARROW_KS = (64, 1024, 2048, 4096, 16384, 131072)
+NARROW_ROWS = (1, 3, 17)
+# the has_tag-like graph of phase 3's grouped narrow check: in-degree of
+# its hubs (K2 = 131072, 16384, 4096 x 4 after dedup and tiling)
+HEAVY_HUBS = (1_000_000, 120_000, 30_000, 30_000, 30_000, 30_000)
+HEAVY_WIDTHS = (1, 2, 3, 4, 8, 32)
+
+
+def sparse_frontier(rows: int, W: int, occupancy: float, gen, device):
+    """[rows + 1, W] int32 words, one bit in each occupied row (~occupancy
+    of them) and a zero sentinel row last: an OR over many slots stays
+    far from all ones, so a slot lost or read twice shows."""
+    fr = torch.zeros((rows + 1, W), dtype=torch.int32, device=device)
+    occ = (torch.rand(rows + 1, generator=gen, device=device)
+           < occupancy).nonzero().flatten()
+    word = torch.randint(0, W, (len(occ),), generator=gen, device=device)
+    bit = torch.randint(0, 32, (len(occ),), generator=gen, device=device)
+    fr[occ, word] = (1 << bit).to(torch.int32)
+    fr[rows] = 0
+    return fr
+
+
+def held_bucket(nbr, fr, flags, seen0, fused: bool) -> bool:
+    """bucket_hop against bucket_hop_plain on one bucket written at row 2
+    of a larger output: out, seen and both flag arrays compared whole,
+    the rows outside the bucket's slice untouched."""
+    from dgraph_tpu_torch.ops.bucket_hop import bucket_hop, bucket_hop_plain
+
+    n_b, W = nbr.shape[0], fr.shape[1]
+    got, want = [], []
+    for hop, res in ((bucket_hop, got), (bucket_hop_plain, want)):
+        out = torch.full((n_b + 3, W), -1, dtype=torch.int32,
+                         device=fr.device)
+        of = torch.full((n_b + 3,), 7, dtype=torch.uint8, device=fr.device)
+        seen = seen0.clone()
+        hop(nbr, fr, out, 2, flags=flags, out_flags=of,
+            seen=seen if fused else None)
+        res += [out, of, seen]
+    torch.cuda.synchronize()
+    out, of, seen = got
+    ok = (all(torch.equal(a, b) for a, b in zip(got, want))
+          and bool((out[:2] == -1).all())
+          and bool((out[2 + n_b:] == -1).all())
+          and bool((of[:2] == 7).all())
+          and bool((of[2 + n_b:] == 7).all())
+          and torch.equal(seen[:2], seen0[:2])
+          and torch.equal(seen[2 + n_b:], seen0[2 + n_b:]))
+    return ok and (fused or torch.equal(seen, seen0))
 
 
 def phase_random_buckets(device) -> dict:
-    """bucket_hop vs bucket_hop_plain on random buckets, bit-exact: every
-    W x K x row count x frontier row occupancy, with exact and all-ones
-    flags, plain and fused mode; out, seen and both flag arrays compared
-    whole, and the rows outside the bucket's slice checked untouched."""
+    """bucket_hop (a one-entry launch table) vs bucket_hop_plain on
+    random buckets, bit-exact: every W x K x row count x frontier row
+    occupancy, with exact and all-ones flags, plain and fused mode; then
+    narrow rows of 64 to 131,072 slots at W 1-32 over one-bit rows and
+    20 %-occupied words. A bucket's two modes share its cached table, so
+    the second launch also proves the split rows' tickets came back to
+    0."""
     from dgraph_tpu_torch.ops.bfs import row_flags
-    from dgraph_tpu_torch.ops.bucket_hop import bucket_hop, bucket_hop_plain
+    from dgraph_tpu_torch.ops.bucket_hop import bucket_hop
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1234)
-    cases = 0
+    cases = narrow_cases = 0
     rows = 100_003
+
+    def seen_for(n_b, W):
+        seen0 = random_frontier(n_b + 2, W, gen, device, density=0.25)
+        seen0[torch.rand(n_b + 3, generator=gen, device=device) < 0.5] = 0
+        return seen0
+
+    def bucket(n_b, K):
+        nbr = torch.randint(0, rows + 1, (n_b, K), generator=gen,
+                            dtype=torch.int64, device=device).to(torch.int32)
+        nbr[:, -1] = rows      # every row touches the sentinel
+        return nbr
+
     for W in RANDOM_WIDTHS:
         for occ in RANDOM_OCCUPANCY:
             fr = random_frontier(rows, W, gen, device)
@@ -783,52 +870,111 @@ def phase_random_buckets(device) -> dict:
             for flags in (exact, torch.ones_like(exact)):
                 for K in RANDOM_KS:
                     for n_b in ((1, 37, 3001) if K < 1024 else (1, 517, 1500)):
-                        nbr = torch.randint(0, rows + 1, (n_b, K),
-                                            generator=gen, dtype=torch.int64,
-                                            device=device).to(torch.int32)
-                        nbr[:, -1] = rows      # every row touches the sentinel
-                        seen0 = random_frontier(n_b + 2, W, gen, device,
-                                                density=0.25)
-                        seen0[torch.rand(n_b + 3, generator=gen,
-                                         device=device) < 0.5] = 0
+                        nbr = bucket(n_b, K)
+                        seen0 = seen_for(n_b, W)
                         for fused in (False, True):
-                            got, want = [], []
-                            for hop, res in ((bucket_hop, got),
-                                             (bucket_hop_plain, want)):
-                                out = torch.full((n_b + 3, W), -1,
-                                                 dtype=torch.int32,
-                                                 device=device)
-                                of = torch.full((n_b + 3,), 7,
-                                                dtype=torch.uint8,
-                                                device=device)
-                                seen = seen0.clone()
-                                hop(nbr, fr, out, 2, flags=flags,
-                                    out_flags=of,
-                                    seen=seen if fused else None)
-                                res += [out, of, seen]
-                            torch.cuda.synchronize()
-                            out, of, seen = got
-                            ok = (all(torch.equal(a, b)
-                                      for a, b in zip(got, want))
-                                  and bool((out[:2] == -1).all())
-                                  and bool((out[2 + n_b:] == -1).all())
-                                  and bool((of[:2] == 7).all())
-                                  and bool((of[2 + n_b:] == 7).all())
-                                  and torch.equal(seen[:2], seen0[:2])
-                                  and torch.equal(seen[2 + n_b:],
-                                                  seen0[2 + n_b:]))
-                            if not fused:
-                                ok = ok and torch.equal(seen, seen0)
-                            if not ok:
+                            if not held_bucket(nbr, fr, flags, seen0, fused):
                                 raise AssertionError(
                                     f"bucket_hop != plain at W={W} K={K} "
                                     f"n_b={n_b} occupancy={occ} fused={fused} "
-                                    f"exact_flags={flags is exact}: out err "
-                                    f"{max_abs_err(got[0], want[0])}")
+                                    f"exact_flags={flags is exact}")
                             cases += 1
+    for W in NARROW_WIDTHS:
+        for K in NARROW_KS:
+            for occ in ("one bit", 0.2):
+                if occ == "one bit":
+                    fr = sparse_frontier(rows, W, min(1.0, 16 / K), gen,
+                                         device)
+                else:
+                    fr = random_frontier(rows, W, gen, device)
+                    fr[torch.rand(rows + 1, generator=gen,
+                                  device=device) >= occ] = 0
+                    fr[rows] = 0
+                exact = row_flags(fr)
+                for flags in (exact, torch.ones_like(exact)):
+                    for n_b in NARROW_ROWS:
+                        nbr = bucket(n_b, K)
+                        seen0 = seen_for(n_b, W)
+                        for fused in (False, True):
+                            if not held_bucket(nbr, fr, flags, seen0, fused):
+                                raise AssertionError(
+                                    f"narrow bucket_hop != plain at W={W} "
+                                    f"K={K} n_b={n_b} occupancy={occ} "
+                                    f"fused={fused} exact_flags="
+                                    f"{flags is exact}")
+                            narrow_cases += 1
     empty = torch.zeros((0, 4), dtype=torch.int32, device=device)
     bucket_hop(empty, random_frontier(10, 4, gen, device))
-    return {"cases": cases, "max_abs_err": 0}
+    return {"cases": cases, "narrow_cases": narrow_cases, "max_abs_err": 0}
+
+
+def heavy_graph(n: int, seed: int = 5):
+    """A has_tag-like relation: a powerlaw graph over n nodes plus hubs
+    of HEAVY_HUBS in-degree (drawn with repeats, so fewer after dedup);
+    the hubs' combines are the narrow rows of thousands of slots."""
+    from dgraph_tpu_torch.models.synthetic import powerlaw_edges
+    from dgraph_tpu_torch.store.store import _csr_from_pairs
+
+    src, dst = powerlaw_edges(n, 4.0, seed)
+    rng = np.random.default_rng(seed)
+    hub_src = [rng.integers(0, n, d) for d in HEAVY_HUBS]
+    hub_dst = [np.full(d, n - 1 - i) for i, d in enumerate(HEAVY_HUBS)]
+    return _csr_from_pairs(np.concatenate([src, *hub_src]).astype(np.int32),
+                           np.concatenate([dst, *hub_dst]).astype(np.int32),
+                           n)
+
+
+def phase_heavy_hops(device) -> dict:
+    """The grouped launches on narrow masks: one hop of the has_tag-like
+    graph at W in HEAVY_WIDTHS, plain and fused, with exact flags and
+    none, each run twice (the split rows' tickets reset between them),
+    bit-exact against the plain table walk; its launches counted (one
+    per level)."""
+    from dgraph_tpu_torch.ops import bfs
+    from dgraph_tpu_torch.ops.bucket_hop import (LAUNCHES, BODIES, F,
+                                                 bucket_hop_plain)
+
+    rel = heavy_graph(N_NODES)
+    g = bfs.build_ell(rel.indptr, rel.indices)
+    prep = bfs.prepare_parts(bfs.device_ell(g, device))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(99)
+    cases, launches, split_rows = 0, set(), {}
+    for W in HEAVY_WIDTHS:
+        fr = sparse_frontier(g.n, W, 0.02, gen, device)
+        seen0 = random_frontier(g.n, W, gen, device, density=0.25)
+        tab = bfs.hop_table(prep, fr, seen0, seen0)
+        split_rows[W] = {BODIES[int(r[F["body"]])]: int(r[F["parts"]])
+                         for lv in tab.levels for r in lv.rows
+                         if r[F["parts"]] > 1}
+        for flags in (bfs.row_flags(fr), None):
+            for fused in (False, True):
+                want_seen = seen0.clone()
+                want_f = torch.empty(g.n + 1, dtype=torch.uint8,
+                                     device=device)
+                want = bfs._ell_hop(prep, fr, bucket_hop_plain, flags=flags,
+                                    seen=want_seen if fused else None,
+                                    out_flags=want_f)
+                for _ in range(2):
+                    s = seen0.clone()
+                    of = torch.empty(g.n + 1, dtype=torch.uint8,
+                                     device=device)
+                    n0 = LAUNCHES["bucket_hop"]
+                    got = bfs._ell_hop(prep, fr, flags=flags,
+                                       seen=s if fused else None,
+                                       out_flags=of)
+                    torch.cuda.synchronize()
+                    launches.add(LAUNCHES["bucket_hop"] - n0)
+                    if not (torch.equal(got, want) and torch.equal(of, want_f)
+                            and torch.equal(s, want_seen if fused
+                                            else seen0)):
+                        raise AssertionError(
+                            f"heavy-graph hop != plain table walk at W={W} "
+                            f"fused={fused} flags={flags is not None}")
+                    cases += 1
+    return {"nodes": g.n, "lvl2_k": [int(t.shape[1]) for t in g.lvl2],
+            "cases": cases, "launches_per_hop": sorted(launches),
+            "split_rows_parts": split_rows, "max_abs_err": 0}
 
 
 def hop_bound(g, W: int, occupied_rows: int, nxt_rows: int,
@@ -850,34 +996,77 @@ def hop_bound(g, W: int, occupied_rows: int, nxt_rows: int,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def per_launch(prep, run, tries: int = 3):
-    """[what, K, rows, kernel, us] per bucket_hop launch of run(), or
-    None when the profiler's trace misses launches `tries` times over
-    (its device events come back asynchronously and can be dropped)."""
-    from dgraph_tpu_torch.tools.hop_profile import device_events, launch_plan
+def per_level(run, levels: int, tries: int = 3):
+    """Device µs of each bucket_hop launch of run() (one per launch-table
+    level), or None when the profiler's trace misses launches `tries`
+    times over (its device events come back asynchronously and can be
+    dropped)."""
+    from dgraph_tpu_torch.tools.hop_profile import device_events
+
+    for _ in range(tries):
+        us = [round(us, 3) for name, us in device_events(run)
+              if "bucket_hop" in name]
+        if len(us) == levels:
+            return us
+    return None
+
+
+def per_bucket(prep, frontier, run, tries: int = 3):
+    """[what, K, rows, body, us] per bucket of the launch table, each
+    bucket launched alone as a one-entry table by run() (a hop walked
+    with hop_profile.one_bucket), or None when the trace misses
+    launches `tries` times over."""
+    from dgraph_tpu_torch.tools.hop_profile import (bodies, device_events,
+                                                    launch_plan)
 
     plan = launch_plan(prep)
+    names = bodies(prep, frontier)
     for _ in range(tries):
-        hops = [(name, us) for name, us in device_events(run)
-                if "bucket_hop" in name]
-        if len(hops) == len(plan):
-            return [[what, K, rows,
-                     next(v for v in ("split", "warp", "narrow")
-                          if v in name), round(us, 3)]
-                    for (what, K, rows), (name, us) in zip(plan, hops)]
+        us = [us for name, us in device_events(run) if "bucket_hop" in name]
+        if len(us) == len(plan):
+            return [[what, K, rows, body, round(u, 3)]
+                    for (what, K, rows), body, u in zip(plan, names, us)]
     return None
+
+
+def host_us_per_hop(prep, frontier, flags, seen, calls: int = 100) -> float:
+    """Host microseconds per fused hop: the wrapper's per-hop checks, the
+    cached table and the two launches, issued back to back (the card
+    runs behind)."""
+    from dgraph_tpu_torch.ops import bfs
+
+    n = prep["n"]
+    out = torch.empty_like(seen)
+    out_flags = torch.empty(n + 1, dtype=torch.uint8, device=seen.device)
+
+    def call():
+        bfs._ell_hop(prep, frontier, flags=flags, seen=seen,
+                     out_flags=out_flags, out=out)
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def phase_bench_hops(g, device, mask0: np.ndarray) -> dict:
     """The four real hops of the bench run (4096 lanes, depth 4), each
     from the frontier, flags and seen of the run up to the hop before:
-    the fused kernel hop bit-exact against the plain fused hop (fresh,
-    seen, flags) and against the unfused kernel hop; each hop's time,
-    occupancy and least-bytes bound; per-launch times of hops 1 and 4."""
+    the fused hop (its launch table's two grouped launches) bit-exact
+    against the plain fused table walk (fresh, seen, flags) and against
+    the unfused kernel hop; each hop's launches (2 asserted), time,
+    per-level device time, occupancy and least-bytes bound; per-bucket
+    times (one-entry tables) and host µs per hop of hops 1 and 4."""
     from dgraph_tpu_torch.ops import bfs
-    from dgraph_tpu_torch.ops.bucket_hop import bucket_hop_plain
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES, bucket_hop_plain
+    from dgraph_tpu_torch.tools.hop_profile import one_bucket
 
     prep = bfs.prepare_parts(bfs.device_ell(g, device))
+    levels = len(prep["levels"])
     W = mask0.shape[1]
     n = g.n
     seen = bfs.put_mask(mask0, device)
@@ -893,8 +1082,16 @@ def phase_bench_hops(g, device, mask0: np.ndarray) -> dict:
             s = seen.clone()
             fl = torch.empty(n + 1, dtype=torch.uint8, device=device)
             kw = {} if hop is None else {"hop": hop}
+            n0 = LAUNCHES["bucket_hop"]
             res[name] = (bfs._ell_hop(prep, frontier, flags=flags, seen=s,
                                       out_flags=fl, **kw), s, fl)
+            if hop is None:
+                launches = LAUNCHES["bucket_hop"] - n0
+        if torch.device(device).type == "cuda" and (launches != levels
+                                                    or levels != 2):
+            raise AssertionError(f"bench hop {h}: {launches} bucket_hop "
+                                 f"launches, want 2 (one per level of "
+                                 f"{levels})")
         nxt_flags = torch.empty(n + 1, dtype=torch.uint8, device=device)
         nxt = bfs._ell_hop(prep, frontier, flags=flags, out_flags=nxt_flags)
         torch.cuda.synchronize()
@@ -921,17 +1118,29 @@ def phase_bench_hops(g, device, mask0: np.ndarray) -> dict:
         occupied_slots = sum(int(flags[e.long()].sum()) for e in level1)
         bound = hop_bound(g, W, occupied_rows, int(nxt_flags.sum()),
                           int(fl_new.sum()), occupied_slots)
-        rec = {"hop": h, "occupied_rows": occupied_rows,
+        s = seen.clone()
+        levels_us = per_level(lambda: bfs._ell_hop(
+            prep, frontier, flags=flags, seen=s, out_flags=fl_scratch),
+            levels)
+        rec = {"hop": h, "launches": launches,
+               "occupied_rows": occupied_rows,
                "row_occupancy": occupied_rows / n,
                "occupied_level1_slots": occupied_slots,
                "slot_occupancy": occupied_slots / g.padded_edges,
                "ms": ms, "median_ms": float(np.median(ms)),
+               "levels_us": levels_us,
+               "events_over_device": (float(np.median(ms)) * 1e3
+                                      / sum(levels_us) if levels_us
+                                      else None),
                "plain_ms": plain_ms[0], **bound}
         if h in (1, DEPTH):
             s = seen.clone()
-            rec["launches_us"] = per_launch(
-                prep, lambda: bfs._ell_hop(prep, frontier, flags=flags,
-                                           seen=s, out_flags=fl_scratch))
+            rec["buckets_us"] = per_bucket(
+                prep, frontier, lambda: bfs._ell_hop(
+                    prep, frontier, hop=one_bucket, flags=flags, seen=s,
+                    out_flags=fl_scratch))
+            rec["host_us_per_hop"] = host_us_per_hop(prep, frontier, flags,
+                                                     seen.clone())
         hops.append(rec)
         del res, nxt
         frontier, flags, seen = fresh, fl_new, s_new
@@ -963,9 +1172,9 @@ def phase_unfused_hop(g, device, prep) -> dict:
 
 
 def host_us_per_launch(device, calls: int = 2000) -> float:
-    """Host microseconds per fused bucket_hop call on a one-row bucket at
-    W = 128: the wrapper's checks, the ctypes call and the launch, which
-    a hop pays 41 times on the bench graph."""
+    """Host microseconds per fused one-bucket bucket_hop call on a
+    one-row bucket at W = 128: the wrapper's checks, the cached
+    one-entry table, the ctypes call and the launch."""
     from dgraph_tpu_torch.ops.bfs import row_flags
     from dgraph_tpu_torch.ops.bucket_hop import bucket_hop
 
@@ -993,31 +1202,39 @@ def device_ratio(a, b):
     """Device time of launch list a over that of b (None: not measured)."""
     if a is None or b is None:
         return None
-    return sum(r[4] for r in a) / sum(r[4] for r in b)
+    return sum(a) / sum(b)
 
 
 def phase_kernels(g, device, mask0: np.ndarray) -> dict:
     """Every kernel against its plain version on the card: random
-    buckets, the four bench hops, the unfused full hop. Returns the
-    kernel record for the `kernels` line."""
-    from dgraph_tpu_torch.tools.hop_profile import launch_plan
-
+    buckets, the grouped launches on a has_tag-like graph, the four bench
+    hops, the unfused full hop. Returns the kernel record for the
+    `kernels` line."""
+    t0 = time.perf_counter()
     rnd = phase_random_buckets(device)
+    t_random = time.perf_counter() - t0
+    heavy = phase_heavy_hops(device)
+    t_heavy = time.perf_counter() - t0 - t_random
     bench = phase_bench_hops(g, device, mask0)
     hops = bench["hops"]
     unfused = phase_unfused_hop(g, device, bench["prep"])
     ms = sum(r["median_ms"] for r in hops)
     bytes_ms = sum(r["bytes_ms"] for r in hops)
     ops_ms = sum(r["ops_ms"] for r in hops)
-    say("phase 3 kernels", random_cases=rnd["cases"], random_max_abs_err=0,
-        bench_hops=[{k: v for k, v in r.items() if k != "launches_us"}
+    say("phase 3 kernels", seconds=time.perf_counter() - t0,
+        random_and_narrow_s=t_random, heavy_graph_s=t_heavy,
+        random_cases=rnd["cases"],
+        narrow_cases=rnd["narrow_cases"], random_max_abs_err=0,
+        heavy_graph=heavy,
+        bench_hops=[{k: v for k, v in r.items() if k != "buckets_us"}
                     for r in hops],
+        four_hops_ms=ms,
         hop1_over_hop4=hops[0]["median_ms"] / hops[-1]["median_ms"],
-        hop1_over_hop4_device=device_ratio(hops[0]["launches_us"],
-                                           hops[-1]["launches_us"]),
-        launches_per_hop=len(launch_plan(bench["prep"])),
-        hop1_launches_us=hops[0]["launches_us"],
-        hop4_launches_us=hops[-1]["launches_us"],
+        hop1_over_hop4_device=device_ratio(hops[0]["levels_us"],
+                                           hops[-1]["levels_us"]),
+        launches_per_hop=sorted({r["launches"] for r in hops}),
+        hop1_buckets_us=hops[0]["buckets_us"],
+        hop4_buckets_us=hops[-1]["buckets_us"],
         unfused_random_hop=unfused,
         host_us_per_launch=host_us_per_launch(device))
     return {"ms": ms, "plain_ms": sum(r["plain_ms"] for r in hops),
@@ -1642,7 +1859,7 @@ def phase_ic_batch(device, built: dict, copies: int = IC_BATCH_COPIES,
         tname = gr["templates"][0]
         if gr["family"] == "tree":
             serving[tname] = held(tname, tree_program(store, plan, device),
-                                  1)
+                                  reps if tname in HEAVY_TEMPLATES else 1)
         elif gr["family"] == "shortest":
             serving[tname] = held(
                 tname, step_program(store, device, plan.src_uids,
@@ -1668,6 +1885,11 @@ def phase_ic_batch(device, built: dict, copies: int = IC_BATCH_COPIES,
             step_program(store, device, starts, fv, STEP_HOPS), reps, True)
 
     kernel_only_s = time.perf_counter() - t0
+    # kernel against plain in this run: median kernel ms over plain ms
+    heavy_vs_plain = {
+        t: {f"W{r['W']}": r["median_ms"] / r["plain_ms"]
+            for r in (serving[t], kernel_only[t])}
+        for t in HEAVY_TEMPLATES}
     ranges = prof["ranges"] if prof else {}
     return {"queries": len(qs), "groups": groups,
             "leftover": len(leftover), "bucket_hop_launches": launches,
@@ -1680,7 +1902,8 @@ def phase_ic_batch(device, built: dict, copies: int = IC_BATCH_COPIES,
             "step_run_device_ms": ranges.get("batch.step_run", {}).get(
                 "device_us", 0.0) / 1e3,
             "serving_programs": serving, "serving_programs_s": serving_s,
-            "kernel_only": kernel_only, "kernel_only_s": kernel_only_s}
+            "kernel_only": kernel_only, "kernel_only_s": kernel_only_s,
+            "heavy_kernel_over_plain": heavy_vs_plain}
 
 
 def phase_features(device, g, store) -> dict:
@@ -4834,6 +5057,11 @@ OBS_PUSH_INTERVAL_S = 0.2       # (a) the telemetry pusher's cadence
 OBS_STALL_FACTOR = 2.0          # (b) conviction at 2 x the prediction
 OBS_STALL_FLOOR_MS = 50.0       # (b) ... and no sooner than 50 ms
 OBS_TINY_PRIOR_US = 400.0       # (b) the IC14 instance's taught prior
+OBS_BUSY_CLIENTS = 3            # (b) /query/batch clients beside IC14, the
+OBS_BUSY_STAGGER_S = 0.1        # first 0.05 s before it, each next this much
+                                # later; one more loops phase 13's recurse
+                                # group (a short host rebuild) from IC14's
+                                # conviction on
 OBS_BURST_CLIENTS = 16          # (c) clients looping /query/batch over (2, 2)
 OBS_BURST_S = 4.0               # (c) how long they loop
 OBS_CHILD_THREADS = 8           # (e) concurrent /query clients, cold programs
@@ -5105,8 +5333,18 @@ def phase_observability(device, g, front: dict,
         part("a_armed")
 
         # (b) conviction: an IC14 instance taught a tiny prior, served
-        # while /query/batch keeps the card busy on another client
+        # while OBS_BUSY_CLIENTS clients loop /query/batch back to back,
+        # staggered so one's host rebuild falls where another launches,
+        # and from its conviction on one more loops the recurse group,
+        # whose rebuild is short: lane-kernel launches stay on the card
+        # through the capture. The expected answers are served before the
+        # recorder is armed, so none of them is the convicted request.
         flightrec.disarm()
+        ic14 = next(q for n, q in ldbc.ic_batch(g, copies=2, seed=16)
+                    if n == "IC14")
+        want_14 = a.query_raw(ic14)
+        want_busy = [want_work] * OBS_BUSY_CLIENTS + [
+            canon(a.query_batch(front["recurse"]))]
         prof = os.path.join(tmp, "flight-profile")
         tracing.enable_device_trace(prof)
         flightrec.arm(diag_dir=diag, alpha=a, pusher=pusher,
@@ -5114,9 +5352,6 @@ def phase_observability(device, g, front: dict,
                       stall_factor=OBS_STALL_FACTOR,
                       stall_floor_ms=stall_floor_ms,
                       min_dump_interval_s=600.0)
-        ic14 = next(q for n, q in ldbc.ic_batch(g, copies=2, seed=16)
-                    if n == "IC14")
-        want_14 = a.query_raw(ic14)
         for _ in range(costprior.SAMPLE_FLOOR):
             costprior.learn("read", ic14, "chip-smoke-stall",
                             actual_us=OBS_TINY_PRIOR_US)
@@ -5138,9 +5373,21 @@ def phase_observability(device, g, front: dict,
         tracing.profile_stop = timed("capture_stop", capture_calls[1])
         hops: list = []
 
-        def busy():
+        busy_work = [work] * OBS_BUSY_CLIENTS + [front["recurse"]]
+
+        def convicted() -> bool:
+            return flightrec.state(1)["watchdog"].get("convictions", 0) > 0
+
+        def busy(i):
+            if i < OBS_BUSY_CLIENTS:
+                time.sleep(i * OBS_BUSY_STAGGER_S)
+            else:
+                # the recurse group's prior is small: it starts once IC14
+                # is convicted, and later convictions are not dumped
+                while not stop.is_set() and not convicted():
+                    time.sleep(0.005)
             while not stop.is_set():
-                batch_answers.append(post_batch(work))
+                batch_answers.append((i, post_batch(busy_work[i])))
 
         def watch():
             last = LAUNCHES["bucket_hop"]
@@ -5156,21 +5403,30 @@ def phase_observability(device, g, front: dict,
             times = [t for t, _k in rel]
             w = [marks[m] - t_post for m in ("capture_start", "capture_stop")
                  if m in marks]
+            inside = [t for t in times if len(w) == 2 and w[0] <= t <= w[1]]
+            edges = w[:1] + inside + w[1:] if len(w) == 2 else []
             return {
                 "ic14_sent_s": t0 - t_post,
                 "capture_s": w,
                 "launches_in_capture": sum(
                     k for t, k in rel if len(w) == 2 and w[0] <= t <= w[1]),
+                # the longest stretch of the capture with no launch issued
+                # (the counter is read every 2 ms)
+                "longest_launch_free_in_capture_s": max(
+                    (b - a for a, b in zip(edges, edges[1:])), default=None),
                 "launches": sum(k for _t, k in rel),
                 "first_last_launch_s": times[:1] + times[-1:],
                 "gaps_over_250ms_s": [[a, b] for a, b in zip(times, times[1:])
                                       if b - a > 0.25][:8]}
 
         t_watch = threading.Thread(target=watch, name="phase16-hops")
-        t_busy = threading.Thread(target=busy, name="phase16-batch")
+        t_busy = [threading.Thread(target=busy, args=(i,),
+                                   name=f"phase16-batch-{i}")
+                  for i in range(len(busy_work))]
         t_post = time.perf_counter()
         t_watch.start()
-        t_busy.start()
+        for t in t_busy:
+            t.start()
         time.sleep(0.05)
         t0 = time.perf_counter()
         st, _h, body = http(base, "/query", ic14)
@@ -5179,16 +5435,18 @@ def phase_observability(device, g, front: dict,
         while time.perf_counter() < end and not flightrec.dumps():
             time.sleep(0.02)
         stop.set()
-        t_busy.join(600)
+        for t in t_busy:
+            t.join(600)
         t_watch.join(60)
         tracing.profile_start, tracing.profile_stop = capture_calls
         time.sleep(0.2)             # a later conviction would dump here
         dumps = flightrec.dumps()
         if st != 200 or data_bytes(body) != want_14:
             fail("(b) the convicted request's answer", status=st)
-        for st2, _h2, b2 in batch_answers:
-            if st2 != 200 or canon(json.loads(b2)["data"]) != want_work:
-                fail("(b) a /query/batch beside the conviction", status=st2)
+        for i, (st2, _h2, b2) in batch_answers:
+            if st2 != 200 or canon(json.loads(b2)["data"]) != want_busy[i]:
+                fail("(b) a /query/batch beside the conviction", status=st2,
+                     client=i)
         if len(dumps) != 1 or not dumps[0]["path"]:
             fail("(b) dumps", dumps=dumps)
         with open(dumps[0]["path"]) as f:

@@ -12,10 +12,12 @@ reference's. On the device:
 
   * lane words are torch.int32 holding the reference's uint32 bits
     (compare with `.view(np.uint32)`);
-  * every bucket of every hop — the dense degree classes, the heavy
-    tail's tile partials and its second-level combines — is one launch
-    of the CUDA bucket-hop kernel (`ops/bucket_hop.py`) writing straight
-    into its row slice of the next mask, with its row-occupancy flags;
+  * every bucket of a hop — the dense degree classes, the heavy tail's
+    tile partials and its second-level combines — is one entry of the
+    graph's launch table (`prepare_parts`, `hop_table`), writing straight
+    into its row slice of the next mask with its row-occupancy flags;
+    each of the table's two levels is one launch of the CUDA bucket-hop
+    kernel (`ops/bucket_hop.py`), so a hop is two launches;
   * the depth scan is a Python loop over hops whose launches also run
     the first-visit update (fresh = next & ~seen; seen |= fresh) and
     skip the frontier rows flagged empty;
@@ -48,13 +50,16 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from dgraph_tpu_torch.ops.bucket_hop import bucket_hop
+from dgraph_tpu_torch.ops.bucket_hop import (OUT, PARTIALS, HopTable,
+                                              bucket_hop, build_table,
+                                              run_table, table_key,
+                                              walk_table)
 from dgraph_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["ranks_to_bitmap", "bitmap_to_ranks", "bitmap_hop",
            "bitmap_recurse", "lane_edges", "scatter_max_rows", "EllGraph",
            "build_ell", "pack_seed_masks", "unpack_masks",
-           "put_mask", "DeviceEll", "device_ell", "prepare_parts",
+           "put_mask", "DeviceEll", "device_ell", "prepare_parts", "hop_table",
            "make_ell_count", "make_ell_recurse", "make_ell_step",
            "make_ell_tree"]
 
@@ -355,10 +360,16 @@ def device_ell(g: EllGraph, device=DEFAULT_DEVICE) -> DeviceEll:
 
 
 def prepare_parts(dev: DeviceEll) -> dict:
-    """The hop's launch plan: each block with the first row it writes in
-    the next mask. Dense parts come first in permuted order, then the
+    """The hop's plan: each block with the first row it writes in the
+    next mask. Dense parts come first in permuted order, then the
     second-level combines (the heavy rows), then the sentinel row n —
-    the reference's concatenation order."""
+    the reference's concatenation order.
+
+    `levels` is the launch table's shape, width-free: level 1 holds the
+    tiles into the partials, every dense class and the rows set to zero
+    (the in-degree-0 class, the sentinel row n, the partials' zero row
+    M); level 2 the combines that read the partials. `tables` caches
+    each width's launch table (`hop_table`), built at its first hop."""
     parts = []
     row0 = 0
     for kind, e, rows in dev.parts:
@@ -374,8 +385,39 @@ def prepare_parts(dev: DeviceEll) -> dict:
             row0 += t2.shape[0]
     if row0 != dev.n:
         raise ValueError(f"ELL blocks cover {row0} rows, graph has {dev.n}")
+    level1 = [(e, rows, r0, OUT) for kind, e, rows, r0 in parts
+              if kind == "hop"]
+    zeros = [(None, rows, r0, OUT) for kind, _e, rows, r0 in parts
+             if kind == "zero" and rows]
+    zeros.append((None, 1, dev.n, OUT))                    # sentinel row
+    part_rows = 0
+    if tiles is not None:
+        M = tiles.shape[0]
+        part_rows = M + 1
+        # the tiles first: the launch's longest blocks start first
+        level1.insert(0, (tiles, M, 0, PARTIALS))
+        zeros.append((None, 1, M, PARTIALS))               # zero partial
+    levels = [level1 + zeros]
+    if lvl2:
+        levels.append([(t2, t2.shape[0], r0, OUT) for t2, r0 in lvl2])
     return {"parts": parts, "tiles": tiles, "lvl2": lvl2, "n": dev.n,
-            "device": dev.device}
+            "device": dev.device, "levels": levels,
+            "part_rows": part_rows, "tables": {}}
+
+
+def hop_table(prepared, frontier: torch.Tensor, out: torch.Tensor,
+              seen: torch.Tensor | None = None) -> HopTable:
+    """The prepared graph's launch table for this hop's width, vector
+    words and stream (`bucket_hop.table_key`), built once and cached in
+    `prepared["tables"]`."""
+    key = table_key(frontier, out, seen)
+    tab = prepared["tables"].get(key)
+    if tab is None:
+        n = prepared["n"]
+        tab = prepared["tables"][key] = build_table(
+            prepared["levels"], key[0], key[1], prepared["device"],
+            out_rows=n + 1, part_rows=prepared["part_rows"], src_rows=n + 1)
+    return tab
 
 
 def _ell_hop(prepared, frontier: torch.Tensor, hop=bucket_hop, *,
@@ -383,16 +425,20 @@ def _ell_hop(prepared, frontier: torch.Tensor, hop=bucket_hop, *,
              seen: torch.Tensor | None = None,
              out_flags: torch.Tensor | None = None,
              out: torch.Tensor | None = None) -> torch.Tensor:
-    """next[v] = OR of frontier[u] over in-neighbors u, as one `hop`
-    launch per bucket (the dense classes, the tile partials into a
-    [M+1, W] scratch whose row M is zero, then the combines that read
-    it), each writing its own rows of the [n+1, W] result.
+    """next[v] = OR of frontier[u] over in-neighbors u, by the graph's
+    launch table (`hop_table`): the dense classes and the tile partials
+    into a [M+1, W] scratch whose row M is zero, then the combines that
+    read it, each entry writing its own rows of the [n+1, W] result.
+    With `hop=bucket_hop` (the default) each level is one launch of the
+    kernel on the card, the plain table walk on the CPU; any other `hop`
+    (`bucket_hop_plain`, the one-bucket `bucket_hop` wrapped) walks the
+    table entry by entry through it.
 
     `flags` [n+1] uint8 marks the frontier rows that may hold a bit (the
     launches skip the others); `out_flags` [n+1] uint8, when given,
     receives the result's row flags. With `seen` [n+1, W] the result is
     the first-visit set fresh = next & ~seen, and seen |= fresh in place;
-    rows no launch computes (the in-degree-0 class, the sentinel) are
+    rows no bucket computes (the in-degree-0 class, the sentinel) are
     zero and leave seen as it was. The tile partials always carry flags,
     so the combines skip empty partials. `out`, a contiguous [n+1, W]
     int32 tensor, receives the result instead of a new one."""
@@ -400,31 +446,12 @@ def _ell_hop(prepared, frontier: torch.Tensor, hop=bucket_hop, *,
     W = frontier.shape[1]
     nxt = out if out is not None else torch.empty(
         (n + 1, W), dtype=torch.int32, device=frontier.device)
-    for kind, e, rows, row0 in prepared["parts"]:
-        if kind == "zero":
-            nxt[row0:row0 + rows].zero_()
-            if out_flags is not None:
-                out_flags[row0:row0 + rows].zero_()
-        else:
-            hop(e, frontier, nxt, row0, flags=flags, out_flags=out_flags,
-                seen=seen)
-    tiles = prepared["tiles"]
-    if tiles is not None:
-        M = tiles.shape[0]
-        partials = torch.empty((M + 1, W), dtype=torch.int32,
-                               device=frontier.device)
-        p_flags = torch.empty(M + 1, dtype=torch.uint8,
-                              device=frontier.device)
-        hop(tiles, frontier, partials, 0, flags=flags, out_flags=p_flags)
-        partials[M].zero_()
-        p_flags[M:].zero_()
-        for t2, row0 in prepared["lvl2"]:
-            hop(t2, partials, nxt, row0, flags=p_flags, out_flags=out_flags,
-                seen=seen)
-    nxt[n].zero_()                               # sentinel row
-    if out_flags is not None:
-        out_flags[n:].zero_()
-    return nxt
+    tab = hop_table(prepared, frontier, nxt, seen)
+    if hop is bucket_hop:
+        return run_table(tab, frontier, nxt, flags=flags,
+                         out_flags=out_flags, seen=seen)
+    return walk_table(tab, frontier, nxt, hop, flags=flags,
+                      out_flags=out_flags, seen=seen)
 
 
 def row_flags(mask: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,24 @@
-"""Per-launch device times of the bench graph's four ELL hops.
+"""Per-bucket device times of the bench graph's four ELL hops.
 
     python3 -m dgraph_tpu_torch.tools.hop_profile [--out FILE]
 
 Builds the bench workload (`powerlaw_rel(2^20, 16.0, seed=42)`, 4096
 lanes seeded as bench.py's `make_seeds(2^20, 4096, seed=7)`), runs the
 depth-4 `make_ell_recurse` once with `keep_hops` to get each hop's
-frontier, then profiles one `_ell_hop(prepared, frontier)` per hop with
-torch.profiler: every kernel launch is its own device event, listed in
-launch order beside the bucket it computed. It also prints each hop's
-median time by CUDA events and its frontier's row occupancy.
+frontier, then profiles the unfused hop `_ell_hop(prepared, frontier)`
+of each with torch.profiler, twice: as the hop runs (each level of its
+launch table one grouped launch: `levels_us`), and with every bucket of
+the table launched alone as a one-entry table (`hop=one_bucket`, one
+device event per bucket: `launches`, beside the bucket and the body the
+table gave it). It also prints each hop's median time by CUDA events
+and its frontier's row occupancy.
 
-It calls only `_ell_hop(prepared, frontier)`, the unfused hop, so it
-runs unchanged on every revision of the port: put it beside an older
-checkout's package to read that revision's per-launch times. Needs one
-CUDA card; writes one JSON object per hop to stdout (and all of them to
---out when given).
+It calls `_ell_hop(prepared, frontier)` and, where the port has launch
+tables, `_ell_hop(..., hop=one_bucket)`; on a revision before them it
+reads the per-bucket launches from the plain hop. Put it beside an older
+checkout's package to read that revision's times. Needs one CUDA card;
+writes one JSON object per hop to stdout (and all of them to --out when
+given).
 """
 
 from __future__ import annotations
@@ -43,15 +47,47 @@ def make_seeds(n, B, seed=7):
 
 
 def launch_plan(prep) -> list:
-    """(what, K, rows) per kernel launch of one hop, in launch order."""
-    plan = [("dense", int(e.shape[1]), rows)
-            for kind, e, rows, _r0 in prep["parts"] if kind == "hop"]
-    if prep["tiles"] is not None:
-        t = prep["tiles"]
-        plan.append(("tiles", int(t.shape[1]), int(t.shape[0])))
-        plan += [("lvl2", int(t2.shape[1]), int(t2.shape[0]))
-                 for t2, _r0 in prep["lvl2"]]
+    """(what, K, rows) per bucket of one hop, in the launch table's
+    order (the order `hop=one_bucket` launches them in)."""
+    if "levels" not in prep:
+        # before launch tables: one launch per bucket in block order
+        plan = [("dense", int(e.shape[1]), rows)
+                for kind, e, rows, _r0 in prep["parts"] if kind == "hop"]
+        if prep["tiles"] is not None:
+            t = prep["tiles"]
+            plan.append(("tiles", int(t.shape[1]), int(t.shape[0])))
+            plan += [("lvl2", int(t2.shape[1]), int(t2.shape[0]))
+                     for t2, _r0 in prep["lvl2"]]
+        return plan
+    from dgraph_tpu_torch.ops.bucket_hop import PARTIALS
+    plan = []
+    for li, level in enumerate(prep["levels"]):
+        for e, rows, _r0, dst in level:
+            if e is None:
+                continue
+            what = "lvl2" if li else ("tiles" if dst == PARTIALS
+                                      else "dense")
+            plan.append((what, int(e.shape[1]), int(rows)))
     return plan
+
+
+def bodies(prep, frontier) -> list:
+    """The body the launch table gives each bucket of `launch_plan`, at
+    this frontier's width (None before launch tables)."""
+    if "levels" not in prep:
+        return [None] * len(launch_plan(prep))
+    from dgraph_tpu_torch.ops import bfs
+    from dgraph_tpu_torch.ops.bucket_hop import BODIES, F, ZERO
+    tab = bfs.hop_table(prep, frontier, frontier)
+    return [BODIES[int(r[F["body"]])] for level in tab.levels
+            for r in level.rows if r[F["body"]] != ZERO]
+
+
+def one_bucket(nbr, frontier, out=None, row0=0, **kw):
+    """`bucket_hop` as a hop of its own: walked by `_ell_hop(...,
+    hop=one_bucket)`, every bucket is one launch of a one-entry table."""
+    from dgraph_tpu_torch.ops.bucket_hop import bucket_hop
+    return bucket_hop(nbr, frontier, out, row0, **kw)
 
 
 def device_events(run) -> list:
@@ -107,21 +143,30 @@ def main(argv=None) -> None:
     frontiers = [bfs.put_mask(mask0, "cuda")] + [hops[h]
                                                   for h in range(DEPTH - 1)]
     plan = launch_plan(prep)
+    grouped = "levels" in prep
     records = []
     for h, fr in enumerate(frontiers, start=1):
         run = lambda: bfs._ell_hop(prep, fr)          # noqa: E731
         run()                                          # warm-up
         ms = hop_ms(run)
         evs = device_events(run)
-        hop_evs = [us for name, us in evs if "bucket_hop" in name]
+        level_us = [us for name, us in evs if "bucket_hop" in name]
+        if grouped:
+            each = lambda: bfs._ell_hop(prep, fr, hop=one_bucket)  # noqa
+            each()
+            hop_evs = [us for name, us in device_events(each)
+                       if "bucket_hop" in name]
+        else:
+            hop_evs = level_us
         rec = {
             "hop": h, "device": smi, "lanes": LANES,
             "occupied_rows": int(fr[:g.n].any(1).sum()),
             "rows": g.n, "ms": ms, "median_ms": float(np.median(ms)),
             "device_us": sum(us for _n, us in evs),
-            "bucket_hop_us": sum(hop_evs),
-            "launches": [[what, K, rows, us] for (what, K, rows), us
-                         in zip(plan, hop_evs)],
+            "bucket_hop_us": sum(level_us),
+            "levels_us": level_us if grouped else None,
+            "launches": [[what, K, rows, body, us] for (what, K, rows), body,
+                         us in zip(plan, bodies(prep, fr), hop_evs)],
             "other_events": [[name[:60], us] for name, us in evs
                              if "bucket_hop" not in name],
         }

@@ -477,3 +477,294 @@ def test_make_ell_tree_equals_reference(W):
     assert np.array_equal(_u32(got[3][0]) & outside, outside)
     for m, t in zip(seeds + filts, seeds_t + filts_t):
         assert np.array_equal(_u32(t), m), "seeds and filters are only read"
+
+
+# -- the launch table (ops/bucket_hop.py build_table, ops/bfs.py hop_table) --
+
+def _heavy():
+    """A has_tag-like graph: a powerlaw graph plus a hub whose in-neighbours
+    are every node (2,500 tiles: a K2 = 4096 combine row) and one of
+    5,000 (K2 = 1024)."""
+    n = 20_000
+    base = powerlaw_rel(n, 4.0, seed=8)
+    src = np.repeat(np.arange(n, dtype=np.int32), np.diff(base.indptr))
+    rng = np.random.default_rng(8)
+    hub2 = rng.choice(n, 5_000, replace=False).astype(np.int32)
+    src = np.concatenate([src, np.arange(n, dtype=np.int32), hub2])
+    dst = np.concatenate([base.indices, np.full(n, 7, np.int32),
+                          np.full(5_000, 11, np.int32)])
+    return _csr_from_pairs(src, dst.astype(np.int32), n)
+
+
+_HEAVY = {}
+
+
+def _heavy_ell():
+    if "g" not in _HEAVY:
+        rel = _heavy()
+        _HEAVY["g"] = port_bfs.build_ell(rel.indptr, rel.indices)
+    return _HEAVY["g"]
+
+
+def _rule(n_b, K, wv):
+    """The body rule as the kernel's source note states it."""
+    if wv >= 32:
+        if K >= 64 and n_b <= 1024:
+            return "split", -(-K // 4096)
+        return "warp", 1
+    lanes = 1 << (wv - 1).bit_length()            # lanes of a row
+    groups = 32 // lanes                          # slot groups of a warp
+    if K >= 16 * groups and n_b <= 1024:
+        return "narrow_block", -(-K // (16 * 8 * groups))
+    # rounds of four slot reads, the threads spread over 132 x 1024
+    wave = 132 * 1024
+    warp = -(-K // (4 * groups)) * max(1.0, 32 * n_b / wave)
+    thread = -(-K // 4) * max(1.0, lanes * n_b / wave)
+    return ("narrow_warp", 1) if warp < thread else ("narrow", 1)
+
+
+def _table(g, W):
+    from dgraph_tpu_torch.ops.bucket_hop import HopTable
+    prep = port_bfs.prepare_parts(port_bfs.device_ell(g, CPU))
+    fr = torch.zeros((g.n + 1, W), dtype=torch.int32)
+    tab = port_bfs.hop_table(prep, fr, torch.zeros_like(fr))
+    assert isinstance(tab, HopTable) and tab.W == W
+    assert port_bfs.hop_table(prep, fr, torch.zeros_like(fr)) is tab, \
+        "one table per (prepared graph, width)"
+    return prep, tab
+
+
+@pytest.mark.parametrize("W", [1, 3, 4, 32, 128])
+@pytest.mark.parametrize("name", sorted(GRAPHS) + ["heavy"])
+def test_launch_table_covers_every_row_once(name, W):
+    """Every row of [0, n] of the result, the sentinel included, and every
+    row of the partials [0, M], the zero row M included, is written by
+    exactly one entry; level 1 reads the frontier and writes the
+    partials, level 2 only reads them; the entries' blocks tile the
+    grid of their launch."""
+    from dgraph_tpu_torch.ops.bucket_hop import F, OUT, PARTIALS, ZERO
+    g = (_heavy_ell() if name == "heavy" else
+         port_bfs.build_ell(GRAPHS[name]().indptr, GRAPHS[name]().indices))
+    prep, tab = _table(g, W)
+    M = g.tiles.shape[0] if g.tiles is not None and g.seg_rows else None
+    out_cover = np.zeros(g.n + 1, np.int64)
+    part_cover = np.zeros(M + 1 if M is not None else 0, np.int64)
+    assert 1 <= len(tab.levels) <= 2
+    assert (len(tab.levels) == 2) == (M is not None)
+    for li, level in enumerate(tab.levels):
+        rows = level.rows
+        assert rows.shape == (len(level.idx), 12)
+        assert list(rows[:, F["block0"]]) == list(
+            np.concatenate([[0], np.cumsum(rows[:, F["blocks"]])[:-1]]))
+        assert (rows[:, F["blocks"]] > 0).all()
+        assert level.blocks == int(rows[:, F["blocks"]].sum())
+        for r, e in zip(rows, level.idx):
+            row0, n_b = int(r[F["row0"]]), int(r[F["n_b"]])
+            assert n_b > 0
+            assert (e is None) == (r[F["body"]] == ZERO)
+            if r[F["dst"]] == OUT:
+                out_cover[row0:row0 + n_b] += 1
+            else:
+                assert r[F["dst"]] == PARTIALS and li == 0
+                part_cover[row0:row0 + n_b] += 1
+            if e is not None:
+                assert r[F["idx"]] == e.data_ptr()
+                assert tuple(e.shape) == (n_b, int(r[F["K"]]))
+    assert (out_cover == 1).all()
+    assert (part_cover == 1).all()
+    assert tab.out_rows == g.n + 1 and tab.src_rows == g.n + 1
+    assert tab.part_rows == (M + 1 if M is not None else 0)
+
+
+@pytest.mark.parametrize("W", [1, 3, 4, 32, 128])
+def test_launch_table_bodies_follow_the_rule(W):
+    """Each entry's body and parts are the source note's rule of
+    (n_b, K, wv), wv the row's int4 words when W % 4 == 0 (int32 words
+    else); zero rows take the zero body; a split row owns a ticket and
+    `parts` scratch rows of its own."""
+    from dgraph_tpu_torch.ops.bucket_hop import BODIES, F, choose_body
+    wv = W // 4 if W % 4 == 0 else W
+    seen = set()
+    tickets, scratch = [], []
+    for name in sorted(GRAPHS) + ["heavy"]:
+        g = (_heavy_ell() if name == "heavy" else
+             port_bfs.build_ell(GRAPHS[name]().indptr,
+                                GRAPHS[name]().indices))
+        _prep, tab = _table(g, W)
+        assert tab.vec4 == (W % 4 == 0)
+        for level in tab.levels:
+            for r in level.rows:
+                body = BODIES[int(r[F["body"]])]
+                if body == "zero":
+                    continue
+                n_b, K = int(r[F["n_b"]]), int(r[F["K"]])
+                assert (body, int(r[F["parts"]])) == _rule(n_b, K, wv), \
+                    (name, n_b, K)
+                assert choose_body(n_b, K, wv)[0] == r[F["body"]]
+                if body.startswith("narrow"):
+                    assert 1 << int(r[F["lg"]]) >= wv > \
+                        (1 << int(r[F["lg"]])) // 2
+                seen.add(body)
+                if r[F["parts"]] > 1:
+                    tickets.append((name, int(r[F["ticket0"]]), n_b))
+                    scratch.append((name, int(r[F["scratch0"]]),
+                                    n_b * int(r[F["parts"]])))
+    # per table, tickets and scratch rows are handed out without overlap
+    for kind in (tickets, scratch):
+        for name in {t[0] for t in kind}:
+            spans = sorted((a, a + c) for nm, a, c in kind if nm == name)
+            assert spans[0][0] == 0
+            assert all(b0 == a1 for (_a0, a1), (b0, _b1)
+                       in zip(spans, spans[1:]))
+    want = ({"narrow", "narrow_warp", "narrow_block"} if wv < 32
+            else {"warp", "split"})
+    assert seen <= want and seen & {"narrow_block", "split"}
+    # a heavy row past PART_SLOTS splits over blocks
+    assert _rule(1, 131072, 1) == ("narrow_block", 32)
+    assert choose_body(1, 131072, 1)[2] == 32
+    assert choose_body(1, 131072, 8)[2] == 256
+    # many rows of few slots stay a thread per row; few rows go a warp each
+    assert _rule(65536, 8, 8) == ("narrow", 1)
+    assert _rule(4096, 8, 1) == ("narrow_warp", 1)
+    for n_b, K, wv in ((65536, 8, 8), (4096, 8, 1), (65536, 256, 1),
+                       (65536, 64, 8), (300_000, 1024, 1), (20, 7, 3)):
+        assert BODIES[choose_body(n_b, K, wv)[0]] == _rule(n_b, K, wv)[0]
+
+
+def _heavy_fr(rng, n, W, occupied):
+    fr = _sparse_rows(rng, n + 1, W, occupied)
+    fr &= rng.integers(0, 2**32, fr.shape, dtype=np.uint32)
+    fr[n] = 0
+    return fr
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("with_flags", [False, True])
+@pytest.mark.parametrize("W", [1, 4, 32])
+@pytest.mark.parametrize("name", sorted(GRAPHS) + ["heavy"])
+def test_ell_hop_table_walk_equals_reference(name, W, with_flags, fused):
+    """The launch table walked by the plain version (the default hop on
+    the CPU, and hop=bucket_hop_plain) == the reference's _ell_hop, with
+    and without frontier flags, plain and with the first-visit
+    epilogue; its flags are exactly the result's non-empty rows."""
+    from dgraph_tpu_torch.ops.bucket_hop import bucket_hop_plain
+    g = (_heavy_ell() if name == "heavy" else
+         port_bfs.build_ell(GRAPHS[name]().indptr, GRAPHS[name]().indices))
+    rng = np.random.default_rng(29 + W)
+    fr = _heavy_fr(rng, g.n, W, 0.3)
+    seen = _heavy_fr(rng, g.n, W, 0.6)
+    ref_prep = ref_bfs.prepare_parts(ref_bfs.device_ell(g), W)
+    nxt = np.asarray(ref_bfs._ell_hop(ref_prep, jnp.asarray(fr), W))
+    want = nxt & ~seen if fused else nxt
+    prep = port_bfs.prepare_parts(port_bfs.device_ell(g, CPU))
+    fr_t = torch.from_numpy(fr.view(np.int32).copy())
+    flags = port_bfs.row_flags(fr_t) if with_flags else None
+    for hop in (bucket_hop, bucket_hop_plain):
+        seen_t = torch.from_numpy(seen.view(np.int32).copy())
+        out_flags = torch.full((g.n + 1,), 7, dtype=torch.uint8)
+        got = port_bfs._ell_hop(prep, fr_t, hop, flags=flags,
+                                seen=seen_t if fused else None,
+                                out_flags=out_flags)
+        assert np.array_equal(_u32(got), want)
+        assert np.array_equal(out_flags.numpy(), (want != 0).any(1))
+        assert np.array_equal(_u32(seen_t), seen | want if fused else seen)
+    assert np.array_equal(_u32(fr_t), fr), "the frontier is only read"
+
+
+@pytest.mark.parametrize("W", [1, 4, 32])
+def test_make_ell_recurse_heavy_equals_reference(W):
+    """Depth 1-3 over the has_tag-like graph from random seed masks: last,
+    seen, the per-hop masks and the exact per-lane edges == the
+    reference's, bit for bit."""
+    g = _heavy_ell()
+    rng = np.random.default_rng(31 + W)
+    mask0 = _heavy_fr(rng, g.n, W, 0.001)
+    ref_fn = ref_bfs.make_ell_recurse(ref_bfs.device_ell(g), g.outdeg,
+                                      g.n, W)
+    fn = port_bfs.make_ell_recurse(port_bfs.device_ell(g, CPU), g.outdeg,
+                                   g.n, W)
+    for depth in (1, 3):
+        r_last, r_seen, r_edges, r_hops = ref_fn(jax.device_put(mask0),
+                                                 depth, True)
+        last, seen, edges, hops = fn(port_bfs.put_mask(mask0, CPU), depth,
+                                     True)
+        assert np.array_equal(_u32(last), np.asarray(r_last))
+        assert np.array_equal(_u32(seen), np.asarray(r_seen))
+        assert np.array_equal(_u32(hops), np.asarray(r_hops))
+        assert np.array_equal(edges.numpy(), np.asarray(r_edges))
+
+
+@pytest.mark.parametrize("first_visit", [True, False])
+@pytest.mark.parametrize("W", [1, 4, 32])
+def test_make_ell_step_heavy_equals_reference(W, first_visit):
+    """Two resumed stages (2 hops, then 1) over the has_tag-like graph:
+    frontier, seen and the per-hop masks == the reference's step."""
+    g = _heavy_ell()
+    rng = np.random.default_rng(37 + W)
+    m0 = _heavy_fr(rng, g.n, W, 0.002)
+    ref_step = ref_bfs.make_ell_step(ref_bfs.device_ell(g), g.n, W,
+                                     first_visit=first_visit)
+    step = port_bfs.make_ell_step(port_bfs.device_ell(g, CPU), g.n, W,
+                                  first_visit=first_visit)
+    r_f, r_s = jax.device_put(m0), jax.device_put(m0)
+    f, s = port_bfs.put_mask(m0, CPU), port_bfs.put_mask(m0, CPU)
+    for depth in (2, 1):
+        r_f, r_s, r_hops = ref_step(r_f, r_s, depth)
+        f, s, hops = step(f, s, depth)
+        assert np.array_equal(_u32(hops), np.asarray(r_hops))
+        assert np.array_equal(_u32(f), np.asarray(r_f))
+        assert np.array_equal(_u32(s), np.asarray(r_s))
+
+
+@pytest.mark.parametrize("W", [1, 4, 32])
+def test_make_ell_tree_heavy_equals_reference(W):
+    """The six-stage tree of test_make_ell_tree_equals_reference over the
+    has_tag-like graph and a powerlaw graph of the same n: every output
+    == the reference's."""
+    heavy = _heavy_ell()
+    other = powerlaw_rel(heavy.n, 4.0, seed=12)
+    graphs = [heavy, port_bfs.build_ell(other.indptr, other.indices)]
+    n = heavy.n
+    rng = np.random.default_rng(41 + W)
+    seeds = _random_masks(rng, n, W, 3, 0.002)
+    filts = _random_masks(rng, n, W, 2, 0.6)
+    want = ref_bfs.make_ell_tree(_tree_stages(graphs, W, False), n, W)(
+        tuple(jnp.asarray(m) for m in seeds),
+        tuple(jnp.asarray(m) for m in filts))
+    got = port_bfs.make_ell_tree(_tree_stages(graphs, W, True), n, W)(
+        tuple(port_bfs.put_mask(m, CPU) for m in seeds),
+        tuple(port_bfs.put_mask(m, CPU) for m in filts))
+    assert len(got) == len(want) == 6
+    for i, (a, b) in enumerate(zip(got, want)):
+        if isinstance(b, tuple):
+            assert np.array_equal(_u32(a[0]), np.asarray(b[0])), i
+            assert np.array_equal(_u32(a[1]), np.asarray(b[1])), i
+        else:
+            assert np.array_equal(_u32(a), np.asarray(b)), i
+
+
+def test_launch_table_refuses_what_the_kernel_cannot_take():
+    """Rows outside the destination, a non-int32 index block, a mask of
+    the wrong width or rows, and a pointer-only (one-bucket) table
+    walked: each raises ValueError before any launch."""
+    from dgraph_tpu_torch.ops import bucket_hop as bh
+    nbr = torch.zeros((3, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="outside"):
+        bh.build_table([[(nbr, 3, 2, bh.OUT)]], 1, False, CPU, out_rows=4)
+    with pytest.raises(ValueError, match="int32"):
+        bh.build_table([[(nbr.long(), 3, 0, bh.OUT)]], 1, False, CPU,
+                       out_rows=4)
+    tab = bh.build_table([[(nbr, 3, 0, bh.OUT)]], 2, False, CPU,
+                         out_rows=4, src_rows=5)
+    fr = torch.zeros((5, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="rows"):
+        bh.run_table(tab, fr, torch.zeros((3, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="rows"):
+        bh.run_table(tab, fr[:4], torch.zeros((4, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="width"):
+        bh.run_table(tab, fr, torch.zeros((4, 3), dtype=torch.int32))
+    got = bh.run_table(tab, fr, torch.full((4, 2), -1, dtype=torch.int32))
+    assert (got[:3] == 0).all() and (got[3] == -1).all()
+    tab.levels[0].idx = None
+    with pytest.raises(ValueError, match="pointers only"):
+        bh.walk_table(tab, fr, torch.zeros((4, 2), dtype=torch.int32))
