@@ -7534,6 +7534,11 @@ XMESH_TIMEOUT_S = 300           # the process group's timeout
 XMESH_CHILD_S = 600             # a child's whole run
 XMESH_SLAB_FRONTIER = 4096      # (b) message rows drawn for the hop
 XMESH_SLAB_SEED = 29
+XMESH_ADMIT_TEMPLATE = "IC2"    # (e1) the request shed and served
+XMESH_PROMOTE_TEMPLATE = "config3"   # (e3) 3 filtered hops from a city
+XMESH_E_LIMIT_S = 15.0          # (e) the most it may add to phase 20
+XMESH_MESH_ROUTES = ("mesh", "numpy", "device", "empty", "fused", "chain")
+XMESH_CLI_INFLIGHT = 2          # (c) --max_inflight and --queue_depth
 
 # phase 20 (a, b), one rank: argv spec.json rank
 XMESH_CHILD = r"""
@@ -7615,6 +7620,139 @@ out.update(seconds=seconds, per_query_ms=per, programs=calls,
            segment_combine_launches=launches.get("segment_combine", 0),
            knn_routes=knn, feat_routes=feat, tape=tape.summary(),
            cross_calls=dict(M.CROSS_CALLS))
+if "e" in spec["parts"]:
+    # (e) an Alpha on each rank over the mesh: the lead (rank 0) decides
+    # admission, lane groups and route promotions, every rank follows
+    import threading
+    from dgraph_tpu_torch.dql.parser import parse
+    from dgraph_tpu_torch.engine import batch as B
+    from dgraph_tpu_torch.engine.treebatch import plan_tree
+    from dgraph_tpu_torch.ops.bucket_hop import LAUNCHES as HOPS
+    from dgraph_tpu_torch.server.admission import ServerOverloaded
+    from dgraph_tpu_torch.server.api import Alpha
+    from dgraph_tpu_torch.utils import costprior
+    from dgraph_tpu_torch.utils.metrics import METRICS
+    t_e = time.perf_counter()
+    agreed = []         # seconds of each agreement, this rank
+    plain_agree = M.agree
+
+    def timed_agree(*args, **kw):
+        t1 = time.perf_counter()
+        try:
+            return plain_agree(*args, **kw)
+        finally:
+            agreed.append(time.perf_counter() - t1)
+
+    M.agree = timed_agree
+    a = Alpha(base=store, device=device, device_threshold=0, mesh=mesh)
+    a.attach_admission(1, 0)
+    asked = [0]
+
+    def ask(q):
+        asked[0] += 1
+        try:
+            return {"served": a.query_raw(q).decode()}
+        except ServerOverloaded as err:
+            return {"shed": err.reason, "retry_after_s": err.retry_after_s}
+
+    def hold():
+        # a local request holds this rank's read token until released
+        got, done = threading.Event(), threading.Event()
+
+        def run():
+            with a.admission.admit("read"):
+                got.set()
+                done.wait(cs.XMESH_TIMEOUT_S)
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        if not got.wait(60):
+            raise AssertionError("phase 20 (e1): no local token")
+
+        def release():
+            done.set()
+            t.join(60)
+        return release
+
+    # (e1) one token, no queue, the lead's or the follower's token held
+    e1 = {}
+    k1 = cs.XMESH_ADMIT_TEMPLATE
+    for step, holder in (("held_0", 0), ("free", None), ("held_1", 1)):
+        release = hold() if rank == holder else None
+        e1[step] = ask(queries[k1])
+        if release is not None:
+            release()
+    if e1["held_0"].get("shed") != "queue_full":
+        raise AssertionError(f"phase 20 (e1): rank {rank} not shed with "
+                             f"rank 0's token held: {str(e1['held_0'])[:200]}")
+    for step in ("free", "held_1"):
+        if e1[step].get("served") != want["a"][k1]:
+            raise AssertionError(f"phase 20 (e1) {step}: rank {rank} shed "
+                                 f"or answered other than phase 19")
+        e1[step] = "served"
+    e1["lane"] = {k: v for k, v in a.admission.status()["lanes"][
+        "read"].items() if k in ("admitted_total", "shed_total")}
+    # (e2) a tree group of one query: rank 0's prior alone calls it worth
+    # a lane kernel
+    def lane_shape(q):
+        blocks = parse(q)
+        if B._eligible(store, blocks) or B._eligible_shortest(store,
+                                                             blocks):
+            return None
+        tp = plan_tree(store, blocks)
+        return None if tp is None else B._plan_shape(tp[1])
+
+    k2 = next(k for k in sorted(parts["a"]) if lane_shape(queries[k]))
+    shape = lane_shape(queries[k2])
+    if rank == 0:
+        for _ in range(costprior.PRIORS.sample_floor):
+            costprior.PRIORS.learn("read", None, shape,
+                                   2 * B.KERNEL_WORTH_US)
+    e2 = {"template": k2, "shape": shape,
+          "own_worth": B._kernel_worth(shape, 1)}
+    g0 = METRICS.get("kernel_group_launches_total", family="tree")
+    HOPS["bucket_hop"] = 0
+    got = a.query_batch([queries[k2]])
+    e2["bucket_hop_launches"] = HOPS["bucket_hop"]
+    e2["groups"] = METRICS.get("kernel_group_launches_total",
+                               family="tree") - g0
+    if json.dumps(got[0], sort_keys=True) != json.dumps(
+            json.loads(want["a"][k2]), sort_keys=True):
+        raise AssertionError(f"phase 20 (e2) {k2}: rank {rank}'s lane "
+                             f"group answers other than phase 19")
+    if e2["groups"] < 1 or (torch.device(device).type == "cuda"
+                            and e2["bucket_hop_launches"] < 1):
+        raise AssertionError(f"phase 20 (e2): rank {rank} ran no lane "
+                             f"group: {e2}")
+    # (e3) a threshold no frontier reaches; rank 0's route EMAs promote
+    # the mesh, rank 1's the host walk
+    a.device_threshold = cs.HOST_ONLY
+    fast, slow = ("mesh", "numpy") if rank == 0 else ("numpy", "mesh")
+    for _ in range(64):
+        costprior.PRIORS.learn_route(fast, 1.0)
+        costprior.PRIORS.learn_route(slow, 1000.0)
+    k3 = cs.XMESH_PROMOTE_TEMPLATE
+    e3 = {"template": k3,
+          "own_promotion": costprior.promoted("mesh", "numpy")}
+    r0 = {r: METRICS.get("mesh_route_total", route=r)
+          for r in cs.XMESH_MESH_ROUTES}
+    got = ask(queries[k3])
+    e3["routes"] = {r: METRICS.get("mesh_route_total", route=r) - r0[r]
+                    for r in cs.XMESH_MESH_ROUTES}
+    if got.get("served") != want["a"][k3] or e3["routes"]["mesh"] < 1:
+        raise AssertionError(f"phase 20 (e3) {k3}: rank {rank}'s routes "
+                             f"{e3['routes']}, answer equal to phase 19: "
+                             f"{got.get('served') == want['a'][k3]}")
+    M.agree = plain_agree
+    us = sorted(x * 1e6 for x in agreed)
+    requests = asked[0] + 1       # the asks and the batch
+    out["e_follow"] = {
+        "seconds": time.perf_counter() - t_e, "e1": e1, "e2": e2, "e3": e3,
+        "requests": requests, "agree_calls": len(us),
+        "agree_per_request": len(us) / requests,
+        "agree_us_per_request": sum(us) / requests,
+        "agree_us_p50": us[len(us) // 2], "agree_us_max": us[-1],
+        "cross_calls_agree": M.CROSS_CALLS.get("agree", 0)}
 if "slabs" in spec["parts"]:
     # (b) this rank materialises only its own shards' slabs of
     # has_creator; assemble_sharded_rel agrees the rest with one gather
@@ -7727,6 +7865,41 @@ def xmesh_children(device, answers_path: str, tmp: str, parts,
     return docs
 
 
+def xmesh_follow(docs: list, device) -> dict:
+    """Phase 20 (e) across the ranks: (e1) the same verdicts with the
+    lead's Retry-After, (e2) rank 0's prior alone calls the group worth
+    and each rank launched it as a lane kernel, (e3) rank 0's EMAs alone
+    promote the mesh and both ranks count the same routes; the agreement
+    calls and seconds per request, and (e)'s seconds within
+    XMESH_E_LIMIT_S."""
+    es = [d["e_follow"] for d in docs]
+    e1 = [e["e1"] for e in es]
+    if e1[0]["held_0"] != e1[1]["held_0"]:
+        raise AssertionError(f"phase 20 (e1): the ranks shed unlike: "
+                             f"{[x['held_0'] for x in e1]}")
+    e2 = [e["e2"] for e in es]
+    if not e2[0]["own_worth"] or e2[1]["own_worth"] or \
+            e2[0]["template"] != e2[1]["template"]:
+        raise AssertionError(f"phase 20 (e2): priors {e2}")
+    if torch.device(device).type == "cuda" and min(
+            x["bucket_hop_launches"] for x in e2) < 1:
+        raise AssertionError(f"phase 20 (e2): a rank launched no "
+                             f"bucket_hop: {e2}")
+    e3 = [e["e3"] for e in es]
+    if not e3[0]["own_promotion"] or e3[1]["own_promotion"] or \
+            e3[0]["routes"] != e3[1]["routes"]:
+        raise AssertionError(f"phase 20 (e3): promotions and routes {e3}")
+    for e in es:
+        if e["agree_per_request"] > 2 or e["agree_calls"] < e["requests"]:
+            raise AssertionError(f"phase 20 (e): {e['agree_calls']} "
+                                 f"agreements for {e['requests']} requests")
+    seconds = max(e["seconds"] for e in es)
+    if seconds > XMESH_E_LIMIT_S:
+        raise AssertionError(f"phase 20 (e): {seconds:.2f} s, past "
+                             f"{XMESH_E_LIMIT_S} s")
+    return {"added_s": seconds, "ranks": es}
+
+
 def xmesh_program_rows(docs: list, rows19: dict) -> dict:
     """Per mesh program: each rank's calls and CUDA-event ms across
     processes beside phase 19's in-process calls and ms (per call)."""
@@ -7749,7 +7922,8 @@ def xmesh_program_rows(docs: list, rows19: dict) -> dict:
 
 
 def mesh_cli_pair(device) -> dict:
-    """Phase 20 (c): two `alpha --jax-coordinator` processes, each with
+    """Phase 20 (c): two `alpha --jax-coordinator` processes with
+    admission control armed (`--max_inflight`, `--queue_depth`), each with
     XMESH_LOCAL_SHARDS shards of card 0 (two of the CPU in a rehearsal),
     one 4-shard mesh over gloo, on empty directories: the same alter and
     commit to both, one query to both at once, both answers equal to a
@@ -7781,6 +7955,8 @@ def mesh_cli_pair(device) -> dict:
                        "--grpc_port", str(free_port()),
                        "--jax-coordinator", coord, "--mesh-devices", "-1",
                        "--store", "device_threshold=0",
+                       "--max_inflight", str(XMESH_CLI_INFLIGHT),
+                       "--queue_depth", str(XMESH_CLI_INFLIGHT),
                        env=dict(os.environ,
                                 JAX_NUM_PROCESSES=str(XMESH_PROCESSES),
                                 JAX_PROCESS_ID=str(r),
@@ -7839,7 +8015,9 @@ def mesh_cli_pair(device) -> dict:
         for r, (name, rc) in enumerate(zip(names, rcs)):
             t = kids.log(name)
             if rc != 0 or "over gloo" not in t or \
-                    f"process {r}/{XMESH_PROCESSES}" not in t:
+                    f"process {r}/{XMESH_PROCESSES}" not in t or \
+                    f"admission control armed: max_inflight=" \
+                    f"{XMESH_CLI_INFLIGHT}" not in t:
                 raise AssertionError(f"phase 20 (c): {name} exited {rc}: "
                                      f"{t[-2000:]}")
         out["backend"] = "gloo"
@@ -7869,7 +8047,9 @@ def phase_mesh_processes(device, answers: dict, rows19: dict,
     GraphRAG templates at device_threshold 0, every answer byte-equal to
     phase 19's on the single-process 4-shard mesh, then a matrix_hop
     over has_creator slabs each rank alone holds (assemble_sharded_rel),
-    its edges equal to the CSR walk; (c) the CLI pair; (d) NCCL, one
+    its edges equal to the CSR walk, and (e) an Alpha on each rank
+    whose admission, lane groups and route promotions are the lead's
+    (`xmesh_follow`); (c) the CLI pair, admission armed; (d) NCCL, one
     rank per card, where there are two cards."""
     import shutil
     import tempfile
@@ -7881,9 +8061,11 @@ def phase_mesh_processes(device, answers: dict, rows19: dict,
         with open(path, "w") as f:
             json.dump(answers, f)
         t0 = time.perf_counter()
-        docs = xmesh_children(device, path, tmp, ("a", "b", "d", "slabs"),
-                              sf=sf, ring_threshold=ring_threshold)
+        docs = xmesh_children(device, path, tmp,
+                              ("a", "b", "d", "e", "slabs"), sf=sf,
+                              ring_threshold=ring_threshold)
         out["a_b_children_s"] = time.perf_counter() - t0
+        out["e_follow"] = xmesh_follow(docs, device)
         for d in docs:
             if torch.device(device).type == "cuda" and \
                     d["segment_combine_launches"] < 1:
@@ -8253,6 +8435,10 @@ def main() -> None:
                  "shard of each rank (phase 20 (a))":
                      sum(r["segment_combine_launches"]
                          for r in xmesh["ranks"])}}
+    paths["bucket_hop"]["Alpha.query_batch, a lane group only rank 0's "
+                        "prior calls worth, on each of two ranks (phase "
+                        "20 (e2))"] = sum(
+        r["e2"]["bucket_hop_launches"] for r in xmesh["e_follow"]["ranks"])
     paths["bucket_hop"]["make_ell_recurse against the sharded bitmap "
                         "traversal (phase 19 (e))"] = \
         bench_mesh["e_bitmap"]["bucket_hop_launches"]

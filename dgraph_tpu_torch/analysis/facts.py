@@ -28,7 +28,12 @@ both ways against its runtime registry (`tests/test_torch_lint.py`, and
   those torch-free modules.
 * **collective_sites** — every `torch.distributed` call (through any
   import alias) with its file and line: the process group and the
-  cross-process collectives, which R7 keeps in `parallel/mesh.py`.
+  cross-process collectives, which R7 keeps in `parallel/mesh.py`; and
+  every method call on a name bound to a `torch.distributed` store
+  (`store.set`, `store.get`: the lead's decisions, `mesh.agree`).
+* **cross_call_kinds** (`parallel/mesh.CROSS_KINDS`) — the kinds
+  `mesh.CROSS_CALLS` counts, "agree" among them, read from the literal
+  in their module's source.
 * **fused_stage_kinds** (`engine/fused.STAGE_KINDS`) and
   **governed_caches** (`utils/memgov.GOVERNED_CACHES`) — read from the
   literal in their module's source: both modules import torch, which
@@ -128,6 +133,23 @@ def _kernel_sites(ctx) -> list[dict]:
     return out
 
 
+def _store_names(ctx, aliases) -> set:
+    """The names a file binds to a `torch.distributed` store: assigned
+    a call of one (`dist.PrefixStore(...)`), or another such name."""
+    out: set = set()
+    for node in ctx.nodes(ast.Assign):
+        v = node.value
+        if isinstance(v, ast.Call):
+            full = _resolved(_dotted(v.func), aliases)
+            if not (full.startswith("torch.distributed.")
+                    and full.endswith("Store")):
+                continue
+        elif not (isinstance(v, ast.Name) and v.id in out):
+            continue
+        out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return out
+
+
 def extract_facts(contexts) -> dict:
     from dgraph_tpu_torch.utils import kbuild
 
@@ -141,10 +163,16 @@ def extract_facts(contexts) -> dict:
                 or ctx.rel == BENCH_SCRIPT):
             continue
         aliases = import_aliases(ctx)
+        stores = _store_names(ctx, aliases)
         for node in ctx.nodes(ast.Call):
             full = _resolved(_dotted(node.func), aliases)
             if full.startswith("torch.distributed."):
                 collectives.append({"call": full[len("torch.distributed."):],
+                                    "file": ctx.rel, "line": node.lineno})
+            elif (isinstance(node.func, ast.Attribute)
+                  and isinstance(node.func.value, ast.Name)
+                  and node.func.value.id in stores):
+                collectives.append({"call": f"store.{node.func.attr}",
                                     "file": ctx.rel, "line": node.lineno})
         guarded_fields.extend(class_inventory(ctx))
         guarded_sites.extend(_guarded_sites(ctx))
@@ -213,6 +241,8 @@ def extract_facts(contexts) -> dict:
                         "GOVERNED_CACHES")
     governed_caches = [{"name": n, "doc": d}
                        for n, d in sorted(caches.items())]
+    cross_kinds = [{"kind": k} for k in literal_of(
+        contexts, f"{PACKAGE}/parallel/mesh.py", "CROSS_KINDS")]
     from dgraph_tpu_torch.utils.slo import SLO_SPECS
     slo_specs = [{"name": n, "doc": d}
                  for n, d in sorted(SLO_SPECS.items())]
@@ -229,6 +259,7 @@ def extract_facts(contexts) -> dict:
         "debug_endpoints": debug_endpoints,
         "collective_sites": sorted(collectives, key=lambda c: (
             c["file"], c["line"], c["call"])),
+        "cross_call_kinds": cross_kinds,
         "fused_stage_kinds": fused_stages,
         "governed_caches": governed_caches,
         "slo_specs": slo_specs,
@@ -249,6 +280,7 @@ def extract_facts(contexts) -> dict:
             "cost_prior_features": len(prior_features),
             "debug_endpoints": len(debug_endpoints),
             "collective_sites": len(collectives),
+            "cross_call_kinds": len(cross_kinds),
             "fused_stage_kinds": len(fused_stages),
             "governed_caches": len(governed_caches),
             "slo_specs": len(slo_specs),
@@ -267,9 +299,11 @@ def _matcher(names):
 
 
 def runtime_misses(facts: dict, *, locks=(), metrics=(), spans=(),
-                   caches=None, launches=None, sources=None) -> list[str]:
+                   caches=None, launches=None, sources=None,
+                   cross=()) -> list[str]:
     """What a run did that these facts do not name: lock names made,
-    metric names recorded, span names recorded, and hand kernels that
+    metric names recorded, span names recorded, cross-process call
+    kinds counted (`cross`, `mesh.CROSS_CALLS`), and hand kernels that
     launched (`launches`: name → count, `sources`: name → its source
     file) without a launch site; and, both ways, the governed cache
     names it registered (`caches`, unless None) against the
@@ -285,6 +319,9 @@ def runtime_misses(facts: dict, *, locks=(), metrics=(), spans=(),
         match = _matcher(known)
         out += [f"{what} {n!r} has no static site"
                 for n in sorted(seen) if not match(n)]
+    kinds = {x["kind"] for x in facts.get("cross_call_kinds", ())}
+    out += [f"cross-process call kind {k!r} not in cross_call_kinds"
+            for k in sorted(cross) if k not in kinds]
     if caches is not None:
         inventory = {x["name"] for x in facts["governed_caches"]}
         out += [f"cache {n!r} registered but not in governed_caches"

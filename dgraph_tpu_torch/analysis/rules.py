@@ -34,7 +34,10 @@ R7 shard-map-compat      the mesh layer's collectives resolve only
                          through parallel/mesh.py: a direct
                          `torch.distributed` reference (or a
                          `shard_map` spelling of the reference's)
-                         anywhere else pins the layer to one backend.
+                         anywhere else pins the layer to one backend;
+                         so does a reach for the store of the lead's
+                         decisions (`mesh._DECISIONS`) past
+                         `mesh.agree`.
 R8 atomic-write          durable files under store/ (and
                          server/backup.py) land via tmp + fsync +
                          os.replace.
@@ -674,13 +677,16 @@ class ShardMapCompat(Rule):
     doc = ("the mesh layer's collectives resolve ONLY through "
            "parallel/mesh.py (all_gather, psum, pmax, ppermute, "
            "psum_scatter, and the torch.distributed process group and "
-           "calls that carry them across processes): a direct "
-           "`torch.distributed` reference or import anywhere else, or a "
-           "`shard_map` spelling of the reference's, pins the layer to "
-           "one backend and one version, so a change of either re-parks "
-           "the mesh")
+           "calls that carry them across processes, the store of the "
+           "lead's decisions among them): a direct `torch.distributed` "
+           "reference or import anywhere else, a reach for that store "
+           "(`mesh._DECISIONS`) past `mesh.agree`, or a `shard_map` "
+           "spelling of the reference's, pins the layer to one backend "
+           "and one version, so a change of either re-parks the mesh")
 
     SHIM = P + "parallel/mesh.py"
+    # the module global that holds the store of the lead's decisions
+    STORE = "_DECISIONS"
 
     def applies(self, rel: str) -> bool:
         return ((rel.startswith(P) or rel == BENCH_SCRIPT)
@@ -708,8 +714,14 @@ class ShardMapCompat(Rule):
                         or d == "torch.distributed"
                         or d.startswith("torch.distributed.")):
                     flag(node.lineno, f"`{d}` reference")
+                elif node.attr == self.STORE:
+                    flag(node.lineno, f"`{d or node.attr}` (the decision "
+                                      f"store) reference")
             elif isinstance(node, ast.ImportFrom):
                 mod = node.module or ""
+                if any(a.name == self.STORE for a in node.names):
+                    flag(node.lineno, f"import of `{self.STORE}` (the "
+                                      f"decision store)")
                 if (mod.startswith("jax.experimental.shard_map")
                         or mod.startswith("torch.distributed")
                         or (mod == "jax" and any(

@@ -26,9 +26,12 @@ The port's own rules:
   gloo; the log names the backend. A count above the devices exits
   non-zero, naming the device count, before the posting directory is
   touched, and so does a process left without a shard. Serving across
-  processes is SPMD: every process must receive the same mesh
-  requests in the same order, so `--max_inflight` (admission control,
-  which sheds per process) exits non-zero beside a coordinator.
+  processes is SPMD: every process must receive the same requests in
+  the same order (send each to process 0 first, or to all at once),
+  and process 0 decides for all what one could decide differently
+  from another: admission (`--max_inflight`), the order the requests
+  run in, the learned route promotions and the batch's lane groups
+  (`server/api.py` `_request`).
 * Importing this module loads no grpc: the `alpha` and `zero` verbs
   import the transport inside their functions.
 """
@@ -234,13 +237,6 @@ def cmd_alpha(args) -> int:
         raise SystemExit(f"alpha: --jax-coordinator {args.jax_coordinator} "
                          f"joins a mesh across processes: give "
                          f"--mesh-devices too")
-    if cfg.max_inflight > 0 and (args.jax_coordinator or os.environ.get(
-            "JAX_COORDINATOR_ADDRESS")):
-        raise SystemExit(f"alpha: --max_inflight {cfg.max_inflight}: "
-                         f"admission control sheds per process, and a "
-                         f"request one process sheds and another serves "
-                         f"puts the ranks of a mesh across processes out "
-                         f"of step; serve it without admission control")
     # SPMD serving: the engine runs its hops sharded over the mesh
     mesh = (_alpha_mesh(cfg.mesh_devices, cfg.device, args.jax_coordinator)
             if cfg.mesh_devices else None)

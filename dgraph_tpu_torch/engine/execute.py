@@ -8,7 +8,7 @@ every shard at once: `parallel/dhop.matrix_hop` over the row-sharded CSR
 (`Store.sharded_rel`), or, past `ring_threshold` rows, the ring of
 `ring_matrix_hop`; a frontier below `device_threshold` takes the mesh
 when the cost priors' route EMAs say it beats the host walk
-(`_mesh_promoted`). The host stitches the shards' edge lists back into
+(`_mesh_promoted`; the lead's EMAs while the mesh spans processes). The host stitches the shards' edge lists back into
 global row order (`_stitch_edge_parts`). The fused level runs as
 `matrix_level`, single-key orderings as `parallel/dsort.py`'s
 `mesh_topk` (root) and `mesh_row_sort` (child level), and every
@@ -74,7 +74,7 @@ from dgraph_tpu_torch.engine.varorder import _filter_uses
 from dgraph_tpu_torch.ops.hop import gather_edges
 from dgraph_tpu_torch.ops.level import NO_LIMIT, expand_level
 from dgraph_tpu_torch.ops.uidalgebra import SENTINEL32, pad_to
-from dgraph_tpu_torch.parallel.mesh import gather_shards, host_np
+from dgraph_tpu_torch.parallel.mesh import gather_shards, host_np, promoted
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import Kind
 from dgraph_tpu_torch.store.vec import similar_ranks
@@ -328,15 +328,13 @@ class Executor:
         still takes the mesh when the measured per-edge cost EMAs
         (utils/costprior.py, learned from every expansion) say the mesh
         beats the host walk. Without data, or with priors off, the
-        threshold alone routes, and so it does while the mesh spans
-        processes: a rank's own timings must not choose a route the
+        threshold alone routes. While the mesh spans processes the
+        lead's EMAs decide, once per request (parallel/mesh.py
+        `promoted`): a rank's own timings must not choose a route the
         other ranks do not take."""
-        if (n < self.mesh_floor or not costprior.enabled()
-                or self.mesh.spans_processes):
+        if n < self.mesh_floor:
             return False
-        m = costprior.PRIORS.route_cost("mesh")
-        h = costprior.PRIORS.route_cost("numpy")
-        return m is not None and h is not None and m < h
+        return promoted(self.mesh, "mesh", "numpy")
 
     def _note_mesh_shards(self, counts) -> None:
         """Shard-keyed accounting for one mesh expansion: the `mesh`

@@ -191,14 +191,15 @@ def aggregate(store, pred: str, agg: str, nbrs, seg, n_seg: int, device,
     if t is None:
         raise ValueError(
             f"@msgpass(pred: {pred}): not a float32vector predicate")
+    from dgraph_tpu_torch.parallel.mesh import promoted as mesh_promoted
+
     work = len(nbrs)
     t0 = time.perf_counter()
     big = work >= device_threshold or t.rows >= device_threshold
-    # while the mesh spans processes only the sizes choose it: every
+    # while the mesh spans processes the lead's promotion decides: every
     # rank must take the same route (parallel/mesh.py)
     if mesh is not None and t.rows and (
-            big or (not mesh.spans_processes
-                    and costprior.promoted("feat_mesh", "feat_host"))):
+            big or mesh_promoted(mesh, "feat_mesh", "feat_host")):
         route = "mesh"
         out = _mesh_combine(store, pred, nbrs, seg, n_seg, agg, mesh,
                             (pred, t.dim, agg))

@@ -75,17 +75,13 @@ Every rank must call every collective in the same order (SPMD, as in
 the reference). What keeps the ranks in step:
 
 * each rank holds the same store and receives the same requests;
-  nothing sheds a request on one rank only: an Alpha over such a mesh
-  refuses admission control (`Alpha.attach_admission`, the CLI's
-  `--max_inflight`), and with it the forecast shedding that acts
-  through it;
+* the decisions one rank could make differently from another are made
+  once, by the lead (`Mesh.is_lead`, rank 0), and followed by every
+  rank (`agree`, below): an Alpha's admission verdict and the order in
+  which its requests run, the cost priors' learned route promotions
+  (`promoted`), and the groups `query_batch` sends to lane kernels;
 * overflow re-runs decide on replicated values (a program's `needs`,
   merged by `pmax`), identical on every rank;
-* the route choices that lead to a mesh program decide on sizes and
-  thresholds only: the cost priors' learned promotions (local
-  timings) are not consulted while a mesh spans processes, nor is a
-  shape's prior when `query_batch` forms its lane-kernel groups (the
-  count rule alone decides which queries go to the mesh);
 * placement (`Store.sharded_rel`, `Store.vec_sharded`, the sort-key
   columns) makes no collective, so one rank's eviction and re-placement
   cannot put the ranks out of step;
@@ -97,6 +93,24 @@ A query's deadline acts per rank: one that expires on one rank only
 makes the others raise at the group's timeout. Nothing falls back to a
 single-process mesh or to the host.
 
+The lead's decisions travel through the process group's own key-value
+store (the `TCPStore` of the rendezvous, under the prefix
+`AGREE_PREFIX`), never as collectives on the mesh's group: request
+threads run concurrently, and a collective from one would interleave
+with the programs' collectives in another order on each rank. `agree`
+publishes the lead's decision under a key (one store write) and every
+other rank reads it (one store read, which waits up to the group's
+timeout and then raises naming the key; a follower never decides for
+itself). Each call counts in `CROSS_CALLS["agree"]`. A key is the same
+on every rank without a word between them (`agree_key`): the decision's
+kind, a hash of what identifies it (an Alpha request's lane, text and
+variables; a batch's query texts), and how many times this process has
+asked for that hash before, `kind/<hash>/<n>`. Every rank receives the
+same requests in the same order, so the n-th occurrence is the same
+request everywhere, whichever rank reads first. The store keeps every
+decision for the life of the group (a key and a small JSON value per
+request).
+
 The steady serving contract is the reference's: a hop's outputs are the
 next hop's inputs with their placement already right, so a chained
 frontier crosses no device boundary between launches. `hop_input` is the
@@ -106,15 +120,19 @@ replicated input lies off a local shard's device; a host numpy seed is
 an upload, not a reshard. `reshard_guard` raises when the count moved
 inside its block.
 
-`CROSS_CALLS` counts this process's cross-process calls by kind; a mesh
-whose shards are all local makes none, even inside a process group (the
-reference's `is_fully_addressable` rule).
+`CROSS_CALLS` counts this process's cross-process calls by kind (the
+kinds are `CROSS_KINDS`); a mesh whose shards are all local makes none,
+even inside a process group (the reference's `is_fully_addressable`
+rule), and neither do its requests and batches agree on anything.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import datetime
+import hashlib
+import json
 import os
 import socket
 from dataclasses import dataclass
@@ -123,6 +141,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dgraph_tpu_torch.utils import costprior, locks
 from dgraph_tpu_torch.utils.device import resolve_device
 from dgraph_tpu_torch.utils.metrics import METRICS
 
@@ -132,9 +151,10 @@ __all__ = ["SHARD_AXIS", "REPLICATED", "SHARDED", "Mesh", "Sharded",
            "host_np", "shard_leading", "replicated", "device_put",
            "replicate", "shard", "gather_shards", "all_gather", "psum",
            "pmax", "ppermute", "psum_scatter", "hop_input", "reshard_count",
-           "reshard_guard",
-           "PROGRAM_CALLS", "count_program", "CROSS_CALLS",
-           "DIST_TIMEOUT_S", "LOCAL_SHARDS_ENV"]
+           "reshard_guard", "agree", "agree_key", "following", "promoted",
+           "group_timeout_s", "PROGRAM_CALLS", "count_program",
+           "CROSS_CALLS", "CROSS_KINDS", "AGREE_PREFIX", "DIST_TIMEOUT_S",
+           "LOCAL_SHARDS_ENV"]
 
 SHARD_AXIS = "shard"
 # the reference's PartitionSpecs: P() and P("shard")
@@ -152,9 +172,25 @@ LOCAL_SHARDS_ENV = "DGRAPH_TPU_LOCAL_SHARDS"
 # path and reads it after
 PROGRAM_CALLS: dict[str, int] = {}
 
-# this process's cross-process calls, by kind (a collective's name,
-# "host_np", "nnz" for assemble_sharded_rel's agreement, "mesh_shape")
+# the kinds of cross-process call: a collective's name, "host_np",
+# "nnz" for assemble_sharded_rel's agreement, "mesh_shape", and "agree"
+# for a read or write of the lead's decisions
+CROSS_KINDS = ("all_gather", "psum", "pmax", "ppermute", "host_np", "nnz",
+               "mesh_shape", "agree")
+# this process's cross-process calls, by kind
 CROSS_CALLS: dict[str, int] = {}
+
+# the store prefix of the lead's decisions (`agree`)
+AGREE_PREFIX = "dgraph_tpu/agree"
+# the process group's store under AGREE_PREFIX while this process is in
+# a group (init_distributed), else None
+_DECISIONS = None
+# per (kind, hash): how many keys this process has made (`agree_key`)
+_OCCURRENCES: dict = {}
+_occurrence_lock = locks.make_lock("mesh.agree")
+# the lead's route promotions for the request this thread serves
+_FOLLOWING: contextvars.ContextVar = contextvars.ContextVar(
+    "dgraph_tpu_lead_promotions", default=None)
 
 
 def count_program(name: str) -> None:
@@ -162,6 +198,8 @@ def count_program(name: str) -> None:
 
 
 def _count_cross(kind: str) -> None:
+    if kind not in CROSS_KINDS:
+        raise ValueError(f"unknown cross-process call kind {kind!r}")
     CROSS_CALLS[kind] = CROSS_CALLS.get(kind, 0) + 1
 
 
@@ -213,6 +251,12 @@ class Mesh:
         return len(self.local) < len(self.devices)
 
     @property
+    def is_lead(self) -> bool:
+        """Whether this process is the mesh's lead (its first owner,
+        rank 0): the one whose decisions every rank follows (`agree`)."""
+        return self.rank == self.owners[0]
+
+    @property
     def lead(self) -> int:
         """The first shard of this process (where a merged value that
         every local shard holds is read)."""
@@ -262,9 +306,7 @@ def init_distributed(coordinator: str | None = None,
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if coordinator is None:
         if os.environ.get("JAX_DIST_AUTO") == "1":
-            dist.init_process_group("gloo", init_method="env://",
-                                    timeout=timeout)
-            return dist.get_world_size() > 1
+            return _join("env://", -1, -1, timeout)
         return False
     if num_processes is None and os.environ.get("JAX_NUM_PROCESSES"):
         num_processes = int(os.environ["JAX_NUM_PROCESSES"])
@@ -279,16 +321,38 @@ def init_distributed(coordinator: str | None = None,
         raise ValueError(f"init_distributed: coordinator {coordinator} "
                          f"given without {' and '.join(missing)}")
     url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
-    dist.init_process_group("gloo", init_method=url,
-                            world_size=int(num_processes),
-                            rank=int(process_id), timeout=timeout)
+    return _join(url, int(num_processes), int(process_id), timeout)
+
+
+def _join(url: str, world_size: int, rank: int, timeout) -> bool:
+    """Rendezvous at `url` (what `init_process_group(init_method=url)`
+    does), keep its store for the lead's decisions, and build the gloo
+    group over it."""
+    global _DECISIONS
+    store, rank, world_size = next(dist.rendezvous(
+        url, rank, world_size, timeout=timeout))
+    store.set_timeout(timeout)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world_size, timeout=timeout)
+    _DECISIONS = dist.PrefixStore(AGREE_PREFIX, store)
     return dist.get_world_size() > 1
 
 
 def shutdown_distributed() -> None:
-    """Leave the process group (a no-op outside one)."""
+    """Leave the process group (a no-op outside one) and forget its
+    decisions' store and keys."""
+    global _DECISIONS
     if _joined():
         dist.destroy_process_group()
+    _DECISIONS = None
+    with _occurrence_lock:
+        _OCCURRENCES.clear()
+
+
+def group_timeout_s() -> float:
+    """How long a rendezvous, a collective or a read of the lead's
+    decision waits for the other ranks before it raises."""
+    return _timeout().total_seconds()
 
 
 def process_index() -> int:
@@ -701,6 +765,76 @@ def psum_scatter(mesh: Mesh, xs, scatter_dimension: int = 0,
         else:
             out[d] = s.select(scatter_dimension, d)
     return out
+
+
+# -- the lead's decisions -------------------------------------------------------------
+
+def agree_key(kind: str, *parts) -> str:
+    """The key of a decision, `kind/<hash>/<n>`: a hash of `parts` (what
+    identifies the decision, e.g. a request's lane, text and variables)
+    and `n`, how many keys of that kind and hash this process made
+    before. Every rank receives the same requests in the same order, so
+    every rank makes the same key for the same request."""
+    digest = hashlib.sha1(json.dumps(parts, sort_keys=True, default=repr)
+                          .encode()).hexdigest()[:24]
+    with _occurrence_lock:
+        n = _OCCURRENCES.get((kind, digest), 0)
+        _OCCURRENCES[(kind, digest)] = n + 1
+    return f"{kind}/{digest}/{n}"
+
+
+def agree(mesh: Mesh, key: str, decision=None):
+    """The lead's `decision` under `key`, the same on every rank of
+    `mesh`. The lead (`Mesh.is_lead`) publishes `decision` (a JSON
+    value) and returns it; every other rank reads the lead's, waiting
+    up to the group's timeout whether it asks before or after the lead
+    publishes, and raises RuntimeError naming the key when it cannot
+    read it in time: a follower never decides for itself. One store
+    round trip, counted in `CROSS_CALLS["agree"]`. Only for a mesh that
+    spans processes: on a mesh of one process nothing is agreed."""
+    store = _DECISIONS
+    if store is None:
+        raise RuntimeError(f"no store to agree {key!r} through: a mesh "
+                           f"across processes is built after "
+                           f"init_distributed")
+    if mesh.is_lead:
+        store.set(key, json.dumps(decision))
+        _count_cross("agree")
+        return decision
+    try:
+        raw = store.get(key)
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"process {mesh.rank}: no decision of the lead under key "
+            f"{key!r} within the group's timeout ({group_timeout_s():g} "
+            f"s); a follower does not decide for itself") from e
+    _count_cross("agree")
+    return json.loads(raw)
+
+
+@contextlib.contextmanager
+def following(promotions: dict):
+    """Serve the block under the lead's route promotions (`promoted`):
+    the bits the lead granted with the request this thread serves."""
+    token = _FOLLOWING.set(dict(promotions))
+    try:
+        yield
+    finally:
+        _FOLLOWING.reset(token)
+
+
+def promoted(mesh: Mesh, route: str, baseline: str) -> bool:
+    """Whether the cost priors promote `route` over `baseline` below a
+    route's size threshold, for a choice that leads to a mesh program:
+    on a mesh of one process this process's route EMAs say
+    (`costprior.promoted`); on a mesh that spans processes the lead's
+    bit for `route` says, granted with the request this thread serves
+    (`following`), and False outside one. A rank's own timings never
+    choose a route the other ranks do not take."""
+    if not mesh.spans_processes:
+        return costprior.promoted(route, baseline)
+    bits = _FOLLOWING.get()
+    return bool(bits is not None and bits.get(route))
 
 
 # -- reshard accounting ------------------------------------------------------------

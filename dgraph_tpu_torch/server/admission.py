@@ -44,6 +44,13 @@ queue-head stall signal.
 The maintenance scheduler consults `saturated()` at tablet boundaries
 and yields the machine while real traffic is queued
 (store/maintenance.py `_pace`).
+
+Over a mesh that spans processes only the lead's controller decides
+(server/api.py `_request`); a follower's counts the lead's verdicts
+(`follow`, `follow_shed`): it takes a token for every request the lead
+admitted, whatever it already holds, and sheds exactly the requests the
+lead shed, with the lead's reason and retry-after hint, so its status
+and metrics stay those of the requests it served.
 """
 
 from __future__ import annotations
@@ -82,10 +89,11 @@ class ServerOverloaded(Exception):
     `Retry-After` header + 429)."""
 
     def __init__(self, msg: str, retry_after_s: float = _MIN_RETRY_S,
-                 lane: str = ""):
+                 lane: str = "", reason: str = ""):
         super().__init__(msg)
         self.retry_after_s = retry_after_s
         self.lane = lane
+        self.reason = reason
 
 
 class _Waiter:
@@ -176,7 +184,7 @@ class _Lane:
             f"inflight, {len(self.waiters)} queued (limits "
             f"{self.max_inflight}/{self.queue_depth}); retry "
             f"after {hint:.3f}s", retry_after_s=hint,
-            lane=self.name)
+            lane=self.name, reason=reason)
 
     def _try_displace(self, cost_us: float) -> bool:
         """Caller holds the lock, queue full: shed the most expensive
@@ -276,7 +284,7 @@ class _Lane:
                             f"{self.name} lane wait displaced by a "
                             f"cheaper request; retry after "
                             f"{hint:.3f}s", retry_after_s=hint,
-                            lane=self.name)
+                            lane=self.name, reason="displaced")
                     break
                 # budget died while queued: withdraw — unless release
                 # granted the token (or a displacement shed us) in the
@@ -299,10 +307,41 @@ class _Lane:
                 if ctx is not None:
                     ctx.check("admission")
                 raise ServerOverloaded(  # cancel-less fallback
-                    f"{self.name} lane wait abandoned", lane=self.name)
+                    f"{self.name} lane wait abandoned", lane=self.name,
+                    reason="deadline")
         wait_us = (time.perf_counter() - t0) * 1e6
         METRICS.observe("admission_wait_us", wait_us, lane=self.name)
         costprofile.add("admission_wait_us", int(wait_us))
+
+    def take(self, cost_us: float | None = None) -> None:
+        """Take a token the lead granted: counted as an admission
+        whatever the lane holds (inflight may pass max_inflight until
+        the releases return it); nothing queues and nothing sheds."""
+        with self.lock:
+            now = time.monotonic()
+            self._maybe_decay_ema(now)
+            self._last_activity = now
+            METRICS.inc("admission_requests_total", lane=self.name)
+            self.inflight += 1
+            self.admitted_total += 1
+            if cost_us is not None:
+                self.inflight_cost_us += cost_us
+            self._publish()
+
+    def count_shed(self, reason: str, cost_us: float | None = None) -> None:
+        """Count a shed the lead decided, under its reason."""
+        with self.lock:
+            self._last_activity = time.monotonic()
+            METRICS.inc("admission_requests_total", lane=self.name)
+            if reason == "forecast":
+                METRICS.inc("forecast_sheds_total", lane=self.name)
+            self.shed_total += 1
+            METRICS.inc("shed_total", lane=self.name, reason=reason)
+            if cost_us is not None:
+                METRICS.observe("shed_predicted_cost_us", cost_us,
+                                lane=self.name)
+            flightrec.emit("admission.shed", lane=self.name, reason=reason,
+                           cost_us=cost_us)
 
     def _pick_waiter(self) -> _Waiter:
         """Caller holds the lock, waiters non-empty. Without cost
@@ -333,7 +372,9 @@ class _Lane:
             if cost_us is not None:
                 self.inflight_cost_us = max(
                     0.0, self.inflight_cost_us - cost_us)
-            if self.waiters:
+            # a lane past its limit (tokens the lead granted) returns
+            # the token instead of handing it on
+            if self.waiters and self.inflight <= self.max_inflight:
                 w = self._pick_waiter()
                 w.granted = True
                 self.admitted_total += 1
@@ -401,6 +442,30 @@ class AdmissionController:
         finally:
             self._tls.holding = False
             ln.release(time.perf_counter() - t0, cost_us=cost_us)
+
+    @contextlib.contextmanager
+    def follow(self, lane: str, cost_us: float | None = None):
+        """Hold a `lane` token the lead granted (see `_Lane.take`), with
+        `admit`'s reentrancy: a nested call rides the token its request
+        holds."""
+        if getattr(self._tls, "holding", False):
+            yield
+            return
+        ln = self.lanes[lane]
+        ln.take(cost_us)
+        self._tls.holding = True
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._tls.holding = False
+            ln.release(time.perf_counter() - t0, cost_us=cost_us)
+
+    def follow_shed(self, e: ServerOverloaded,
+                    cost_us: float | None = None) -> None:
+        """Count the lead's shed `e` on its lane (then the caller raises
+        it)."""
+        self.lanes[e.lane].count_shed(e.reason, cost_us)
 
     def queued(self) -> int:
         total = 0

@@ -75,8 +75,11 @@ Every request registers with the flight recorder's watchdog
 With `mesh=` (a `parallel/mesh.Mesh`, of this process's devices or
 across processes) every engine the Alpha makes serves its expansions
 sharded. Across processes the serving is SPMD: every rank's Alpha must
-receive the same mesh requests in the same order, and admission control
-(which sheds per process) is refused. Deliberate difference: no kernel group is
+receive the same requests in the same order (send each to the lead,
+rank 0, first or to every rank at once), and what one rank could decide
+differently the lead decides for all: in `_request` the lead admits or
+sheds each request and grants it a turn, and every rank runs the
+granted requests one at a time in the lead's order. Deliberate difference: no kernel group is
 served query by query after a failure: any failure of a group, an allocation failure its
 evict-and-retry did not absorb among them, raises out of `query_batch`
 (`engine/batch.py`).
@@ -136,6 +139,83 @@ class StageRefused(Exception):
 
 
 GC_EVERY = 256  # timestamps between oracle/store gc sweeps
+
+
+def _refusal(e: BaseException) -> dict:
+    """The lead's refusal of a request, as its followers read it."""
+    if isinstance(e, ServerOverloaded):
+        return {"refused": "shed", "message": str(e), "lane": e.lane,
+                "reason": e.reason, "retry_after_s": e.retry_after_s}
+    if isinstance(e, (dl.DeadlineExceeded, dl.Cancelled)):
+        return {"refused": type(e).__name__, "message": str(e),
+                "stage": e.stage}
+    return {"refused": "error", "message": f"{type(e).__name__}: {e}"}
+
+
+def _refused(verdict: dict) -> Exception:
+    """The exception a follower raises for the lead's refusal: the
+    lead's own, with its message, hint and stage."""
+    kind, msg = verdict["refused"], verdict["message"]
+    if kind == "shed":
+        return ServerOverloaded(msg, retry_after_s=verdict["retry_after_s"],
+                                lane=verdict["lane"],
+                                reason=verdict["reason"])
+    if kind == "DeadlineExceeded":
+        return dl.DeadlineExceeded(msg, stage=verdict["stage"])
+    if kind == "Cancelled":
+        return dl.Cancelled(msg, stage=verdict["stage"])
+    return RuntimeError(f"the lead refused the request: {msg}")
+
+
+class _Turns:
+    """The order in which requests run over a mesh that spans processes:
+    the lead grants turns 0, 1, 2, ... (`grant`) and every rank runs the
+    request holding turn t only after turn t - 1 ended here (`turn`)."""
+
+    def __init__(self):
+        self._cv = locks.make_condition("alpha.turns")
+        self._granted = 0       # turns the lead handed out
+        self._next = 0          # the turn whose request may run now
+        self._ended: set = set()    # turns past _next that ended
+        locks.guarded(self, "alpha.turns")
+
+    def grant(self) -> int:
+        with self._cv:
+            t = self._granted
+            self._granted += 1
+            return t
+
+    def skip(self, t: int) -> None:
+        """Turn `t` ends without running (its grant never left)."""
+        with self._cv:
+            self._end(t)
+
+    def _end(self, t: int) -> None:
+        """Caller holds the condition."""
+        self._ended.add(t)
+        while self._next in self._ended:
+            self._ended.discard(self._next)
+            self._next += 1
+        self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def turn(self, t: int, timeout_s: float):
+        """Run the block in turn `t`: wait until every earlier turn has
+        ended here, at most `timeout_s` (then raise: a request the lead
+        granted before never reached this rank)."""
+        with self._cv:
+            if not self._cv.wait_for(lambda: self._next == t, timeout_s):
+                waiting = self._next
+                self._end(t)
+                raise RuntimeError(
+                    f"turn {t}: turn {waiting} has not ended here within "
+                    f"{timeout_s:g} s (every rank must receive the "
+                    f"requests the lead granted)")
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._end(t)
 
 
 def _register_tablet_cache(alpha) -> None:
@@ -261,6 +341,8 @@ class Alpha:
         self.slow_query_ms = 0.0
         self._apply_lock = locks.make_lock("alpha.apply")
         self._state_lock = locks.make_lock("alpha.state")
+        # grant order over a mesh that spans processes (`_in_turn`)
+        self._turns = _Turns()
         self._open_txns: dict[int, Txn] = {}
         self._active_reads: dict[int, int] = {}
         self._gc_tick = 0
@@ -481,13 +563,10 @@ class Alpha:
         """Arm admission control on this Alpha (server/admission.py):
         per-lane token limits, a bounded FIFO wait queue, and shedding
         with a retryable `ServerOverloaded`. `default_deadline_ms`
-        budgets requests that bring none of their own. Refused over a
-        mesh that spans processes: a request shed on one rank and served
-        on another would put the ranks out of step."""
+        budgets requests that bring none of their own. Over a mesh that
+        spans processes the lead's controller decides for every rank
+        (`_request`)."""
         from dgraph_tpu_torch.server.admission import AdmissionController
-        if self.mesh is not None and self.mesh.spans_processes:
-            raise ValueError("admission control sheds per process: a mesh "
-                             "across processes serves without it")
         self.admission = AdmissionController(max_inflight, queue_depth)
         self.default_deadline_ms = float(default_deadline_ms)
         return self.admission
@@ -509,7 +588,7 @@ class Alpha:
 
     @contextlib.contextmanager
     def _request(self, lane: str, deadline_ms: float | None,
-                 query_text: str | None = None):
+                 query_text: str | None = None, key=None):
         """Request-lifecycle shell every public entry point runs inside:
         the budget (explicit `deadline_ms`, else `default_deadline_ms`)
         as the thread's ambient context (utils/deadline.py), which the
@@ -524,7 +603,11 @@ class Alpha:
         record and token: the OUTER budget governs, and a full lane never
         deadlocks against its own request. Every failed serve but a shed,
         a client's cancel and an ACL refusal counts in
-        `query_errors_total{lane=}`."""
+        `query_errors_total{lane=}`.
+
+        Over a mesh that spans processes the request runs in the lead's
+        turn (`_in_turn`): `lane`, `query_text` and `key` (a request's
+        other arguments) name it to the other ranks."""
         outer = dl.current()
         if outer is not None:
             # a nested leg on the outer record: the leg's boundary is not
@@ -549,7 +632,11 @@ class Alpha:
                 with flightrec.track_request(ctx, lane,
                                              predicted_us=predicted,
                                              query=query_text):
-                    if self.admission is not None:
+                    if self.mesh is not None and self.mesh.spans_processes:
+                        with self._in_turn(lane, ctx, predicted,
+                                           (query_text, key)):
+                            yield ctx
+                    elif self.admission is not None:
                         with self.admission.admit(lane, ctx,
                                                   cost_us=predicted):
                             # the budget may have died while queued
@@ -575,6 +662,59 @@ class Alpha:
                         rec.shape_key() if rec is not None else None,
                         (time.perf_counter() - t0) * 1e6,
                         predicted_us=predicted, source=source)
+
+    @contextlib.contextmanager
+    def _in_turn(self, lane: str, ctx, predicted, key):
+        """A request over a mesh that spans processes, in the lead's
+        turn. The lead (rank 0) decides: with admission attached it
+        admits or sheds as alone (the queue-exit budget check
+        included), then grants the request the next turn with its route
+        promotions (`costprior.promotions`); a refusal is published
+        instead and raised. Every other rank reads that verdict
+        (`parallel/mesh.agree`, one store round trip under
+        `agree_key("request", lane, key)`) and follows it, never its own
+        controller's or priors' answer: it sheds what the lead shed,
+        with its hint, and serves what the lead admitted, however full
+        its own lane (`AdmissionController.follow`). Every rank then
+        runs the granted requests one at a time in grant order, the
+        lead's promotions ambient (`parallel/mesh.following`), so the
+        collectives of their mesh programs come in one order on every
+        rank."""
+        from dgraph_tpu_torch.parallel import mesh as pmesh
+        mesh = self.mesh
+        name = pmesh.agree_key("request", lane, key)
+        with contextlib.ExitStack() as held:
+            if mesh.is_lead:
+                try:
+                    if self.admission is not None:
+                        held.enter_context(self.admission.admit(
+                            lane, ctx, cost_us=predicted))
+                        ctx.check("admission")
+                except BaseException as e:
+                    pmesh.agree(mesh, name, _refusal(e))
+                    raise
+                verdict = {"turn": self._turns.grant(),
+                           "promoted": costprior.promotions()}
+                try:
+                    pmesh.agree(mesh, name, verdict)
+                except BaseException:
+                    self._turns.skip(verdict["turn"])
+                    raise
+            else:
+                verdict = pmesh.agree(mesh, name)
+                if "refused" in verdict:
+                    e = _refused(verdict)
+                    if self.admission is not None and isinstance(
+                            e, ServerOverloaded):
+                        self.admission.follow_shed(e, cost_us=predicted)
+                    raise e
+                if self.admission is not None:
+                    held.enter_context(self.admission.follow(
+                        lane, cost_us=predicted))
+            held.enter_context(self._turns.turn(verdict["turn"],
+                                                pmesh.group_timeout_s()))
+            with pmesh.following(verdict["promoted"]):
+                yield
 
     def shutdown(self, p_dir: str | None = None) -> None:
         """The clean-exit path: drain maintenance (finish the in-flight
@@ -827,7 +967,8 @@ class Alpha:
         `deadline_ms` bounds the request: the engine's loops checkpoint
         against it and raise a retryable `DeadlineExceeded` within one
         level / BFS iteration of the budget."""
-        with self._request("read", deadline_ms, query_text=dql):
+        with self._request("read", deadline_ms, query_text=dql,
+                           key=variables):
             with self._reading(read_ts) as ts:
                 self._verify_read_chains(ts)
                 out = self._engine(self._query_view(ts, acl_user)).query(
@@ -840,7 +981,8 @@ class Alpha:
                   acl_user: str | None = None,
                   deadline_ms: float | None = None) -> bytes:
         """Serving-path query: response BYTES (engine/emit.py)."""
-        with self._request("read", deadline_ms, query_text=dql):
+        with self._request("read", deadline_ms, query_text=dql,
+                           key=variables):
             with self._reading(read_ts) as ts:
                 self._verify_read_chains(ts)
                 raw = self._engine(
@@ -886,7 +1028,9 @@ class Alpha:
         must be writable by the user, or the whole txn is discarded. The
         deadline stops the request only BEFORE the commit's WAL append
         (`_commit`), never between the append and the apply."""
-        with self._request("mutate", deadline_ms):
+        with self._request("mutate", deadline_ms, key=(
+                set_nquads, del_nquads, set_json, del_json, commit_now,
+                start_ts)):
             return self._mutate(set_nquads=set_nquads,
                                 del_nquads=del_nquads, set_json=set_json,
                                 del_json=del_json, commit_now=commit_now,
@@ -957,11 +1101,13 @@ class Alpha:
         self.acl.check_mutation(acl_user, touched)
 
     def _run_upsert(self, commit_now: bool, start_ts: int | None,
-                    run, deadline_ms: float | None = None) -> dict:
+                    run, deadline_ms: float | None = None,
+                    key=None) -> dict:
         """Txn bookkeeping shared by the RDF and JSON upsert forms;
         `run(txn)` performs query + substitution + buffered mutates and
-        returns (queries_json, uids, applied)."""
-        with self._request("mutate", deadline_ms):
+        returns (queries_json, uids, applied); `key` identifies the
+        upsert (`_request`)."""
+        with self._request("mutate", deadline_ms, key=key):
             created = not start_ts
             txn = self.txn(start_ts) if start_ts else self.new_txn()
             try:
@@ -1010,7 +1156,8 @@ class Alpha:
             return out, uids, applied
 
         return self._run_upsert(commit_now, start_ts, run,
-                                deadline_ms=deadline_ms)
+                                deadline_ms=deadline_ms,
+                                key=(src, commit_now, start_ts))
 
     def upsert_json(self, query: str, cond: str = "",
                     set_json=None, del_json=None, commit_now: bool = True,
@@ -1047,12 +1194,14 @@ class Alpha:
             return out, uids, applied
 
         return self._run_upsert(commit_now, start_ts, run,
-                                deadline_ms=deadline_ms)
+                                deadline_ms=deadline_ms,
+                                key=(query, cond, set_json, del_json,
+                                     commit_now, start_ts))
 
     def commit_or_abort(self, start_ts: int, abort: bool = False,
                         deadline_ms: float | None = None) -> int:
         """reference: Server.CommitOrAbort. Returns commit_ts (0 on abort)."""
-        with self._request("mutate", deadline_ms):
+        with self._request("mutate", deadline_ms, key=(start_ts, abort)):
             txn = self.txn(start_ts)
             if abort:
                 txn.discard()

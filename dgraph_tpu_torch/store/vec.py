@@ -278,6 +278,8 @@ def similar_ranks(store, f, device, device_threshold: int = 512,
     when a mesh is given, else the device top-k, on a tablet of at least
     `device_threshold` rows (or when the knn route EMAs promote that
     route), the host scan otherwise. A device failure raises."""
+    from dgraph_tpu_torch.parallel.mesh import promoted as mesh_promoted
+
     resolved = resolve_query(store, f)
     if resolved is None:
         return EMPTY.copy()
@@ -285,11 +287,10 @@ def similar_ranks(store, f, device, device_threshold: int = 512,
     t = store.vec_tablet(pred)
     n = t.rows
     t0 = time.perf_counter()
-    # while the mesh spans processes only the size chooses it: every
+    # while the mesh spans processes the lead's promotion decides: every
     # rank must take the same route (parallel/mesh.py)
-    if mesh is not None and (n >= device_threshold or (
-            not mesh.spans_processes
-            and costprior.promoted("knn_mesh", "knn_host"))):
+    if mesh is not None and (n >= device_threshold or mesh_promoted(
+            mesh, "knn_mesh", "knn_host")):
         route = "mesh"
         out = _mesh_topk(store, pred, q, k, mesh, (pred, t.dim, k))
     elif n >= device_threshold or costprior.promoted("knn_device",

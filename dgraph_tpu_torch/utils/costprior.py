@@ -415,6 +415,19 @@ def promoted(route: str, baseline: str) -> bool:
     return r is not None and b is not None and r < b
 
 
+# the promotions whose route leads to a mesh program: over a mesh that
+# spans processes the lead decides them once per request (`promotions`,
+# parallel/mesh.py `promoted`)
+MESH_PROMOTIONS = (("mesh", "numpy"), ("feat_mesh", "feat_host"),
+                   ("knn_mesh", "knn_host"))
+
+
+def promotions() -> dict:
+    """This process's answer to each of MESH_PROMOTIONS, by route: what
+    the lead of a mesh across processes grants with a request."""
+    return {route: promoted(route, base) for route, base in MESH_PROMOTIONS}
+
+
 def predict(lane: str, text: str | None = None,
             shape: str | None = None) -> tuple[float, str]:
     return PRIORS.predict(lane, text=text, shape=shape)

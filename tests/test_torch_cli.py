@@ -495,17 +495,15 @@ def test_no_card_process_exits_nonzero(tmp_path):
     (["--device", "cpu", "--mesh-devices", "-1", "--jax-coordinator",
       "127.0.0.1:1"], "--jax-coordinator"),
     (["--device", "cpu", "--jax-coordinator", "127.0.0.1:1"],
-     "--jax-coordinator 127.0.0.1:1"),
-    (["--device", "cpu", "--mesh-devices", "-1", "--jax-coordinator",
-      "127.0.0.1:1", "--max_inflight", "2"], "--max_inflight 2")])
+     "--jax-coordinator 127.0.0.1:1")])
 def test_mesh_flags_refused_naming_item_10(argv, flag, tmp_path,
                                            monkeypatch):
     """A mesh wider than this machine's cards (none here) exits before
     the directory exists, naming the device count; so does a coordinator
     without a rank and a world size (the env pair is unset), naming what
-    is missing, a coordinator without `--mesh-devices`, and a coordinator
-    beside admission control, which sheds per process. A working mesh
-    across processes is `test_torch_multihost.py`'s CLI case."""
+    is missing, and a coordinator without `--mesh-devices`. A working
+    mesh across processes, admission control armed, is
+    `test_torch_multihost.py`'s CLI case."""
     import torch
     if torch.cuda.is_available() and "--jax-coordinator" not in " ".join(
             argv):
@@ -521,8 +519,6 @@ def test_mesh_flags_refused_naming_item_10(argv, flag, tmp_path,
     if "--mesh-devices" in flag:
         want = "all" if flag.endswith("-1") else flag.split()[-1]
         assert f"asks for {want} devices and this machine has 0" in msg
-    elif "--max_inflight" in flag:
-        assert "admission control sheds per process" in msg
     elif "--mesh-devices" in argv:
         assert "without the number of processes" in msg and \
             "JAX_PROCESS_ID" in msg

@@ -550,6 +550,46 @@ def test_r7_accepts_collectives_in_the_mesh_module_only():
     assert [f.line for f in _rules(a)["shard-map-compat"]] == imports
 
 
+def test_r7_flags_the_decision_store_outside_the_mesh_module():
+    """The store of the lead's decisions is reached through `mesh.agree`
+    only: importing or touching `mesh._DECISIONS` elsewhere is flagged
+    at each such line."""
+    src = ("from dgraph_tpu_torch.parallel import mesh\n"
+           "from dgraph_tpu_torch.parallel.mesh import _DECISIONS\n"
+           "mesh._DECISIONS.set('k', b'1')\n"
+           "mesh.agree(m, 'k', 1)\n")
+    a = port_scan("dgraph_tpu_torch/server/fake.py", src)
+    got = _rules(a)["shard-map-compat"]
+    assert [f.line for f in got] == [2, 3]
+    assert all("decision store" in f.msg for f in got)
+    a = port_scan("dgraph_tpu_torch/parallel/mesh.py", src)
+    assert "shard-map-compat" not in _rules(a)
+
+
+def test_store_calls_and_agree_kind_live_in_the_mesh_layer():
+    """The facts list the rendezvous, the decision store and its reads
+    and writes among the collective sites, all in parallel/mesh.py, and
+    the cross-process call kinds are the module's, "agree" among them."""
+    from dgraph_tpu_torch.parallel import mesh
+    facts = _port().facts
+    sites = facts["collective_sites"]
+    calls = {s["call"] for s in sites}
+    assert {"rendezvous", "PrefixStore", "store.set", "store.get"} <= calls
+    assert {s["file"] for s in sites} == {"dgraph_tpu_torch/parallel/mesh.py"}
+    kinds = [x["kind"] for x in facts["cross_call_kinds"]]
+    assert kinds == list(mesh.CROSS_KINDS) and "agree" in kinds
+    assert facts["totals"]["cross_call_kinds"] == len(kinds)
+
+
+def test_runtime_misses_names_an_unknown_cross_call_kind():
+    facts = {"lock_classes": [], "metric_sites": [], "span_sites": [],
+             "governed_caches": [], "kernels": [],
+             "cross_call_kinds": [{"kind": "agree"}]}
+    assert runtime_misses(facts, cross={"agree"}) == []
+    assert runtime_misses(facts, cross={"agree", "broadcast"}) == [
+        "cross-process call kind 'broadcast' not in cross_call_kinds"]
+
+
 def test_r12_exempts_only_the_ports_locks_module():
     src = "import threading\nx = threading.Lock()\n"
     assert "untracked-lock" in _rules(

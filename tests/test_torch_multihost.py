@@ -20,23 +20,30 @@ port>`:
   same program on a one-process 4-shard CPU mesh (which
   `test_torch_parallel.py` holds to the reference);
 * (c) the rules: a fully local mesh inside the group makes no
-  cross-process call, `np.asarray` of a value with other processes'
-  parts raises, a coordinator without a rank raises ValueError, when
-  one rank exits before a collective the other raises within the
-  group's timeout, `query_batch` forms the same kernel groups on every
-  rank whatever one rank's priors say, an Alpha over such a mesh
-  refuses admission control, and a process offers the card its device
-  names;
+  cross-process call, nor does an Alpha over it or without a mesh,
+  `np.asarray` of a value with other processes' parts raises, a
+  coordinator without a rank raises ValueError, when one rank exits
+  before a collective the other raises within the group's timeout, a
+  follower that cannot read the lead's decision raises naming its key,
+  and a process offers the card its device names;
+* (e) the lead decides, every rank follows (`parallel/mesh.agree`): an
+  Alpha on each rank with admission armed sheds and serves the same
+  requests whichever rank's token is held, with the lead's Retry-After,
+  forecast sheds and displacements are the lead's alone, `query_batch`
+  forms its lane-kernel groups from rank 0's priors, a learned route
+  promotion of rank 0 sends a request to the mesh on both ranks, and
+  every served answer is the reference's two-process answer;
 * (d) two `python -m dgraph_tpu_torch alpha --device cpu
-  --jax-coordinator ... --mesh-devices -1` processes serve the same
-  alter, commit and (concurrently) query, answer as a plain CPU Alpha
-  does, and exit 0 on SIGINT.
+  --jax-coordinator ... --mesh-devices -1 --max_inflight 2` processes
+  serve the same alter, commit and (concurrently) query, answer as a
+  plain CPU Alpha does, and exit 0 on SIGINT.
 
 Every child is waited for with a timeout and killed past it, and the
 process group's own timeout (DGRAPH_TPU_DIST_TIMEOUT_S) bounds every
 rendezvous and collective, so no case can hang.
 """
 
+import datetime
 import json
 import os
 import signal
@@ -131,6 +138,9 @@ QUERIES = (
     '{ q(func: eq(name, "p7")) { name friend { name friend { name } } } }',
     '{ q(func: uid(0x1)) @recurse(depth: 3, loop: false) { uid friend } }',
     '{ q(func: has(friend), first: 5) { name count(friend) } }',
+    # a level of 100 rows: under a device_threshold of 10**9 only a
+    # learned promotion sends it to the mesh
+    '{ q(func: has(friend), first: 100) { name friend { name } } }',
 )
 
 # test_multihost.WORKER's store, built the same way by either package
@@ -169,9 +179,8 @@ report["mesh_routes"] = {k: v for k, v in meshe.routes.expansions.items()
                          if v}
 
 # query_batch over the mesh: a recurse group smaller than MIN_BATCH whose
-# shape has, on rank 0 only, a prior above KERNEL_WORTH_US goes to the
-# mesh on both ranks (a lane kernel on one rank would leave the other
-# waiting at a collective)
+# shape has, on rank 0 only, a prior above KERNEL_WORTH_US is a lane
+# kernel on both ranks (the lead's answer, agreed once for the batch)
 from dgraph_tpu_torch.engine import batch as B
 from dgraph_tpu_torch.utils import costprior
 from dgraph_tpu_torch.utils.metrics import METRICS
@@ -184,14 +193,141 @@ if rank == 0:
 report["prior_worth"] = B._kernel_worth("recurse:friend~d3", len(SMALL))
 launches = METRICS.get("kernel_group_launches_total", family="recurse")
 M.PROGRAM_CALLS.clear()
+c0 = dict(M.CROSS_CALLS)
 got = B.query_batch(store, SMALL, device="cpu", device_threshold=0,
                     mesh=mesh)
+report["batch_agree"] = M.CROSS_CALLS.get("agree", 0) - c0.get("agree", 0)
 report["batch_answers"] = [json.dumps(g, sort_keys=True) for g in got]
 report["batch_host"] = [json.dumps(host.query(q), sort_keys=True)
                         for q in SMALL]
 report["batch_kernel_groups"] = METRICS.get(
     "kernel_group_launches_total", family="recurse") - launches
 report["batch_programs"] = dict(M.PROGRAM_CALLS)
+
+# an Alpha over the mesh: the lead (rank 0) decides, every rank follows
+import threading, time
+from dgraph_tpu_torch.server.admission import ServerOverloaded
+from dgraph_tpu_torch.server.api import Alpha
+from dgraph_tpu_torch.utils import timeseries
+alpha = Alpha(base=store, device="cpu", device_threshold=0, mesh=mesh)
+agree0 = M.CROSS_CALLS.get("agree", 0)
+asked = 0
+
+def ask(q):
+    global asked
+    asked += 1
+    try:
+        return {"served": alpha.query_raw(q).decode()}
+    except ServerOverloaded as e:
+        return {"shed": e.reason, "retry_after_s": e.retry_after_s}
+
+def hold():
+    # a local request holds this rank's read token until released
+    got, done = threading.Event(), threading.Event()
+    def run():
+        with alpha.admission.admit("read"):
+            got.set()
+            done.wait(60)
+    t = threading.Thread(target=run)
+    t.start()
+    assert got.wait(60)
+    def release():
+        done.set()
+        t.join(60)
+    return release
+
+def queued(n):
+    lane = alpha.admission.lanes["read"]
+    limit = time.monotonic() + 60
+    while lane.status()["queued"] != n:
+        assert time.monotonic() < limit, lane.status()
+        time.sleep(0.01)
+
+def read_lane():
+    st = alpha.admission.status()["lanes"]["read"]
+    return {k: st[k] for k in ("admitted_total", "shed_total")}
+
+# (i) admission with unequal loads: one token, no queue
+alpha.attach_admission(1, 0)
+adm = {}
+for step, holder in (("held_0", 0), ("free", None), ("held_1", 1)):
+    release = hold() if rank == holder else None
+    adm[step] = ask(QUERIES[0])
+    if release is not None:
+        release()
+adm["lane"] = read_lane()
+report["admission"] = adm
+
+# (ii) forecast shedding: a queue, and a forecast that always says shed,
+# armed on one rank at a time while that rank's token is held
+class AlwaysShed:
+    def should_shed(self, lane, cost_us, max_inflight):
+        return True
+
+alpha.attach_admission(1, 1)
+fc = {}
+f0 = METRICS.get("forecast_sheds_total", lane="read")
+for step, armed in (("lead", 0), ("follower", 1)):
+    release = None
+    if rank == armed:
+        timeseries._FORECAST = AlwaysShed()
+        release = hold()
+    fc[step] = ask(QUERIES[1])
+    if release is not None:
+        release()
+        timeseries._FORECAST = None
+fc["forecast_sheds"] = METRICS.get("forecast_sheds_total", lane="read") - f0
+report["forecast"] = fc
+
+# (iii) a displaced waiter: on the lead an expensive request waits in the
+# one queue slot, and a cheaper arrival displaces it
+alpha.attach_admission(1, 1)
+EXPENSIVE, CHEAP = QUERIES[0], QUERIES[2]
+dis = {}
+if rank == 0:
+    alpha._predict = lambda lane, text: (
+        (1e9 if text == EXPENSIVE else 10.0), "test")
+    release = hold()
+    ta = threading.Thread(target=lambda: dis.update(a=ask(EXPENSIVE)))
+    ta.start()
+    queued(1)
+    tb = threading.Thread(target=lambda: dis.update(b=ask(CHEAP)))
+    tb.start()
+    ta.join(60)
+    queued(1)
+    release()
+    tb.join(60)
+    del alpha._predict
+else:
+    dis["a"] = ask(EXPENSIVE)
+    dis["b"] = ask(CHEAP)
+dis["lane"] = read_lane()
+report["displaced"] = dis
+
+# (iv) route promotion: under a device_threshold of 10**9 rank 0's route
+# EMAs say the mesh beats the host walk and rank 1's say the opposite
+alpha.admission = None
+alpha.device_threshold = 10**9
+fast, slow = (("mesh", "numpy") if rank == 0 else ("numpy", "mesh"))
+for _ in range(64):
+    costprior.PRIORS.learn_route(fast, 1.0)
+    costprior.PRIORS.learn_route(slow, 1000.0)
+report["own_promotion"] = costprior.promoted("mesh", "numpy")
+
+def mesh_routes():
+    return {r: METRICS.get("mesh_route_total", route=r)
+            for r in ("mesh", "numpy", "empty")}
+
+r0 = mesh_routes()
+report["promoted_answer"] = ask(QUERIES[3])
+report["promoted_routes"] = {k: v - r0[k] for k, v in mesh_routes().items()}
+# outside a granted request no rank's own EMAs choose the mesh
+r0 = mesh_routes()
+plain = Engine(store, device="cpu", device_threshold=10**9, mesh=mesh)
+report["ungranted_answer"] = plain.query_bytes(QUERIES[3]).decode()
+report["ungranted_routes"] = {k: v - r0[k] for k, v in mesh_routes().items()}
+report["alpha_requests"] = asked
+report["alpha_agree"] = M.CROSS_CALLS.get("agree", 0) - agree0
 
 # the sharded ring: frontiers past ring_threshold rotate their chunks,
 # and the stitch reads every shard's edges through one gather per column
@@ -228,6 +364,13 @@ loce = Engine(worker_store(StoreBuilder, parse_schema), device="cpu",
               device_threshold=0, mesh=local)
 report["local_answers"] = [loce.query_bytes(q).decode() for q in QUERIES]
 report["local_programs"] = dict(M.PROGRAM_CALLS)
+# and so does an Alpha over it, with admission armed
+loca = Alpha(base=worker_store(StoreBuilder, parse_schema), device="cpu",
+             device_threshold=0, mesh=local)
+loca.attach_admission(2, 2)
+report["local_alpha_answers"] = [loca.query_raw(q).decode()
+                                 for q in QUERIES]
+loca.query_batch(SMALL)
 report["local_cross_calls"] = {k: v - before.get(k, 0)
                                for k, v in M.CROSS_CALLS.items()
                                if v != before.get(k, 0)}
@@ -558,24 +701,106 @@ def test_program_across_processes_equals_one_process(
 
 def test_query_batch_forms_the_same_groups_on_every_rank(query_runs):
     """A group below MIN_BATCH that rank 0's prior alone calls worth a
-    lane kernel goes to the mesh on both ranks: the count rule alone
-    forms the groups while the mesh spans processes."""
+    lane kernel is a lane kernel on both ranks: the lead's answer, agreed
+    once for the batch, forms the groups while the mesh spans
+    processes."""
     port, _ref = query_runs
     assert port[0]["prior_worth"] and not port[1]["prior_worth"]
     for r in port:
         assert r["batch_answers"] == r["batch_host"]
-        assert r["batch_kernel_groups"] == 0
-        assert r["batch_programs"], r["batch_programs"]
+        assert r["batch_kernel_groups"] >= 1
+        assert r["batch_programs"] == {}, r["batch_programs"]
+        assert r["batch_agree"] == 1
     assert port[0]["batch_answers"] == port[1]["batch_answers"]
 
 
 def test_fully_local_mesh_in_a_group_makes_no_cross_process_call(
         query_runs):
+    """Neither its engine, nor an Alpha over it with admission armed,
+    nor a batch: no collective and no agreement."""
     port, _ref = query_runs
     for r in port:
         assert r["local_cross_calls"] == {}
         assert r["local_programs"].get("matrix_level")
         assert r["local_answers"] == r["host_answers"]
+        assert r["local_alpha_answers"] == r["host_answers"]
+
+
+def _same_on_both(port, key, step):
+    a, b = (r[key][step] for r in port)
+    assert a == b, (key, step, a, b)
+    return a
+
+
+@pytest.mark.parametrize("step,holder", [("held_0", 0), ("free", None),
+                                         ("held_1", 1)])
+def test_admission_follows_the_lead_whichever_lane_is_held(
+        step, holder, query_runs):
+    """One token, no queue: with rank 0's token held the request is shed
+    on both ranks with the lead's Retry-After; free, it is served on
+    both; with rank 1's token held rank 1 serves it anyway. Every served
+    answer is the reference's two-process answer."""
+    port, ref = query_runs
+    got = _same_on_both(port, "admission", step)
+    if holder == 0:
+        assert got["shed"] == "queue_full" and got["retry_after_s"] > 0
+    else:
+        assert got == {"served": ref[0][0]}
+    for r in port:
+        # the local holds and the lead's verdicts, counted alike
+        assert r["admission"]["lane"] == {"admitted_total": 3,
+                                          "shed_total": 1}
+
+
+def test_forecast_shedding_is_decided_by_the_lead_alone(query_runs):
+    """A forecast that says shed sheds on both ranks when the lead's says
+    so (both count a forecast shed), and nowhere when only a follower's
+    says so."""
+    port, ref = query_runs
+    lead = _same_on_both(port, "forecast", "lead")
+    assert lead["shed"] == "forecast" and lead["retry_after_s"] > 0
+    assert _same_on_both(port, "forecast", "follower") == {
+        "served": ref[0][1]}
+    for r in port:
+        assert r["forecast"]["forecast_sheds"] == 1
+
+
+def test_displaced_waiter_is_shed_on_both_ranks(query_runs):
+    """The lead's queued expensive request, displaced by a cheaper one,
+    is shed on both ranks with the lead's hint; the cheaper one is
+    served on both."""
+    port, ref = query_runs
+    a = _same_on_both(port, "displaced", "a")
+    assert a["shed"] == "displaced" and a["retry_after_s"] > 0
+    assert _same_on_both(port, "displaced", "b") == {"served": ref[0][2]}
+    assert port[0]["displaced"]["lane"] == {"admitted_total": 2,
+                                            "shed_total": 1}
+    assert port[1]["displaced"]["lane"] == {"admitted_total": 1,
+                                            "shed_total": 1}
+
+
+def test_route_promotion_follows_rank_0s_priors(query_runs):
+    """Under a device_threshold no frontier reaches, rank 0's route EMAs
+    promote the mesh and rank 1's do not: the request takes the mesh on
+    both ranks, with equal mesh_route_total counts. Outside a granted
+    request neither rank's own EMAs choose the mesh."""
+    port, ref = query_runs
+    assert port[0]["own_promotion"] and not port[1]["own_promotion"]
+    routes = [r["promoted_routes"] for r in port]
+    assert routes[0] == routes[1] and routes[0]["mesh"] >= 1, routes
+    assert _same_on_both(port, "promoted_answer", "served") == ref[0][3]
+    for r in port:
+        assert r["ungranted_routes"]["mesh"] == 0
+        assert r["ungranted_routes"]["numpy"] >= 1
+        assert r["ungranted_answer"] == ref[0][3]
+
+
+def test_each_alpha_request_agrees_once(query_runs):
+    """One store round trip per request on each rank, whatever the
+    verdict."""
+    port, _ref = query_runs
+    for r in port:
+        assert r["alpha_agree"] == r["alpha_requests"] == 8
 
 
 def test_asarray_of_foreign_parts_raises(query_runs):
@@ -598,16 +823,67 @@ def test_coordinator_without_rank_raises(monkeypatch):
     assert not pmesh.init_distributed()     # no coordinator: no group
 
 
-def test_alpha_over_a_mesh_across_processes_refuses_admission():
-    """Admission sheds per process, so a request shed on one rank and
-    served on another would put the ranks out of step: refused."""
+def test_follower_without_a_decision_raises_naming_the_key(monkeypatch):
+    """A follower that cannot read the lead's decision raises within the
+    store's timeout, naming the key; it never decides for itself."""
+    store = torch.distributed.TCPStore(
+        "127.0.0.1", 0, 1, True, timeout=datetime.timedelta(seconds=1),
+        wait_for_workers=False)
+    monkeypatch.setattr(pmesh, "_DECISIONS", store)
+    lead = pmesh.Mesh(["cpu"] * 4, ranks=(0, 0, 1, 1), rank=0)
+    follower = pmesh.Mesh(["cpu"] * 4, ranks=(0, 0, 1, 1), rank=1)
+    assert lead.is_lead and not follower.is_lead
+    before = pmesh.CROSS_CALLS.get("agree", 0)
+    assert pmesh.agree(lead, "request/k/0", {"turn": 0}) == {"turn": 0}
+    assert pmesh.agree(follower, "request/k/0") == {"turn": 0}
+    assert pmesh.CROSS_CALLS["agree"] == before + 2
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="under key 'request/k/1'"):
+        pmesh.agree(follower, "request/k/1")
+    assert time.monotonic() - t0 < 10
+    assert pmesh.CROSS_CALLS["agree"] == before + 2
+
+
+def test_one_process_alphas_make_no_agree_call():
+    """An Alpha without a mesh and one over a one-process mesh serve with
+    admission armed and never agree."""
     from dgraph_tpu_torch.server.api import Alpha
-    spanning = pmesh.Mesh(["cpu"] * 4, ranks=(0, 0, 1, 1), rank=0)
-    assert spanning.spans_processes
-    with pytest.raises(ValueError, match="sheds per process"):
-        Alpha(device="cpu", mesh=spanning).attach_admission(2, 2)
-    local = pmesh.make_mesh(2, device="cpu")
-    assert Alpha(device="cpu", mesh=local).attach_admission(2, 2)
+    from dgraph_tpu_torch.store.schema import parse_schema
+    from dgraph_tpu_torch.store.store import StoreBuilder
+    ns = {"np": np}
+    exec(STORE_SRC, ns)
+    before = dict(pmesh.CROSS_CALLS)
+    for mesh in (None, pmesh.make_mesh(2, device="cpu")):
+        a = Alpha(base=ns["worker_store"](StoreBuilder, parse_schema),
+                  device="cpu", device_threshold=0, mesh=mesh)
+        a.attach_admission(2, 2)
+        assert a.query(QUERIES[0])["q"]
+    assert pmesh.CROSS_CALLS == before
+
+
+def test_turns_run_in_grant_order():
+    """A later turn waits for the earlier one to end; a turn whose
+    predecessor never comes raises within its timeout."""
+    from dgraph_tpu_torch.server.api import _Turns
+    turns = _Turns()
+    assert [turns.grant() for _ in range(3)] == [0, 1, 2]
+    ran = []
+
+    def second():
+        with turns.turn(1, 30):
+            ran.append(1)
+
+    t = threading.Thread(target=second)
+    t.start()
+    time.sleep(0.2)
+    assert ran == []
+    with turns.turn(0, 30):
+        ran.append(0)
+    t.join(30)
+    assert ran == [0, 1]
+    with pytest.raises(RuntimeError, match="turn 2 has not ended"):
+        with turns.turn(4, 0.2):
+            pass
 
 
 def test_local_devices_keep_the_card_a_device_names(monkeypatch):
@@ -685,6 +961,7 @@ def test_two_alpha_processes_serve_one_mesh(tmp_path):
                      "--http_port", str(hports[r]),
                      "--grpc_port", str(_free_port()),
                      "--jax-coordinator", coord, "--mesh-devices", "-1",
+                     "--max_inflight", "2", "--queue_depth", "2",
                      "--store", "device_threshold=0", "--ts_interval_s", "0"],
                     cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
                     env=_env(JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(r),
@@ -724,18 +1001,21 @@ def test_two_alpha_processes_serve_one_mesh(tmp_path):
         assert f"multi-process runtime: process {r}/2" in t, t[-3000:]
         assert "device mesh across 2 processes over gloo" in t, t[-3000:]
         assert f"holds shards [{2 * r}, {2 * r + 1}]" in t, t[-3000:]
+        assert "admission control armed: max_inflight=2" in t, t[-3000:]
         assert "draining maintenance" in t
 
 
 def test_collective_sites_are_the_mesh_modules_only():
     """The facts inventory lists every torch.distributed call, and every
-    one lies in parallel/mesh.py: the group, the mesh's shape exchange
-    and the cross-process gathers (graftlint R7 keeps them there)."""
+    one lies in parallel/mesh.py: the group, the mesh's shape exchange,
+    the cross-process gathers and the store of the lead's decisions
+    (graftlint R7 keeps them there)."""
     from dgraph_tpu_torch.analysis import run
     sites = run().facts["collective_sites"]
     assert {s["file"] for s in sites} == {"dgraph_tpu_torch/parallel/mesh.py"}
     assert {"init_process_group", "new_group", "all_gather_object",
-            "all_gather", "destroy_process_group"} <= {s["call"]
-                                                       for s in sites}
+            "all_gather", "destroy_process_group", "rendezvous",
+            "PrefixStore", "store.set", "store.get"} <= {s["call"]
+                                                         for s in sites}
     assert not {"all_reduce", "reduce_scatter", "broadcast"} & {
         s["call"] for s in sites}
