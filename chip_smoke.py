@@ -1,6 +1,10 @@
 """Drive the PyTorch port's serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --xmesh-ab OTHER [--sf 1.0] [--out FILE]
+
+The second form runs only phase 20 from two checkouts on one card, in
+turns (`xmesh_ab`).
 
 Phases, one printed line each; any failure raises and exits non-zero:
 
@@ -7537,6 +7541,10 @@ XMESH_SLAB_SEED = 29
 XMESH_ADMIT_TEMPLATE = "IC2"    # (e1) the request shed and served
 XMESH_PROMOTE_TEMPLATE = "config3"   # (e3) 3 filtered hops from a city
 XMESH_E_LIMIT_S = 15.0          # (e) the most it may add to phase 20
+XMESH_F_LIMIT_S = 10.0          # (f) the most it may add to phase 20
+XMESH_F_REQUEST_S = 5.0         # (f1), (f2) the longest a request may take
+XMESH_F_BUDGET_MS = 1e-3        # (f3) rank 1's budget: out at once
+XMESH_F_ROUNDS = 200            # (f4) status rounds timed back to back
 XMESH_MESH_ROUTES = ("mesh", "numpy", "device", "empty", "fused", "chain")
 XMESH_CLI_INFLIGHT = 2          # (c) --max_inflight and --queue_depth
 
@@ -7587,23 +7595,47 @@ for k in COMBINE:
 knn0 = cs.route_set("knn_route_total")
 feat0 = cs.route_set("feat_route_total")
 r0 = M.reshard_count()
-per, seconds = {}, {}
+per, seconds, progs = {}, {}, {}
+rounds = []             # (f4) seconds of each status round, this rank
+plain_round = M._round
+
+def timed_round(*args, **kw):
+    t1 = time.perf_counter()
+    try:
+        return plain_round(*args, **kw)
+    finally:
+        rounds.append(time.perf_counter() - t1)
+
+M._round = timed_round
+status0 = M.CROSS_CALLS.get("status", 0)
 with tape.armed(), M.reshard_guard():
     for part, qs in parts.items():
         t0 = time.perf_counter()
         eng = Engine(store, device=device, device_threshold=0, mesh=mesh)
         for k, q in qs.items():
             t1 = time.perf_counter()
+            p0 = dict(M.PROGRAM_CALLS)
             got = eng.query_bytes(q).decode()
             per[f"{part}:{k}"] = (time.perf_counter() - t1) * 1e3
+            progs[f"{part}:{k}"] = {n: c - p0.get(n, 0) for n, c in
+                                    M.PROGRAM_CALLS.items()
+                                    if c != p0.get(n, 0)}
             exp = want["b"] if part == "b" else want[part][k]
             if got != exp:
                 raise AssertionError(f"phase 20 ({part}) {k}: rank {rank}'s "
                                      f"answer differs from phase 19's")
         cs.mesh_routes_ok(eng, f"({part}) across processes")
         seconds[part] = time.perf_counter() - t0
+M._round = plain_round
 calls = dict(M.PROGRAM_CALLS)
 launches = dict(COMBINE)
+us = sorted(x * 1e6 for x in rounds)
+status = M.CROSS_CALLS.get("status", 0) - status0
+out["f_rounds"] = {
+    "status_rounds": status, "program_calls": sum(calls.values()),
+    "rounds_per_program_call": status / max(sum(calls.values()), 1),
+    "round_us_p50": us[len(us) // 2] if us else None,
+    "round_us_max": us[-1] if us else None}
 knn = {r: v - knn0[r] for r, v in cs.route_set("knn_route_total").items()}
 feat = {r: v - feat0[r] for r, v in cs.route_set("feat_route_total").items()}
 on_card = torch.device(device).type == "cuda"
@@ -7753,6 +7785,96 @@ if "e" in spec["parts"]:
         "agree_us_per_request": sum(us) / requests,
         "agree_us_p50": us[len(us) // 2], "agree_us_max": us[-1],
         "cross_calls_agree": M.CROSS_CALLS.get("agree", 0)}
+if "f" in spec["parts"]:
+    # (f) failures every rank sees, on (e)'s Alpha at threshold 0: rank 1
+    # alone fails, and both ranks take the same path
+    from dgraph_tpu_torch.utils import memgov
+    t_f = time.perf_counter()
+    a.device_threshold = 0
+    tries = [0]         # launches at the armed site, this rank
+
+    def arm(site, n):
+        left = [n if rank == 1 else 0]
+        tries[0] = 0
+
+        def hook(at):
+            if at != site:
+                return False
+            tries[0] += 1
+            if left[0]:
+                left[0] -= 1
+                return True
+            return False
+        memgov.set_alloc_fault(hook)
+
+    def timed(run):
+        t1 = time.perf_counter()
+        try:
+            got = {"served": run()}
+        except Exception as err:
+            agreed = M.failure_of(err)
+            got = {"raised": type(err).__name__,
+                   "stage": getattr(err, "stage", None),
+                   "agreed": None if agreed is None else agreed.kind,
+                   "message": str(err)[:300]}
+        memgov.set_alloc_fault(None)
+        got["s"] = time.perf_counter() - t1
+        return got
+
+    def first_with(part, program):
+        return next(k for k in sorted(parts[part])
+                    if progs[f"{part}:{k}"].get(program))
+
+    def served_again(k):
+        got = timed(lambda: a.query_raw(queries[k]).decode())
+        if got.get("served") != want["a"][k]:
+            raise AssertionError(f"phase 20 (f): rank {rank} did not serve "
+                                 f"{k} as phase 19 did after a failure")
+        return got["s"]
+
+    def oom(site):
+        return METRICS.get("oom_events_total", site=site)
+
+    # (f1) one allocation failure on rank 1 at mesh.matrix_hop
+    k1 = first_with("a", "matrix_hop")
+    e0 = oom("mesh.matrix_hop")
+    arm("mesh.matrix_hop", 1)
+    f1 = timed(lambda: a.query_raw(queries[k1]).decode())
+    f1.update(template=k1, launches=tries[0],
+              plain_launches=progs[f"a:{k1}"]["matrix_hop"],
+              oom_events=oom("mesh.matrix_hop") - e0)
+    if f1.get("served") != want["a"][k1]:
+        raise AssertionError(f"phase 20 (f1) {k1}: rank {rank} "
+                             f"{str(f1)[:400]}")
+    f1["served"] = "equal to phase 19"
+    # (f2) two in a row on rank 1 at feat.agg over feat_mesh
+    k2 = first_with("d", "feat_mesh")
+    for k in COMBINE:
+        COMBINE[k] = 0
+    arm("feat.agg", 2)
+    f2 = timed(lambda: a.query_raw(parts["d"][k2]).decode())
+    f2.update(template=k2, launches=tries[0],
+              segment_combine_launches=COMBINE.get("segment_combine", 0),
+              next_s=served_again(k1))
+    # (f3) a budget that runs out on rank 1 only
+    f3 = timed(lambda: a.query_raw(
+        queries[k1], deadline_ms=cs.XMESH_F_BUDGET_MS if rank == 1
+        else None).decode())
+    f3.update(template=k1, next_s=served_again(k1))
+    # (f4) status rounds back to back, no work between them: what a
+    # round costs when no rank waits for another
+    b2b = []
+    with M.lockstep(mesh, "f4"):
+        frame = M._FRAME.get()
+        for _ in range(cs.XMESH_F_ROUNDS):
+            t1 = time.perf_counter()
+            M._round(frame, "f4")
+            b2b.append((time.perf_counter() - t1) * 1e6)
+    b2b.sort()
+    out["f_fail"] = {"seconds": time.perf_counter() - t_f, "f1": f1,
+                     "f2": f2, "f3": f3,
+                     "back_to_back_us_p50": b2b[len(b2b) // 2],
+                     "back_to_back_us_p90": b2b[len(b2b) * 9 // 10]}
 if "slabs" in spec["parts"]:
     # (b) this rank materialises only its own shards' slabs of
     # has_creator; assemble_sharded_rel agrees the rest with one gather
@@ -7810,6 +7932,9 @@ if "slabs" in spec["parts"]:
                       "local_bytes": int(sum(p.nbytes + i.nbytes for p, i in
                                              local.values()))}
 out["seconds_total"] = time.perf_counter() - t_start
+# (f5) what the lead's decisions leave behind at the end of phase 20
+out["f_store"] = {"store_keys": M._DECISIONS.num_keys(),
+                  "occurrences": len(M._OCCURRENCES)}
 M.shutdown_distributed()
 print(json.dumps(out), flush=True)
 """
@@ -7898,6 +8023,45 @@ def xmesh_follow(docs: list, device) -> dict:
         raise AssertionError(f"phase 20 (e): {seconds:.2f} s, past "
                              f"{XMESH_E_LIMIT_S} s")
     return {"added_s": seconds, "ranks": es}
+
+
+def xmesh_failures(docs: list) -> dict:
+    """Phase 20 (f) across the ranks: (f1) one allocation failure on rank
+    1 at mesh.matrix_hop, retried by both (one launch more than phase 20
+    (a)'s on each rank, the event counted on rank 1 alone, each request
+    under XMESH_F_REQUEST_S); (f2) two in a row at feat.agg raise the
+    same class on both within it; (f3) a budget out on rank 1 alone ends
+    the request with DeadlineExceeded naming the same stage on both,
+    within the budget plus 2 s; (f)'s seconds within XMESH_F_LIMIT_S;
+    (f4) the status rounds per program call and a round's µs on the lead
+    and on the follower, while serving and back to back; (f5) the
+    decision store's keys and occurrence entries at the end of phase
+    20."""
+    fs = [d["f_fail"] for d in docs]
+    f1 = [f["f1"] for f in fs]
+    if [x["oom_events"] for x in f1] != [0, 1] or any(
+            x["launches"] != x["plain_launches"] + 1
+            or x["s"] > XMESH_F_REQUEST_S for x in f1):
+        raise AssertionError(f"phase 20 (f1): {f1}")
+    f2 = [f["f2"] for f in fs]
+    if any(x.get("raised") != "AllocFault" or x["agreed"] != "alloc"
+           or x["s"] > XMESH_F_REQUEST_S for x in f2):
+        raise AssertionError(f"phase 20 (f2): {f2}")
+    f3 = [f["f3"] for f in fs]
+    if any(x.get("raised") != "DeadlineExceeded" or not x["stage"]
+           or x["s"] > XMESH_F_BUDGET_MS / 1e3 + 2.0 for x in f3) or \
+            f3[0]["stage"] != f3[1]["stage"]:
+        raise AssertionError(f"phase 20 (f3): {f3}")
+    seconds = max(f["seconds"] for f in fs)
+    if seconds > XMESH_F_LIMIT_S:
+        raise AssertionError(f"phase 20 (f): {seconds:.2f} s, past "
+                             f"{XMESH_F_LIMIT_S} s")
+    return {"added_s": seconds, "ranks": fs,
+            "f4_rounds": [{**d["f_rounds"], **{
+                k: d["f_fail"][k] for k in ("back_to_back_us_p50",
+                                            "back_to_back_us_p90")}}
+                for d in docs],
+            "f5_store": [d["f_store"] for d in docs]}
 
 
 def xmesh_program_rows(docs: list, rows19: dict) -> dict:
@@ -8047,10 +8211,12 @@ def phase_mesh_processes(device, answers: dict, rows19: dict,
     GraphRAG templates at device_threshold 0, every answer byte-equal to
     phase 19's on the single-process 4-shard mesh, then a matrix_hop
     over has_creator slabs each rank alone holds (assemble_sharded_rel),
-    its edges equal to the CSR walk, and (e) an Alpha on each rank
+    its edges equal to the CSR walk, (e) an Alpha on each rank
     whose admission, lane groups and route promotions are the lead's
-    (`xmesh_follow`); (c) the CLI pair, admission armed; (d) NCCL, one
-    rank per card, where there are two cards."""
+    (`xmesh_follow`), and (f) failures on rank 1 alone that both ranks
+    retry or raise together (`xmesh_failures`); (c) the CLI pair,
+    admission armed; (d) NCCL, one rank per card, where there are two
+    cards."""
     import shutil
     import tempfile
 
@@ -8062,10 +8228,11 @@ def phase_mesh_processes(device, answers: dict, rows19: dict,
             json.dump(answers, f)
         t0 = time.perf_counter()
         docs = xmesh_children(device, path, tmp,
-                              ("a", "b", "d", "e", "slabs"), sf=sf,
+                              ("a", "b", "d", "e", "f", "slabs"), sf=sf,
                               ring_threshold=ring_threshold)
         out["a_b_children_s"] = time.perf_counter() - t0
         out["e_follow"] = xmesh_follow(docs, device)
+        out["f_fail"] = xmesh_failures(docs)
         for d in docs:
             if torch.device(device).type == "cuda" and \
                     d["segment_combine_launches"] < 1:
@@ -8203,6 +8370,115 @@ def check_mesh_routes(rows: dict) -> None:
         "launches")]
     if missing:
         raise AssertionError(f"phase 19: programs never launched {missing}")
+
+
+def _load_smoke(tree: str, name: str):
+    """The `chip_smoke.py` of checkout `tree`, as module `name`."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(tree, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _xmesh_answers(device: str, sf: float, ring) -> dict:
+    """Phase 19's answers at `sf`: its (a), (b) and (d) parts on this
+    checkout's one-process mesh."""
+    from dgraph_tpu_torch.engine import Engine
+    from dgraph_tpu_torch.engine.execute import Executor
+    from dgraph_tpu_torch.models import ldbc
+
+    mesh, tape = card_mesh(device), ProgramTape(device)
+    built = build_ldbc(sf)
+    g = built["g"]
+    queries = dict(ldbc.ic_templates(g))
+    queries["config3"] = ldbc.config3_query(g)
+    host = Engine(built["store"], device="cpu", device_threshold=HOST_ONLY)
+    with fusion(False):
+        built["ldbc_bytes"] = {k: host.query_bytes(q)
+                               for k, q in queries.items()}
+    answers: dict = {}
+    if ring:
+        Executor.ring_threshold = ring
+    try:
+        with tape.armed():
+            phase_mesh_ldbc(device, built, mesh, tape, answers=answers)
+            store = build_graphrag_store(g)[0]
+            phase_mesh_graphrag(device, g, store, mesh, tape,
+                                answers=answers)
+    finally:
+        Executor.ring_threshold = 1 << 17
+    return answers
+
+
+def xmesh_ab(argv) -> int:
+    """Phase 20 from two checkouts on one card, in turns: builds phase
+    19's answers once with this checkout (its one-process 4-shard mesh
+    over LDBC SNB at `--sf` with the GraphRAG embeddings), then runs
+    phase 20's two ranks (`xmesh_children`) from `OTHER`'s
+    `chip_smoke.py` and from this one's, in the order other, this, this,
+    other. Each run serves parts (a), (b), (d), (e) and the slab hop,
+    plus (f) where its checkout has it, and must give phase 19's
+    answers. `OTHER` is a checkout of another revision (`git archive`
+    of it, unpacked). Prints per run each rank's seconds per part, each
+    mesh program's CUDA-event ms per call (the wait in its scope's
+    rounds included) and (f)'s figures; writes all of it to `--out`
+    when given. `--device cpu` rehearses it on the CPU (its times mean
+    nothing)."""
+    import argparse
+    import tempfile
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --xmesh-ab")
+    ap.add_argument("other", help="a checkout of the revision to compare "
+                                  "with")
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.device == "cpu":
+        torch.cuda.synchronize = lambda *a, **k: None
+        smi = "cpu"
+    else:
+        smi = phase_device()
+    # the CPU rehearsal's sf 0.02 holds too few messages for the ring's
+    # threshold: lower it as the rehearsal of the whole script does
+    ring = 2000 if args.sf < 0.05 else None
+    t0 = time.perf_counter()
+    answers = _xmesh_answers(args.device, args.sf, ring)
+    gc.collect()
+    if args.device != "cpu":
+        torch.cuda.empty_cache()
+    print(f"phase 19 answers: {time.perf_counter() - t0:.1f} s", flush=True)
+    tmp = tempfile.mkdtemp(prefix="xmesh_ab_")
+    path = os.path.join(tmp, "answers.json")
+    with open(path, "w") as f:
+        json.dump(answers, f)
+    trees = {"other": _load_smoke(os.path.abspath(args.other),
+                                  "chip_smoke_other"),
+             "this": sys.modules[__name__]}
+    runs = []
+    for name in ("other", "this", "this", "other"):
+        mod = trees[name]
+        failures = hasattr(mod, "xmesh_failures")
+        parts = ("a", "b", "d", "e", "slabs") + (("f",) if failures else ())
+        t0 = time.perf_counter()
+        docs = mod.xmesh_children(args.device, path, tmp, parts, sf=args.sf,
+                                  ring_threshold=ring)
+        run = {"tree": name, "seconds": time.perf_counter() - t0,
+               "rank_seconds": [d["seconds"] for d in docs],
+               "programs": {n: row["ms_per_call"] for n, row in
+                            mod.xmesh_program_rows(docs, {}).items()},
+               "cross_calls": [d["cross_calls"] for d in docs]}
+        if failures:
+            run["f"] = mod.xmesh_failures(docs)
+        runs.append(run)
+        print(json.dumps(run, default=str), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"nvidia_smi": smi, "sf": args.sf, "runs": runs}, f,
+                      default=str, indent=1)
+    return 0
 
 
 def main() -> None:
@@ -8434,7 +8710,11 @@ def main() -> None:
                  "@msgpass through feat_mesh across two processes, per "
                  "shard of each rank (phase 20 (a))":
                      sum(r["segment_combine_launches"]
-                         for r in xmesh["ranks"])}}
+                         for r in xmesh["ranks"]),
+                 "@msgpass through feat_mesh across two processes, two "
+                 "injected failures on rank 1 (phase 20 (f2))":
+                     sum(r["f2"]["segment_combine_launches"]
+                         for r in xmesh["f_fail"]["ranks"])}}
     paths["bucket_hop"]["Alpha.query_batch, a lane group only rank 0's "
                         "prior calls worth, on each of two ranks (phase "
                         "20 (e2))"] = sum(
@@ -8482,4 +8762,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--xmesh-ab"]:
+        sys.exit(xmesh_ab(sys.argv[2:]))
     main()

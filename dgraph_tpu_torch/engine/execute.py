@@ -14,10 +14,14 @@ global row order (`_stitch_edge_parts`). The fused level runs as
 `mesh_topk` (root) and `mesh_row_sort` (child level), and every
 expansion counts `mesh_route_total{route=}`; both mesh hops run under
 the allocation-failure lifecycle at sites `mesh.matrix_hop` and
-`mesh.ring_matrix_hop`, and raise after one evict-and-retry (at once
-while the mesh spans processes). Over a mesh that spans processes the
-stitches read the shards' outputs through `mesh.host_np` and
-`mesh.gather_shards` only, which gather the other processes' parts.
+`mesh.ring_matrix_hop`, and raise after one evict-and-retry (which
+every rank takes together while the mesh spans processes). Over a mesh
+that spans processes the stitches read the shards' outputs through
+`mesh.host_np` and `mesh.gather_columns` only, which gather the other
+processes' parts (the columns a stitch reads in one gather), and each
+mesh route (an expansion, a fused level, an order-by) runs as one
+`mesh.lockstep` scope: one closing round for all its collectives, and a failure on one
+rank known to every rank.
 An eligible root block runs first as one whole-block program
 (`engine/fused.py`, which ignores `device_threshold`, as the
 reference's does); the rest is the staged route below. Each level's
@@ -74,7 +78,8 @@ from dgraph_tpu_torch.engine.varorder import _filter_uses
 from dgraph_tpu_torch.ops.hop import gather_edges
 from dgraph_tpu_torch.ops.level import NO_LIMIT, expand_level
 from dgraph_tpu_torch.ops.uidalgebra import SENTINEL32, pad_to
-from dgraph_tpu_torch.parallel.mesh import gather_shards, host_np, promoted
+from dgraph_tpu_torch.parallel.mesh import (gather_columns, host_np,
+                                            lockstep, promoted)
 from dgraph_tpu_torch.store.store import Store
 from dgraph_tpu_torch.store.types import Kind
 from dgraph_tpu_torch.store.vec import similar_ranks
@@ -269,7 +274,9 @@ class Executor:
         if self.mesh is not None and (
                 len(frontier) >= self.device_threshold
                 or self._mesh_promoted(len(frontier))):
-            out, path = self._expand_mesh(pred, reverse, frontier), "mesh"
+            with lockstep(self.mesh, "mesh.expand"):
+                out = self._expand_mesh(pred, reverse, frontier)
+            path = "mesh"
         elif len(frontier) >= self.device_threshold:
             out, path = self._expand_device(pred, reverse, frontier), "device"
         else:
@@ -383,13 +390,13 @@ class Executor:
     def _reassemble_shards(cls, srel, nbrs_s, seg_s, pos_s, counts):
         """The shards' first counts[d] slots of (nbrs, seg, pos), one
         device-to-host copy per shard (other processes' shards arrive by
-        one gather per column of their first max(counts) slots),
+        one gather of the three columns' first max(counts) slots),
         stitched."""
         counts = host_np(counts).tolist()
         top = max(max(int(c) for c in counts), 1)
         with record_function("engine.to_host"):
-            cols = [gather_shards(x.prefix(top))
-                    for x in (nbrs_s, seg_s, pos_s)]
+            cols = gather_columns([x.prefix(top)
+                                   for x in (nbrs_s, seg_s, pos_s)])
             host = [_to_host(*(col[d][:int(c)] for col in cols))
                     for d, c in enumerate(counts)]
         return cls._stitch_edge_parts(
@@ -427,8 +434,7 @@ class Executor:
             return placed, nbrs_s, seg_s, pos_s, totals, int(max_shard)
 
         placed, nbrs_s, seg_s, pos_s, totals, max_shard = memgov.oom_retry(
-            "mesh.matrix_hop", (pred, reverse), _launch,
-            retry=not self.mesh.spans_processes)
+            "mesh.matrix_hop", (pred, reverse), _launch, mesh=self.mesh)
         if max_shard > edge_cap:
             raise AssertionError(f"mesh.matrix_hop: {max_shard} edges on "
                                  f"a shard past its cap {edge_cap}")
@@ -474,15 +480,15 @@ class Executor:
 
         placed, nbrs_a, seg_a, pos_a, totals, max_e = memgov.oom_retry(
             "mesh.ring_matrix_hop", (pred, reverse), _launch,
-            retry=not self.mesh.spans_processes)
+            mesh=self.mesh)
         if max_e > edge_cap:
             raise AssertionError(f"mesh.ring_matrix_hop: {max_e} edges in "
                                  f"a step past its cap {edge_cap}")
         self._note_mesh_shards(totals.sum(axis=1))
         top = max(int(totals.max()), 1)
         with record_function("engine.to_host"):
-            cols = [gather_shards(x.prefix(top))
-                    for x in (nbrs_a, seg_a, pos_a)]
+            cols = gather_columns([x.prefix(top)
+                                   for x in (nbrs_a, seg_a, pos_a)])
             host = [[_to_host(*(col[dev][i, :int(totals[dev, i])]
                                 for col in cols))
                      for i in range(d)] for dev in range(d)]
@@ -893,8 +899,9 @@ class Executor:
             return None
         from dgraph_tpu_torch.parallel.dsort import mesh_topk
         k = (sg.first + max(sg.offset, 0)) if sg.first else len(ranks)
-        return mesh_topk(self.mesh, self.store, o.attr, o.lang, ranks, k,
-                         desc=o.desc)
+        with lockstep(self.mesh, "mesh.order"):
+            return mesh_topk(self.mesh, self.store, o.attr, o.lang, ranks,
+                             k, desc=o.desc)
 
     def _mesh_row_order(self, sg: SubGraph, nbrs: np.ndarray,
                         seg: np.ndarray):
@@ -907,8 +914,9 @@ class Executor:
         if o.is_val_var:
             return None
         from dgraph_tpu_torch.parallel.dsort import mesh_row_sort
-        return mesh_row_sort(self.mesh, self.store, o.attr, o.lang, nbrs,
-                             seg, desc=o.desc)
+        with lockstep(self.mesh, "mesh.order"):
+            return mesh_row_sort(self.mesh, self.store, o.attr, o.lang,
+                                 nbrs, seg, desc=o.desc)
 
     def _fused_level(self, sg: SubGraph, frontier: np.ndarray):
         """Large-frontier route: expand → filter → paginate → dedupe in
@@ -935,8 +943,9 @@ class Executor:
                 return None
         first = sg.first if sg.first else NO_LIMIT
         if self.mesh is not None:
-            return self._fused_level_mesh(
-                sg, frontier, allowed if use_allowed else None, first)
+            with lockstep(self.mesh, "mesh.level"):
+                return self._fused_level_mesh(
+                    sg, frontier, allowed if use_allowed else None, first)
         if use_allowed:
             allowed_d = _to_device(allowed, self.device)
         else:
@@ -982,12 +991,12 @@ class Executor:
             nbrs_s, seg_s, pos_s, kept, totals, max_shard = matrix_level(
                 self.mesh, srel, fr, al, sg.offset, first, edge_cap,
                 allowed is not None)
-            kept = host_np(kept)
+            kept, totals = host_np(kept, totals)
         costprofile.note_launch(t0, time.perf_counter())
         if int(max_shard) > edge_cap:
             raise AssertionError(f"mesh.matrix_level: {int(max_shard)} "
                                  f"edges on a shard past its cap {edge_cap}")
-        self._note_mesh_shards(host_np(totals))
+        self._note_mesh_shards(totals)
         self._count_mesh_route("fused")
         out = self._reassemble_shards(srel, nbrs_s, seg_s, pos_s, kept)
         total = int(deg.sum())

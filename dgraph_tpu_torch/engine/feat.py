@@ -31,8 +31,9 @@ device route, when the edges or the tablet rows reach
 (utils/costprior.py) say that route beats the host. The device and
 mesh launches run under the memory governor's allocation-failure
 lifecycle at site `feat.agg` (utils/memgov.py): one evict-and-retry on
-the card, and a second allocation failure raises; nothing falls back to
-the host combine. It counts each route
+the card (taken by every rank together on a mesh across processes), and
+a second allocation failure raises; nothing falls back to the host
+combine. It counts each route
 in the metrics registry
 (`feat_route_total{route=}`, `feat_bytes_total`, the
 `featprop_latency_us` histogram); the whole-block program's featprop
@@ -130,7 +131,7 @@ def _mesh_combine(store, pred: str, nbrs, seg, n_seg: int, agg: str,
                   mesh, shape_key):
     """The mesh combine through the allocation-failure lifecycle:
     per-shard partials merged by psum / pmax (see the module doc)."""
-    from dgraph_tpu_torch.parallel.mesh import (count_program, pmax, psum,
+    from dgraph_tpu_torch.parallel.mesh import (pmax, program, psum,
                                                 replicate)
     nb = np.ascontiguousarray(nbrs, np.int32)
     sg = np.ascontiguousarray(seg, np.int32)
@@ -138,46 +139,46 @@ def _mesh_combine(store, pred: str, nbrs, seg, n_seg: int, agg: str,
 
     def _launch():
         subj_s, vecs_s, _rows = store.vec_sharded(pred, mesh)
-        count_program("feat_mesh")
-        cols = replicate(mesh, np.stack([nb, sg])).parts
-        t0 = time.perf_counter()
-        outs, cnts, ecnt = [None] * mesh.size, [None] * mesh.size, None
-        for d in mesh.local:
-            subj, vecs = subj_s.parts[d], vecs_s.parts[d]
-            if subj.shape[0]:
-                out, cnt, ec = segment_combine(subj, vecs, cols[d][0],
-                                               cols[d][1], len(nb), n_seg,
-                                               part_agg)
-                ecnt = ec if ecnt is None else ecnt
-            else:
-                out = vecs.new_zeros((n_seg, vecs.shape[1]))
-                cnt = torch.zeros(n_seg, dtype=torch.int32,
-                                  device=vecs.device)
+        with program(mesh, "feat_mesh"):
+            cols = replicate(mesh, np.stack([nb, sg])).parts
+            t0 = time.perf_counter()
+            outs, cnts, ecnt = [None] * mesh.size, [None] * mesh.size, None
+            for d in mesh.local:
+                subj, vecs = subj_s.parts[d], vecs_s.parts[d]
+                if subj.shape[0]:
+                    out, cnt, ec = segment_combine(subj, vecs, cols[d][0],
+                                                   cols[d][1], len(nb), n_seg,
+                                                   part_agg)
+                    ecnt = ec if ecnt is None else ecnt
+                else:
+                    out = vecs.new_zeros((n_seg, vecs.shape[1]))
+                    cnt = torch.zeros(n_seg, dtype=torch.int32,
+                                      device=vecs.device)
+                if agg == "max":
+                    # no participant on this shard: offer -inf to the pmax
+                    out = torch.where((cnt > 0)[:, None], out, -torch.inf)
+                outs[d] = out
+                cnts[d] = cnt
+            lead = mesh.lead
+            cnt = psum(mesh, cnts)[lead]
             if agg == "max":
-                # no participant on this shard: offer -inf to the pmax
-                out = torch.where((cnt > 0)[:, None], out, -torch.inf)
-            outs[d] = out
-            cnts[d] = cnt
-        lead = mesh.lead
-        cnt = psum(mesh, cnts)[lead]
-        if agg == "max":
-            out = pmax(mesh, outs)[lead]
-            out = torch.where((cnt > 0)[:, None], out, 0.0)
-        else:
-            out = psum(mesh, outs)[lead]
-            if agg == "mean":
-                out = torch.where(
-                    (cnt > 0)[:, None],
-                    out / cnt.clamp(min=1)[:, None].to(torch.float32), 0.0)
-        costprofile.note_launch(t0, time.perf_counter())
-        # the live edges per segment do not depend on the rows: any
-        # shard's count is the structural one
-        ecnt = (ecnt.cpu().numpy() if ecnt is not None else np.bincount(
-            sg[(sg >= 0) & (sg < n_seg)], minlength=n_seg).astype(np.int32))
-        return out.cpu().numpy(), cnt.cpu().numpy(), ecnt
+                out = pmax(mesh, outs)[lead]
+                out = torch.where((cnt > 0)[:, None], out, 0.0)
+            else:
+                out = psum(mesh, outs)[lead]
+                if agg == "mean":
+                    out = torch.where(
+                        (cnt > 0)[:, None],
+                        out / cnt.clamp(min=1)[:, None].to(torch.float32), 0.0)
+            costprofile.note_launch(t0, time.perf_counter())
+            # the live edges per segment do not depend on the rows: any
+            # shard's count is the structural one
+            ecnt = (ecnt.cpu().numpy() if ecnt is not None else
+                    np.bincount(sg[(sg >= 0) & (sg < n_seg)],
+                                minlength=n_seg).astype(np.int32))
+            return out.cpu().numpy(), cnt.cpu().numpy(), ecnt
 
-    return memgov.oom_retry("feat.agg", shape_key, _launch,
-                            retry=not mesh.spans_processes)
+    return memgov.oom_retry("feat.agg", shape_key, _launch, mesh=mesh)
 
 
 def aggregate(store, pred: str, agg: str, nbrs, seg, n_seg: int, device,
@@ -191,6 +192,7 @@ def aggregate(store, pred: str, agg: str, nbrs, seg, n_seg: int, device,
     if t is None:
         raise ValueError(
             f"@msgpass(pred: {pred}): not a float32vector predicate")
+    from dgraph_tpu_torch.parallel.mesh import lockstep
     from dgraph_tpu_torch.parallel.mesh import promoted as mesh_promoted
 
     work = len(nbrs)
@@ -201,8 +203,9 @@ def aggregate(store, pred: str, agg: str, nbrs, seg, n_seg: int, device,
     if mesh is not None and t.rows and (
             big or mesh_promoted(mesh, "feat_mesh", "feat_host")):
         route = "mesh"
-        out = _mesh_combine(store, pred, nbrs, seg, n_seg, agg, mesh,
-                            (pred, t.dim, agg))
+        with lockstep(mesh, "mesh.feat"):
+            out = _mesh_combine(store, pred, nbrs, seg, n_seg, agg, mesh,
+                                (pred, t.dim, agg))
     elif t.rows and (big or costprior.promoted("feat_device",
                                                "feat_host")):
         route = "device"

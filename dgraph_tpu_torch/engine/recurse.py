@@ -21,6 +21,8 @@ a hop's `needs` exceeds grows to its bucket and the loop runs again.
 Every read of a hop's outputs goes through `mesh.host_np`: over a mesh
 that spans processes it gathers the other processes' parts, and the
 `needs` it reads are replicated, so every rank takes the same re-run.
+The whole recursion is one `mesh.lockstep` scope: a `recurse` deadline
+that expires on one rank is known to every rank at the next hop.
 """
 
 from __future__ import annotations
@@ -92,10 +94,12 @@ def expand_recurse(ex, root) -> None:
             and args.depth and len(data.edge_sgs) == 1
             and not data.edge_sgs[0].filters
             and not data.edge_sgs[0].facet_filter and len(root.nodes) > 0):
-        if MESH_CHAIN_HOPS:
-            _chain_recurse(ex, root, data, args.depth)
-        else:
-            _fused_recurse(ex, root, data, args.depth)
+        from dgraph_tpu_torch.parallel.mesh import lockstep
+        with lockstep(ex.mesh, "mesh.recurse"):
+            if MESH_CHAIN_HOPS:
+                _chain_recurse(ex, root, data, args.depth)
+            else:
+                _fused_recurse(ex, root, data, args.depth)
         _bind_recurse_vars(ex, root, data, sg)
         root.recurse_data = data
         return
@@ -229,10 +233,8 @@ def _chain_recurse(ex, root, data: RecurseData, depth: int) -> None:
                         break
                     # render reads: the hop's INPUT frontier maps seg to
                     # parent ranks; the device values feed the next call
-                    fr_h = host_np(fr)
-                    nbrs_h = host_np(nbrs_s)
-                    seg_h = host_np(seg_s)
-                    per_shard = host_np(shard_edges)
+                    fr_h, nbrs_h, seg_h, per_shard = host_np(
+                        fr, nbrs_s, seg_s, shard_edges)
                     traversed += int(edges)
                     sp.attrs["edges"] = int(kept)
                     for d in range(srel.n_shards):
@@ -290,9 +292,8 @@ def _fused_recurse(ex, root, data: RecurseData, depth: int) -> None:
     else:
         raise RuntimeError("recurse caps failed to converge")
 
-    nbrs_s = host_np(nbrs_s)         # [D, depth, edge_cap]
-    seg_s = host_np(seg_s)
-    frontiers = host_np(frontiers)   # [depth, out_cap]
+    # [D, depth, edge_cap] twice, [depth, out_cap]
+    nbrs_s, seg_s, frontiers = host_np(nbrs_s, seg_s, frontiers)
     parts_p, parts_c = [], []
     for h in range(depth):
         fr_h = frontiers[h]

@@ -28,7 +28,7 @@ import torch
 
 from dgraph_tpu_torch.ops.bfs import lane_edges, scatter_max_rows
 from dgraph_tpu_torch.parallel.mesh import (Mesh, Replicated, Sharded,
-                                            count_program, host_np, psum,
+                                            host_np, program, psum,
                                             psum_scatter, shard)
 
 __all__ = ["shard_coo_by_src", "shard_mask", "unshard_mask",
@@ -114,37 +114,37 @@ def bitmap_recurse_sharded(mesh: Mesh, src_s, dst_s, deg_s, mask_slabs,
     if mesh.size > MAX_SHARDS:
         raise ValueError(f"int8 lane sums hold at most {MAX_SHARDS} "
                          f"shards, not {mesh.size}")
-    count_program("bitmap_recurse_sharded")
-    src = [None if p is None else p.long()
-           for p in shard(mesh, src_s).parts]
-    dst = [None if p is None else p.long()
-           for p in shard(mesh, dst_s).parts]
-    deg = shard(mesh, deg_s).parts
-    mask0 = shard(mesh, mask_slabs).parts
-    rows, B = mask0[mesh.lead].shape
-    n_pad = rows * mesh.size
-    frontier, seen = list(mask0), list(mask0)
-    edges = [None if m is None else
-             torch.zeros(B, dtype=torch.int32, device=m.device)
-             for m in mask0]
-    for _h in range(depth):
-        hop_edges = psum(mesh, [lane_edges(deg[d], frontier[d])
-                                if mesh.is_local(d) else None
-                                for d in range(mesh.size)])
-        edges = [None if e is None else e + h
-                 for e, h in zip(edges, hop_edges)]
-        partials = [_partial(src[d], dst[d], frontier[d], n_pad)
-                    if mesh.is_local(d) else None
-                    for d in range(mesh.size)]
-        # fold the partials across shards and land each shard's slab
-        summed = psum_scatter(mesh, partials, scatter_dimension=0,
-                              tiled=True)
-        del partials
-        for d in mesh.local:
-            nxt = (summed[d] > 0).to(torch.int8)
-            fresh = torch.where(seen[d] > 0, 0, nxt).to(torch.int8)
-            seen[d] = torch.maximum(seen[d], fresh)
-            frontier[d] = fresh
-        del summed
-    return (Sharded(frontier, mesh), Sharded(seen, mesh),
-            Replicated(edges))
+    with program(mesh, "bitmap_recurse_sharded"):
+        src = [None if p is None else p.long()
+               for p in shard(mesh, src_s).parts]
+        dst = [None if p is None else p.long()
+               for p in shard(mesh, dst_s).parts]
+        deg = shard(mesh, deg_s).parts
+        mask0 = shard(mesh, mask_slabs).parts
+        rows, B = mask0[mesh.lead].shape
+        n_pad = rows * mesh.size
+        frontier, seen = list(mask0), list(mask0)
+        edges = [None if m is None else
+                 torch.zeros(B, dtype=torch.int32, device=m.device)
+                 for m in mask0]
+        for _h in range(depth):
+            hop_edges = psum(mesh, [lane_edges(deg[d], frontier[d])
+                                    if mesh.is_local(d) else None
+                                    for d in range(mesh.size)])
+            edges = [None if e is None else e + h
+                     for e, h in zip(edges, hop_edges)]
+            partials = [_partial(src[d], dst[d], frontier[d], n_pad)
+                        if mesh.is_local(d) else None
+                        for d in range(mesh.size)]
+            # fold the partials across shards and land each shard's slab
+            summed = psum_scatter(mesh, partials, scatter_dimension=0,
+                                  tiled=True)
+            del partials
+            for d in mesh.local:
+                nxt = (summed[d] > 0).to(torch.int8)
+                fresh = torch.where(seen[d] > 0, 0, nxt).to(torch.int8)
+                seen[d] = torch.maximum(seen[d], fresh)
+                frontier[d] = fresh
+            del summed
+        return (Sharded(frontier, mesh), Sharded(seen, mesh),
+                Replicated(edges))

@@ -23,13 +23,15 @@ what its caps had to hold (`needs`, `max_shard_edges`, merged counts
 inflated by the largest per-shard count) merged by `pmax`, and the
 caller re-runs at the next bucket when one exceeds its cap; edge totals
 are merged by `psum`. A replicated result is computed once per distinct
-device (shards of one card share it). Each program counts one call in
-`mesh.PROGRAM_CALLS`.
+device (shards of one card share it). Each program runs inside
+`mesh.program`, which counts one call in `mesh.PROGRAM_CALLS`.
 
 When the mesh spans processes each process runs the bodies of its own
 shards (`Mesh.local`) and leaves the others' parts None; the merges go
 through the same collectives, which then cross processes, and every
-program returns the same objects as in one process.
+program returns the same objects as in one process. A failure inside a
+body on one rank is known to every rank at the program's next
+collective or its closing round (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -42,9 +44,9 @@ from dgraph_tpu_torch.ops.uidalgebra import (_member, difference_sorted,
                                              sentinel, sort_unique_count,
                                              valid_mask)
 from dgraph_tpu_torch.parallel.mesh import (SHARDED, Mesh, Replicated,
-                                            Sharded, all_gather,
-                                            count_program, hop_input, pmax,
-                                            ppermute, psum, replicate, shard)
+                                            Sharded, all_gather, hop_input,
+                                            pmax, ppermute, program, psum,
+                                            replicate, shard)
 from dgraph_tpu_torch.parallel.pshard import ShardedRel
 
 __all__ = ["scatter_gather_hop", "matrix_hop", "matrix_level", "ring_hop",
@@ -127,24 +129,24 @@ def scatter_gather_hop(mesh: Mesh, rel: ShardedRel, frontier,
     n_unique, edges_traversed, max_shard_edges)`, all replicated. Valid
     only if `n_unique <= out_cap` and `max_shard_edges <= edge_cap`;
     otherwise re-run at the next bucket size."""
-    count_program("scatter_gather_hop")
-    fr = replicate(mesh, hop_input(frontier, mesh))
-    ptr, idx, lo = _slabs(rel)
+    with program(mesh, "scatter_gather_hop"):
+        fr = replicate(mesh, hop_input(frontier, mesh))
+        ptr, idx, lo = _slabs(rel)
 
-    def body(d):
-        nbrs, total = _local_expand(ptr[d], idx[d], lo[d], fr.parts[d],
-                                    edge_cap)
-        local, cnt = sort_unique_count(nbrs, out_cap)
-        return local, cnt, total
+        def body(d):
+            nbrs, total = _local_expand(ptr[d], idx[d], lo[d], fr.parts[d],
+                                        edge_cap)
+            local, cnt = sort_unique_count(nbrs, out_cap)
+            return local, cnt, total
 
-    locals_, cnts, totals = _unzip(_per_shard(mesh, body))
-    total_all = psum(mesh, totals)
-    # overflow witnesses survive the reductions: if any shard needed
-    # more than edge_cap slots or out_cap uniques, the max carries it
-    max_shard = pmax(mesh, totals)
-    merged, count = _merge(mesh, locals_, cnts, out_cap)
-    return (Replicated(merged), Replicated(count), Replicated(total_all),
-            Replicated(max_shard))
+        locals_, cnts, totals = _unzip(_per_shard(mesh, body))
+        total_all = psum(mesh, totals)
+        # overflow witnesses survive the reductions: if any shard needed
+        # more than edge_cap slots or out_cap uniques, the max carries it
+        max_shard = pmax(mesh, totals)
+        merged, count = _merge(mesh, locals_, cnts, out_cap)
+        return (Replicated(merged), Replicated(count), Replicated(total_all),
+                Replicated(max_shard))
 
 
 def matrix_hop(mesh: Mesh, rel: ShardedRel, frontier, edge_cap: int):
@@ -155,18 +157,18 @@ def matrix_hop(mesh: Mesh, rel: ShardedRel, frontier, edge_cap: int):
     GLOBAL frontier (each row is owned by one shard, so a stable sort by
     seg rebuilds global row order); `edge_pos` is local (add
     rel.pos_lo[d]). Valid only if max_shard_edges <= edge_cap."""
-    count_program("matrix_hop")
-    fr = replicate(mesh, hop_input(frontier, mesh))
-    ptr, idx, lo = _slabs(rel)
+    with program(mesh, "matrix_hop"):
+        fr = replicate(mesh, hop_input(frontier, mesh))
+        ptr, idx, lo = _slabs(rel)
 
-    def body(d):
-        nbrs, seg, pos, _valid, total = _local_expand_full(
-            ptr[d], idx[d], lo[d], fr.parts[d], edge_cap)
-        return nbrs, seg, pos, total
+        def body(d):
+            nbrs, seg, pos, _valid, total = _local_expand_full(
+                ptr[d], idx[d], lo[d], fr.parts[d], edge_cap)
+            return nbrs, seg, pos, total
 
-    nbrs, seg, pos, totals = _unzip(_per_shard(mesh, body))
-    return (Sharded(nbrs, mesh), Sharded(seg, mesh), Sharded(pos, mesh),
-            Sharded(totals, mesh), Replicated(pmax(mesh, totals)))
+        nbrs, seg, pos, totals = _unzip(_per_shard(mesh, body))
+        return (Sharded(nbrs, mesh), Sharded(seg, mesh), Sharded(pos, mesh),
+                Sharded(totals, mesh), Replicated(pmax(mesh, totals)))
 
 
 def matrix_level(mesh: Mesh, rel: ShardedRel, frontier, allowed, offset,
@@ -179,24 +181,24 @@ def matrix_level(mesh: Mesh, rel: ShardedRel, frontier, allowed, offset,
     surviving edges in CSR row order; seg indexes the GLOBAL frontier;
     pos is local (add rel.pos_lo[d]). Valid only if max_shard_edges <=
     edge_cap."""
-    count_program("matrix_level")
-    fr = replicate(mesh, frontier)
-    al = replicate(mesh, allowed)
-    ptr, idx, lo = _slabs(rel)
-    f_cap = fr.shape[0]
+    with program(mesh, "matrix_level"):
+        fr = replicate(mesh, frontier)
+        al = replicate(mesh, allowed)
+        ptr, idx, lo = _slabs(rel)
+        f_cap = fr.shape[0]
 
-    def body(d):
-        nbrs, seg, pos, valid, total = _local_expand_full(
-            ptr[d], idx[d], lo[d], fr.parts[d], edge_cap)
-        c_nbrs, c_seg, c_pos, n_kept, _ = filter_paginate(
-            nbrs, seg, pos, valid, al.parts[d], offset, first, f_cap,
-            use_allowed)
-        return c_nbrs, c_seg, c_pos, n_kept, total
+        def body(d):
+            nbrs, seg, pos, valid, total = _local_expand_full(
+                ptr[d], idx[d], lo[d], fr.parts[d], edge_cap)
+            c_nbrs, c_seg, c_pos, n_kept, _ = filter_paginate(
+                nbrs, seg, pos, valid, al.parts[d], offset, first, f_cap,
+                use_allowed)
+            return c_nbrs, c_seg, c_pos, n_kept, total
 
-    nbrs, seg, pos, kept, totals = _unzip(_per_shard(mesh, body))
-    return (Sharded(nbrs, mesh), Sharded(seg, mesh), Sharded(pos, mesh),
-            Sharded(kept, mesh), Sharded(totals, mesh),
-            Replicated(pmax(mesh, totals)))
+        nbrs, seg, pos, kept, totals = _unzip(_per_shard(mesh, body))
+        return (Sharded(nbrs, mesh), Sharded(seg, mesh), Sharded(pos, mesh),
+                Sharded(kept, mesh), Sharded(totals, mesh),
+                Replicated(pmax(mesh, totals)))
 
 
 def _ring(n: int) -> list:
@@ -212,33 +214,33 @@ def ring_hop(mesh: Mesh, rel: ShardedRel, frontier_chunks, edge_cap: int,
     Valid only if `n_unique <= out_cap` and `max_step_edges <= edge_cap`
     (n_unique is inflated to the largest size any shard's running union
     needed, so a truncation mid-ring shows)."""
-    count_program("ring_hop")
-    chunks = shard(mesh, hop_input(frontier_chunks, mesh, SHARDED)).parts
-    ptr, idx, lo = _slabs(rel)
-    D = mesh.size
-    dt = chunks[mesh.lead].dtype
-    acc = _per_shard(mesh, lambda d: torch.full(
-        (out_cap,), sentinel(dt), dtype=dt, device=mesh.devices[d]))
-    zero = _per_shard(mesh, lambda d: torch.zeros(
-        (), dtype=torch.int32, device=mesh.devices[d]))
-    total, need, max_step = list(zero), list(zero), list(zero)
-    for _i in range(D):
-        for d in mesh.local:
-            nbrs, t = _local_expand(ptr[d], idx[d], lo[d], chunks[d],
-                                    edge_cap)
-            # fold this step's neighbours into the running local union,
-            # remembering the largest size the union ever needed
-            acc[d], cnt = sort_unique_count(torch.cat([acc[d], nbrs]),
-                                            out_cap)
-            total[d] = total[d] + t
-            need[d] = torch.maximum(need[d], cnt)
-            max_step[d] = torch.maximum(max_step[d], t)
-        chunks = ppermute(mesh, chunks, _ring(D))
-    total_all = psum(mesh, total)
-    max_edges = pmax(mesh, max_step)
-    merged, count = _merge(mesh, acc, need, out_cap)
-    return (Sharded(acc, mesh), Replicated(merged), Replicated(count),
-            Replicated(total_all), Replicated(max_edges))
+    with program(mesh, "ring_hop"):
+        chunks = shard(mesh, hop_input(frontier_chunks, mesh, SHARDED)).parts
+        ptr, idx, lo = _slabs(rel)
+        D = mesh.size
+        dt = chunks[mesh.lead].dtype
+        acc = _per_shard(mesh, lambda d: torch.full(
+            (out_cap,), sentinel(dt), dtype=dt, device=mesh.devices[d]))
+        zero = _per_shard(mesh, lambda d: torch.zeros(
+            (), dtype=torch.int32, device=mesh.devices[d]))
+        total, need, max_step = list(zero), list(zero), list(zero)
+        for _i in range(D):
+            for d in mesh.local:
+                nbrs, t = _local_expand(ptr[d], idx[d], lo[d], chunks[d],
+                                        edge_cap)
+                # fold this step's neighbours into the running local union,
+                # remembering the largest size the union ever needed
+                acc[d], cnt = sort_unique_count(torch.cat([acc[d], nbrs]),
+                                                out_cap)
+                total[d] = total[d] + t
+                need[d] = torch.maximum(need[d], cnt)
+                max_step[d] = torch.maximum(max_step[d], t)
+            chunks = ppermute(mesh, chunks, _ring(D))
+        total_all = psum(mesh, total)
+        max_edges = pmax(mesh, max_step)
+        merged, count = _merge(mesh, acc, need, out_cap)
+        return (Sharded(acc, mesh), Replicated(merged), Replicated(count),
+                Replicated(total_all), Replicated(max_edges))
 
 
 def ring_matrix_hop(mesh: Mesh, rel: ShardedRel, frontier_chunks,
@@ -248,25 +250,25 @@ def ring_matrix_hop(mesh: Mesh, rel: ShardedRel, frontier_chunks,
     totals[D, D], max_step_edges). For shard d at ring step i the
     expanded chunk started on shard (d - i) mod D; `seg` indexes within
     that chunk; valid only if max_step_edges <= edge_cap."""
-    count_program("ring_matrix_hop")
-    chunks = shard(mesh, frontier_chunks).parts
-    ptr, idx, lo = _slabs(rel)
-    D = mesh.size
-    steps: list = [[] for _ in range(D)]
-    max_e = _per_shard(mesh, lambda d: torch.zeros(
-        (), dtype=torch.int32, device=mesh.devices[d]))
-    for _i in range(D):
-        for d in mesh.local:
-            nbrs, seg, pos, _valid, t = _local_expand_full(
-                ptr[d], idx[d], lo[d], chunks[d], edge_cap)
-            steps[d].append((nbrs, seg, pos, t))
-            max_e[d] = torch.maximum(max_e[d], t)
-        chunks = ppermute(mesh, chunks, _ring(D))
-    out = _unzip(_per_shard(mesh, lambda d: tuple(
-        torch.stack(col) for col in zip(*steps[d]))))
-    return (Sharded(out[0], mesh), Sharded(out[1], mesh),
-            Sharded(out[2], mesh), Sharded(out[3], mesh),
-            Replicated(pmax(mesh, max_e)))
+    with program(mesh, "ring_matrix_hop"):
+        chunks = shard(mesh, frontier_chunks).parts
+        ptr, idx, lo = _slabs(rel)
+        D = mesh.size
+        steps: list = [[] for _ in range(D)]
+        max_e = _per_shard(mesh, lambda d: torch.zeros(
+            (), dtype=torch.int32, device=mesh.devices[d]))
+        for _i in range(D):
+            for d in mesh.local:
+                nbrs, seg, pos, _valid, t = _local_expand_full(
+                    ptr[d], idx[d], lo[d], chunks[d], edge_cap)
+                steps[d].append((nbrs, seg, pos, t))
+                max_e[d] = torch.maximum(max_e[d], t)
+            chunks = ppermute(mesh, chunks, _ring(D))
+        out = _unzip(_per_shard(mesh, lambda d: tuple(
+            torch.stack(col) for col in zip(*steps[d]))))
+        return (Sharded(out[0], mesh), Sharded(out[1], mesh),
+                Sharded(out[2], mesh), Sharded(out[3], mesh),
+                Replicated(pmax(mesh, max_e)))
 
 
 def _visit_once(mesh, rel, fr_parts, seen_parts, edge_cap, out_cap,
@@ -358,11 +360,11 @@ def recurse_fused(mesh: Mesh, rel: ShardedRel, frontier, edge_cap: int,
     = [max frontier slots, max seen slots, max per-shard edge slots]` any
     hop required; valid only if `needs <= [out_cap, seen_cap,
     edge_cap]`, otherwise re-run with the caps `needs` asks for."""
-    count_program("recurse_fused")
-    last, seen, edges, needs, _ = _recurse(
-        mesh, rel, frontier, edge_cap, out_cap, seen_cap, depth, False)
-    return (Replicated(last), Replicated(seen), Replicated(edges),
-            Replicated(needs))
+    with program(mesh, "recurse_fused"):
+        last, seen, edges, needs, _ = _recurse(
+            mesh, rel, frontier, edge_cap, out_cap, seen_cap, depth, False)
+        return (Replicated(last), Replicated(seen), Replicated(edges),
+                Replicated(needs))
 
 
 def recurse_fused_matrix(mesh: Mesh, rel: ShardedRel, frontier,
@@ -376,16 +378,16 @@ def recurse_fused_matrix(mesh: Mesh, rel: ShardedRel, frontier,
     surviving (visit-once) edges; seg indexes frontiers[h]; pos +
     rel.pos_lo[d] is the absolute facet position. Same overflow contract
     as recurse_fused."""
-    count_program("recurse_fused_matrix")
-    last, seen, edges, needs, ys = _recurse(
-        mesh, rel, frontier, edge_cap, out_cap, seen_cap, depth, True)
-    nbrs, seg, pos = _unzip(_per_shard(mesh, lambda d: tuple(
-        torch.stack([y[k][d] for y in ys]) for k in range(3))))
-    frontiers = _each(mesh, lambda *fs: torch.stack(fs),
-                      *[y[3] for y in ys])
-    return (Replicated(last), Replicated(seen), Replicated(edges),
-            Replicated(needs), Sharded(nbrs, mesh), Sharded(seg, mesh),
-            Sharded(pos, mesh), Replicated(frontiers))
+    with program(mesh, "recurse_fused_matrix"):
+        last, seen, edges, needs, ys = _recurse(
+            mesh, rel, frontier, edge_cap, out_cap, seen_cap, depth, True)
+        nbrs, seg, pos = _unzip(_per_shard(mesh, lambda d: tuple(
+            torch.stack([y[k][d] for y in ys]) for k in range(3))))
+        frontiers = _each(mesh, lambda *fs: torch.stack(fs),
+                          *[y[3] for y in ys])
+        return (Replicated(last), Replicated(seen), Replicated(edges),
+                Replicated(needs), Sharded(nbrs, mesh), Sharded(seg, mesh),
+                Sharded(pos, mesh), Replicated(frontiers))
 
 
 def chain_hop(mesh: Mesh, rel: ShardedRel, frontier, seen, edge_cap: int,
@@ -401,14 +403,14 @@ def chain_hop(mesh: Mesh, rel: ShardedRel, frontier, seen, edge_cap: int,
     order, `seg` indexing this hop's input frontier; `shard_edges[d]` is
     the raw edges shard d expanded. Valid only if needs <= [out_cap,
     seen_cap, edge_cap]."""
-    count_program("chain_hop")
-    fr = replicate(mesh, hop_input(frontier, mesh)).parts
-    sn = replicate(mesh, hop_input(seen, mesh)).parts
-    (fresh, seen2, sum_t, n_out, n_seen, top_t, m_nbrs, m_seg, _pos, ts,
-     kept) = _visit_once(mesh, rel, fr, sn, edge_cap, out_cap, seen_cap,
-                         True)
-    needs = _each(mesh, lambda a, b, c: torch.stack([a, b, c]),
-                  n_out, n_seen, top_t)
-    return (Replicated(fresh), Replicated(seen2), Replicated(sum_t),
-            Replicated(needs), Sharded(m_nbrs, mesh), Sharded(m_seg, mesh),
-            Sharded(ts, mesh), Replicated(psum(mesh, kept)))
+    with program(mesh, "chain_hop"):
+        fr = replicate(mesh, hop_input(frontier, mesh)).parts
+        sn = replicate(mesh, hop_input(seen, mesh)).parts
+        (fresh, seen2, sum_t, n_out, n_seen, top_t, m_nbrs, m_seg, _pos, ts,
+         kept) = _visit_once(mesh, rel, fr, sn, edge_cap, out_cap, seen_cap,
+                             True)
+        needs = _each(mesh, lambda a, b, c: torch.stack([a, b, c]),
+                      n_out, n_seen, top_t)
+        return (Replicated(fresh), Replicated(seen2), Replicated(sum_t),
+                Replicated(needs), Sharded(m_nbrs, mesh), Sharded(m_seg, mesh),
+                Sharded(ts, mesh), Replicated(psum(mesh, kept)))

@@ -34,7 +34,7 @@ import torch
 
 from dgraph_tpu_torch.ops.uidalgebra import SENTINEL32, sentinel, valid_mask
 from dgraph_tpu_torch.parallel.mesh import (Mesh, all_gather,
-                                            count_program, psum, replicate,
+                                            program, psum, replicate,
                                             shard)
 
 __all__ = ["mesh_topk", "mesh_row_sort", "valid_mask_np"]
@@ -143,34 +143,34 @@ def mesh_topk(mesh: Mesh, store, pred: str, lang: str, ranks: np.ndarray,
     col = _key_column(store, pred, lang, mesh)
     if col is None:
         return None
-    count_program("mesh_topk")
-    keys_s, row_lo, rows = col
-    cap = _bucket(len(ranks))
-    cand = replicate(mesh, _pad(np.asarray(ranks, np.int32), cap)).parts
-    # full-length sorts (no `first`) take kk = cap, as the reference
-    kk = cap if k >= len(ranks) else min(k, cap)
-    tops_r, tops_v = [None] * mesh.size, [None] * mesh.size
-    for d in mesh.local:
-        keys = keys_s.parts[d]
-        if desc:
-            # negate finite keys only: missing (+inf) still sorts last
-            keys = torch.where(torch.isinf(keys), keys, -keys)
-        c = cand[d]
-        local = c - int(row_lo[d])
-        mine = valid_mask(c) & (local >= 0) & (local < rows)
-        ck = torch.where(mine, keys[local.clamp(0, rows - 1).long()],
-                         torch.inf)
-        # candidates another shard owns drop out entirely: a sentinel
-        # rank sorts after every real row, missing-valued ones included
-        cand_m = torch.where(mine, c, sentinel(c.dtype))
-        order = _lexsort((cand_m, ck))[:kk]
-        tops_r[d] = cand_m[order]
-        tops_v[d] = ck[order]
-    gr = all_gather(mesh, tops_r)[mesh.lead].reshape(-1)
-    gv = all_gather(mesh, tops_v)[mesh.lead].reshape(-1)
-    top_r = gr[_lexsort((gr, gv))[:kk]].cpu().numpy()
-    out = top_r[valid_mask_np(top_r)]
-    return out[:min(k, len(ranks))]
+    with program(mesh, "mesh_topk"):
+        keys_s, row_lo, rows = col
+        cap = _bucket(len(ranks))
+        cand = replicate(mesh, _pad(np.asarray(ranks, np.int32), cap)).parts
+        # full-length sorts (no `first`) take kk = cap, as the reference
+        kk = cap if k >= len(ranks) else min(k, cap)
+        tops_r, tops_v = [None] * mesh.size, [None] * mesh.size
+        for d in mesh.local:
+            keys = keys_s.parts[d]
+            if desc:
+                # negate finite keys only: missing (+inf) still sorts last
+                keys = torch.where(torch.isinf(keys), keys, -keys)
+            c = cand[d]
+            local = c - int(row_lo[d])
+            mine = valid_mask(c) & (local >= 0) & (local < rows)
+            ck = torch.where(mine, keys[local.clamp(0, rows - 1).long()],
+                             torch.inf)
+            # candidates another shard owns drop out entirely: a sentinel
+            # rank sorts after every real row, missing-valued ones included
+            cand_m = torch.where(mine, c, sentinel(c.dtype))
+            order = _lexsort((cand_m, ck))[:kk]
+            tops_r[d] = cand_m[order]
+            tops_v[d] = ck[order]
+        gr = all_gather(mesh, tops_r)[mesh.lead].reshape(-1)
+        gv = all_gather(mesh, tops_v)[mesh.lead].reshape(-1)
+        top_r = gr[_lexsort((gr, gv))[:kk]].cpu().numpy()
+        out = top_r[valid_mask_np(top_r)]
+        return out[:min(k, len(ranks))]
 
 
 def valid_mask_np(a: np.ndarray) -> np.ndarray:
@@ -187,31 +187,31 @@ def mesh_row_sort(mesh: Mesh, store, pred: str, lang: str,
     col = _key_column(store, pred, lang, mesh)
     if col is None:
         return None
-    count_program("mesh_row_sort")
-    keys_s, row_lo, rows = col
-    cap = _bucket(len(nbrs))
-    nb = replicate(mesh, _pad(np.asarray(nbrs, np.int32), cap)).parts
-    # pad_to's padding: seg's pad value never matters (valid_mask(nbrs)
-    # masks the padded slots)
-    sg = replicate(mesh, _pad(np.asarray(seg, np.int32), cap)).parts
-    parts = [None] * mesh.size
-    for d in mesh.local:
-        local = nb[d] - int(row_lo[d])
-        mine = valid_mask(nb[d]) & (local >= 0) & (local < rows)
-        parts[d] = torch.where(
-            mine, keys_s.parts[d][local.clamp(0, rows - 1).long()], 0.0)
-    # every valid rank lives on exactly ONE shard: the psum assembles the
-    # full per-edge key vector
-    lead = mesh.lead
-    kv = psum(mesh, parts)[lead]
-    n0, s0 = nb[lead], sg[lead]
-    if desc:
-        kv = torch.where(torch.isinf(kv), kv, -kv)
-    # padded slots sort last within their (nonexistent) row
-    kv = torch.where(valid_mask(n0), kv, torch.inf)
-    seg_k = torch.where(valid_mask(n0), s0, INT32_MAX)
-    # priority: row, key (missing=+inf last), uid tiebreak
-    order = _lexsort((n0, kv, seg_k)).cpu().numpy()
-    # padded slots carry a maxint row key, so they sort strictly last
-    return order[:len(nbrs)]
+    with program(mesh, "mesh_row_sort"):
+        keys_s, row_lo, rows = col
+        cap = _bucket(len(nbrs))
+        nb = replicate(mesh, _pad(np.asarray(nbrs, np.int32), cap)).parts
+        # pad_to's padding: seg's pad value never matters (valid_mask(nbrs)
+        # masks the padded slots)
+        sg = replicate(mesh, _pad(np.asarray(seg, np.int32), cap)).parts
+        parts = [None] * mesh.size
+        for d in mesh.local:
+            local = nb[d] - int(row_lo[d])
+            mine = valid_mask(nb[d]) & (local >= 0) & (local < rows)
+            parts[d] = torch.where(
+                mine, keys_s.parts[d][local.clamp(0, rows - 1).long()], 0.0)
+        # every valid rank lives on exactly ONE shard: the psum assembles the
+        # full per-edge key vector
+        lead = mesh.lead
+        kv = psum(mesh, parts)[lead]
+        n0, s0 = nb[lead], sg[lead]
+        if desc:
+            kv = torch.where(torch.isinf(kv), kv, -kv)
+        # padded slots sort last within their (nonexistent) row
+        kv = torch.where(valid_mask(n0), kv, torch.inf)
+        seg_k = torch.where(valid_mask(n0), s0, INT32_MAX)
+        # priority: row, key (missing=+inf last), uid tiebreak
+        order = _lexsort((n0, kv, seg_k)).cpu().numpy()
+        # padded slots carry a maxint row key, so they sort strictly last
+        return order[:len(nbrs)]
 

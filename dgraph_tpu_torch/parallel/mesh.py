@@ -85,31 +85,103 @@ the reference). What keeps the ranks in step:
 * placement (`Store.sharded_rel`, `Store.vec_sharded`, the sort-key
   columns) makes no collective, so one rank's eviction and re-placement
   cannot put the ranks out of step;
-* an allocation failure inside a mesh program is not retried while the
-  mesh spans processes (`memgov.oom_retry(..., retry=False)`): it
-  raises, and the other ranks raise at the group's timeout.
+* a failure on one rank is known to every rank at the next collective
+  boundary (below), so every rank takes the same path after it.
 
-A query's deadline acts per rank: one that expires on one rank only
-makes the others raise at the group's timeout. Nothing falls back to a
-single-process mesh or to the host.
+**Failures every rank sees.** While the mesh spans processes, every
+collective first makes one status round: each rank sends a small
+fixed-size header (`STATUS_BYTES`) by one `all_gather` over the mesh's
+gloo group (`Mesh.status_group`), counted in `CROSS_CALLS["status"]`.
+A header holds the rank's status (ok; an allocation failure at a site;
+a deadline expired or a request cancelled at a stage; another error)
+and the identity of the collective: the outermost scope's name and
+this process's ordinal for it, the round's ordinal inside that scope,
+the program, and the collective's kind and operand shape. If any
+header is not ok, no payload moves and every rank raises the same
+failure, the lowest failing rank's: that rank raises its own
+exception, every other rank one of the same class (the allocation
+error's, `DeadlineExceeded` or `Cancelled` with the same stage, else
+`MeshFailure`) naming the failing rank, its site or stage and its
+program. If every header is ok but the identities differ, every rank
+raises `MeshFailure` naming each rank's identity, and nothing is
+folded. The exception a round raises carries what was agreed
+(`failure_of`), and no round follows it in its scope.
+
+The rounds happen inside scopes. Every mesh program runs inside
+`program(mesh, name)`, which counts it in `PROGRAM_CALLS`; a route that
+reads a program's outputs runs inside `lockstep(mesh, name)`, an
+Alpha's request over the mesh inside `lockstep(mesh, "request", turn)`
+(`server/api.py`), each attempt of an allocation-failure retry inside
+`attempt(mesh, site)` (`memgov.oom_retry`), and a gather called outside
+every scope opens its own. The outermost scope of a thread holds the
+rounds and ends with one closing round, so a failure after a program's
+last collective is seen too; a scope nested in another leaves its
+closing to the outermost one. Three scopes close otherwise: a gather's
+own scope makes no closing round (nothing that can fail on one rank
+follows its gather), a write's request scope closes only when it made
+a round (`lazy`: a write that used no collective needs no peer), and
+an attempt reports its own failures even when nested. When a scope
+that reports catches an exception no round has agreed, the rank
+reports it at a round instead of leaving: its peers meet that round at
+their next collective inside the same scope. So:
+
+* an allocation failure on any rank inside an attempt, met by every
+  rank before it leaves the attempt, is retried by every rank: each
+  evicts to its low watermark (only the failing rank counts
+  `oom_events_total`) and runs the attempt again; a second one raises
+  on every rank, and so does a failure met after a rank left the
+  attempt;
+* a read whose budget runs out on one rank raises `DeadlineExceeded`
+  at its checkpoint there, as in the reference; its request scope
+  reports it, and every rank that meets the report at a collective
+  raises it too, naming the same stage;
+* an Alpha's read ends with a turn round before it gives up its turn,
+  so the next request's collectives never meet this one's. A rank whose
+  read completed learns a peer's failure at that round and still
+  answers: a failure in a host-only tail (rendering) stays per rank, as
+  in the reference. A write makes a turn round only when it made a
+  round (so a client may send a write that uses no collective to one
+  rank after another);
+* a round whose ranks stand in different requests (a write that one
+  rank left before its first round while another went on into its
+  collectives) ends the earlier request on the ranks behind, with
+  `MeshFailure`; the ranks ahead meet the same round again, which the
+  ranks behind reach in their next request. Ranks never stay out of
+  step from one request to the next.
+
+A mesh of one process makes no round. Every wait is bounded by the
+group's timeout. Nothing falls back to a single-process mesh or to the
+host.
 
 The lead's decisions travel through the process group's own key-value
 store (the `TCPStore` of the rendezvous, under the prefix
 `AGREE_PREFIX`), never as collectives on the mesh's group: request
 threads run concurrently, and a collective from one would interleave
 with the programs' collectives in another order on each rank. `agree`
-publishes the lead's decision under a key (one store write) and every
-other rank reads it (one store read, which waits up to the group's
-timeout and then raises naming the key; a follower never decides for
-itself). Each call counts in `CROSS_CALLS["agree"]`. A key is the same
-on every rank without a word between them (`agree_key`): the decision's
-kind, a hash of what identifies it (an Alpha request's lane, text and
-variables; a batch's query texts), and how many times this process has
-asked for that hash before, `kind/<hash>/<n>`. Every rank receives the
-same requests in the same order, so the n-th occurrence is the same
-request everywhere, whichever rank reads first. The store keeps every
-decision for the life of the group (a key and a small JSON value per
-request).
+publishes the lead's decision under a key (one store write per
+follower) and every other rank reads it (one store read, which waits
+up to the group's timeout and then raises naming the key; a follower
+never decides for itself). Each call counts in `CROSS_CALLS["agree"]`.
+A key is the same on every rank without a word between them
+(`agree_key`): the decision's kind and a hash of what identifies it
+(an Alpha request's lane, text and variables; a batch's query texts),
+`kind/<hash>`, nothing else. It depends on no order in which a rank
+meets distinct requests, which threads may interleave differently on
+each rank.
+
+Identical requests share their key, and take it in turns: on each
+rank the agreements under one key run one at a time (`_OCCURRENCES`
+holds a lock per key while some thread agrees under it), the lead
+publishes a decision only after every follower has read and deleted
+the one before it under that key (it waits up to the group's timeout),
+and each follower reads and deletes its own copy (`<key>@<rank>`). So
+the i-th agreement under a key on a follower reads the lead's i-th,
+as every rank receives the same requests, and no follower ever reads
+a decision left for an earlier request. The bounds: the store holds
+one key per follower for each decision some follower has not read
+yet, and `_OCCURRENCES` one entry per key some thread of this process
+is agreeing under (at most its threads inside `agree`); neither grows
+with the number of distinct requests served.
 
 The steady serving contract is the reference's: a hop's outputs are the
 next hop's inputs with their placement already right, so a chained
@@ -128,6 +200,7 @@ rule), and neither do its requests and batches agree on anything.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import contextvars
 import datetime
@@ -135,13 +208,14 @@ import hashlib
 import json
 import os
 import socket
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from dgraph_tpu_torch.utils import costprior, locks
+from dgraph_tpu_torch.utils import costprior, deadline, locks, memgov
 from dgraph_tpu_torch.utils.device import resolve_device
 from dgraph_tpu_torch.utils.metrics import METRICS
 
@@ -152,9 +226,10 @@ __all__ = ["SHARD_AXIS", "REPLICATED", "SHARDED", "Mesh", "Sharded",
            "replicate", "shard", "gather_shards", "all_gather", "psum",
            "pmax", "ppermute", "psum_scatter", "hop_input", "reshard_count",
            "reshard_guard", "agree", "agree_key", "following", "promoted",
-           "group_timeout_s", "PROGRAM_CALLS", "count_program",
+           "group_timeout_s", "PROGRAM_CALLS", "program",
+           "lockstep", "attempt", "failure_of", "Failure", "MeshFailure",
            "CROSS_CALLS", "CROSS_KINDS", "AGREE_PREFIX", "DIST_TIMEOUT_S",
-           "LOCAL_SHARDS_ENV"]
+           "LOCAL_SHARDS_ENV", "STATUS_BYTES", "gather_columns"]
 
 SHARD_AXIS = "shard"
 # the reference's PartitionSpecs: P() and P("shard")
@@ -173,10 +248,11 @@ LOCAL_SHARDS_ENV = "DGRAPH_TPU_LOCAL_SHARDS"
 PROGRAM_CALLS: dict[str, int] = {}
 
 # the kinds of cross-process call: a collective's name, "host_np",
-# "nnz" for assemble_sharded_rel's agreement, "mesh_shape", and "agree"
-# for a read or write of the lead's decisions
+# "nnz" for assemble_sharded_rel's agreement, "mesh_shape", "agree" for
+# a read or write of the lead's decisions, and "status" for a status
+# round
 CROSS_KINDS = ("all_gather", "psum", "pmax", "ppermute", "host_np", "nnz",
-               "mesh_shape", "agree")
+               "mesh_shape", "agree", "status")
 # this process's cross-process calls, by kind
 CROSS_CALLS: dict[str, int] = {}
 
@@ -185,16 +261,19 @@ AGREE_PREFIX = "dgraph_tpu/agree"
 # the process group's store under AGREE_PREFIX while this process is in
 # a group (init_distributed), else None
 _DECISIONS = None
-# per (kind, hash): how many keys this process has made (`agree_key`)
+# per key some thread is agreeing under: [its lock, threads using it]
 _OCCURRENCES: dict = {}
 _occurrence_lock = locks.make_lock("mesh.agree")
+# bytes of one rank's header in a status round
+STATUS_BYTES = 512
+# the outermost scope this thread runs on a mesh across processes
+_FRAME: contextvars.ContextVar = contextvars.ContextVar(
+    "dgraph_tpu_mesh_frame", default=None)
+# per outermost scope name: how many this process has opened
+_FRAME_CALLS: dict = {}
 # the lead's route promotions for the request this thread serves
 _FOLLOWING: contextvars.ContextVar = contextvars.ContextVar(
     "dgraph_tpu_lead_promotions", default=None)
-
-
-def count_program(name: str) -> None:
-    PROGRAM_CALLS[name] = PROGRAM_CALLS.get(name, 0) + 1
 
 
 def _count_cross(kind: str) -> None:
@@ -203,15 +282,272 @@ def _count_cross(kind: str) -> None:
     CROSS_CALLS[kind] = CROSS_CALLS.get(kind, 0) + 1
 
 
+# -- failures every rank sees (the module doc) ------------------------------------
+
+class MeshFailure(RuntimeError):
+    """Every rank's exception for a round whose ranks stand at different
+    collectives, and a rank's for another rank's failure that is neither
+    an allocation failure nor an expired or cancelled request."""
+
+
+@dataclass(frozen=True)
+class Failure:
+    """What a status round agreed, on the exception each rank raises:
+    the failing `rank` whose failure every rank raises (the lowest), its
+    `kind` ("alloc", "deadline", "cancelled", "error"; "mismatch" for
+    identities that differ, "behind" on a rank whose peers have left
+    its request, "transport" for a round or a gather that
+    did not complete), whether this rank reported a failure of its own
+    (`mine`), and whether every failure was an allocation failure inside
+    the attempt every rank stood in (`retry`)."""
+
+    rank: int
+    kind: str
+    mine: bool
+    retry: bool
+
+
+def failure_of(e: BaseException) -> Failure | None:
+    """The agreed failure `e` carries, or None when no round agreed it."""
+    return getattr(e, "mesh_failure", None)
+
+
+class _Frame:
+    """The outermost scope of a thread on a mesh across processes: its
+    name and ordinal, whether it closes only when it made a round
+    (`lazy`), its rounds so far, and the program and attempt the thread
+    is in."""
+
+    __slots__ = ("mesh", "name", "call", "lazy", "rounds", "program",
+                 "attempt")
+
+    def __init__(self, mesh, name: str, call: int, lazy: bool = False):
+        self.mesh = mesh
+        self.name = name
+        self.call = call
+        self.lazy = lazy
+        self.rounds = 0
+        self.program = None
+        self.attempt = None
+
+
+@contextlib.contextmanager
+def _scope(mesh, name: str, program: str | None = None,
+           attempt: bool = False, turn: int | None = None,
+           lazy: bool = False, bare: bool = False):
+    """A scope on `mesh` (the module doc): the outermost on this thread
+    opens a frame, ordinal `turn` when given, and ends with a closing
+    round (its turn round, with a `turn`), unless it is `bare` (a
+    gather's own) or `lazy` and made no round; a nested one marks the
+    frame's program or attempt. The outermost scope and an attempt
+    report an exception no round agreed (a lazy frame only once it made
+    a round)."""
+    if mesh is None or not mesh.spans_processes or mesh.status_group is None:
+        yield
+        return
+    f = _FRAME.get()
+    outer = f is None
+    token = None
+    if outer:
+        call = turn
+        if call is None:
+            with _occurrence_lock:
+                call = _FRAME_CALLS.get(name, 0)
+                _FRAME_CALLS[name] = call + 1
+        f = _Frame(mesh, name, call, lazy)
+        token = _FRAME.set(f)
+    saved = (f.program, f.attempt)
+    if program is not None:
+        f.program = program
+    if attempt:
+        f.attempt = [name, f.rounds]
+    try:
+        yield
+    except Exception as e:
+        if failure_of(e) is None and (attempt or (
+                outer and (f.rounds or not f.lazy))):
+            _round(f, "report", own=e)
+        raise
+    else:
+        if outer and not bare and (f.rounds or not f.lazy):
+            _round(f, "turn" if turn is not None else "close")
+    finally:
+        f.program, f.attempt = saved
+        if token is not None:
+            _FRAME.reset(token)
+
+
+@contextlib.contextmanager
+def program(mesh: "Mesh", name: str):
+    """Run the block as mesh program `name`: one call in
+    `PROGRAM_CALLS`, and a scope whose rounds name the program."""
+    PROGRAM_CALLS[name] = PROGRAM_CALLS.get(name, 0) + 1
+    with _scope(mesh, name, program=name):
+        yield
+
+
+@contextlib.contextmanager
+def lockstep(mesh: "Mesh", name: str, turn: int | None = None,
+             lazy: bool = False):
+    """Run the block as one scope on `mesh` (a route that reads a
+    program's outputs, or, with its `turn`, an Alpha's request): one
+    closing round for all its collectives when it is the outermost,
+    and with `lazy` (a write) only when it made a round. A request's
+    closing round is its turn round: a rank whose request completed
+    learns a peer's failure there and does not raise it."""
+    with _scope(mesh, name, turn=turn, lazy=lazy):
+        yield
+
+
+@contextlib.contextmanager
+def attempt(mesh: "Mesh", site: str):
+    """One attempt of an allocation-failure retry at `site`: a scope
+    that reports its own failures, so every rank still inside the
+    attempt learns of a failure in it (`memgov.oom_retry`). Nested in
+    another scope it makes no closing round of its own."""
+    with _scope(mesh, site, attempt=True):
+        yield
+
+
+def _describe(f: _Frame, e: BaseException) -> dict:
+    """The header fields of this rank's own failure `e`."""
+    prog = f.program or f.name
+    if isinstance(e, deadline.DeadlineExceeded):
+        kind, where = "deadline", e.stage
+    elif isinstance(e, deadline.Cancelled):
+        kind, where = "cancelled", e.stage
+    elif memgov.is_alloc_failure(e):
+        kind, where = "alloc", f.attempt[0] if f.attempt else prog
+    else:
+        kind, where = "error", prog
+    return {"k": kind, "w": str(where)[:64], "p": prog[:64],
+            "c": type(e).__name__[:64], "m": str(e)}
+
+
+def _encode(head: dict) -> torch.Tensor:
+    """`head` as JSON in STATUS_BYTES zero-padded bytes (the failure's
+    message cut until it fits)."""
+    for cut in (None, 200, 40, 0):
+        if cut is not None and "m" in head:
+            head["m"] = head["m"][:cut]
+        raw = json.dumps(head).encode()
+        if len(raw) <= STATUS_BYTES:
+            break
+    else:
+        raise ValueError(f"a status header of {len(raw)} bytes")
+    out = torch.zeros(STATUS_BYTES, dtype=torch.uint8)
+    out[:len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    return out
+
+
+def _ident(h: dict) -> str:
+    name, call, rnd, prog, what, shape = h["id"]
+    return (f"rank {h['r']} at {name} #{call} round {rnd} ({prog}, "
+            f"{what}{'' if shape is None else f' of {shape}'})")
+
+
+_ALLOC_CLASSES = {"AllocFault": memgov.AllocFault,
+                  "OutOfMemoryError": torch.cuda.OutOfMemoryError}
+
+
+def _rebuild(h: dict) -> Exception:
+    """A peer's failure as this rank raises it: the same class."""
+    msg = (f"rank {h['r']} failed at {h['w']} in {h['p']}: {h['c']}: "
+           f"{h['m']}")
+    if h["k"] == "alloc":
+        return _ALLOC_CLASSES.get(h["c"], MemoryError)(msg)
+    if h["k"] == "deadline":
+        return deadline.DeadlineExceeded(msg, stage=h["w"])
+    if h["k"] == "cancelled":
+        return deadline.Cancelled(msg, stage=h["w"])
+    return MeshFailure(msg)
+
+
+def _agreed(e: BaseException, failure: Failure) -> BaseException:
+    e.mesh_failure = failure
+    return e
+
+
+def _round(f: _Frame, what: str, own: BaseException | None = None,
+           shape=None) -> None:
+    """One status round of frame `f` before its collective `what` (or
+    its closing, turn or report round): gather every rank's header;
+    raise the agreed failure or mismatch, or return when every rank is
+    ok at the same collective. `own` is this rank's failure to report."""
+    mesh = f.mesh
+    f.rounds += 1
+    head = {"a": f.attempt,
+            "id": [f.name, f.call, f.rounds, f.program or f.name, what,
+                   shape]}
+    if own is not None:
+        head.update(_describe(f, own))
+    send = _encode(head)
+    recv = [torch.empty_like(send) for _ in mesh.owners]
+    try:
+        dist.all_gather(recv, send, group=mesh.status_group)
+    except Exception as e:
+        raise _agreed(MeshFailure(
+            f"process {mesh.rank}: the status round at {f.name} #{f.call} "
+            f"round {f.rounds} did not complete within the group's "
+            f"timeout ({group_timeout_s():g} s): {e}"),
+            Failure(mesh.rank, "transport", own is not None,
+                    False)) from (own or e)
+    _count_cross("status")
+    if own is None and all(torch.equal(r, send) for r in recv):
+        return      # every rank ok at this same collective
+    heads = [json.loads(bytes(r.numpy()).rstrip(b"\0")) for r in recv]
+    for owner, h in zip(mesh.owners, heads):
+        h["r"] = owner
+    turns = {h["id"][1] for h in heads}
+    if len(turns) > 1 and all(h["id"][0] == "request" for h in heads):
+        if f.call < max(turns):
+            if own is None and what == "turn":
+                return      # it completed here; the ranks ahead left it
+            # the ranks ahead have left this request: it ends here
+            raise _agreed(MeshFailure(
+                f"process {mesh.rank}: the ranks ahead have left request "
+                f"{f.call}: " + "; ".join(_ident(h) for h in heads)),
+                Failure(mesh.rank, "behind", own is not None,
+                        False)) from own
+        # the ranks behind end their earlier request, and meet this
+        # round again in their next one
+        f.rounds -= 1
+        return _round(f, what, own, shape)
+    bad = [h for h in heads if "k" in h]
+    if not bad:
+        raise _agreed(MeshFailure(
+            "the ranks stand at different collectives: "
+            + "; ".join(_ident(h) for h in heads)),
+            Failure(heads[0]["r"], "mismatch", False, False))
+    first = min(bad, key=lambda h: h["r"])
+    failure = Failure(
+        first["r"], first["k"], own is not None,
+        all(h["k"] == "alloc" for h in bad) and heads[0]["a"] is not None
+        and all(h["a"] == heads[0]["a"] for h in heads))
+    if own is None and what == "turn":
+        # this rank's request completed: it learns the peer's failure
+        # at its turn round and answers
+        return
+    if own is not None and first["r"] == mesh.rank:
+        raise _agreed(own, failure)
+    # this rank's request ends here as the failing rank's did
+    if own is None and first["k"] == "deadline":
+        METRICS.inc("deadline_exceeded_total", stage=first["w"])
+    elif own is None and first["k"] == "cancelled":
+        METRICS.inc("request_cancelled_total", stage=first["w"])
+    raise _agreed(_rebuild(first), failure) from own
+
+
 class Mesh:
     """An ordered tuple of devices on the one axis `SHARD_AXIS`. A
     device may repeat: then several shards share it. `ranks[d]` is the
     process that owns shard d; this process (`rank`) holds the shards
     in `local`, and reaches the others through `group` over `backend`
-    (both None when every shard is local)."""
+    (both None when every shard is local); its status rounds go over
+    `status_group`, a gloo group (`group` itself under gloo)."""
 
     def __init__(self, devices, ranks=None, rank: int = 0, group=None,
-                 backend: str | None = None):
+                 backend: str | None = None, status_group=None):
         devs = tuple(torch.device(d) for d in devices)
         if not devs:
             raise ValueError("a mesh needs at least one device")
@@ -226,6 +562,8 @@ class Mesh:
         self.local = tuple(d for d, r in enumerate(self.ranks) if r == rank)
         self.group = group
         self.backend = backend
+        self.status_group = status_group if status_group is not None \
+            else group
         # the ranks that own shards, in rank order; per shard its slot
         # among its owner's shards; the most shards any rank owns (what
         # a cross-process gather pads each rank's operands to)
@@ -327,7 +665,9 @@ def init_distributed(coordinator: str | None = None,
 def _join(url: str, world_size: int, rank: int, timeout) -> bool:
     """Rendezvous at `url` (what `init_process_group(init_method=url)`
     does), keep its store for the lead's decisions, and build the gloo
-    group over it."""
+    group over it. A process that exits still in the group leaves it
+    first (`shutdown_distributed` at exit): torch's own teardown of a
+    group whose peer is gone can abort the process."""
     global _DECISIONS
     store, rank, world_size = next(dist.rendezvous(
         url, rank, world_size, timeout=timeout))
@@ -335,18 +675,21 @@ def _join(url: str, world_size: int, rank: int, timeout) -> bool:
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=world_size, timeout=timeout)
     _DECISIONS = dist.PrefixStore(AGREE_PREFIX, store)
+    atexit.unregister(shutdown_distributed)
+    atexit.register(shutdown_distributed)
     return dist.get_world_size() > 1
 
 
 def shutdown_distributed() -> None:
     """Leave the process group (a no-op outside one) and forget its
-    decisions' store and keys."""
+    decisions' store, keys and scope ordinals."""
     global _DECISIONS
     if _joined():
         dist.destroy_process_group()
     _DECISIONS = None
     with _occurrence_lock:
         _OCCURRENCES.clear()
+        _FRAME_CALLS.clear()
 
 
 def group_timeout_s() -> float:
@@ -409,7 +752,7 @@ def _global_mesh(n_devices, device) -> Mesh:
                          f"{world} processes")
     devices, ranks, cards = devices[:n], ranks[:n], cards[:n]
     owners = sorted(set(ranks))
-    backend = group = None
+    backend = group = status = None
     if len(owners) > 1:
         by_card: dict = {}
         for r, c in zip(ranks, cards):
@@ -422,10 +765,13 @@ def _global_mesh(n_devices, device) -> Mesh:
         # every rank of the world creates the group, in the same order
         group = dist.new_group(ranks=owners, backend=backend,
                                timeout=_timeout())
+        # the status rounds' headers stay on the host
+        status = dist.new_group(ranks=owners, backend="gloo",
+                                timeout=_timeout()) if nccl else group
         if rank not in owners:
-            group = None
+            group = status = None
     return Mesh(devices, ranks=ranks, rank=rank, group=group,
-                backend=backend)
+                backend=backend, status_group=status)
 
 
 def make_mesh(n_devices: int | None = None, devices=None,
@@ -554,19 +900,52 @@ def gather_shards(x: Sharded, kind: str = "host_np") -> list:
     group, counted under `kind`. A value whose parts are all held here
     makes no cross-process call; otherwise every process holding a shard
     of it must call this too."""
-    if x.fully_held:
-        return list(x.parts)
-    if x.mesh is None:
+    return gather_columns([x], kind)[0]
+
+
+def gather_columns(xs, kind: str = "host_np") -> list:
+    """`gather_shards` of each sharded value of `xs` (one mesh, every
+    part of one value the same shape and dtype), all by ONE gather:
+    each shard's parts travel as one byte row. Returns one list of
+    every shard's part per value."""
+    xs = list(xs)
+    if all(x.fully_held for x in xs):
+        return [list(x.parts) for x in xs]
+    mesh = next(x.mesh for x in xs if not x.fully_held)
+    if mesh is None:
         raise RuntimeError("a sharded value with shards of other "
                            "processes needs its mesh to be gathered")
-    return _exchange(x.mesh, x.parts, kind)
+    if len(xs) == 1:
+        return [_exchange(mesh, xs[0].parts, kind)]
+    metas = [(x.lead.shape, x.lead.dtype) for x in xs]
+    packed = [torch.cat([x.parts[d].contiguous().reshape(-1)
+                         .view(torch.uint8) for x in xs])
+              if mesh.is_local(d) else None for d in range(mesh.size)]
+    got = _exchange(mesh, packed, kind)
+    out = [list(x.parts) for x in xs]
+    for d in range(mesh.size):
+        if mesh.is_local(d):
+            continue
+        at = 0
+        for col, (shape, dtype) in zip(out, metas):
+            n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            col[d] = got[d][at:at + n].clone().view(dtype).reshape(shape)
+            at += n
+    return out
 
 
-def host_np(x) -> np.ndarray:
+def host_np(x, *more):
     """A program's output → host numpy. A replicated value is its local
     copy; a sharded one is every shard's part stacked (`gather_shards`:
     other processes' parts are gathered over the mesh's group, the
-    reference's `process_allgather(tiled=True)`)."""
+    reference's `process_allgather(tiled=True)`). With `more` values, a
+    tuple of each one's, the sharded ones gathered together by one
+    gather (`gather_columns`)."""
+    if more:
+        xs = (x, *more)
+        cols = iter(gather_columns([v for v in xs if isinstance(v, Sharded)]))
+        return tuple(np.stack([p.cpu().numpy() for p in next(cols)])
+                     if isinstance(v, Sharded) else host_np(v) for v in xs)
     if isinstance(x, Sharded):
         return np.stack([p.cpu().numpy() for p in gather_shards(x)])
     if isinstance(x, Replicated):
@@ -669,7 +1048,9 @@ def _exchange(mesh: Mesh, parts: list, kind: str) -> list:
     the others' received by one `all_gather` over the mesh's group (on
     the host over gloo, on this process's card over NCCL). Each rank
     sends its parts stacked, padded to the most shards any rank owns;
-    every operand has the held parts' shape and dtype."""
+    every operand has the held parts' shape and dtype. A status round
+    comes first (the module doc): the payload moves only when every
+    rank is ok at this same collective."""
     if not mesh.spans_processes:
         return list(parts)
     if mesh.group is None:
@@ -686,15 +1067,29 @@ def _exchange(mesh: Mesh, parts: list, kind: str) -> list:
     if len(mine) < mesh._width:
         send = torch.cat([send, send.new_zeros(
             (mesh._width - len(mine), *send.shape[1:]))])
+    send = send.contiguous()
     recv = [torch.empty_like(send) for _ in mesh.owners]
-    dist.all_gather(recv, send.contiguous(), group=mesh.group)
-    _count_cross(kind)
-    out = list(parts)
-    for d in range(mesh.size):
-        if out[d] is None:
-            got = recv[mesh.owners.index(mesh.ranks[d])][mesh._slot[d]]
-            out[d] = got.to(torch.bool) if as_bool else got
-    return out
+    # a gather outside every scope opens its own, which needs no
+    # closing round: nothing that can fail on one rank follows the gather
+    with _scope(mesh, kind, bare=True):
+        f = _FRAME.get()
+        # nothing between the round and the gather can fail on one rank
+        _round(f, kind, shape=[list(send.shape), str(send.dtype)])
+        try:
+            dist.all_gather(recv, send, group=mesh.group)
+        except Exception as e:
+            raise _agreed(MeshFailure(
+                f"process {mesh.rank}: the {kind} gather did not complete "
+                f"within the group's timeout ({group_timeout_s():g} s): "
+                f"{e}"), Failure(mesh.rank, "transport", False,
+                                 False)) from e
+        _count_cross(kind)
+        out = list(parts)
+        for d in range(mesh.size):
+            if out[d] is None:
+                got = recv[mesh.owners.index(mesh.ranks[d])][mesh._slot[d]]
+                out[d] = got.to(torch.bool) if as_bool else got
+        return out
 
 
 def all_gather(mesh: Mesh, xs) -> list:
@@ -770,44 +1165,91 @@ def psum_scatter(mesh: Mesh, xs, scatter_dimension: int = 0,
 # -- the lead's decisions -------------------------------------------------------------
 
 def agree_key(kind: str, *parts) -> str:
-    """The key of a decision, `kind/<hash>/<n>`: a hash of `parts` (what
-    identifies the decision, e.g. a request's lane, text and variables)
-    and `n`, how many keys of that kind and hash this process made
-    before. Every rank receives the same requests in the same order, so
-    every rank makes the same key for the same request."""
+    """The key of a decision, `kind/<hash>`: a hash of `parts` (what
+    identifies the decision, e.g. a request's lane, text and
+    variables), and nothing of what else this process has seen, so
+    every rank makes the same key for the same request whatever order
+    its threads meet distinct requests in. Identical requests share the
+    key and take it in turns (`agree`)."""
     digest = hashlib.sha1(json.dumps(parts, sort_keys=True, default=repr)
                           .encode()).hexdigest()[:24]
+    return f"{kind}/{digest}"
+
+
+@contextlib.contextmanager
+def _in_turns(key: str):
+    """Hold `key`'s lock (the lead's key, a follower's copy): this
+    process's agreements under one key run one at a time. The entry
+    lives while some thread uses it."""
     with _occurrence_lock:
-        n = _OCCURRENCES.get((kind, digest), 0)
-        _OCCURRENCES[(kind, digest)] = n + 1
-    return f"{kind}/{digest}/{n}"
+        entry = _OCCURRENCES.setdefault(
+            key, [locks.make_lock("mesh.agree.key"), 0])
+        entry[1] += 1
+    try:
+        with entry[0]:
+            yield
+    finally:
+        with _occurrence_lock:
+            entry[1] -= 1
+            if not entry[1]:
+                del _OCCURRENCES[key]
+
+
+def _read_by_all(store, copies: list, key: str) -> None:
+    """Wait until every follower has read (and so deleted) the decision
+    last published under `key`, at most the group's timeout."""
+    limit = time.monotonic() + group_timeout_s()
+    pause = 2e-4
+    while any(store.check([c]) for c in copies):
+        if time.monotonic() > limit:
+            raise RuntimeError(
+                f"the lead's earlier decision under key {key!r} was not "
+                f"read by every follower within the group's timeout "
+                f"({group_timeout_s():g} s): every rank must receive the "
+                f"requests the lead does")
+        time.sleep(pause)
+        pause = min(pause * 2, 0.01)
 
 
 def agree(mesh: Mesh, key: str, decision=None):
     """The lead's `decision` under `key`, the same on every rank of
     `mesh`. The lead (`Mesh.is_lead`) publishes `decision` (a JSON
-    value) and returns it; every other rank reads the lead's, waiting
-    up to the group's timeout whether it asks before or after the lead
-    publishes, and raises RuntimeError naming the key when it cannot
-    read it in time: a follower never decides for itself. One store
-    round trip, counted in `CROSS_CALLS["agree"]`. Only for a mesh that
-    spans processes: on a mesh of one process nothing is agreed."""
+    value), one copy per follower, and returns it; every other rank
+    reads its copy, waiting up to the group's timeout whether it asks
+    before or after the lead publishes, then deletes it, and raises
+    RuntimeError naming the key when it cannot read it in time: a
+    follower never decides for itself. Agreements under one key take
+    turns on each rank, and the lead publishes only after every
+    follower has deleted its copy of the decision before (the module
+    doc), so a key may come again and never reads a stale decision.
+    Each call counts once in `CROSS_CALLS["agree"]`. Only for a mesh
+    that spans processes: on a mesh of one process nothing is
+    agreed."""
     store = _DECISIONS
     if store is None:
         raise RuntimeError(f"no store to agree {key!r} through: a mesh "
                            f"across processes is built after "
                            f"init_distributed")
     if mesh.is_lead:
-        store.set(key, json.dumps(decision))
+        copies = [f"{key}@{r}" for r in mesh.owners if r != mesh.rank]
+        with _in_turns(key):
+            _read_by_all(store, copies, key)
+            raw = json.dumps(decision)
+            for c in copies:
+                store.set(c, raw)
         _count_cross("agree")
         return decision
-    try:
-        raw = store.get(key)
-    except RuntimeError as e:
-        raise RuntimeError(
-            f"process {mesh.rank}: no decision of the lead under key "
-            f"{key!r} within the group's timeout ({group_timeout_s():g} "
-            f"s); a follower does not decide for itself") from e
+    mine = f"{key}@{mesh.rank}"
+    with _in_turns(mine):
+        try:
+            raw = store.get(mine)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"process {mesh.rank}: no decision of the lead under key "
+                f"{key!r} within the group's timeout "
+                f"({group_timeout_s():g} s); a follower does not decide "
+                f"for itself") from e
+        store.delete_key(mine)
     _count_cross("agree")
     return json.loads(raw)
 

@@ -170,7 +170,10 @@ def _refused(verdict: dict) -> Exception:
 class _Turns:
     """The order in which requests run over a mesh that spans processes:
     the lead grants turns 0, 1, 2, ... (`grant`) and every rank runs the
-    request holding turn t only after turn t - 1 ended here (`turn`)."""
+    request holding turn t only after turn t - 1 ended here (`turn`).
+    A request ends its turn after its turn round (`_in_turn`), which
+    every rank that used the mesh in it makes, so turn t's collectives
+    never meet turn t + 1's."""
 
     def __init__(self):
         self._cv = locks.make_condition("alpha.turns")
@@ -679,7 +682,17 @@ class Alpha:
         runs the granted requests one at a time in grant order, the
         lead's promotions ambient (`parallel/mesh.following`), so the
         collectives of their mesh programs come in one order on every
-        rank."""
+        rank. Each request runs as one `parallel/mesh.lockstep` scope
+        named by its turn: a failure on one rank (an expired budget, an
+        allocation failure its retry did not absorb) is reported at a
+        status round, so every rank that meets it at a collective raises
+        it too, and the request gives up its turn only after its turn
+        round, where every rank has learned of it. A read always makes
+        that round (so every rank must receive a read before any answers
+        it); a write makes it only when it made a round (`lazy`), so a
+        write that uses no collective may reach one rank after another.
+        A write that one rank left before its first round ends on the
+        ranks that went on into its collectives, at their next round."""
         from dgraph_tpu_torch.parallel import mesh as pmesh
         mesh = self.mesh
         name = pmesh.agree_key("request", lane, key)
@@ -713,7 +726,10 @@ class Alpha:
                         lane, cost_us=predicted))
             held.enter_context(self._turns.turn(verdict["turn"],
                                                 pmesh.group_timeout_s()))
-            with pmesh.following(verdict["promoted"]):
+            # a write closes with a round only when it made one, so one
+            # that uses no collective may reach one rank after another
+            with pmesh.following(verdict["promoted"]), pmesh.lockstep(
+                    mesh, "request", verdict["turn"], lazy=lane != "read"):
                 yield
 
     def shutdown(self, p_dir: str | None = None) -> None:

@@ -37,8 +37,9 @@ from every call) say that route beats the host scan; it counts each
 route in `knn_route_total{route=}` (host, device, mesh, and fused for a
 knn stage of a whole-block program). The device and mesh launches run
 under the memory governor's allocation-failure lifecycle at site
-`vec.topk` (utils/memgov.py): one evict-and-retry on the card, and a
-second allocation failure raises; nothing falls back to the host scan.
+`vec.topk` (utils/memgov.py): one evict-and-retry on the card (taken by
+every rank together on a mesh across processes), and a second
+allocation failure raises; nothing falls back to the host scan.
 """
 
 from __future__ import annotations
@@ -239,7 +240,7 @@ def _mesh_topk(store, pred: str, q: np.ndarray, k: int, mesh,
     """The mesh top-k over the row-sharded stack, through the
     allocation-failure lifecycle: each shard's k best keys (`topk_keys`),
     gathered, and the k best of those."""
-    from dgraph_tpu_torch.parallel.mesh import (all_gather, count_program,
+    from dgraph_tpu_torch.parallel.mesh import (all_gather, program,
                                                 replicate)
 
     def _launch():
@@ -248,27 +249,27 @@ def _mesh_topk(store, pred: str, q: np.ndarray, k: int, mesh,
         # up to k across all of them
         kk = min(k, rows)
         k_out = min(k, kk * mesh.size)
-        count_program("knn_mesh")
-        q_r = replicate(mesh, q).parts
-        t0 = time.perf_counter()
-        cands = [None] * mesh.size
-        for d in mesh.local:
-            subj, vecs = subj_s.parts[d], vecs_s.parts[d]
-            keys = topk_keys(torch.mv(vecs, q_r[d]), subj)
-            top = torch.topk(keys, min(kk, keys.shape[0]), largest=False,
-                             sorted=False).values
-            pad = kk - top.shape[0]
-            cands[d] = (torch.cat([top, top.new_full((pad,), _NO_KEY)])
-                        if pad else top)
-        keys = all_gather(mesh, cands)[mesh.lead].reshape(-1)
-        best = torch.topk(keys, k_out, largest=False, sorted=False).values
-        best = best[best != _NO_KEY]
-        out = (best & 0xFFFFFFFF).to(torch.int32)
-        costprofile.note_launch(t0, time.perf_counter())
-        return torch.sort(out).values.cpu().numpy()
+        with program(mesh, "knn_mesh"):
+            q_r = replicate(mesh, q).parts
+            t0 = time.perf_counter()
+            cands = [None] * mesh.size
+            for d in mesh.local:
+                subj, vecs = subj_s.parts[d], vecs_s.parts[d]
+                keys = topk_keys(torch.mv(vecs, q_r[d]), subj)
+                top = torch.topk(keys, min(kk, keys.shape[0]), largest=False,
+                                 sorted=False).values
+                pad = kk - top.shape[0]
+                cands[d] = (torch.cat([top, top.new_full((pad,), _NO_KEY)])
+                            if pad else top)
+            keys = all_gather(mesh, cands)[mesh.lead].reshape(-1)
+            best = torch.topk(keys, k_out, largest=False, sorted=False).values
+            best = best[best != _NO_KEY]
+            out = (best & 0xFFFFFFFF).to(torch.int32)
+            costprofile.note_launch(t0, time.perf_counter())
+            return torch.sort(out).values.cpu().numpy()
 
     return memgov.oom_retry("vec.topk", shape_key, _launch,
-                            retry=not mesh.spans_processes).astype(
+                            mesh=mesh).astype(
         np.int32, copy=False)
 
 
@@ -278,6 +279,7 @@ def similar_ranks(store, f, device, device_threshold: int = 512,
     when a mesh is given, else the device top-k, on a tablet of at least
     `device_threshold` rows (or when the knn route EMAs promote that
     route), the host scan otherwise. A device failure raises."""
+    from dgraph_tpu_torch.parallel.mesh import lockstep
     from dgraph_tpu_torch.parallel.mesh import promoted as mesh_promoted
 
     resolved = resolve_query(store, f)
@@ -292,7 +294,8 @@ def similar_ranks(store, f, device, device_threshold: int = 512,
     if mesh is not None and (n >= device_threshold or mesh_promoted(
             mesh, "knn_mesh", "knn_host")):
         route = "mesh"
-        out = _mesh_topk(store, pred, q, k, mesh, (pred, t.dim, k))
+        with lockstep(mesh, "mesh.knn"):
+            out = _mesh_topk(store, pred, q, k, mesh, (pred, t.dim, k))
     elif n >= device_threshold or costprior.promoted("knn_device",
                                                      "knn_host"):
         route = "device"

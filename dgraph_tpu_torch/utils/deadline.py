@@ -21,6 +21,22 @@ tokens, fold gates) is released by the enclosing `with`/`finally`
 blocks it raises through — cancellation is an exception, never a
 thread kill.
 
+Over a mesh that spans processes a checkpoint still acts on its own
+rank's clock, and raises there as in the reference; what the other
+ranks do is agreed at the mesh's status rounds (`parallel/mesh.py`). An
+Alpha's read there runs as one `mesh.lockstep` scope, which reports the
+raised `DeadlineExceeded` (or `Cancelled`) at a round instead of
+leaving its peers at their next collective: every rank that meets the
+report at a collective raises the same class with the same `stage`,
+and so answers 504 (or 499) too. A rank whose read had already
+completed learns of it at the read's turn round and answers: an expiry
+in a host-only tail stays per rank, as in the reference. A write runs
+in such a scope too, which closes with a round only when the write used
+a collective: a write whose budget runs out on one rank before its
+first round ends there, and on the ranks that went on into its
+collectives at their next round. No rank waits for a peer past the
+group's timeout.
+
 `of_thread` finds the context another thread is running under: the HTTP
 front end's disconnect watcher (server/http.py) cancels through it.
 A cluster RPC's leg forwards the remaining budget as its gRPC timeout

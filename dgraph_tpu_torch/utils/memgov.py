@@ -27,7 +27,10 @@ exception passes through untouched: a failed launch, an illegal
 address, a kernel build error or an assertion is never taken for an
 allocation failure, and nothing catches it here. `set_alloc_fault` is
 the process hook that injects allocation failures at the real launch
-sites (consulted by `oom_retry` before each attempt).
+sites (consulted by `oom_retry` before each attempt). At a mesh
+program's site on a mesh across processes, `oom_retry(..., mesh=mesh)`
+makes the evict-and-retry every rank's (`parallel/mesh.attempt`): a
+failure on one rank is retried, or raised, on all of them.
 
 `govern_dict` joins a cache held in an owner's dict to the registry
 (oldest entry evicted first), and `Governor.add_dependent` lets a cache
@@ -380,13 +383,21 @@ class Governor:
         with self._deg_lock:
             self._oom_events += 1
         METRICS.inc("oom_events_total", site=site)
+        freed = self.make_room(kind)
+        from dgraph_tpu_torch.utils import flightrec
+        flightrec.emit("memory.oom", site=site, shape=str(shape),
+                       freed_bytes=freed)
+        return freed
+
+    def make_room(self, kind: str = "device") -> int:
+        """Evict the kind to its low watermark and hand the freed device
+        blocks back to the card (`note_oom`'s room for a retry, and a
+        peer's on a mesh across processes, which counts no event).
+        Returns bytes freed."""
         freed = self.evict_to_low(kind)
         if kind == "device" and torch.cuda.is_initialized():
             with DEVICE_WIDE:     # never while another thread captures
                 torch.cuda.empty_cache()
-        from dgraph_tpu_torch.utils import flightrec
-        flightrec.emit("memory.oom", site=site, shape=str(shape),
-                       freed_bytes=freed)
         return freed
 
     def degrade(self, site: str, shape: str) -> None:
@@ -492,17 +503,29 @@ GOVERNOR = Governor()
 
 
 def oom_retry(site: str, shape, fn, kind: str = "device",
-              degrade: bool = False, retry: bool = True):
+              degrade: bool = False, mesh=None):
     """Run one device launch with the allocation-failure lifecycle: a
     classified allocation failure triggers evict-to-low-watermark and
     ONE retry of the same `fn`. A second one is logged at warning and
     raises: with `degrade` (a site whose degraded route runs on the same
     card) it sticky-degrades the (site, shape) and raises `OomDegraded`
     for that route, and a shape already degraded raises it at once;
-    otherwise the allocation error itself goes to the caller. Without
-    `retry` (a mesh program across processes, whose other ranks would
-    not re-run it) the first failure is counted and raises. Any other
-    exception passes through untouched."""
+    otherwise the allocation error itself goes to the caller. Any other
+    exception passes through untouched.
+
+    With `mesh`, a mesh that spans processes (a mesh program's site),
+    every rank takes the same path: each attempt is a
+    `parallel/mesh.attempt` scope, at whose rounds a failure on one rank
+    is known to every rank. When an attempt fails with an allocation
+    failure on any rank and every rank learns of it inside the attempt
+    (at one of its collectives), every rank evicts to its low watermark
+    and runs `fn` again; `oom_events_total` counts on the rank whose
+    allocation failed. One that a rank learns of only after it left the
+    attempt raises on every rank. When the second attempt fails too, every rank raises: the
+    failing rank its allocation error, the others one of its class
+    naming that rank. Any other failure raises on every rank."""
+    if mesh is not None and mesh.spans_processes:
+        return _agreed_retry(site, shape, fn, kind, mesh)
     if degrade and GOVERNOR.is_degraded(site, shape):
         raise OomDegraded(site, str(shape))
     try:
@@ -510,9 +533,6 @@ def oom_retry(site: str, shape, fn, kind: str = "device",
         return fn()
     except Exception as e:
         if not is_alloc_failure(e):
-            raise
-        if not retry:
-            GOVERNOR.note_oom(site, str(shape), kind=kind)
             raise
     GOVERNOR.note_oom(site, str(shape), kind=kind)
     try:
@@ -526,6 +546,30 @@ def oom_retry(site: str, shape, fn, kind: str = "device",
             raise OomDegraded(site, str(shape)) from e2
         GOVERNOR._warn(site, str(shape), "the error goes to the caller")
         raise
+
+
+def _agreed_retry(site: str, shape, fn, kind: str, mesh):
+    """`oom_retry` over a mesh across processes: every rank decides from
+    what the attempt's rounds agreed (`parallel/mesh.failure_of`)."""
+    from dgraph_tpu_torch.parallel import mesh as pmesh
+    for second in (False, True):
+        try:
+            with pmesh.attempt(mesh, site):
+                check_alloc_fault(site)
+                return fn()
+        except Exception as e:
+            failure = pmesh.failure_of(e)
+            if failure is None or not failure.retry:
+                raise
+            if second:
+                if failure.mine:
+                    GOVERNOR._warn(site, str(shape),
+                                   "the error goes to the caller")
+                raise
+            if failure.mine:
+                GOVERNOR.note_oom(site, str(shape), kind=kind)
+            else:
+                GOVERNOR.make_room(kind)
 
 
 def govern_dict(owner, attr: str, name: str, kind: str, lock=None,

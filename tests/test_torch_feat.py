@@ -337,7 +337,23 @@ QUERIES = [
 ]
 
 
-def test_staged_device_route_equals_host_and_reference(monkeypatch):
+@pytest.fixture
+def fresh_routes():
+    """Both packages' cost priors empty and off for the test, so no
+    feat route EMA, learned before it or by its own first queries,
+    promotes the host engine's walk to the device route; back to empty
+    and on after it."""
+    from dgraph_tpu.utils import costprior as ref_costprior
+    from dgraph_tpu_torch.utils import costprior
+    reset_cost_state()
+    for prior in (costprior, ref_costprior):
+        prior.set_enabled(False)
+    yield
+    reset_cost_state()
+
+
+def test_staged_device_route_equals_host_and_reference(monkeypatch,
+                                                       fresh_routes):
     monkeypatch.setenv("DGRAPH_TPU_FUSED", "0")
     ref, port = _feat_stores(n=48, seed=5)
     host = Engine(port, device=CPU, device_threshold=10**9)

@@ -33,6 +33,16 @@ port>`:
   forms its lane-kernel groups from rank 0's priors, a learned route
   promotion of rank 0 sends a request to the mesh on both ranks, and
   every served answer is the reference's two-process answer;
+* (f) failures every rank sees (`parallel/mesh.py`'s status rounds): an
+  allocation failure on rank 1 alone at each of the four mesh sites is
+  retried by both ranks, two in a row raise the same class on both, a
+  budget out on rank 1 alone ends the read on both with one stage, two
+  distinct reads started in opposite orders are served on both, an
+  upsert failing on rank 1 alone in or before its mesh route leaves the
+  next read served, two different programs raise on both and fold
+  nothing, a failure after a program's last collective is seen by both,
+  a one-process mesh makes no round, and the decision store stays
+  bounded;
 * (d) two `python -m dgraph_tpu_torch alpha --device cpu
   --jax-coordinator ... --mesh-devices -1 --max_inflight 2` processes
   serve the same alter, commit and (concurrently) query, answer as a
@@ -142,6 +152,10 @@ QUERIES = (
     # learned promotion sends it to the mesh
     '{ q(func: has(friend), first: 100) { name friend { name } } }',
 )
+# an ordered child level: its expansion is `mesh.matrix_hop`'s, or past
+# a lowered ring_threshold `mesh.ring_matrix_hop`'s
+RING_Q = ("{ q(func: has(friend), first: 40) "
+          "{ uid friend (orderasc: name) { name } } }")
 
 # test_multihost.WORKER's store, built the same way by either package
 STORE_SRC = r"""
@@ -162,6 +176,7 @@ def worker_store(StoreBuilder, parse_schema):
 QUERY_WORKER = PRELUDE + STORE_SRC + r"""
 NAME = "queries"
 QUERIES = %r
+RING_Q = %r
 from dgraph_tpu_torch.engine import Engine
 from dgraph_tpu_torch.parallel import dhop
 from dgraph_tpu_torch.store.schema import parse_schema
@@ -335,12 +350,102 @@ from dgraph_tpu_torch.engine.execute import Executor
 Executor.ring_threshold = 4
 M.PROGRAM_CALLS.clear()
 ringe = Engine(store, device="cpu", device_threshold=0, mesh=mesh)
-RING_Q = ("{ q(func: has(friend), first: 40) "
-          "{ uid friend (orderasc: name) { name } } }")
 report["ring_answer"] = ringe.query_bytes(RING_Q).decode()
 report["ring_programs"] = dict(M.PROGRAM_CALLS)
 Executor.ring_threshold = 1 << 17
 report["ring_host"] = host.query_bytes(RING_Q).decode()
+
+# failures every rank sees: an allocation failure on rank 1 alone at a
+# mesh hop's site is retried by both ranks; two in a row raise on both;
+# a budget that runs out on rank 1 alone ends the request on both
+from dgraph_tpu_torch.utils import memgov
+from dgraph_tpu_torch.utils.deadline import DeadlineExceeded
+
+def faults(site, n, ranks=(1,)):
+    # the hook of `ranks`: the next n launches at `site` fail
+    left = [n if rank in ranks else 0]
+    def hook(at):
+        if at == site and left[0]:
+            left[0] -= 1
+            return True
+        return False
+    memgov.set_alloc_fault(hook)
+
+def attempt(run):
+    t0 = time.monotonic()
+    try:
+        got = {"answer": run()}
+    except Exception as e:
+        f = M.failure_of(e)
+        got = {"raised": type(e).__name__, "message": str(e),
+               "stage": getattr(e, "stage", None),
+               "agreed": None if f is None else f.kind}
+    got["seconds"] = time.monotonic() - t0
+    return got
+
+retry = {}
+one4 = M.make_mesh(devices=["cpu"] * 4)
+for site, ring in (("mesh.matrix_hop", 1 << 17), ("mesh.ring_matrix_hop", 4)):
+    Executor.ring_threshold = ring
+    e0 = METRICS.get("oom_events_total", site=site)
+    faults(site, 1)
+    retry[site] = attempt(lambda: ringe.query_bytes(RING_Q).decode())
+    retry[site]["oom_events"] = METRICS.get("oom_events_total",
+                                            site=site) - e0
+    memgov.set_alloc_fault(None)
+    retry[site]["one_process"] = Engine(
+        store, device="cpu", device_threshold=0,
+        mesh=one4).query_bytes(RING_Q).decode()
+Executor.ring_threshold = 1 << 17
+report["retry"] = retry
+faults("mesh.matrix_hop", 2)
+report["double"] = attempt(lambda: ringe.query_bytes(RING_Q).decode())
+memgov.set_alloc_fault(None)
+report["double"]["next"] = ringe.query_bytes(RING_Q).decode()
+alpha.device_threshold = 0
+report["expiry"] = attempt(lambda: alpha.query_raw(
+    QUERIES[0], deadline_ms=1e-3 if rank == 1 else None).decode())
+report["expiry"]["next"] = alpha.query_raw(QUERIES[0]).decode()
+
+def together(*runs):
+    # each run on a thread of its own, started in order 0.3 s apart
+    got = [None] * len(runs)
+    threads = []
+    for i, run in enumerate(runs):
+        t = threading.Thread(
+            target=lambda i=i, run=run: got.__setitem__(i, attempt(run)))
+        t.start()
+        threads.append(t)
+        time.sleep(0.3)
+    for t in threads:
+        t.join(120)
+    return got
+
+# two distinct reads never sent before, started on the two ranks in
+# opposite orders: each rank's agreement keys depend on the request only
+A = "{ q(func: uid(0x2)) { name friend { name } } }"
+B = "{ q(func: uid(0x3)) { name friend { name } } }"
+order = (A, B) if rank == 0 else (B, A)
+got = together(*(lambda q=q: alpha.query_raw(q).decode() for q in order))
+report["opposite"] = {"got": dict(zip(order, got)), "host": {
+    q: host.query_bytes(q).decode() for q in (A, B)}}
+
+# an upsert whose query block rides the mesh: two allocation failures on
+# rank 1 in its mesh route raise on both ranks; then one whose budget is
+# out on rank 1 alone before its first round, while rank 0 goes on into
+# its collectives and a read follows on each rank: rank 0's write ends at
+# the round rank 1's read meets, and the read is served on both
+UPSERT = ('upsert { query { q(func: has(friend), first: 40) '
+          '{ v as friend (orderasc: name) { name } } } '
+          'mutation { set { uid(v) <name> "renamed" . } } }')
+faults("mesh.matrix_hop", 2)
+report["write_alloc"] = attempt(lambda: alpha.upsert(UPSERT))
+memgov.set_alloc_fault(None)
+report["write_alloc"]["next"] = alpha.query_raw(QUERIES[0]).decode()
+w, r = together(lambda: alpha.upsert(
+    UPSERT, deadline_ms=1e-3 if rank == 1 else None),
+    lambda: alpha.query_raw(QUERIES[0]).decode())
+report["write_behind"] = {"write": w, "read": r}
 
 # np.asarray of a value with the other process's parts raises; host_np
 # gathers it (both ranks call it)
@@ -354,6 +459,17 @@ except RuntimeError as e:
     report["asarray"] = str(e)
 report["gathered_shape"] = list(M.host_np(out[0]).shape)
 report["replicated_int"] = int(out[4])
+
+# two different programs on the two ranks: both raise at the first
+# round, naming both, and no operand moves
+c0 = dict(M.CROSS_CALLS)
+srel = store.sharded_rel("friend", False, mesh)
+report["mismatch"] = attempt(
+    lambda: dhop.matrix_hop(mesh, srel, fr, 512) if rank == 0 else
+    dhop.scatter_gather_hop(mesh, srel, fr, 512, 512))
+report["mismatch"]["calls"] = {k: v - c0.get(k, 0)
+                               for k, v in M.CROSS_CALLS.items()
+                               if v != c0.get(k, 0)}
 
 # a mesh of this process's own shards inside the group: no cross-process
 # call, whatever it serves
@@ -371,12 +487,19 @@ loca.attach_admission(2, 2)
 report["local_alpha_answers"] = [loca.query_raw(q).decode()
                                  for q in QUERIES]
 loca.query_batch(SMALL)
+# an allocation failure on a one-process mesh is retried here alone
+e0 = METRICS.get("oom_events_total", site="mesh.matrix_hop")
+faults("mesh.matrix_hop", 1, ranks=(0, 1))
+report["local_retry_answer"] = loca.query_raw(RING_Q).decode()
+memgov.set_alloc_fault(None)
+report["local_retry_events"] = METRICS.get(
+    "oom_events_total", site="mesh.matrix_hop") - e0
 report["local_cross_calls"] = {k: v - before.get(k, 0)
                                for k, v in M.CROSS_CALLS.items()
                                if v != before.get(k, 0)}
 save()
 M.shutdown_distributed()
-""" % (QUERIES,)
+""" % (QUERIES, RING_Q)
 
 REF_QUERY_WORKER = STORE_SRC + r"""
 import os, sys, json
@@ -395,7 +518,7 @@ meshe = Engine(worker_store(StoreBuilder, parse_schema), device_threshold=0,
 answers = [meshe.query_bytes(q).decode() for q in %r]
 with open(os.path.join(out_dir, f"ref.{pid}.json"), "w") as f:
     json.dump(answers, f)
-""" % (QUERIES,)
+""" % (QUERIES + (RING_Q,),)
 
 # every mesh program on `mesh`, from seeded inputs: run by the children
 # on the cross-process mesh and by this file on a one-process mesh
@@ -575,6 +698,50 @@ for name, run in program_cases(mesh):
         outs[f"{name}/{i}"] = a
 np.savez(os.path.join(out_dir, f"programs.{rank}.npz"), **outs)
 report["cases"] = sorted({k.split("/")[0] for k in outs})
+
+# an allocation failure on rank 1 alone at the knn and feat sites is
+# retried by both ranks; a failure in a launch after its program's last
+# collective is seen by both
+from dgraph_tpu_torch.utils import costprofile, memgov
+from dgraph_tpu_torch.utils.metrics import METRICS
+cases = dict(program_cases(mesh))
+
+def fail_once(site):
+    left = [int(rank == 1)]
+    def hook(at):
+        if at == site and left[0]:
+            left[0] -= 1
+            return True
+        return False
+    return hook
+
+retried, report["retry"] = {}, {}
+for site, name in (("vec.topk", "knn_mesh"), ("feat.agg", "feat_mesh_sum")):
+    e0 = METRICS.get("oom_events_total", site=site)
+    memgov.set_alloc_fault(fail_once(site))
+    for i, a in enumerate(host_outputs(cases[name]())):
+        retried[f"{name}/{i}"] = a
+    memgov.set_alloc_fault(None)
+    report["retry"][site] = {"program": name, "oom_events": METRICS.get(
+        "oom_events_total", site=site) - e0}
+np.savez(os.path.join(out_dir, f"retried.{rank}.npz"), **retried)
+plain_note = costprofile.note_launch
+armed = [rank == 1]
+
+def late_failure(t0, t1):
+    if armed[0]:
+        armed[0] = False
+        raise ValueError("a launch failed after its last collective")
+    return plain_note(t0, t1)
+
+costprofile.note_launch = late_failure
+try:
+    cases["knn_mesh"]()
+    report["after_last"] = {"raised": None}
+except Exception as e:
+    report["after_last"] = {"raised": type(e).__name__, "message": str(e),
+                            "agreed": M.failure_of(e).kind}
+costprofile.note_launch = plain_note
 save()
 M.shutdown_distributed()
 """
@@ -618,7 +785,8 @@ def program_runs(tmp_path_factory):
     reports = [json.loads((tmp / f"programs.{r}.json").read_text())
                for r in range(2)]
     outs = [dict(np.load(tmp / f"programs.{r}.npz")) for r in range(2)]
-    return reports, outs
+    retried = [dict(np.load(tmp / f"retried.{r}.npz")) for r in range(2)]
+    return reports, outs, retried
 
 
 @pytest.fixture(scope="module")
@@ -669,13 +837,14 @@ def test_ring_stitch_across_processes(query_runs):
 
 def test_disjoint_slabs_hop_across_processes(program_runs):
     """SHARDED_WORKER: each process holds only its slabs; the assembled
-    relation equals device_put_rel on its shards, agreed by one gather,
-    and the hop over a frontier spanning both processes' rows is the CSR
-    walk."""
-    reports, _outs = program_runs
+    relation equals device_put_rel on its shards, agreed by one gather
+    (with its one status round: a gather's own scope needs no closing
+    round), and the hop
+    over a frontier spanning both processes' rows is the CSR walk."""
+    reports, _outs, _retried = program_runs
     for r in reports:
         assert r["disjoint"] and r["assembled_equal"]
-        assert r["assemble_calls"] == {"nnz": 1}
+        assert r["assemble_calls"] == {"nnz": 1, "status": 1}
         assert r["sharded_hop_equal"] and r["sharded_hop_edges"] > 0
 
 
@@ -684,7 +853,7 @@ def test_disjoint_slabs_hop_across_processes(program_runs):
 @pytest.mark.parametrize("name", PROGRAM_NAMES)
 def test_program_across_processes_equals_one_process(
         name, program_runs, single_process_programs):
-    reports, outs = program_runs
+    reports, outs, _retried = program_runs
     assert reports[0]["cases"] == reports[1]["cases"] == sorted(
         PROGRAM_NAMES)
     want = single_process_programs[name]
@@ -717,13 +886,180 @@ def test_query_batch_forms_the_same_groups_on_every_rank(query_runs):
 def test_fully_local_mesh_in_a_group_makes_no_cross_process_call(
         query_runs):
     """Neither its engine, nor an Alpha over it with admission armed,
-    nor a batch: no collective and no agreement."""
+    nor a batch, nor an allocation failure its retry absorbs here alone:
+    no collective, no status round and no agreement."""
     port, _ref = query_runs
     for r in port:
         assert r["local_cross_calls"] == {}
+        assert "status" not in r["local_cross_calls"]
         assert r["local_programs"].get("matrix_level")
         assert r["local_answers"] == r["host_answers"]
         assert r["local_alpha_answers"] == r["host_answers"]
+        assert r["local_retry_answer"] == r["ring_host"]
+        assert r["local_retry_events"] == 1
+
+
+# -- failures every rank sees ------------------------------------------------------
+
+@pytest.mark.parametrize("site", ["mesh.matrix_hop", "mesh.ring_matrix_hop",
+                                  "vec.topk", "feat.agg"])
+def test_one_rank_allocation_failure_is_retried_by_every_rank(
+        site, query_runs, program_runs, single_process_programs):
+    """An allocation failure on rank 1 alone at each mesh site: both ranks
+    evict and run the attempt again, the answers equal the reference's
+    two-process answer and the one-process 4-shard mesh's, and only rank
+    1 counts the event."""
+    port, ref = query_runs
+    reports, _outs, retried = program_runs
+    if site.startswith("mesh."):
+        got = [r["retry"][site] for r in port]
+        for g in got:
+            assert g.get("answer") == ref[0][len(QUERIES)] == \
+                ref[1][len(QUERIES)] == g["one_process"], g
+            assert g["seconds"] < 10
+    else:
+        got = [r["retry"][site] for r in reports]
+        name = got[0]["program"]
+        want = single_process_programs[name]
+        for r in range(2):
+            for i, a in enumerate(want):
+                assert a.tobytes() == retried[r][f"{name}/{i}"].tobytes()
+    assert [g["oom_events"] for g in got] == [0, 1]
+
+
+def test_two_allocation_failures_raise_on_both_ranks(query_runs):
+    """Two failures in a row on rank 1: both ranks raise the allocation
+    error's class well inside the group's timeout, and the next query is
+    served on both, equal to the reference's."""
+    port, ref = query_runs
+    for r in port:
+        d = r["double"]
+        assert d.get("raised") == "AllocFault" and d["agreed"] == "alloc", d
+        assert d["seconds"] < 10
+        assert d["next"] == ref[0][len(QUERIES)]
+    assert "rank 1 failed at mesh.matrix_hop" in port[0]["double"]["message"]
+
+
+def test_budget_out_on_one_rank_ends_the_request_on_both(query_runs):
+    """A read whose budget runs out on rank 1 alone (rank 0 has none):
+    both ranks raise DeadlineExceeded naming the same stage, in under
+    10 s with a group timeout of GROUP_TIMEOUT_S, and the next request is
+    served on both."""
+    port, ref = query_runs
+    got = [r["expiry"] for r in port]
+    for g in got:
+        assert g.get("raised") == "DeadlineExceeded", g
+        assert g["seconds"] < 10 < GROUP_TIMEOUT_S
+        assert g["next"] == ref[0][0]
+    assert got[0]["stage"] == got[1]["stage"] and got[0]["stage"]
+    assert got[0]["agreed"] == "deadline"
+
+
+def test_distinct_reads_in_opposite_orders_are_served_on_both(query_runs):
+    """Two reads new to both ranks, started on rank 0 in one order and on
+    rank 1 in the other: both are served on both, each the host
+    engine's answer (an agreement key depends on its request alone)."""
+    port, _ref = query_runs
+    for r in port:
+        o = r["opposite"]
+        for q, got in o["got"].items():
+            assert got.get("answer") == o["host"][q], (q, got)
+            assert got["seconds"] < 10
+
+
+@pytest.mark.parametrize("case", ["write_alloc", "write_behind"])
+def test_write_failing_on_one_rank_leaves_the_next_read_served(
+        case, query_runs):
+    """An upsert whose query block rides the mesh fails on rank 1 alone:
+    two allocation failures in its mesh route raise AllocFault on both
+    ranks; a budget out before its first round ends rank 1's write
+    there, and rank 0's at the round where rank 1's next read meets it
+    (the ranks ahead meet that round again). Either way no write is
+    applied, and the next read is served on both, equal to the
+    reference's, well inside the group's timeout."""
+    port, ref = query_runs
+    if case == "write_alloc":
+        for r in port:
+            w = r["write_alloc"]
+            assert w.get("raised") == "AllocFault" and \
+                w["agreed"] == "alloc", w
+            assert w["seconds"] < 10
+            assert w["next"] == ref[0][0]
+        return
+    writes = [r["write_behind"]["write"] for r in port]
+    assert writes[1].get("raised") == "DeadlineExceeded", writes
+    assert writes[0].get("raised") == "MeshFailure", writes
+    assert writes[0]["agreed"] == "behind"
+    assert "have left request" in writes[0]["message"]
+    for r in port:
+        read = r["write_behind"]["read"]
+        assert read.get("answer") == ref[0][0], read
+        assert read["seconds"] < 10 < GROUP_TIMEOUT_S
+
+
+def test_different_programs_raise_on_both_ranks_and_fold_nothing(
+        query_runs):
+    """Rank 0 drives matrix_hop while rank 1 drives scatter_gather_hop:
+    the first status round finds two identities, both ranks raise naming
+    both, and no operand crosses."""
+    port, _ref = query_runs
+    for r in port:
+        m = r["mismatch"]
+        assert m.get("raised") == "MeshFailure" and m["agreed"] == "mismatch"
+        assert "rank 0 at matrix_hop" in m["message"]
+        assert "rank 1 at scatter_gather_hop" in m["message"]
+        assert m["calls"] == {"status": 1}
+    assert port[0]["mismatch"]["message"] == port[1]["mismatch"]["message"]
+
+
+def test_failure_after_the_last_collective_is_seen_by_both(program_runs):
+    """A launch that fails on rank 1 after its program's last collective:
+    the attempt's closing round tells rank 0, which raises naming rank 1;
+    rank 1 raises its own error."""
+    reports, _outs, _retried = program_runs
+    late = [r["after_last"] for r in reports]
+    assert late[1]["raised"] == "ValueError"
+    assert late[0]["raised"] == "MeshFailure"
+    assert "rank 1 failed" in late[0]["message"]
+    assert "after its last collective" in late[0]["message"]
+    assert late[0]["agreed"] == late[1]["agreed"] == "error"
+
+
+def test_decision_store_and_occurrences_stay_bounded(monkeypatch):
+    """10,000 distinct agreements through a loopback store leave no
+    decision in it (each is deleted by its one follower's read) and no
+    occurrence entry (one lives only while a thread agrees under its
+    key). Identical requests share a key and take it in turns: the
+    lead's second decision under a key waits until the follower has read
+    the first, so the follower reads each in order, never a stale one."""
+    store = torch.distributed.TCPStore(
+        "127.0.0.1", 0, 1, True, timeout=datetime.timedelta(seconds=5),
+        wait_for_workers=False)
+    monkeypatch.setattr(pmesh, "_DECISIONS", store)
+    monkeypatch.setattr(pmesh, "_OCCURRENCES", {})
+    lead = pmesh.Mesh(["cpu"] * 4, ranks=(0, 0, 1, 1), rank=0)
+    follower = pmesh.Mesh(["cpu"] * 4, ranks=(0, 0, 1, 1), rank=1)
+    most = 0
+    for i in range(10_000):
+        key = pmesh.agree_key("request", "read", i)
+        pmesh.agree(lead, key, {"turn": i})
+        most = max(most, store.num_keys())
+        assert pmesh.agree(follower, key) == {"turn": i}
+    assert most == 1 and store.num_keys() == 0
+    assert pmesh._OCCURRENCES == {}
+    key = pmesh.agree_key("request", "a")
+    assert key == pmesh.agree_key("request", "a") != pmesh.agree_key(
+        "request", "b")
+    pmesh.agree(lead, key, "first")         # its follower reads it late
+    second = threading.Thread(target=pmesh.agree, args=(lead, key, "second"))
+    second.start()
+    time.sleep(0.3)
+    assert second.is_alive()        # waits until the first is read
+    assert pmesh.agree(follower, key) == "first"
+    second.join(10)
+    assert not second.is_alive()
+    assert pmesh.agree(follower, key) == "second"
+    assert store.num_keys() == 0 and pmesh._OCCURRENCES == {}
 
 
 def _same_on_both(port, key, step):
@@ -846,10 +1182,12 @@ def test_follower_without_a_decision_raises_naming_the_key(monkeypatch):
 
 def test_one_process_alphas_make_no_agree_call():
     """An Alpha without a mesh and one over a one-process mesh serve with
-    admission armed and never agree."""
+    admission armed, and retry an allocation failure, and never agree
+    nor make a status round."""
     from dgraph_tpu_torch.server.api import Alpha
     from dgraph_tpu_torch.store.schema import parse_schema
     from dgraph_tpu_torch.store.store import StoreBuilder
+    from dgraph_tpu_torch.utils import memgov
     ns = {"np": np}
     exec(STORE_SRC, ns)
     before = dict(pmesh.CROSS_CALLS)
@@ -858,6 +1196,21 @@ def test_one_process_alphas_make_no_agree_call():
                   device="cpu", device_threshold=0, mesh=mesh)
         a.attach_admission(2, 2)
         assert a.query(QUERIES[0])["q"]
+        fired = []
+
+        def once(at):
+            # the first launch of the ordered level's expansion fails
+            if at in ("mesh.matrix_hop", "hop.gather_edges") and not fired:
+                fired.append(at)
+                return True
+            return False
+
+        memgov.set_alloc_fault(once)
+        try:
+            assert a.query(RING_Q)["q"]
+        finally:
+            memgov.set_alloc_fault(None)
+        assert fired
     assert pmesh.CROSS_CALLS == before
 
 
