@@ -1,0 +1,9 @@
+"""Mean duration of the port's `engine.query` span (utils/tracing.py) over
+the requests of the traced window."""
+
+
+def read(ctx):
+    durs = ctx.get("program_spans", {}).get("engine.query")
+    if not durs:
+        return None
+    return sum(durs) / len(durs) * 1e3
